@@ -5,11 +5,15 @@
 
 Phases, each raising on failure (exit code != 0, no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build of every CUDA kernel of the serving path from `csrc/` (nvcc);
-  3. each kernel against its plain PyTorch version on the card, at the
-     serving shape, in float32 and bfloat16, with times of the kernel,
-     the plain version, one library call (SDPA, a yardstick only) and
-     the card's least possible time (bound);
+  2. build of every CUDA kernel from `csrc/`, one nvcc per source, all
+     started together;
+  3. each kernel against its plain PyTorch version on the card: the
+     decode kernel (B4) at the serving shape, the training kernels
+     (B1 forward, B2 dQ, B3 dK/dV) at the training shape, in float32
+     and bfloat16, with times of the kernel (CUDA events, and device
+     time per launch from torch.profiler), the plain version, one
+     library call (SDPA, a yardstick only) and the card's least
+     possible time (bound);
   4. serving: GPT-2 small at full width (random weights from a seeded
      generator) through `GenerationSession.for_gpt`.  In float32 every
      request's greedy ids must equal the uncached re-forward through
@@ -17,7 +21,16 @@ Phases, each raising on failure (exit code != 0, no result line):
      must hit, and the decode kernel must have launched 12 x decode
      rounds.  A bfloat16 run of the same traffic must finish with finite
      logits; its tokens/s and id agreement with float32 are printed;
-  5. a `{"kernels": [...]}` line, then the `{"ok": true, ...}` line.
+  5. training: GPT-2 small at full width (vocab 50304, batch 8, seq
+     1024, Adam lr 1e-4) through `make_gpt_train_step` and
+     `fxfront.easydist_compile`.  In float32 with flash attention, 3
+     compiled steps must match 3 uncompiled steps from the same state
+     at rtol 1e-4, from one compiled signature, with B1, B2 and B3 each
+     launched 12 x 3 times.  In bfloat16, 4 flash steps must stay
+     within 2e-2 (relative) of 4 einsum steps from the same weights.
+     Then profiled bfloat16 steps: ms per step, tokens/s, device busy
+     share, top kernels, peak memory, trace time, the einsum step;
+  6. a `{"kernels": [...]}` line, then the `{"ok": true, ...}` line.
 
 Needs a CUDA device and the repository around it; imports nothing of
 JAX or of the JAX package.
@@ -29,14 +42,18 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 SERVE_SHAPE = (8, 12, 1024, 64)          # slots, heads, bucket, head_dim
+TRAIN_SHAPE = (8, 12, 1024, 64)          # batch, heads, seq, head_dim
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12                  # H100 SXM, float32 off the tensor cores
-TIMED_COPIES = 4                         # K/V copies rotated past the 50 MB L2
+BF16_FLOPS_PER_S = 989e12                # H100 SXM, bf16 tensor cores, dense
+TIMED_COPIES = 4                         # input copies rotated past the 50 MB L2
+KERNEL_SOURCES = ("flash_decode", "flash_attn_fwd", "flash_attn_bwd")
 
 
 def card_line() -> str:
@@ -48,15 +65,19 @@ def card_line() -> str:
 
 
 def build_kernels():
+    """Every source under csrc/, one nvcc each, all started together."""
     from easydist_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    lib = _build.build("flash_decode")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        libs = list(pool.map(_build.build, KERNEL_SOURCES))
     secs = time.perf_counter() - t0
-    print(f"build: flash_decode.cu -> {lib.name} in {secs:.2f} s")
-    log = lib.with_suffix(".log")
-    if log.exists():
-        print(log.read_text().strip())
+    for name, lib in zip(KERNEL_SOURCES, libs):
+        print(f"build: {name}.cu -> {lib.name}")
+        log = lib.with_suffix(".log")
+        if log.exists():
+            print(log.read_text().strip())
+    print(f"build: {len(libs)} sources in {secs:.2f} s")
 
 
 def time_ms(fn, n: int = 50) -> float:
@@ -72,6 +93,41 @@ def time_ms(fn, n: int = 50) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / n
+
+
+def profiled_ms(fn, kernel: str, n: int = 20):
+    """(ms, seen): device time per launch of the kernel whose name holds
+    `kernel`, from torch.profiler over n calls of `fn(i)` (after a
+    warm-up), and the number of its launches the profiler recorded.  The
+    tracer may drop some launch records, so the time is averaged over the
+    launches it saw; ms is None when it saw none.  The host's issue rate
+    does not enter it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and kernel in e.key]
+    seen = sum(e.count for e in hits)
+    if seen > n:
+        raise AssertionError(f"profiler saw {seen} launches of {kernel!r} "
+                             f"in {n} calls: {[e.key for e in hits]}")
+    if seen == 0:
+        return None, 0
+    return sum(e.self_device_time_total for e in hits) / 1e3 / seen, seen
+
+
+def profiled_text(prof_ms, seen: int, n: int = 20) -> str:
+    if prof_ms is None:
+        return f"profiler: not measured (0 of {n} launches recorded)"
+    return (f"profiler {prof_ms:.4f} ms per launch over {seen} of {n} "
+            f"launches recorded")
 
 
 def decode_bound_ms(lengths, shape, itemsize: int):
@@ -163,10 +219,14 @@ def kernel_phase(dev):
         attn_mask=mask))
     kernel_ms_2 = time_ms(lambda i: flash_decode_attention(
         q, ks[i % TIMED_COPIES], vs[i % TIMED_COPIES], L))
+    prof_ms, seen = profiled_ms(lambda i: flash_decode_attention(
+        q, ks[i % TIMED_COPIES], vs[i % TIMED_COPIES], L),
+        "flash_decode_kernel")
     flash_decode_attention.launches = launches_before  # timing runs don't count
     bound_ms, bound_by = decode_bound_ms(lens, SERVE_SHAPE, 2)
     print(f"time flash_decode bf16 {list(SERVE_SHAPE)} lengths {t}: kernel "
-          f"{kernel_ms:.4f} ms (again {kernel_ms_2:.4f}), plain "
+          f"{kernel_ms:.4f} ms (again {kernel_ms_2:.4f}; "
+          f"{profiled_text(prof_ms, seen)}), plain "
           f"{plain_ms:.4f} ms, library (SDPA, masked) {library_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by})")
     return {"name": "flash_decode", "route": "cuda",
@@ -176,9 +236,384 @@ def kernel_phase(dev):
                      f"lengths {t}",
             "max_abs_err": worst[torch.bfloat16],
             "max_abs_err_f32": worst[torch.float32],
-            "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
+            "ms": kernel_ms, "kernel_ms": kernel_ms, "profiled_ms": prof_ms,
+            "profiled_launches": seen,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
+
+
+# ------------------------------------------------- training kernels B1-B3
+
+# name -> (kernel symbol, TPU kernel it replaces, source)
+TRAIN_KERNELS = {
+    "flash_fwd": ("flash_fwd_kernel",
+                  "easydist_tpu/ops/flash_attention.py:78",
+                  "easydist_tpu_torch/ops/csrc/flash_attn_fwd.cu"),
+    "flash_bwd_dq": ("flash_bwd_dq_kernel",
+                     "easydist_tpu/ops/flash_attention.py:164",
+                     "easydist_tpu_torch/ops/csrc/flash_attn_bwd.cu"),
+    "flash_bwd_dkv": ("flash_bwd_dkv_kernel",
+                      "easydist_tpu/ops/flash_attention.py:197",
+                      "easydist_tpu_torch/ops/csrc/flash_attn_bwd.cu"),
+}
+
+
+def train_counters():
+    from easydist_tpu_torch.ops import flash_attention as fa
+
+    return {name: getattr(fa, name) for name in TRAIN_KERNELS}
+
+
+def train_bound_ms(kernel: str, shape, causal: bool, itemsize: int):
+    """(ms, "bytes"|"operations") for one training kernel: the larger of
+    its bytes (each input read once, each output written once: the
+    [b,h,t,d] tensors and the f32 per-row lse/delta) over HBM rate, and
+    its products over the peak rate for the inputs' type (bf16: tensor
+    cores; f32: off the tensor cores).  Causal products count the
+    visible (query, key) pairs only."""
+    b, h, t, d = shape
+    pairs = t * (t + 1) // 2 if causal else t * t
+    tensors, rows, products = {"flash_fwd": (4, 1, 2),
+                               "flash_bwd_dq": (5, 2, 3),
+                               "flash_bwd_dkv": (6, 2, 4)}[kernel]
+    nbytes = tensors * b * h * t * d * itemsize + rows * b * h * t * 4
+    flops = products * 2 * b * h * pairs * d
+    rate = BF16_FLOPS_PER_S if itemsize == 2 else F32_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_close(tag: str, got, ref, rtol: float, atol: float,
+                rounded: bool) -> float:
+    """Per element |got - ref| <= atol + rtol |ref|, plus 2^-8 |ref| when
+    `got` was rounded to bf16 (half an ulp); raises when any element is
+    over.  Returns the largest absolute error."""
+    ref = ref.float()
+    diff = (got.float() - ref).abs()
+    tol = atol + (rtol + (2.0 ** -8 if rounded else 0.0)) * ref.abs()
+    ratio = (diff / tol).max().item()
+    err = diff.max().item()
+    ok = bool(torch.isfinite(got).all()) and ratio <= 1.0
+    tol_text = (f"{atol:g} + {rtol:g}|ref|"
+                + (" + 2^-8|ref|" if rounded else ""))
+    print(f"kernel {tag:52s} max_abs_err {err:.3e} (tol {tol_text}; worst "
+          f"err/tol {ratio:.3f}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag} disagrees with its plain version: "
+                             f"err/tol {ratio} > 1")
+    return err
+
+
+def train_kernel_phase(dev, shape=TRAIN_SHAPE, ragged_t: int = 1000):
+    """B1, B2 and B3 against their plain versions on the same inputs:
+    float32 and bfloat16 (the plain version in f32 on the same rounded
+    inputs); causal, full, a ragged causal length and a backward with a
+    nonzero lse cotangent.  Tolerances: the JAX tests' f32 bars (forward
+    rtol 1e-4 / atol 1e-5, backward rtol 2e-4 / atol 2e-5); a bf16
+    output adds half an ulp of its rounding, 2^-8 |ref|, since the
+    kernels compute in f32 and round once.  On the card, also the times
+    (bf16, causal, at `shape`).  Returns the kernels-line entries
+    (without `launches`)."""
+    from easydist_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, h, t, d = shape
+    scale = 1.0 / np.sqrt(d)
+    cases = [("causal", True, t, False), ("full", False, t, False),
+             (f"causal T={ragged_t}", True, ragged_t, False),
+             ("causal, g_lse", True, t, True)]
+    worst = {name: {} for name in TRAIN_KERNELS}
+    rs = np.random.RandomState(0)
+    for case, causal, t_case, with_glse in cases:
+        shp = (b, h, t_case, d)
+        base = [torch.as_tensor(rs.standard_normal(shp), dtype=torch.float32,
+                                device=dev) for _ in range(4)]
+        g_lse = (torch.as_tensor(rs.standard_normal((b * h, t_case)),
+                                 dtype=torch.float32, device=dev)
+                 if with_glse else None)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (x.to(dtype) for x in base)
+            qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+            rounded = dtype == torch.bfloat16
+            tag = f"{str(dtype)[6:]:8s} {case:16s}"
+            out, lse = fa.flash_fwd(q, k, v, causal, scale)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ref_out, ref_lse = fa._flash_forward_xla(qf, kf, vf, causal,
+                                                     scale)
+            errs = {"flash_fwd": max(
+                check_close(f"flash_fwd {tag} out", out, ref_out, 1e-4,
+                            1e-5, rounded),
+                check_close(f"flash_fwd {tag} lse", lse, ref_lse, 1e-4,
+                            1e-5, False))}
+            # both backward versions get the plain forward's out and lse
+            delta = fa._flash_delta(ref_out, dof, g_lse)
+            dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal, scale)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal,
+                                      scale)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            r_dq = fa._flash_bwd_dq_xla(qf, kf, vf, dof, ref_lse, delta,
+                                        causal, scale)
+            r_dk, r_dv = fa._flash_bwd_dkv_xla(qf, kf, vf, dof, ref_lse,
+                                               delta, causal, scale)
+            errs["flash_bwd_dq"] = check_close(
+                f"flash_bwd_dq {tag} dq", dq, r_dq, 2e-4, 2e-5, rounded)
+            errs["flash_bwd_dkv"] = max(
+                check_close(f"flash_bwd_dkv {tag} dk", dk, r_dk, 2e-4, 2e-5,
+                            rounded),
+                check_close(f"flash_bwd_dkv {tag} dv", dv, r_dv, 2e-4, 2e-5,
+                            rounded))
+            for name, err in errs.items():
+                worst[name][dtype] = max(worst[name].get(dtype, 0.0), err)
+            del out, lse, ref_out, ref_lse, delta, dq, dk, dv, r_dq, r_dk, r_dv
+    if dev.type != "cuda":
+        return []
+    return train_kernel_times(dev, shape, worst)
+
+
+def train_kernel_times(dev, shape, worst):
+    """Times of B1-B3 at `shape`, bf16, causal: kernel (CUDA events, and
+    the profiler's device time per launch), plain version, library
+    yardstick (SDPA forward; SDPA's autograd backward for B2 and B3
+    together), bound."""
+    import torch.nn.functional as F
+
+    from easydist_tpu_torch.ops import flash_attention as fa
+
+    b, h, t, d = shape
+    scale = 1.0 / np.sqrt(d)
+    bf16 = torch.bfloat16
+    copies = [[torch.randn(shape, device=dev, dtype=bf16) for _ in range(4)]
+              for _ in range(TIMED_COPIES)]  # q, k, v, dO
+    saved = []
+    for q, k, v, do in copies:
+        out, lse = fa.flash_fwd(q, k, v, True, scale)
+        saved.append((lse, fa._flash_delta(out, do)))
+    sdpa_in = [[x.detach().requires_grad_() for x in c[:3]] for c in copies]
+    sdpa_out = [F.scaled_dot_product_attention(*xs, is_causal=True)
+                for xs in sdpa_in]
+
+    def at(i):
+        return copies[i % TIMED_COPIES] + list(saved[i % TIMED_COPIES])
+
+    def sdpa_bwd(i):
+        j = i % TIMED_COPIES
+        return torch.autograd.grad(sdpa_out[j], sdpa_in[j], copies[j][3],
+                                   retain_graph=True)
+
+    calls = {
+        "flash_fwd": (
+            lambda i: fa.flash_fwd(*at(i)[:3], True, scale),
+            lambda i: fa._flash_forward_xla(*at(i)[:3], True, scale),
+            lambda i: F.scaled_dot_product_attention(
+                *copies[i % TIMED_COPIES][:3], is_causal=True),
+            "F.scaled_dot_product_attention(is_causal=True)"),
+        "flash_bwd_dq": (
+            lambda i: fa.flash_bwd_dq(*at(i), True, scale),
+            lambda i: fa._flash_bwd_dq_xla(*at(i), True, scale),
+            sdpa_bwd, "SDPA backward (dQ, dK and dV together)"),
+        "flash_bwd_dkv": (
+            lambda i: fa.flash_bwd_dkv(*at(i), True, scale),
+            lambda i: fa._flash_bwd_dkv_xla(*at(i), True, scale),
+            sdpa_bwd, "SDPA backward (dQ, dK and dV together)"),
+    }
+    counters = train_counters()
+    before = {name: c.launches for name, c in counters.items()}
+    entries = []
+    for name, (kernel, plain, library, library_call) in calls.items():
+        symbol, replaces, source = TRAIN_KERNELS[name]
+        kernel_ms = time_ms(kernel)
+        plain_ms = time_ms(plain, n=10)
+        library_ms = time_ms(library)
+        kernel_ms_2 = time_ms(kernel)
+        prof_ms, seen = profiled_ms(kernel, symbol)
+        bound_ms, bound_by = train_bound_ms(name, shape, True, 2)
+        print(f"time {name} bf16 causal {list(shape)}: kernel "
+              f"{kernel_ms:.4f} ms (again {kernel_ms_2:.4f}; "
+              f"{profiled_text(prof_ms, seen)}), plain {plain_ms:.4f} ms, "
+              f"library ({library_call}) {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "shape": f"q/k/v/dO {list(shape)} bfloat16, causal",
+            "max_abs_err": worst[name][bf16],
+            "max_abs_err_f32": worst[name][torch.float32],
+            "ms": kernel_ms, "kernel_ms": kernel_ms, "profiled_ms": prof_ms,
+            "profiled_launches": seen,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_call": library_call})
+    for name, c in counters.items():
+        c.launches = before[name]  # timing runs don't count
+    return entries
+
+
+# ------------------------------------------------------------ training
+
+
+def train_phase(dev, cfg_kw=None, batch: int = 8, steps: int = 3,
+                bf16_steps: int = 4, seed: int = 0):
+    """Phase 5; returns each training kernel's launches in the compiled
+    f32 run.  The arguments shrink it for a rehearsal on the CPU."""
+    import dataclasses
+
+    from torch.utils import _pytree as pytree
+
+    from easydist_tpu_torch.fxfront import easydist_compile
+    from easydist_tpu_torch.models.gpt import GPTConfig, make_gpt_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = dev.type == "cuda"
+    cfg = GPTConfig(**{**dict(vocab=50304, seq=1024, dim=768, heads=12,
+                              layers=12, attention="flash"),
+                       **(cfg_kw or {})})
+    rs = np.random.RandomState(seed + 1)
+    tokens = torch.as_tensor(rs.randint(0, cfg.vocab, (batch, cfg.seq)),
+                             device=dev)
+    targets = torch.as_tensor(rs.randint(0, cfg.vocab, (batch, cfg.seq)),
+                              device=dev)
+
+    def fresh(cfg_):
+        step_, init_ = make_gpt_train_step(cfg_, lr=1e-4)
+        state_ = init_(torch.Generator(device=dev).manual_seed(seed),
+                       device=dev)
+        return step_, state_
+
+    # f32, flash: compiled against uncompiled from the same state
+    step, state = fresh(cfg)
+    eager_state = pytree.tree_map(torch.clone, state)
+    compiled = easydist_compile(step, mesh=dev)
+    counters = train_counters()
+    for c in counters.values():
+        c.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, loss = compiled(state, tokens, targets)
+        losses.append(float(loss))
+    secs = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    eager = []
+    for _ in range(steps):
+        eager_state, loss = step(eager_state, tokens, targets)
+        eager.append(float(loss))
+    print(f"train f32 flash: compiled losses {losses}, uncompiled {eager} "
+          f"({secs:.2f} s for {steps} steps incl. tracing); launches "
+          f"{launches}")
+    np.testing.assert_allclose(losses, eager, rtol=1e-4,
+                               err_msg="compiled train step != uncompiled")
+    if compiled.cache_stats()["size"] != 1:
+        raise AssertionError(f"signatures {compiled.cache_stats()}")
+    expect = cfg.layers * steps if on_card else 0
+    if any(n != expect for n in launches.values()):
+        raise AssertionError(f"training kernels launched {launches}, "
+                             f"expected {cfg.layers} x {steps} each")
+    print(f"train f32 flash: compiled equals uncompiled at rtol 1e-4 over "
+          f"{steps} steps; 1 signature; B1 = B2 = B3 = {expect} launches")
+    del state, eager_state, compiled
+
+    # bf16: flash against einsum from the same weights
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    runs = {}
+    for attention in ("flash", "einsum"):
+        step16, state16 = fresh(dataclasses.replace(cfg16,
+                                                    attention=attention))
+        comp16 = easydist_compile(step16, mesh=dev)
+        t0 = time.perf_counter()
+        comp16.get_compiled(state16, tokens, targets)
+        trace_s = time.perf_counter() - t0
+        ls = []
+        for _ in range(bf16_steps):
+            state16, loss = comp16(state16, tokens, targets)
+            ls.append(float(loss))
+        runs[attention] = (comp16, state16, ls, trace_s)
+    ls_fl, ls_ei = runs["flash"][2], runs["einsum"][2]
+    gaps = [abs(a - b_) / max(abs(b_), 1e-9) for a, b_ in zip(ls_fl, ls_ei)]
+    print(f"train bf16: flash losses {ls_fl}, einsum {ls_ei}, relative "
+          f"gaps {[f'{g:.2e}' for g in gaps]}")
+    if not all(np.isfinite(ls_fl + ls_ei)) or max(gaps) > 2e-2:
+        raise AssertionError("bf16 flash losses are not finite or are more "
+                             "than 2e-2 from einsum's")
+    if on_card:
+        profile_train(runs, tokens, targets, batch * cfg.seq)
+    return launches
+
+
+def step_ms(comp, state, tokens, targets, steps: int = 3):
+    """Host-clock ms per step over `steps` compiled steps ending in a
+    synchronize, after one untimed step; returns (ms, state)."""
+    state, _ = comp(state, tokens, targets)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = comp(state, tokens, targets)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps, state
+
+
+def profile_train(runs, tokens, targets, tokens_per_step: int,
+                  steps: int = 3):
+    """bf16 steady-state steps: flash and einsum ms per step (host clock),
+    then flash under torch.profiler: device busy share, top kernels, the
+    state copy, peak memory, trace time."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils import _pytree as pytree
+
+    copy_range = "easydist_compile.state_copy"
+    comp, state, _, trace_s = runs["flash"]
+    comp_ei, state_ei, _, trace_ei = runs["einsum"]
+    ms_ei, _ = step_ms(comp_ei, state_ei, tokens, targets, steps)
+    del state_ei, comp_ei
+    runs.pop("einsum")
+    torch.cuda.empty_cache()
+    ms_fl, state = step_ms(comp, state, tokens, targets, steps)
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = comp(state, tokens, targets)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    avgs = prof.key_averages()
+    kernels = [(e.key, e.self_device_time_total / 1e3 / steps, e.count)
+               for e in avgs
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key != copy_range]
+    busy = sum(ms for _, ms, _ in kernels)
+    copy_ms = sum(e.device_time_total for e in avgs
+                  if e.key == copy_range
+                  and e.device_type == torch.autograd.DeviceType.CPU
+                  ) / 1e3 / steps
+    leaves = pytree.tree_leaves(state)
+    state_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    # the same copies as the compiled step's state threading, by events
+    spare = [x.clone() for x in leaves]
+    copy_ev_ms = time_ms(lambda i: [d.copy_(x) for d, x in
+                                    zip(leaves, spare)], n=5)
+    del spare
+    n_ops = sum(n.op == "call_function"
+                for r in comp._cache.values()
+                for n in r.graph_module.graph.nodes)
+    print(f"train bf16 flash step: {ms_fl:.3f} ms on the host clock "
+          f"({tokens_per_step / ms_fl * 1e3:.1f} tokens/s); einsum step "
+          f"{ms_ei:.3f} ms ({tokens_per_step / ms_ei * 1e3:.1f} tokens/s); "
+          f"trace {trace_s:.2f} s flash, {trace_ei:.2f} s einsum")
+    print(f"profile bf16 flash steps: {wall_ms:.3f} ms per step under the "
+          f"profiler, device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%)"
+          f"; peak memory {peak_gb:.2f} GB; the step graph replays {n_ops} "
+          f"aten calls; state copy {copy_ms:.3f} ms per step in the "
+          f"profiled range, {copy_ev_ms:.3f} ms by events over its "
+          f"{len(leaves)} leaves ({2 * state_bytes / 1e9:.2f} GB read + "
+          f"written)")
+    for name, ms, count in sorted(kernels, key=lambda x: -x[1])[:12]:
+        print(f"  {ms:9.4f} ms/step  {count // steps:5d}/step  {name[:80]}")
+
 
 
 def make_prompts(vocab: int, seed: int = 0):
@@ -329,7 +764,8 @@ def profile_decode(params, cfg, serve_cfg, dev, prompts, n_new: int,
         wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
     kernels = [(e.key, e.self_device_time_total / 1e3 / rounds)
                for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key != "easydist_compile.state_copy"]
     busy = sum(ms for _, ms in kernels)
     top = sorted(kernels, key=lambda kv: -kv[1])[:6]
     n_ops = sum(n.op == "call_function"
@@ -352,8 +788,12 @@ def main() -> int:
     print(card_line())
     build_kernels()
     entry = kernel_phase(dev)
+    train_entries = train_kernel_phase(dev)
     entry["launches"] = serve_phase(dev)
-    print(json.dumps({"kernels": [entry]}))
+    launches = train_phase(dev)
+    for e in train_entries:
+        e["launches"] = launches[e["name"]]
+    print(json.dumps({"kernels": [entry, *train_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,21 +8,28 @@ aten ops, which every later call with that signature replays.  Custom
 ops — the port's CUDA kernels — stay single nodes.  Like the JAX
 package on a mesh of one device, nothing is solved: every placement is
 equivalent.  ShardCombine discovery, the per-axis ILP and emission over
-a larger mesh belong to the training slice of the port.
+a larger mesh are still to port (ROADMAP queue A item 1): a mesh of
+more than one device raises.
+
+A train step is traced whole: its forward, the backward that
+`torch.autograd.grad` runs inside the step (the kernels' backward ops
+stay single nodes too) and the optimizer update.
 
 State threading: output leaves are paired positionally with input
 leaves (`infer_state_io`).  Where the JAX package donates a paired input
 so XLA updates it in place, the port's functions write paired state in
 place themselves; a paired output that comes back as a new tensor is
-copied into its input, so paired state keeps its storage across calls
-either way.
+copied into its input (a profiler range, "easydist_compile.state_copy",
+marks the copies), so paired state keeps its storage across calls
+either way.  `donate_state=False` leaves the inputs as they were and
+returns the new tensors.
 """
 
 from __future__ import annotations
 
 import functools
 import logging
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch.fx.experimental.proxy_tensor import make_fx
@@ -75,11 +82,12 @@ class CompileResult:
     `tree_jitted` takes and returns the caller's pytrees."""
 
     def __init__(self, graph_module, in_spec, out_spec,
-                 state_pairs: Dict[int, int]):
+                 state_pairs: Dict[int, int], donate_state: bool = True):
         self.graph_module = graph_module
         self.in_spec = in_spec
         self.out_spec = out_spec
         self.state_pairs = dict(state_pairs)
+        self.donate_state = donate_state
 
     def tree_jitted(self, *args, **kwargs):
         flat, spec = pytree.tree_flatten((args, kwargs))
@@ -88,14 +96,18 @@ class CompileResult:
                                     f"called with {spec}")
         with torch.no_grad():
             outs = list(self.graph_module(*flat))
-        for o, i in self.state_pairs.items():
-            if outs[o] is not flat[i]:
-                flat[i].copy_(outs[o])
-                outs[o] = flat[i]
+            if self.donate_state:
+                with torch.profiler.record_function(
+                        "easydist_compile.state_copy"):
+                    for o, i in self.state_pairs.items():
+                        if outs[o] is not flat[i]:
+                            flat[i].copy_(outs[o])
+                            outs[o] = flat[i]
         return pytree.tree_unflatten(outs, self.out_spec)
 
 
-def compile_step(func, args, kwargs) -> CompileResult:
+def compile_step(func, args, kwargs,
+                 donate_state: bool = True) -> CompileResult:
     """Trace `func(*args, **kwargs)` with `make_fx` over fake tensors and
     pair its state (`infer_state_io`)."""
     flat, in_spec = pytree.tree_flatten((args, kwargs))
@@ -111,15 +123,16 @@ def compile_step(func, args, kwargs) -> CompileResult:
     with torch.no_grad():
         gm = make_fx(flat_fn, tracing_mode="fake")(*flat)
     return CompileResult(gm, in_spec, traced["spec"],
-                         infer_state_io(args, traced["out"]))
+                         infer_state_io(args, traced["out"]), donate_state)
 
 
 class CompiledFunction:
     """User-facing wrapper: traces on the first call per input signature
     and replays after."""
 
-    def __init__(self, func):
+    def __init__(self, func, donate_state: Optional[bool] = None):
         self.func = func
+        self.donate_state = donate_state is not False
         self._cache: Dict[object, CompileResult] = {}
         self._cache_hits = 0
         self._cache_misses = 0
@@ -140,7 +153,8 @@ class CompiledFunction:
         result = self._cache.get(sig)
         if result is None:
             self._cache_misses += 1
-            result = compile_step(self.func, args, kwargs)
+            result = compile_step(self.func, args, kwargs,
+                                  self.donate_state)
             self._cache[sig] = result
         else:
             self._cache_hits += 1
@@ -167,9 +181,43 @@ class CompiledFunction:
         return self.get_compiled(*args, **kwargs).tree_jitted(*args, **kwargs)
 
 
-def easydist_compile(func=None):
-    """Decorator entry point: `easydist_compile(fn)`, `@easydist_compile`
-    or `@easydist_compile()`.  State is paired positionally
-    (`infer_state_io`); the JAX package's `state_io`, `mesh` and
-    pipeline arguments belong to slices not ported yet."""
-    return CompiledFunction(func) if func is not None else CompiledFunction
+def _mesh_size(mesh) -> int:
+    """Devices in `mesh`: None, a device or a device name is one; a
+    sequence counts its entries; an object with `.devices` (a mesh)
+    counts those."""
+    if mesh is None or isinstance(mesh, (str, int, torch.device)):
+        return 1
+    devices = getattr(mesh, "devices", mesh)
+    size = getattr(devices, "size", None)
+    if isinstance(size, int):
+        return size
+    return len(pytree.tree_leaves(list(devices)))
+
+
+def easydist_compile(func=None, mesh=None, state_io="auto",
+                     donate_state: Optional[bool] = None):
+    """Decorator entry point: `easydist_compile(fn)`, `@easydist_compile`,
+    `@easydist_compile()` or `easydist_compile(step, mesh=mesh)`.
+
+    `mesh` is None or one device: the port compiles for the device its
+    tensors lie on, and a larger mesh raises NotImplementedError (the
+    multi-device frontend is ROADMAP queue A item 1).  `state_io` is
+    "auto" only: state is paired positionally (`infer_state_io`).
+    `donate_state` (default True) writes paired outputs into their
+    inputs; False returns them as new tensors.  The JAX package's
+    pipeline and solver arguments belong to slices not ported yet."""
+    n_devices = _mesh_size(mesh)
+    if n_devices != 1:
+        raise NotImplementedError(
+            f"easydist_compile over a mesh of {n_devices} devices is not "
+            f"ported yet (ROADMAP queue A item 1: discovery, ILP and "
+            f"emission); pass mesh=None or one device")
+    if state_io != "auto":
+        raise NotImplementedError(
+            f"state_io={state_io!r} is not ported; the port pairs state "
+            f"positionally (state_io='auto')")
+
+    def wrap(f):
+        return CompiledFunction(f, donate_state=donate_state)
+
+    return wrap(func) if func is not None else wrap

@@ -1,5 +1,6 @@
 """GPT-2-style decoder transformer in PyTorch: the port of
-easydist_tpu/models/gpt.py's inference and serving forwards.
+easydist_tpu/models/gpt.py's forwards, serving steps and train step
+(`gpt_loss`, `make_gpt_train_step` with Adam).
 
 Functional, like the JAX model: parameters are the JAX package's nested
 dict/list with the same keys and layouts (`w` is [n_in, n_out]; no
@@ -28,6 +29,8 @@ import torch.nn.functional as F
 
 from easydist_tpu_torch import resolve_device, torch_dtype
 
+from .optim import adam_init, adam_update, value_and_grad
+
 
 @dataclass
 class GPTConfig:
@@ -37,8 +40,9 @@ class GPTConfig:
     heads: int = 12
     layers: int = 12
     dtype: str = "float32"  # compute dtype; params stay float32
-    # attention backend of the full forward: "einsum" only in the port so
-    # far (the "flash" training kernels are still to port)
+    # attention backend of the full forward: "einsum" (plain torch) or
+    # "flash" (ops.flash_attention: the CUDA kernels B1-B3 on the card);
+    # "ring" and "auto" are not ported yet
     attention: str = "einsum"
 
     @staticmethod
@@ -128,10 +132,10 @@ def _qkv(x, p_at, dtype):
 
 
 def _attention(x, p, cfg: GPTConfig, dtype, return_kv: bool = False):
-    if cfg.attention != "einsum":
+    if cfg.attention not in ("einsum", "flash"):
         raise NotImplementedError(
             f"GPTConfig.attention={cfg.attention!r} is not ported yet; the "
-            f"port has the 'einsum' backend")
+            f"port has the 'einsum' and 'flash' backends")
     heads = cfg.heads
     b, t, d = x.shape
     hd = d // heads
@@ -141,14 +145,20 @@ def _attention(x, p, cfg: GPTConfig, dtype, return_kv: bool = False):
         return t_.reshape(b, t, heads, hd).transpose(1, 2)
 
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
-    att = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(hd)
-    qi = torch.arange(t, device=x.device)[:, None]
-    ki = torch.arange(t, device=x.device)[None, :]
-    # the JAX model fills with -1e9 in the compute dtype (ops/ uses -1e30)
-    att = torch.where(ki <= qi, att, torch.tensor(-1e9, dtype=att.dtype,
-                                                  device=att.device))
-    att = torch.softmax(att, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", att, v)
+    if cfg.attention == "flash":
+        from easydist_tpu_torch.ops.flash_attention import flash_attention
+
+        out = flash_attention(q, k, v, True)
+    else:
+        att = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(hd)
+        qi = torch.arange(t, device=x.device)[:, None]
+        ki = torch.arange(t, device=x.device)[None, :]
+        # the JAX model fills with -1e9 in the compute dtype (ops/ uses
+        # -1e30)
+        att = torch.where(ki <= qi, att, torch.tensor(
+            -1e9, dtype=att.dtype, device=att.device))
+        att = torch.softmax(att, dim=-1)
+        out = torch.einsum("bhqk,bhkd->bhqd", att, v)
     out = out.transpose(1, 2).reshape(b, t, d)
     out = out @ p["proj"]["w"].to(dtype) + p["proj"]["b"].to(dtype)
     if return_kv:
@@ -169,6 +179,32 @@ def gpt_apply(params, cfg: GPTConfig, tokens):
         x = _mlp(x, blk, dtype)
     x = _layernorm(x, params["ln_f"]["g"], params["ln_f"]["b"])
     return x.float() @ params["wte"].T
+
+
+def gpt_loss(params, cfg: GPTConfig, tokens, targets):
+    """Mean next-token negative log-likelihood (f32)."""
+    logp = F.log_softmax(gpt_apply(params, cfg, tokens), dim=-1)
+    return -torch.gather(logp, -1, targets.long()[..., None]).mean()
+
+
+def make_gpt_train_step(cfg: GPTConfig, lr=1e-4):
+    """Returns (train_step, init_state): state = (params, adam state);
+    train_step(state, tokens, targets) -> ((params, opt), loss), a new
+    state (nothing is updated in place).  init_state(generator,
+    device=None) draws the params with `gpt_init`."""
+
+    def init_state(generator: torch.Generator, device=None):
+        params = gpt_init(cfg, generator, device=device)
+        return (params, adam_init(params))
+
+    def train_step(state, tokens, targets):
+        params, opt = state
+        loss, grads = value_and_grad(
+            lambda p: gpt_loss(p, cfg, tokens, targets), params)
+        new_params, new_opt = adam_update(params, grads, opt, lr=lr)
+        return (new_params, new_opt), loss
+
+    return train_step, init_state
 
 
 # --------------------------------------------------------- KV-cache decode

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each source under `csrc/` has a plain C interface.  It is compiled with
+Each source under `csrc/` has a plain C interface (it may include the
+`*.cuh` headers beside it).  It is compiled with
 `nvcc` for `sm_90a` into a shared library and loaded with `ctypes` —
 no PyTorch headers, so a build takes seconds.  Libraries go to `_build/`
 beside this file (listed in `.gitignore`), named by the hash of the
@@ -43,11 +44,14 @@ def nvcc_path() -> str:
 
 
 def build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` unless a library for this exact source
-    and flag set exists; return the library's path."""
+    """Compile `csrc/<name>.cu` unless a library for this exact source,
+    the headers beside it and the flag set exists; return the library's
+    path."""
     src = CSRC / f"{name}.cu"
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib

@@ -1,17 +1,29 @@
-"""Attention on the serving path: the decode kernel's wrapper, the plain
-PyTorch versions beside it, and the dispatchers the models call.
+"""Attention kernels' wrappers, the plain PyTorch versions beside them,
+and the dispatchers the models call.
 
-Port of the serving half of easydist_tpu/ops/flash_attention.py.  The
-TPU's Pallas decode kernel `_flash_decode_kernel` becomes the CUDA
-kernel `csrc/flash_decode.cu` (see its header for the design and its
-bound), bound through `ctypes` and registered as the custom op
-`easydist_tpu_torch::flash_decode`, so `make_fx` keeps it as one node.
+Port of easydist_tpu/ops/flash_attention.py, serving and training:
 
-`_decode_attention_xla` and `_chunk_attention_xla` keep the JAX
-package's names: they are the plain versions of the same functions (the
-masked einsum the JAX package leaves to XLA).  The CPU runs them; on the
-card the decode dispatcher launches the kernel, and the chunked-prefill
-path stays plain PyTorch as it stays XLA in the JAX package.
+  * training (`flash_attention_lse` / `flash_attention`): the TPU's
+    forward `_flash_kernel` and the FlashAttention-2 backward pair
+    `_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel` become the CUDA
+    kernels `csrc/flash_attn_fwd.cu` and `csrc/flash_attn_bwd.cu`,
+    registered as the custom ops `easydist_tpu_torch::flash_fwd`,
+    `::flash_bwd_dq` and `::flash_bwd_dkv`, the forward differentiable
+    in both outputs through `register_autograd`;
+  * serving: the decode kernel `_flash_decode_kernel` becomes
+    `csrc/flash_decode.cu`, the custom op `easydist_tpu_torch::flash_decode`.
+
+Every kernel is bound through `ctypes` (see each source's header for its
+design and bound), and `make_fx` keeps each custom op as one node.  The
+training ops run their plain version on CPU tensors and their kernel on
+CUDA tensors; the decode wrapper takes CUDA tensors only, and its
+dispatcher picks the plain version for the CPU.
+
+`_flash_forward_xla`, `_flash_backward_xla`, `_decode_attention_xla` and
+`_chunk_attention_xla` keep the JAX package's names: they are the plain
+versions of the same functions (the masked einsum the JAX package leaves
+to XLA).  The chunked-prefill path stays plain PyTorch, as it stays XLA
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,6 +50,318 @@ def _pick_block(block: int, t: int) -> int:
     while t % b:
         b //= 2
     return max(b, 1)
+
+
+def _check_launch(lib, prefix: str, err: int):
+    if err:
+        msg = getattr(lib, f"{prefix}_error_string")(err).decode()
+        raise RuntimeError(f"{prefix} launch failed: {msg} (cudaError {err})")
+
+
+# ------------------------------------- training attention (B1, B2, B3)
+
+
+def _causal_fill(s):
+    """Scores [..., t_q, t_k] with keys past the query filled with -1e30
+    (positions aligned at 0, as the TPU kernels' `_causal_mask`)."""
+    t_q, t_k = s.shape[-2], s.shape[-1]
+    visible = (torch.arange(t_k, device=s.device)[None, :]
+               <= torch.arange(t_q, device=s.device)[:, None])
+    return torch.where(visible, s, _NEG_INF)
+
+
+def _masked_scores(q, k, causal: bool, scale: float):
+    """f32 scores (q * scale) . k [b, h, t_q, t_k], causally filled."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, k.float())
+    return _causal_fill(s) if causal else s
+
+
+def _reference_attention(q, k, v, causal: bool, scale: float):
+    """Plain softmax attention in f32, output in q's dtype: the yardstick
+    of the flash path's gradients."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        s = _causal_fill(s)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def _flash_forward_xla(q, k, v, causal: bool, scale: float):
+    """Plain version of B1: (out [b, h, t_q, d] in q's dtype, lse
+    [b*h, t_q] f32), with the kernel's -1e30 fill, 1e-30 denominator
+    clamp and lse = m + log(l)."""
+    b, h, t_q, _ = q.shape
+    s = _masked_scores(q, k, causal, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l_safe
+    lse = (m + torch.log(l_safe)).reshape(b * h, t_q)
+    return out.to(q.dtype), lse
+
+
+def _flash_delta(o, do, g_lse=None):
+    """delta = rowsum(dO * O) - g_lse, f32 [b*h, t_q]: the row term of
+    the backward, plain torch as it stays XLA in the JAX package.  An lse
+    cotangent folds in with the opposite sign; None and zeros both mean
+    the lse output was unused."""
+    b, h, t_q, _ = o.shape
+    delta = (do.float() * o.float()).sum(dim=-1).reshape(b * h, t_q)
+    if g_lse is not None:
+        delta = delta - g_lse.reshape(b * h, t_q).float()
+    return delta
+
+
+def _bwd_p_ds(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """P = exp(S - lse) recomputed from the saved lse, and dS = P * (dO.V^T
+    - delta), both f32 [b, h, t_q, t_k]."""
+    b, h, t_q, _ = q.shape
+    p = torch.exp(_masked_scores(q, k, causal, scale)
+                  - lse.reshape(b, h, t_q, 1))
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta.reshape(b, h, t_q, 1))
+
+
+def _flash_bwd_dq_xla(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """Plain version of B2: dQ = dS.K * scale, in q's dtype."""
+    _, ds = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale)
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale).to(
+        q.dtype)
+
+
+def _flash_bwd_dkv_xla(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """Plain version of B3: (dK = dS^T.Q * scale, dV = P^T.dO), in k's and
+    v's dtypes."""
+    p, ds = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_backward_xla(q, k, v, o, lse, do, causal: bool, scale: float,
+                        g_lse=None):
+    """Plain FlashAttention-2 backward of `flash_attention_lse`: (dq, dk,
+    dv) from the saved out and lse and the cotangents of both."""
+    delta = _flash_delta(o, do, g_lse)
+    dq = _flash_bwd_dq_xla(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = _flash_bwd_dkv_xla(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+# per library: its C functions and how many pointers lead their arguments
+# (then bh, t_q, t_k, head_dim, causal, scale, dtype, stream)
+_TRAIN_FNS = {"flash_attn_fwd": {"flash_attn_fwd": 5},
+              "flash_attn_bwd": {"flash_attn_bwd_dq": 7,
+                                 "flash_attn_bwd_dkv": 8}}
+
+
+def _train_lib(name: str):
+    from ._build import load
+
+    lib = load(name)
+    fns = _TRAIN_FNS[name]
+    if getattr(lib, next(iter(fns))).argtypes is None:  # first load
+        tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_void_p]
+        for fn, n_ptr in fns.items():
+            getattr(lib, fn).argtypes = [ctypes.c_void_p] * n_ptr + tail
+            getattr(lib, fn).restype = ctypes.c_int
+        err_fn = getattr(lib, f"{name}_error_string")
+        err_fn.argtypes = [ctypes.c_int]
+        err_fn.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_train_inputs(op: str, q, k, v, *rows):
+    """Validate CUDA inputs of a training kernel; returns (b, h, t_q,
+    t_k, d) and the inputs made contiguous (q, k, v in one dtype; the
+    row tensors lse/delta f32 [b*h, t_q])."""
+    if not all(x.is_cuda for x in (q, k, v, *rows)):
+        raise RuntimeError(f"{op} runs its kernel on CUDA tensors and its "
+                           f"plain version on CPU tensors; got "
+                           f"{[str(x.device) for x in (q, k, v, *rows)]}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{op} takes float32/bfloat16 q, k, v of one dtype, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    b, h, t_q, d = q.shape
+    t_k = k.shape[2]
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{op} takes head_dim in {_HEAD_DIMS}, got {d}")
+    if k.shape != (b, h, t_k, d) or v.shape != k.shape or t_k < 1:
+        raise ValueError(f"k/v must be [{b}, {h}, T >= 1, {d}], got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    for x in rows:
+        if x.shape != (b * h, t_q) or x.dtype != torch.float32:
+            raise ValueError(f"lse/delta must be float32 [{b * h}, {t_q}], "
+                             f"got {x.dtype} {tuple(x.shape)}")
+    return (b, h, t_q, t_k, d), [x.contiguous() for x in (q, k, v, *rows)]
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+@torch.library.custom_op("easydist_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, scale: float
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        return _flash_forward_xla(q, k, v, causal, scale)
+    (b, h, t_q, t_k, d), (q, k, v) = _check_train_inputs("flash_fwd", q, k,
+                                                         v)
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, t_q), dtype=torch.float32, device=q.device)
+    lib = _train_lib("flash_attn_fwd")
+    err = lib.flash_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b * h, t_q, t_k, d, int(causal), float(scale),
+        _DTYPE_CODES[q.dtype], _stream(q))
+    _check_launch(lib, "flash_attn_fwd", err)
+    flash_fwd.launches += 1
+    return out, lse
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal, scale):
+    b, h, t_q, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b * h, t_q), dtype=torch.float32))
+
+
+@torch.library.custom_op("easydist_tpu_torch::flash_bwd_dq", mutates_args=())
+def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                     causal: bool, scale: float) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return _flash_bwd_dq_xla(q, k, v, do, lse, delta, causal, scale)
+    (b, h, t_q, t_k, d), (q, k, v, lse, delta) = _check_train_inputs(
+        "flash_bwd_dq", q, k, v, lse, delta)
+    do = do.to(q.dtype).contiguous()
+    dq = torch.empty_like(q)
+    lib = _train_lib("flash_attn_bwd")
+    err = lib.flash_attn_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, t_q, t_k, d,
+        int(causal), float(scale), _DTYPE_CODES[q.dtype], _stream(q))
+    _check_launch(lib, "flash_attn_bwd", err)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+@_flash_bwd_dq_op.register_fake
+def _(q, k, v, do, lse, delta, causal, scale):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("easydist_tpu_torch::flash_bwd_dkv",
+                         mutates_args=())
+def _flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, lse: torch.Tensor,
+                      delta: torch.Tensor, causal: bool, scale: float
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        return _flash_bwd_dkv_xla(q, k, v, do, lse, delta, causal, scale)
+    (b, h, t_q, t_k, d), (q, k, v, lse, delta) = _check_train_inputs(
+        "flash_bwd_dkv", q, k, v, lse, delta)
+    do = do.to(q.dtype).contiguous()
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _train_lib("flash_attn_bwd")
+    err = lib.flash_attn_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b * h, t_q, t_k, d, int(causal), float(scale),
+        _DTYPE_CODES[q.dtype], _stream(q))
+    _check_launch(lib, "flash_attn_bwd", err)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+@_flash_bwd_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, causal, scale):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def flash_fwd(q, k, v, causal: bool = True, scale: Optional[float] = None):
+    """B1: (out, lse) of causal or full attention; q [b, h, t_q, d], k/v
+    [b, h, t_k, d] in float32 or bfloat16, d 64 or 128.  CPU tensors run
+    `_flash_forward_xla`; CUDA tensors launch `csrc/flash_attn_fwd.cu`.
+    `flash_fwd.launches` counts kernel launches (never a trace)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _flash_fwd_op(q, k, v, bool(causal), float(scale))
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
+                 scale: Optional[float] = None):
+    """B2: dQ from the saved lse and delta (`_flash_delta`).  CPU tensors
+    run `_flash_bwd_dq_xla`; CUDA tensors launch the dQ kernel of
+    `csrc/flash_attn_bwd.cu`."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _flash_bwd_dq_op(q, k, v, do, lse, delta, bool(causal),
+                            float(scale))
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
+                  scale: Optional[float] = None):
+    """B3: (dK, dV) from the saved lse and delta.  CPU tensors run
+    `_flash_bwd_dkv_xla`; CUDA tensors launch the dK/dV kernel of
+    `csrc/flash_attn_bwd.cu`."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _flash_bwd_dkv_op(q, k, v, do, lse, delta, bool(causal),
+                             float(scale))
+
+
+flash_fwd.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+def _fwd_setup_context(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _fwd_backward(ctx, g_out, g_lse):
+    q, k, v, out, lse = ctx.saved_tensors
+    delta = _flash_delta(out, g_out, g_lse)
+    dq = _flash_bwd_dq_op(q, k, v, g_out, lse, delta, ctx.causal, ctx.scale)
+    dk, dv = _flash_bwd_dkv_op(q, k, v, g_out, lse, delta, ctx.causal,
+                               ctx.scale)
+    return dq, dk, dv, None, None
+
+
+_flash_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup_context)
+
+
+def flash_attention_lse(q, k, v, causal: bool = True,
+                        scale: Optional[float] = None, block_q: int = 256,
+                        block_k: int = 256):
+    """Like `flash_attention` but also returns the per-row logsumexp
+    [batch*heads, seq] (f32), differentiable in BOTH outputs: the
+    backward folds the lse cotangent into delta and runs B2 and B3.
+
+    `block_q`/`block_k` are tile hints kept for the JAX signature: the
+    kernels pick their own tiles and compute the same function for any."""
+    del block_q, block_k
+    # contiguous here, so the tensors autograd saves need no copy in the
+    # backward's kernels
+    return flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(), causal,
+                     scale)
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    scale: Optional[float] = None, block_q: int = 256,
+                    block_k: int = 256):
+    """q, k, v: [batch, heads, seq, head_dim] -> out of q's shape and
+    dtype; the CUDA kernels on CUDA tensors, the plain versions on CPU
+    tensors."""
+    out, _ = flash_attention_lse(q, k, v, causal, scale, block_q, block_k)
+    return out
 
 
 # ------------------------------------------------- single-query decode
@@ -99,10 +423,7 @@ def _flash_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), b, h, t_k, d, tile, float(scale),
         _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"flash_decode launch failed: "
-            f"{lib.flash_decode_error_string(err).decode()} (cudaError {err})")
+    _check_launch(lib, "flash_decode", err)
     flash_decode_attention.launches += 1
     return out
 

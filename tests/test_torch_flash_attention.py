@@ -1,0 +1,248 @@
+"""Port training attention (easydist_tpu_torch.ops.flash_attention, B1-B3)
+against the JAX package: the plain forward against the Pallas forward in
+interpret mode (out and lse), the plain backward against `jax.vjp` of
+`flash_attention_lse` with both cotangents, the port's autograd through
+its custom ops against torch autograd through `_reference_attention`,
+the traced graph's nodes, and — on a CUDA host — each kernel against its
+plain version.
+
+Inputs are made with numpy from a seed and handed to both packages.
+Tolerances: forward rtol 1e-4 / atol 1e-5, backward rtol 2e-4 / atol
+2e-5 in float32 (the bars of tests/test_ops/test_flash_attention.py)."""
+
+import importlib
+import math
+
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.fx.experimental.proxy_tensor import make_fx
+
+from easydist_tpu_torch.ops import flash_attention as tfa
+
+FWD = dict(rtol=1e-4, atol=1e-5)
+BWD = dict(rtol=2e-4, atol=2e-5)
+
+
+def _rand(b=2, h=3, t=64, d=16, seed=0, n=4):
+    rs = np.random.RandomState(seed)
+    return [rs.standard_normal((b, h, t, d)).astype(np.float32)
+            for _ in range(n)]
+
+
+def _t(*xs):
+    return [torch.from_numpy(x) for x in xs]
+
+
+@pytest.fixture(scope="module")
+def jax_ops():
+    """(jax, jax.numpy, the JAX package's ops/flash_attention module),
+    imported here so the card's tests collect on a host without JAX."""
+    jax = pytest.importorskip("jax")
+    return (jax, jax.numpy,
+            importlib.import_module("easydist_tpu.ops.flash_attention"))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+class TestPlainVsJax:
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_forward_matches_pallas_interpret(self, jax_ops, causal):
+        _, jnp, jfa = jax_ops
+        q, k, v = _rand(n=3)
+        out_j, lse_j = jfa.flash_attention_lse(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, None, 16,
+            16, True)
+        out, lse = tfa._flash_forward_xla(*_t(q, k, v), causal,
+                                          1.0 / math.sqrt(16))
+        np.testing.assert_allclose(out.numpy(), np.asarray(out_j), **FWD)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), **FWD)
+
+    def test_forward_uneven_blocks(self, jax_ops):
+        # T = 48 with 32-row blocks: the JAX kernel shrinks its block
+        _, jnp, jfa = jax_ops
+        q, k, v = _rand(t=48, d=32, seed=1, n=3)
+        out_j, lse_j = jfa.flash_attention_lse(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), True, None, 32,
+            32, True)
+        out, lse = tfa.flash_attention_lse(*_t(q, k, v), True, None, 32, 32)
+        np.testing.assert_allclose(out.numpy(), np.asarray(out_j), **FWD)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), **FWD)
+
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("with_g_lse", [True, False])
+    def test_backward_matches_jax_vjp(self, jax_ops, causal, with_g_lse):
+        jax, jnp, jfa = jax_ops
+        q, k, v, do = _rand(t=48, seed=2)
+        rs = np.random.RandomState(3)
+        g_lse = (rs.standard_normal((2 * 3, 48)).astype(np.float32)
+                 if with_g_lse else np.zeros((2 * 3, 48), np.float32))
+        (out_j, _), vjp = jax.vjp(
+            lambda a, b, c: jfa.flash_attention_lse(a, b, c, causal, None,
+                                                    16, 16, True),
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = vjp((jnp.asarray(do), jnp.asarray(g_lse)))
+        scale = 1.0 / math.sqrt(16)
+        out, lse = tfa._flash_forward_xla(*_t(q, k, v), causal, scale)
+        got = tfa._flash_backward_xla(
+            *_t(q, k, v), out, lse, torch.from_numpy(do), causal, scale,
+            torch.from_numpy(g_lse) if with_g_lse else None)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), **BWD)
+
+    def test_reference_attention_matches_jax(self, jax_ops):
+        _, jnp, jfa = jax_ops
+        q, k, v = _rand(n=3, seed=4)
+        want = jfa._reference_attention(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), True, 0.25)
+        got = tfa._reference_attention(*_t(q, k, v), True, 0.25)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD)
+
+
+class TestAutograd:
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_grads_match_reference_attention(self, causal):
+        q, k, v = (x.requires_grad_() for x in _t(*_rand(t=48, n=3,
+                                                          seed=5)))
+        out = tfa.flash_attention(q, k, v, causal)
+        torch.sum(out * torch.cos(out)).backward()
+        got = [x.grad.clone() for x in (q, k, v)]
+        for x in (q, k, v):
+            x.grad = None
+        ref = tfa._reference_attention(q, k, v, causal, 0.25)
+        torch.sum(ref * torch.cos(ref)).backward()
+        for g, x in zip(got, (q, k, v)):
+            np.testing.assert_allclose(g.numpy(), x.grad.numpy(), **BWD)
+
+    def test_lse_output_is_differentiable(self):
+        q, k, v, do = _t(*_rand(t=32, seed=6))
+        g_lse = torch.from_numpy(
+            np.random.RandomState(7).standard_normal((6, 32)).astype(
+                np.float32))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out, lse = tfa.flash_attention_lse(*leaves, True)
+        got = torch.autograd.grad((out * do).sum() + (lse * g_lse).sum(),
+                                  leaves)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        ref = tfa._reference_attention(*leaves, True, 0.25)
+        ref_lse = torch.logsumexp(
+            tfa._masked_scores(leaves[0], leaves[1], True, 0.25),
+            dim=-1).reshape(6, 32)
+        want = torch.autograd.grad(
+            (ref * do).sum() + (ref_lse * g_lse).sum(), leaves)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), **BWD)
+
+    def test_block_hints_do_not_change_the_result(self):
+        q, k, v = _t(*_rand(t=40, n=3, seed=8))
+        a = tfa.flash_attention(q, k, v, True, None, 16, 16)
+        b = tfa.flash_attention(q, k, v, True, None, 256, 128)
+        assert torch.equal(a, b)
+
+
+class TestTracing:
+    def test_graph_holds_one_node_per_op_and_launches_nothing(self):
+        def step(q, k, v):
+            with torch.enable_grad():
+                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                out = tfa.flash_attention(*leaves, True)
+                return torch.autograd.grad((out ** 2).sum(), leaves)
+
+        before = [tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+                  tfa.flash_bwd_dkv.launches]
+        with torch.no_grad():
+            gm = make_fx(step, tracing_mode="fake")(*_t(*_rand(n=3)))
+        targets = [str(n.target) for n in gm.graph.nodes]
+        for op in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert targets.count(f"easydist_tpu_torch.{op}.default") == 1
+        # CPU tensors run the plain versions: no kernel launch counted
+        grads = gm(*_t(*_rand(n=3)))
+        assert [g.shape for g in grads] == [(2, 3, 64, 16)] * 3
+        assert before == [tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+                          tfa.flash_bwd_dkv.launches]
+
+    def test_fake_shapes(self):
+        q, k, v, do = _t(*_rand(t=24, seed=9))
+        k, v = k[:, :, :20], v[:, :, :20]
+
+        def f(q, k, v, do):
+            out, lse = tfa.flash_fwd(q, k, v, False)
+            delta = tfa._flash_delta(out, do)
+            return (out, lse, tfa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                               False),
+                    *tfa.flash_bwd_dkv(q, k, v, do, lse, delta, False))
+
+        with FakeTensorMode() as mode:
+            fake = f(*(mode.from_tensor(x) for x in (q, k, v, do)))
+        real = f(q, k, v, do)
+        assert [tuple(x.shape) for x in fake] == [tuple(x.shape)
+                                                  for x in real]
+        assert [x.dtype for x in fake] == [x.dtype for x in real]
+        assert real[1].shape == (6, 24) and real[1].dtype == torch.float32
+
+
+@pytest.mark.cuda
+class TestKernelsOnCard:
+    """B1-B3 against their plain versions at the training shape; a bf16
+    output adds half an ulp of its rounding (2^-8 |ref|) to the f32 bar,
+    since the kernels compute in f32 and round once."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("causal,t", [(True, 1024), (False, 1024),
+                                          (True, 1000)])
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_kernels_match_plain(self, cuda_device, dtype, causal, t, d):
+        rs = np.random.RandomState(0)
+        base = [torch.as_tensor(rs.standard_normal((2, 12, t, d)),
+                                dtype=torch.float32, device=cuda_device)
+                for _ in range(4)]
+        g_lse = torch.as_tensor(rs.standard_normal((24, t)),
+                                dtype=torch.float32, device=cuda_device)
+        q, k, v, do = (x.to(dtype) for x in base)
+        qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+        scale = 1.0 / math.sqrt(d)
+        extra = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+
+        def close(got, ref, rtol, atol, rounded=True):
+            tol = atol + (rtol + (extra if rounded else 0.0)) * ref.abs()
+            assert bool(((got.float() - ref).abs() <= tol).all())
+
+        before = tfa.flash_fwd.launches
+        out, lse = tfa.flash_fwd(q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        assert tfa.flash_fwd.launches == before + 1
+        ref_out, ref_lse = tfa._flash_forward_xla(qf, kf, vf, causal, scale)
+        close(out, ref_out, **FWD)
+        close(lse, ref_lse, **FWD, rounded=False)
+        delta = tfa._flash_delta(ref_out, dof, g_lse)
+        dq = tfa.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal, scale)
+        dk, dv = tfa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal,
+                                   scale)
+        torch.cuda.synchronize()
+        close(dq, tfa._flash_bwd_dq_xla(qf, kf, vf, dof, ref_lse, delta,
+                                        causal, scale), **BWD)
+        r_dk, r_dv = tfa._flash_bwd_dkv_xla(qf, kf, vf, dof, ref_lse, delta,
+                                            causal, scale)
+        close(dk, r_dk, **BWD)
+        close(dv, r_dv, **BWD)
+
+    def test_autograd_on_card_launches_each_kernel_once(self, cuda_device):
+        q, k, v = (torch.randn(2, 4, 128, 64, device=cuda_device,
+                               requires_grad=True) for _ in range(3))
+        counts = [tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+                  tfa.flash_bwd_dkv.launches]
+        tfa.flash_attention(q, k, v, True).sum().backward()
+        torch.cuda.synchronize()
+        assert [tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+                tfa.flash_bwd_dkv.launches] == [c + 1 for c in counts]
+
+    def test_mixed_devices_raise(self, cuda_device):
+        q, k, v = _t(*_rand(d=64, n=3))
+        with pytest.raises(RuntimeError, match="CUDA tensors"):
+            tfa.flash_fwd(q.to(cuda_device), k, v.to(cuda_device))

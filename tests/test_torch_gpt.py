@@ -187,7 +187,24 @@ def test_bf16_forward_is_finite_and_casts_at_use(model):
 
 
 def test_flash_attention_config_not_ported(model):
+    """The attention configs still to port ("ring", "auto") raise."""
     _, _, _, params_t = model
-    cfg = tg.GPTConfig.tiny(attention="flash")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tg.gpt_apply(params_t, cfg, torch.zeros(1, 4, dtype=torch.int64))
+    for attention in ("ring", "auto"):
+        cfg = tg.GPTConfig.tiny(attention=attention)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tg.gpt_apply(params_t, cfg, torch.zeros(1, 4, dtype=torch.int64))
+
+
+def test_flash_attention_config_matches_einsum(model):
+    """attention="flash" (the plain versions of B1 on the CPU) against
+    the einsum forward from the same weights, at the JAX package's bar
+    for the same comparison (rtol 1e-3 / atol 1e-4,
+    tests/test_models/test_models_e2e.py:133-145)."""
+    _, _, cfg_t, params_t = model
+    tokens = torch.from_numpy(
+        np.random.RandomState(11).randint(0, cfg_t.vocab, (2, cfg_t.seq)))
+    flash = tg.gpt_apply(params_t, tg.GPTConfig.tiny(attention="flash"),
+                         tokens)
+    einsum = tg.gpt_apply(params_t, cfg_t, tokens)
+    np.testing.assert_allclose(flash.numpy(), einsum.numpy(), rtol=1e-3,
+                               atol=1e-4)

@@ -29,7 +29,9 @@ def test_every_port_module_imports_with_jax_blocked():
     """Import every port module in a fresh interpreter whose import
     system refuses jax, jaxlib and easydist_tpu."""
     modules = _port_modules()
-    assert "easydist_tpu_torch.serve.generation" in modules
+    for name in ("serve.generation", "models.optim", "models.mlp",
+                 "models.gpt", "ops.flash_attention", "fxfront.api"):
+        assert f"easydist_tpu_torch.{name}" in modules
     code = f"""
 import importlib, importlib.abc, sys
 
