@@ -8,20 +8,33 @@ Phases, each raising on failure (exit code != 0, no result line):
   2. build of every CUDA kernel from `csrc/`, one nvcc per source, all
      started together;
   3. each kernel against its plain PyTorch version on the card: the
-     decode kernel (B4) at the serving shape, the training kernels
-     (B1 forward, B2 dQ, B3 dK/dV) at the training shape, in float32
-     and bfloat16, with times of the kernel (CUDA events, and device
-     time per launch from torch.profiler), the plain version, one
-     library call (SDPA, a yardstick only) and the card's least
-     possible time (bound);
+     decode kernel (B4) at the serving shape; the paged decode kernels
+     (B5 exact pages, B6 int8 pages) at the paged serving shape, with a
+     GQA case and head_dim 128; the training kernels (B1 forward, B2 dQ,
+     B3 dK/dV) at the training shape; in float32 and bfloat16, with times
+     of the kernel (CUDA events, and device time per launch from
+     torch.profiler), the plain version, one library call (SDPA, a
+     yardstick only) and the card's least possible time (bound);
   4. serving: GPT-2 small at full width (random weights from a seeded
-     generator) through `GenerationSession.for_gpt`.  In float32 every
-     request's greedy ids must equal the uncached re-forward through
-     `gpt_apply`, one decode signature must serve all, the prefix cache
-     must hit, and the decode kernel must have launched 12 x decode
-     rounds.  A bfloat16 run of the same traffic must finish with finite
-     logits; its tokens/s and id agreement with float32 are printed;
-  5. training: GPT-2 small at full width (vocab 50304, batch 8, seq
+     generator) through `GenerationSession.for_gpt`, bucketed layout.
+     In float32 every request's greedy ids must equal the uncached
+     re-forward through `gpt_apply`, one decode signature must serve
+     all, the prefix cache must hit, and B4 must have launched 12 x
+     decode rounds.  A bfloat16 run of the same traffic must finish with
+     finite logits; its tokens/s, id agreement with float32 and a
+     profiled decode window are printed;
+  5. paged serving: the same weights, traffic and config with
+     kv_layout="paged".  In float32 the ids must equal the uncached
+     re-forward and the bucketed ids, one decode and one prefill
+     signature must serve all, prefix restores must map pages instead
+     of copying them, B5 must launch 12 x rounds (B4 never), and the
+     page-table audit must be clean after the drain; then bfloat16 as in
+     phase 4;
+  6. int8 paged serving (kv_quant_dtype="int8", float32): an int8 arena
+     with f32 scales, B6 launched 12 x rounds, identical ids on a rerun,
+     `kv_quant_bytes_saved` > 0, and the teacher-forced logit drift
+     against the exact paged arm within 0.25 x the logit spread;
+  7. training: GPT-2 small at full width (vocab 50304, batch 8, seq
      1024, Adam lr 1e-4) through `make_gpt_train_step` and
      `fxfront.easydist_compile`.  In float32 with flash attention, 3
      compiled steps must match 3 uncompiled steps from the same state
@@ -30,7 +43,12 @@ Phases, each raising on failure (exit code != 0, no result line):
      within 2e-2 (relative) of 4 einsum steps from the same weights.
      Then profiled bfloat16 steps: ms per step, tokens/s, device busy
      share, top kernels, peak memory, trace time, the einsum step;
-  6. a `{"kernels": [...]}` line, then the `{"ok": true, ...}` line.
+  8. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
+     path's run), then the `{"ok": true, ...}` line.
+
+Each serving run sets every decode kernel's launch count to 0 just
+before it and reads the counts just after; launches made to compare or
+time a kernel are not counted.
 
 Needs a CUDA device and the repository around it; imports nothing of
 JAX or of the JAX package.
@@ -53,7 +71,8 @@ HBM_BYTES_PER_S = 3.35e12                # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12                  # H100 SXM, float32 off the tensor cores
 BF16_FLOPS_PER_S = 989e12                # H100 SXM, bf16 tensor cores, dense
 TIMED_COPIES = 4                         # input copies rotated past the 50 MB L2
-KERNEL_SOURCES = ("flash_decode", "flash_attn_fwd", "flash_attn_bwd")
+KERNEL_SOURCES = ("flash_decode", "paged_decode", "flash_attn_fwd",
+                  "flash_attn_bwd")
 
 
 def card_line() -> str:
@@ -240,6 +259,203 @@ def kernel_phase(dev):
             "profiled_launches": seen,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
+
+
+# ------------------------------------------------- paged decode B5, B6
+
+# rows, heads, page_tokens, head_dim, max_pages, arena pages: the paged
+# serving shape (8 slots; 1024 / 64 windows; the session's default arena
+# of (8 + 1) x 16 pages)
+PAGED_SHAPE = (8, 12, 64, 64, 16, 144)
+# row 0 is dead: an all-sentinel table row at length 1, as the session's
+# idle slots decode
+PAGED_LENGTHS = (1, 1, 63, 64, 65, 300, 700, 1024)
+PAGED_KERNELS = {
+    "paged_decode": ("paged_decode_kernel",
+                     "easydist_tpu/ops/flash_attention.py:644"),
+    "paged_decode_quant": ("paged_decode_quant_kernel",
+                           "easydist_tpu/ops/flash_attention.py:754"),
+}
+PAGED_SOURCE = "easydist_tpu_torch/ops/csrc/paged_decode.cu"
+
+
+def paged_inputs(dev, rs, heads: int, kv_heads: int, d: int,
+                 lengths=PAGED_LENGTHS, shape=PAGED_SHAPE, dead=(0,)):
+    """f32 q [b, heads, d], K/V arenas [n_pages, kv_heads, pt, d], and a
+    table whose rows take pages from a shuffled permutation of the arena
+    (live windows only; sentinel `n_pages` elsewhere, and everywhere on
+    the `dead` rows)."""
+    b, _, pt, _, mp, n_pages = shape
+    perm = rs.permutation(n_pages)
+    table = np.full((b, mp), n_pages, np.int32)
+    for i, n in enumerate(lengths):
+        if i not in dead:
+            live = -(-n // pt)
+            table[i, :live] = perm[i * mp:i * mp + live]
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    return (t(rs.standard_normal((b, heads, d))),
+            t(rs.standard_normal((n_pages, kv_heads, pt, d))),
+            t(rs.standard_normal((n_pages, kv_heads, pt, d))),
+            t(table, torch.int32), t(np.asarray(lengths), torch.int32))
+
+
+def paged_bound_ms(lengths, shape, heads: int, kv_heads: int, d: int,
+                   kv_itemsize: float, q_itemsize: int):
+    """(ms, "bytes"|"operations") for one paged decode call: the larger
+    of its bytes — q and out once, table and lengths, and each row's live
+    K and V rows (per kv head; `kv_itemsize` bytes an element, scales
+    included) — over HBM rate, and its f32 operations (2*d for q.k and
+    2*d for p.v per live key and head) over the card's f32 rate."""
+    b, _, pt, _, mp, _ = shape
+    live = sum(min(int(x), mp * pt) for x in lengths)
+    nbytes = (2 * b * heads * d * q_itemsize + 4 * b * mp + 4 * b
+              + 2 * kv_heads * d * kv_itemsize * live)
+    flops = 4 * heads * d * live
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def paged_kernel_phase(dev):
+    """B5 and B6 against their plain versions on the same inputs at the
+    paged serving shape (f32 and bf16 q; B6 with 1 and 4 scale blocks;
+    bf16 pages under an f32 q), plus a GQA case (12 heads over 4 kv
+    heads) and head_dim 128.  Tolerances: f32 atol 1e-5 (the JAX bar,
+    tests/test_ops/test_paged_decode_attention.py:132); a bf16 output
+    adds half an ulp, 2^-8 |ref|, as B4's.  Then the times at the serving
+    shape.  Returns the kernels-line entries (without `launches`)."""
+    from easydist_tpu_torch.ops import flash_attention as fa
+
+    b, h, pt, d, mp, n_pages = PAGED_SHAPE
+    rs = np.random.RandomState(2)
+    worst = {name: {} for name in PAGED_KERNELS}
+    for case, heads, kvh, dd in (("serve", h, h, d), ("gqa 12/4", h, 4, d),
+                                 ("d128", h, h, 128)):
+        q32, k32, v32, table, L = paged_inputs(dev, rs, heads, kvh, dd)
+        scale = 1.0 / np.sqrt(dd)
+        quant = {nb: fa.kv_quantize(k32, nb) + fa.kv_quantize(v32, nb)
+                 for nb in (1, 4)}
+        for q_dt, kv_dt in ((torch.float32, torch.float32),
+                            (torch.bfloat16, torch.bfloat16),
+                            (torch.float32, torch.bfloat16)):
+            if case != "serve" and q_dt != kv_dt:
+                continue
+            q, k, v = q32.to(q_dt), k32.to(kv_dt), v32.to(kv_dt)
+            rounded = q_dt == torch.bfloat16
+            out = fa.flash_paged_decode_attention(q, k, v, table, L)
+            torch.cuda.synchronize()
+            ref = fa._paged_decode_attention_xla(q.float(), k.float(),
+                                                 v.float(), table, L, scale)
+            tag = (f"paged_decode {case:8s} q {str(q_dt)[6:]:8s} pages "
+                   f"{str(kv_dt)[6:]}")
+            err = check_close(tag, out, ref, 0.0, 1e-5, rounded)
+            key = "bf16" if rounded else "f32"
+            worst["paged_decode"][key] = max(
+                worst["paged_decode"].get(key, 0.0), err)
+            if kv_dt != q_dt:
+                continue
+            for nb, (kq, ks, vq, vs) in quant.items():
+                out = fa.flash_paged_decode_quant_attention(q, kq, vq, ks,
+                                                            vs, table, L)
+                torch.cuda.synchronize()
+                ref = fa._paged_decode_attention_quant_xla(
+                    q.float(), kq, vq, ks, vs, table, L, scale)
+                err = check_close(f"paged_decode_quant {case:8s} q "
+                                  f"{str(q_dt)[6:]:8s} n_blocks {nb}",
+                                  out, ref, 0.0, 1e-5, rounded)
+                worst["paged_decode_quant"][key] = max(
+                    worst["paged_decode_quant"].get(key, 0.0), err)
+    return paged_kernel_times(dev, worst)
+
+
+def paged_kernel_times(dev, worst):
+    """Times at the serving shape, bf16 q, every row at length 1024 (all
+    16 windows of every table row live): B5 over bf16 pages, B6 over int8
+    pages with one scale per row.  Kernel (CUDA events over rotated arena
+    copies, and the profiler's device time per launch), plain version,
+    bound, and a yardstick: no single PyTorch call computes paged
+    attention, so SDPA runs on the cache already gathered (and, for B6,
+    dequantized) into contiguous [8, 12, 1024, 64] — the gather excluded."""
+    import torch.nn.functional as F
+
+    from easydist_tpu_torch.ops import flash_attention as fa
+
+    b, h, pt, d, mp, n_pages = PAGED_SHAPE
+    scale = 1.0 / np.sqrt(d)
+    lens = [mp * pt] * b
+    rs = np.random.RandomState(3)
+    copies = []
+    for _ in range(TIMED_COPIES):
+        q, k, v, table, L = paged_inputs(dev, rs, h, h, d, lengths=lens,
+                                         dead=())
+        kq, ks = fa.kv_quantize(k, 1)
+        vq, vs = fa.kv_quantize(v, 1)
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        gathered = [fa.gather_pages(x, table).contiguous() for x in (k, v)]
+        dequant = [fa.kv_dequantize(fa.gather_pages(x, table),
+                                    fa.gather_pages(sc, table),
+                                    torch.bfloat16).contiguous()
+                   for x, sc in ((kq, ks), (vq, vs))]
+        copies.append((q, k, v, table, L, kq, ks, vq, vs, gathered,
+                       dequant))
+    calls = {
+        "paged_decode": (
+            lambda c: fa.flash_paged_decode_attention(*c[:5]),
+            lambda c: fa._paged_decode_attention_xla(*c[:5], scale),
+            lambda c: F.scaled_dot_product_attention(c[0][:, :, None],
+                                                     *c[9]),
+            "SDPA on the gathered contiguous cache, gather excluded", 2),
+        "paged_decode_quant": (
+            lambda c: fa.flash_paged_decode_quant_attention(
+                c[0], c[5], c[7], c[6], c[8], c[3], c[4]),
+            lambda c: fa._paged_decode_attention_quant_xla(
+                c[0], c[5], c[7], c[6], c[8], c[3], c[4], scale),
+            lambda c: F.scaled_dot_product_attention(c[0][:, :, None],
+                                                     *c[10]),
+            "SDPA on the gathered, dequantized bf16 cache, gather and "
+            "dequantization excluded", 1 + 4 / d),
+    }
+    counters = decode_counters()
+    before = {name: c.launches for name, c in counters.items()}
+    entries = []
+    for name, (kernel, plain, library, library_call, kv_size) in \
+            calls.items():
+        symbol, replaces = PAGED_KERNELS[name]
+
+        def at(fn):
+            return lambda i: fn(copies[i % TIMED_COPIES])
+
+        kernel_ms = time_ms(at(kernel))
+        plain_ms = time_ms(at(plain), n=10)
+        library_ms = time_ms(at(library))
+        kernel_ms_2 = time_ms(at(kernel))
+        prof_ms, seen = profiled_ms(at(kernel), symbol)
+        bound_ms, bound_by = paged_bound_ms(lens, PAGED_SHAPE, h, h, d,
+                                            kv_size, 2)
+        pages = "bf16" if name == "paged_decode" else "int8, 1 scale a row"
+        print(f"time {name} q bf16, pages {pages}, {list(PAGED_SHAPE)} "
+              f"lengths {mp * pt}: kernel {kernel_ms:.4f} ms (again "
+              f"{kernel_ms_2:.4f}; {profiled_text(prof_ms, seen)}), plain "
+              f"{plain_ms:.4f} ms, library ({library_call}) "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        entries.append({
+            "name": name, "route": "cuda", "source": PAGED_SOURCE,
+            "replaces": replaces,
+            "shape": f"q [{b},{h},{d}] bfloat16, {pages} pages "
+                     f"[{n_pages},{h},{pt},{d}], table [{b},{mp}], lengths "
+                     f"{mp * pt}",
+            "max_abs_err": worst[name]["bf16"],
+            "max_abs_err_f32": worst[name]["f32"],
+            "ms": kernel_ms, "kernel_ms": kernel_ms, "profiled_ms": prof_ms,
+            "profiled_launches": seen, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_call": library_call})
+    for name, c in counters.items():
+        c.launches = before[name]  # timing runs don't count
+    return entries
 
 
 # ------------------------------------------------- training kernels B1-B3
@@ -647,47 +863,79 @@ def uncached_greedy(params, cfg, prompt, n_new: int):
     return out
 
 
+# the serving kernels' wrappers, by kernel-line name: B4, B5, B6
+DECODE_KERNELS = {"flash_decode": "flash_decode_attention",
+                  "paged_decode": "flash_paged_decode_attention",
+                  "paged_decode_quant": "flash_paged_decode_quant_attention"}
+
+
+def decode_counters():
+    from easydist_tpu_torch.ops import flash_attention as fa
+
+    return {name: getattr(fa, fn) for name, fn in DECODE_KERNELS.items()}
+
+
 def serve(params, cfg, prompts, n_new: int, serve_cfg, dev):
-    """Drive the session over `prompts`; returns (ids, stats, launches,
-    decode_rounds, seconds) for this run alone."""
-    from easydist_tpu_torch.ops.flash_attention import flash_decode_attention
+    """Drive a session over `prompts`, every decode kernel's launch count
+    set to 0 just before and read just after; returns (ids, session,
+    launches by kernel, decode_rounds, seconds) for this run alone."""
     from easydist_tpu_torch.serve import GenerationSession
 
     sess = GenerationSession.for_gpt(params, cfg, config=serve_cfg,
                                      device=dev)
-    rounds0 = sess.metrics.counter("decode_steps")
-    flash_decode_attention.launches = 0
+    counters = decode_counters()
+    for c in counters.values():
+        c.launches = 0
     t0 = time.perf_counter()
     futs = [sess.submit(p, max_new_tokens=n_new) for p in prompts]
     sess.run_until_drained()
     if dev.type == "cuda":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = flash_decode_attention.launches
-    rounds = sess.metrics.counter("decode_steps") - rounds0
+    launches = {name: c.launches for name, c in counters.items()}
+    rounds = sess.metrics.counter("decode_steps")
     ids = [f.result(timeout=0)["ids"] for f in futs]
-    return ids, sess.stats(), launches, rounds, secs
+    return ids, sess, launches, rounds, secs
+
+
+def check_launches(tag: str, launches, kernel: str, layers: int,
+                   rounds: int, dev):
+    """`kernel` launched layers x rounds times in the run (0 off the
+    card) and every other decode kernel not at all."""
+    on_card = dev.type == "cuda"
+    want = {name: (layers * rounds if name == kernel and on_card else 0)
+            for name in DECODE_KERNELS}
+    if launches != want or (on_card and launches[kernel] <= 0):
+        raise AssertionError(f"{tag}: decode kernel launches {launches}, "
+                             f"expected {want}")
+
+
+SERVE_KW = dict(decode_buckets=(1024,), max_decode_slots=8,
+                prefill_chunk=64, prefill_batch=4)
 
 
 def serve_phase(dev, cfg_kw=None, n_new: int = 32, serve_kw=None,
                 prompts=None, seed: int = 0):
-    """Phase 4; returns the decode kernel's launches in the f32 run.
-    The arguments shrink it for a rehearsal on the CPU."""
+    """Phase 4; returns what the paged phases reuse: B4's launches in
+    the f32 run, the weights, prompts, the uncached reference ids and the
+    f32 session's ids.  The arguments shrink it for a rehearsal on the
+    CPU."""
     from easydist_tpu_torch.models.gpt import GPTConfig, gpt_apply, gpt_init
     from easydist_tpu_torch.serve import ServeConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = GPTConfig.small(**(cfg_kw or {}))
-    serve_cfg = ServeConfig(**(serve_kw or dict(
-        decode_buckets=(1024,), max_decode_slots=8, prefill_chunk=64,
-        prefill_batch=4)))
+    cfg_kw = cfg_kw or {}
+    cfg = GPTConfig.small(**cfg_kw)
+    serve_kw = serve_kw or SERVE_KW
+    serve_cfg = ServeConfig(**serve_kw)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = gpt_init(cfg, gen, device=dev)
     prompts = prompts or make_prompts(cfg.vocab, seed)
 
-    ids, stats, launches, rounds, secs = serve(params, cfg, prompts, n_new,
-                                               serve_cfg, dev)
+    ids, sess, launches, rounds, secs = serve(params, cfg, prompts, n_new,
+                                              serve_cfg, dev)
+    stats = sess.stats()
     n_tok = sum(len(x) for x in ids)
     print(f"serve f32: {len(prompts)} requests, {n_tok} tokens, {rounds} "
           f"decode rounds, {secs:.2f} s incl. tracing; decode kernel "
@@ -703,44 +951,201 @@ def serve_phase(dev, cfg_kw=None, n_new: int = 32, serve_kw=None,
                              f"first at token {first}")
     if stats["decode_signatures"]["size"] != 1:
         raise AssertionError(f"decode signatures {stats['decode_signatures']}")
-    hits = sum(b["prefix_cache"]["hits"] for b in stats["buckets"].values()
-               if b["prefix_cache"])
+    hits = prefix_hits(stats)
     if hits <= 0:
         raise AssertionError("the prefix cache never hit")
-    expect = cfg.layers * rounds if dev.type == "cuda" else 0
-    if launches != expect or (dev.type == "cuda" and launches <= 0):
-        raise AssertionError(f"decode kernel launched {launches} times, "
-                             f"expected {cfg.layers} x {rounds} rounds")
+    check_launches("serve f32", launches, "flash_decode", cfg.layers,
+                   rounds, dev)
     print(f"serve f32: ids equal the uncached re-forward for all "
           f"{len(prompts)} requests; 1 decode signature; prefix cache hits "
-          f"{hits}; launches {launches} = {cfg.layers} x {rounds} rounds")
+          f"{hits}; launches {launches['flash_decode']} = {cfg.layers} x "
+          f"{rounds} rounds")
+    serve_bf16("serve", params, cfg_kw, prompts, n_new, serve_cfg, ids,
+               "flash_decode", dev)
+    return {"launches": launches["flash_decode"], "params": params,
+            "cfg_kw": cfg_kw, "serve_kw": serve_kw,
+            "prompts": prompts, "n_new": n_new, "ref": ref, "ids": ids}
 
-    # bf16: same weights and traffic; one warm-up request traces first
-    cfg16 = GPTConfig.small(**{**(cfg_kw or {}), "dtype": "bfloat16"})
+
+def prefix_hits(stats) -> int:
+    return sum(b["prefix_cache"]["hits"] for b in stats["buckets"].values()
+               if b["prefix_cache"])
+
+
+def serve_bf16(tag: str, params, cfg_kw, prompts, n_new: int, serve_cfg,
+               ids32, kernel: str, dev):
+    """The same weights and traffic with bf16 compute: one warm-up
+    request traces first; the kernel's launches, finite logits, tokens/s
+    and the id agreement with f32; then a profiled decode window."""
+    from easydist_tpu_torch.models.gpt import GPTConfig, gpt_apply
+
+    cfg16 = GPTConfig.small(**{**cfg_kw, "dtype": "bfloat16"})
     serve(params, cfg16, prompts[1:2], 2, serve_cfg, dev)
     ids16, _, launches16, rounds16, secs16 = serve(params, cfg16, prompts,
                                                    n_new, serve_cfg, dev)
-    if launches16 != (cfg.layers * rounds16 if dev.type == "cuda" else 0):
-        raise AssertionError(f"bf16 decode kernel launches {launches16} "
-                             f"!= {cfg.layers} x {rounds16}")
+    check_launches(f"{tag} bf16", launches16, kernel, cfg16.layers,
+                   rounds16, dev)
     with torch.no_grad():
         for p, out in zip(prompts, ids16):
             seq = torch.tensor([p + out[:-1]], device=dev)
             if not torch.isfinite(gpt_apply(params, cfg16, seq)).all():
                 raise AssertionError("bf16 logits are not finite")
     n16 = sum(len(x) for x in ids16)
-    same = sum(a == b for x, y in zip(ids, ids16) for a, b in zip(x, y))
-    print(f"serve bf16: {n16} tokens in {secs16:.3f} s = "
+    same = sum(a == b for x, y in zip(ids32, ids16) for a, b in zip(x, y))
+    print(f"{tag} bf16: {n16} tokens in {secs16:.3f} s = "
           f"{n16 / secs16:.1f} tokens/s ({rounds16} decode rounds, "
           f"traced beforehand); logits finite; ids equal to f32 at "
           f"{same} of {n16} positions")
     if dev.type == "cuda":
-        profile_decode(params, cfg16, serve_cfg, dev, prompts, n_new)
-    return launches
+        profile_decode(params, cfg16, serve_cfg, dev, prompts, n_new, tag)
+
+
+def paged_serve_phase(dev, ctx):
+    """Phase 6: phase 4's weights and traffic with kv_layout="paged" in
+    f32 — every request's ids equal the uncached re-forward and the
+    bucketed session's, one decode and one prefill-chunk signature, the
+    prefix cache hits through zero-copy restores, B5 launches 12 x decode
+    rounds (B4 none), and the page-table audit is clean after the drain;
+    then bf16 paged for tokens/s and a profiled decode window.  Returns
+    (B5's launches, the f32 ids)."""
+    from easydist_tpu_torch.kv import audit_page_table
+    from easydist_tpu_torch.models.gpt import GPTConfig
+    from easydist_tpu_torch.serve import ServeConfig
+
+    cfg = GPTConfig.small(**ctx["cfg_kw"])
+    serve_cfg = ServeConfig(**{**ctx["serve_kw"], "kv_layout": "paged"})
+    prompts, n_new = ctx["prompts"], ctx["n_new"]
+    ids, sess, launches, rounds, secs = serve(ctx["params"], cfg, prompts,
+                                              n_new, serve_cfg, dev)
+    stats = sess.stats()
+    pool = next(iter(sess._pools.values()))
+    print(f"paged f32: {len(prompts)} requests, {sum(map(len, ids))} "
+          f"tokens, {rounds} decode rounds, {secs:.2f} s incl. tracing; "
+          f"launches {launches}; pool {stats['buckets'][pool.bucket]['kv_pool']}")
+    bad = [i for i, (a, r, bk) in enumerate(zip(ids, ctx["ref"], ctx["ids"]))
+           if a != r or a != bk]
+    if bad:
+        raise AssertionError(f"paged f32 ids differ from the uncached "
+                             f"re-forward or the bucketed ids in requests "
+                             f"{bad}")
+    sigs = (stats["decode_signatures"]["size"],
+            stats["prefill_signatures"]["size"])
+    if sigs != (1, 1):
+        raise AssertionError(f"paged decode/prefill signatures {sigs}")
+    hits = prefix_hits(stats)
+    saved = sess.metrics.counter("copy_on_restore_bytes_saved")
+    if hits <= 0 or saved <= 0:
+        raise AssertionError(f"prefix hits {hits}, zero-copy restore bytes "
+                             f"{saved}")
+    check_launches("paged f32", launches, "paged_decode", cfg.layers, rounds,
+                   dev)
+    problems = audit_page_table(pool.pool, pool.table, trie=pool.trie)
+    if problems or pool.table.n_mapped(0) or pool.jobs or pool.slots:
+        raise AssertionError(f"page table after drain: {problems}")
+    print(f"paged f32: ids equal the uncached re-forward and the bucketed "
+          f"ids for all {len(prompts)} requests; 1 decode and 1 prefill "
+          f"signature; prefix hits {hits}, {saved} bytes mapped instead of "
+          f"copied; launches {launches['paged_decode']} = {cfg.layers} x "
+          f"{rounds} rounds, B4 0; page-table audit clean; gauges "
+          f"{ {k: v for k, v in stats['metrics']['gauges'].items() if k.startswith('kv_')} }")
+    serve_bf16("paged", ctx["params"], ctx["cfg_kw"], prompts, n_new,
+               serve_cfg, ids, "paged_decode", dev)
+    return launches["paged_decode"], ids
+
+
+def int8_serve_phase(dev, ctx, exact_ids):
+    """Phase 7: the same traffic with kv_quant_dtype="int8" in f32 — an
+    int8 arena with f32 scales, B6 launches 12 x rounds (B4 and B5
+    none), a rerun gives identical ids, `kv_quant_bytes_saved` > 0, and
+    the teacher-forced logit drift against the exact paged arm stays
+    within 0.25 x the logit spread (tests/test_serve/test_kv_quant.py's
+    bar).  The id agreement with the exact f32 ids is printed, not gated:
+    random GPT-2 weights have near-tied logits.  Returns B6's launches."""
+    from easydist_tpu_torch.models.gpt import GPTConfig
+    from easydist_tpu_torch.serve import ServeConfig
+
+    cfg = GPTConfig.small(**ctx["cfg_kw"])
+    serve_cfg = ServeConfig(**{**ctx["serve_kw"], "kv_layout": "paged",
+                               "kv_quant_dtype": "int8"})
+    prompts, n_new = ctx["prompts"], ctx["n_new"]
+    ids, sess, launches, rounds, secs = serve(ctx["params"], cfg, prompts,
+                                              n_new, serve_cfg, dev)
+    pool = next(iter(sess._pools.values()))
+    dtypes = {k: t.dtype for k, t in pool.arena.items()}
+    print(f"int8 f32: {sum(map(len, ids))} tokens, {rounds} decode rounds, "
+          f"{secs:.2f} s incl. tracing; launches {launches}; arena "
+          f"{dtypes}; page bytes {pool.page_bytes} (model precision "
+          f"{pool.model_page_bytes})")
+    if dtypes != {"k": torch.int8, "v": torch.int8,
+                  "k_scale": torch.float32, "v_scale": torch.float32}:
+        raise AssertionError(f"int8 arena dtypes {dtypes}")
+    check_launches("int8 f32", launches, "paged_decode_quant", cfg.layers,
+                   rounds, dev)
+    saved = sess.metrics.snapshot()["gauges"].get("kv_quant_bytes_saved", 0)
+    if saved <= 0:
+        raise AssertionError(f"kv_quant_bytes_saved {saved}")
+    again, *_ = serve(ctx["params"], cfg, prompts, n_new, serve_cfg, dev)
+    if again != ids:
+        raise AssertionError("an int8 rerun gave other ids")
+    drift, spread = int8_drift(ctx["params"], cfg, prompts[3], n_new, dev,
+                               pt=serve_cfg.prefill_chunk)
+    print(f"int8 f32: rerun ids identical; kv_quant_bytes_saved {saved}; "
+          f"teacher-forced drift {drift:.4e} against logit spread "
+          f"{spread:.4e} (bar 0.25 x spread = {0.25 * spread:.4e})")
+    if not drift <= 0.25 * spread:
+        raise AssertionError(f"int8 drift {drift} > 0.25 x {spread}")
+    n = sum(map(len, ids))
+    same = sum(a == b for x, y in zip(exact_ids, ids) for a, b in zip(x, y))
+    print(f"int8 f32: ids equal the exact f32 ids at {same} of {n} "
+          f"positions ({same / n:.3f}); launches "
+          f"{launches['paged_decode_quant']} = {cfg.layers} x {rounds} "
+          f"rounds, B4 and B5 0")
+    return launches["paged_decode_quant"]
+
+
+def int8_drift(params, cfg, prompt, n_new: int, dev, pt: int):
+    """Teacher-forced paged run, exact arena against int8 arena, at the
+    model level: prefill `prompt` in page-sized chunks, then decode
+    n_new - 1 steps feeding the exact arm's greedy tokens to both.
+    Returns (max |logit difference| over all steps, max logit spread of
+    the exact arm)."""
+    from easydist_tpu_torch.models import gpt
+
+    n_pages = -(-(len(prompt) + n_new) // pt)
+    table = torch.arange(n_pages, dtype=torch.int32, device=dev)[None]
+    logits = {}
+    forced = None
+    with torch.no_grad():
+        for quant in (None, "int8"):
+            pages = gpt.init_kv_pages(cfg, n_pages, pt, quant_dtype=quant,
+                                      device=dev)
+            toks = list(prompt) + [0] * pt
+            for c0 in range(0, len(prompt), pt):
+                pages, lg = gpt.gpt_prefill_chunk_paged(
+                    params, cfg, pages, table,
+                    torch.tensor([toks[c0:c0 + pt]], device=dev),
+                    torch.tensor([c0], device=dev),
+                    torch.tensor([len(prompt)], device=dev))
+            steps = [lg[0]]
+            cur = [int(torch.argmax(lg[0]))] if forced is None else forced
+            for i in range(n_new - 1):
+                pages, lg = gpt.gpt_decode_step_paged(
+                    params, cfg, pages, table,
+                    torch.tensor([cur[i]], device=dev),
+                    torch.tensor([len(prompt) + i], device=dev))
+                steps.append(lg[0])
+                if forced is None:
+                    cur.append(int(torch.argmax(lg[0])))
+            forced = cur
+            logits[quant] = torch.stack(steps)
+    exact = logits[None]
+    drift = (exact - logits["int8"]).abs().max().item()
+    spread = (exact.amax(dim=-1) - exact.amin(dim=-1)).max().item()
+    return drift, spread
 
 
 def profile_decode(params, cfg, serve_cfg, dev, prompts, n_new: int,
-                   rounds: int = 8):
+                   tag: str, rounds: int = 8):
     """Device time of decode-only rounds (all 8 slots live, prefills
     done) under torch.profiler: ms per round on the host clock, device
     busy ms per round (sum of kernel times), and the largest kernels."""
@@ -768,11 +1173,12 @@ def profile_decode(params, cfg, serve_cfg, dev, prompts, n_new: int,
                and e.key != "easydist_compile.state_copy"]
     busy = sum(ms for _, ms in kernels)
     top = sorted(kernels, key=lambda kv: -kv[1])[:6]
+    program = sess._paged_c("decode") if sess._paged else sess._decode_c
     n_ops = sum(n.op == "call_function"
-                for r in sess._decode_c._cache.values()
+                for r in program._cache.values()
                 for n in r.graph_module.graph.nodes)
-    print(f"profile bf16 decode rounds (8 live slots): {wall_ms:.3f} ms per "
-          f"round on the host clock, device busy {busy:.3f} ms "
+    print(f"profile {tag} bf16 decode rounds (8 live slots): {wall_ms:.3f} "
+          f"ms per round on the host clock, device busy {busy:.3f} ms "
           f"({100 * busy / wall_ms:.1f}%); the decode graph replays "
           f"{n_ops} aten calls per round")
     for name, ms in top:
@@ -788,12 +1194,19 @@ def main() -> int:
     print(card_line())
     build_kernels()
     entry = kernel_phase(dev)
+    paged_entries = paged_kernel_phase(dev)
     train_entries = train_kernel_phase(dev)
-    entry["launches"] = serve_phase(dev)
+    ctx = serve_phase(dev)
+    entry["launches"] = ctx["launches"]
+    paged_entries[0]["launches"], paged_ids = paged_serve_phase(dev, ctx)
+    paged_entries[1]["launches"] = int8_serve_phase(dev, ctx, paged_ids)
+    del ctx
+    torch.cuda.empty_cache()
     launches = train_phase(dev)
     for e in train_entries:
         e["launches"] = launches[e["name"]]
-    print(json.dumps({"kernels": [entry, *train_entries]}))
+    print(card_line())
+    print(json.dumps({"kernels": [entry, *paged_entries, *train_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

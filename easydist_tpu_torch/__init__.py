@@ -1,10 +1,11 @@
 """easydist_tpu_torch: the PyTorch/CUDA port of easydist_tpu.
 
 The port stands beside the JAX package and imports nothing of it (nor
-JAX).  It carries the serving path today: `serve.GenerationSession`
-over `models.gpt`, compiled by `fxfront.easydist_compile` (one device),
-with decode attention in a hand-written CUDA kernel
-(`ops/csrc/flash_decode.cu`).
+JAX).  It carries GPT-2 serving (`serve.GenerationSession` over
+`models.gpt`, bucketed or paged KV, exact or int8 pages) and GPT-2
+training (`models.gpt.make_gpt_train_step`), compiled by
+`fxfront.easydist_compile` (one device), with every attention kernel
+hand-written in CUDA C++ (`ops/csrc/`).
 
 Entry points run on the card unless the caller asks for another device:
 `resolve_device(None)` is `cuda`, and it raises when no card is present

@@ -12,11 +12,13 @@ def _env_int(name: str, default: int) -> int:
     return int(os.environ.get(name, default))
 
 
-# attention backend of the cache-carrying decode step: "auto" (the CUDA
+# attention backend of the cache-carrying decode steps: "auto" (the CUDA
 # kernel for CUDA tensors, the plain PyTorch version for CPU tensors),
-# "flash" (force the kernel; raises on a CPU tensor), "xla" (force the
-# plain version — named after the JAX package's masked dot_general path;
-# raises on a CUDA tensor, so the card always runs the kernel).
+# "flash" / "paged" (force the kernel; raises on a CPU tensor — "paged"
+# names the page-table kernels, and the contiguous path treats it as
+# "auto"), "xla" (force the plain version — named after the JAX package's
+# masked dot_general path; raises on a CUDA tensor, so the card always
+# runs the kernel).
 decode_attention_backend = os.environ.get("EASYDIST_DECODE_ATTENTION",
                                           "auto")
 # keys staged per tile by the decode kernel; `_pick_block` rounds it down

@@ -1,6 +1,6 @@
 """GPT-2-style decoder transformer in PyTorch: the port of
-easydist_tpu/models/gpt.py's forwards, serving steps and train step
-(`gpt_loss`, `make_gpt_train_step` with Adam).
+easydist_tpu/models/gpt.py's forwards, serving steps (bucketed and
+paged KV) and train step (`gpt_loss`, `make_gpt_train_step` with Adam).
 
 Functional, like the JAX model: parameters are the JAX package's nested
 dict/list with the same keys and layouts (`w` is [n_in, n_out]; no
@@ -8,13 +8,16 @@ transposed `nn.Linear`), so `params_from_numpy` carries the JAX
 package's weights across.  Params stay float32 and are cast to
 `cfg.dtype` at each use; logits are `x.float() @ wte.T`.
 
-Two differences from the JAX functions, both deliberate:
-  * the KV cache is written IN PLACE (`index_put_` into the cache the
-    caller passed, which is also returned) where the JAX package returns
-    a new cache and relies on buffer donation — callers that need the
-    old cache clone it first;
+Three differences from the JAX functions, all deliberate:
+  * the KV cache and the page arena are written IN PLACE (`index_put_`
+    into the tensors the caller passed, which are also returned) where
+    the JAX package returns new ones and relies on buffer donation —
+    callers that need the old cache clone it first;
   * row and chunk cache writes clamp their start so the write fits,
-    exactly as `jax.lax.dynamic_update_slice` does.
+    exactly as `jax.lax.dynamic_update_slice` does;
+  * the page arena holds one extra page, the drop page, which takes the
+    writes the JAX package discards with `mode="drop"` (see
+    `init_kv_pages`).
 """
 
 from __future__ import annotations
@@ -349,3 +352,220 @@ def gpt_decode_step(params, cfg: GPTConfig, cache, token, pos):
         x = _mlp(x, blk, dtype)
     x = _layernorm(x, params["ln_f"]["g"], params["ln_f"]["b"])
     return cache, x.float() @ params["wte"].T
+
+
+# ------------------------------------------------------- paged KV decode
+#
+# Page-table variants of the serving forwards: K/V lives in one
+# preallocated page arena ({"k", "v"}: [layers, n_pages + 1, heads,
+# page_tokens, head_dim]) and each sequence's int32 page-table row says
+# which arena page holds each `page_tokens`-token window.  The arena is
+# written in place, as the contiguous cache is.  Unmapped entries hold
+# the sentinel `n_pages`, which is the index of the arena's last page,
+# the drop page: writes through a sentinel land there (the JAX package
+# discards them with mode="drop"; torch's indexed writes have no such
+# mode, and clamping the sentinel onto a real page would race a live
+# row's write to the same place).  Every read takes the allocatable view
+# `layer[:n_pages]` and clips page ids into it, so the drop page is never
+# read and the gathered cache equals the JAX package's.
+
+
+def init_kv_pages(cfg: GPTConfig, n_pages: int, page_tokens: int,
+                  dtype=None, quant_dtype=None, quant_block: int = 0,
+                  device=None):
+    """Zeroed page arena {"k", "v"}: [layers, n_pages + 1, heads,
+    page_tokens, head_dim] on `device` (default: the card): `n_pages`
+    allocatable pages and the drop page.  Pages replace the batch axis
+    of `init_kv_cache` at the same dim index.
+
+    `quant_dtype="int8"` stores the payload block-scaled int8 and adds a
+    parallel scale arena {"k_scale", "v_scale"}: [layers, n_pages + 1,
+    heads, page_tokens, head_dim // block] f32 (`quant_block` 0 = one
+    block per row).  The scale keys are the quant signal every paged
+    forward branches on."""
+    if n_pages < 1:
+        raise ValueError(f"n_pages must be >= 1, got {n_pages}")
+    if page_tokens < 1:
+        raise ValueError(f"page_tokens must be >= 1, got {page_tokens}")
+    device = resolve_device(device)
+    hd = cfg.dim // cfg.heads
+    dt = torch_dtype(cfg.dtype if dtype in (None, "auto") else dtype)
+    shape = (cfg.layers, n_pages + 1, cfg.heads, page_tokens, hd)
+    if quant_dtype in (None, "none"):
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+    if quant_dtype != "int8":
+        raise ValueError(f"quant_dtype must be None/'none'/'int8', "
+                         f"got {quant_dtype!r}")
+    block = quant_block or hd
+    if hd % block:
+        raise ValueError(f"quant_block {block} must divide head_dim {hd}")
+    sshape = shape[:-1] + (hd // block,)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(sshape, dtype=torch.float32,
+                                   device=device),
+            "v_scale": torch.zeros(sshape, dtype=torch.float32,
+                                   device=device)}
+
+
+def _arena_pages(pages) -> int:
+    """Allocatable pages of an `init_kv_pages` arena (the last page is
+    the drop page)."""
+    return pages["k"].shape[1] - 1
+
+
+def _pages_write_row(pages_layer, new, write_page, offset):
+    """Write one new K or V row per sequence through the page table, in
+    place: pages_layer [n_pages + 1, h, pt, hd], new [b, h, hd],
+    write_page int [b] (the page holding each row's current window; the
+    sentinel, i.e. the drop page, for dead rows), offset int [b].  The two
+    advanced indices put the batch dim in front of the update."""
+    pages_layer[write_page.long(), :, offset.long()] = new.to(
+        pages_layer.dtype)
+    return pages_layer
+
+
+def _pages_write_chunk(pages_layer, new, write_page):
+    """Write one full page of K or V per sequence, in place: pages_layer
+    [n_pages + 1, h, pt, hd], new [b, h, pt, hd], write_page int [b].
+    Paged prefill is page-aligned (page_tokens == prefill chunk), so a
+    chunk fills exactly one page; dead rows write the drop page."""
+    pages_layer[write_page.long()] = new.to(pages_layer.dtype)
+    return pages_layer
+
+
+def _kv_operand(pages_layer, dtype):
+    """An arena layer as decode attention's K/V operand: in its storage
+    dtype where widening it to the compute dtype is exact (the same dtype,
+    or bfloat16 pages under float32 compute — attention reads K/V in f32
+    either way), else cast as the JAX model casts it."""
+    if pages_layer.dtype == dtype or (pages_layer.dtype == torch.bfloat16
+                                      and dtype == torch.float32):
+        return pages_layer
+    return pages_layer.to(dtype)
+
+
+def gpt_prefill_chunk_paged(params, cfg: GPTConfig, pages, table, tokens,
+                            start_pos, lengths):
+    """`gpt_prefill_chunk` with the cache indirected through a page table:
+    `pages` is the arena (written in place), `table` int [batch,
+    max_pages] maps each row's windows to arena pages (sentinel-padded),
+    and the chunk's K/V is written INTO the row's page for window
+    `start_pos // page_tokens` — no staging cache and no restore copy; a
+    restored prefix is table entries pointing at the trie's pages.
+    Attention gathers the virtual contiguous cache [batch, heads,
+    max_pages * page_tokens, head_dim] through the table (plain torch, as
+    the JAX package leaves it to XLA).  Returns (pages, logits [batch,
+    vocab]) at each row's last real position.  Requires tokens.shape[1]
+    == page_tokens."""
+    from easydist_tpu_torch.ops import (chunk_attention, gather_pages,
+                                        kv_dequantize, kv_quantize)
+
+    dtype = torch_dtype(cfg.dtype)
+    heads = cfg.heads
+    b, c_len = tokens.shape
+    pt = pages["k"].shape[3]
+    n_pages = _arena_pages(pages)
+    quant_nb = pages["k_scale"].shape[-1] if "k_scale" in pages else 0
+    if c_len != pt:
+        raise ValueError(f"paged prefill chunk {c_len} != page_tokens {pt} "
+                         f"(chunks must fill exactly one page)")
+    hd = cfg.dim // heads
+    start = start_pos.long()
+    tbl = table.long()
+    # the page receiving this chunk (the drop page for inactive rows)
+    wp = tbl.gather(1, (start // pt)[:, None])[:, 0]
+    abs_pos = start[:, None] + torch.arange(c_len, device=tokens.device)[None]
+    x = params["wte"][tokens.long()].to(dtype) \
+        + params["wpe"][abs_pos].to(dtype)
+    for li, blk in enumerate(params["blocks"]):
+        p_at = blk["attn"]
+        h_in = _layernorm(x, blk["ln1"]["g"], blk["ln1"]["b"]).to(dtype)
+        q, k, v = _qkv(h_in, p_at, dtype)
+        q = q.reshape(b, c_len, heads, hd).transpose(1, 2)
+        k = k.reshape(b, c_len, heads, hd).transpose(1, 2)
+        v = v.reshape(b, c_len, heads, hd).transpose(1, 2)
+        if quant_nb:
+            # quantize-on-commit: the page stores block-scaled int8, the
+            # scale page rides the same write/gather indices
+            k, sk = kv_quantize(k, quant_nb)
+            v, sv = kv_quantize(v, quant_nb)
+            psk = _pages_write_chunk(pages["k_scale"][li], sk, wp)
+            psv = _pages_write_chunk(pages["v_scale"][li], sv, wp)
+        pk = _pages_write_chunk(pages["k"][li], k, wp)
+        pv = _pages_write_chunk(pages["v"][li], v, wp)
+        # gather AFTER the write so the chunk attends its own fresh page
+        if quant_nb:
+            ck = kv_dequantize(gather_pages(pk[:n_pages], tbl),
+                               gather_pages(psk[:n_pages], tbl), dtype)
+            cv = kv_dequantize(gather_pages(pv[:n_pages], tbl),
+                               gather_pages(psv[:n_pages], tbl), dtype)
+        else:
+            ck = gather_pages(pk[:n_pages], tbl)
+            cv = gather_pages(pv[:n_pages], tbl)
+        att = chunk_attention(q, ck.to(dtype), cv.to(dtype), abs_pos)
+        att = att.transpose(1, 2).reshape(b, c_len, cfg.dim)
+        x = x + (att @ p_at["proj"]["w"].to(dtype)
+                 + p_at["proj"]["b"].to(dtype))
+        x = _mlp(x, blk, dtype)
+    x = _layernorm(x, params["ln_f"]["g"], params["ln_f"]["b"])
+    rel_last = (lengths.long() - 1 - start).clamp(0, c_len - 1)
+    last = x[torch.arange(b, device=x.device), rel_last]
+    return pages, last.float() @ params["wte"].T
+
+
+def gpt_decode_step_paged(params, cfg: GPTConfig, pages, table, token,
+                          pos):
+    """`gpt_decode_step` against the page arena: the new token's K/V row
+    lands (in place) in the page holding window `pos // page_tokens` at
+    offset `pos % page_tokens`, and attention runs through
+    `ops.paged_decode_attention` (B5 on exact pages, B6 on int8 pages,
+    the plain versions on the CPU).  The arena reaches the kernel in its
+    storage dtype, as a view: no arena-sized copy per layer.  The table's
+    fixed [batch, max_pages] shape keeps ONE traced signature across
+    every per-row length."""
+    from easydist_tpu_torch.ops import kv_quantize, paged_decode_attention
+
+    dtype = torch_dtype(cfg.dtype)
+    heads = cfg.heads
+    b = token.shape[0]
+    pt = pages["k"].shape[3]
+    n_pages = _arena_pages(pages)
+    quant_nb = pages["k_scale"].shape[-1] if "k_scale" in pages else 0
+    hd = cfg.dim // heads
+    pos = pos.to(torch.int32)
+    tbl = table.to(torch.int32)
+    wp = tbl.long().gather(1, (pos.long() // pt)[:, None])[:, 0]
+    off = pos.long() % pt
+    x = params["wte"][token.long()].to(dtype) \
+        + params["wpe"][pos.long()].to(dtype)
+    for li, blk in enumerate(params["blocks"]):
+        p_at = blk["attn"]
+        h_in = _layernorm(x, blk["ln1"]["g"], blk["ln1"]["b"]).to(dtype)
+        q, k, v = _qkv(h_in, p_at, dtype)
+        q = q.reshape(b, heads, hd)
+        k = k.reshape(b, heads, hd)
+        v = v.reshape(b, heads, hd)
+        if quant_nb:
+            k, sk = kv_quantize(k, quant_nb)
+            v, sv = kv_quantize(v, quant_nb)
+            psk = _pages_write_row(pages["k_scale"][li], sk, wp, off)
+            psv = _pages_write_row(pages["v_scale"][li], sv, wp, off)
+        pk = _pages_write_row(pages["k"][li], k, wp, off)
+        pv = _pages_write_row(pages["v"][li], v, wp, off)
+        if quant_nb:
+            # int8 pages stream to the kernel as stored; it dequantizes
+            # inside its loop (the plain version after the gather)
+            att = paged_decode_attention(
+                q, pk[:n_pages], pv[:n_pages], tbl, pos + 1,
+                k_scale=psk[:n_pages], v_scale=psv[:n_pages])
+        else:
+            att = paged_decode_attention(
+                q, _kv_operand(pk[:n_pages], dtype),
+                _kv_operand(pv[:n_pages], dtype), tbl, pos + 1)
+        x = x + (att.reshape(b, cfg.dim) @ p_at["proj"]["w"].to(dtype)
+                 + p_at["proj"]["b"].to(dtype))
+        x = _mlp(x, blk, dtype)
+    x = _layernorm(x, params["ln_f"]["g"], params["ln_f"]["b"])
+    return pages, x.float() @ params["wte"].T

@@ -3,8 +3,13 @@
 from .flash_attention import (chunk_attention, decode_attention,
                               flash_attention_lse, flash_bwd_dkv,
                               flash_bwd_dq, flash_decode_attention,
-                              flash_fwd)
+                              flash_fwd, flash_paged_decode_attention,
+                              flash_paged_decode_quant_attention,
+                              gather_pages, kv_dequantize, kv_quantize,
+                              paged_decode_attention)
 
 __all__ = ["chunk_attention", "decode_attention", "flash_attention_lse",
            "flash_bwd_dkv", "flash_bwd_dq", "flash_decode_attention",
-           "flash_fwd"]
+           "flash_fwd", "flash_paged_decode_attention",
+           "flash_paged_decode_quant_attention", "gather_pages",
+           "kv_dequantize", "kv_quantize", "paged_decode_attention"]

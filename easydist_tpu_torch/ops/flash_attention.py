@@ -11,19 +11,25 @@ Port of easydist_tpu/ops/flash_attention.py, serving and training:
     `::flash_bwd_dq` and `::flash_bwd_dkv`, the forward differentiable
     in both outputs through `register_autograd`;
   * serving: the decode kernel `_flash_decode_kernel` becomes
-    `csrc/flash_decode.cu`, the custom op `easydist_tpu_torch::flash_decode`.
+    `csrc/flash_decode.cu`, the custom op `easydist_tpu_torch::flash_decode`;
+    the paged decode kernels `_flash_paged_decode_kernel` (exact pages)
+    and `_flash_paged_decode_quant_kernel` (block-scaled int8 pages)
+    become `csrc/paged_decode.cu`, the custom ops
+    `easydist_tpu_torch::paged_decode` and `::paged_decode_quant`.
 
 Every kernel is bound through `ctypes` (see each source's header for its
 design and bound), and `make_fx` keeps each custom op as one node.  The
-training ops run their plain version on CPU tensors and their kernel on
-CUDA tensors; the decode wrapper takes CUDA tensors only, and its
-dispatcher picks the plain version for the CPU.
+custom ops run their plain version on CPU tensors and their kernel on
+CUDA tensors (the decode op takes CUDA tensors only); the public
+`flash_*decode*` functions raise on a CPU tensor, and the dispatchers
+pick the plain version for the CPU.
 
-`_flash_forward_xla`, `_flash_backward_xla`, `_decode_attention_xla` and
-`_chunk_attention_xla` keep the JAX package's names: they are the plain
-versions of the same functions (the masked einsum the JAX package leaves
-to XLA).  The chunked-prefill path stays plain PyTorch, as it stays XLA
-in the JAX package.
+`_flash_forward_xla`, `_flash_backward_xla`, `_decode_attention_xla`,
+`_paged_decode_attention[_quant]_xla` and `_chunk_attention_xla` keep the
+JAX package's names: they are the plain versions of the same functions
+(the masked einsum the JAX package leaves to XLA).  The chunked-prefill
+path, `gather_pages` and `kv_quantize`/`kv_dequantize` stay plain
+PyTorch, as they stay XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -56,6 +62,13 @@ def _check_launch(lib, prefix: str, err: int):
     if err:
         msg = getattr(lib, f"{prefix}_error_string")(err).decode()
         raise RuntimeError(f"{prefix} launch failed: {msg} (cudaError {err})")
+
+
+def _require_cuda(fn: str, q) -> None:
+    if q.device.type != "cuda":
+        raise RuntimeError(
+            f"{fn} needs CUDA tensors, got {q.device}; the CPU runs the "
+            f"plain version (backend 'auto' or 'xla')")
 
 
 # ------------------------------------- training attention (B1, B2, B3)
@@ -449,10 +462,7 @@ def flash_decode_attention(q, k, v, lengths, scale: Optional[float] = None,
         scale = 1.0 / math.sqrt(q.shape[-1])
     if block_k is None:
         block_k = edconfig.decode_block_k
-    if q.device.type != "cuda":
-        raise RuntimeError(
-            f"flash_decode_attention needs CUDA tensors, got {q.device}; "
-            f"the CPU runs the plain version (backend 'auto' or 'xla')")
+    _require_cuda("flash_decode_attention", q)
     return _flash_decode_op(q, k, v, lengths, float(scale), int(block_k))
 
 
@@ -486,6 +496,10 @@ def decode_attention(q, k, v, lengths, scale: Optional[float] = None,
         lengths = lengths.expand(q.shape[0])
     if backend is None:
         backend = edconfig.decode_attention_backend
+    if backend == "paged":
+        # "paged" selects the page-table kernel in paged_decode_attention;
+        # contiguous callers degrade to auto (there is no table to chase)
+        backend = "auto"
     if backend == "auto":
         backend = "flash" if q.device.type == "cuda" else "xla"
     if backend == "flash":
@@ -498,7 +512,323 @@ def decode_attention(q, k, v, lengths, scale: Optional[float] = None,
                 "'auto' or 'flash')")
         return _decode_attention_xla(q, k, v, lengths, scale)
     raise ValueError(f"unknown decode attention backend {backend!r}; "
-                     f"expected auto|flash|xla")
+                     f"expected auto|flash|xla|paged")
+
+
+# ------------------------------------------------- paged decode (B5, B6)
+
+
+def gather_pages(pages, table, n_heads: Optional[int] = None):
+    """The contiguous "virtual cache" a page table describes.
+
+    pages: [n_pages, kv_heads, page_tokens, d] (one layer of the arena,
+    or of its scale arena with d = n_blocks); table: int [batch,
+    max_pages] arena page per window (sentinel `n_pages` for unmapped).
+    Returns [batch, heads, max_pages * page_tokens, d]: sentinel entries
+    clip to the last page, whose rows sit at masked positions (>= the
+    row's length), so their softmax weight is exactly zero.  `n_heads`
+    repeats kv_heads GQA-style AFTER the gather, as the JAX package
+    does."""
+    n_pages, kvh, pt, d = pages.shape
+    b, mp = table.shape
+    if n_heads is not None:
+        _check_gqa(n_heads, kvh)
+    idx = table.long().clamp(0, n_pages - 1)
+    v = pages[idx]                                  # [b, mp, kvh, pt, d]
+    v = v.transpose(1, 2).reshape(b, kvh, mp * pt, d)
+    if n_heads is not None and n_heads != kvh:
+        v = v.repeat_interleave(n_heads // kvh, dim=1)
+    return v
+
+
+def _check_gqa(heads: int, kv_heads: int) -> None:
+    if heads % kv_heads:
+        raise ValueError(f"heads {heads} not a multiple of kv_heads "
+                         f"{kv_heads}")
+
+
+def _paged_decode_attention_xla(q, k_pages, v_pages, table, lengths,
+                                scale: float):
+    """Plain version of B5: gather the virtual contiguous cache through
+    the table, then the masked einsum of `_decode_attention_xla` — the
+    CPU path, and the version the kernel is held against."""
+    h = q.shape[1]
+    kf = gather_pages(k_pages, table, n_heads=h)
+    vf = gather_pages(v_pages, table, n_heads=h)
+    return _decode_attention_xla(q, kf, vf, lengths, scale)
+
+
+# Block-scaled int8 KV pages: each K/V row is split into `n_blocks` equal
+# head-dim blocks, every block carries one f32 scale (amax / 127), and
+# the payload is stored int8.  torch.round rounds half to even like
+# jnp.rint, so quantization is deterministic and equals the JAX package's
+# bitwise on the same f32 inputs.  Scales live in a parallel scale arena
+# ({"k_scale", "v_scale"}: [..., page_tokens, n_blocks] f32) that rides
+# the same page-table indices as the payload.
+
+_KV_QMAX = 127.0
+
+
+def kv_quantize(x, n_blocks: int):
+    """Block-scaled int8 over the LAST dim of `x` [..., d] with d split
+    into `n_blocks` equal blocks.  Returns (q int8 [..., d], scales f32
+    [..., n_blocks]); all-zero blocks get scale 1.0."""
+    d = x.shape[-1]
+    if d % n_blocks:
+        raise ValueError(f"head_dim {d} not a multiple of n_blocks "
+                         f"{n_blocks}")
+    xb = x.float().reshape(*x.shape[:-1], n_blocks, d // n_blocks)
+    amax = xb.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0.0, amax / _KV_QMAX, 1.0)
+    q = torch.clamp(torch.round(xb / scale), -_KV_QMAX, _KV_QMAX)
+    return q.to(torch.int8).reshape(x.shape), scale[..., 0]
+
+
+def kv_dequantize(q, scales, dtype=torch.float32):
+    """Inverse of `kv_quantize`: q int8 [..., d], scales f32
+    [..., n_blocks] -> [..., d] in `dtype`."""
+    d = q.shape[-1]
+    nb = scales.shape[-1]
+    xb = q.float().reshape(*q.shape[:-1], nb, d // nb)
+    return (xb * scales[..., None]).reshape(q.shape).to(dtype)
+
+
+def _paged_decode_attention_quant_xla(q, k_pages, v_pages, k_scale,
+                                      v_scale, table, lengths,
+                                      scale: float):
+    """Plain version of B6: gather the int8 payload AND the scale pages
+    through the same table, dequantize to f32, then the masked einsum of
+    `_decode_attention_xla`."""
+    h = q.shape[1]
+    kf = kv_dequantize(gather_pages(k_pages, table, n_heads=h),
+                       gather_pages(k_scale, table, n_heads=h))
+    vf = kv_dequantize(gather_pages(v_pages, table, n_heads=h),
+                       gather_pages(v_scale, table, n_heads=h))
+    return _decode_attention_xla(q, kf, vf, lengths, scale)
+
+
+def _paged_lib():
+    from ._build import load
+
+    lib = load("paged_decode")
+    if lib.paged_decode.argtypes is None:  # first load: the C signatures
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.paged_decode.argtypes = [ptr] * 6 + [i32] * 7 + [
+            ctypes.c_float, i32, i32, ptr]
+        lib.paged_decode_quant.argtypes = [ptr] * 8 + [i32] * 8 + [
+            ctypes.c_float, i32, ptr]
+        lib.paged_decode.restype = ctypes.c_int
+        lib.paged_decode_quant.restype = ctypes.c_int
+        lib.paged_decode_error_string.argtypes = [ctypes.c_int]
+        lib.paged_decode_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# (q dtype, page dtype) pairs B5 takes: pages in q's dtype, or bfloat16
+# pages under a float32 q (the widening is exact)
+_PAGED_DTYPES = {(torch.float32, torch.float32), (torch.bfloat16,
+                                                  torch.bfloat16),
+                 (torch.float32, torch.bfloat16)}
+
+
+def _check_paged_inputs(op: str, q, k_pages, v_pages, table, lengths,
+                        *scales):
+    """Validate a paged kernel's CUDA inputs; returns (b, h, kvh,
+    n_pages, pt, mp, d) and the inputs made contiguous (the arena views
+    the models pass already are, so nothing is copied), with table and
+    lengths as int32."""
+    tensors = (q, k_pages, v_pages, table, lengths, *scales)
+    if not all(x.is_cuda for x in tensors):
+        raise RuntimeError(f"{op} runs its kernel on CUDA tensors and its "
+                           f"plain version on CPU tensors; got "
+                           f"{[str(x.device) for x in tensors]}")
+    b, h, d = q.shape
+    n_pages, kvh, pt, _ = k_pages.shape
+    mp = table.shape[1] if table.ndim == 2 else -1
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{op} takes head_dim in {_HEAD_DIMS}, got {d}")
+    if k_pages.shape != (n_pages, kvh, pt, d) or v_pages.shape != \
+            k_pages.shape:
+        raise ValueError(f"k/v pages must be [n_pages, kv_heads, "
+                         f"page_tokens, {d}] alike, got "
+                         f"{tuple(k_pages.shape)} and {tuple(v_pages.shape)}")
+    _check_gqa(h, kvh)
+    if table.shape != (b, mp) or lengths.shape != (b,):
+        raise ValueError(f"table must be [{b}, max_pages] and lengths "
+                         f"[{b}], got {tuple(table.shape)} and "
+                         f"{tuple(lengths.shape)}")
+    for s in scales:
+        if s.dtype != torch.float32 or s.shape[:3] != (n_pages, kvh, pt) \
+                or s.shape != scales[0].shape or d % s.shape[3]:
+            raise ValueError(f"scales must be float32 [{n_pages}, {kvh}, "
+                             f"{pt}, n_blocks] alike with n_blocks "
+                             f"dividing {d}, got {s.dtype} "
+                             f"{tuple(s.shape)}")
+    out = [x.contiguous() for x in (q, k_pages, v_pages)]
+    out += [table.to(torch.int32).contiguous(),
+            lengths.to(torch.int32).contiguous()]
+    out += [s.contiguous() for s in scales]
+    if out[1].data_ptr() % 16 or out[2].data_ptr() % 16:
+        raise ValueError(f"{op} needs 16-byte aligned k/v pages")
+    return (b, h, kvh, n_pages, pt, mp, d), out
+
+
+@torch.library.custom_op("easydist_tpu_torch::paged_decode", mutates_args=())
+def _paged_decode_op(q: torch.Tensor, k_pages: torch.Tensor,
+                     v_pages: torch.Tensor, table: torch.Tensor,
+                     lengths: torch.Tensor, scale: float) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return _paged_decode_attention_xla(q, k_pages, v_pages, table,
+                                           lengths, scale)
+    if (q.dtype, k_pages.dtype) not in _PAGED_DTYPES \
+            or v_pages.dtype != k_pages.dtype:
+        raise TypeError(f"paged_decode takes float32/bfloat16 q with pages "
+                        f"of its dtype (or bfloat16 pages under a float32 "
+                        f"q), got {q.dtype}, {k_pages.dtype}, "
+                        f"{v_pages.dtype}")
+    (b, h, kvh, n_pages, pt, mp, d), (q, kp, vp, tbl, lens) = \
+        _check_paged_inputs("paged_decode", q, k_pages, v_pages, table,
+                            lengths)
+    out = torch.empty_like(q)
+    lib = _paged_lib()
+    err = lib.paged_decode(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tbl.data_ptr(),
+        lens.data_ptr(), out.data_ptr(), b, h, kvh, n_pages, pt, mp, d,
+        float(scale), _DTYPE_CODES[q.dtype], _DTYPE_CODES[kp.dtype],
+        _stream(q))
+    _check_launch(lib, "paged_decode", err)
+    flash_paged_decode_attention.launches += 1
+    return out
+
+
+@_paged_decode_op.register_fake
+def _(q, k_pages, v_pages, table, lengths, scale):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("easydist_tpu_torch::paged_decode_quant",
+                         mutates_args=())
+def _paged_decode_quant_op(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, k_scale: torch.Tensor,
+                           v_scale: torch.Tensor, table: torch.Tensor,
+                           lengths: torch.Tensor,
+                           scale: float) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return _paged_decode_attention_quant_xla(
+            q, k_pages, v_pages, k_scale, v_scale, table, lengths, scale)
+    if q.dtype not in _DTYPE_CODES or k_pages.dtype != torch.int8 \
+            or v_pages.dtype != torch.int8:
+        raise TypeError(f"paged_decode_quant takes a float32/bfloat16 q "
+                        f"and int8 pages, got {q.dtype}, {k_pages.dtype}, "
+                        f"{v_pages.dtype}")
+    (b, h, kvh, n_pages, pt, mp, d), (q, kp, vp, tbl, lens, ks, vs) = \
+        _check_paged_inputs("paged_decode_quant", q, k_pages, v_pages,
+                            table, lengths, k_scale, v_scale)
+    out = torch.empty_like(q)
+    lib = _paged_lib()
+    err = lib.paged_decode_quant(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
+        vs.data_ptr(), tbl.data_ptr(), lens.data_ptr(), out.data_ptr(), b,
+        h, kvh, n_pages, pt, mp, d, ks.shape[3], float(scale),
+        _DTYPE_CODES[q.dtype], _stream(q))
+    _check_launch(lib, "paged_decode", err)
+    flash_paged_decode_quant_attention.launches += 1
+    return out
+
+
+@_paged_decode_quant_op.register_fake
+def _(q, k_pages, v_pages, k_scale, v_scale, table, lengths, scale):
+    return q.new_empty(q.shape)
+
+
+def flash_paged_decode_attention(q, k_pages, v_pages, table, lengths,
+                                 scale: Optional[float] = None):
+    """B5: single-query attention through a page table, in the CUDA
+    kernel (`csrc/paged_decode.cu`).
+
+    q: [batch, heads, head_dim]; k_pages/v_pages: [n_pages, kv_heads,
+    page_tokens, head_dim] arena layers; table: int32 [batch, max_pages];
+    lengths: int32 [batch].  Query head hi reads kv head
+    hi // (heads // kv_heads).  Returns [batch, heads, head_dim] in q's
+    dtype.  CUDA tensors only (the plain version is
+    `_paged_decode_attention_xla`).  `flash_paged_decode_attention.launches`
+    counts kernel launches; it grows where the kernel runs, never while a
+    graph is traced."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    _check_gqa(q.shape[1], k_pages.shape[1])
+    _require_cuda("flash_paged_decode_attention", q)
+    return _paged_decode_op(q, k_pages, v_pages, table, lengths,
+                            float(scale))
+
+
+def flash_paged_decode_quant_attention(q, k_pages, v_pages, k_scale,
+                                       v_scale, table, lengths,
+                                       scale: Optional[float] = None):
+    """B6: `flash_paged_decode_attention` over a block-scaled int8 arena.
+
+    k_pages/v_pages: int8 [n_pages, kv_heads, page_tokens, head_dim];
+    k_scale/v_scale: f32 [n_pages, kv_heads, page_tokens, n_blocks],
+    riding the same table.  The kernel dequantizes on chip inside its
+    loop.  Returns [batch, heads, head_dim] in q's dtype.  CUDA tensors
+    only (the plain version is `_paged_decode_attention_quant_xla`);
+    `flash_paged_decode_quant_attention.launches` counts launches."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    _check_gqa(q.shape[1], k_pages.shape[1])
+    _require_cuda("flash_paged_decode_quant_attention", q)
+    return _paged_decode_quant_op(q, k_pages, v_pages, k_scale, v_scale,
+                                  table, lengths, float(scale))
+
+
+flash_paged_decode_attention.launches = 0
+flash_paged_decode_quant_attention.launches = 0
+
+
+def paged_decode_attention(q, k_pages, v_pages, table, lengths,
+                           scale: Optional[float] = None,
+                           backend: Optional[str] = None,
+                           k_scale=None, v_scale=None):
+    """Backend-dispatching paged decode attention (the models' paged
+    decode steps call this).  "auto" launches the kernel for CUDA tensors
+    and runs the plain version for CPU tensors; `EASYDIST_DECODE_ATTENTION`
+    forces "paged"/"flash" (the kernel — raises on a CPU tensor) or "xla"
+    (the plain version — raises on a CUDA tensor).  With
+    `k_scale`/`v_scale` the pages are block-scaled int8: B6, or the plain
+    version that dequantizes after the gather."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=q.device)
+    if lengths.ndim == 0:
+        lengths = lengths.expand(q.shape[0])
+    if backend is None:
+        backend = edconfig.decode_attention_backend
+    if backend == "auto":
+        backend = "paged" if q.device.type == "cuda" else "xla"
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be given together")
+    quant = k_scale is not None
+    if backend in ("paged", "flash"):
+        if quant:
+            return flash_paged_decode_quant_attention(
+                q, k_pages, v_pages, k_scale, v_scale, table, lengths,
+                scale=scale)
+        return flash_paged_decode_attention(q, k_pages, v_pages, table,
+                                            lengths, scale=scale)
+    if backend == "xla":
+        if q.device.type == "cuda":
+            raise RuntimeError(
+                "paged decode attention backend 'xla' (the plain version) "
+                "runs on CPU tensors only; CUDA tensors launch the kernel "
+                "(backend 'auto', 'paged' or 'flash')")
+        if quant:
+            return _paged_decode_attention_quant_xla(
+                q, k_pages, v_pages, k_scale, v_scale, table, lengths,
+                scale)
+        return _paged_decode_attention_xla(q, k_pages, v_pages, table,
+                                           lengths, scale)
+    raise ValueError(f"unknown paged decode attention backend {backend!r}; "
+                     f"expected auto|paged|flash|xla")
 
 
 # ------------------------------------------------- chunked prefill

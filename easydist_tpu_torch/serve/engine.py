@@ -2,11 +2,13 @@
 config half of easydist_tpu/serve/engine.py).
 
 The dataclass keeps every field name of the JAX package's, so
-configurations carry over.  The port serves the bucketed KV layout
-without speculation so far: `kv_layout="paged"`, `speculate_k > 0` and
-a non-default value of any field only `ServeEngine` (the request-shaped
-endpoint, not ported yet), the paged layout or speculation reads raise
-`NotImplementedError`.
+configurations carry over.  The port serves the bucketed and the paged
+KV layouts (exact or block-scaled int8 pages) without speculation so
+far: `speculate_k > 0`, `kv_host_tier_bytes > 0` on the paged layout,
+and a non-default value of any field only `ServeEngine` (the
+request-shaped endpoint, not ported yet) or speculation reads raise
+`NotImplementedError`.  Everything else is validated as the JAX package
+validates it.
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ _UNPORTED = frozenset({
     "default_deadline_ms", "max_retries", "retry_backoff_ms", "retry_jitter",
     "unpad_outputs", "exec_timeout_ms", "breaker_failure_threshold",
     "breaker_cooldown_ms", "breaker_p99_threshold_ms", "breaker_min_samples",
-    "kv_page_tokens", "kv_arena_pages", "kv_quant_block",
     "speculate_drafter",
 })
 
@@ -58,13 +59,20 @@ class ServeConfig:
         position 0 (identical outputs either way).
     prefix_cache_bytes: LRU byte budget per decode bucket's trie; 0
         disables committing.
-    kv_layout: "bucketed" (one padded slot pool per decode bucket).  The
-        JAX package's "paged" layout is not ported yet.
-    kv_page_tokens, kv_arena_pages, kv_quant_block: paged-layout knobs
-        (a non-default value raises NotImplementedError).
-    kv_quant_dtype, kv_host_tier_bytes: paged-layout knobs; anything but
-        "none" / 0 raises ValueError, as in the JAX package on the
-        bucketed layout.
+    kv_layout: "bucketed" (one padded slot pool per decode bucket) or
+        "paged" (every bucket collapses into one page-granular pool over
+        a preallocated arena; one compiled decode step for every length,
+        zero-copy prefix restore).
+    kv_page_tokens: tokens per arena page (paged; 0 = the effective
+        prefill chunk, which it must equal: pages are the trie chunks).
+    kv_arena_pages: allocatable arena pages (paged; 0 = (max_decode_slots
+        + 1) * max_pages).
+    kv_quant_dtype: "none" or "int8" (paged only, exclusive with a
+        non-auto kv_cache_dtype): block-scaled int8 pages with f32 scales.
+    kv_quant_block: head-dim elements per int8 scale block (0 = one block
+        per row).
+    kv_host_tier_bytes: the host tier of the paged layout (not ported
+        yet: a value > 0 raises NotImplementedError once it is valid).
     speculate_k, speculate_drafter: speculative decoding; only the
         defaults (speculate_k=0) are served so far.
     """
@@ -105,7 +113,7 @@ class ServeConfig:
             if f.name in _UNPORTED and getattr(self, f.name) != f.default:
                 raise NotImplementedError(
                     f"ServeConfig.{f.name} is not ported yet (it belongs to "
-                    f"ServeEngine, the paged layout or speculation); leave "
+                    f"ServeEngine or speculation); leave "
                     f"it at its default {f.default!r}")
         if not self.decode_buckets or any(b < 1 for b in self.decode_buckets):
             raise ValueError(f"decode_buckets must be non-empty with every "
@@ -147,25 +155,64 @@ class ServeConfig:
         if self.kv_layout not in ("bucketed", "paged"):
             raise ValueError(f"kv_layout must be 'bucketed' or 'paged', "
                              f"got {self.kv_layout!r}")
+        if self.kv_page_tokens < 0:
+            raise ValueError(f"kv_page_tokens must be >= 0 (0 = the "
+                             f"effective prefill chunk), "
+                             f"got {self.kv_page_tokens}")
+        if self.kv_arena_pages < 0:
+            raise ValueError(f"kv_arena_pages must be >= 0 (0 = auto), "
+                             f"got {self.kv_arena_pages}")
         if self.kv_layout == "paged":
-            raise NotImplementedError(
-                "kv_layout='paged' is not ported yet; the port serves the "
-                "bucketed layout")
+            cap = max(self.decode_buckets)
+            pt = self.kv_page_tokens or min(self.prefill_chunk, cap)
+            if pt != min(self.prefill_chunk, cap):
+                # pages ARE the prefix-trie chunks: a paged prefill chunk
+                # fills exactly one page, and a restored trie node maps
+                # exactly one page
+                raise ValueError(
+                    f"kv_page_tokens {pt} must equal the effective "
+                    f"prefill chunk {min(self.prefill_chunk, cap)} in the "
+                    f"paged layout (pages are the trie chunks)")
+            if cap % pt != 0:
+                raise ValueError(
+                    f"max decode bucket {cap} is not a multiple of "
+                    f"kv_page_tokens {pt}; pages must tile the sequence "
+                    f"capacity exactly")
         if self.kv_quant_dtype not in ("none", "int8"):
             raise ValueError(f"kv_quant_dtype must be 'none' or 'int8', "
                              f"got {self.kv_quant_dtype!r}")
+        if self.kv_quant_block < 0:
+            raise ValueError(f"kv_quant_block must be >= 0 (0 = one block "
+                             f"per row), got {self.kv_quant_block}")
         if self.kv_quant_dtype != "none":
-            raise ValueError(
-                f"kv_quant_dtype {self.kv_quant_dtype!r} requires the "
-                f"paged layout (quantize-on-commit lives in the page "
-                f"arena), got kv_layout={self.kv_layout!r}")
+            if self.kv_layout != "paged":
+                raise ValueError(
+                    f"kv_quant_dtype {self.kv_quant_dtype!r} requires the "
+                    f"paged layout (quantize-on-commit lives in the page "
+                    f"arena), got kv_layout={self.kv_layout!r}")
+            if self.kv_cache_dtype != "auto":
+                raise ValueError(
+                    f"kv_quant_dtype {self.kv_quant_dtype!r} is mutually "
+                    f"exclusive with a non-auto kv_cache_dtype "
+                    f"({self.kv_cache_dtype!r}): the quantized arena owns "
+                    f"its storage dtype (int8 payload + f32 scales)")
         if self.kv_host_tier_bytes < 0:
             raise ValueError(f"kv_host_tier_bytes must be >= 0 "
                              f"(0 disables), got {self.kv_host_tier_bytes}")
         if self.kv_host_tier_bytes:
-            raise ValueError(
-                f"kv_host_tier_bytes requires the paged layout (the tier "
-                f"demotes arena pages), got kv_layout={self.kv_layout!r}")
+            if self.kv_layout != "paged":
+                raise ValueError(
+                    f"kv_host_tier_bytes requires the paged layout (the "
+                    f"tier demotes arena pages), got "
+                    f"kv_layout={self.kv_layout!r}")
+            if not self.enable_prefix_cache or not self.prefix_cache_bytes:
+                raise ValueError(
+                    "kv_host_tier_bytes requires the prefix cache (the "
+                    "tier holds cold TRIE pages; with no trie there is "
+                    "nothing to demote)")
+            raise NotImplementedError(
+                "the paged layout's host tier (kv_host_tier_bytes > 0) is "
+                "not ported yet")
         if self.speculate_k < 0:
             raise ValueError(f"speculate_k must be >= 0 (0 disables "
                              f"speculation), got {self.speculate_k}")

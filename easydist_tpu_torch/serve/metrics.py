@@ -1,9 +1,9 @@
 """Serving observability: counters, gauges, latency histograms.
 
 Port of easydist_tpu/serve/metrics.py for the generation session's
-bucketed path.  The PerfDB export, the replica label, the prompt-length
-histogram and the recorders of layers not ported yet (request batching,
-speculation, the paged pool) are left out.
+bucketed and paged paths.  The PerfDB export, the replica label, the
+prompt-length histogram and the recorders of layers not ported yet
+(request batching, speculation) are left out.
 """
 
 from __future__ import annotations
@@ -71,11 +71,16 @@ class ServeMetrics:
       prefills (admissions), prefill_chunks (batched chunk calls),
       prefill_tokens_real (prompt tokens needing prefill, prefix reuse
       deducted), prefill_tokens_padded (rows x chunk per call),
-      prefix_tokens_reused / prefix_tokens_total.
+      prefix_tokens_reused / prefix_tokens_total,
+      copy_on_restore_bytes_saved (paged: prefix bytes mapped into a
+      page table instead of copied).
     Gauges: queue_depth, decode_slot_occupancy (active / total slots at
       the last decode step), prefill_padding_ratio (executed token slots
       per real prefill token), prefix_cache_hit_rate (fraction of prompt
-      tokens restored from the prefix trie).
+      tokens restored from the prefix trie); paged: kv_pages_in_use,
+      kv_page_utilization (real tokens / capacity of the live pages),
+      kv_quant_bytes_saved (int8 arena bytes not spent vs model
+      precision on the live pages).
     Histograms: execute (one prefill chunk call), per_token (one decode
       step, all slots), ttft (submit -> first token)."""
 
@@ -145,6 +150,31 @@ class ServeMetrics:
             if real:
                 self._gauges["prefill_padding_ratio"] = padded / real
             self.execute.observe(chunk_s)
+
+    def record_kv_pool(self, pages_in_use: int, mapped_tokens: int,
+                       page_tokens: int,
+                       quant_bytes_saved: Optional[int] = None) -> None:
+        """Paged-KV pool occupancy: `pages_in_use` arena pages are live
+        (slot-mapped or trie-held) holding `mapped_tokens` real tokens of
+        `pages_in_use * page_tokens` capacity.  `kv_page_utilization` is
+        the fill fraction (1 - it is the paged layout's only padding
+        waste); `quant_bytes_saved` is the device memory the live pages
+        did NOT spend versus model-precision storage."""
+        with self._lock:
+            self._gauges["kv_pages_in_use"] = pages_in_use
+            cap = pages_in_use * page_tokens
+            self._gauges["kv_page_utilization"] = \
+                (mapped_tokens / cap) if cap else 1.0
+            if quant_bytes_saved is not None:
+                self._gauges["kv_quant_bytes_saved"] = quant_bytes_saved
+
+    def record_copy_on_restore_saved(self, nbytes: int) -> None:
+        """A prefix restore mapped `nbytes` of committed pages into a
+        sequence's page table instead of copying them — the zero-copy
+        restore, measured."""
+        with self._lock:
+            self._counters["copy_on_restore_bytes_saved"] = \
+                self._counters.get("copy_on_restore_bytes_saved", 0) + nbytes
 
     def counter(self, name: str) -> int:
         with self._lock:

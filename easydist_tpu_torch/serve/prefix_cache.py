@@ -10,9 +10,13 @@ tokens at and before it.  Admission pins the nodes a slot uses,
 retirement unpins them, and commits evict unpinned leaves LRU-first to
 stay under the byte budget.
 
-The host-tier, fleet transport and paged-pool hooks of the JAX module
-(`peek`, `export_path`/`import_path`/`hot_paths`, `lru_node`/
-`reaccount`/`evict_node`, `on_evict`) belong to layers not ported yet.
+The paged layout's trie commits page REFERENCES ({"page": id}) at the
+arena page's byte cost (`commit(..., nbytes=)`); `on_evict` hands an
+evicted node's page back to the pool, and `evict_lru` evicts on demand
+when admission needs arena room.  The host-tier and fleet transport
+hooks of the JAX module (`peek`, `export_path`/`import_path`/
+`hot_paths`, `lru_node`/`reaccount`/`evict_node`) belong to layers not
+ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ def chunk_key(tokens: Sequence[int]) -> Tuple[int, ...]:
 
 class _Node:
     """One committed chunk: `kv` is {"k", "v"} of shape
-    [layers, heads, chunk, head_dim] (tensors the trie owns)."""
+    [layers, heads, chunk, head_dim] (tensors the trie owns; bucketed
+    layout) or {"page": id} (an arena page; paged layout)."""
 
     __slots__ = ("key", "parent", "children", "kv", "nbytes", "refcount",
                  "last_used", "depth")
@@ -49,13 +54,17 @@ class PrefixCache:
     """Token-trie index over committed KV chunks of `chunk` tokens each,
     LRU-evicted under `byte_budget` (0 disables committing entirely)."""
 
-    def __init__(self, chunk: int, byte_budget: int):
+    def __init__(self, chunk: int, byte_budget: int, on_evict=None):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         if byte_budget < 0:
             raise ValueError(f"byte_budget must be >= 0, got {byte_budget}")
         self.chunk = chunk
         self.byte_budget = byte_budget
+        # called with each evicted node AFTER unlinking — the paged
+        # session releases the node's arena page here, so trie eviction
+        # is what returns shared pages to the pool
+        self.on_evict = on_evict
         self._root = _Node(key=None, parent=None, kv=None, nbytes=0,
                            depth=-1, tick=0)
         self._tick = 0
@@ -102,12 +111,15 @@ class PrefixCache:
 
     # -------------------------------------------------------------- commit
     def commit(self, nodes: List[_Node], chunk_tokens: Sequence[int],
-               kv) -> Optional[_Node]:
+               kv, nbytes: Optional[int] = None) -> Optional[_Node]:
         """Commit one chunk's KV under the path `nodes` (the contiguous
         prefix path from the root).  Returns the (existing or new) node,
         or None when the budget is 0, the chunk is partial, or everything
         evictable is pinned.  Evicts LRU unpinned leaves to make room; a
-        chunk larger than the whole budget is not committed."""
+        chunk larger than the whole budget is not committed.  `nbytes`
+        overrides the size computed from `kv`'s tensors — the paged
+        session commits page references, whose cost is the arena page's
+        bytes."""
         if self.byte_budget == 0 or len(chunk_tokens) != self.chunk:
             return None
         parent = nodes[-1] if nodes else self._root
@@ -116,7 +128,8 @@ class PrefixCache:
         if existing is not None:
             existing.last_used = self._tick
             return existing
-        nbytes = sum(t.numel() * t.element_size() for t in kv.values())
+        if nbytes is None:
+            nbytes = sum(t.numel() * t.element_size() for t in kv.values())
         if nbytes > self.byte_budget:
             return None
         # the path being extended must survive this commit's eviction:
@@ -149,6 +162,17 @@ class PrefixCache:
             self.bytes_used -= victim.nbytes
             self.n_nodes -= 1
             self.evictions += 1
+            if self.on_evict is not None:
+                self.on_evict(victim)
+
+    def evict_lru(self) -> bool:
+        """Evict the least-recently-used unpinned leaf on demand — the
+        paged session calls this when admission needs arena room, to hand
+        trie-held pages back to the pool (via `on_evict`).  Returns True
+        when something was evicted."""
+        before = self.n_nodes
+        self._evict_to(self.bytes_used - 1)
+        return self.n_nodes < before
 
     def _walk(self):
         stack = list(self._root.children.values())

@@ -135,7 +135,20 @@ class TestDispatch:
         q, k, v = _t(*_rand())
         with pytest.raises(ValueError, match="decode attention backend"):
             tfa.decode_attention(q, k, v, torch.tensor([5, 64]),
-                                 backend="paged")
+                                 backend="ring")
+
+    def test_paged_backend_degrades_to_auto(self, jax_ops):
+        # as the JAX dispatcher does (ops/flash_attention.py:535-538): the
+        # contiguous path has no table to chase
+        jnp, jfa = jax_ops
+        q, k, v = _rand()
+        L = np.asarray([5, 64], np.int32)
+        out = tfa.decode_attention(*_t(q, k, v, L), backend="paged")
+        ref = jfa.decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), jnp.asarray(L),
+                                   backend="paged")
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+        assert torch.equal(out, tfa.decode_attention(*_t(q, k, v, L)))
 
     def test_scalar_length_broadcasts(self):
         q, k, v = _t(*_rand())

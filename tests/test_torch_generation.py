@@ -173,20 +173,24 @@ def test_for_gpt_checks_buckets_and_param_device(model):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(kv_layout="paged"), NotImplementedError),
+    # the paged knobs follow the JAX rules
+    # (tests/test_serve/test_paged_generation.py:309-312, test_kv_quant.py)
+    (dict(kv_layout="paged", decode_buckets=(32,), prefill_chunk=8,
+          kv_page_tokens=4), ValueError),
     (dict(speculate_k=2), NotImplementedError),
     (dict(decode_buckets=(96,), prefill_chunk=64), ValueError),
     (dict(kv_cache_dtype="not_a_dtype"), ValueError),
     (dict(kv_quant_dtype="int8"), ValueError),
-    # fields only ServeEngine / the paged layout / speculation read
+    # fields only ServeEngine / speculation read
     (dict(max_queue=8), NotImplementedError),
-    (dict(kv_page_tokens=16), NotImplementedError),
+    (dict(kv_layout="paged", kv_page_tokens=16), ValueError),
     (dict(speculate_drafter="model"), NotImplementedError),
 ])
 def test_serve_config_validation(kw, exc):
     with pytest.raises(exc):
         ServeConfig(**kw)
     assert ServeConfig(kv_cache_dtype="bfloat16").kv_cache_dtype == "bfloat16"
+    assert ServeConfig(kv_layout="paged").kv_layout == "paged"
 
 
 def test_prefix_cache_commit_match_evict():
