@@ -14,7 +14,10 @@ Phases, each raising on failure (exit code != 0, no result line):
      B3 dK/dV) at the training shape; in float32 and bfloat16, with times
      of the kernel (CUDA events, and device time per launch from
      torch.profiler), the plain version, one library call (SDPA, a
-     yardstick only) and the card's least possible time (bound);
+     yardstick only) and the card's least possible time (bound).  B1 and
+     B3 have two routes: bfloat16 runs the tensor-core kernels (their
+     times fill the kernels line), float32 the CUDA-core kernels (their
+     profiled times are printed on lines of their own);
   4. serving: GPT-2 small at full width (random weights from a seeded
      generator) through `GenerationSession.for_gpt`, bucketed layout.
      In float32 every request's greedy ids must equal the uncached
@@ -40,11 +43,14 @@ Phases, each raising on failure (exit code != 0, no result line):
      compiled steps must match 3 uncompiled steps from the same state
      at rtol 1e-4, from one compiled signature, with B1, B2 and B3 each
      launched 12 x 3 times.  In bfloat16, 4 flash steps must stay
-     within 2e-2 (relative) of 4 einsum steps from the same weights.
+     within 2e-2 (relative) of 4 einsum steps from the same weights, with
+     B1, B2 and B3 each launched 12 x 4 times in those flash steps (B1
+     and B3 on their tensor-core route).
      Then profiled bfloat16 steps: ms per step, tokens/s, device busy
      share, top kernels, peak memory, trace time, the einsum step;
   8. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
-     path's run), then the `{"ok": true, ...}` line.
+     path's run; B1-B3 also with `launches_bf16`, their launches in the
+     bfloat16 flash steps), then the `{"ok": true, ...}` line.
 
 Each serving run sets every decode kernel's launch count to 0 just
 before it and reads the counts just after; launches made to compare or
@@ -460,15 +466,16 @@ def paged_kernel_times(dev, worst):
 
 # ------------------------------------------------- training kernels B1-B3
 
-# name -> (kernel symbol, TPU kernel it replaces, source)
+# name -> (bfloat16 kernel symbol, float32 kernel symbol, TPU kernel it
+# replaces, source)
 TRAIN_KERNELS = {
-    "flash_fwd": ("flash_fwd_kernel",
+    "flash_fwd": ("flash_fwd_sm90_kernel", "flash_fwd_kernel",
                   "easydist_tpu/ops/flash_attention.py:78",
                   "easydist_tpu_torch/ops/csrc/flash_attn_fwd.cu"),
-    "flash_bwd_dq": ("flash_bwd_dq_kernel",
+    "flash_bwd_dq": ("flash_bwd_dq_kernel", "flash_bwd_dq_kernel",
                      "easydist_tpu/ops/flash_attention.py:164",
                      "easydist_tpu_torch/ops/csrc/flash_attn_bwd.cu"),
-    "flash_bwd_dkv": ("flash_bwd_dkv_kernel",
+    "flash_bwd_dkv": ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dkv_kernel",
                       "easydist_tpu/ops/flash_attention.py:197",
                       "easydist_tpu_torch/ops/csrc/flash_attn_bwd.cu"),
 }
@@ -528,9 +535,11 @@ def train_kernel_phase(dev, shape=TRAIN_SHAPE, ragged_t: int = 1000):
     nonzero lse cotangent.  Tolerances: the JAX tests' f32 bars (forward
     rtol 1e-4 / atol 1e-5, backward rtol 2e-4 / atol 2e-5); a bf16
     output adds half an ulp of its rounding, 2^-8 |ref|, since the
-    kernels compute in f32 and round once.  On the card, also the times
-    (bf16, causal, at `shape`).  Returns the kernels-line entries
-    (without `launches`)."""
+    kernels round once: the f32 ones compute in f32, and the bf16
+    tensor-core B1 and B3 take exact bf16 products summed in f32 with P
+    and dS split into bf16 hi + lo halves.  On the card, also the times
+    (causal, at `shape`).  Returns the kernels-line entries (without
+    `launches`)."""
     from easydist_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -590,20 +599,15 @@ def train_kernel_phase(dev, shape=TRAIN_SHAPE, ragged_t: int = 1000):
     return train_kernel_times(dev, shape, worst)
 
 
-def train_kernel_times(dev, shape, worst):
-    """Times of B1-B3 at `shape`, bf16, causal: kernel (CUDA events, and
-    the profiler's device time per launch), plain version, library
-    yardstick (SDPA forward; SDPA's autograd backward for B2 and B3
-    together), bound."""
+def timed_calls(copies, scale: float):
+    """name -> (kernel, plain version, library yardstick, its call) of
+    B1-B3 on `copies` of (q, k, v, dO), each a function of the launch
+    index (the copies rotate past the L2).  lse and delta come from the
+    kernels' own forward."""
     import torch.nn.functional as F
 
     from easydist_tpu_torch.ops import flash_attention as fa
 
-    b, h, t, d = shape
-    scale = 1.0 / np.sqrt(d)
-    bf16 = torch.bfloat16
-    copies = [[torch.randn(shape, device=dev, dtype=bf16) for _ in range(4)]
-              for _ in range(TIMED_COPIES)]  # q, k, v, dO
     saved = []
     for q, k, v, do in copies:
         out, lse = fa.flash_fwd(q, k, v, True, scale)
@@ -620,7 +624,7 @@ def train_kernel_times(dev, shape, worst):
         return torch.autograd.grad(sdpa_out[j], sdpa_in[j], copies[j][3],
                                    retain_graph=True)
 
-    calls = {
+    return {
         "flash_fwd": (
             lambda i: fa.flash_fwd(*at(i)[:3], True, scale),
             lambda i: fa._flash_forward_xla(*at(i)[:3], True, scale),
@@ -636,22 +640,54 @@ def train_kernel_times(dev, shape, worst):
             lambda i: fa._flash_bwd_dkv_xla(*at(i), True, scale),
             sdpa_bwd, "SDPA backward (dQ, dK and dV together)"),
     }
+
+
+def train_kernel_times(dev, shape, worst):
+    """Times of B1-B3 at `shape`, bf16, causal: kernel (CUDA events, and
+    the profiler's device time per launch), plain version, library
+    yardstick (SDPA forward; SDPA's autograd backward for B2 and B3
+    together), bound.  For B1 and B3, whose float32 route is another
+    kernel, also that kernel's profiled time, its plain version's and the
+    library's on float32 copies of the same inputs, printed on a line of
+    its own."""
+    b, h, t, d = shape
+    scale = 1.0 / np.sqrt(d)
+    bf16 = torch.bfloat16
     counters = train_counters()
     before = {name: c.launches for name, c in counters.items()}
+    copies = [[torch.randn(shape, device=dev, dtype=bf16) for _ in range(4)]
+              for _ in range(TIMED_COPIES)]  # q, k, v, dO
+    calls = timed_calls(copies, scale)
+    f32_calls = timed_calls([[x.float() for x in c] for c in copies], scale)
     entries = []
     for name, (kernel, plain, library, library_call) in calls.items():
-        symbol, replaces, source = TRAIN_KERNELS[name]
+        symbol, f32_symbol, replaces, source = TRAIN_KERNELS[name]
         kernel_ms = time_ms(kernel)
         plain_ms = time_ms(plain, n=10)
         library_ms = time_ms(library)
         kernel_ms_2 = time_ms(kernel)
         prof_ms, seen = profiled_ms(kernel, symbol)
         bound_ms, bound_by = train_bound_ms(name, shape, True, 2)
-        print(f"time {name} bf16 causal {list(shape)}: kernel "
+        print(f"time {name} bf16 causal {list(shape)} ({symbol}): kernel "
               f"{kernel_ms:.4f} ms (again {kernel_ms_2:.4f}; "
               f"{profiled_text(prof_ms, seen)}), plain {plain_ms:.4f} ms, "
               f"library ({library_call}) {library_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by})")
+        f32 = {}
+        if f32_symbol != symbol:
+            kernel32, plain32, library32, _ = f32_calls[name]
+            f32_ms, f32_seen = profiled_ms(kernel32, f32_symbol)
+            f32_plain = time_ms(plain32, n=10)
+            f32_library = time_ms(library32)
+            f32_bound, f32_by = train_bound_ms(name, shape, True, 4)
+            print(f"time {name} f32 causal {list(shape)} ({f32_symbol}): "
+                  f"kernel {profiled_text(f32_ms, f32_seen)}, plain "
+                  f"{f32_plain:.4f} ms, library ({library_call}) "
+                  f"{f32_library:.4f} ms, bound {f32_bound:.4f} ms "
+                  f"({f32_by})")
+            f32 = {"f32_symbol": f32_symbol, "f32_profiled_ms": f32_ms,
+                   "f32_plain_ms": f32_plain, "f32_library_ms": f32_library,
+                   "f32_bound_ms": f32_bound}
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -661,7 +697,8 @@ def train_kernel_times(dev, shape, worst):
             "ms": kernel_ms, "kernel_ms": kernel_ms, "profiled_ms": prof_ms,
             "profiled_launches": seen,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "library_call": library_call})
+            "library_ms": library_ms, "library_call": library_call,
+            "symbol": symbol, **f32})
     for name, c in counters.items():
         c.launches = before[name]  # timing runs don't count
     return entries
@@ -672,8 +709,9 @@ def train_kernel_times(dev, shape, worst):
 
 def train_phase(dev, cfg_kw=None, batch: int = 8, steps: int = 3,
                 bf16_steps: int = 4, seed: int = 0):
-    """Phase 5; returns each training kernel's launches in the compiled
-    f32 run.  The arguments shrink it for a rehearsal on the CPU."""
+    """Phase 7; returns each training kernel's launches in the compiled
+    f32 run and in the bf16 flash steps.  The arguments shrink it for a
+    rehearsal on the CPU."""
     import dataclasses
 
     from torch.utils import _pytree as pytree
@@ -742,10 +780,14 @@ def train_phase(dev, cfg_kw=None, batch: int = 8, steps: int = 3,
         t0 = time.perf_counter()
         comp16.get_compiled(state16, tokens, targets)
         trace_s = time.perf_counter() - t0
+        for c in counters.values():
+            c.launches = 0
         ls = []
         for _ in range(bf16_steps):
             state16, loss = comp16(state16, tokens, targets)
             ls.append(float(loss))
+        if attention == "flash":
+            bf16_launches = {name: c.launches for name, c in counters.items()}
         runs[attention] = (comp16, state16, ls, trace_s)
     ls_fl, ls_ei = runs["flash"][2], runs["einsum"][2]
     gaps = [abs(a - b_) / max(abs(b_), 1e-9) for a, b_ in zip(ls_fl, ls_ei)]
@@ -754,9 +796,15 @@ def train_phase(dev, cfg_kw=None, batch: int = 8, steps: int = 3,
     if not all(np.isfinite(ls_fl + ls_ei)) or max(gaps) > 2e-2:
         raise AssertionError("bf16 flash losses are not finite or are more "
                              "than 2e-2 from einsum's")
+    expect16 = cfg.layers * bf16_steps if on_card else 0
+    if any(n != expect16 for n in bf16_launches.values()):
+        raise AssertionError(f"bf16 flash steps launched {bf16_launches}, "
+                             f"expected {cfg.layers} x {bf16_steps} each")
+    print(f"train bf16 flash: B1 = B2 = B3 = {expect16} launches in "
+          f"{bf16_steps} steps (B1, B3 on the tensor-core route)")
     if on_card:
         profile_train(runs, tokens, targets, batch * cfg.seq)
-    return launches
+    return launches, bf16_launches
 
 
 def step_ms(comp, state, tokens, targets, steps: int = 3):
@@ -827,7 +875,7 @@ def profile_train(runs, tokens, targets, tokens_per_step: int,
           f"profiled range, {copy_ev_ms:.3f} ms by events over its "
           f"{len(leaves)} leaves ({2 * state_bytes / 1e9:.2f} GB read + "
           f"written)")
-    for name, ms, count in sorted(kernels, key=lambda x: -x[1])[:12]:
+    for name, ms, count in sorted(kernels, key=lambda x: -x[1])[:16]:
         print(f"  {ms:9.4f} ms/step  {count // steps:5d}/step  {name[:80]}")
 
 
@@ -1202,9 +1250,10 @@ def main() -> int:
     paged_entries[1]["launches"] = int8_serve_phase(dev, ctx, paged_ids)
     del ctx
     torch.cuda.empty_cache()
-    launches = train_phase(dev)
+    launches, bf16_launches = train_phase(dev)
     for e in train_entries:
         e["launches"] = launches[e["name"]]
+        e["launches_bf16"] = bf16_launches[e["name"]]
     print(card_line())
     print(json.dumps({"kernels": [entry, *paged_entries, *train_entries]}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,7 @@
 // FlashAttention-2 backward, which recomputes the probabilities from the
 // forward's saved logsumexp instead of keeping any [t_q, t_k] residual:
 //
-//   s  = (q * scale) . k       (keys past the query masked when causal)
+//   s  = (q . k) * scale       (keys past the query masked when causal)
 //   P  = exp(s - lse)          dP = dO . v
 //   dS = P * (dP - delta)      delta = rowsum(dO * O) - g_lse (computed
 //                              outside, in torch, as XLA does on the TPU)
@@ -21,32 +21,55 @@
 // causal): B2 moves 63.7 MB (q, k, v, dO, lse, delta, dQ) and needs
 // 19.3 GFLOP (three causal products), bound 19.5 us by operations at the
 // tensor cores' 989 TFLOP/s; B3 moves 76.3 MB and needs 25.8 GFLOP (four
-// products), bound 26.1 us by operations.  These kernels do their
-// products in f32 on the CUDA cores, so arithmetic is what they wait on
-// (their own floor at 67 TFLOP/s is about 0.29 ms and 0.39 ms).
+// products), bound 26.1 us by operations.
 //
-// What the design does about it.  The split is the TPU's own, and it
-// needs no atomics, so both kernels are deterministic:
-//   * dQ: one block of 256 threads per (row block, Q tile), looping over
-//     the K tiles up to the diagonal (tiles above it are neither loaded
-//     nor computed: the `_kv_index_map` clamp) and keeping dQ in
-//     registers;
-//   * dK/dV: one block per (row block, K tile), with K and V staged once
-//     and looping over the Q tiles from the first one that reaches the
-//     diagonal (the `_q_index_map` clamp), keeping dK and dV in
-//     registers.
-// Every operand is staged in shared memory as f32, transposed where a
-// product contracts over its columns and row-major where it contracts
-// over its rows, so each step of each tile product is two 16-byte shared
-// loads feeding 16 FMAs per thread.  P and dS go through shared memory
-// between the two halves of a step (scores, then gradients).  No
-// rounding enters beyond the outputs' casts.
+// The split is the TPU's own, and it needs no atomics, so both kernels
+// are deterministic: dQ has one block per (row block, Q tile) looping over
+// the K tiles up to the diagonal (the `_kv_index_map` clamp); dK/dV one
+// block per (row block, K tile) looping over the Q tiles from the first
+// one that reaches the diagonal (the `_q_index_map` clamp).  Tiles above
+// the diagonal are neither loaded nor computed.
 //
-// Known limits: as for the forward, f32 CUDA-core products; the dK/dV
-// block stages eight tiles (139 KB at head_dim 64), so one block fits an
-// SM.  Tensor-core products and a cp.async ring are the later steps.
+// B3, bfloat16: `flash_bwd_dkv_sm90_kernel`, on the tensor cores.  A
+// block owns 128 keys; one warp of a producer warpgroup loads K and V
+// once by TMA and streams the Q and dO tiles through a two-stage TMA ring
+// (full/empty mbarriers), writing each tile's lse (times log2 e) and
+// delta rows into the same stage with plain loads; it hands its
+// registers to the consumers (`setmaxnreg`, 40 against 232).  Two
+// consumer warpgroups own 64 keys
+// each and compute in the transposed orientation, keys as the M side of
+// `wgmma`: S^T = K.Q^T and dP^T = V.dO^T (A and B from shared memory),
+// P^T = exp2(S^T scale log2 e - lse log2 e), dS^T = P^T (dP^T - delta),
+// then dV += P^T.dO and dK += dS^T.Q with P^T and dS^T as register A
+// operands and dO and Q read through the transpose bit; `scale` enters dK
+// once, when it is written.  P^T and dS^T never leave the registers (the
+// f32 kernel's shared-memory round trip for them is gone).  Both are
+// split into bf16 hi + lo halves before their products, for the reason
+// the forward splits P (flash_attn_fwd.cu): bf16 products of bf16 inputs
+// are exact in f32, one bf16 cast of P or dS would put a 2^-9 error on
+// every term, about 90-140x over the f32 bar, and the split keeps the
+// error below the outputs' own rounding at six products where the
+// function has four.  Query tiles are 64 wide at head_dim 64 and 32 at 128,
+// so dK, dV, S^T, dP^T and the split fragments fit the 232 registers
+// (`ptxas -v` in the build's .log: no spills).
+//
+// B3, float32, and B2 in both dtypes: CUDA-core kernels.  Every operand
+// is staged in shared memory as f32, transposed where a product
+// contracts over its columns and row-major where it contracts over its
+// rows, so each step of each tile product is two 16-byte shared loads
+// feeding 16 FMAs per thread; P and dS go through shared memory between
+// the two halves of a step.  No rounding enters beyond the outputs'
+// casts.  The f32 B3 keeps the f32 promise of the train step (see the
+// forward's note).
+//
+// Known limits: B2 still runs on the CUDA cores in bf16 (the same ring
+// and products are its next step); the bf16 B3 serialises each
+// warpgroup's exponentials and products and holds one block per SM; the
+// f32 dK/dV block stages eight tiles (139 KB at head_dim 64), so one
+// block fits an SM, and stages synchronously.
 
 #include "flash_attn_common.cuh"
+#include "flash_attn_sm90.cuh"
 
 namespace flash_train {
 namespace {
@@ -132,14 +155,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+// B3, float32
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dkv_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         T* __restrict__ dk, T* __restrict__ dv, int t_q,
-                         int t_k, int causal, float scale) {
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int t_q, int t_k, int causal, float scale) {
   constexpr int BQ = Tiles<D>::kQ, BK = Tiles<D>::kK;
   // this thread: key rows ty*TK.., query columns tx*TQ.. of S^T
   constexpr int TK = BK / 16, TQ = BQ / 16, G = D / 64;
@@ -245,7 +271,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int bh, int t_q, int t_k,
@@ -255,25 +281,258 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       sizeof(float) * (2 * D * (BK + 4) + 2 * D * (BQ + 4) +
                        2 * BQ * (D + 4) + 2 * BQ * (BK + 4));
   static std::atomic<size_t> raised[kMaxDevices];
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
+  auto kernel = flash_bwd_dkv_kernel<D>;
   cudaError_t e = allow_smem(kernel, smem, raised);
   if (e != cudaSuccess) return e;
   const dim3 grid(bh, (t_k + BK - 1) / BK);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), t_q, t_k, causal, scale);
+      static_cast<float*>(dk), static_cast<float*>(dv), t_q, t_k, causal,
+      scale);
+  return cudaGetLastError();
+}
+
+// ------------------------------------ B3, bfloat16: tensor cores (sm90)
+
+template <int D>
+struct DkvSm90 {
+  static constexpr int kBK = 128;                // two warpgroups of 64 keys
+  static constexpr int kBQ = D == 64 ? 64 : 32;  // queries a tile
+  static constexpr int kStages = 2;
+  static constexpr int kPanels = D / sm90::kPanelCols;
+  static constexpr int kKVBytes = kBK * D * 2;   // the K or the V tile
+  static constexpr int kQBytes = kBQ * D * 2;    // one Q or dO tile
+  static constexpr int kLseBytes = 2 * kBQ * 4;  // a tile's lse and delta
+  static constexpr int kThreads = 384;  // + a producer warpgroup
+  static constexpr size_t kSmem = 1024 + 2 * kKVBytes +
+                                  kStages * (2 * kQBytes + kLseBytes) +
+                                  8 * (1 + 2 * kStages);
+};
+
+template <int D>
+__global__ void __launch_bounds__(DkvSm90<D>::kThreads, 1)
+    flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              const __grid_constant__ CUtensorMap map_do,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dk,
+                              __nv_bfloat16* __restrict__ dv, int t_q,
+                              int t_k, int causal, float scale) {
+  using C = DkvSm90<D>;
+  constexpr int BQ = C::kBQ, BK = C::kBK, S = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_s = sm90::align1024(smem_raw);
+  uint8_t* v_s = k_s + C::kKVBytes;
+  uint8_t* q_s = v_s + C::kKVBytes;      // [S] Q tiles
+  uint8_t* do_s = q_s + S * C::kQBytes;  // [S] dO tiles
+  float* rows_s = reinterpret_cast<float*>(do_s + S * C::kQBytes);
+  // rows_s[s]: BQ values of lse * log2 e, then BQ of delta
+  uint64_t* kv_full =
+      reinterpret_cast<uint64_t*>(rows_s + S * 2 * BQ);
+  uint64_t* full = kv_full + 1;   // [S]
+  uint64_t* empty = full + S;     // [S]
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BK;  // under causal masking tile 0 is longest
+  // Q tiles strictly above this K tile's first row see none of its keys
+  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
+  const int n_qt = q_begin < t_q ? (t_q - q_begin + BQ - 1) / BQ : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t row0 = static_cast<size_t>(bh) * t_q;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // producer warpgroup: one warp loads, three idle
+    sm90::regs_release<sm90::kProducerRegs>();
+    if (warp > 8) return;
+    if (lane == 0) {
+      sm90::mbar_expect_tx(kv_full, 2 * C::kKVBytes);
+      sm90::tma_load_tile(k_s, &map_k, kv_full, C::kPanels, BK, k0, bh);
+      sm90::tma_load_tile(v_s, &map_v, kv_full, C::kPanels, BK, k0, bh);
+    }
+    for (int it = 0; it < n_qt; ++it) {
+      const int s = it % S;
+      const int q0 = q_begin + it * BQ;
+      if (it >= S) sm90::mbar_wait(&empty[s], (it / S - 1) & 1);
+      float* rows = rows_s + s * 2 * BQ;
+      for (int r = lane; r < BQ; r += 32) {
+        const bool live = q0 + r < t_q;
+        rows[r] = live ? lse[row0 + q0 + r] * sm90::kLog2e : 0.f;
+        rows[BQ + r] = live ? delta[row0 + q0 + r] : 0.f;
+      }
+      __syncwarp();  // the rows are written before lane 0 arrives
+      if (lane == 0) {
+        sm90::mbar_expect_tx(&full[s], 2 * C::kQBytes);
+        sm90::tma_load_tile(q_s + s * C::kQBytes, &map_q, &full[s],
+                            C::kPanels, BQ, q0, bh);
+        sm90::tma_load_tile(do_s + s * C::kQBytes, &map_do, &full[s],
+                            C::kPanels, BQ, q0, bh);
+      }
+    }
+    return;
+  }
+
+  sm90::regs_take<sm90::kConsumerRegs>();
+  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 64
+  const int wg = warp / 4;
+  const int key_a = k0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+  const int key_b = key_a + 8;
+  const int c2 = 2 * (lane % 4);
+  const float scale_log2 = scale * sm90::kLog2e;
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  const uint32_t k_addr = sm90::smem_u32(k_s) + 64 * wg * sm90::kRowBytes;
+  const uint32_t v_addr = sm90::smem_u32(v_s) + 64 * wg * sm90::kRowBytes;
+  sm90::mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_qt; ++it) {
+    const int s = it % S;
+    const int q0 = q_begin + it * BQ;
+    const uint32_t q_addr = sm90::smem_u32(q_s + s * C::kQBytes);
+    const uint32_t do_addr = sm90::smem_u32(do_s + s * C::kQBytes);
+    const float* rows = rows_s + s * 2 * BQ;
+    sm90::mbar_wait(&full[s], (it / S) & 1);
+
+    float st[BQ / 2], dpt[BQ / 2];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;  // bytes into the panel's rows
+      sm90::wgmma_ss<0>(
+          st, sm90::desc_k_major(k_addr + (kk / 4) * BK * 128 + col),
+          sm90::desc_k_major(q_addr + (kk / 4) * BQ * 128 + col), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;
+      sm90::wgmma_ss<0>(
+          dpt, sm90::desc_k_major(v_addr + (kk / 4) * BK * 128 + col),
+          sm90::desc_k_major(do_addr + (kk / 4) * BQ * 128 + col), kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(st);
+    sm90::fence_regs(dpt);
+
+    // P^T and dS^T in place: row = key, column = query
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ql = 8 * j + c2 + e;
+        const int q = q0 + ql;
+        const float l2 = rows[ql], dl = rows[BQ + ql];
+        const bool live_q = q < t_q;
+        const bool live_a = live_q && key_a < t_k && !(causal && key_a > q);
+        const bool live_b = live_q && key_b < t_k && !(causal && key_b > q);
+        const float pa =
+            live_a ? exp2f(fmaf(st[4 * j + e], scale_log2, -l2)) : 0.f;
+        const float pb =
+            live_b ? exp2f(fmaf(st[4 * j + 2 + e], scale_log2, -l2)) : 0.f;
+        st[4 * j + e] = pa;
+        st[4 * j + 2 + e] = pb;
+        dpt[4 * j + e] = pa * (dpt[4 * j + e] - dl);
+        dpt[4 * j + 2 + e] = pb * (dpt[4 * j + 2 + e] - dl);
+      }
+
+    uint32_t p_hi[BQ / 16][4], p_lo[BQ / 16][4];
+    uint32_t ds_hi[BQ / 16][4], ds_lo[BQ / 16][4];
+    sm90::split_frags(st, p_hi, p_lo);
+    sm90::split_frags(dpt, ds_hi, ds_lo);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const uint64_t d_do =
+          sm90::desc_mn_major(do_addr + kk * 16 * 128, BQ * 128);
+      const uint64_t d_q =
+          sm90::desc_mn_major(q_addr + kk * 16 * 128, BQ * 128);
+      sm90::wgmma_rs<1>(dv_acc, p_hi[kk], d_do);
+      sm90::wgmma_rs<1>(dv_acc, p_lo[kk], d_do);
+      sm90::wgmma_rs<1>(dk_acc, ds_hi[kk], d_q);
+      sm90::wgmma_rs<1>(dk_acc, ds_lo[kk], d_q);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(dv_acc);
+    sm90::fence_regs(dk_acc);
+    sm90::fence_regs(p_hi);
+    sm90::fence_regs(p_lo);
+    sm90::fence_regs(ds_hi);
+    sm90::fence_regs(ds_lo);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);  // this warp is done
+  }
+
+  const size_t key0 = static_cast<size_t>(bh) * t_k;
+  if (key_a < t_k) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const size_t at = (key0 + key_a) * D + 8 * j + c2;
+      sm90::store_bf16x2(dk + at, dk_acc[4 * j] * scale,
+                         dk_acc[4 * j + 1] * scale);
+      sm90::store_bf16x2(dv + at, dv_acc[4 * j], dv_acc[4 * j + 1]);
+    }
+  }
+  if (key_b < t_k) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const size_t at = (key0 + key_b) * D + 8 * j + c2;
+      sm90::store_bf16x2(dk + at, dk_acc[4 * j + 2] * scale,
+                         dk_acc[4 * j + 3] * scale);
+      sm90::store_bf16x2(dv + at, dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv_sm90(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dk, void* dv, int bh,
+                            int t_q, int t_k, int causal, float scale,
+                            cudaStream_t stream) {
+  using C = DkvSm90<D>;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  cudaError_t e = sm90::make_tile_map(&map_q, q, bh, t_q, D, C::kBQ);
+  if (e == cudaSuccess)
+    e = sm90::make_tile_map(&map_do, dout, bh, t_q, D, C::kBQ);
+  if (e == cudaSuccess)
+    e = sm90::make_tile_map(&map_k, k, bh, t_k, D, C::kBK);
+  if (e == cudaSuccess)
+    e = sm90::make_tile_map(&map_v, v, bh, t_k, D, C::kBK);
+  if (e != cudaSuccess) return e;
+  static std::atomic<size_t> raised[kMaxDevices];
+  auto kernel = flash_bwd_dkv_sm90_kernel<D>;
+  e = allow_smem(kernel, C::kSmem, raised);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(bh, (t_k + C::kBK - 1) / C::kBK);
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+      map_q, map_k, map_v, map_do, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), t_q, t_k, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace flash_train
 
-// dtype: 0 float32, 1 bfloat16.  q/dout [bh, t_q, head_dim], k/v [bh, t_k,
-// head_dim], lse/delta f32 [bh, t_q], outputs like their inputs; all
-// contiguous on the current device, 16-byte aligned.  Each returns
-// cudaGetLastError() after its launch.
+// dtype: 0 float32, 1 bfloat16 (dK/dV: the tensor-core kernel).
+// q/dout [bh, t_q, head_dim], k/v [bh, t_k, head_dim], lse/delta f32
+// [bh, t_q], outputs like their inputs; all contiguous on the current
+// device, 16-byte aligned.  Each returns cudaGetLastError() after its
+// launch (or the error of the tensor maps' encoding).
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int bh,
@@ -299,9 +558,14 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k,
   if ((t_k + 31) / 32 > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return flash_train::dispatch(dtype, head_dim, [&](auto t, auto d) {
-    using T = decltype(t);
-    return flash_train::launch_dkv<T, decltype(d)::value>(
-        q, k, v, dout, lse, delta, dk, dv, bh, t_q, t_k, causal, scale, s);
+    constexpr int D = decltype(d)::value;
+    if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
+      return flash_train::launch_dkv_sm90<D>(q, k, v, dout, lse, delta, dk,
+                                             dv, bh, t_q, t_k, causal, scale,
+                                             s);
+    else
+      return flash_train::launch_dkv<D>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                        t_q, t_k, causal, scale, s);
   });
 }
 

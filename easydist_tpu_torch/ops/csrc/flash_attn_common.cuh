@@ -1,9 +1,10 @@
 // Shared pieces of the training attention kernels (flash_attn_fwd.cu,
 // flash_attn_bwd.cu): tile sizes, bf16/f32 loads and stores, staging of
-// a tile into shared memory, the per-thread product of two staged tiles,
-// and the launch-side helpers.
+// a tile into shared memory, the per-thread product of two staged tiles
+// (the CUDA-core kernels), and the launch-side helpers (all kernels; the
+// tensor-core pieces are in flash_attn_sm90.cuh).
 //
-// Thread layout of every kernel: 256 threads as a 16 x 16 grid,
+// Thread layout of the CUDA-core kernels: 256 threads as a 16 x 16 grid,
 // tx = threadIdx.x % 16, ty = threadIdx.x / 16.  A [M, N] tile product
 // gives thread (ty, tx) the rows ty*M/16 .. +M/16 and the columns
 // tx*N/16 .. +N/16; a [M, D] product gives it the rows ty*M/16 .. and the

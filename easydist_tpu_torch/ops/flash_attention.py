@@ -9,7 +9,10 @@ Port of easydist_tpu/ops/flash_attention.py, serving and training:
     kernels `csrc/flash_attn_fwd.cu` and `csrc/flash_attn_bwd.cu`,
     registered as the custom ops `easydist_tpu_torch::flash_fwd`,
     `::flash_bwd_dq` and `::flash_bwd_dkv`, the forward differentiable
-    in both outputs through `register_autograd`;
+    in both outputs through `register_autograd`.  On bfloat16 the
+    forward and dK/dV kernels run on the tensor cores (`wgmma` fed by a
+    TMA ring, `csrc/flash_attn_sm90.cuh`); on float32, and for dQ, on
+    the CUDA cores;
   * serving: the decode kernel `_flash_decode_kernel` becomes
     `csrc/flash_decode.cu`, the custom op `easydist_tpu_torch::flash_decode`;
     the paged decode kernels `_flash_paged_decode_kernel` (exact pages)
@@ -207,7 +210,19 @@ def _check_train_inputs(op: str, q, k, v, *rows):
         if x.shape != (b * h, t_q) or x.dtype != torch.float32:
             raise ValueError(f"lse/delta must be float32 [{b * h}, {t_q}], "
                              f"got {x.dtype} {tuple(x.shape)}")
-    return (b, h, t_q, t_k, d), [x.contiguous() for x in (q, k, v, *rows)]
+    out = [x.contiguous() for x in (q, k, v, *rows)]
+    _check_aligned(op, *out[:3])
+    return (b, h, t_q, t_k, d), out
+
+
+def _check_aligned(op: str, *tensors) -> None:
+    """The kernels read q, k, v and dO with 16-byte loads (f32) or TMA
+    tensor maps (bf16), both of which need a 16-byte aligned base: raise
+    on any other, rather than copy."""
+    for x in tensors:
+        if x.data_ptr() % 16:
+            raise ValueError(f"{op} needs 16-byte aligned q, k, v and dO; "
+                             f"got a base at {x.data_ptr():#x}")
 
 
 def _stream(x):
@@ -250,6 +265,7 @@ def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (b, h, t_q, t_k, d), (q, k, v, lse, delta) = _check_train_inputs(
         "flash_bwd_dq", q, k, v, lse, delta)
     do = do.to(q.dtype).contiguous()
+    _check_aligned("flash_bwd_dq", do)
     dq = torch.empty_like(q)
     lib = _train_lib("flash_attn_bwd")
     err = lib.flash_attn_bwd_dq(
@@ -277,6 +293,7 @@ def _flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (b, h, t_q, t_k, d), (q, k, v, lse, delta) = _check_train_inputs(
         "flash_bwd_dkv", q, k, v, lse, delta)
     do = do.to(q.dtype).contiguous()
+    _check_aligned("flash_bwd_dkv", do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _train_lib("flash_attn_bwd")
@@ -298,7 +315,8 @@ def _(q, k, v, do, lse, delta, causal, scale):
 def flash_fwd(q, k, v, causal: bool = True, scale: Optional[float] = None):
     """B1: (out, lse) of causal or full attention; q [b, h, t_q, d], k/v
     [b, h, t_k, d] in float32 or bfloat16, d 64 or 128.  CPU tensors run
-    `_flash_forward_xla`; CUDA tensors launch `csrc/flash_attn_fwd.cu`.
+    `_flash_forward_xla`; CUDA tensors launch `csrc/flash_attn_fwd.cu`
+    (bfloat16 the tensor-core kernel, float32 the CUDA-core one).
     `flash_fwd.launches` counts kernel launches (never a trace)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -320,7 +338,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
                   scale: Optional[float] = None):
     """B3: (dK, dV) from the saved lse and delta.  CPU tensors run
     `_flash_bwd_dkv_xla`; CUDA tensors launch the dK/dV kernel of
-    `csrc/flash_attn_bwd.cu`."""
+    `csrc/flash_attn_bwd.cu` (bfloat16 the tensor-core kernel, float32
+    the CUDA-core one)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _flash_bwd_dkv_op(q, k, v, do, lse, delta, bool(causal),

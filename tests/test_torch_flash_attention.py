@@ -3,12 +3,16 @@ against the JAX package: the plain forward against the Pallas forward in
 interpret mode (out and lse), the plain backward against `jax.vjp` of
 `flash_attention_lse` with both cotangents, the port's autograd through
 its custom ops against torch autograd through `_reference_attention`,
-the traced graph's nodes, and — on a CUDA host — each kernel against its
-plain version.
+the traced graph's nodes, a plain emulation of the bf16 tensor-core
+kernels' rounding (P and dS split into bf16 hi + lo halves) against the
+plain versions, and — on a CUDA host — each kernel against its plain
+version.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: forward rtol 1e-4 / atol 1e-5, backward rtol 2e-4 / atol
-2e-5 in float32 (the bars of tests/test_ops/test_flash_attention.py)."""
+2e-5 in float32 (the bars of tests/test_ops/test_flash_attention.py); a
+bf16 output adds half an ulp of its rounding, 2^-8 |ref| (the bars of
+chip_smoke.py)."""
 
 import importlib
 import math
@@ -23,6 +27,7 @@ from easydist_tpu_torch.ops import flash_attention as tfa
 
 FWD = dict(rtol=1e-4, atol=1e-5)
 BWD = dict(rtol=2e-4, atol=2e-5)
+BF16_ULP = 2.0 ** -8  # half an ulp of a bf16 output, relative
 
 
 def _rand(b=2, h=3, t=64, d=16, seed=0, n=4):
@@ -187,27 +192,116 @@ class TestTracing:
         assert real[1].shape == (6, 24) and real[1].dtype == torch.float32
 
 
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _split_product(eq: str, a, b, split: bool):
+    """einsum(eq, a, b) as the tensor-core kernels form it: b holds bf16
+    values, a (f32 P or dS) enters as bf16 hi + lo halves (`split`) or as
+    one bf16 cast.  Products of bf16 values are exact in f32; sums f32."""
+    hi = _bf16(a)
+    out = torch.einsum(eq, hi, b)
+    return out + torch.einsum(eq, _bf16(a - hi), b) if split else out
+
+
+def _emulated_forward(q, k, v, causal: bool, scale: float, split: bool):
+    """B1's rounding points: S = Q.K^T in f32 scaled after the product,
+    f32 softmax, O = P.V over P's halves, out rounded to bf16 once."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if causal:
+        s = tfa._causal_fill(s)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = _split_product("bhqk,bhkd->bhqd", p, v, split) / l_safe
+    return out.to(torch.bfloat16)
+
+
+def _emulated_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
+                  split: bool):
+    """B3's rounding points: P = exp(S scale - lse) and dS = P (dO.V^T -
+    delta) in f32, dV = P^T.dO and dK = dS^T.Q * scale over the halves of
+    P and dS, both rounded to bf16 once."""
+    b, h, t_q, _ = q.shape
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if causal:
+        s = tfa._causal_fill(s)
+    p = torch.exp(s - lse.reshape(b, h, t_q, 1))
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
+    ds = p * (dp - delta.reshape(b, h, t_q, 1))
+    dv = _split_product("bhqk,bhqd->bhkd", p, do, split)
+    dk = _split_product("bhqk,bhqd->bhkd", ds, q, split) * scale
+    return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+def _worst(got, ref, rtol: float, atol: float) -> float:
+    """The largest |got - ref| / (atol + (rtol + 2^-8) |ref|)."""
+    tol = atol + (rtol + BF16_ULP) * ref.abs()
+    return ((got.float() - ref).abs() / tol).max().item()
+
+
+class TestSplitRounding:
+    """The bf16 tensor-core B1 and B3 feed P and dS to their products as
+    bf16 hi + lo halves.  Emulated on the CPU at a small causal size, the
+    split holds the bars the kernels are held to on the card; one bf16
+    cast of P (and dS) does not, so a change that drops the split has to
+    change the bars in the open."""
+
+    @staticmethod
+    def _inputs():
+        q, k, v, do = (_bf16(x) for x in _t(*_rand(b=1, h=2, t=128, d=64,
+                                                     seed=10)))
+        return q, k, v, do, 1.0 / math.sqrt(64)
+
+    @pytest.mark.parametrize("split", [True, False], ids=["hi_lo", "one_cast"])
+    def test_forward_out_within_bar_only_with_split(self, split):
+        q, k, v, _, scale = self._inputs()
+        ref, _ = tfa._flash_forward_xla(q, k, v, True, scale)
+        worst = _worst(_emulated_forward(q, k, v, True, scale, split),
+                       ref.float(), **FWD)
+        assert (worst <= 1.0) == split, worst
+
+    @pytest.mark.parametrize("split", [True, False], ids=["hi_lo", "one_cast"])
+    def test_dkv_within_bar_only_with_split(self, split):
+        q, k, v, do, scale = self._inputs()
+        out, lse = tfa._flash_forward_xla(q, k, v, True, scale)
+        delta = tfa._flash_delta(out, do)
+        ref_dk, ref_dv = tfa._flash_bwd_dkv_xla(q, k, v, do, lse, delta, True,
+                                                scale)
+        dk, dv = _emulated_dkv(q, k, v, do, lse, delta, True, scale, split)
+        worst = [_worst(dk, ref_dk, **BWD), _worst(dv, ref_dv, **BWD)]
+        assert all((w <= 1.0) == split for w in worst), worst
+
+
 @pytest.mark.cuda
 class TestKernelsOnCard:
-    """B1-B3 against their plain versions at the training shape; a bf16
-    output adds half an ulp of its rounding (2^-8 |ref|) to the f32 bar,
-    since the kernels compute in f32 and round once."""
+    """B1-B3 against their plain versions at the training shape and at the
+    edges of the tensor-core kernels' tiles: one row past a tile (129),
+    a ragged length (1000), fewer queries than keys (192 over 1024, full
+    and causal), a single row block, head_dim 128.  A bf16 output adds
+    half an ulp of its rounding (2^-8 |ref|) to the f32 bar: the kernels
+    round once (the bf16 B1 and B3 split P and dS hi/lo so their
+    products keep f32 accuracy; see TestSplitRounding)."""
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-    @pytest.mark.parametrize("causal,t", [(True, 1024), (False, 1024),
-                                          (True, 1000)])
+    @pytest.mark.parametrize("causal,t_q,t_k,b,h", [
+        (True, 1024, 1024, 2, 12), (False, 1024, 1024, 2, 12),
+        (True, 1000, 1000, 2, 12), (True, 129, 129, 2, 12),
+        (True, 192, 1024, 2, 12), (False, 192, 1024, 2, 12),
+        (True, 1024, 1024, 1, 1)])
     @pytest.mark.parametrize("d", [64, 128])
-    def test_kernels_match_plain(self, cuda_device, dtype, causal, t, d):
+    def test_kernels_match_plain(self, cuda_device, dtype, causal, t_q, t_k,
+                                 b, h, d):
         rs = np.random.RandomState(0)
-        base = [torch.as_tensor(rs.standard_normal((2, 12, t, d)),
+        q, k, v, do = (
+            torch.as_tensor(rs.standard_normal((b, h, t, d)),
+                            dtype=torch.float32, device=cuda_device).to(dtype)
+            for t in (t_q, t_k, t_k, t_q))
+        g_lse = torch.as_tensor(rs.standard_normal((b * h, t_q)),
                                 dtype=torch.float32, device=cuda_device)
-                for _ in range(4)]
-        g_lse = torch.as_tensor(rs.standard_normal((24, t)),
-                                dtype=torch.float32, device=cuda_device)
-        q, k, v, do = (x.to(dtype) for x in base)
         qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
         scale = 1.0 / math.sqrt(d)
-        extra = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+        extra = BF16_ULP if dtype == torch.bfloat16 else 0.0
 
         def close(got, ref, rtol, atol, rounded=True):
             tol = atol + (rtol + (extra if rounded else 0.0)) * ref.abs()
@@ -231,6 +325,32 @@ class TestKernelsOnCard:
                                             causal, scale)
         close(dk, r_dk, **BWD)
         close(dv, r_dv, **BWD)
+
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_two_launches_are_bitwise_equal(self, cuda_device, d):
+        # no atomics and a fixed order of sums: B1 and B3 are deterministic
+        rs = np.random.RandomState(1)
+        q, k, v, do = (torch.as_tensor(rs.standard_normal((2, 12, 1000, d)),
+                                       dtype=torch.bfloat16,
+                                       device=cuda_device)
+                       for _ in range(4))
+        runs = []
+        for _ in range(2):
+            out, lse = tfa.flash_fwd(q, k, v, True)
+            delta = tfa._flash_delta(out, do)
+            runs.append((out, lse, *tfa.flash_bwd_dkv(q, k, v, do, lse,
+                                                      delta, True)))
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+    def test_unaligned_input_raises(self, cuda_device):
+        q, k, v = (torch.randn(2, 4, 64, 64, device=cuda_device,
+                               dtype=torch.bfloat16) for _ in range(3))
+        shifted = torch.randn(2 * 4 * 64 * 64 + 1, device=cuda_device,
+                              dtype=torch.bfloat16)[1:].view(q.shape)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tfa.flash_fwd(shifted, k, v)
 
     def test_autograd_on_card_launches_each_kernel_once(self, cuda_device):
         q, k, v = (torch.randn(2, 4, 128, 64, device=cuda_device,
