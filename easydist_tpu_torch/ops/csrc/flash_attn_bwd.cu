@@ -53,20 +53,37 @@
 // so dK, dV, S^T, dP^T and the split fragments fit the 232 registers
 // (`ptxas -v` in the build's .log: no spills).
 //
-// B3, float32, and B2 in both dtypes: CUDA-core kernels.  Every operand
-// is staged in shared memory as f32, transposed where a product
-// contracts over its columns and row-major where it contracts over its
-// rows, so each step of each tile product is two 16-byte shared loads
-// feeding 16 FMAs per thread; P and dS go through shared memory between
-// the two halves of a step.  No rounding enters beyond the outputs'
-// casts.  The f32 B3 keeps the f32 promise of the train step (see the
-// forward's note).
+// B2, bfloat16: `flash_bwd_dq_sm90_kernel`, on the tensor cores, B1's
+// skeleton with B3's dS arithmetic.  A block owns 128 queries; one warp
+// of a producer warpgroup loads the Q and dO tiles once by TMA and
+// streams the K and V tiles (64 keys) through a two-stage TMA ring from
+// key 0 up to the block's diagonal, then hands its registers to the
+// consumers.  Two consumer warpgroups own 64 queries each and keep the lse
+// (times log2 e) and delta of their two rows a thread in registers for
+// the whole block.  Per key tile: S = Q.K^T and dP = dO.V^T (A and B from
+// shared memory), P = exp2(S scale log2 e - lse log2 e) masked per
+// element where the tile crosses the diagonal or a ragged end,
+// dS = P (dP - delta), then dQ += dS_hi.K + dS_lo.K with dS as a register
+// A operand and K read MN-major through the transpose bit, as B1 reads V.
+// dS is split for B3's reason: one bf16 cast misses the f32 bar.  A
+// warpgroup whose rows all lie above a tile's keys (the block's last
+// tile under causal masking, for the first warpgroup) or past t_q only
+// releases the stage.  `scale` enters dQ once, when it is written.  Four
+// products where the function has three; S, dP, dQ and dS's halves fit
+// the 232 registers (`ptxas -v`: no spills).
 //
-// Known limits: B2 still runs on the CUDA cores in bf16 (the same ring
-// and products are its next step); the bf16 B3 serialises each
-// warpgroup's exponentials and products and holds one block per SM; the
-// f32 dK/dV block stages eight tiles (139 KB at head_dim 64), so one
-// block fits an SM, and stages synchronously.
+// B2 and B3, float32: CUDA-core kernels.  Every operand is staged in
+// shared memory as f32, transposed where a product contracts over its
+// columns and row-major where it contracts over its rows, so each step of
+// each tile product is two 16-byte shared loads feeding 16 FMAs per
+// thread; P and dS go through shared memory between the two halves of a
+// step.  No rounding enters beyond the outputs' casts.  They keep the f32
+// promise of the train step (see the forward's note).
+//
+// Known limits: the bf16 kernels serialise each warpgroup's exponentials
+// and products and hold one block per SM; the f32 dK/dV block stages
+// eight tiles (139 KB at head_dim 64), so one block fits an SM, and the
+// f32 kernels stage synchronously.
 
 #include "flash_attn_common.cuh"
 #include "flash_attn_sm90.cuh"
@@ -74,13 +91,17 @@
 namespace flash_train {
 namespace {
 
-template <typename T, int D>
+// B2, float32
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dq_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
-                        int t_q, int t_k, int causal, float scale) {
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int t_q, int t_k, int causal,
+                        float scale) {
   constexpr int BQ = Tiles<D>::kQ, BK = Tiles<D>::kK;
   constexpr int TM = BQ / 16, TN = BK / 16, G = D / 64;
   constexpr int LQ = BQ + 4, LK = BK + 4, LV = D + 4;
@@ -249,7 +270,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int bh, int t_q, int t_k, int causal,
@@ -259,15 +280,15 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       sizeof(float) * (2 * D * (BQ + 4) + 2 * D * (BK + 4) + BK * (D + 4) +
                        BK * (BQ + 4));
   static std::atomic<size_t> raised[kMaxDevices];
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+  auto kernel = flash_bwd_dq_kernel<D>;
   cudaError_t e = allow_smem(kernel, smem, raised);
   if (e != cudaSuccess) return e;
   const dim3 grid(bh, (t_q + BQ - 1) / BQ);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), t_q, t_k, causal, scale);
+      static_cast<float*>(dq), t_q, t_k, causal, scale);
   return cudaGetLastError();
 }
 
@@ -525,14 +546,221 @@ cudaError_t launch_dkv_sm90(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------------ B2, bfloat16: tensor cores (sm90)
+
+template <int D>
+struct DqSm90 {
+  static constexpr int kBQ = 128;  // two warpgroups of 64 queries
+  static constexpr int kBK = 64;   // keys a tile
+  static constexpr int kStages = 2;
+  static constexpr int kPanels = D / sm90::kPanelCols;
+  static constexpr int kQBytes = kBQ * D * 2;    // the Q or the dO tile
+  static constexpr int kKVBytes = kBK * D * 2;   // one K or V tile
+  static constexpr int kThreads = 384;  // + a producer warpgroup
+  static constexpr size_t kSmem =
+      1024 + 2 * kQBytes + 2 * kStages * kKVBytes + 8 * (1 + 2 * kStages);
+};
+
+template <int D>
+__global__ void __launch_bounds__(DqSm90<D>::kThreads, 1)
+    flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
+                             const __grid_constant__ CUtensorMap map_k,
+                             const __grid_constant__ CUtensorMap map_v,
+                             const __grid_constant__ CUtensorMap map_do,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dq, int t_q,
+                             int t_k, int causal, float scale) {
+  using C = DqSm90<D>;
+  constexpr int BQ = C::kBQ, BK = C::kBK, S = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = sm90::align1024(smem_raw);
+  uint8_t* do_s = q_s + C::kQBytes;
+  uint8_t* k_s = do_s + C::kQBytes;       // [S] K tiles
+  uint8_t* v_s = k_s + S * C::kKVBytes;   // [S] V tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + S * C::kKVBytes);
+  uint64_t* kv_full = q_full + 1;         // [S]
+  uint64_t* kv_empty = kv_full + S;       // [S]
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest first
+  const int q_end = min(q0 + BQ, t_q);
+  const int k_end = causal ? min(t_k, q_end) : t_k;
+  const int n_kt = (k_end + BK - 1) / BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&kv_full[s], 1);
+      sm90::mbar_init(&kv_empty[s], 8);  // one arrival per consumer warp
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // producer warpgroup: one warp loads, three idle
+    sm90::regs_release<sm90::kProducerRegs>();
+    if (warp > 8 || lane != 0) return;
+    sm90::mbar_expect_tx(q_full, 2 * C::kQBytes);
+    sm90::tma_load_tile(q_s, &map_q, q_full, C::kPanels, BQ, q0, bh);
+    sm90::tma_load_tile(do_s, &map_do, q_full, C::kPanels, BQ, q0, bh);
+    for (int it = 0; it < n_kt; ++it) {
+      const int s = it % S;
+      if (it >= S) sm90::mbar_wait(&kv_empty[s], (it / S - 1) & 1);
+      sm90::mbar_expect_tx(&kv_full[s], 2 * C::kKVBytes);
+      sm90::tma_load_tile(k_s + s * C::kKVBytes, &map_k, &kv_full[s],
+                          C::kPanels, BK, it * BK, bh);
+      sm90::tma_load_tile(v_s + s * C::kKVBytes, &map_v, &kv_full[s],
+                          C::kPanels, BK, it * BK, bh);
+    }
+    return;
+  }
+
+  sm90::regs_take<sm90::kConsumerRegs>();
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 64
+  const int wg = warp / 4;
+  const int wg_row0 = q0 + 64 * wg;
+  const int row_a = wg_row0 + 16 * (warp % 4) + lane / 4;
+  const int row_b = row_a + 8;
+  const int c2 = 2 * (lane % 4);
+  const float scale_log2 = scale * sm90::kLog2e;
+  // this thread's two rows: lse in log2 units and delta (0 past t_q,
+  // where the rows are masked and never stored)
+  const size_t row0 = static_cast<size_t>(bh) * t_q;
+  const bool live_a = row_a < t_q, live_b = row_b < t_q;
+  const float l2_a = live_a ? lse[row0 + row_a] * sm90::kLog2e : 0.f;
+  const float l2_b = live_b ? lse[row0 + row_b] * sm90::kLog2e : 0.f;
+  const float dl_a = live_a ? delta[row0 + row_a] : 0.f;
+  const float dl_b = live_b ? delta[row0 + row_b] : 0.f;
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+
+  const uint32_t q_addr = sm90::smem_u32(q_s) + 64 * wg * sm90::kRowBytes;
+  const uint32_t do_addr = sm90::smem_u32(do_s) + 64 * wg * sm90::kRowBytes;
+  sm90::mbar_wait(q_full, 0);
+  for (int it = 0; it < n_kt; ++it) {
+    const int s = it % S;
+    const int k0 = it * BK;
+    const uint32_t k_addr = sm90::smem_u32(k_s + s * C::kKVBytes);
+    const uint32_t v_addr = sm90::smem_u32(v_s + s * C::kKVBytes);
+    sm90::mbar_wait(&kv_full[s], (it / S) & 1);
+
+    // a tile wholly above this warpgroup's rows, or rows all past t_q,
+    // contributes nothing
+    if (wg_row0 < t_q && !(causal && k0 > wg_row0 + 63)) {
+      float sc[BK / 2], dp[BK / 2];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;  // bytes into the panel's rows
+        sm90::wgmma_ss<0>(
+            sc, sm90::desc_k_major(q_addr + (kk / 4) * BQ * 128 + col),
+            sm90::desc_k_major(k_addr + (kk / 4) * BK * 128 + col), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;
+        sm90::wgmma_ss<0>(
+            dp, sm90::desc_k_major(do_addr + (kk / 4) * BQ * 128 + col),
+            sm90::desc_k_major(v_addr + (kk / 4) * BK * 128 + col), kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(dp);
+
+      // P, then dS in place of dP; masked only where the tile crosses
+      // the diagonal or a ragged end
+      const bool edge = k0 + BK > t_k || wg_row0 + 64 > t_q ||
+                        (causal && k0 + BK - 1 > wg_row0);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float pa = exp2f(fmaf(sc[4 * j + e], scale_log2, -l2_a));
+          float pb = exp2f(fmaf(sc[4 * j + 2 + e], scale_log2, -l2_b));
+          if (edge) {
+            const int col = k0 + 8 * j + c2 + e;
+            if (!live_a || col >= t_k || (causal && col > row_a)) pa = 0.f;
+            if (!live_b || col >= t_k || (causal && col > row_b)) pb = 0.f;
+          }
+          dp[4 * j + e] = pa * (dp[4 * j + e] - dl_a);
+          dp[4 * j + 2 + e] = pb * (dp[4 * j + 2 + e] - dl_b);
+        }
+
+      uint32_t ds_hi[BK / 16][4], ds_lo[BK / 16][4];
+      sm90::split_frags(dp, ds_hi, ds_lo);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t d_k =
+            sm90::desc_mn_major(k_addr + kk * 16 * 128, BK * 128);
+        sm90::wgmma_rs<1>(dq_acc, ds_hi[kk], d_k);
+        sm90::wgmma_rs<1>(dq_acc, ds_lo[kk], d_k);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::fence_regs(dq_acc);
+      sm90::fence_regs(ds_hi);
+      sm90::fence_regs(ds_lo);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&kv_empty[s]);  // this warp is done
+  }
+
+  if (live_a) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      sm90::store_bf16x2(dq + (row0 + row_a) * D + 8 * j + c2,
+                         dq_acc[4 * j] * scale, dq_acc[4 * j + 1] * scale);
+  }
+  if (live_b) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      sm90::store_bf16x2(dq + (row0 + row_b) * D + 8 * j + c2,
+                         dq_acc[4 * j + 2] * scale,
+                         dq_acc[4 * j + 3] * scale);
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_sm90(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dq, int bh, int t_q,
+                           int t_k, int causal, float scale,
+                           cudaStream_t stream) {
+  using C = DqSm90<D>;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  cudaError_t e = sm90::make_tile_map(&map_q, q, bh, t_q, D, C::kBQ);
+  if (e == cudaSuccess)
+    e = sm90::make_tile_map(&map_do, dout, bh, t_q, D, C::kBQ);
+  if (e == cudaSuccess)
+    e = sm90::make_tile_map(&map_k, k, bh, t_k, D, C::kBK);
+  if (e == cudaSuccess)
+    e = sm90::make_tile_map(&map_v, v, bh, t_k, D, C::kBK);
+  if (e != cudaSuccess) return e;
+  static std::atomic<size_t> raised[kMaxDevices];
+  auto kernel = flash_bwd_dq_sm90_kernel<D>;
+  e = allow_smem(kernel, C::kSmem, raised);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(bh, (t_q + C::kBQ - 1) / C::kBQ);
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+      map_q, map_k, map_v, map_do, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), t_q,
+      t_k, causal, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace flash_train
 
-// dtype: 0 float32, 1 bfloat16 (dK/dV: the tensor-core kernel).
-// q/dout [bh, t_q, head_dim], k/v [bh, t_k, head_dim], lse/delta f32
-// [bh, t_q], outputs like their inputs; all contiguous on the current
-// device, 16-byte aligned.  Each returns cudaGetLastError() after its
-// launch (or the error of the tensor maps' encoding).
+// dtype: 0 float32 (the CUDA-core kernels), 1 bfloat16 (the tensor-core
+// kernels).  q/dout [bh, t_q, head_dim], k/v [bh, t_k, head_dim],
+// lse/delta f32 [bh, t_q], outputs like their inputs; all contiguous on
+// the current device, 16-byte aligned.  Each returns cudaGetLastError()
+// after its launch (or the error of the tensor maps' encoding).
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int bh,
@@ -542,9 +770,13 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   if (t_k < 1 || (t_q + 31) / 32 > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return flash_train::dispatch(dtype, head_dim, [&](auto t, auto d) {
-    using T = decltype(t);
-    return flash_train::launch_dq<T, decltype(d)::value>(
-        q, k, v, dout, lse, delta, dq, bh, t_q, t_k, causal, scale, s);
+    constexpr int D = decltype(d)::value;
+    if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
+      return flash_train::launch_dq_sm90<D>(q, k, v, dout, lse, delta, dq,
+                                            bh, t_q, t_k, causal, scale, s);
+    else
+      return flash_train::launch_dq<D>(q, k, v, dout, lse, delta, dq, bh,
+                                       t_q, t_k, causal, scale, s);
   });
 }
 

@@ -9,10 +9,9 @@ Port of easydist_tpu/ops/flash_attention.py, serving and training:
     kernels `csrc/flash_attn_fwd.cu` and `csrc/flash_attn_bwd.cu`,
     registered as the custom ops `easydist_tpu_torch::flash_fwd`,
     `::flash_bwd_dq` and `::flash_bwd_dkv`, the forward differentiable
-    in both outputs through `register_autograd`.  On bfloat16 the
-    forward and dK/dV kernels run on the tensor cores (`wgmma` fed by a
-    TMA ring, `csrc/flash_attn_sm90.cuh`); on float32, and for dQ, on
-    the CUDA cores;
+    in both outputs through `register_autograd`.  On bfloat16 the three
+    kernels run on the tensor cores (`wgmma` fed by a TMA ring,
+    `csrc/flash_attn_sm90.cuh`); on float32 on the CUDA cores;
   * serving: the decode kernel `_flash_decode_kernel` becomes
     `csrc/flash_decode.cu`, the custom op `easydist_tpu_torch::flash_decode`;
     the paged decode kernels `_flash_paged_decode_kernel` (exact pages)
@@ -327,7 +326,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
                  scale: Optional[float] = None):
     """B2: dQ from the saved lse and delta (`_flash_delta`).  CPU tensors
     run `_flash_bwd_dq_xla`; CUDA tensors launch the dQ kernel of
-    `csrc/flash_attn_bwd.cu`."""
+    `csrc/flash_attn_bwd.cu` (bfloat16 the tensor-core kernel, float32
+    the CUDA-core one)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _flash_bwd_dq_op(q, k, v, do, lse, delta, bool(causal),
@@ -634,7 +634,7 @@ def _paged_lib():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.paged_decode.argtypes = [ptr] * 6 + [i32] * 7 + [
             ctypes.c_float, i32, i32, ptr]
-        lib.paged_decode_quant.argtypes = [ptr] * 8 + [i32] * 8 + [
+        lib.paged_decode_quant.argtypes = [ptr] * 10 + [i32] * 9 + [
             ctypes.c_float, i32, ptr]
         lib.paged_decode.restype = ctypes.c_int
         lib.paged_decode_quant.restype = ctypes.c_int
@@ -692,6 +692,40 @@ def _check_paged_inputs(op: str, q, k_pages, v_pages, table, lengths,
     return (b, h, kvh, n_pages, pt, mp, d), out
 
 
+# B6 cuts each row's keys into splits of whole pages, up to this many
+# tokens, one block each (flash-decoding; csrc/paged_decode.cu)
+_SPLIT_TOKENS = 256
+
+
+def _split_tokens(page_tokens: int, d: int, n_blocks: int) -> int:
+    """Tokens per split of a B6 row: whole pages up to `_SPLIT_TOKENS`
+    (`_SPLIT_TOKENS` itself when a page is longer), the budget halved
+    until a split's K, V, scales, scores and arena rows fit
+    `_TILE_SMEM_LIMIT` (a bound on the kernel's `split_smem`)."""
+    per_key = 2 * d + 8 * n_blocks + 12
+    tokens = _SPLIT_TOKENS
+    while tokens > 16 and tokens * per_key + 96 > _TILE_SMEM_LIMIT:
+        tokens //= 2
+    return tokens // page_tokens * page_tokens if page_tokens <= tokens \
+        else tokens
+
+
+# B6's per-row arrival counters by (device, stream).  A launch leaves
+# every counter it used at 0 again (the row's last block resets it), so a
+# buffer is zeroed once, when it is made; one per stream keeps launches
+# on different streams from sharing counters.
+_SPLIT_COUNTERS: dict = {}
+
+
+def _split_counters(device, rows: int):
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _SPLIT_COUNTERS.get(key)
+    if buf is None or buf.numel() < rows:
+        buf = torch.zeros(rows, dtype=torch.int32, device=device)
+        _SPLIT_COUNTERS[key] = buf
+    return buf
+
+
 @torch.library.custom_op("easydist_tpu_torch::paged_decode", mutates_args=())
 def _paged_decode_op(q: torch.Tensor, k_pages: torch.Tensor,
                      v_pages: torch.Tensor, table: torch.Tensor,
@@ -743,12 +777,18 @@ def _paged_decode_quant_op(q: torch.Tensor, k_pages: torch.Tensor,
     (b, h, kvh, n_pages, pt, mp, d), (q, kp, vp, tbl, lens, ks, vs) = \
         _check_paged_inputs("paged_decode_quant", q, k_pages, v_pages,
                             table, lengths, k_scale, v_scale)
+    nb = ks.shape[3]
+    chunk = _split_tokens(pt, d, nb)
+    n_splits = -(-(mp * pt) // chunk)
     out = torch.empty_like(q)
+    work = torch.empty(b * h * n_splits * (d + 2), dtype=torch.float32,
+                       device=q.device)
     lib = _paged_lib()
     err = lib.paged_decode_quant(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
-        vs.data_ptr(), tbl.data_ptr(), lens.data_ptr(), out.data_ptr(), b,
-        h, kvh, n_pages, pt, mp, d, ks.shape[3], float(scale),
+        vs.data_ptr(), tbl.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        work.data_ptr(), _split_counters(q.device, b * h).data_ptr(), b, h,
+        kvh, n_pages, pt, mp, d, nb, chunk, float(scale),
         _DTYPE_CODES[q.dtype], _stream(q))
     _check_launch(lib, "paged_decode", err)
     flash_paged_decode_quant_attention.launches += 1
@@ -788,9 +828,12 @@ def flash_paged_decode_quant_attention(q, k_pages, v_pages, k_scale,
 
     k_pages/v_pages: int8 [n_pages, kv_heads, page_tokens, head_dim];
     k_scale/v_scale: f32 [n_pages, kv_heads, page_tokens, n_blocks],
-    riding the same table.  The kernel dequantizes on chip inside its
-    loop.  Returns [batch, heads, head_dim] in q's dtype.  CUDA tensors
-    only (the plain version is `_paged_decode_attention_quant_xla`);
+    riding the same table.  The kernel dequantizes on chip and splits
+    each row's keys across blocks (`_split_tokens`), merging the splits'
+    partials in a fixed order inside the same launch: one kernel a call,
+    deterministic.  Returns [batch, heads, head_dim] in q's dtype.  CUDA
+    tensors only (the plain version is `_paged_decode_attention_quant_xla`,
+    which gives mean(v) where the kernel gives 0 for a row of length 0);
     `flash_paged_decode_quant_attention.launches` counts launches."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])

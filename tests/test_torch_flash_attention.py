@@ -217,18 +217,33 @@ def _emulated_forward(q, k, v, causal: bool, scale: float, split: bool):
     return out.to(torch.bfloat16)
 
 
-def _emulated_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
-                  split: bool):
-    """B3's rounding points: P = exp(S scale - lse) and dS = P (dO.V^T -
-    delta) in f32, dV = P^T.dO and dK = dS^T.Q * scale over the halves of
-    P and dS, both rounded to bf16 once."""
+def _emulated_p_ds(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """P = exp(S scale - lse) and dS = P (dO.V^T - delta) in f32, with S
+    and dP exact products of the bf16 inputs, as B2 and B3 form them."""
     b, h, t_q, _ = q.shape
     s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
     if causal:
         s = tfa._causal_fill(s)
     p = torch.exp(s - lse.reshape(b, h, t_q, 1))
     dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
-    ds = p * (dp - delta.reshape(b, h, t_q, 1))
+    return p, p * (dp - delta.reshape(b, h, t_q, 1))
+
+
+def _emulated_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
+                 split: bool):
+    """B2's rounding points: P and dS in f32, dQ = dS.K over dS's
+    halves, times scale, rounded to bf16 once."""
+    _, ds = _emulated_p_ds(q, k, v, do, lse, delta, causal, scale)
+    dq = _split_product("bhqk,bhkd->bhqd", ds, k, split) * scale
+    return dq.to(torch.bfloat16)
+
+
+def _emulated_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
+                  split: bool):
+    """B3's rounding points: P and dS in f32, dV = P^T.dO and dK =
+    dS^T.Q * scale over the halves of P and dS, both rounded to bf16
+    once."""
+    p, ds = _emulated_p_ds(q, k, v, do, lse, delta, causal, scale)
     dv = _split_product("bhqk,bhqd->bhkd", p, do, split)
     dk = _split_product("bhqk,bhqd->bhkd", ds, q, split) * scale
     return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
@@ -241,7 +256,7 @@ def _worst(got, ref, rtol: float, atol: float) -> float:
 
 
 class TestSplitRounding:
-    """The bf16 tensor-core B1 and B3 feed P and dS to their products as
+    """The bf16 tensor-core B1-B3 feed P and dS to their products as
     bf16 hi + lo halves.  Emulated on the CPU at a small causal size, the
     split holds the bars the kernels are held to on the card; one bf16
     cast of P (and dS) does not, so a change that drops the split has to
@@ -272,6 +287,16 @@ class TestSplitRounding:
         worst = [_worst(dk, ref_dk, **BWD), _worst(dv, ref_dv, **BWD)]
         assert all((w <= 1.0) == split for w in worst), worst
 
+    @pytest.mark.parametrize("split", [True, False], ids=["hi_lo", "one_cast"])
+    def test_dq_within_bar_only_with_split(self, split):
+        q, k, v, do, scale = self._inputs()
+        out, lse = tfa._flash_forward_xla(q, k, v, True, scale)
+        delta = tfa._flash_delta(out, do)
+        ref = tfa._flash_bwd_dq_xla(q, k, v, do, lse, delta, True, scale)
+        dq = _emulated_dq(q, k, v, do, lse, delta, True, scale, split)
+        worst = _worst(dq, ref, **BWD)
+        assert (worst <= 1.0) == split, worst
+
 
 @pytest.mark.cuda
 class TestKernelsOnCard:
@@ -280,8 +305,8 @@ class TestKernelsOnCard:
     a ragged length (1000), fewer queries than keys (192 over 1024, full
     and causal), a single row block, head_dim 128.  A bf16 output adds
     half an ulp of its rounding (2^-8 |ref|) to the f32 bar: the kernels
-    round once (the bf16 B1 and B3 split P and dS hi/lo so their
-    products keep f32 accuracy; see TestSplitRounding)."""
+    round once (the bf16 B1-B3 split P and dS hi/lo so their products
+    keep f32 accuracy; see TestSplitRounding)."""
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("causal,t_q,t_k,b,h", [
@@ -328,7 +353,7 @@ class TestKernelsOnCard:
 
     @pytest.mark.parametrize("d", [64, 128])
     def test_two_launches_are_bitwise_equal(self, cuda_device, d):
-        # no atomics and a fixed order of sums: B1 and B3 are deterministic
+        # no atomics and a fixed order of sums: B1-B3 are deterministic
         rs = np.random.RandomState(1)
         q, k, v, do = (torch.as_tensor(rs.standard_normal((2, 12, 1000, d)),
                                        dtype=torch.bfloat16,
@@ -338,8 +363,9 @@ class TestKernelsOnCard:
         for _ in range(2):
             out, lse = tfa.flash_fwd(q, k, v, True)
             delta = tfa._flash_delta(out, do)
-            runs.append((out, lse, *tfa.flash_bwd_dkv(q, k, v, do, lse,
-                                                      delta, True)))
+            runs.append((out, lse,
+                         tfa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+                         *tfa.flash_bwd_dkv(q, k, v, do, lse, delta, True)))
         torch.cuda.synchronize()
         for a, b in zip(*runs):
             assert torch.equal(a, b)

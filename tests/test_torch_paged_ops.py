@@ -3,8 +3,9 @@
 `kv_quantize`/`kv_dequantize` bitwise; the plain paged versions against
 the JAX Pallas kernels B5/B6 in interpret mode; dispatch rules; the
 `PagePool`/`PageTable` copies and `audit_page_table` against the JAX
-package's KV001 audit; and — on a CUDA host — the CUDA kernels against
-the plain versions.
+package's KV001 audit; a plain emulation of B6's split-K merge against
+the plain version; and — on a CUDA host — the CUDA kernels against the
+plain versions.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerance: atol 1e-5 in float32 (the bar of
@@ -163,6 +164,76 @@ class TestPlainVsJaxKernels:
         assert torch.equal(base, noisy)
 
 
+def _split_k_emulated(q, kq, vq, ks, vs, table, lengths, scale: float,
+                      chunk: int):
+    """B6's split-K in plain torch: each row's live keys in splits of
+    `chunk` tokens, each split's max m, denominator l and output acc in
+    f32, then the partials merged in split order with the 1e-30 clamp; a
+    row of length 0 gives 0."""
+    h = q.shape[1]
+    kf, vf = (tfa.kv_dequantize(tfa.gather_pages(x, table, n_heads=h),
+                                tfa.gather_pages(sc, table, n_heads=h))
+              for x, sc in ((kq, ks), (vq, vs)))
+    out = torch.zeros(q.shape)
+    for bi, n in enumerate(lengths.tolist()):
+        n = min(n, kf.shape[2])
+        parts = []
+        for c0 in range(0, n, chunk):
+            c1 = min(c0 + chunk, n)
+            s = torch.einsum("hd,hkd->hk", q[bi].float() * scale,
+                             kf[bi, :, c0:c1])
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.exp(s - m)
+            parts.append((m, p.sum(dim=-1, keepdim=True),
+                          torch.einsum("hk,hkd->hd", p, vf[bi, :, c0:c1])))
+        if not parts:
+            continue
+        top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        den = torch.zeros_like(top)
+        acc = torch.zeros(q.shape[1:])
+        for m, l, a in parts:  # split order
+            den = den + l * torch.exp(m - top)
+            acc = acc + a * torch.exp(m - top)
+        out[bi] = acc / den.clamp_min(1e-30)
+    return out.to(q.dtype)
+
+
+class TestSplitK:
+    """B6 cuts each row's keys into splits of `_split_tokens` tokens, one
+    block each, and merges the splits' partials in split order.  Emulated
+    at the serving page size, the merge equals the plain version at the
+    f32 bar on both sides of a split boundary, on a dead all-sentinel row
+    and under GQA; a row of length 0 gives 0, as the TPU kernel does (the
+    plain version gives mean(v) there)."""
+
+    @pytest.mark.parametrize("nb,h,kvh", [(1, 4, 4), (4, 4, 4), (1, 12, 4),
+                                          (4, 12, 4)])
+    def test_merge_matches_plain(self, nb, h, kvh):
+        pt, mp = 64, 8
+        chunk = tfa._split_tokens(pt, 64, nb)
+        assert chunk == 256
+        lengths = [0, 1, chunk - 1, chunk, chunk + 1, mp * pt, 1]
+        q, k, v, table, L = _t(*_paged(lengths, h=h, kvh=kvh, d=64, pt=pt,
+                                       mp=mp, n_pages=len(lengths) * mp,
+                                       dead=(6,)))
+        kq, ks = tfa.kv_quantize(k, nb)
+        vq, vs = tfa.kv_quantize(v, nb)
+        got = _split_k_emulated(q, kq, vq, ks, vs, table, L, 0.125, chunk)
+        ref = tfa._paged_decode_attention_quant_xla(q, kq, vq, ks, vs, table,
+                                                    L, 0.125)
+        np.testing.assert_allclose(got[1:].numpy(), ref[1:].numpy(),
+                                   atol=ATOL)
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+    @pytest.mark.parametrize("pt,d,nb,want", [
+        (64, 64, 1, 256), (64, 128, 4, 256), (16, 64, 1, 256),
+        (48, 64, 1, 240), (1024, 64, 1, 256), (64, 128, 128, 128)])
+    def test_split_tokens(self, pt, d, nb, want):
+        # whole pages up to 256 tokens; 256 of a longer page; halved until
+        # a split fits the shared-memory budget
+        assert tfa._split_tokens(pt, d, nb) == want
+
+
 class TestDispatch:
     def test_auto_on_cpu_runs_plain_version(self):
         q, k, v, table, L = _t(*_paged([32, 17]))
@@ -306,6 +377,23 @@ class TestKvBookkeeping:
         assert port == [f.message for f in jax_findings]
 
 
+def _b6_reference(q, kq, vq, ks, vs, table, lengths):
+    """The plain B6 in f32 on the same inputs, with 0 on rows of length
+    0 (the kernel's and the TPU kernel's answer there)."""
+    ref = tfa._paged_decode_attention_quant_xla(
+        q.float(), kq, vq, ks, vs, table, lengths,
+        1.0 / np.sqrt(q.shape[-1]))
+    ref[lengths == 0] = 0.0
+    return ref
+
+
+def _b6_close(q, out, ref) -> bool:
+    """Within atol 1e-5, plus half an ulp (2^-8 |ref|) of a bf16
+    output."""
+    tol = ATOL if q.dtype == torch.float32 else 2.0 ** -8 * ref.abs() + ATOL
+    return bool(((out.float() - ref).abs() <= tol).all())
+
+
 @pytest.mark.cuda
 class TestKernelsOnCard:
     @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
@@ -333,10 +421,13 @@ class TestKernelsOnCard:
     @pytest.mark.parametrize("q_dt", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("nb,kvh", [(1, 12), (4, 12), (4, 4)])
     def test_b6_matches_plain(self, cuda_device, q_dt, nb, kvh):
-        lengths = [1, 1, 63, 64, 65, 300, 700, 1024]
+        # lengths on both sides of the 256-token split boundaries, and an
+        # empty row
+        lengths = [1, 0, 63, 64, 65, 255, 256, 257, 300, 511, 513, 700,
+                   1024]
         q, k, v, table, L = (x.to(cuda_device) for x in _t(*_paged(
-            lengths, h=12, kvh=kvh, d=64, pt=64, mp=16, n_pages=144,
-            dead=(0,))))
+            lengths, h=12, kvh=kvh, d=64, pt=64, mp=16,
+            n_pages=16 * len(lengths), dead=(0,))))
         kq, ks = tfa.kv_quantize(k, nb)
         vq, vs = tfa.kv_quantize(v, nb)
         q = q.to(q_dt)
@@ -345,11 +436,31 @@ class TestKernelsOnCard:
                                          v_scale=vs)
         torch.cuda.synchronize()
         assert tfa.flash_paged_decode_quant_attention.launches == before + 1
-        ref = tfa._paged_decode_attention_quant_xla(q.float(), kq, vq, ks,
-                                                    vs, table, L, 0.125)
-        tol = ATOL if q_dt == torch.float32 else \
-            2.0 ** -8 * ref.abs() + ATOL
-        assert bool(((out.float() - ref).abs() <= tol).all())
+        assert _b6_close(q, out, _b6_reference(q, kq, vq, ks, vs, table, L))
+
+    def test_b6_is_deterministic_and_leaves_no_stale_counters(self,
+                                                              cuda_device):
+        # split boundaries depend on the length alone and the merge order
+        # is fixed: two launches are bitwise equal.  Each launch resets the
+        # counters it used, so calls with other lengths stay right.
+        lengths = [1024, 700, 257, 256, 0, 513, 1, 900]
+        q, k, v, table, L = (x.to(cuda_device) for x in _t(*_paged(
+            lengths, h=12, kvh=12, d=64, pt=64, mp=16, n_pages=128)))
+        kq, ks = tfa.kv_quantize(k, 1)
+        vq, vs = tfa.kv_quantize(v, 1)
+        first = tfa.flash_paged_decode_quant_attention(q, kq, vq, ks, vs,
+                                                       table, L)
+        for lens in (lengths, [300, 1, 1024, 0, 64, 511, 257, 700],
+                     [0] * 8, lengths):
+            L2 = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+            out = tfa.flash_paged_decode_quant_attention(q, kq, vq, ks, vs,
+                                                         table, L2)
+            torch.cuda.synchronize()
+            assert _b6_close(q, out, _b6_reference(q, kq, vq, ks, vs,
+                                                   table, L2))
+            assert all(int(c.abs().sum()) == 0
+                       for c in tfa._SPLIT_COUNTERS.values())
+        assert torch.equal(out, first)
 
     def test_plain_backend_on_cuda_tensor_raises(self, cuda_device):
         q, k, v, table, L = (x.to(cuda_device) for x in _t(*_paged([8])))
