@@ -7,18 +7,20 @@ Phases, each raising on failure (exit code != 0, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build of every CUDA kernel from `csrc/`, one nvcc per source, all
      started together; ptxas's register and spill report, which must
-     show no spills for the tensor-core kernels and B6;
+     show no spills for the tensor-core kernels, B5 and B6;
   3. each kernel against its plain PyTorch version on the card: the
      decode kernel (B4) at the serving shape; the paged decode kernels
      (B5 exact pages, B6 int8 pages) at the paged serving shape, with a
-     GQA case and head_dim 128; the training kernels (B1 forward, B2 dQ,
-     B3 dK/dV) at the training shape; in float32 and bfloat16, with times
-     of the kernel (CUDA events, and device time per launch from
-     torch.profiler), the plain version, one library call (SDPA, a
-     yardstick only) and the card's least possible time (bound).  B1-B3
-     have two routes: bfloat16 runs the tensor-core kernels (their times
-     fill the kernels line), float32 the CUDA-core kernels (their profiled
-     times are printed on lines of their own and added to the entries);
+     GQA case, head_dim 128 and lengths around the split boundaries; the
+     training kernels (B1 forward, B2 dQ, B3 dK/dV) at the training
+     shape; in float32 and bfloat16, with times of the kernel (CUDA
+     events, and device time per launch from torch.profiler), the plain
+     version, one library call (SDPA, a yardstick only) and the card's
+     least possible time (bound).  B1-B3 have two routes: bfloat16 runs
+     the bf16 tensor-core kernels (their times fill the kernels line),
+     float32 the f32 kernels — B1's three-product TF32 kernel on the
+     tensor cores, B2 and B3 on the CUDA cores — whose times are printed
+     on lines of their own and added to the entries;
   4. serving: GPT-2 small at full width (random weights from a seeded
      generator) through `GenerationSession.for_gpt`, bucketed layout.
      In float32 every request's greedy ids must equal the uncached
@@ -76,6 +78,7 @@ SERVE_SHAPE = (8, 12, 1024, 64)          # slots, heads, bucket, head_dim
 TRAIN_SHAPE = (8, 12, 1024, 64)          # batch, heads, seq, head_dim
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12                  # H100 SXM, float32 off the tensor cores
+TF32_FLOPS_PER_S = 495e12                # H100 SXM, TF32 tensor cores, dense
 BF16_FLOPS_PER_S = 989e12                # H100 SXM, bf16 tensor cores, dense
 TIMED_COPIES = 4                         # input copies rotated past the 50 MB L2
 KERNEL_SOURCES = ("flash_decode", "paged_decode", "flash_attn_fwd",
@@ -116,7 +119,8 @@ def build_kernels():
 
 # kernels whose registers are planned to the last one: a spill is a fault
 NO_SPILL_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
-                    "flash_bwd_dkv_sm90_kernel", "paged_decode_quant_kernel")
+                    "flash_bwd_dkv_sm90_kernel", "flash_fwd_tf32_kernel",
+                    "paged_decode_kernel", "paged_decode_quant_kernel")
 
 
 def ptxas_spills(log: str):
@@ -360,17 +364,20 @@ def paged_bound_ms(lengths, shape, heads: int, kv_heads: int, d: int,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# lengths on both sides of B6's 256-token split boundaries, and an empty
-# row (0 from the kernels, as from the TPU kernels; the plain version
-# gives mean(v) there, so the comparison takes 0 for it)
+# lengths on both sides of B5's and B6's 256-token split boundaries, and
+# an empty row (0 from the kernels, as from the TPU kernels; the plain
+# version gives mean(v) there, so the comparison takes 0 for it); at
+# head_dim 128, B5's f32 pages split at 128 tokens
 SPLIT_LENGTHS = (0, 1, 255, 256, 257, 511, 513, 1024)
+SPLIT_LENGTHS_128 = (0, 1, 127, 128, 129, 255, 257, 1024)
 
 
 def paged_kernel_phase(dev):
     """B5 and B6 against their plain versions on the same inputs at the
     paged serving shape (f32 and bf16 q; B6 with 1 and 4 scale blocks;
     bf16 pages under an f32 q), plus a GQA case (12 heads over 4 kv
-    heads), head_dim 128 and lengths around B6's split boundaries.
+    heads), head_dim 128 and lengths around the split boundaries (256
+    tokens; 128 for B5's f32 pages at head_dim 128).
     Tolerances: f32 atol 1e-5 (the JAX bar,
     tests/test_ops/test_paged_decode_attention.py:132); a bf16 output
     adds half an ulp, 2^-8 |ref|, as B4's.  Then the times at the serving
@@ -384,7 +391,8 @@ def paged_kernel_phase(dev):
             ("serve", h, h, d, PAGED_LENGTHS), ("gqa 12/4", h, 4, d,
                                                 PAGED_LENGTHS),
             ("d128", h, h, 128, PAGED_LENGTHS),
-            ("splits", h, h, d, SPLIT_LENGTHS)):
+            ("splits", h, h, d, SPLIT_LENGTHS),
+            ("splits d128", h, h, 128, SPLIT_LENGTHS_128)):
         q32, k32, v32, table, L = paged_inputs(dev, rs, heads, kvh, dd,
                                                lengths=lens)
         scale = 1.0 / np.sqrt(dd)
@@ -403,7 +411,7 @@ def paged_kernel_phase(dev):
             ref = fa._paged_decode_attention_xla(q.float(), k.float(),
                                                  v.float(), table, L, scale)
             ref[empty] = 0.0
-            tag = (f"paged_decode {case:8s} q {str(q_dt)[6:]:8s} pages "
+            tag = (f"paged_decode {case:11s} q {str(q_dt)[6:]:8s} pages "
                    f"{str(kv_dt)[6:]}")
             err = check_close(tag, out, ref, 0.0, 1e-5, rounded)
             key = "bf16" if rounded else "f32"
@@ -418,7 +426,7 @@ def paged_kernel_phase(dev):
                 ref = fa._paged_decode_attention_quant_xla(
                     q.float(), kq, vq, ks, vs, table, L, scale)
                 ref[empty] = 0.0
-                err = check_close(f"paged_decode_quant {case:8s} q "
+                err = check_close(f"paged_decode_quant {case:11s} q "
                                   f"{str(q_dt)[6:]:8s} n_blocks {nb}",
                                   out, ref, 0.0, 1e-5, rounded)
                 worst["paged_decode_quant"][key] = max(
@@ -434,9 +442,9 @@ def paged_kernel_times(dev, worst):
     bound, and a yardstick: no single PyTorch call computes paged
     attention, so SDPA runs on the cache already gathered (and, for B6,
     dequantized) into contiguous [8, 12, 1024, 64] — the gather excluded.
-    Each wrapper call launches one kernel (B6 merges its splits inside
-    its own launch), so the profiled symbol is the call's whole device
-    time."""
+    Each wrapper call launches one kernel (B5 and B6 merge their splits
+    inside their own launch), so the profiled symbol is the call's whole
+    device time."""
     import torch.nn.functional as F
 
     from easydist_tpu_torch.ops import flash_attention as fa
@@ -521,7 +529,7 @@ def paged_kernel_times(dev, worst):
 # name -> (bfloat16 kernel symbol, float32 kernel symbol, TPU kernel it
 # replaces, source)
 TRAIN_KERNELS = {
-    "flash_fwd": ("flash_fwd_sm90_kernel", "flash_fwd_kernel",
+    "flash_fwd": ("flash_fwd_sm90_kernel", "flash_fwd_tf32_kernel",
                   "easydist_tpu/ops/flash_attention.py:78",
                   "easydist_tpu_torch/ops/csrc/flash_attn_fwd.cu"),
     "flash_bwd_dq": ("flash_bwd_dq_sm90_kernel", "flash_bwd_dq_kernel",
@@ -543,8 +551,10 @@ def train_bound_ms(kernel: str, shape, causal: bool, itemsize: int):
     """(ms, "bytes"|"operations") for one training kernel: the larger of
     its bytes (each input read once, each output written once: the
     [b,h,t,d] tensors and the f32 per-row lse/delta) over HBM rate, and
-    its products over the peak rate for the inputs' type (bf16: tensor
-    cores; f32: off the tensor cores).  Causal products count the
+    its products over the tensor cores' dense rate for the inputs' type
+    (bf16; f32 at the TF32 rate, the card's fastest way to f32 products,
+    which the f32 B1 takes).  The function's products only: the hi/lo
+    splits' extra products are not counted.  Causal products count the
     visible (query, key) pairs only."""
     b, h, t, d = shape
     pairs = t * (t + 1) // 2 if causal else t * t
@@ -553,7 +563,7 @@ def train_bound_ms(kernel: str, shape, causal: bool, itemsize: int):
                                "flash_bwd_dkv": (6, 2, 4)}[kernel]
     nbytes = tensors * b * h * t * d * itemsize + rows * b * h * t * 4
     flops = products * 2 * b * h * pairs * d
-    rate = BF16_FLOPS_PER_S if itemsize == 2 else F32_FLOPS_PER_S
+    rate = BF16_FLOPS_PER_S if itemsize == 2 else TF32_FLOPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -584,12 +594,14 @@ def train_kernel_phase(dev, shape=TRAIN_SHAPE, ragged_t: int = 1000):
     """B1, B2 and B3 against their plain versions on the same inputs:
     float32 and bfloat16 (the plain version in f32 on the same rounded
     inputs); causal, full, a ragged causal length and a backward with a
-    nonzero lse cotangent.  Tolerances: the JAX tests' f32 bars (forward
-    rtol 1e-4 / atol 1e-5, backward rtol 2e-4 / atol 2e-5); a bf16
-    output adds half an ulp of its rounding, 2^-8 |ref|, since the
-    kernels round once: the f32 ones compute in f32, and the bf16
-    tensor-core B1-B3 take exact bf16 products summed in f32 with P and
-    dS split into bf16 hi + lo halves.  On the card, also the times
+    nonzero lse cotangent; the f32 forward also at head_dim 128 and a
+    ragged length.  Tolerances: the JAX tests' f32 bars (forward rtol
+    1e-4 / atol 1e-5, backward rtol 2e-4 / atol 2e-5); a bf16 output
+    adds half an ulp of its rounding, 2^-8 |ref|, since the kernels round
+    once: the f32 B2/B3 compute in f32, the f32 B1 takes three TF32
+    products of hi/lo halves (about 2^-21 of each product lost), and the
+    bf16 tensor-core B1-B3 take exact bf16 products summed in f32 with P
+    and dS split into bf16 hi + lo halves.  On the card, also the times
     (causal, at `shape`).  Returns the kernels-line entries (without
     `launches`)."""
     from easydist_tpu_torch.ops import flash_attention as fa
@@ -646,6 +658,23 @@ def train_kernel_phase(dev, shape=TRAIN_SHAPE, ragged_t: int = 1000):
             for name, err in errs.items():
                 worst[name][dtype] = max(worst[name].get(dtype, 0.0), err)
             del out, lse, ref_out, ref_lse, delta, dq, dk, dv, r_dq, r_dk, r_dv
+    # the f32 forward's other tiles: head_dim 128 (64-query blocks, 32-key
+    # tiles) at the ragged length and one row past a tile
+    for t_case in (ragged_t, 129):
+        q, k, v = (torch.as_tensor(rs.standard_normal((b, h, t_case, 128)),
+                                   dtype=torch.float32, device=dev)
+                   for _ in range(3))
+        s128 = 1.0 / np.sqrt(128)
+        out, lse = fa.flash_fwd(q, k, v, True, s128)
+        ref_out, ref_lse = fa._flash_forward_xla(q, k, v, True, s128)
+        tag = f"float32  causal T={t_case} d128"
+        worst["flash_fwd"][torch.float32] = max(
+            worst["flash_fwd"][torch.float32],
+            check_close(f"flash_fwd {tag} out", out, ref_out, 1e-4, 1e-5,
+                        False),
+            check_close(f"flash_fwd {tag} lse", lse, ref_lse, 1e-4, 1e-5,
+                        False))
+        del q, k, v, out, lse, ref_out, ref_lse
     if dev.type != "cuda":
         return []
     return train_kernel_times(dev, shape, worst)
@@ -699,9 +728,9 @@ def train_kernel_times(dev, shape, worst):
     the profiler's device time per launch), plain version, library
     yardstick (SDPA forward; SDPA's autograd backward for B2 and B3
     together), bound.  For each kernel whose float32 route is another
-    kernel (all three), also that kernel's profiled time, its plain
-    version's and the library's on float32 copies of the same inputs,
-    printed on a line of its own."""
+    kernel (all three), also that kernel's time (CUDA events and
+    profiler), its plain version's and the library's on float32 copies
+    of the same inputs, printed on a line of its own."""
     b, h, t, d = shape
     scale = 1.0 / np.sqrt(d)
     bf16 = torch.bfloat16
@@ -728,18 +757,20 @@ def train_kernel_times(dev, shape, worst):
         f32 = {}
         if f32_symbol != symbol:
             kernel32, plain32, library32, _ = f32_calls[name]
+            f32_ev = time_ms(kernel32)
             f32_ms, f32_seen = profiled_ms(kernel32, f32_symbol)
             f32_plain = time_ms(plain32, n=10)
             f32_library = time_ms(library32)
             f32_bound, f32_by = train_bound_ms(name, shape, True, 4)
             print(f"time {name} f32 causal {list(shape)} ({f32_symbol}): "
-                  f"kernel {profiled_text(f32_ms, f32_seen)}, plain "
-                  f"{f32_plain:.4f} ms, library ({library_call}) "
+                  f"kernel {f32_ev:.4f} ms ({profiled_text(f32_ms, f32_seen)}"
+                  f"), plain {f32_plain:.4f} ms, library ({library_call}) "
                   f"{f32_library:.4f} ms, bound {f32_bound:.4f} ms "
                   f"({f32_by})")
-            f32 = {"f32_symbol": f32_symbol, "f32_profiled_ms": f32_ms,
-                   "f32_plain_ms": f32_plain, "f32_library_ms": f32_library,
-                   "f32_bound_ms": f32_bound}
+            f32 = {"f32_symbol": f32_symbol, "f32_ms": f32_ev,
+                   "f32_profiled_ms": f32_ms, "f32_plain_ms": f32_plain,
+                   "f32_library_ms": f32_library, "f32_bound_ms": f32_bound,
+                   "f32_bound_by": f32_by}
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,

@@ -1,8 +1,9 @@
 // Shared pieces of the training attention kernels (flash_attn_fwd.cu,
 // flash_attn_bwd.cu): tile sizes, bf16/f32 loads and stores, staging of
 // a tile into shared memory, the per-thread product of two staged tiles
-// (the CUDA-core kernels), and the launch-side helpers (all kernels; the
-// tensor-core pieces are in flash_attn_sm90.cuh).
+// (the CUDA-core kernels: B2 and B3 on float32), and the launch-side
+// helpers (all kernels; the tensor-core pieces are in
+// flash_attn_sm90.cuh).
 //
 // Thread layout of the CUDA-core kernels: 256 threads as a 16 x 16 grid,
 // tx = threadIdx.x % 16, ty = threadIdx.x / 16.  A [M, N] tile product

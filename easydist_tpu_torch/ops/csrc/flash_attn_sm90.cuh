@@ -1,15 +1,18 @@
-// Hopper (sm_90a) pieces shared by the bf16 training attention kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu): mbarriers, TMA tile loads,
-// shared-memory matrix descriptors for 128-byte swizzled bf16 tiles,
-// `wgmma` products (f32 += bf16 x bf16), the accumulator-to-A-fragment
-// conversion with the hi/lo split, the quad reductions of the accumulator
-// layout, and the host-side tensor-map encoder.
+// Hopper (sm_90a) pieces shared by the tensor-core training attention
+// kernels (flash_attn_fwd.cu, flash_attn_bwd.cu): mbarriers, TMA tile
+// loads, shared-memory matrix descriptors for 128-byte swizzled tiles,
+// `wgmma` products (f32 += bf16 x bf16, and f32 += tf32 x tf32 for the
+// float32 forward), the accumulator-to-A-fragment conversion with the
+// hi/lo split, the quad reductions of the accumulator layout, and the
+// host-side tensor-map encoder.
 //
-// Tile layout.  Every operand tile is `rows x d` bf16, row-major in device
-// memory, and lands in shared memory as d / 64 panels of `rows x 64`
-// (128 bytes a row), each loaded by one TMA box with the 128-byte swizzle
-// (16-byte chunk c of row r stored at chunk c ^ (r % 8)).  Panels start on
-// 1024-byte boundaries, so 8-row groups are 1024 bytes apart.
+// Tile layout.  Every operand tile is `rows x d` bf16 (or f32), row-major
+// in device memory, and lands in shared memory as panels of `rows x 128
+// bytes` (64 bf16 or 32 f32 columns), each loaded by one TMA box with the
+// 128-byte swizzle (16-byte chunk c of row r stored at chunk c ^ (r % 8)).
+// Panels start on 1024-byte boundaries, so 8-row groups are 1024 bytes
+// apart.  A 32-byte step of the contracted index is 16 bf16 or 8 tf32
+// values: one `k16` or `k8` product.
 //   * A product that contracts over the 64 columns (S = Q.K^T: Q and K both
 //     contract over d) reads the tile "K-major": the descriptor starts at
 //     row r0 of the panel plus 32 bytes per 16-column step, stride 1024
@@ -26,7 +29,10 @@
 // row, so a row's max or sum is two shuffles.  The A fragment of the
 // register form (`wgmma ... {a0..a3}`) has the same row and column map
 // for each 16-column step, so an accumulator becomes an A operand without
-// moving between lanes.
+// moving between lanes.  At TF32 (`m64nNk8`) it does not: the A fragment
+// holds columns c and c + 4 (c = lane % 4) of rows a and b, registers
+// {a0, a1, a2, a3} = (a, c), (b, c), (a, c + 4), (b, c + 4), where the
+// accumulator holds columns 2c and 2c + 1.
 
 #pragma once
 
@@ -43,6 +49,7 @@ namespace sm90 {
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kPanelCols = 64;     // bf16 columns of one 128-byte swizzled row
+constexpr int kPanelColsF32 = 32;  // f32 columns of one such row
 constexpr int kRowBytes = 128;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -113,13 +120,26 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// all `panels` 64-column boxes of a `rows`-row tile at (row, block)
+// all `panels` boxes (`cols` columns each) of a `rows`-row tile at
+// (row, block)
 __device__ __forceinline__ void tma_load_tile(uint8_t* dst,
                                               const CUtensorMap* map,
                                               uint64_t* bar, int panels,
-                                              int rows, int row, int block) {
+                                              int rows, int row, int block,
+                                              int cols = kPanelCols) {
   for (int p = 0; p < panels; ++p)
-    tma_load(dst + p * rows * kRowBytes, map, bar, p * kPanelCols, row, block);
+    tma_load(dst + p * rows * kRowBytes, map, bar, p * cols, row, block);
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads (`wgmma` operands) that a barrier hands them to.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1..15) over `threads` threads of the block
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // -------------------------------------------------------- matrix descriptors
@@ -307,6 +327,110 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TransB));
 }
 
+// D[64 x N] (+)= A[64 x 8] . B[8 x N] in TF32, both operands K-major
+// (the only layout TF32 takes): A from shared memory or from registers (a
+// fragment of four tf32 values a thread), B from shared memory.
+
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// x as hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest with
+// ties away from zero (`cvt.rna`): hi + lo holds x to about 2^-22 of its
+// size, so three TF32 products a_hi.b_hi + a_hi.b_lo + a_lo.b_hi keep an
+// f32 product to about 2^-21 where one TF32 product rounds it to 2^-11.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void split_tf32(float4 x, uint4& hi, uint4& lo) {
+  split_tf32(x.x, hi.x, lo.x);
+  split_tf32(x.y, hi.y, lo.y);
+  split_tf32(x.z, hi.z, lo.z);
+  split_tf32(x.w, hi.w, lo.w);
+}
+
 // --------------------------------------------- accumulator -> A fragments
 
 // (x0, x1) as bf16 pairs hi = bf16(x) and lo = bf16(x - hi): hi + lo holds
@@ -379,12 +503,13 @@ inline cudaError_t encode_tiled(EncodeTiled* out) {
   return cudaSuccess;
 }
 
-// The map of a contiguous bf16 [bh][t][d] tensor, read in boxes of `rows`
-// rows by 64 columns with the 128-byte swizzle; rows past t read as zeros.
-// The base must be 16-byte aligned (d * 2 and t * d * 2, the strides,
+// The map of a contiguous bf16 (elem_bytes 2) or f32 (4) [bh][t][d]
+// tensor, read in boxes of `rows` rows by 128 bytes (64 or 32 columns)
+// with the 128-byte swizzle; rows past t read as zeros.  The base must be
+// 16-byte aligned (d * elem_bytes and t * d * elem_bytes, the strides,
 // always are multiples of 16 for d 64 and 128).
 inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int bh,
-                                 int t, int d, int rows) {
+                                 int t, int d, int rows, int elem_bytes = 2) {
   EncodeTiled encode;
   const cudaError_t e = encode_tiled(&encode);
   if (e != cudaSuccess) return e;
@@ -392,12 +517,15 @@ inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int bh,
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(t),
                               static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(t) * d * 2};
-  const cuuint32_t box[3] = {kPanelCols, static_cast<cuuint32_t>(rows), 1};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * elem_bytes,
+                                 static_cast<cuuint64_t>(t) * d * elem_bytes};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kRowBytes / elem_bytes),
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      map, elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

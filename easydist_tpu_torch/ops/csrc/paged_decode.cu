@@ -32,42 +32,34 @@
 // scales for B6) over 3.35 TB/s (8 x 12 rows at length 1024, d = 64:
 // bf16 25.2 MB, 7.5 us; int8 with one scale per row 13.4 MB, 4.0 us).
 //
-// B6: split-K (flash-decoding), `paged_split_body`.  The TPU walks pages
-// along a sequential grid axis; one CUDA block per row would leave 96
-// rows on 132 SMs, each waiting on one tile at a time.  So each row's
-// keys are cut into splits of `chunk` tokens (whole pages, 256 tokens at
-// 64-token pages; the host picks it so a split fits shared memory), and
-// the grid is (rows, ceil(mp * pt / chunk)), known on the host from the
-// table's width: the lengths are never read on the host.  A block whose
-// split starts at or past its row's length exits at once.  A live block
-// resolves its keys' arena rows through the table, then issues every K
-// row with its scales and every V row with its scales as `cp.async`
-// copies in two groups, so the whole split (16 KB of int8 K + V at
-// d 64) is in flight at once and the scores start when K has landed
-// while V still streams.  Scores take four lanes per key (a 16-byte
-// vector each, q in registers, two shuffles), P.V one thread per four
-// output dims and key group.  The block keeps its split's max m,
-// denominator l and output acc in f32.  A row with one live split writes
-// acc / l itself.  Otherwise each block writes (m, l, acc) to a
-// workspace, fences, and counts itself in on the row's counter; the last
-// block to arrive merges the row's partials in split order (max, then
-// rescaled sums, the 1e-30 clamp) and resets the counter to 0, so the
-// counters are zero again after every launch.  Split boundaries depend
-// only on the length and the chunk and the merge order is fixed, so two
-// launches are bitwise equal.  The body is generic in the page type, so
-// B5 can take it by instantiation.
+// Both kernels: split-K (flash-decoding), `paged_split_body`, instantiated
+// for exact pages (B5, `paged_decode_kernel`) and int8 pages (B6,
+// `paged_decode_quant_kernel`).  The TPU walks pages along a sequential
+// grid axis; one CUDA block per row would leave 96 rows on 132 SMs, each
+// waiting on one tile at a time.  So each row's keys are cut into splits
+// of `chunk` tokens (whole pages; the host's `_split_tokens` picks it so a
+// split fits shared memory: 256 tokens at 64-token pages, 128 for f32
+// pages at head_dim 128), and the grid is (rows, ceil(mp * pt / chunk)),
+// known on the host from the table's width: the lengths are never read on
+// the host.  A block whose split starts at or past its row's length exits
+// at once.  A live block resolves its keys' arena rows through the table,
+// then issues every K row (with its scales, B6) and every V row (with its
+// scales) as `cp.async` copies in two groups, so the whole split (K and
+// V of 256 keys at d 64: 64 KB in bf16, 32 KB in int8) is in flight at
+// once and the scores start when K has landed while V still streams.  Scores take four
+// lanes per key (a 16-byte vector each, q in registers, two shuffles),
+// P.V one thread per four output dims and key group.  The block keeps its
+// split's max m, denominator l and output acc in f32.  A row with one
+// live split writes acc / l itself.  Otherwise each block writes (m, l,
+// acc) to a workspace, fences, and counts itself in on the row's counter;
+// the last block to arrive merges the row's partials in split order (max,
+// then rescaled sums, the 1e-30 clamp) and resets the counter to 0, so
+// the counters are zero again after every launch.  Split boundaries
+// depend only on the length and the chunk and the merge order is fixed,
+// so two launches are bitwise equal.
 //
-// B5: `paged_decode_body`, one block of 128 threads per row walking its
-// live tokens in tiles of 64, the running statistics in registers (as
-// the contiguous decode kernel, flash_decode.cu, does).  Per tile each
-// key's arena row is resolved once through the table into shared
-// memory, then the tile's K and V rows are copied in with 16-byte loads;
-// scores are one warp per key, P.V one thread per output dim and key
-// group.
-//
-// Known limits: B5 still runs one block per row and waits on each tile
-// before computing (the split body is its next step); B6's scores at
-// head_dim 128 read shared memory with a two-way bank conflict.
+// Known limits: a split of f32 pages takes up to 130 KB of shared
+// memory, one block an SM; the merge waits on the row's slowest split.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,7 +71,6 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;  // keys staged per tile (B5)
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxDevices = 64;
 // shared memory a block may take on the card, less the split body's
@@ -122,139 +113,19 @@ struct PagedArgs {
   const int* table;
   const int* lengths;
   void* out;
-  float* work;           // B6: [rows, n_splits, d + 2] partials
-  int* counters;         // B6: [rows] arrivals, 0 between launches
+  float* work;           // [rows, n_splits, d + 2] partials
+  int* counters;         // [rows] arrivals, 0 between launches
   int heads;
   int kv_heads;
   int n_pages;
   int page_tokens;
   int max_pages;
   int n_blocks;  // scale blocks per row (B6); 1 for B5
-  int chunk;     // tokens per split (B6)
+  int chunk;     // tokens per split
   float scale;
 };
 
-// ------------------------------------------------------ B5: row per block
-
-template <typename TQ, typename TKV, int D>
-__device__ __forceinline__ void paged_decode_body(const PagedArgs& a) {
-  static_assert(kThreads % D == 0, "head_dim must divide the block");
-  static_assert((D * sizeof(TKV)) % 16 == 0, "rows of 16-byte vectors");
-  constexpr int kGroups = kThreads / D;                // key groups of P.V
-  constexpr int kVecs = D * sizeof(TKV) / 16;          // vectors per row
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  TKV* k_s = reinterpret_cast<TKV*>(smem);                  // [kTile, D]
-  TKV* v_s = k_s + kTile * D;                               // [kTile, D]
-  float* p_s = reinterpret_cast<float*>(v_s + kTile * D);   // [kTile]
-  __shared__ float q_s[D];
-  __shared__ float red_s[kWarps];
-  __shared__ float acc_s[kThreads];
-  __shared__ long long row_s[kTile];  // arena row of each key of the tile
-
-  const int row = blockIdx.x;  // batch * heads + head
-  const int bi = row / a.heads;
-  const int kh = (row % a.heads) / (a.heads / a.kv_heads);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int len =
-      max(0, min(a.lengths[bi], a.max_pages * a.page_tokens));
-  const int* tbl = a.table + static_cast<size_t>(bi) * a.max_pages;
-  const TQ* q = static_cast<const TQ*>(a.q);
-  const uint4* kp = static_cast<const uint4*>(a.k);
-  const uint4* vp = static_cast<const uint4*>(a.v);
-
-  for (int i = tid; i < D; i += kThreads)
-    q_s[i] = to_f32(q[static_cast<size_t>(row) * D + i]) * a.scale;
-
-  // running max and denominator: every thread holds the same values
-  float m = kNegInf;
-  float l = 0.f;
-  const int d = tid % D;  // this thread's output dim ...
-  const int g = tid / D;  // ... and key group
-  float acc = 0.f;
-
-  for (int start = 0; start < len; start += kTile) {
-    const int n = min(kTile, len - start);  // live keys of this tile
-    // each key's arena row: its page (clipped into the allocatable
-    // pages, as the TPU's index map clips), kv head and offset
-    for (int r = tid; r < n; r += kThreads) {
-      const int p = start + r;
-      const int page = min(max(tbl[p / a.page_tokens], 0), a.n_pages - 1);
-      row_s[r] = (static_cast<long long>(page) * a.kv_heads + kh) *
-                     a.page_tokens + p % a.page_tokens;
-    }
-    __syncthreads();  // also orders q_s before the first scores
-    for (int i = tid; i < n * kVecs; i += kThreads) {
-      const size_t src = static_cast<size_t>(row_s[i / kVecs]) * kVecs +
-                         i % kVecs;
-      reinterpret_cast<uint4*>(k_s)[i] = kp[src];
-      reinterpret_cast<uint4*>(v_s)[i] = vp[src];
-    }
-    __syncthreads();
-
-    // scores s_j = (q * scale) . k_j: one warp per key
-    float tmax = kNegInf;
-    for (int j = warp; j < n; j += kWarps) {
-      const TKV* kr = k_s + j * D;
-      float s = 0.f;
-#pragma unroll
-      for (int i = lane; i < D; i += 32) s += q_s[i] * to_f32(kr[i]);
-      s = warp_sum(s);  // every lane now holds the score
-      if (lane == 0) p_s[j] = s;
-      tmax = fmaxf(tmax, s);
-    }
-    if (lane == 0) red_s[warp] = tmax;
-    __syncthreads();
-    float m_new = m;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) m_new = fmaxf(m_new, red_s[w]);
-    const float alpha = expf(m - m_new);
-
-    // probabilities and their sum
-    float psum = 0.f;
-    for (int j = tid; j < n; j += kThreads) {
-      const float p = expf(p_s[j] - m_new);
-      p_s[j] = p;
-      psum += p;
-    }
-    psum = warp_sum(psum);
-    __syncthreads();  // red_s (the maxima) is read by all before reuse
-    if (lane == 0) red_s[warp] = psum;
-    __syncthreads();
-    float tsum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) tsum += red_s[w];
-    l = l * alpha + tsum;
-    m = m_new;
-
-    // P.V over this thread's key group, for its output dim
-    float pv = 0.f;
-    for (int j = g; j < n; j += kGroups) pv += p_s[j] * to_f32(v_s[j * D + d]);
-    acc = acc * alpha + pv;
-    __syncthreads();  // the tile buffers, row_s and red_s are reused
-  }
-
-  acc_s[tid] = acc;
-  __syncthreads();
-  if (tid < D) {
-    float o = 0.f;
-#pragma unroll
-    for (int gg = 0; gg < kGroups; ++gg) o += acc_s[gg * D + tid];
-    static_cast<TQ*>(a.out)[static_cast<size_t>(row) * D + tid] =
-        from_f32<TQ>(o / fmaxf(l, 1e-30f));
-  }
-}
-
-// B5: exact pages
-template <typename TQ, typename TKV, int D>
-__global__ void __launch_bounds__(kThreads)
-    paged_decode_kernel(PagedArgs a) {
-  paged_decode_body<TQ, TKV, D>(a);
-}
-
-// ------------------------------------------------ B6: split-K (flash-decoding)
+// ------------------------------------------------ split-K (flash-decoding)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -418,15 +289,18 @@ __device__ __forceinline__ void paged_split_body(const PagedArgs& a) {
       cp_async4(vs_s + i, a.v_scale + row_s[i / nb] * nb + i % nb);
   cp_async_commit();
 
-  // this lane's share of q: vectors sub, sub + 4, ... of a row
+  // this lane's share of q: vectors sub, sub + 4, ... of a row; an odd
+  // key's lanes start one step (64 bytes) on, so the two keys of a
+  // quarter-warp's 16-byte reads fall in different halves of the banks
   const int sub = tid % kLanes, key_of = tid / kLanes;
+  const int rot = (key_of & 1) * kLanes;
   const int blk = D / nb;  // dims per scale block
   float qr[kLaneVecs][kElems];
 #pragma unroll
   for (int m = 0; m < kLaneVecs; ++m)
 #pragma unroll
     for (int e = 0; e < kElems; ++e)
-      qr[m][e] = q_s[(sub + kLanes * m) * kElems + e];
+      qr[m][e] = q_s[((sub + kLanes * m + rot) % kVecs) * kElems + e];
 
   cp_async_wait<1>();  // this thread's K copies have landed ...
   __syncthreads();     // ... and every thread's
@@ -439,7 +313,7 @@ __device__ __forceinline__ void paged_split_body(const PagedArgs& a) {
     if (j < n) {
 #pragma unroll
       for (int m = 0; m < kLaneVecs; ++m) {
-        const int c = sub + kLanes * m;
+        const int c = (sub + kLanes * m + rot) % kVecs;
         float x[kElems];
         unpack<TKV>(reinterpret_cast<const uint4*>(k_s + j * D)[c], x);
         if (!kQuant || blk >= kElems) {
@@ -543,6 +417,13 @@ __device__ __forceinline__ void paged_split_body(const PagedArgs& a) {
   if (tid == 0) a.counters[row] = 0;  // ready for the next launch
 }
 
+// B5: exact pages (f32 or bf16)
+template <typename TQ, typename TKV, int D>
+__global__ void __launch_bounds__(kThreads)
+    paged_decode_kernel(PagedArgs a) {
+  paged_split_body<TQ, TKV, false, D>(a);
+}
+
 // B6: block-scaled int8 pages, dequantized on chip
 template <typename TQ, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -570,101 +451,94 @@ cudaError_t allow_smem(Kernel kernel, size_t smem,
   return cudaSuccess;
 }
 
-template <typename TQ, typename TKV, int D>
-cudaError_t launch(const PagedArgs& a, int rows, cudaStream_t stream) {
-  const size_t smem = 2 * static_cast<size_t>(kTile) * D * sizeof(TKV) +
-                      kTile * sizeof(float);
-  static std::atomic<size_t> raised[kMaxDevices];
-  auto kernel = paged_decode_kernel<TQ, TKV, D>;
-  const cudaError_t e = allow_smem(kernel, smem, raised);
-  if (e != cudaSuccess) return e;
-  kernel<<<rows, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename TQ, int D>
-cudaError_t launch_quant(const PagedArgs& a, int rows, int n_splits,
-                         cudaStream_t stream) {
-  const size_t smem = split_smem(a.chunk, D, 1, a.n_blocks).total;
+// B5 (kQuant false) or B6 (true) over `n_splits` splits a row
+template <typename TQ, typename TKV, bool kQuant, int D>
+cudaError_t launch(const PagedArgs& a, int rows, int n_splits,
+                   cudaStream_t stream) {
+  const size_t smem =
+      split_smem(a.chunk, D, sizeof(TKV), kQuant ? a.n_blocks : 0).total;
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   static std::atomic<size_t> raised[kMaxDevices];
-  auto kernel = paged_decode_quant_kernel<TQ, D>;
+  void (*kernel)(PagedArgs);
+  if constexpr (kQuant)
+    kernel = paged_decode_quant_kernel<TQ, D>;
+  else
+    kernel = paged_decode_kernel<TQ, TKV, D>;
   const cudaError_t e = allow_smem(kernel, smem, raised);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(rows, n_splits), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV>
+template <typename TQ, typename TKV, bool kQuant>
 cudaError_t launch_dim(int head_dim, const PagedArgs& a, int rows,
-                       cudaStream_t stream) {
+                       int n_splits, cudaStream_t stream) {
   switch (head_dim) {
     case 64:
-      return launch<TQ, TKV, 64>(a, rows, stream);
+      return launch<TQ, TKV, kQuant, 64>(a, rows, n_splits, stream);
     case 128:
-      return launch<TQ, TKV, 128>(a, rows, stream);
+      return launch<TQ, TKV, kQuant, 128>(a, rows, n_splits, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename TQ>
-cudaError_t launch_quant_dim(int head_dim, const PagedArgs& a, int rows,
-                             int n_splits, cudaStream_t stream) {
-  switch (head_dim) {
-    case 64:
-      return launch_quant<TQ, 64>(a, rows, n_splits, stream);
-    case 128:
-      return launch_quant<TQ, 128>(a, rows, n_splits, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-bool valid_shape(int heads, int kv_heads, int n_pages, int page_tokens,
-                 int max_pages) {
-  return heads >= 1 && kv_heads >= 1 && heads % kv_heads == 0 &&
-         n_pages >= 1 && page_tokens >= 1 && max_pages >= 1;
+// The shape checks both entries share; the splits a row (whole pages of
+// `chunk` tokens over max_pages * page_tokens) in `n_splits`.
+bool valid_split_shape(int heads, int kv_heads, int n_pages, int page_tokens,
+                       int max_pages, int chunk, int* n_splits) {
+  if (!(heads >= 1 && kv_heads >= 1 && heads % kv_heads == 0 &&
+        n_pages >= 1 && page_tokens >= 1 && max_pages >= 1 && chunk >= 1))
+    return false;
+  const long long tokens = static_cast<long long>(max_pages) * page_tokens;
+  const long long n = (tokens + chunk - 1) / chunk;
+  *n_splits = static_cast<int>(n);
+  return n <= 65535;
 }
 
 }  // namespace
 
 // B5.  dtype codes: 0 float32, 1 bfloat16; (q, pages) in {(0, 0),
 // (1, 1), (0, 1)}.  All tensors contiguous on the current device; pages
-// 16-byte aligned.  Returns cudaGetLastError() after the launch (0 on
-// success).
+// 16-byte aligned.  `chunk` tokens per split; the grid has
+// ceil(max_pages * page_tokens / chunk) splits a row.  `work` holds f32
+// [batch * heads, n_splits, head_dim + 2]; `counters` int32
+// [batch * heads], zero at the call and zero again after the launch.
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int paged_decode(const void* q, const void* k, const void* v,
                             const void* table, const void* lengths,
-                            void* out, int batch, int heads, int kv_heads,
-                            int n_pages, int page_tokens, int max_pages,
-                            int head_dim, float scale, int q_dtype,
+                            void* out, void* work, void* counters, int batch,
+                            int heads, int kv_heads, int n_pages,
+                            int page_tokens, int max_pages, int head_dim,
+                            int chunk, float scale, int q_dtype,
                             int kv_dtype, void* stream) {
   const int rows = batch * heads;
   if (rows == 0) return cudaSuccess;
-  if (!valid_shape(heads, kv_heads, n_pages, page_tokens, max_pages))
+  int n_splits = 0;
+  if (!valid_split_shape(heads, kv_heads, n_pages, page_tokens, max_pages,
+                         chunk, &n_splits))
     return cudaErrorInvalidValue;
   const PagedArgs a{q, k, v, nullptr, nullptr,
                     static_cast<const int*>(table),
-                    static_cast<const int*>(lengths), out, nullptr, nullptr,
-                    heads, kv_heads, n_pages, page_tokens, max_pages, 1, 0,
-                    scale};
+                    static_cast<const int*>(lengths), out,
+                    static_cast<float*>(work), static_cast<int*>(counters),
+                    heads, kv_heads, n_pages, page_tokens, max_pages, 1,
+                    chunk, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && kv_dtype == 0)
-    return launch_dim<float, float>(head_dim, a, rows, s);
+    return launch_dim<float, float, false>(head_dim, a, rows, n_splits, s);
   if (q_dtype == 1 && kv_dtype == 1)
-    return launch_dim<__nv_bfloat16, __nv_bfloat16>(head_dim, a, rows, s);
+    return launch_dim<__nv_bfloat16, __nv_bfloat16, false>(head_dim, a, rows,
+                                                            n_splits, s);
   if (q_dtype == 0 && kv_dtype == 1)
-    return launch_dim<float, __nv_bfloat16>(head_dim, a, rows, s);
+    return launch_dim<float, __nv_bfloat16, false>(head_dim, a, rows,
+                                                   n_splits, s);
   return cudaErrorInvalidValue;
 }
 
 // B6.  q dtype code as above; pages int8, scales float32
 // [n_pages, kv_heads, page_tokens, n_blocks] with n_blocks dividing
-// head_dim.  `chunk` tokens per split; the grid has
-// ceil(max_pages * page_tokens / chunk) splits a row.  `work` holds
-// f32 [batch * heads, n_splits, head_dim + 2]; `counters` int32
-// [batch * heads], zero at the call and zero again after the launch.
-// Same contract as paged_decode otherwise.
+// head_dim.  Same contract as paged_decode otherwise.
 extern "C" int paged_decode_quant(const void* q, const void* k,
                                   const void* v, const void* k_scale,
                                   const void* v_scale, const void* table,
@@ -676,12 +550,11 @@ extern "C" int paged_decode_quant(const void* q, const void* k,
                                   float scale, int q_dtype, void* stream) {
   const int rows = batch * heads;
   if (rows == 0) return cudaSuccess;
-  if (!valid_shape(heads, kv_heads, n_pages, page_tokens, max_pages) ||
-      n_blocks < 1 || head_dim % n_blocks != 0 || chunk < 1)
+  int n_splits = 0;
+  if (!valid_split_shape(heads, kv_heads, n_pages, page_tokens, max_pages,
+                         chunk, &n_splits) ||
+      n_blocks < 1 || head_dim % n_blocks != 0)
     return cudaErrorInvalidValue;
-  const long long tokens = static_cast<long long>(max_pages) * page_tokens;
-  const long long n_splits = (tokens + chunk - 1) / chunk;
-  if (n_splits > 65535) return cudaErrorInvalidValue;
   const PagedArgs a{q, k, v, static_cast<const float*>(k_scale),
                     static_cast<const float*>(v_scale),
                     static_cast<const int*>(table),
@@ -692,11 +565,10 @@ extern "C" int paged_decode_quant(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (q_dtype) {
     case 0:
-      return launch_quant_dim<float>(head_dim, a, rows,
-                                     static_cast<int>(n_splits), s);
+      return launch_dim<float, int8_t, true>(head_dim, a, rows, n_splits, s);
     case 1:
-      return launch_quant_dim<__nv_bfloat16>(head_dim, a, rows,
-                                             static_cast<int>(n_splits), s);
+      return launch_dim<__nv_bfloat16, int8_t, true>(head_dim, a, rows,
+                                                     n_splits, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -11,7 +11,9 @@ Port of easydist_tpu/ops/flash_attention.py, serving and training:
     `::flash_bwd_dq` and `::flash_bwd_dkv`, the forward differentiable
     in both outputs through `register_autograd`.  On bfloat16 the three
     kernels run on the tensor cores (`wgmma` fed by a TMA ring,
-    `csrc/flash_attn_sm90.cuh`); on float32 on the CUDA cores;
+    `csrc/flash_attn_sm90.cuh`); on float32 the forward runs on the
+    tensor cores too (three TF32 products of hi/lo halves), the backward
+    pair on the CUDA cores;
   * serving: the decode kernel `_flash_decode_kernel` becomes
     `csrc/flash_decode.cu`, the custom op `easydist_tpu_torch::flash_decode`;
     the paged decode kernels `_flash_paged_decode_kernel` (exact pages)
@@ -215,9 +217,9 @@ def _check_train_inputs(op: str, q, k, v, *rows):
 
 
 def _check_aligned(op: str, *tensors) -> None:
-    """The kernels read q, k, v and dO with 16-byte loads (f32) or TMA
-    tensor maps (bf16), both of which need a 16-byte aligned base: raise
-    on any other, rather than copy."""
+    """The kernels read q, k, v and dO with 16-byte loads (the CUDA-core
+    kernels) or TMA tensor maps (the tensor-core kernels), both of which
+    need a 16-byte aligned base: raise on any other, rather than copy."""
     for x in tensors:
         if x.data_ptr() % 16:
             raise ValueError(f"{op} needs 16-byte aligned q, k, v and dO; "
@@ -315,7 +317,8 @@ def flash_fwd(q, k, v, causal: bool = True, scale: Optional[float] = None):
     """B1: (out, lse) of causal or full attention; q [b, h, t_q, d], k/v
     [b, h, t_k, d] in float32 or bfloat16, d 64 or 128.  CPU tensors run
     `_flash_forward_xla`; CUDA tensors launch `csrc/flash_attn_fwd.cu`
-    (bfloat16 the tensor-core kernel, float32 the CUDA-core one).
+    (both dtypes on the tensor cores: float32 as three TF32 products of
+    hi/lo halves).
     `flash_fwd.launches` counts kernel launches (never a trace)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -632,7 +635,7 @@ def _paged_lib():
     lib = load("paged_decode")
     if lib.paged_decode.argtypes is None:  # first load: the C signatures
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.paged_decode.argtypes = [ptr] * 6 + [i32] * 7 + [
+        lib.paged_decode.argtypes = [ptr] * 8 + [i32] * 8 + [
             ctypes.c_float, i32, i32, ptr]
         lib.paged_decode_quant.argtypes = [ptr] * 10 + [i32] * 9 + [
             ctypes.c_float, i32, ptr]
@@ -692,17 +695,20 @@ def _check_paged_inputs(op: str, q, k_pages, v_pages, table, lengths,
     return (b, h, kvh, n_pages, pt, mp, d), out
 
 
-# B6 cuts each row's keys into splits of whole pages, up to this many
-# tokens, one block each (flash-decoding; csrc/paged_decode.cu)
+# B5 and B6 cut each row's keys into splits of whole pages, up to this
+# many tokens, one block each (flash-decoding; csrc/paged_decode.cu)
 _SPLIT_TOKENS = 256
 
 
-def _split_tokens(page_tokens: int, d: int, n_blocks: int) -> int:
-    """Tokens per split of a B6 row: whole pages up to `_SPLIT_TOKENS`
-    (`_SPLIT_TOKENS` itself when a page is longer), the budget halved
-    until a split's K, V, scales, scores and arena rows fit
-    `_TILE_SMEM_LIMIT` (a bound on the kernel's `split_smem`)."""
-    per_key = 2 * d + 8 * n_blocks + 12
+def _split_tokens(page_tokens: int, d: int, n_blocks: int,
+                  elem_bytes: int = 1) -> int:
+    """Tokens per split of a B5/B6 row: whole pages up to
+    `_SPLIT_TOKENS` (`_SPLIT_TOKENS` itself when a page is longer), the
+    budget halved until a split's K and V (`elem_bytes` an element: 1 for
+    B6's int8 pages, 2 or 4 for B5's), scales (`n_blocks` a row; 0 for
+    B5), scores and arena rows fit `_TILE_SMEM_LIMIT` (a bound on the
+    kernel's `split_smem`)."""
+    per_key = 2 * d * elem_bytes + 8 * n_blocks + 12
     tokens = _SPLIT_TOKENS
     while tokens > 16 and tokens * per_key + 96 > _TILE_SMEM_LIMIT:
         tokens //= 2
@@ -710,10 +716,13 @@ def _split_tokens(page_tokens: int, d: int, n_blocks: int) -> int:
         else tokens
 
 
-# B6's per-row arrival counters by (device, stream).  A launch leaves
-# every counter it used at 0 again (the row's last block resets it), so a
-# buffer is zeroed once, when it is made; one per stream keeps launches
-# on different streams from sharing counters.
+# B5's and B6's per-row arrival counters by (device, stream).  A launch
+# leaves every counter it used at 0 again (the row's last block resets
+# it), so a buffer is zeroed once, when it is made, and B5 and B6 share
+# it: launches on one stream run in order, so no two use it at once. One
+# per stream keeps launches on different streams from sharing counters.
+# A CUDA graph that captures B5 or B6 needs the buffer made (a launch)
+# before the capture.
 _SPLIT_COUNTERS: dict = {}
 
 
@@ -724,6 +733,13 @@ def _split_counters(device, rows: int):
         buf = torch.zeros(rows, dtype=torch.int32, device=device)
         _SPLIT_COUNTERS[key] = buf
     return buf
+
+
+def _split_work(q, rows: int, n_splits: int, d: int):
+    """The f32 workspace of a split launch's partials: (m, l, acc) for
+    every row and split, allocated each call."""
+    return torch.empty(rows * n_splits * (d + 2), dtype=torch.float32,
+                       device=q.device)
 
 
 @torch.library.custom_op("easydist_tpu_torch::paged_decode", mutates_args=())
@@ -742,13 +758,16 @@ def _paged_decode_op(q: torch.Tensor, k_pages: torch.Tensor,
     (b, h, kvh, n_pages, pt, mp, d), (q, kp, vp, tbl, lens) = \
         _check_paged_inputs("paged_decode", q, k_pages, v_pages, table,
                             lengths)
+    chunk = _split_tokens(pt, d, 0, kp.element_size())
     out = torch.empty_like(q)
+    work = _split_work(q, b * h, -(-(mp * pt) // chunk), d)
     lib = _paged_lib()
     err = lib.paged_decode(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tbl.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), b, h, kvh, n_pages, pt, mp, d,
-        float(scale), _DTYPE_CODES[q.dtype], _DTYPE_CODES[kp.dtype],
-        _stream(q))
+        lens.data_ptr(), out.data_ptr(), work.data_ptr(),
+        _split_counters(q.device, b * h).data_ptr(), b, h, kvh, n_pages, pt,
+        mp, d, chunk, float(scale), _DTYPE_CODES[q.dtype],
+        _DTYPE_CODES[kp.dtype], _stream(q))
     _check_launch(lib, "paged_decode", err)
     flash_paged_decode_attention.launches += 1
     return out
@@ -779,10 +798,8 @@ def _paged_decode_quant_op(q: torch.Tensor, k_pages: torch.Tensor,
                             table, lengths, k_scale, v_scale)
     nb = ks.shape[3]
     chunk = _split_tokens(pt, d, nb)
-    n_splits = -(-(mp * pt) // chunk)
     out = torch.empty_like(q)
-    work = torch.empty(b * h * n_splits * (d + 2), dtype=torch.float32,
-                       device=q.device)
+    work = _split_work(q, b * h, -(-(mp * pt) // chunk), d)
     lib = _paged_lib()
     err = lib.paged_decode_quant(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
@@ -808,9 +825,12 @@ def flash_paged_decode_attention(q, k_pages, v_pages, table, lengths,
     q: [batch, heads, head_dim]; k_pages/v_pages: [n_pages, kv_heads,
     page_tokens, head_dim] arena layers; table: int32 [batch, max_pages];
     lengths: int32 [batch].  Query head hi reads kv head
-    hi // (heads // kv_heads).  Returns [batch, heads, head_dim] in q's
-    dtype.  CUDA tensors only (the plain version is
-    `_paged_decode_attention_xla`).  `flash_paged_decode_attention.launches`
+    hi // (heads // kv_heads).  The kernel splits each row's keys across
+    blocks (`_split_tokens`) and merges the splits' partials in a fixed
+    order inside the same launch, as B6 does.  Returns [batch, heads,
+    head_dim] in q's dtype.  CUDA tensors only (the plain version is
+    `_paged_decode_attention_xla`, which gives mean(v) where the kernel
+    gives 0 for a row of length 0).  `flash_paged_decode_attention.launches`
     counts kernel launches; it grows where the kernel runs, never while a
     graph is traced."""
     if scale is None:

@@ -3,10 +3,11 @@ against the JAX package: the plain forward against the Pallas forward in
 interpret mode (out and lse), the plain backward against `jax.vjp` of
 `flash_attention_lse` with both cotangents, the port's autograd through
 its custom ops against torch autograd through `_reference_attention`,
-the traced graph's nodes, a plain emulation of the bf16 tensor-core
-kernels' rounding (P and dS split into bf16 hi + lo halves) against the
-plain versions, and — on a CUDA host — each kernel against its plain
-version.
+the traced graph's nodes, a plain emulation of the tensor-core kernels'
+rounding (bf16: P and dS split into bf16 hi + lo halves; the f32
+forward: every operand split into TF32 hi + lo halves, three products)
+against the plain versions, and — on a CUDA host — each kernel against
+its plain version.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: forward rtol 1e-4 / atol 1e-5, backward rtol 2e-4 / atol
@@ -249,10 +250,49 @@ def _emulated_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
     return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
 
 
-def _worst(got, ref, rtol: float, atol: float) -> float:
-    """The largest |got - ref| / (atol + (rtol + 2^-8) |ref|)."""
-    tol = atol + (rtol + BF16_ULP) * ref.abs()
+def _worst(got, ref, rtol: float, atol: float, ulp: float = BF16_ULP
+           ) -> float:
+    """The largest |got - ref| / (atol + (rtol + ulp) |ref|)."""
+    tol = atol + (rtol + ulp) * ref.abs()
     return ((got.float() - ref).abs() / tol).max().item()
+
+
+def _tf32(x):
+    """x rounded to TF32 as `cvt.rna.tf32.f32` rounds it: to 10 mantissa
+    bits, to nearest, ties away from zero (add half of the dropped 13
+    bits to the magnitude, then clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(eq: str, a, b, split: bool):
+    """einsum(eq, a, b) as the f32 forward kernel forms it on the tensor
+    cores: every operand as TF32 halves hi = tf32(x), lo = tf32(x - hi),
+    and the three products a_hi.b_hi + a_hi.b_lo + a_lo.b_hi (`split`),
+    or one TF32 product of one cast each.  Products of TF32 values are
+    exact in f32; sums f32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, a_hi, b_hi)
+    if split:
+        out = (out + torch.einsum(eq, a_hi, _tf32(b - b_hi))
+               + torch.einsum(eq, _tf32(a - a_hi), b_hi))
+    return out
+
+
+def _emulated_forward_tf32(q, k, v, causal: bool, scale: float,
+                           split: bool):
+    """The f32 B1's rounding points: S = Q.K^T and O = P.V through
+    `_tf32_product`, S scaled after the product, the softmax in f32, out
+    and lse = m + log(l) in f32."""
+    b, h, t_q, _ = q.shape
+    s = _tf32_product("bhqd,bhkd->bhqk", q, k, split) * scale
+    if causal:
+        s = tfa._causal_fill(s)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = _tf32_product("bhqk,bhkd->bhqd", p, v, split) / l_safe
+    return out, (m + torch.log(l_safe)).reshape(b * h, t_q)
 
 
 class TestSplitRounding:
@@ -296,6 +336,32 @@ class TestSplitRounding:
         dq = _emulated_dq(q, k, v, do, lse, delta, True, scale, split)
         worst = _worst(dq, ref, **BWD)
         assert (worst <= 1.0) == split, worst
+
+    @pytest.mark.parametrize("split", [True, False],
+                             ids=["tf32_three_products", "tf32_one_cast"])
+    def test_f32_forward_within_bar_only_with_tf32_split(self, split):
+        # the f32 B1 on the tensor cores: out and lse at the f32 bar
+        # (no output rounding: rtol 1e-4 / atol 1e-5 alone)
+        q, k, v = _t(*_rand(b=1, h=2, t=128, d=64, seed=11, n=3))
+        scale = 1.0 / math.sqrt(64)
+        ref_out, ref_lse = tfa._flash_forward_xla(q, k, v, True, scale)
+        out, lse = _emulated_forward_tf32(q, k, v, True, scale, split)
+        worst = [_worst(out, ref_out, **FWD, ulp=0.0),
+                 _worst(lse, ref_lse, **FWD, ulp=0.0)]
+        print(f"tf32 {'three products' if split else 'one cast'}: worst "
+              f"err/tol out {worst[0]:.4f}, lse {worst[1]:.4f}")
+        if split:
+            assert max(worst) <= 1.0, worst
+        else:
+            assert max(worst) > 1.0, worst
+
+    def test_tf32_rounding_is_rna(self):
+        # ties away from zero at the 13th bit, both signs; exact values kept
+        one = 1.0 + 2.0 ** -10
+        x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                          1.0 + 2.0 ** -12, one, 0.0, -2.5],
+                         dtype=torch.float32)
+        assert _tf32(x).tolist() == [one, -one, 1.0, one, 0.0, -2.5]
 
 
 @pytest.mark.cuda
@@ -368,6 +434,66 @@ class TestKernelsOnCard:
                          *tfa.flash_bwd_dkv(q, k, v, do, lse, delta, True)))
         torch.cuda.synchronize()
         for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("causal,t_q,t_k", [
+        (True, 1, 1), (True, 63, 63), (True, 65, 65), (False, 200, 77),
+        (True, 77, 200), (True, 1000, 1000), (True, 129, 129)])
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_f32_forward_ragged_tiles(self, cuda_device, causal, t_q, t_k,
+                                      d):
+        # the three-product TF32 forward at tile edges: fewer rows than a
+        # query or key tile, a ragged last tile, more keys than queries
+        rs = np.random.RandomState(2)
+        q, k, v = (torch.as_tensor(rs.standard_normal((2, 3, t, d)),
+                                   dtype=torch.float32, device=cuda_device)
+                   for t in (t_q, t_k, t_k))
+        scale = 1.0 / math.sqrt(d)
+        out, lse = tfa.flash_fwd(q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = tfa._flash_forward_xla(q, k, v, causal, scale)
+        for got, ref in ((out, ref_out), (lse, ref_lse)):
+            tol = FWD["atol"] + FWD["rtol"] * ref.abs()
+            assert bool(((got - ref).abs() <= tol).all())
+
+    @pytest.mark.parametrize("causal,t,d", [(True, 256, 64),
+                                            (False, 256, 64),
+                                            (True, 1000, 128)])
+    def test_f32_forward_near_float64(self, cuda_device, causal, t, d):
+        # the three TF32 products keep the forward within a few f32 ulps
+        # of the exact function (a float64 reference): far inside the
+        # f32 bar, where one TF32 cast would land ~1e-4 off
+        rs = np.random.RandomState(4)
+        q, k, v = (torch.as_tensor(rs.standard_normal((1, 2, t, d)),
+                                   dtype=torch.float32, device=cuda_device)
+                   for _ in range(3))
+        scale = 1.0 / math.sqrt(d)
+        out, lse = tfa.flash_fwd(q, k, v, causal, scale)
+        s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) * scale
+        if causal:
+            s = tfa._causal_fill(s)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l_sum = p.sum(dim=-1, keepdim=True)
+        ref_out = torch.einsum("bhqk,bhkd->bhqd", p, v.double()) / l_sum
+        ref_lse = (m + torch.log(l_sum)).reshape(2, t)
+        errs = [(out.double() - ref_out).abs().max().item(),
+                (lse.double() - ref_lse).abs().max().item()]
+        print(f"f32 B1 vs float64, causal {causal} t {t} d {d}: max abs "
+              f"err out {errs[0]:.3e}, lse {errs[1]:.3e}")
+        assert max(errs) <= 1e-5, errs
+
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_f32_forward_two_launches_are_bitwise_equal(self, cuda_device,
+                                                        d):
+        rs = np.random.RandomState(3)
+        q, k, v = (torch.as_tensor(rs.standard_normal((2, 12, 1000, d)),
+                                   dtype=torch.float32, device=cuda_device)
+                   for _ in range(3))
+        first = tfa.flash_fwd(q, k, v, True)
+        second = tfa.flash_fwd(q, k, v, True)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
             assert torch.equal(a, b)
 
     def test_unaligned_input_raises(self, cuda_device):

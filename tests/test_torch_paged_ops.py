@@ -3,8 +3,8 @@
 `kv_quantize`/`kv_dequantize` bitwise; the plain paged versions against
 the JAX Pallas kernels B5/B6 in interpret mode; dispatch rules; the
 `PagePool`/`PageTable` copies and `audit_page_table` against the JAX
-package's KV001 audit; a plain emulation of B6's split-K merge against
-the plain version; and — on a CUDA host — the CUDA kernels against the
+package's KV001 audit; a plain emulation of B5's and B6's split-K merge
+against the plain versions; and — on a CUDA host — the CUDA kernels against the
 plain versions.
 
 Inputs are made with numpy from a seed and handed to both packages.
@@ -164,16 +164,12 @@ class TestPlainVsJaxKernels:
         assert torch.equal(base, noisy)
 
 
-def _split_k_emulated(q, kq, vq, ks, vs, table, lengths, scale: float,
-                      chunk: int):
-    """B6's split-K in plain torch: each row's live keys in splits of
-    `chunk` tokens, each split's max m, denominator l and output acc in
-    f32, then the partials merged in split order with the 1e-30 clamp; a
-    row of length 0 gives 0."""
-    h = q.shape[1]
-    kf, vf = (tfa.kv_dequantize(tfa.gather_pages(x, table, n_heads=h),
-                                tfa.gather_pages(sc, table, n_heads=h))
-              for x, sc in ((kq, ks), (vq, vs)))
+def _split_k_merge(q, kf, vf, lengths, scale: float, chunk: int):
+    """B5's and B6's split-K in plain torch over the gathered f32 caches
+    kf/vf [b, h, T, d]: each row's live keys in splits of `chunk` tokens,
+    each split's max m, denominator l and output acc in f32, then the
+    partials merged in split order with the 1e-30 clamp; a row of length
+    0 gives 0."""
     out = torch.zeros(q.shape)
     for bi, n in enumerate(lengths.tolist()):
         n = min(n, kf.shape[2])
@@ -198,13 +194,25 @@ def _split_k_emulated(q, kq, vq, ks, vs, table, lengths, scale: float,
     return out.to(q.dtype)
 
 
+def _split_k_emulated(q, kq, vq, ks, vs, table, lengths, scale: float,
+                      chunk: int):
+    """B6's split-K in plain torch: the int8 pages and their scales
+    gathered and dequantized, then `_split_k_merge`."""
+    h = q.shape[1]
+    kf, vf = (tfa.kv_dequantize(tfa.gather_pages(x, table, n_heads=h),
+                                tfa.gather_pages(sc, table, n_heads=h))
+              for x, sc in ((kq, ks), (vq, vs)))
+    return _split_k_merge(q, kf, vf, lengths, scale, chunk)
+
+
 class TestSplitK:
-    """B6 cuts each row's keys into splits of `_split_tokens` tokens, one
-    block each, and merges the splits' partials in split order.  Emulated
-    at the serving page size, the merge equals the plain version at the
-    f32 bar on both sides of a split boundary, on a dead all-sentinel row
-    and under GQA; a row of length 0 gives 0, as the TPU kernel does (the
-    plain version gives mean(v) there)."""
+    """B5 and B6 cut each row's keys into splits of `_split_tokens`
+    tokens, one block each, and merge the splits' partials in split
+    order.  Emulated at the serving page size, the merge equals the plain
+    version at the f32 bar on both sides of a split boundary, on a dead
+    all-sentinel row and under GQA, over int8 (B6) and f32 or bf16 (B5)
+    pages; a row of length 0 gives 0, as the TPU kernels do (the plain
+    version gives mean(v) there)."""
 
     @pytest.mark.parametrize("nb,h,kvh", [(1, 4, 4), (4, 4, 4), (1, 12, 4),
                                           (4, 12, 4)])
@@ -232,6 +240,37 @@ class TestSplitK:
         # whole pages up to 256 tokens; 256 of a longer page; halved until
         # a split fits the shared-memory budget
         assert tfa._split_tokens(pt, d, nb) == want
+
+    @pytest.mark.parametrize("dtype,d,h,kvh", [
+        (torch.float32, 64, 4, 4), (torch.bfloat16, 64, 12, 4),
+        (torch.float32, 128, 12, 4), (torch.bfloat16, 128, 4, 4)])
+    def test_exact_pages_merge_matches_plain(self, dtype, d, h, kvh):
+        # B5: splits of 256 tokens, of 128 for f32 pages at head_dim 128
+        pt, mp = 64, 8
+        chunk = tfa._split_tokens(pt, d, 0, dtype.itemsize)
+        assert chunk == (128 if (dtype, d) == (torch.float32, 128) else 256)
+        lengths = [0, 1, chunk - 1, chunk, chunk + 1, mp * pt, 1]
+        q, k, v, table, L = _t(*_paged(lengths, h=h, kvh=kvh, d=d, pt=pt,
+                                       mp=mp, n_pages=len(lengths) * mp,
+                                       dead=(6,)))
+        k, v = k.to(dtype), v.to(dtype)
+        scale = 1.0 / np.sqrt(d)
+        kf, vf = (tfa.gather_pages(x.float(), table, n_heads=h)
+                  for x in (k, v))
+        got = _split_k_merge(q, kf, vf, L, scale, chunk)
+        ref = tfa._paged_decode_attention_xla(q, k, v, table, L, scale)
+        np.testing.assert_allclose(got[1:].numpy(), ref[1:].numpy(),
+                                   atol=ATOL)
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+    @pytest.mark.parametrize("pt,d,elem,want", [
+        (64, 64, 2, 256), (64, 128, 2, 256), (64, 64, 4, 256),
+        (64, 128, 4, 128), (48, 128, 4, 96), (16, 128, 4, 128),
+        (1024, 128, 4, 128)])
+    def test_split_tokens_wide_elements(self, pt, d, elem, want):
+        # B5's bf16 (2-byte) and f32 (4-byte) pages, no scales: f32 K + V
+        # of 256 keys at head_dim 128 would take 256 KB, so 128
+        assert tfa._split_tokens(pt, d, 0, elem) == want
 
 
 class TestDispatch:
@@ -387,6 +426,16 @@ def _b6_reference(q, kq, vq, ks, vs, table, lengths):
     return ref
 
 
+def _b5_reference(q, k, v, table, lengths):
+    """The plain B5 in f32 on the same inputs, with 0 on rows of length
+    0."""
+    ref = tfa._paged_decode_attention_xla(q.float(), k.float(), v.float(),
+                                          table, lengths,
+                                          1.0 / np.sqrt(q.shape[-1]))
+    ref[lengths == 0] = 0.0
+    return ref
+
+
 def _b6_close(q, out, ref) -> bool:
     """Within atol 1e-5, plus half an ulp (2^-8 |ref|) of a bf16
     output."""
@@ -458,6 +507,45 @@ class TestKernelsOnCard:
             torch.cuda.synchronize()
             assert _b6_close(q, out, _b6_reference(q, kq, vq, ks, vs,
                                                    table, L2))
+            assert all(int(c.abs().sum()) == 0
+                       for c in tfa._SPLIT_COUNTERS.values())
+        assert torch.equal(out, first)
+
+    @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                        (torch.bfloat16, torch.bfloat16),
+                                        (torch.float32, torch.bfloat16)])
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_b5_at_split_boundaries(self, cuda_device, dtypes, d):
+        # lengths on both sides of the 256- and 128-token split
+        # boundaries, an empty row and a dead all-sentinel row, GQA 12/4
+        q_dt, kv_dt = dtypes
+        lengths = [1, 0, 127, 128, 129, 255, 256, 257, 511, 513, 1024]
+        q, k, v, table, L = (x.to(cuda_device) for x in _t(*_paged(
+            lengths, h=12, kvh=4, d=d, pt=64, mp=16,
+            n_pages=16 * len(lengths), dead=(0,))))
+        q, k, v = q.to(q_dt), k.to(kv_dt), v.to(kv_dt)
+        out = tfa.flash_paged_decode_attention(q, k, v, table, L)
+        torch.cuda.synchronize()
+        assert _b6_close(q, out, _b5_reference(q, k, v, table, L))
+
+    @pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                         (torch.bfloat16, 64),
+                                         (torch.float32, 128)])
+    def test_b5_is_deterministic_and_leaves_no_stale_counters(
+            self, cuda_device, dtype, d):
+        # as B6: bitwise equal launches, counters at 0 after each call,
+        # calls with other lengths in between stay right
+        lengths = [1024, 700, 257, 256, 0, 513, 1, 900]
+        q, k, v, table, L = (x.to(cuda_device) for x in _t(*_paged(
+            lengths, h=12, kvh=12, d=d, pt=64, mp=16, n_pages=128)))
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        first = tfa.flash_paged_decode_attention(q, k, v, table, L)
+        for lens in (lengths, [300, 1, 1024, 0, 64, 511, 129, 700],
+                     [0] * 8, lengths):
+            L2 = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+            out = tfa.flash_paged_decode_attention(q, k, v, table, L2)
+            torch.cuda.synchronize()
+            assert _b6_close(q, out, _b5_reference(q, k, v, table, L2))
             assert all(int(c.abs().sum()) == 0
                        for c in tfa._SPLIT_COUNTERS.values())
         assert torch.equal(out, first)
