@@ -18,9 +18,11 @@ Phases, each raising on failure (exit code != 0, no result line):
      version, one library call (SDPA, a yardstick only) and the card's
      least possible time (bound).  B1-B3 have two routes: bfloat16 runs
      the bf16 tensor-core kernels (their times fill the kernels line),
-     float32 the f32 kernels — B1's three-product TF32 kernel on the
-     tensor cores, B2 and B3 on the CUDA cores — whose times are printed
-     on lines of their own and added to the entries;
+     float32 the three-product TF32 tensor-core kernels, whose times are
+     printed on lines of their own and added to the entries.  One line
+     per dtype holds the B2 + B3 pair against SDPA's whole backward (the
+     one library call that computes dQ, dK and dV), and its times go
+     into both entries;
   4. serving: GPT-2 small at full width (random weights from a seeded
      generator) through `GenerationSession.for_gpt`, bucketed layout.
      In float32 every request's greedy ids must equal the uncached
@@ -45,7 +47,9 @@ Phases, each raising on failure (exit code != 0, no result line):
      `fxfront.easydist_compile`.  In float32 with flash attention, 3
      compiled steps must match 3 uncompiled steps from the same state
      at rtol 1e-4, from one compiled signature, with B1, B2 and B3 each
-     launched 12 x 3 times.  In bfloat16, 4 flash steps must stay
+     launched 12 x 3 times; then one more compiled step under
+     torch.profiler (device busy, B1-B3's share).  In bfloat16, 4 flash
+     steps must stay
      within 2e-2 (relative) of 4 einsum steps from the same weights, with
      B1, B2 and B3 each launched 12 x 4 times in those flash steps (on
      their tensor-core route).
@@ -120,6 +124,7 @@ def build_kernels():
 # kernels whose registers are planned to the last one: a spill is a fault
 NO_SPILL_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
                     "flash_bwd_dkv_sm90_kernel", "flash_fwd_tf32_kernel",
+                    "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel",
                     "paged_decode_kernel", "paged_decode_quant_kernel")
 
 
@@ -532,10 +537,11 @@ TRAIN_KERNELS = {
     "flash_fwd": ("flash_fwd_sm90_kernel", "flash_fwd_tf32_kernel",
                   "easydist_tpu/ops/flash_attention.py:78",
                   "easydist_tpu_torch/ops/csrc/flash_attn_fwd.cu"),
-    "flash_bwd_dq": ("flash_bwd_dq_sm90_kernel", "flash_bwd_dq_kernel",
+    "flash_bwd_dq": ("flash_bwd_dq_sm90_kernel", "flash_bwd_dq_tf32_kernel",
                      "easydist_tpu/ops/flash_attention.py:164",
                      "easydist_tpu_torch/ops/csrc/flash_attn_bwd.cu"),
-    "flash_bwd_dkv": ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dkv_kernel",
+    "flash_bwd_dkv": ("flash_bwd_dkv_sm90_kernel",
+                      "flash_bwd_dkv_tf32_kernel",
                       "easydist_tpu/ops/flash_attention.py:197",
                       "easydist_tpu_torch/ops/csrc/flash_attn_bwd.cu"),
 }
@@ -553,7 +559,7 @@ def train_bound_ms(kernel: str, shape, causal: bool, itemsize: int):
     [b,h,t,d] tensors and the f32 per-row lse/delta) over HBM rate, and
     its products over the tensor cores' dense rate for the inputs' type
     (bf16; f32 at the TF32 rate, the card's fastest way to f32 products,
-    which the f32 B1 takes).  The function's products only: the hi/lo
+    which the f32 kernels take).  The function's products only: the hi/lo
     splits' extra products are not counted.  Causal products count the
     visible (query, key) pairs only."""
     b, h, t, d = shape
@@ -595,13 +601,14 @@ def train_kernel_phase(dev, shape=TRAIN_SHAPE, ragged_t: int = 1000):
     float32 and bfloat16 (the plain version in f32 on the same rounded
     inputs); causal, full, a ragged causal length and a backward with a
     nonzero lse cotangent; the f32 forward also at head_dim 128 and a
-    ragged length.  Tolerances: the JAX tests' f32 bars (forward rtol
-    1e-4 / atol 1e-5, backward rtol 2e-4 / atol 2e-5); a bf16 output
-    adds half an ulp of its rounding, 2^-8 |ref|, since the kernels round
-    once: the f32 B2/B3 compute in f32, the f32 B1 takes three TF32
-    products of hi/lo halves (about 2^-21 of each product lost), and the
-    bf16 tensor-core B1-B3 take exact bf16 products summed in f32 with P
-    and dS split into bf16 hi + lo halves.  On the card, also the times
+    ragged length, and the f32 kernels at head_dim 128 (a ragged length
+    and one row past a tile).  Tolerances: the JAX tests' f32 bars
+    (forward rtol 1e-4 / atol 1e-5, backward rtol 2e-4 / atol 2e-5); a
+    bf16 output adds half an ulp of its rounding, 2^-8 |ref|, since the
+    kernels round once: the f32 B1-B3 take three TF32 products of hi/lo
+    halves for each product (about 2^-21 of each product lost), and the
+    bf16 B1-B3 take exact bf16 products summed in f32 with P and dS split
+    into bf16 hi + lo halves.  On the card, also the times
     (causal, at `shape`).  Returns the kernels-line entries (without
     `launches`)."""
     from easydist_tpu_torch.ops import flash_attention as fa
@@ -658,23 +665,42 @@ def train_kernel_phase(dev, shape=TRAIN_SHAPE, ragged_t: int = 1000):
             for name, err in errs.items():
                 worst[name][dtype] = max(worst[name].get(dtype, 0.0), err)
             del out, lse, ref_out, ref_lse, delta, dq, dk, dv, r_dq, r_dk, r_dv
-    # the f32 forward's other tiles: head_dim 128 (64-query blocks, 32-key
-    # tiles) at the ragged length and one row past a tile
+    # the f32 kernels' other tiles: head_dim 128 (B1 and B2 64-query
+    # blocks, B3 16-query tiles) at the ragged length and one row past a
+    # tile
+    f32 = torch.float32
     for t_case in (ragged_t, 129):
-        q, k, v = (torch.as_tensor(rs.standard_normal((b, h, t_case, 128)),
-                                   dtype=torch.float32, device=dev)
-                   for _ in range(3))
+        q, k, v, do = (torch.as_tensor(
+            rs.standard_normal((b, h, t_case, 128)), dtype=f32, device=dev)
+            for _ in range(4))
         s128 = 1.0 / np.sqrt(128)
         out, lse = fa.flash_fwd(q, k, v, True, s128)
         ref_out, ref_lse = fa._flash_forward_xla(q, k, v, True, s128)
+        delta = fa._flash_delta(ref_out, do)
+        dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, True, s128)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, True, s128)
+        r_dq = fa._flash_bwd_dq_xla(q, k, v, do, ref_lse, delta, True, s128)
+        r_dk, r_dv = fa._flash_bwd_dkv_xla(q, k, v, do, ref_lse, delta, True,
+                                           s128)
         tag = f"float32  causal T={t_case} d128"
-        worst["flash_fwd"][torch.float32] = max(
-            worst["flash_fwd"][torch.float32],
+        worst["flash_fwd"][f32] = max(
+            worst["flash_fwd"][f32],
             check_close(f"flash_fwd {tag} out", out, ref_out, 1e-4, 1e-5,
                         False),
             check_close(f"flash_fwd {tag} lse", lse, ref_lse, 1e-4, 1e-5,
                         False))
-        del q, k, v, out, lse, ref_out, ref_lse
+        worst["flash_bwd_dq"][f32] = max(
+            worst["flash_bwd_dq"][f32],
+            check_close(f"flash_bwd_dq {tag} dq", dq, r_dq, 2e-4, 2e-5,
+                        False))
+        worst["flash_bwd_dkv"][f32] = max(
+            worst["flash_bwd_dkv"][f32],
+            check_close(f"flash_bwd_dkv {tag} dk", dk, r_dk, 2e-4, 2e-5,
+                        False),
+            check_close(f"flash_bwd_dkv {tag} dv", dv, r_dv, 2e-4, 2e-5,
+                        False))
+        del q, k, v, do, out, lse, ref_out, ref_lse, delta, dq, dk, dv
+        del r_dq, r_dk, r_dv
     if dev.type != "cuda":
         return []
     return train_kernel_times(dev, shape, worst)
@@ -782,9 +808,32 @@ def train_kernel_times(dev, shape, worst):
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "library_call": library_call,
             "symbol": symbol, **f32})
+    add_pair_times(entries, shape)
     for name, c in counters.items():
         c.launches = before[name]  # timing runs don't count
     return entries
+
+
+def add_pair_times(entries, shape):
+    """B2 + B3 against SDPA's whole backward (dQ, dK and dV in one call):
+    one line per dtype, and the pair's times (profiler where it recorded
+    both kernels, else events) and the library's into both entries."""
+    by_name = {e["name"]: e for e in entries}
+    pair = [by_name["flash_bwd_dq"], by_name["flash_bwd_dkv"]]
+    for dtype, pre in (("bf16", ""), ("f32", "f32_")):
+        prof = [e[f"{pre}profiled_ms"] for e in pair]
+        events = [e[f"{pre}ms"] for e in pair]
+        times, source = ((prof, "profiler") if None not in prof
+                         else (events, "events"))
+        pair_ms = sum(times)
+        library = pair[0][f"{pre}library_ms"]
+        print(f"pair B2 + B3 {dtype} causal {list(shape)}: {source} "
+              f"{times[0]:.4f} + {times[1]:.4f} = {pair_ms:.4f} ms (events "
+              f"{sum(events):.4f}), library (SDPA backward, dQ, dK and dV "
+              f"together) {library:.4f} ms: {pair_ms / library:.2f}x")
+        for e in pair:
+            e.update({f"{pre}pair_ms": pair_ms, f"{pre}pair_source": source,
+                      f"{pre}pair_library_ms": library})
 
 
 # ------------------------------------------------------------ training
@@ -850,7 +899,10 @@ def train_phase(dev, cfg_kw=None, batch: int = 8, steps: int = 3,
         raise AssertionError(f"training kernels launched {launches}, "
                              f"expected {cfg.layers} x {steps} each")
     print(f"train f32 flash: compiled equals uncompiled at rtol 1e-4 over "
-          f"{steps} steps; 1 signature; B1 = B2 = B3 = {expect} launches")
+          f"{steps} steps (bitwise: {losses == eager}); 1 signature; B1 = B2 "
+          f"= B3 = {expect} launches")
+    if on_card:
+        profile_f32_step(compiled, state, tokens, targets)
     del state, eager_state, compiled
 
     # bf16: flash against einsum from the same weights
@@ -900,6 +952,41 @@ def step_ms(comp, state, tokens, targets, steps: int = 3):
         state, _ = comp(state, tokens, targets)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / steps, state
+
+
+def profile_f32_step(comp, state, tokens, targets):
+    """One f32 flash step (after an untimed one) under torch.profiler:
+    host ms, device busy ms and share, and B1-B3's device ms (their f32
+    symbols) and share of the busy time.  Its launches are not counted
+    (the caller has read the counters)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state, _ = comp(state, tokens, targets)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = comp(state, tokens, targets)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key != "easydist_compile.state_copy"]
+    busy = sum(ms for _, ms, _ in kernels)
+    attn = {name: [(ms, n) for key, ms, n in kernels if sym[1] in key]
+            for name, sym in TRAIN_KERNELS.items()}
+    attn_ms = {name: sum(ms for ms, _ in hits) for name, hits in attn.items()}
+    total = sum(attn_ms.values())
+    print(f"profile f32 flash step: {wall_ms:.3f} ms under the profiler, "
+          f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%); B1-B3 "
+          f"f32 {total:.3f} ms ({100 * total / busy:.1f}% of busy): "
+          + ", ".join(f"{name} {attn_ms[name]:.3f} ms over "
+                      f"{sum(n for _, n in attn[name])} launches recorded"
+                      for name in TRAIN_KERNELS))
+    ranked = sorted(kernels, key=lambda x: -x[1])
+    for name, ms, count in ranked[:8]:
+        print(f"  {ms:9.4f} ms/step  {count:5d}/step  {name[:80]}")
 
 
 def profile_train(runs, tokens, targets, tokens_per_step: int,

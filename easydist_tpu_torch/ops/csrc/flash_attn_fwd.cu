@@ -352,37 +352,9 @@ __device__ __forceinline__ void convert_tile(const uint8_t* raw, uint8_t* conv,
                                              int ct) {
   constexpr int T = BK * D * 4;
   constexpr int kConverters = FwdTf32<D>::kConverters;
-  const float4* k_raw = reinterpret_cast<const float4*>(raw);
-  uint4* k_hi = reinterpret_cast<uint4*>(conv);
-  uint4* k_lo = reinterpret_cast<uint4*>(conv + T);
-  for (int i = ct; i < T / 16; i += kConverters) {
-    uint4 hi, lo;
-    sm90::split_tf32(k_raw[i], hi, lo);
-    k_hi[i] = hi;
-    k_lo[i] = lo;
-  }
-
-  const uint8_t* v_raw = raw + T;
-  for (int i = ct; i < D * BK / 4; i += kConverters) {
-    const int d = i % D, quad = i / D;  // positions 4 quad .. 4 quad + 3
-    const int key0 = 8 * (quad / 2) + quad % 2;  // keys key0 + 2 e
-    const uint8_t* col = v_raw + (d / 32) * BK * 128 + (d % 4) * 4;
-    float xs[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = key0 + 2 * e;
-      xs[e] = *reinterpret_cast<const float*>(
-          col + key * 128 + ((((d % 32) / 4) ^ (key % 8)) * 16));
-    }
-    const float4 x = make_float4(xs[0], xs[1], xs[2], xs[3]);
-    const int pos = 4 * quad;
-    const int off = (pos / 32) * D * 128 + d * 128 +
-                    ((((pos % 32) / 4) ^ (d % 8)) * 16);
-    uint4 hi, lo;
-    sm90::split_tf32(x, hi, lo);
-    *reinterpret_cast<uint4*>(conv + 2 * T + off) = hi;
-    *reinterpret_cast<uint4*>(conv + 3 * T + off) = lo;
-  }
+  sm90::split_tile<T, kConverters>(raw, conv, conv + T, ct);
+  sm90::split_transposed<BK, D, kConverters>(raw + T, conv + 2 * T,
+                                             conv + 3 * T, ct);
 }
 
 template <int D>
@@ -594,13 +566,7 @@ __global__ void __launch_bounds__(FwdTf32<D>::kThreads, 1)
     // P's halves as A fragments: keys 2c and 2c + 1 of each 8-key group
     // are the fragment's columns c and c + 4 (V^T stored to match)
     uint32_t p_hi[BK / 8][4], p_lo[BK / 8][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 8; ++kk) {
-      sm90::split_tf32(sc[4 * kk], p_hi[kk][0], p_lo[kk][0]);
-      sm90::split_tf32(sc[4 * kk + 2], p_hi[kk][1], p_lo[kk][1]);
-      sm90::split_tf32(sc[4 * kk + 1], p_hi[kk][2], p_lo[kk][2]);
-      sm90::split_tf32(sc[4 * kk + 3], p_hi[kk][3], p_lo[kk][3]);
-    }
+    sm90::split_frags_tf32(sc, p_hi, p_lo);
     // O += P_hi.V_hi + P_hi.V_lo + P_lo.V_hi, 8 keys a step
     sm90::wgmma_fence();
 #pragma unroll

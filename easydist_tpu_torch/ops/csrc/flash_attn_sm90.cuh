@@ -2,9 +2,10 @@
 // kernels (flash_attn_fwd.cu, flash_attn_bwd.cu): mbarriers, TMA tile
 // loads, shared-memory matrix descriptors for 128-byte swizzled tiles,
 // `wgmma` products (f32 += bf16 x bf16, and f32 += tf32 x tf32 for the
-// float32 forward), the accumulator-to-A-fragment conversion with the
-// hi/lo split, the quad reductions of the accumulator layout, and the
-// host-side tensor-map encoder.
+// float32 kernels), the accumulator-to-A-fragment conversion with the
+// hi/lo split, the converters' f32-tile-to-TF32-halves helpers, the quad
+// reductions of the accumulator layout, and the host-side tensor-map
+// encoder.
 //
 // Tile layout.  Every operand tile is `rows x d` bf16 (or f32), row-major
 // in device memory, and lands in shared memory as panels of `rows x 128
@@ -331,6 +332,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
 // (the only layout TF32 takes): A from shared memory or from registers (a
 // fragment of four tf32 values a thread), B from shared memory.
 
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[8], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t a,
                                               uint64_t b, int accumulate) {
   asm volatile(
@@ -429,6 +442,114 @@ __device__ __forceinline__ void split_tf32(float4 x, uint4& hi, uint4& lo) {
   split_tf32(x.y, hi.y, lo.y);
   split_tf32(x.z, hi.z, lo.z);
   split_tf32(x.w, hi.w, lo.w);
+}
+
+// ------------------------------------------------ f32 tiles -> TF32 halves
+//
+// The TF32 kernels' converters (warps of the producer warpgroup) turn an
+// f32 tile that TMA landed in shared memory (`R` rows x D columns, panels
+// of 32 columns and R rows, 128-byte swizzle) into the halves the
+// products read.  Thread `t` of `N` converters.
+
+// `B`: the items a converter loads before it splits and stores any, so
+// their latencies overlap.  B = 1 is a plain loop.  A batch unrolls the
+// loop whole (kept at run time it timed no faster than one item); that
+// costs registers, which a kernel whose converters and consumers compile
+// to one tight count cannot spare (it spills or slows): such a kernel
+// takes B = 1.
+template <int kItems, int N, int B, typename Load, typename Store>
+__device__ __forceinline__ void convert_items(int t, Load load, Store store) {
+  if constexpr (B == 1) {
+    for (int i = t; i < kItems; i += N) store(i, load(i));
+  } else {
+    constexpr int kSteps = (kItems + N - 1) / N;
+#pragma unroll
+    for (int j0 = 0; j0 < kSteps; j0 += B) {
+      float4 x[B];
+#pragma unroll
+      for (int j = 0; j < B; ++j) {
+        const int i = t + (j0 + j) * N;
+        if (j0 + j < kSteps && i < kItems) x[j] = load(i);
+      }
+#pragma unroll
+      for (int j = 0; j < B; ++j) {
+        const int i = t + (j0 + j) * N;
+        if (j0 + j < kSteps && i < kItems) store(i, x[j]);
+      }
+    }
+  }
+}
+
+// The tile at `src` as hi = tf32(x) into `hi` and lo = tf32(x - hi) into
+// `lo`, both in its layout; `lo` may be `src` (in place: each thread
+// reads and writes only its own 16-byte chunks).
+template <int BYTES, int N, int B = 1>
+__device__ __forceinline__ void split_tile(const uint8_t* src, uint8_t* hi,
+                                           uint8_t* lo, int t) {
+  convert_items<BYTES / 16, N, B>(
+      t, [&](int i) { return reinterpret_cast<const float4*>(src)[i]; },
+      [&](int i, float4 x) {
+        uint4 h, l;
+        split_tf32(x, h, l);
+        reinterpret_cast<uint4*>(hi)[i] = h;
+        reinterpret_cast<uint4*>(lo)[i] = l;
+      });
+}
+
+// The landed tile's transpose, split: hi and lo as [D rows][slots], the
+// slot of a value its row in the tile (keys or queries contiguous), in
+// panels of 32 slots (D * 128 bytes each), 128-byte swizzle, each 8-slot
+// group stored in the order 0 2 4 6 1 3 5 7 so that an accumulator pair
+// (2c, 2c + 1) is a TF32 A fragment's columns (c, c + 4).  R is a multiple
+// of 8; with R = 16 only the first half of each 128-byte row is written.
+// Item i is column i % D at slots 4 (i / D) .. + 3; a warp takes 32
+// neighbouring columns, so its reads and its 16-byte writes are free of
+// bank conflicts.
+template <int R, int D, int N, int B = 1>
+__device__ __forceinline__ void split_transposed(const uint8_t* raw,
+                                                 uint8_t* hi, uint8_t* lo,
+                                                 int t) {
+  convert_items<D * R / 4, N, B>(
+      t,
+      [&](int i) {
+        const int d = i % D, quad = i / D;
+        const int r0 = 8 * (quad / 2) + quad % 2;  // rows r0 + 2 e
+        const uint8_t* col = raw + (d / 32) * R * 128 + (d % 4) * 4;
+        float xs[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + 2 * e;
+          xs[e] = *reinterpret_cast<const float*>(
+              col + r * 128 + ((((d % 32) / 4) ^ (r % 8)) * 16));
+        }
+        return make_float4(xs[0], xs[1], xs[2], xs[3]);
+      },
+      [&](int i, float4 x) {
+        const int d = i % D, pos = 4 * (i / D);
+        const int off = (pos / 32) * D * 128 + d * 128 +
+                        ((((pos % 32) / 4) ^ (d % 8)) * 16);
+        uint4 h, l;
+        split_tf32(x, h, l);
+        *reinterpret_cast<uint4*>(hi + off) = h;
+        *reinterpret_cast<uint4*>(lo + off) = l;
+      });
+}
+
+// An accumulator of a 64 x N TF32 product (N / 2 registers) as the N / 8
+// A fragments of its hi and lo halves: step kk holds columns 8 kk + 2c
+// and + 1 as the fragment's (c, c + 4), which the transposed operand's
+// 0 2 4 6 1 3 5 7 order matches.
+template <int R>
+__device__ __forceinline__ void split_frags_tf32(const float (&acc)[R],
+                                                 uint32_t (&hi)[R / 4][4],
+                                                 uint32_t (&lo)[R / 4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < R / 4; ++kk) {
+    split_tf32(acc[4 * kk], hi[kk][0], lo[kk][0]);
+    split_tf32(acc[4 * kk + 2], hi[kk][1], lo[kk][1]);
+    split_tf32(acc[4 * kk + 1], hi[kk][2], lo[kk][2]);
+    split_tf32(acc[4 * kk + 3], hi[kk][3], lo[kk][3]);
+  }
 }
 
 // --------------------------------------------- accumulator -> A fragments

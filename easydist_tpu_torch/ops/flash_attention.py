@@ -11,9 +11,9 @@ Port of easydist_tpu/ops/flash_attention.py, serving and training:
     `::flash_bwd_dq` and `::flash_bwd_dkv`, the forward differentiable
     in both outputs through `register_autograd`.  On bfloat16 the three
     kernels run on the tensor cores (`wgmma` fed by a TMA ring,
-    `csrc/flash_attn_sm90.cuh`); on float32 the forward runs on the
-    tensor cores too (three TF32 products of hi/lo halves), the backward
-    pair on the CUDA cores;
+    `csrc/flash_attn_sm90.cuh`); on float32 they run on the tensor cores
+    too, each product of the function as three TF32 products of hi/lo
+    halves;
   * serving: the decode kernel `_flash_decode_kernel` becomes
     `csrc/flash_decode.cu`, the custom op `easydist_tpu_torch::flash_decode`;
     the paged decode kernels `_flash_paged_decode_kernel` (exact pages)
@@ -217,9 +217,9 @@ def _check_train_inputs(op: str, q, k, v, *rows):
 
 
 def _check_aligned(op: str, *tensors) -> None:
-    """The kernels read q, k, v and dO with 16-byte loads (the CUDA-core
-    kernels) or TMA tensor maps (the tensor-core kernels), both of which
-    need a 16-byte aligned base: raise on any other, rather than copy."""
+    """The kernels read q, k, v and dO through TMA tensor maps or with
+    16-byte loads, both of which need a 16-byte aligned base: raise on
+    any other, rather than copy."""
     for x in tensors:
         if x.data_ptr() % 16:
             raise ValueError(f"{op} needs 16-byte aligned q, k, v and dO; "
@@ -329,8 +329,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
                  scale: Optional[float] = None):
     """B2: dQ from the saved lse and delta (`_flash_delta`).  CPU tensors
     run `_flash_bwd_dq_xla`; CUDA tensors launch the dQ kernel of
-    `csrc/flash_attn_bwd.cu` (bfloat16 the tensor-core kernel, float32
-    the CUDA-core one)."""
+    `csrc/flash_attn_bwd.cu` (both dtypes on the tensor cores: float32
+    as three TF32 products of hi/lo halves for each of S, dP and dQ)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _flash_bwd_dq_op(q, k, v, do, lse, delta, bool(causal),
@@ -341,8 +341,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
                   scale: Optional[float] = None):
     """B3: (dK, dV) from the saved lse and delta.  CPU tensors run
     `_flash_bwd_dkv_xla`; CUDA tensors launch the dK/dV kernel of
-    `csrc/flash_attn_bwd.cu` (bfloat16 the tensor-core kernel, float32
-    the CUDA-core one)."""
+    `csrc/flash_attn_bwd.cu` (both dtypes on the tensor cores: float32
+    as three TF32 products of hi/lo halves for each of S^T, dP^T, dV and
+    dK)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _flash_bwd_dkv_op(q, k, v, do, lse, delta, bool(causal),

@@ -5,9 +5,10 @@ interpret mode (out and lse), the plain backward against `jax.vjp` of
 its custom ops against torch autograd through `_reference_attention`,
 the traced graph's nodes, a plain emulation of the tensor-core kernels'
 rounding (bf16: P and dS split into bf16 hi + lo halves; the f32
-forward: every operand split into TF32 hi + lo halves, three products)
-against the plain versions, and — on a CUDA host — each kernel against
-its plain version.
+forward, dQ and dK/dV: every operand split into TF32 hi + lo halves,
+three products) against the plain versions, and — on a CUDA host — each
+kernel against its plain version and the f32 kernels against a float64
+reference.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: forward rtol 1e-4 / atol 1e-5, backward rtol 2e-4 / atol
@@ -295,6 +296,42 @@ def _emulated_forward_tf32(q, k, v, causal: bool, scale: float,
     return out, (m + torch.log(l_safe)).reshape(b * h, t_q)
 
 
+def _emulated_p_ds_tf32(q, k, v, do, lse, delta, causal: bool, scale: float,
+                        split: bool):
+    """The f32 B2's and B3's P and dS: S = Q.K^T and dP = dO.V^T through
+    `_tf32_product`, S scaled after the product, P = exp(S - lse) from the
+    saved lse, dS = P (dP - delta), all in f32."""
+    b, h, t_q, _ = q.shape
+    s = _tf32_product("bhqd,bhkd->bhqk", q, k, split) * scale
+    if causal:
+        s = tfa._causal_fill(s)
+    p = torch.exp(s - lse.reshape(b, h, t_q, 1))
+    dp = _tf32_product("bhqd,bhkd->bhqk", do, v, split)
+    return p, p * (dp - delta.reshape(b, h, t_q, 1))
+
+
+def _emulated_dq_tf32(q, k, v, do, lse, delta, causal: bool, scale: float,
+                      split: bool):
+    """The f32 B2's rounding points: P and dS as above, then dQ = dS.K
+    through `_tf32_product` (dS split in registers like every operand),
+    times scale, in f32."""
+    _, ds = _emulated_p_ds_tf32(q, k, v, do, lse, delta, causal, scale,
+                                split)
+    return _tf32_product("bhqk,bhkd->bhqd", ds, k, split) * scale
+
+
+def _emulated_dkv_tf32(q, k, v, do, lse, delta, causal: bool, scale: float,
+                       split: bool):
+    """The f32 B3's rounding points: P^T and dS^T as above (the kernel
+    forms them transposed; the values are the same), dV = P^T.dO and
+    dK = dS^T.Q * scale through `_tf32_product`, in f32."""
+    p, ds = _emulated_p_ds_tf32(q, k, v, do, lse, delta, causal, scale,
+                                split)
+    dv = _tf32_product("bhqk,bhqd->bhkd", p, do, split)
+    dk = _tf32_product("bhqk,bhqd->bhkd", ds, q, split) * scale
+    return dk, dv
+
+
 class TestSplitRounding:
     """The bf16 tensor-core B1-B3 feed P and dS to their products as
     bf16 hi + lo halves.  Emulated on the CPU at a small causal size, the
@@ -350,6 +387,45 @@ class TestSplitRounding:
                  _worst(lse, ref_lse, **FWD, ulp=0.0)]
         print(f"tf32 {'three products' if split else 'one cast'}: worst "
               f"err/tol out {worst[0]:.4f}, lse {worst[1]:.4f}")
+        if split:
+            assert max(worst) <= 1.0, worst
+        else:
+            assert max(worst) > 1.0, worst
+
+    @staticmethod
+    def _f32_backward_inputs():
+        q, k, v, do = _t(*_rand(b=1, h=2, t=128, d=64, seed=12))
+        scale = 1.0 / math.sqrt(64)
+        out, lse = tfa._flash_forward_xla(q, k, v, True, scale)
+        return q, k, v, do, lse, tfa._flash_delta(out, do), scale
+
+    @pytest.mark.parametrize("split", [True, False],
+                             ids=["tf32_three_products", "tf32_one_cast"])
+    def test_f32_dq_within_bar_only_with_tf32_split(self, split):
+        # the f32 B2 on the tensor cores: nine TF32 products (S, dP, dQ),
+        # dQ at the f32 backward bar (no output rounding)
+        q, k, v, do, lse, delta, scale = self._f32_backward_inputs()
+        ref = tfa._flash_bwd_dq_xla(q, k, v, do, lse, delta, True, scale)
+        dq = _emulated_dq_tf32(q, k, v, do, lse, delta, True, scale, split)
+        worst = _worst(dq, ref, **BWD, ulp=0.0)
+        print(f"tf32 {'three products' if split else 'one cast'}: worst "
+              f"err/tol dq {worst:.4f}")
+        assert (worst <= 1.0) == split, worst
+
+    @pytest.mark.parametrize("split", [True, False],
+                             ids=["tf32_three_products", "tf32_one_cast"])
+    def test_f32_dkv_within_bar_only_with_tf32_split(self, split):
+        # the f32 B3: twelve TF32 products (S^T, dP^T, dV, dK), dK and dV
+        # at the f32 backward bar
+        q, k, v, do, lse, delta, scale = self._f32_backward_inputs()
+        ref_dk, ref_dv = tfa._flash_bwd_dkv_xla(q, k, v, do, lse, delta, True,
+                                                scale)
+        dk, dv = _emulated_dkv_tf32(q, k, v, do, lse, delta, True, scale,
+                                    split)
+        worst = [_worst(dk, ref_dk, **BWD, ulp=0.0),
+                 _worst(dv, ref_dv, **BWD, ulp=0.0)]
+        print(f"tf32 {'three products' if split else 'one cast'}: worst "
+              f"err/tol dk {worst[0]:.4f}, dv {worst[1]:.4f}")
         if split:
             assert max(worst) <= 1.0, worst
         else:
@@ -494,6 +570,99 @@ class TestKernelsOnCard:
         second = tfa.flash_fwd(q, k, v, True)
         torch.cuda.synchronize()
         for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("causal,t_q,t_k", [
+        (True, 1, 1), (True, 63, 63), (True, 65, 65), (False, 200, 77),
+        (True, 77, 200), (False, 77, 200)])
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_f32_backward_ragged_tiles(self, cuda_device, causal, t_q, t_k,
+                                       d):
+        # the TF32 B2 and B3 at tile edges: fewer rows than a query or key
+        # tile, a ragged last tile, more keys than queries and fewer (the
+        # longer ragged lengths are test_kernels_match_plain's)
+        rs = np.random.RandomState(5)
+        q, k, v, do = (torch.as_tensor(rs.standard_normal((2, 3, t, d)),
+                                       dtype=torch.float32,
+                                       device=cuda_device)
+                       for t in (t_q, t_k, t_k, t_q))
+        g_lse = torch.as_tensor(rs.standard_normal((6, t_q)),
+                                dtype=torch.float32, device=cuda_device)
+        scale = 1.0 / math.sqrt(d)
+        ref_out, ref_lse = tfa._flash_forward_xla(q, k, v, causal, scale)
+        delta = tfa._flash_delta(ref_out, do, g_lse)
+        dq = tfa.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal, scale)
+        dk, dv = tfa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal,
+                                   scale)
+        torch.cuda.synchronize()
+        r_dq = tfa._flash_bwd_dq_xla(q, k, v, do, ref_lse, delta, causal,
+                                     scale)
+        r_dk, r_dv = tfa._flash_bwd_dkv_xla(q, k, v, do, ref_lse, delta,
+                                            causal, scale)
+        for got, ref in ((dq, r_dq), (dk, r_dk), (dv, r_dv)):
+            tol = BWD["atol"] + BWD["rtol"] * ref.abs()
+            assert bool(((got - ref).abs() <= tol).all())
+
+    @pytest.mark.parametrize("causal,t,d", [(True, 256, 64),
+                                            (False, 256, 64),
+                                            (True, 1000, 128),
+                                            (False, 256, 128)])
+    def test_f32_backward_near_float64_past_first_tile(self, cuda_device,
+                                                       causal, t, d):
+        # the TF32 B2/B3 against the exact function (float64) on the rows
+        # and keys past each kernel's first tile (queries and keys >= 64):
+        # resident operands reused across tiles must not drift towards
+        # one-cast accuracy (~1e-4) there
+        rs = np.random.RandomState(6)
+        q, k, v, do = (torch.as_tensor(rs.standard_normal((1, 2, t, d)),
+                                       dtype=torch.float32,
+                                       device=cuda_device)
+                       for _ in range(4))
+        scale = 1.0 / math.sqrt(d)
+        out, lse = tfa._flash_forward_xla(q, k, v, causal, scale)
+        delta = tfa._flash_delta(out, do)
+        dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+        dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+        q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+        s = torch.einsum("bhqd,bhkd->bhqk", q64, k64) * scale
+        if causal:
+            s = tfa._causal_fill(s)
+        p = torch.exp(s - lse.double().reshape(1, 2, t, 1))
+        dp = torch.einsum("bhqd,bhkd->bhqk", do64, v64)
+        ds = p * (dp - delta.double().reshape(1, 2, t, 1))
+        refs = (torch.einsum("bhqk,bhkd->bhqd", ds, k64) * scale,
+                torch.einsum("bhqk,bhqd->bhkd", ds, q64) * scale,
+                torch.einsum("bhqk,bhqd->bhkd", p, do64))
+        errs = [(got.double() - ref)[:, :, 64:].abs().max().item()
+                for got, ref in zip((dq, dk, dv), refs)]
+        # the plain version's own f32 distance, for scale (not asserted)
+        plain = (tfa._flash_bwd_dq_xla(q, k, v, do, lse, delta, causal,
+                                       scale),
+                 *tfa._flash_bwd_dkv_xla(q, k, v, do, lse, delta, causal,
+                                         scale))
+        plain_errs = [(got.double() - ref)[:, :, 64:].abs().max().item()
+                      for got, ref in zip(plain, refs)]
+        print(f"f32 B2/B3 vs float64 past the first tile, causal {causal} "
+              f"t {t} d {d}: max abs err dq {errs[0]:.3e}, dk {errs[1]:.3e}, "
+              f"dv {errs[2]:.3e} (plain f32: {plain_errs[0]:.3e}, "
+              f"{plain_errs[1]:.3e}, {plain_errs[2]:.3e})")
+        assert max(errs) <= 2e-5, errs
+
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_f32_backward_two_launches_are_bitwise_equal(self, cuda_device,
+                                                         d):
+        rs = np.random.RandomState(7)
+        q, k, v, do = (torch.as_tensor(rs.standard_normal((2, 12, 1000, d)),
+                                       dtype=torch.float32,
+                                       device=cuda_device)
+                       for _ in range(4))
+        out, lse = tfa.flash_fwd(q, k, v, True)
+        delta = tfa._flash_delta(out, do)
+        runs = [(tfa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+                 *tfa.flash_bwd_dkv(q, k, v, do, lse, delta, True))
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
             assert torch.equal(a, b)
 
     def test_unaligned_input_raises(self, cuda_device):
