@@ -7,16 +7,20 @@ Phases, each raising on failure (exit code != 0, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build of every CUDA kernel from `csrc/`, one nvcc per source, all
      started together; ptxas's register and spill report, which must
-     show no spills for the tensor-core kernels, B5 and B6;
+     show no spills for the tensor-core kernels and B4-B6;
   3. each kernel against its plain PyTorch version on the card: the
-     decode kernel (B4) at the serving shape; the paged decode kernels
-     (B5 exact pages, B6 int8 pages) at the paged serving shape, with a
-     GQA case, head_dim 128 and lengths around the split boundaries; the
-     training kernels (B1 forward, B2 dQ, B3 dK/dV) at the training
-     shape; in float32 and bfloat16, with times of the kernel (CUDA
-     events, and device time per launch from torch.profiler), the plain
-     version, one library call (SDPA, a yardstick only) and the card's
-     least possible time (bound).  B1-B3 have two routes: bfloat16 runs
+     decode kernel (B4) at the serving shape, with head_dim 128, lengths
+     around the split boundaries, a cache length that is no multiple of
+     the split and a non-default block_k, then two launches that must be
+     bitwise equal and leave every arrival counter at 0; the paged
+     decode kernels (B5 exact pages, B6 int8 pages) at the paged serving
+     shape, with a GQA case, head_dim 128 and lengths around the split
+     boundaries; the training kernels (B1 forward, B2 dQ, B3 dK/dV) at
+     the training shape; in float32 and bfloat16, with times of the
+     kernel (CUDA events, and device time per launch from
+     torch.profiler), the plain version, one library call (SDPA, a
+     yardstick only; B4's also by the profiler) and the card's least
+     possible time (bound).  B1-B3 have two routes: bfloat16 runs
      the bf16 tensor-core kernels (their times fill the kernels line),
      float32 the three-product TF32 tensor-core kernels, whose times are
      printed on lines of their own and added to the entries.  One line
@@ -125,7 +129,8 @@ def build_kernels():
 NO_SPILL_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
                     "flash_bwd_dkv_sm90_kernel", "flash_fwd_tf32_kernel",
                     "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel",
-                    "paged_decode_kernel", "paged_decode_quant_kernel")
+                    "flash_decode_kernel", "paged_decode_kernel",
+                    "paged_decode_quant_kernel")
 
 
 def ptxas_spills(log: str):
@@ -192,6 +197,23 @@ def profiled_ms(fn, kernel: str, n: int = 20):
     return sum(e.self_device_time_total for e in hits) / 1e3 / seen, seen
 
 
+def profiled_call_ms(fn, n: int = 20) -> float:
+    """Device time per call of `fn(i)`: the time of every kernel it
+    launches, from torch.profiler over n calls (after a warm-up), over n.
+    For a library call whose kernels are not ours to name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+
+
 def profiled_text(prof_ms, seen: int, n: int = 20) -> str:
     if prof_ms is None:
         return f"profiler: not measured (0 of {n} launches recorded)"
@@ -213,11 +235,32 @@ def decode_bound_ms(lengths, shape, itemsize: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# lengths on both sides of the decode kernels' 256-token split
+# boundaries, and an empty row (0 from the kernels, as from the TPU
+# kernels; the plain version gives mean(v) there, so the comparison takes
+# 0 for it); at head_dim 128, f32 (B4's cache, B5's pages) splits at 128
+# tokens
+SPLIT_LENGTHS = (0, 1, 255, 256, 257, 511, 513, 1024)
+SPLIT_LENGTHS_128 = (0, 1, 127, 128, 129, 255, 257, 1024)
+
+
+def decode_inputs(dev, rs, t: int, d: int, b: int = 8, h: int = 12):
+    """f32 q [b, h, d] and k/v [b, h, t, d] on the card, from numpy."""
+    return [torch.as_tensor(rs.standard_normal(s), dtype=torch.float32,
+                            device=dev)
+            for s in ((b, h, d), (b, h, t, d), (b, h, t, d))]
+
+
 def kernel_phase(dev):
-    """flash_decode vs `_decode_attention_xla` on the card; returns the
-    kernels-line entry (without `launches`)."""
+    """flash_decode (B4) vs `_decode_attention_xla` on the card, in f32
+    and bf16: the serving shape, lengths around the split boundaries at
+    head_dim 64 and 128, a cache of 1000 tokens (a partial last split)
+    and block_k 100 (100-token splits); then two launches bitwise equal
+    with every arrival counter back at 0.  Tolerances as B5's.  Returns
+    the kernels-line entry (without `launches`)."""
     import torch.nn.functional as F
 
+    from easydist_tpu_torch.ops import flash_attention as fa
     from easydist_tpu_torch.ops.flash_attention import (
         _decode_attention_xla, flash_decode_attention)
 
@@ -226,48 +269,53 @@ def kernel_phase(dev):
     b, h, t, d = SERVE_SHAPE
     scale = 1.0 / np.sqrt(d)
     rs = np.random.RandomState(0)
-    q32 = torch.as_tensor(rs.standard_normal((b, h, d)), dtype=torch.float32,
-                          device=dev)
-    k32 = torch.as_tensor(rs.standard_normal((b, h, t, d)),
-                          dtype=torch.float32, device=dev)
-    v32 = torch.as_tensor(rs.standard_normal((b, h, t, d)),
-                          dtype=torch.float32, device=dev)
+    q32, k32, v32 = decode_inputs(dev, rs, t, d)
+    inputs = {(t, d): (q32, k32, v32),
+              (t, 128): decode_inputs(dev, rs, t, 128),
+              (1000, d): decode_inputs(dev, rs, 1000, d)}
+    # name -> (cache length, head_dim, lengths, block_k)
     cases = {
-        "len 1": [1] * b,
-        "len 1024": [t] * b,
-        "len 300 (not a tile multiple)": [300] * b,
-        "mixed": [1, t, 300, 77, 513, 256, 999, 5],
+        "len 1": (t, d, [1] * b, None),
+        "len 1024": (t, d, [t] * b, None),
+        "len 300 (not a split multiple)": (t, d, [300] * b, None),
+        "mixed": (t, d, [1, t, 300, 77, 513, 256, 999, 5], None),
+        "splits": (t, d, SPLIT_LENGTHS, None),
+        "splits d128": (t, 128, SPLIT_LENGTHS_128, None),
+        "T 1000": (1000, d, [0, 1, 255, 256, 257, 743, 999, 1000], None),
+        "block_k 100": (t, d, [0, 1, 99, 100, 101, 201, 999, 1024], 100),
     }
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (x.to(dtype) for x in (q32, k32, v32))
-        for name, lens in cases.items():
+        rounded = dtype == torch.bfloat16
+        for name, (tk, dd, lens, block_k) in cases.items():
+            q, k, v = (x.to(dtype) for x in inputs[tk, dd])
             L = torch.tensor(lens, dtype=torch.int32, device=dev)
-            out = flash_decode_attention(q, k, v, L)
+            out = flash_decode_attention(q, k, v, L, block_k=block_k)
             torch.cuda.synchronize()
             # the plain version in float32 on the same (rounded) inputs
             ref = _decode_attention_xla(q.float(), k.float(), v.float(), L,
-                                        scale)
-            diff = (out.float() - ref).abs()
-            err = diff.max().item()
-            if dtype == torch.float32:
-                tol = torch.full_like(ref, 1e-5)
-                tol_text = "atol 1e-5"
-            else:
-                # per element: rounding the output to bf16 costs at most
-                # half an ulp, <= 2^-8 |x|; 1e-5 covers f32 summation order
-                tol = 2.0 ** -8 * ref.abs() + 1e-5
-                tol_text = "2^-8 |ref| + 1e-5 per element"
-            worst_ratio = (diff / tol).max().item()
-            ok = bool(torch.isfinite(out).all()) and worst_ratio <= 1.0
-            print(f"kernel flash_decode {str(dtype)[6:]:9s} {name:31s} "
-                  f"max_abs_err {err:.3e} (tol {tol_text}; worst err/tol "
-                  f"{worst_ratio:.3f}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(
-                    f"flash_decode disagrees with its plain version: "
-                    f"{dtype} {name} err/tol {worst_ratio} > 1")
+                                        1.0 / np.sqrt(dd))
+            ref[L == 0] = 0.0
+            err = check_close(f"flash_decode {str(dtype)[6:]:9s} {name}",
+                              out, ref, 0.0, 1e-5, rounded)
             worst[dtype] = max(worst.get(dtype, 0.0), err)
+
+    # determinism: the same call twice, bitwise equal, counters back at 0
+    for dtype, dd, lens in ((torch.bfloat16, d, SPLIT_LENGTHS),
+                            (torch.float32, 128, SPLIT_LENGTHS_128)):
+        q, k, v = (x.to(dtype) for x in inputs[t, dd])
+        L = torch.tensor(lens, dtype=torch.int32, device=dev)
+        first = flash_decode_attention(q, k, v, L)
+        again = flash_decode_attention(q, k, v, L)
+        torch.cuda.synchronize()
+        stale = sum(int(c.abs().sum()) for c in fa._SPLIT_COUNTERS.values())
+        ok = torch.equal(first, again) and stale == 0
+        print(f"kernel flash_decode {str(dtype)[6:]} d {dd} two launches "
+              f"bitwise equal: {torch.equal(first, again)}; arrival "
+              f"counters left non-zero: {stale} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("flash_decode is not deterministic or "
+                                 "left stale arrival counters")
 
     # times at the serving shape, bf16, every row at the full bucket
     lens = [t] * b
@@ -283,9 +331,14 @@ def kernel_phase(dev):
         q, ks[i % TIMED_COPIES], vs[i % TIMED_COPIES], L))
     plain_ms = time_ms(lambda i: _decode_attention_xla(
         q, ks[i % TIMED_COPIES], vs[i % TIMED_COPIES], L, scale))
-    library_ms = time_ms(lambda i: F.scaled_dot_product_attention(
-        q[:, :, None], ks[i % TIMED_COPIES], vs[i % TIMED_COPIES],
-        attn_mask=mask))
+
+    def library(i):
+        return F.scaled_dot_product_attention(
+            q[:, :, None], ks[i % TIMED_COPIES], vs[i % TIMED_COPIES],
+            attn_mask=mask)
+
+    library_ms = time_ms(library)
+    library_prof_ms = profiled_call_ms(library)
     kernel_ms_2 = time_ms(lambda i: flash_decode_attention(
         q, ks[i % TIMED_COPIES], vs[i % TIMED_COPIES], L))
     prof_ms, seen = profiled_ms(lambda i: flash_decode_attention(
@@ -296,8 +349,9 @@ def kernel_phase(dev):
     print(f"time flash_decode bf16 {list(SERVE_SHAPE)} lengths {t}: kernel "
           f"{kernel_ms:.4f} ms (again {kernel_ms_2:.4f}; "
           f"{profiled_text(prof_ms, seen)}), plain "
-          f"{plain_ms:.4f} ms, library (SDPA, masked) {library_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})")
+          f"{plain_ms:.4f} ms, library (SDPA, masked) {library_ms:.4f} ms "
+          f"(profiler {library_prof_ms:.4f} ms a call), bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
     return {"name": "flash_decode", "route": "cuda",
             "source": "easydist_tpu_torch/ops/csrc/flash_decode.cu",
             "replaces": "easydist_tpu/ops/flash_attention.py:409",
@@ -308,7 +362,8 @@ def kernel_phase(dev):
             "ms": kernel_ms, "kernel_ms": kernel_ms, "profiled_ms": prof_ms,
             "profiled_launches": seen,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library_profiled_ms": library_prof_ms}
 
 
 # ------------------------------------------------- paged decode B5, B6
@@ -367,14 +422,6 @@ def paged_bound_ms(lengths, shape, heads: int, kv_heads: int, d: int,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-# lengths on both sides of B5's and B6's 256-token split boundaries, and
-# an empty row (0 from the kernels, as from the TPU kernels; the plain
-# version gives mean(v) there, so the comparison takes 0 for it); at
-# head_dim 128, B5's f32 pages split at 128 tokens
-SPLIT_LENGTHS = (0, 1, 255, 256, 257, 511, 513, 1024)
-SPLIT_LENGTHS_128 = (0, 1, 127, 128, 129, 255, 257, 1024)
 
 
 def paged_kernel_phase(dev):

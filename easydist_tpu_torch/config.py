@@ -21,8 +21,8 @@ def _env_int(name: str, default: int) -> int:
 # runs the kernel).
 decode_attention_backend = os.environ.get("EASYDIST_DECODE_ATTENTION",
                                           "auto")
-# keys staged per tile by the decode kernel; `_pick_block` rounds it down
-# to a divisor of the cache length.
+# keys one online-softmax step of the decode kernel takes: B4's split of a
+# row, halved while a split would not fit shared memory.
 decode_block_k = _env_int("EASYDIST_DECODE_BLOCK_K", 256)
 # attention backend of the chunked-prefill pass: "auto" | "xla" — both
 # resolve to the plain PyTorch masked einsum.

@@ -19,7 +19,9 @@ Port of easydist_tpu/ops/flash_attention.py, serving and training:
     the paged decode kernels `_flash_paged_decode_kernel` (exact pages)
     and `_flash_paged_decode_quant_kernel` (block-scaled int8 pages)
     become `csrc/paged_decode.cu`, the custom ops
-    `easydist_tpu_torch::paged_decode` and `::paged_decode_quant`.
+    `easydist_tpu_torch::paged_decode` and `::paged_decode_quant`.  The
+    three are one split-K design (`csrc/decode_split.cuh`): each row's
+    keys in splits, one block a split, merged inside the same launch.
 
 Every kernel is bound through `ctypes` (see each source's header for its
 design and bound), and `make_fx` keeps each custom op as one node.  The
@@ -48,18 +50,11 @@ from easydist_tpu_torch import config as edconfig
 
 _NEG_INF = -1e30
 
-# dynamic shared memory a decode tile may take (the card allows 227 KB a
+# dynamic shared memory a decode split may take (the card allows 227 KB a
 # block; a margin is left for the kernel's static arrays)
 _TILE_SMEM_LIMIT = 200 * 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-
-
-def _pick_block(block: int, t: int) -> int:
-    b = min(block, t)
-    while t % b:
-        b //= 2
-    return max(b, 1)
 
 
 def _check_launch(lib, prefix: str, err: int):
@@ -400,6 +395,34 @@ def flash_attention(q, k, v, causal: bool = True,
     return out
 
 
+# ------------------------------- split-K decode state (B4, B5, B6)
+
+# The three decode kernels' per-row arrival counters by (device, stream).
+# A launch leaves every counter it used at 0 again (the row's last block
+# resets it), so a buffer is zeroed once, when it is made, and B4, B5 and
+# B6 share it: launches on one stream run in order, so no two use it at
+# once. One per stream keeps launches on different streams from sharing
+# counters. A CUDA graph that captures a decode kernel needs the buffer
+# made (a launch) before the capture.
+_SPLIT_COUNTERS: dict = {}
+
+
+def _split_counters(device, rows: int):
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _SPLIT_COUNTERS.get(key)
+    if buf is None or buf.numel() < rows:
+        buf = torch.zeros(rows, dtype=torch.int32, device=device)
+        _SPLIT_COUNTERS[key] = buf
+    return buf
+
+
+def _split_work(q, rows: int, n_splits: int, d: int):
+    """The f32 workspace of a split launch's partials: (m, l, acc) for
+    every row and split, allocated each call."""
+    return torch.empty(rows * n_splits * (d + 2), dtype=torch.float32,
+                       device=q.device)
+
+
 # ------------------------------------------------- single-query decode
 
 
@@ -409,7 +432,7 @@ def _decode_lib():
     lib = load("flash_decode")
     fn = lib.flash_decode
     if fn.argtypes is None:  # first load: declare the C signatures
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.flash_decode_error_string.argtypes = [ctypes.c_int]
@@ -417,13 +440,18 @@ def _decode_lib():
     return lib
 
 
-def _decode_tile(block_k: int, t_k: int, d: int, itemsize: int) -> int:
-    """Keys per tile: `_pick_block`'s divisor of the cache length, halved
-    until a K tile, a V tile and the tile's scores fit `_TILE_SMEM_LIMIT`."""
-    bk = _pick_block(block_k, t_k)
-    while bk > 1 and 2 * bk * d * itemsize + 4 * bk > _TILE_SMEM_LIMIT:
-        bk //= 2
-    return bk
+def _decode_split_tokens(block_k: int, d: int, itemsize: int) -> int:
+    """Tokens per split of a B4 row: `block_k` (how many keys one
+    online-softmax step takes, as in the JAX API), halved until a split's
+    K and V (`itemsize` bytes an element) and scores fit
+    `_TILE_SMEM_LIMIT` (a bound on the kernel's `split_smem`).  No divisor
+    of the cache length is needed: a row's last split may be partial."""
+    if block_k < 1:
+        raise ValueError(f"block_k must be >= 1, got {block_k}")
+    tokens = block_k
+    while tokens > 1 and tokens * (2 * d * itemsize + 4) > _TILE_SMEM_LIMIT:
+        tokens //= 2
+    return tokens
 
 
 @torch.library.custom_op("easydist_tpu_torch::flash_decode", mutates_args=())
@@ -453,12 +481,14 @@ def _flash_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash_decode needs 16-byte aligned k and v")
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    tile = _decode_tile(block_k, t_k, d, k.element_size())
+    chunk = _decode_split_tokens(block_k, d, k.element_size())
+    work = _split_work(q, b * h, max(1, -(-t_k // chunk)), d)
     lib = _decode_lib()
     err = lib.flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, h, t_k, d, tile, float(scale),
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), work.data_ptr(),
+        _split_counters(q.device, b * h).data_ptr(), b, h, t_k, d, chunk,
+        float(scale), _DTYPE_CODES[q.dtype], _stream(q))
     _check_launch(lib, "flash_decode", err)
     flash_decode_attention.launches += 1
     return out
@@ -475,9 +505,13 @@ def flash_decode_attention(q, k, v, lengths, scale: Optional[float] = None,
 
     q: [batch, heads, head_dim] — one query per sequence; k, v: [batch,
     heads, max_len, head_dim] cache buffers; lengths: int32 [batch] valid
-    prefix length per row (positions >= length are masked).  Returns
-    [batch, heads, head_dim] in q's dtype.  CUDA tensors only: a CPU
-    tensor raises (the plain version is `_decode_attention_xla`).
+    prefix length per row (positions >= length are masked).  The kernel
+    splits each row's keys across blocks (`_decode_split_tokens` of
+    `block_k`) and merges the splits' partials in a fixed order inside the
+    same launch, as B5 and B6 do.  Returns [batch, heads, head_dim] in q's
+    dtype.  CUDA tensors only: a CPU tensor raises (the plain version is
+    `_decode_attention_xla`, which gives mean(v) where the kernel gives 0
+    for a row of length 0).
 
     `flash_decode_attention.launches` counts kernel launches; it grows
     where the kernel runs, never while a graph is traced."""
@@ -715,32 +749,6 @@ def _split_tokens(page_tokens: int, d: int, n_blocks: int,
         tokens //= 2
     return tokens // page_tokens * page_tokens if page_tokens <= tokens \
         else tokens
-
-
-# B5's and B6's per-row arrival counters by (device, stream).  A launch
-# leaves every counter it used at 0 again (the row's last block resets
-# it), so a buffer is zeroed once, when it is made, and B5 and B6 share
-# it: launches on one stream run in order, so no two use it at once. One
-# per stream keeps launches on different streams from sharing counters.
-# A CUDA graph that captures B5 or B6 needs the buffer made (a launch)
-# before the capture.
-_SPLIT_COUNTERS: dict = {}
-
-
-def _split_counters(device, rows: int):
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    buf = _SPLIT_COUNTERS.get(key)
-    if buf is None or buf.numel() < rows:
-        buf = torch.zeros(rows, dtype=torch.int32, device=device)
-        _SPLIT_COUNTERS[key] = buf
-    return buf
-
-
-def _split_work(q, rows: int, n_splits: int, d: int):
-    """The f32 workspace of a split launch's partials: (m, l, acc) for
-    every row and split, allocated each call."""
-    return torch.empty(rows * n_splits * (d + 2), dtype=torch.float32,
-                       device=q.device)
 
 
 @torch.library.custom_op("easydist_tpu_torch::paged_decode", mutates_args=())

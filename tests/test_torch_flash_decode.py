@@ -1,6 +1,7 @@
 """Port decode/chunk attention (easydist_tpu_torch.ops.flash_attention)
 against the JAX package: the plain versions against the JAX XLA twins and
-the Pallas decode kernel (interpret mode), dispatch rules, and — on a
+the Pallas decode kernel (interpret mode), dispatch rules, a plain
+emulation of the decode kernel's split-K merge against both, and — on a
 CUDA host — the CUDA kernel against the plain version.
 
 Inputs are made with numpy from a seed and handed to both packages.
@@ -28,6 +29,37 @@ def _rand(b=2, h=4, T=64, d=16, seed=0):
 
 def _t(*xs):
     return [torch.from_numpy(x) for x in xs]
+
+
+def _split_k_merge(q, kf, vf, lengths, scale: float, chunk: int):
+    """The decode kernels' split-K (B4 over a contiguous cache; B5 and B6
+    over the cache gathered through the table) in plain torch over f32
+    caches kf/vf [b, h, T, d]: each row's live keys in splits of `chunk`
+    tokens, each split's max m, denominator l and output acc in f32, then
+    the partials merged in split order with the 1e-30 clamp; a row of
+    length 0 gives 0."""
+    out = torch.zeros(q.shape)
+    for bi, n in enumerate(lengths.tolist()):
+        n = min(n, kf.shape[2])
+        parts = []
+        for c0 in range(0, n, chunk):
+            c1 = min(c0 + chunk, n)
+            s = torch.einsum("hd,hkd->hk", q[bi].float() * scale,
+                             kf[bi, :, c0:c1])
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.exp(s - m)
+            parts.append((m, p.sum(dim=-1, keepdim=True),
+                          torch.einsum("hk,hkd->hd", p, vf[bi, :, c0:c1])))
+        if not parts:
+            continue
+        top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        den = torch.zeros_like(top)
+        acc = torch.zeros(q.shape[1:])
+        for m, l, a in parts:  # split order
+            den = den + l * torch.exp(m - top)
+            acc = acc + a * torch.exp(m - top)
+        out[bi] = acc / den.clamp_min(1e-30)
+    return out.to(q.dtype)
 
 
 @pytest.fixture(scope="module")
@@ -156,16 +188,89 @@ class TestDispatch:
         ref = tfa._decode_attention_xla(q, k, v, torch.tensor([7, 7]), 0.25)
         assert torch.equal(out, ref)
 
-    @pytest.mark.parametrize("block_k,t_k,d,itemsize,want", [
-        (256, 1024, 64, 2, 256),    # serving shape, bf16: 64 KB K+V tile
-        (256, 1000, 64, 2, 8),      # _pick_block halves to a divisor
-        (256, 1024, 128, 4, 128),   # f32 d=128: halved to fit shared memory
-        (16, 64, 16, 4, 16),
+
+
+class TestSplitK:
+    """B4 cuts each row's keys into splits of `_decode_split_tokens`
+    tokens, one block each, and merges the splits' partials in split
+    order.  Emulated, the merge equals the plain version and the JAX
+    Pallas kernel (interpret mode) at the f32 bar on both sides of a split
+    boundary, at a cache length that is not a multiple of the split, at
+    head_dim 64 and 128, over f32 and bf16 caches; a row of length 0
+    gives 0, as the TPU kernel does (the plain version gives mean(v))."""
+
+    @pytest.mark.parametrize("dtype,d,block_k", [
+        (torch.float32, 64, 256), (torch.bfloat16, 64, 256),
+        (torch.float32, 128, 256), (torch.bfloat16, 128, 256),
+        (torch.float32, 64, 100)])
+    def test_merge_matches_plain_and_jax_kernel(self, jax_ops, dtype, d,
+                                                block_k):
+        jnp, jfa = jax_ops
+        chunk = tfa._decode_split_tokens(block_k, d, dtype.itemsize)
+        assert chunk == (128 if (dtype, d) == (torch.float32, 128)
+                         else block_k)
+        t_k = 2 * chunk + 88  # a partial last split
+        lengths = [0, 1, chunk - 1, chunk, chunk + 1, t_k]
+        q, k, v = (x.to(dtype).float()  # the values the kernel reads
+                   for x in _t(*_rand(b=len(lengths), h=2, T=t_k, d=d,
+                                      seed=3)))
+        L = torch.tensor(lengths, dtype=torch.int32)
+        scale = 1.0 / np.sqrt(d)
+        got = _split_k_merge(q, k, v, L, scale, chunk)
+        ref = tfa._decode_attention_xla(q, k, v, L, scale)
+        pallas = jfa.flash_decode_attention(
+            *(jnp.asarray(x.numpy()) for x in (q, k, v, L)), scale=scale,
+            interpret=True, block_k=t_k // 2)
+        for want in (ref.numpy(), np.asarray(pallas)):
+            np.testing.assert_allclose(got[1:].numpy(), want[1:], atol=ATOL)
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+        np.testing.assert_allclose(np.asarray(pallas)[0], 0.0)
+        # a bf16 q: the same f32 arithmetic, the output rounded once
+        assert torch.equal(_split_k_merge(q.to(dtype), k, v, L, scale, chunk),
+                           got.to(dtype))
+
+    @pytest.mark.parametrize("block_k,d,itemsize,want", [
+        (256, 64, 2, 256),     # serving shape, bf16: 64 KB of K + V
+        (256, 128, 2, 256),
+        (256, 64, 4, 256),
+        (256, 128, 4, 128),    # f32 at head_dim 128: halved to fit
+        (1000, 64, 2, 500),    # any block_k, halved to fit
+        (100, 64, 2, 100),     # no divisor of the cache length needed
+        (16, 64, 4, 16),
     ])
-    def test_decode_tile(self, jax_ops, block_k, t_k, d, itemsize, want):
-        assert tfa._decode_tile(block_k, t_k, d, itemsize) == want
-        assert jax_ops[1]._pick_block(block_k, t_k) == \
-            tfa._pick_block(block_k, t_k)
+    def test_decode_split_tokens(self, block_k, d, itemsize, want):
+        assert tfa._decode_split_tokens(block_k, d, itemsize) == want
+
+    def test_decode_split_tokens_rejects_empty_split(self):
+        with pytest.raises(ValueError, match="block_k"):
+            tfa._decode_split_tokens(0, 64, 2)
+
+
+def _card_inputs(dev, dtype, lengths, t_k=1024, h=12, d=64, seed=0):
+    """q [b, h, d], k/v [b, h, t_k, d] in `dtype` and int32 lengths [b] on
+    the card, from numpy."""
+    rs = np.random.RandomState(seed)
+    b = len(lengths)
+    q, k, v = (torch.as_tensor(rs.standard_normal(s), dtype=dtype,
+                               device=dev)
+               for s in ((b, h, d), (b, h, t_k, d), (b, h, t_k, d)))
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def _b4_reference(q, k, v, lengths):
+    """The plain B4 in f32 on the same inputs, with 0 on rows of length
+    0."""
+    ref = tfa._decode_attention_xla(q.float(), k.float(), v.float(),
+                                    lengths, 1.0 / np.sqrt(q.shape[-1]))
+    ref[lengths == 0] = 0.0
+    return ref
+
+
+def _b4_close(q, out, ref) -> bool:
+    """Within atol 1e-5, plus half an ulp (2^-8 |ref|) of a bf16
+    output."""
+    tol = ATOL if q.dtype == torch.float32 else 2.0 ** -8 * ref.abs() + ATOL
+    return bool(((out.float() - ref).abs() <= tol).all())
 
 
 @pytest.mark.cuda
@@ -191,6 +296,46 @@ class TestKernelOnCard:
         # order noise
         tol = ATOL if dtype == torch.float32 else 2.0 ** -8 * ref.abs() + ATOL
         assert bool(((out.float() - ref).abs() <= tol).all())
+
+    @pytest.mark.parametrize("block_k", [None, 100])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_at_split_boundaries(self, cuda_device, dtype, d, block_k):
+        # lengths on both sides of the split boundaries (256 tokens; 128
+        # for f32 at head_dim 128; 100 at block_k 100), an empty row, and
+        # a cache length that is no multiple of the split
+        chunk = tfa._decode_split_tokens(block_k or 256, d, dtype.itemsize)
+        t_k = 1000
+        lengths = [1, 0, chunk - 1, chunk, chunk + 1, 2 * chunk + 1,
+                   t_k - 1, t_k]
+        q, k, v, L = _card_inputs(cuda_device, dtype, lengths, t_k=t_k,
+                                  d=d)
+        before = tfa.flash_decode_attention.launches
+        out = tfa.flash_decode_attention(q, k, v, L, block_k=block_k)
+        torch.cuda.synchronize()
+        assert tfa.flash_decode_attention.launches == before + 1
+        assert _b4_close(q, out, _b4_reference(q, k, v, L))
+
+    @pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                         (torch.bfloat16, 64),
+                                         (torch.float32, 128)])
+    def test_is_deterministic_and_leaves_no_stale_counters(
+            self, cuda_device, dtype, d):
+        # split boundaries depend on the length alone and the merge order
+        # is fixed: two launches are bitwise equal.  Each launch resets the
+        # counters it used, so calls with other lengths stay right.
+        lengths = [1024, 700, 257, 256, 0, 513, 1, 900]
+        q, k, v, L = _card_inputs(cuda_device, dtype, lengths, d=d)
+        first = tfa.flash_decode_attention(q, k, v, L)
+        for lens in (lengths, [300, 1, 1024, 0, 64, 511, 129, 700],
+                     [0] * 8, lengths):
+            L2 = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+            out = tfa.flash_decode_attention(q, k, v, L2)
+            torch.cuda.synchronize()
+            assert _b4_close(q, out, _b4_reference(q, k, v, L2))
+            assert all(int(c.abs().sum()) == 0
+                       for c in tfa._SPLIT_COUNTERS.values())
+        assert torch.equal(out, first)
 
     def test_plain_backend_on_cuda_tensor_raises(self, cuda_device):
         q, k, v = (t.to(cuda_device) for t in _t(*_rand(d=64)))

@@ -4,7 +4,8 @@
 the JAX Pallas kernels B5/B6 in interpret mode; dispatch rules; the
 `PagePool`/`PageTable` copies and `audit_page_table` against the JAX
 package's KV001 audit; a plain emulation of B5's and B6's split-K merge
-against the plain versions; and — on a CUDA host — the CUDA kernels against the
+(`_split_k_merge`, B4's, over the gathered cache) against the plain
+versions; and — on a CUDA host — the CUDA kernels against the
 plain versions.
 
 Inputs are made with numpy from a seed and handed to both packages.
@@ -19,6 +20,7 @@ import torch
 
 from easydist_tpu_torch.kv import PagePool, PageTable, audit_page_table
 from easydist_tpu_torch.ops import flash_attention as tfa
+from tests.test_torch_flash_decode import _split_k_merge
 
 ATOL = 1e-5
 PT, MP, NP = 8, 4, 16   # page tokens, max pages per row, arena pages
@@ -162,36 +164,6 @@ class TestPlainVsJaxKernels:
         noisy = tfa._paged_decode_attention_xla(*_t(q, k, v, table, L),
                                                 0.25)
         assert torch.equal(base, noisy)
-
-
-def _split_k_merge(q, kf, vf, lengths, scale: float, chunk: int):
-    """B5's and B6's split-K in plain torch over the gathered f32 caches
-    kf/vf [b, h, T, d]: each row's live keys in splits of `chunk` tokens,
-    each split's max m, denominator l and output acc in f32, then the
-    partials merged in split order with the 1e-30 clamp; a row of length
-    0 gives 0."""
-    out = torch.zeros(q.shape)
-    for bi, n in enumerate(lengths.tolist()):
-        n = min(n, kf.shape[2])
-        parts = []
-        for c0 in range(0, n, chunk):
-            c1 = min(c0 + chunk, n)
-            s = torch.einsum("hd,hkd->hk", q[bi].float() * scale,
-                             kf[bi, :, c0:c1])
-            m = s.amax(dim=-1, keepdim=True)
-            p = torch.exp(s - m)
-            parts.append((m, p.sum(dim=-1, keepdim=True),
-                          torch.einsum("hk,hkd->hd", p, vf[bi, :, c0:c1])))
-        if not parts:
-            continue
-        top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
-        den = torch.zeros_like(top)
-        acc = torch.zeros(q.shape[1:])
-        for m, l, a in parts:  # split order
-            den = den + l * torch.exp(m - top)
-            acc = acc + a * torch.exp(m - top)
-        out[bi] = acc / den.clamp_min(1e-30)
-    return out.to(q.dtype)
 
 
 def _split_k_emulated(q, kq, vq, ks, vs, table, lengths, scale: float,
@@ -549,6 +521,39 @@ class TestKernelsOnCard:
             assert all(int(c.abs().sum()) == 0
                        for c in tfa._SPLIT_COUNTERS.values())
         assert torch.equal(out, first)
+
+    def test_b4_b5_b6_interleaved_on_one_stream(self, cuda_device):
+        # B4, B5 and B6 share one buffer of arrival counters a stream:
+        # launched in turns with no sync between, on rows of several live
+        # splits, each still equals its plain version, repeats are bitwise
+        # equal, and every counter is 0 at the end
+        lengths = [1024, 700, 257, 256, 0, 513, 1, 900]
+        other = [300, 1, 257, 0, 0, 511, 1, 700]
+        q, k, v, table, L = (x.to(cuda_device) for x in _t(*_paged(
+            lengths, h=12, kvh=12, d=64, pt=64, mp=16, n_pages=128)))
+        L2 = torch.tensor(other, dtype=torch.int32, device=cuda_device)
+        kq, ks = tfa.kv_quantize(k, 1)
+        vq, vs = tfa.kv_quantize(v, 1)
+        # the same cache, contiguous [8, 12, 1024, 64], for B4
+        kc, vc = (tfa.gather_pages(x, table).contiguous() for x in (k, v))
+        calls = [
+            (lambda: tfa.flash_decode_attention(q, kc, vc, L),
+             _b5_reference(q, k, v, table, L)),
+            (lambda: tfa.flash_paged_decode_attention(q, k, v, table, L2),
+             _b5_reference(q, k, v, table, L2)),
+            (lambda: tfa.flash_paged_decode_quant_attention(
+                q, kq, vq, ks, vs, table, L),
+             _b6_reference(q, kq, vq, ks, vs, table, L)),
+            (lambda: tfa.flash_decode_attention(q, kc, vc, L2),
+             _b5_reference(q, k, v, table, L2)),
+        ]
+        outs = [[call() for call, _ in calls] for _ in range(3)]
+        torch.cuda.synchronize()
+        for i, (_, ref) in enumerate(calls):
+            assert _b6_close(q, outs[0][i], ref)
+            assert all(torch.equal(o[i], outs[0][i]) for o in outs[1:])
+        assert all(int(c.abs().sum()) == 0
+                   for c in tfa._SPLIT_COUNTERS.values())
 
     def test_plain_backend_on_cuda_tensor_raises(self, cuda_device):
         q, k, v, table, L = (x.to(cuda_device) for x in _t(*_paged([8])))
