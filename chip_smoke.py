@@ -59,7 +59,22 @@ Phases, each raising on failure (exit code != 0, no result line):
      their tensor-core route).
      Then profiled bfloat16 steps: ms per step, tokens/s, device busy
      share, top kernels, peak memory, trace time, the einsum step;
-  8. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
+  8. the sharding engine (no kernel of its own): (a) the 17 ops of the
+     platform micro-API on CUDA tensors against the numpy backend
+     (`BACKEND_CASES`); (b) ShardCombine discovery
+     (`MetaOp.discover()`, float32, TF32 off) on the aten ops a GPT-2
+     small train step spends its time in, at full width (batch 8, seq
+     1024, dim 768, 12 heads, vocab 50304), inputs uniform [0.5, 1.5];
+     every rule must equal the literal table `GPT2_SMALL_RULES` (the CPU
+     tests hold the same table against the JAX package), and each op's
+     seconds and probe calls are printed, on the CPU as well for the ops
+     under DISCOVERY_HINT_NUMEL; (c) on the card's host, one GPT-2 MLP block
+     (x -> c_fc -> gelu -> c_proj -> residual) wired from (b)'s rules and
+     solved for a virtual NVLink axis of 4 and of 8: the ILP and beam
+     search must reach the same communication cost, the ILP the
+     zero-communication batch sharding, and the memory plan must
+     validate with the native library's peaks equal to Python's;
+  9. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
      path's run; B1-B3 also with `launches_bf16`, their launches in the
      bfloat16 flash steps), then the `{"ok": true, ...}` line.
 
@@ -73,6 +88,7 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -91,6 +107,10 @@ BF16_FLOPS_PER_S = 989e12                # H100 SXM, bf16 tensor cores, dense
 TIMED_COPIES = 4                         # input copies rotated past the 50 MB L2
 KERNEL_SOURCES = ("flash_decode", "paged_decode", "flash_attn_fwd",
                   "flash_attn_bwd")
+# ops whose tensors hold more elements than this the JAX frontend
+# discovers on shrunk shapes (`discovery_hint_numel`,
+# easydist_tpu/config.py:57); phase 8b times those under it on the CPU too
+DISCOVERY_HINT_NUMEL = 2**24
 
 
 def card_line() -> str:
@@ -1454,6 +1474,603 @@ def profile_decode(params, cfg, serve_cfg, dev, prompts, n_new: int,
     sess.run_until_drained()
 
 
+# ------------------------------------------------ sharding engine, solver
+
+
+# The rule table of phase 8b and the platform cases of phase 8a.  The
+# CPU tests (tests/test_torch_metashard.py, tests/test_torch_platform.py)
+# import them from here and run them at narrow widths on the CPU, and hold
+# the same table against the JAX package.
+
+aten = torch.ops.aten
+
+
+def F(*shape):
+    """A float32 argument of this shape, uniform in [0.5, 1.5]."""
+    return ("f", shape)
+
+
+def I(*shape):
+    """An int64 argument of this shape, uniform in [1, 8)."""
+    return ("i", shape)
+
+
+# name: (aten op, positional args at GPT-2 small's full width (batch 8,
+# seq 1024, dim 768, 12 heads, vocab 50304), the same at a narrow width,
+# keyword args).  "view" is not executed: its rule is `view_rule`'s.
+RULE_CASES = {
+    "addmm_c_attn": (aten.addmm.default, [F(2304), F(8192, 768), F(768, 2304)],
+                     [F(24), F(16, 8), F(8, 24)], {}),
+    "addmm_c_fc": (aten.addmm.default, [F(3072), F(8192, 768), F(768, 3072)],
+                   [F(32), F(16, 8), F(8, 32)], {}),
+    "addmm_c_proj": (aten.addmm.default, [F(768), F(8192, 3072), F(3072, 768)],
+                     [F(8), F(16, 32), F(32, 8)], {}),
+    "mm_lm_head": (aten.mm.default, [F(8192, 768), F(768, 50304)],
+                   [F(16, 8), F(8, 40)], {}),
+    "bmm_attn": (aten.bmm.default, [F(96, 1024, 64), F(96, 64, 1024)],
+                 [F(6, 16, 4), F(6, 4, 16)], {}),
+    "softmax": (aten._softmax.default, [F(8, 12, 1024, 1024), -1, False],
+                [F(2, 6, 16, 16), -1, False], {}),
+    "layer_norm": (aten.native_layer_norm.default,
+                   [F(8, 1024, 768), [768], F(768), F(768), 1e-5],
+                   [F(2, 16, 8), [8], F(8), F(8), 1e-5], {}),
+    "gelu": (aten.gelu.default, [F(8192, 3072)], [F(16, 32)],
+             {"approximate": "tanh"}),
+    "add_bcast": (aten.add.Tensor, [F(8, 1024, 768), F(1024, 768)],
+                  [F(2, 16, 8), F(16, 8)], {}),
+    "add_residual": (aten.add.Tensor, [F(8192, 768), F(8192, 768)],
+                     [F(16, 8), F(16, 8)], {}),
+    "embedding": (aten.embedding.default, [F(50304, 768), I(8, 1024)],
+                  [F(40, 8), I(2, 16)], {}),
+    "log_softmax": (aten._log_softmax.default, [F(8192, 50304), -1, False],
+                    [F(16, 40), -1, False], {}),
+    "view": (aten.view.default, [F(8, 1024, 768), [8, 1024, 12, 64]],
+             [F(2, 16, 8), [2, 16, 2, 4]], {}),
+}
+
+C0, C1, C2 = ("concat", 0), ("concat", 1), ("concat", 2)
+SUM = ("reduce", "sum")
+
+# name: (group of each dim of each tensor argument, 0 = not shardable;
+# {group: recombine of the output, a list for an op with several
+# outputs}).  A dim with a block or halo would show as (group, block,
+# (halo width, halo dim)); none of these ops has one.
+GPT2_SMALL_RULES = {
+    # bias + x @ w: the bias blocks the contraction (sum of parts = 2 bias)
+    "addmm_c_attn": ([[1], [2, 0], [0, 1]], {1: C1, 2: C0}),
+    "addmm_c_fc": ([[1], [2, 0], [0, 1]], {1: C1, 2: C0}),
+    "addmm_c_proj": ([[1], [2, 0], [0, 1]], {1: C1, 2: C0}),
+    "mm_lm_head": ([[1, 2], [2, 3]], {1: C0, 2: SUM, 3: C1}),
+    "bmm_attn": ([[1, 2, 3], [1, 3, 4]], {1: C0, 2: C1, 3: SUM, 4: C2}),
+    "softmax": ([[1, 2, 3, 0]], {1: C0, 2: C1, 3: C2}),
+    # outputs: normalized x, mean, rstd
+    "layer_norm": ([[1, 2, 0], [0], [0]], {1: [C0, C0, C0], 2: [C1, C1, C1]}),
+    "gelu": ([[1, 2]], {1: C0, 2: C1}),
+    "add_bcast": ([[1, 2, 3], [2, 3]], {1: C0, 2: C1, 3: C2}),
+    "add_residual": ([[1, 2], [1, 2]], {1: C0, 2: C1}),
+    # weight [vocab, dim], ids [batch, seq]: the vocab rows do not split
+    "embedding": ([[0, 1], [2, 3]], {1: C2, 2: C0, 3: C1}),
+    "log_softmax": ([[1, 0]], {1: C0}),
+    "view": ([[1, 2, 3]], {1: C0, 2: C1, 3: C2}),
+}
+
+
+def case_args(specs, rand_float, rand_int):
+    """The positional args of a case: `rand_float(shape)` and
+    `rand_int(shape)` make the tensors, the other entries pass as they
+    are."""
+    out = []
+    for s in specs:
+        if isinstance(s, tuple) and s[:1] == ("f",):
+            out.append(rand_float(s[1]))
+        elif isinstance(s, tuple) and s[:1] == ("i",):
+            out.append(rand_int(s[1]))
+        else:
+            out.append(s)
+    return out
+
+
+def recombine_summary(fn):
+    """A recombine partial (or a list of them) in plain values:
+    ("concat", dim) with any non-default halo/block, ("reduce", op),
+    ("identity",).  Works on the partials of both packages."""
+    if isinstance(fn, (list, tuple)):
+        return [recombine_summary(f) for f in fn]
+    name = fn.func.__name__
+    kw = dict(fn.keywords)
+    if name == "concat":
+        extra = tuple(sorted((k, v) for k, v in kw.items()
+                             if k != "dim" and v != {"halo": 0, "block": 1}[k]))
+        return ("concat", kw.get("dim", 0)) + extra
+    if name == "reduce":
+        return ("reduce", kw["op"].value if "op" in kw else "sum")
+    return (name,)
+
+
+def rule_summary(space, recombines):
+    """A discovered rule in plain values, as `GPT2_SMALL_RULES` writes it.
+    Works on the rules of both packages."""
+    def dim(d):
+        if d.block == 1 and d.halo is None:
+            return d.group
+        return (d.group, d.block,
+                None if d.halo is None else (d.halo.width, d.halo.dim))
+
+    return ([[dim(d) for d in row] for row in space.table],
+            {g: recombine_summary(fn) for g, fn in sorted(recombines.items())})
+
+
+def _backends():
+    """The port's torch and numpy platform backends."""
+    from easydist_tpu_torch.platform import numpy_backend, torch_backend
+
+    return torch_backend, numpy_backend
+
+
+@contextlib.contextmanager
+def _raises(exc):
+    """Fails unless the block raises `exc`."""
+    try:
+        yield
+    except exc:
+        return
+    raise AssertionError(f"{exc.__name__} not raised")
+
+
+# Each case checks one op of the platform micro-API
+# (`easydist_tpu_torch.platform._API`): the torch backend on tensors of
+# `device` against the numpy backend on the same seeded inputs.  It
+# raises on a mismatch.
+
+
+def _inputs(seed, *shapes):
+    rs = np.random.default_rng(seed)
+    return [rs.uniform(0.5, 1.5, s).astype(np.float32) for s in shapes]
+
+
+def _on(device, *arrays):
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def _same(got, want):
+    """Exact agreement of a torch result with a numpy one."""
+    tb, _ = _backends()
+    np.testing.assert_array_equal(tb.to_numpy(got), np.asarray(want))
+
+
+def case_tensor(device):
+    tb, nb = _backends()
+    x, = _inputs(0, (3, 4))
+    t, = _on(device, x)
+    assert isinstance(t, tb.Tensor) and not isinstance(x, tb.Tensor)
+    assert isinstance(x, nb.Tensor) and not isinstance(t, nb.Tensor)
+
+
+def case_add(device):
+    tb, nb = _backends()
+    x, y = _inputs(1, (3, 4), (3, 4))
+    _same(tb.add(*_on(device, x, y)), nb.add(x, y))
+
+
+def case_equal(device):
+    tb, nb = _backends()
+    x, y = _inputs(2, (3, 4), (3, 4))
+    tx, ty = _on(device, x, y)
+    for a, b, ta, tb_ in ((x, x.copy(), tx, tx.clone()), (x, y, tx, ty),
+                          (x, x[:2], tx, tx[:2])):
+        assert tb.equal(ta, tb_) == nb.equal(a, b)
+    assert tb.equal(tx, tx.clone()) and not tb.equal(tx, ty)
+
+
+def case_allclose(device):
+    tb, nb = _backends()
+    x, = _inputs(3, (3, 4))
+    from easydist_tpu_torch import config
+
+    rtol = config.allclose_rtol
+    near = x * np.float32(1 + 0.5 * rtol)
+    far = x * np.float32(1 + 4 * rtol)
+    tx, tnear, tfar = _on(device, x, near, far)
+    got = [tb.allclose(tx, tnear), tb.allclose(tx, tfar),
+           tb.allclose(tx, tx[:2])]
+    assert got == [nb.allclose(x, near), nb.allclose(x, far),
+                   nb.allclose(x, x[:2])] == [True, False, False]
+    ints = np.arange(12).reshape(3, 4)
+    ti = torch.from_numpy(ints).to(device)
+    assert tb.allclose(ti, ti + 1) == nb.allclose(ints, ints + 1) is False
+    assert tb.allclose(ti, ti.clone()) == nb.allclose(ints, ints) is True
+    nan = np.where(x > 1, np.float32("nan"), x)
+    tnan, = _on(device, nan)
+    assert [tb.allclose(tnan, tnan), tb.allclose(tnan, tnan, equal_nan=True),
+            tb.allclose(tnan, tx, equal_nan=True)] == [
+        nb.allclose(nan, nan), nb.allclose(nan, nan, equal_nan=True),
+        nb.allclose(nan, x, equal_nan=True)] == [False, True, False]
+
+
+def case_zeros_like(device):
+    tb, nb = _backends()
+    x, = _inputs(4, (2, 5))
+    got = tb.zeros_like(*_on(device, x))
+    assert got.device.type == torch.device(device).type
+    _same(got, nb.zeros_like(x))
+
+
+def case_minimum(device):
+    tb, nb = _backends()
+    x, y = _inputs(5, (3, 4), (3, 4))
+    _same(tb.minimum(*_on(device, x, y)), nb.minimum(x, y))
+
+
+def case_maximum(device):
+    tb, nb = _backends()
+    x, y = _inputs(6, (3, 4), (3, 4))
+    _same(tb.maximum(*_on(device, x, y)), nb.maximum(x, y))
+
+
+def case_concatenate(device):
+    tb, nb = _backends()
+    x, y = _inputs(7, (2, 4), (2, 4))
+    tx, ty = _on(device, x, y)
+    for dim in (0, 1):
+        _same(tb.concatenate([tx, ty], dim=dim),
+              nb.concatenate([x, y], dim=dim))
+
+
+def case_chunk(device):
+    """Equal parts as `np.split` gives them; an uneven split raises in
+    both backends (`jnp.split` raises too)."""
+    tb, nb = _backends()
+    x, = _inputs(8, (4, 6))
+    tx, = _on(device, x)
+    for chunks, dim in ((2, 0), (3, 1), (2, 1)):
+        got = tb.chunk(tx, chunks, dim)
+        want = nb.chunk(x, chunks, dim)
+        assert len(got) == len(want) == chunks
+        for g, w in zip(got, want):
+            _same(g, w)
+    for backend, t in ((tb, tx), (nb, x)):
+        with _raises(ValueError):
+            backend.chunk(t, 4, 1)
+
+
+def case_narrow(device):
+    tb, nb = _backends()
+    x, = _inputs(9, (5, 6))
+    tx, = _on(device, x)
+    for dim, start, length in ((0, 1, 3), (1, 0, 6), (1, 4, 2)):
+        _same(tb.narrow(tx, dim, start, length),
+              nb.narrow(x, dim, start, length))
+
+
+def case_clone(device):
+    """A real copy: writing the clone leaves the original as it was."""
+    tb, nb = _backends()
+    x, = _inputs(10, (3, 4))
+    tx, = _on(device, x)
+    for backend, t in ((tb, tx), (nb, x)):
+        c = backend.clone(t)
+        c[0, 0] = -1.0
+        assert float(t[0, 0]) == float(x[0, 0]) != float(c[0, 0])
+
+
+def case_from_numpy(device):
+    """New tensors go to `discovery_device`, dtype and values kept."""
+    tb, nb = _backends()
+    x, = _inputs(11, (3, 4))
+    ids = np.arange(6, dtype=np.int64).reshape(2, 3)
+    from easydist_tpu_torch import config
+
+    saved, config.discovery_device = config.discovery_device, device
+    try:
+        for a in (x, ids, x[:, ::2]):
+            t = tb.from_numpy(a)
+            assert t.device.type == torch.device(device).type
+            assert t.dtype == torch.from_numpy(np.ascontiguousarray(a)).dtype
+            _same(t, nb.from_numpy(a))
+    finally:
+        config.discovery_device = saved
+
+
+def case_to_numpy(device):
+    """float32 exactly; bfloat16 (which numpy lacks) as float32, exactly
+    the bfloat16 values."""
+    tb, nb = _backends()
+    x, = _inputs(12, (3, 4))
+    tx, = _on(device, x)
+    got = tb.to_numpy(tx)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, nb.to_numpy(x))
+    bf = tx.to(torch.bfloat16)
+    got = tb.to_numpy(bf)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, bf.float().cpu().numpy())
+    assert np.abs(got - x).max() <= np.abs(x).max() * 2.0 ** -8
+
+
+def case_tree_flatten(device):
+    """Same leaves in the same order as the numpy backend, and a round
+    trip through `tree_unflatten` (its argument order is (leaves, spec))."""
+    tb, nb = _backends()
+    x, y = _inputs(13, (2,), (3,))
+    tx, ty = _on(device, x, y)
+    ttree = ((tx, [1, ty]), {"a": "tanh", "b": 2.0})
+    ntree = ((x, [1, y]), {"a": "tanh", "b": 2.0})
+    tleaves, tspec = tb.tree_flatten(ttree)
+    nleaves, nspec = nb.tree_flatten(ntree)
+    assert len(tleaves) == len(nleaves) == 5
+    for t, n in zip(tleaves, nleaves):
+        if isinstance(t, torch.Tensor):
+            _same(t, n)
+        else:
+            assert t == n
+    back = tb.tree_unflatten(tleaves, tspec)
+    assert back[1] == ttree[1] and back[0][1][0] == 1
+    assert back[0][0] is tx and back[0][1][1] is ty
+
+
+def case_tree_unflatten(device):
+    """New leaves into an old structure, as `MetaOp` swaps shards in."""
+    tb, nb = _backends()
+    x, y, z = _inputs(14, (2, 3), (2, 3), (4,))
+    tx, ty, tz = _on(device, x, y, z)
+    _, tspec = tb.tree_flatten(((tx, 3), {"k": tx}))
+    _, nspec = nb.tree_flatten(((x, 3), {"k": x}))
+    got = tb.tree_unflatten([ty, 3, tz], tspec)
+    want = nb.tree_unflatten([y, 3, z], nspec)
+    _same(got[0][0], want[0][0])
+    _same(got[1]["k"], want[1]["k"])
+    assert got[0][1] == want[0][1] == 3
+
+
+def case_stack(device):
+    tb, nb = _backends()
+    x, y = _inputs(15, (2, 3), (2, 3))
+    tx, ty = _on(device, x, y)
+    for dim in (0, 1, 2):
+        _same(tb.stack([tx, ty], dim=dim), nb.stack([x, y], dim=dim))
+
+
+def case_batched_call(device):
+    """One vmapped call equals the per-shard loop (bitwise for an
+    elementwise op, at 1e-6 for a product); an op without a batching rule
+    (`histc`) and an op that writes an input (`add_`) raise, and so does
+    the numpy backend, so that `MetaOp` falls back to its loop."""
+    tb, nb = _backends()
+    x, w, m = _inputs(16, (2, 3, 4), (3, 4), (4, 5))
+    tx, tw, tm = _on(device, x, w, m)
+
+    def elementwise(a, b):
+        return torch.tanh(a) * b
+
+    got = tb.batched_call(elementwise, [tx, tw], (0, None))
+    for s in range(2):
+        assert torch.equal(got[s], elementwise(tx[s], tw))
+    matmul = torch.backends.cuda.matmul
+    saved, matmul.allow_tf32 = matmul.allow_tf32, False
+    try:
+        got = tb.batched_call(torch.matmul, [tx, tm], (0, None))
+    finally:
+        matmul.allow_tf32 = saved
+    loop = [np.matmul(x[s], m) for s in range(2)]
+    np.testing.assert_allclose(tb.to_numpy(got), np.stack(loop), rtol=1e-6)
+    with _raises(RuntimeError):
+        tb.batched_call(aten.histc.default, [tx], (0,))
+    assert torch._C._functorch._is_vmap_fallback_enabled()
+    with _raises(RuntimeError):
+        tb.batched_call(aten.add_.Tensor, [tx.clone(), tx], (0, 0))
+    with _raises(RuntimeError):
+        nb.batched_call(np.matmul, [x, m], (0, None))
+
+
+BACKEND_CASES = {
+    "Tensor": case_tensor, "add": case_add, "equal": case_equal,
+    "allclose": case_allclose, "zeros_like": case_zeros_like,
+    "minimum": case_minimum, "maximum": case_maximum,
+    "concatenate": case_concatenate, "chunk": case_chunk,
+    "narrow": case_narrow, "clone": case_clone,
+    "from_numpy": case_from_numpy, "to_numpy": case_to_numpy,
+    "tree_flatten": case_tree_flatten, "tree_unflatten": case_tree_unflatten,
+    "stack": case_stack, "batched_call": case_batched_call,
+}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _numel(op, args, kwargs) -> int:
+    """Elements of an op's tensor arguments and outputs, as the JAX
+    frontend counts them against DISCOVERY_HINT_NUMEL; the outputs'
+    shapes come from a run on the meta device."""
+    from torch.utils import _pytree as pytree
+
+    meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
+    outs = pytree.tree_leaves(op(*meta, **kwargs))
+    return sum(t.numel() for t in list(args) + outs
+               if isinstance(t, torch.Tensor))
+
+
+def timed_discovery(name, args, kwargs, dev):
+    """(rule, (space, recombines), seconds, probe calls) of one case."""
+    from easydist_tpu_torch import config as edconfig
+    from easydist_tpu_torch.metashard import MetaOp, metaop, view_rule
+
+    op = RULE_CASES[name][0]
+    _sync(dev)
+    metaop.reset_probe_calls()
+    t0 = time.perf_counter()
+    if op is torch.ops.aten.view.default:
+        rule = view_rule(list(args[0].shape), list(args[1]),
+                         world_size=edconfig.discovery_nshards)
+        found = rule["space"], rule["recombines"]
+    else:
+        found = MetaOp(op, args, kwargs=kwargs, name=name).discover()
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    return (rule_summary(*found), found, secs, metaop.probe_calls())
+
+
+def discovery_phase(dev):
+    """Phase 8b: `MetaOp.discover()` on each case of `RULE_CASES` at GPT-2
+    small's full width, inputs uniform [0.5, 1.5] (ids in [1, 8)) on
+    `dev`, float32 with TF32 off; each rule must equal
+    `GPT2_SMALL_RULES`'.  Cases under DISCOVERY_HINT_NUMEL run on the CPU
+    too, on the same inputs.  Returns {case: (space, recombines)}."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rules = {}
+    for name, (op, full, _, kwargs) in RULE_CASES.items():
+        args = case_args(
+            full,
+            lambda shape: torch.rand(shape, generator=gen, device=dev) + 0.5,
+            lambda shape: torch.randint(1, 8, shape, generator=gen,
+                                        device=dev))
+        shapes = [list(a.shape) for a in args if isinstance(a, torch.Tensor)]
+        got, found, secs, probes = timed_discovery(name, args, kwargs, dev)
+        line = (f"discovery {name} {shapes}: {dev.type} {secs:.3f} s, "
+                f"{probes} probe calls")
+        numel = (0 if op is torch.ops.aten.view.default
+                 else _numel(op, args, kwargs))
+        if dev.type == "cuda" and 0 < numel <= DISCOVERY_HINT_NUMEL:
+            cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a
+                        for a in args]
+            cpu_got, _, cpu_secs, cpu_probes = timed_discovery(
+                name, cpu_args, kwargs, torch.device("cpu"))
+            line += f"; cpu {cpu_secs:.3f} s, {cpu_probes} probe calls"
+            if cpu_got != got:
+                raise AssertionError(f"{name}: cpu rule {cpu_got} != card "
+                                     f"rule {got}")
+        print(f"{line}; {numel} elements; rule {got}")
+        if got != GPT2_SMALL_RULES[name]:
+            raise AssertionError(f"{name}: discovered {got}, table "
+                                 f"{GPT2_SMALL_RULES[name]}")
+        rules[name] = found
+        del args
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"discovery: {len(rules)} rules equal the table")
+    return rules
+
+
+def mlp_block_graph(rules, axis_size: int):
+    """The MetaGraph of one GPT-2 small MLP block (8192 tokens, dim 768,
+    hidden 3072), x -> c_fc addmm -> gelu -> c_proj addmm -> residual
+    add, wired by hand from discovered rules ({case: (space,
+    recombines)}), placeholders by `view_rule`."""
+    from easydist_tpu_torch.metashard import view_rule
+    from easydist_tpu_torch.metashard.metair import MetaGraph, MetaNode, MetaVar
+
+    tokens, dim, hidden = 8192, 768, 3072
+    g = MetaGraph("gpt2_mlp_block")
+
+    def placeholder(name, shape):
+        var = MetaVar(name, shape, "float32")
+        rule = view_rule(list(shape), list(shape), world_size=axis_size)
+        g.add_input(MetaNode(name=name, op_key="placeholder", invars=[],
+                             outvars=[var], space=rule["space"],
+                             recombines=rule["recombines"], is_input=True))
+        return var
+
+    def op(name, op_key, case, invars, shape, flops=None):
+        out = MetaVar(f"{name}.out", shape, "float32")
+        space, recombines = rules[case]
+        node = MetaNode(name=name, op_key=op_key, invars=invars,
+                        outvars=[out], space=space, recombines=recombines)
+        node.flops = flops
+        g.add_op(node)
+        return out
+
+    x = placeholder("x", (tokens, dim))
+    b_fc, w_fc = placeholder("c_fc.b", (hidden,)), placeholder(
+        "c_fc.w", (dim, hidden))
+    b_proj, w_proj = placeholder("c_proj.b", (dim,)), placeholder(
+        "c_proj.w", (hidden, dim))
+    h = op("c_fc", "addmm", "addmm_c_fc", [b_fc, x, w_fc], (tokens, hidden),
+           2.0 * tokens * dim * hidden)
+    a = op("gelu", "gelu", "gelu", [h], (tokens, hidden))
+    o = op("c_proj", "addmm", "addmm_c_proj", [b_proj, a, w_proj],
+           (tokens, dim), 2.0 * tokens * hidden * dim)
+    g.outputs.append(op("residual", "add", "add_residual", [x, o],
+                        (tokens, dim)))
+    return g
+
+
+def solve_mlp_block(rules, axis_size: int):
+    """Phase 8c for one axis: the MLP block solved by the ILP and by beam
+    search for an NVLink axis of `axis_size` (a virtual size: no second
+    card is needed), then its memory plan.  Raises unless both solvers
+    reach the same communication cost, the ILP picks the zero-communication
+    batch sharding, the plan validates and the native planner's peaks
+    equal the Python versions'.  Returns the printed numbers."""
+    from easydist_tpu_torch import native
+    from easydist_tpu_torch.autoflow import MeshAxisSpec, SpmdSolver
+    from easydist_tpu_torch.metashard.metair import Placement
+    from easydist_tpu_torch.schedule import plan_graph_memory
+
+    if not native.available():
+        raise AssertionError("the native library did not build (g++)")
+    axis = MeshAxisSpec("tp", axis_size, kind="nvlink")
+    graph, chosen, secs, cost = {}, {}, {}, {}
+    for backend in ("milp", "beam"):
+        g = graph[backend] = mlp_block_graph(rules, axis_size)
+        t0 = time.perf_counter()
+        g.coarsen(axis_size, level=1)
+        solver = SpmdSolver(g, axis)
+        chosen[backend] = (solver._ilp_solve() if backend == "milp"
+                           else solver.beam_search())
+        secs[backend] = time.perf_counter() - t0
+        cost[backend] = solver.assignment_comm_cost(chosen[backend])
+    if abs(cost["milp"] - cost["beam"]) > 1e-9 * max(abs(cost["milp"]),
+                                                     1e-30):
+        raise AssertionError(f"axis {axis_size}: milp cost {cost['milp']} "
+                             f"!= beam cost {cost['beam']}")
+    pick = chosen["milp"]
+    s0, r = Placement.shard(0), Placement.replicate()
+    want = {"x": ([], [s0]), "c_fc": ([r, s0, r], [s0]),
+            "gelu": ([s0], [s0]), "c_proj": ([r, s0, r], [s0]),
+            "residual": ([s0, s0], [s0])}
+    got = {n: (pick[n].in_placements, pick[n].out_placements) for n in want}
+    if got != want or cost["milp"] != 0.0:
+        raise AssertionError(f"axis {axis_size}: not the batch sharding: "
+                             f"{got}, comm cost {cost['milp']}")
+    plan = plan_graph_memory(graph["milp"], [pick], [axis_size])
+    bad = plan.validate()
+    offsets_py, peak_py = native.skyline_plan_py(plan.starts, plan.ends,
+                                                 plan.sizes)
+    live_py = native.peak_live_py(plan.starts, plan.ends, plan.sizes)
+    if bad or native.check_plan_py(plan.starts, plan.ends, plan.sizes,
+                                   plan.offsets):
+        raise AssertionError(f"axis {axis_size}: memory plan overlaps {bad}")
+    if (peak_py, live_py) != (plan.peak_bytes, plan.peak_live_bytes) \
+            or not np.array_equal(offsets_py, plan.offsets):
+        raise AssertionError(
+            f"axis {axis_size}: native peaks {plan.peak_bytes}, "
+            f"{plan.peak_live_bytes} != Python {peak_py}, {live_py}")
+    print(f"solver nvlink axis {axis_size}: milp {secs['milp']:.3f} s, beam "
+          f"{secs['beam']:.3f} s (coarsen + solve, host); comm cost milp "
+          f"{cost['milp']} = beam {cost['beam']}; batch sharding (x S(0), "
+          f"weights R); memory plan {len(plan.var_names)} buffers, peak "
+          f"{plan.peak_bytes} B = Python {peak_py}, live peak "
+          f"{plan.peak_live_bytes} B = Python {live_py}, no overlap")
+    return {"secs": secs, "cost": cost, "peak": plan.peak_bytes,
+            "live_peak": plan.peak_live_bytes}
+
+
+def sharding_phase(dev):
+    """Phase 8: (a) the 17 platform ops on CUDA tensors against the numpy
+    backend (`BACKEND_CASES`), (b) discovery at full width, (c) solver and
+    memory planner on the card's host."""
+    t0 = time.perf_counter()
+    for case in BACKEND_CASES.values():
+        case(dev.type)
+    print(f"platform: {len(BACKEND_CASES)} ops on {dev.type} tensors agree "
+          f"with the numpy backend")
+    rules = discovery_phase(dev)
+    for size in (4, 8):
+        solve_mlp_block(rules, size)
+    print(f"sharding phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1474,6 +2091,8 @@ def main() -> int:
     for e in train_entries:
         e["launches"] = launches[e["name"]]
         e["launches_bf16"] = bf16_launches[e["name"]]
+    torch.cuda.empty_cache()
+    sharding_phase(dev)
     print(card_line())
     print(json.dumps({"kernels": [entry, *paged_entries, *train_entries]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,119 @@
+"""Reachability map: comm/compute-overlap awareness for the cost model.
+
+Reference: easydist/torch/reachability.py (bitarray transitive closure +
+FlopCounterMode) feeding the overlap discount in solver.py:74-84 — a
+resharding collective whose producer and consumer have heavy *independent*
+compute nearby can overlap with that compute, so its effective cost shrinks
+by `comm_overlap_ratio`.
+
+The closure is a dense numpy bool matrix (row i = descendants of op i;
+column i = its ancestors), built in one reverse-topological vectorized
+sweep; per-edge independent peer time is then a single vectorized mask.
+
+Op time model: tensor-core ops (dots/convs) are priced FLOPs/peak_flops;
+everything else is memory-bound on the card, priced
+bytes_touched/hbm_bandwidth — a flat FLOP count at the tensor-core peak
+would under-state elementwise/reduce time by ~100x and starve the overlap
+discount of precisely the ops that pipeline best with collectives.  Both
+rates are the H100's (config.peak_flops, config.hbm_bandwidth)."""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import numpy as np
+
+from easydist_tpu_torch import config as edconfig
+from easydist_tpu_torch.metashard.metair import MetaGraph, MetaNode
+
+# the JAX frontend's primitive names and aten's (the port's graphs name
+# their nodes by aten op)
+_HEAVY_OPS = {"dot_general", "conv_general_dilated", "matmul", "mm", "bmm",
+              "dot", "addmm", "baddbmm", "convolution"}
+
+
+def _node_flops(node: MetaNode) -> float:
+    if node.op_key not in _HEAVY_OPS:
+        return 0.0
+    if node.flops is not None:
+        return node.flops  # exact MACs recorded by the bridge
+    out_elems = sum(math.prod(v.shape) for v in node.outvars if v is not None)
+    ins = [math.prod(v.shape) for v in node.invars if v is not None]
+    if len(ins) >= 2 and out_elems > 0:
+        # fallback for synthetic nodes (no recorded flops): for an
+        # unbatched (M,K)x(K,N)->(M,N), in0*in1/out = K^2 exactly; batched
+        # dots are ambiguous from shapes alone, which is why the bridge
+        # records exact MACs for real graphs (r5 review #3).  The sqrt
+        # inflates by sqrt(B) on a batched (B,M,K)x(B,K,N) dot, so clamp
+        # by the largest input dim — the contraction length can never
+        # exceed it (ADVICE r5: inflated stage-balance estimates)
+        k = math.sqrt(max(ins[0], 1) * max(ins[1], 1) / out_elems)
+        max_dim = max((d for v in node.invars if v is not None
+                       for d in v.shape), default=1)
+        k = min(k, float(max_dim))
+    else:
+        k = max(max(ins, default=0) / max(out_elems, 1), 1.0)
+    return 2.0 * out_elems * max(k, 1.0)
+
+
+def _node_seconds(node: MetaNode) -> float:
+    """Estimated single-device run time of one op: the roofline
+    max(tensor-core time, HBM time) — a small matmul is bandwidth-bound
+    even though it runs on the tensor cores, and a big one is
+    FLOPs-bound."""
+    nbytes = sum(v.size_bytes() for v in node.invars if v is not None) \
+        + sum(v.size_bytes() for v in node.outvars if v is not None)
+    return max(_node_flops(node) / edconfig.peak_flops,
+               nbytes / edconfig.hbm_bandwidth)
+
+
+# public name: a frontend's composite-discovery pricer uses the same
+# roofline estimate when it prices control-flow body strategies
+node_seconds = _node_seconds
+
+
+class ReachabilityMap:
+    """Transitive closure over graph ops + per-edge independent peer FLOPs."""
+
+    def __init__(self, graph: MetaGraph):
+        ops = graph.ops
+        n = len(ops)
+        self.index: Dict[str, int] = {op.name: i for i, op in enumerate(ops)}
+        self.flops = np.array([_node_flops(op) for op in ops])
+        self.seconds = np.array([_node_seconds(op) for op in ops])
+
+        reach = np.zeros((n, n), dtype=bool)
+        for i in reversed(range(n)):
+            reach[i, i] = True
+            for v in ops[i].outvars:
+                if v is None:
+                    continue
+                for consumer, _ in v.consumers:
+                    j = self.index.get(consumer.name)
+                    if j is not None and j != i:
+                        reach[i] |= reach[j]
+        self.reach = reach
+        self.n = n
+
+    def _independent_mask(self, producer: str, consumer: str):
+        i = self.index.get(producer)
+        j = self.index.get(consumer)
+        if i is None or j is None or self.n == 0:
+            return None
+        return ~(self.reach[i] | self.reach[j]
+                 | self.reach[:, i] | self.reach[:, j])
+
+    def independent_peer_flops(self, producer: str, consumer: str) -> float:
+        """FLOPs of ops independent of both endpoints (neither ancestor nor
+        descendant of either) — work a collective between them could hide
+        behind."""
+        mask = self._independent_mask(producer, consumer)
+        return 0.0 if mask is None else float(self.flops[mask].sum())
+
+    def independent_peer_seconds(self, producer: str, consumer: str) -> float:
+        """Estimated seconds of independent peer work (tensor-core ops at
+        peak_flops, memory-bound ops at hbm_bandwidth) — the time budget a
+        collective between producer and consumer can hide inside."""
+        mask = self._independent_mask(producer, consumer)
+        return 0.0 if mask is None else float(self.seconds[mask].sum())

@@ -1,5 +1,6 @@
 """Flat env-var-driven knobs of the port (the subset of
-easydist_tpu/config.py that the serving path reads).
+easydist_tpu/config.py that the serving path, the ShardCombine engine and
+the solver read, under the same names and environment variables).
 
 Every knob is a module global, read from its environment variable at
 import time and mutable at runtime.  Imported as `edconfig`.
@@ -28,3 +29,91 @@ decode_block_k = _env_int("EASYDIST_DECODE_BLOCK_K", 256)
 # resolve to the plain PyTorch masked einsum.
 prefill_attention_backend = os.environ.get("EASYDIST_PREFILL_ATTENTION",
                                            "auto")
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    val = os.environ.get(name)
+    if val is None:
+        return default
+    return val.lower() in ("1", "true", "yes", "on")
+
+
+def _env_float(name: str, default: float) -> float:
+    return float(os.environ.get(name, default))
+
+
+# ---------------- ShardCombine discovery (metashard/) ----------------
+# number of shards a candidate sharding is executed with
+discovery_nshards = _env_int("EASYDIST_DISCOVERY_NSHARDS", 2)
+# device the discovery probes' inputs are placed on (`platform.from_numpy`):
+# the card by default, like every entry point of the port; "cpu" on
+# request (the tests pass it).  `chip_smoke.py` times both.
+discovery_device = os.environ.get("EASYDIST_DISCOVERY_DEVICE", "cuda")
+# allclose tolerance of the recombination checks; float32 with TF32 off
+# (discovery turns it off while it probes)
+allclose_rtol = _env_float("EASYDIST_ALLCLOSE_RTOL", 1e-3)
+allclose_atol = _env_float("EASYDIST_ALLCLOSE_ATOL", 1e-5)
+# also try halo and block-cyclic recombinations of the gather space
+extend_space = _env_bool("EASYDIST_EXTEND_SPACE", True)
+# cap on candidate shardings executed per shard group (the search is
+# exponential in the number of tensor arguments)
+discovery_max_candidates = _env_int("EASYDIST_DISCOVERY_MAX_CANDIDATES", 4096)
+# run a candidate's shards as one vmapped call instead of one call per
+# shard; an op without a batching rule falls back to the loop
+discovery_batch_probes = _env_bool("EASYDIST_DISCOVERY_BATCH_PROBES", True)
+
+# ---------------- solver (autoflow/) ----------------
+solver_time_limit = _env_float("EASYDIST_SOLVER_TIME_LIMIT", 60.0)
+solver_mip_rel_gap = _env_float("EASYDIST_SOLVER_MIP_REL_GAP", 1e-3)
+all_to_all_punish_factor = _env_float("EASYDIST_ALL_TO_ALL_PUNISH", 3.0)
+solver_backend = os.environ.get("EASYDIST_SOLVER", "milp")  # milp | beam
+beam_width = _env_int("EASYDIST_BEAM_WIDTH", 100)
+# tie the ILP variables of isomorphic clusters (repeated layers)
+solver_cluster_dedup = _env_bool("EASYDIST_SOLVER_CLUSTER_DEDUP", True)
+# per-device memory cap in bytes: > 0 is a hard cap per liveness step,
+# 0 is off, -1 is "ask the device" (resolved by the multi-device
+# frontend, not ported yet; the solver reads only a cap > 0)
+per_device_memory_cap = _env_int("EASYDIST_MEMORY_CAP", -1)
+memory_ratio = _env_float("EASYDIST_MEMORY_RATIO", 0.9)
+# cap only placeholder tensors (parameters and state) per liveness step
+liveness_only_input = _env_bool("EASYDIST_LIVENESS_ONLY_INPUT", False)
+# discount a resharding edge by the independent compute that can hide it
+# (autoflow.cost_model.overlap_discount_ratio resolves the ratio:
+# "auto" = measured when recorded, else `comm_overlap_ratio`;
+# "measured" = measured or 0; "config" = `comm_overlap_ratio`)
+predict_comm_overlap = _env_bool("EASYDIST_PREDICT_COMM_OVERLAP", False)
+comm_overlap_ratio = _env_float("EASYDIST_COMM_OVERLAP_RATIO", 0.5)
+comm_overlap_ratio_source = os.environ.get("EASYDIST_COMM_OVERLAP_SOURCE",
+                                           "auto")
+# achieved overlap fraction measured on this card, or None: a calibration
+# run records it (not ported yet), until then it stays None and "auto"
+# resolves to `comm_overlap_ratio`
+comm_overlap_ratio_measured = None
+
+# ---------------- hardware constants of the cost model ----------------
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 rate
+peak_flops = _env_float("EASYDIST_PEAK_FLOPS", 989e12)
+hbm_bandwidth = _env_float("EASYDIST_HBM_BANDWIDTH", 3.35e12)
+# NVIDIA H100 SXM: NVLink 4, 900 GB/s both directions, 450 GB/s each way
+nvlink_bandwidth = _env_float("EASYDIST_NVLINK_BANDWIDTH", 450e9)
+# NDR InfiniBand between hosts: 400 Gb/s = 50 GB/s a port
+ib_bandwidth = _env_float("EASYDIST_IB_BANDWIDTH", 50e9)
+# alpha term, seconds per collective launch: placeholders, not measured
+# (a calibration pass for the card comes with the runtime)
+nvlink_latency = _env_float("EASYDIST_NVLINK_LATENCY", 5e-6)
+ib_latency = _env_float("EASYDIST_IB_LATENCY", 1e-5)
+
+# ---------------- gradient-collective compression ----------------
+# wire dtype of reductions: "none" | "int8" (block-scaled) | "bf16"
+comm_quant_dtype = os.environ.get("EASYDIST_COMM_QUANT", "none")
+# elements per int8 scaling block (one f32 scale each)
+comm_quant_block = _env_int("EASYDIST_COMM_QUANT_BLOCK", 256)
+# leaves below this many elements are never quantized
+comm_quant_min_numel = _env_int("EASYDIST_COMM_QUANT_MIN_NUMEL", 2048)
+
+# ---------------- op-time database ----------------
+prof_db_path = os.environ.get(
+    "EASYDIST_PERF_DB", os.path.expanduser("~/.easydist_tpu_torch/perf.db"))
+# price the solver's compute redundancy with measured per-op seconds from
+# the PerfDB where a node's signature hits
+use_op_cost_db = _env_bool("EASYDIST_OP_COST_DB", True)

@@ -25,12 +25,47 @@ def _banned(name: str) -> bool:
     return any(name == b or name.startswith(b + ".") for b in BANNED)
 
 
+def _imported_names(path):
+    """(line, module) of every absolute import statement in a file,
+    those inside functions too."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+def _smoke_modules():
+    """The modules `chip_smoke.py` imports (at the top and inside its
+    phases), and those its `from easydist_tpu_torch... import x` names
+    when x is a module."""
+    port = set(_port_modules())
+    names = set()
+    with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+            names.update(f"{node.module}.{a.name}" for a in node.names
+                         if f"{node.module}.{a.name}" in port)
+    return sorted(names)
+
+
 def test_every_port_module_imports_with_jax_blocked():
-    """Import every port module in a fresh interpreter whose import
-    system refuses jax, jaxlib and easydist_tpu."""
+    """Import every port module, `chip_smoke.py` and every module its
+    phases import, and run its platform cases, in a fresh interpreter
+    whose import system refuses jax, jaxlib and easydist_tpu."""
     modules = _port_modules()
     for name in ("serve.generation", "models.optim", "models.mlp",
-                 "models.gpt", "ops.flash_attention", "fxfront.api"):
+                 "models.gpt", "ops.flash_attention", "fxfront.api",
+                 "platform.torch_backend", "metashard.metaop",
+                 "metashard.metair", "autoflow.solver",
+                 "schedule.memory_planner", "native"):
         assert f"easydist_tpu_torch.{name}" in modules
     code = f"""
 import importlib, importlib.abc, sys
@@ -45,6 +80,10 @@ sys.meta_path.insert(0, Block())
 for m in {modules!r}:
     importlib.import_module(m)
 import chip_smoke
+for m in {_smoke_modules()!r}:
+    importlib.import_module(m)
+for case in chip_smoke.BACKEND_CASES.values():
+    case("cpu")
 loaded = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in {BANNED!r})]
 assert not loaded, loaded
@@ -60,19 +99,20 @@ def test_no_import_statement_names_jax():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    offenders = []
-    for path in files:
-        with open(path, encoding="utf-8") as f:
-            tree = ast.parse(f.read(), filename=path)
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or ""]
-            else:
-                continue
-            offenders += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
-                          for n in names if _banned(n)]
+    offenders = [f"{os.path.relpath(path, REPO)}:{line} {name}"
+                 for path in files for line, name in _imported_names(path)
+                 if _banned(name)]
+    assert not offenders, offenders
+
+
+def test_chip_smoke_imports_only_the_port():
+    """`chip_smoke.py` imports the standard library, numpy, torch and the
+    port, and nothing of the tests (which import JAX)."""
+    allowed = set(sys.stdlib_module_names) | {"numpy", "torch",
+                                              "easydist_tpu_torch"}
+    offenders = [f"chip_smoke.py:{line} {name}" for line, name in
+                 _imported_names(os.path.join(REPO, "chip_smoke.py"))
+                 if name.split(".")[0] not in allowed]
     assert not offenders, offenders
 
 
