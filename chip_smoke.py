@@ -68,13 +68,30 @@ Phases, each raising on failure (exit code != 0, no result line):
      every rule must equal the literal table `GPT2_SMALL_RULES` (the CPU
      tests hold the same table against the JAX package), and each op's
      seconds and probe calls are printed, on the CPU as well for the ops
-     under DISCOVERY_HINT_NUMEL; (c) on the card's host, one GPT-2 MLP block
-     (x -> c_fc -> gelu -> c_proj -> residual) wired from (b)'s rules and
-     solved for a virtual NVLink axis of 4 and of 8: the ILP and beam
+     under `config.discovery_hint_numel`; (c) on the card's host, one
+     GPT-2 MLP block (x -> c_fc -> gelu -> c_proj -> residual) wired
+     from (b)'s rules and solved for a virtual NVLink axis of 4 and of
+     8: the ILP and beam
      search must reach the same communication cost, the ILP the
      zero-communication batch sharding, and the memory plan must
      validate with the native library's peaks equal to Python's;
-  9. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
+  9. the multi-device frontend on phase 7's f32 workload: every aten
+     node of the step timed on the card (`profile_ops`, CUDA events)
+     into a PerfDB that prices the solves; (a) against
+     torch's fake process group of 8 ranks (structure only), compiled
+     for a (8,) "dp" mesh and a (4, 2) "dp" x "tp" mesh of NVLink axes
+     (trace, discovery on the card with the presets cross-checked on the
+     first, per-axis ILP, per-rank emission): per axis, the collectives
+     emitted must match what the solver priced, at least one mm must be
+     sharded, nothing may replicate because discovery failed; seconds
+     by stage, the analyzer's counts, the solver's cost per axis, the
+     replicated-FLOPs fraction and the collectives by kind with their
+     bytes are printed; (b) rank 0's (4, 2) program run once on the card
+     (B1-B3 launched 12 times each; peak memory beside the planner's);
+     (c) a real one-rank mesh on NCCL: 3 steps bitwise equal to phase
+     7's compiled f32 losses.  One card cannot run a multi-rank program
+     on NCCL: the CPU tests hold its numbers on gloo;
+ 10. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
      path's run; B1-B3 also with `launches_bf16`, their launches in the
      bfloat16 flash steps), then the `{"ok": true, ...}` line.
 
@@ -90,6 +107,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -107,10 +125,6 @@ BF16_FLOPS_PER_S = 989e12                # H100 SXM, bf16 tensor cores, dense
 TIMED_COPIES = 4                         # input copies rotated past the 50 MB L2
 KERNEL_SOURCES = ("flash_decode", "paged_decode", "flash_attn_fwd",
                   "flash_attn_bwd")
-# ops whose tensors hold more elements than this the JAX frontend
-# discovers on shrunk shapes (`discovery_hint_numel`,
-# easydist_tpu/config.py:57); phase 8b times those under it on the CPU too
-DISCOVERY_HINT_NUMEL = 2**24
 
 
 def card_line() -> str:
@@ -909,8 +923,8 @@ def add_pair_times(entries, shape):
 def train_phase(dev, cfg_kw=None, batch: int = 8, steps: int = 3,
                 bf16_steps: int = 4, seed: int = 0):
     """Phase 7; returns each training kernel's launches in the compiled
-    f32 run and in the bf16 flash steps.  The arguments shrink it for a
-    rehearsal on the CPU."""
+    f32 run and in the bf16 flash steps, and the compiled f32 losses.
+    The arguments shrink it for a rehearsal on the CPU."""
     import dataclasses
 
     from torch.utils import _pytree as pytree
@@ -1006,7 +1020,7 @@ def train_phase(dev, cfg_kw=None, batch: int = 8, steps: int = 3,
           f"{bf16_steps} steps (on the tensor-core route)")
     if on_card:
         profile_train(runs, tokens, targets, batch * cfg.seq)
-    return launches, bf16_launches
+    return launches, bf16_launches, losses
 
 
 def step_ms(comp, state, tokens, targets, steps: int = 3):
@@ -1880,8 +1894,8 @@ def _sync(dev) -> None:
 
 
 def _numel(op, args, kwargs) -> int:
-    """Elements of an op's tensor arguments and outputs, as the JAX
-    frontend counts them against DISCOVERY_HINT_NUMEL; the outputs'
+    """Elements of an op's tensor arguments and outputs, as the frontend
+    counts them against `config.discovery_hint_numel`; the outputs'
     shapes come from a run on the meta device."""
     from torch.utils import _pytree as pytree
 
@@ -1915,8 +1929,11 @@ def discovery_phase(dev):
     """Phase 8b: `MetaOp.discover()` on each case of `RULE_CASES` at GPT-2
     small's full width, inputs uniform [0.5, 1.5] (ids in [1, 8)) on
     `dev`, float32 with TF32 off; each rule must equal
-    `GPT2_SMALL_RULES`'.  Cases under DISCOVERY_HINT_NUMEL run on the CPU
+    `GPT2_SMALL_RULES`'.  Cases under `config.discovery_hint_numel`
+    (the frontend discovers larger ops on shrunk shapes) run on the CPU
     too, on the same inputs.  Returns {case: (space, recombines)}."""
+    from easydist_tpu_torch import config as edconfig
+
     gen = torch.Generator(device=dev).manual_seed(0)
     rules = {}
     for name, (op, full, _, kwargs) in RULE_CASES.items():
@@ -1931,7 +1948,7 @@ def discovery_phase(dev):
                 f"{probes} probe calls")
         numel = (0 if op is torch.ops.aten.view.default
                  else _numel(op, args, kwargs))
-        if dev.type == "cuda" and 0 < numel <= DISCOVERY_HINT_NUMEL:
+        if dev.type == "cuda" and 0 < numel <= edconfig.discovery_hint_numel:
             cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a
                         for a in args]
             cpu_got, _, cpu_secs, cpu_probes = timed_discovery(
@@ -2071,6 +2088,266 @@ def sharding_phase(dev):
     print(f"sharding phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------ frontend
+
+# the meshes users run a GPT-2 small train step on: one host of eight
+# cards, data parallel, and a (data, tensor) split of it; NVLink axes
+FRONTEND_MESHES = (((8,), ("dp",)), ((4, 2), ("dp", "tp")))
+
+
+def moved_bytes(kind: str, nbytes: float, n: int) -> float:
+    """Bytes one rank sends for a collective over `nbytes` held across a
+    group of `n` (ring algorithms; no penalty factor)."""
+    share = nbytes * (n - 1) / n
+    return {"all_gather": share, "reduce_scatter": share,
+            "all_reduce": 2 * share, "all_to_all": share / n}[kind]
+
+
+def check_priced(result, tag: str):
+    """Per axis, the wire bytes the solver priced for its picks against
+    those of the collectives emission inserted, both by the solver's
+    formulas on the solver's sizes (rel 1e-9).  Raises on a mismatch;
+    returns {axis: {kind: [count, priced MB, moved MB]}}, where moved is
+    what the rank sends at the emitted program's local shapes."""
+    from easydist_tpu_torch.autoflow.cost_model import collective_wire_bytes
+
+    table = {}
+    for a, spec in enumerate(result.axis_specs):
+        if spec.size == 1:
+            continue
+        n = spec.size
+        priced = sum(collective_wire_bytes(k, b, n)
+                     for k, _, b in result.priced[a])
+        emitted = [c for c in result.collectives if c.axis == spec.name]
+        got = sum(collective_wire_bytes(c.kind, c.priced_bytes, n)
+                  for c in emitted)
+        if len(emitted) != len(result.priced[a]) \
+                or abs(got - priced) > 1e-9 * max(priced, 1.0):
+            raise AssertionError(
+                f"{tag} axis {spec.name}: emitted {len(emitted)} "
+                f"collectives, {got} wire bytes; the solver priced "
+                f"{len(result.priced[a])}, {priced}")
+        rows = table[spec.name] = {}
+        for c in emitted:
+            row = rows.setdefault(c.kind, [0, 0.0, 0.0])
+            row[0] += 1
+            row[1] += collective_wire_bytes(c.kind, c.priced_bytes, n) / 1e6
+            row[2] += moved_bytes(c.kind, c.group_bytes, n) / 1e6
+    return table
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def frontend_phase(dev, f32_losses, cfg_kw=None, batch: int = 8,
+                   steps: int = 3, seed: int = 0, world: int = 8,
+                   meshes=FRONTEND_MESHES):
+    """Phase 9: the multi-device frontend on GPT-2 small's f32 train step
+    (phase 7's workload).  First `profile_ops` times every aten node of
+    the step on `dev` into a PerfDB under `.easydist_cache/`, which prices
+    the solves.  (a) Against torch's fake process group of `world` ranks
+    (torch.testing; structure only, values meaningless): compile for
+    each mesh of `meshes` (trace, discovery on `dev` with the
+    presets cross-checked on the first mesh, per-axis solve, emission);
+    the emitted collectives must match what the solver priced
+    (`check_priced`), at least one mm must be sharded, nothing may
+    replicate because discovery failed.  (b) Rank 0's program of the
+    last mesh run once on `dev`: B1-B3 launch `layers` times each; its
+    peak memory beside the planner's.  (c) A real one-rank mesh (NCCL on
+    the card, gloo on the CPU): `steps` losses bitwise equal to
+    `f32_losses` (phase 7's compiled ones).  The arguments shrink it for
+    a rehearsal on the CPU.  Returns the printed numbers."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from easydist_tpu_torch import config as edconfig
+    from easydist_tpu_torch.fxfront import (easydist_compile,
+                                            make_device_mesh,
+                                            set_device_mesh)
+    from easydist_tpu_torch.models.gpt import GPTConfig, make_gpt_train_step
+    from easydist_tpu_torch.runtime.op_profile import profile_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = dev.type == "cuda"
+    cfg = GPTConfig(**{**dict(vocab=50304, seq=1024, dim=768, heads=12,
+                              layers=12, attention="flash"),
+                       **(cfg_kw or {})})
+    rs = np.random.RandomState(seed + 1)
+    tokens = torch.as_tensor(rs.randint(0, cfg.vocab, (batch, cfg.seq)),
+                             device=dev)
+    targets = torch.as_tensor(rs.randint(0, cfg.vocab, (batch, cfg.seq)),
+                              device=dev)
+
+    def fresh():
+        step_, init_ = make_gpt_train_step(cfg, lr=1e-4)
+        return step_, init_(torch.Generator(device=dev).manual_seed(seed),
+                            device=dev)
+
+    saved = (edconfig.discovery_device, edconfig.discovery_crosscheck,
+             edconfig.prof_db_path)
+    edconfig.discovery_device = dev.type
+    out = {}
+    step, state = fresh()
+    # every aten node of the step timed on `dev` into a PerfDB inside the
+    # checkout, which then prices the solves below
+    edconfig.prof_db_path = os.path.join(".easydist_cache", "perf.db")
+    if os.path.exists(edconfig.prof_db_path):
+        os.remove(edconfig.prof_db_path)
+    t0 = time.perf_counter()
+    times = profile_ops(step, state, tokens, targets, trials=3)
+    secs = time.perf_counter() - t0
+    print(f"frontend profile_ops on {dev.type}: {len(times)} aten node "
+          f"signatures in {secs:.2f} s; their medians sum to "
+          f"{sum(times.values()) * 1e3:.3f} ms (one launch each, "
+          f"{'CUDA events' if on_card else 'host clock'})")
+    if not times:
+        raise AssertionError("profile_ops measured no op")
+    out["profile"] = dict(n=len(times), secs=secs,
+                          sum_ms=sum(times.values()) * 1e3)
+    dist.init_process_group("fake", rank=0, world_size=world,
+                            store=FakeStore())
+    try:
+        for shape, names in meshes:
+            mesh = make_device_mesh(shape, names, device_type=dev.type)
+            edconfig.discovery_crosscheck = (shape, names) == meshes[0]
+            t0 = time.perf_counter()
+            res = easydist_compile(step, mesh=mesh, compile_only=True)(
+                state, tokens, targets)
+            secs = time.perf_counter() - t0
+            c = res.counters
+            tag = f"frontend {shape}"
+            table = check_priced(res, tag)
+            mm = [n for chosen in res.strategies for n, s in chosen.items()
+                  if n.startswith("mm") and not s.is_all_replicate()]
+            print(f"{tag}: compile {secs:.2f} s (trace "
+                  f"{res.timings['trace']:.2f}, discovery "
+                  f"{res.timings['discovery']:.2f}, solve "
+                  f"{res.timings['solve']:.2f}, emit "
+                  f"{res.timings['emit']:.2f}); {c['rules_preset']} preset, "
+                  f"{c['rules_from_group']} grouped, {c['rules_from_cache']} "
+                  f"cached, {c['rules_discovered']} discovered, "
+                  f"{c['probes_compiled']} probes, cross-checked "
+                  f"{c['crosscheck_checked']} ({c['crosscheck_failures']} "
+                  f"failed); solver comm cost per axis "
+                  f"{res.solver_costs} s; replicated FLOPs "
+                  f"{res.replicated_flops_fraction:.4f}; {len(mm)} mm nodes "
+                  f"sharded")
+            for axis, rows in table.items():
+                print(f"{tag} axis {axis}: " + "; ".join(
+                    f"{k} x{r[0]}: priced {r[1]:.3f} MB, moved {r[2]:.3f} MB"
+                    for k, r in sorted(rows.items())) + " (per rank, step)")
+            if res.replicated_on_failure or c["crosscheck_failures"]:
+                raise AssertionError(
+                    f"{tag}: replicated on failed discovery "
+                    f"{res.replicated_on_failure[:3]}, cross-check "
+                    f"failures {c['crosscheck_failures']}")
+            if not mm:
+                raise AssertionError(f"{tag}: no mm is sharded (the pick "
+                                     f"is all-replicate)")
+            if (shape, names) == meshes[0]:
+                import operator
+
+                from easydist_tpu_torch.fxfront.interpreter import \
+                    node_signature
+
+                step_ms = 1e3 * sum(
+                    times.get(node_signature(n), 0.0)
+                    for n in res.traced.graph.nodes
+                    if n.op == "call_function"
+                    and n.target is not operator.getitem)
+                out["profile"]["step_ms"] = step_ms
+                n_calls = sum(1 for n in res.traced.graph.nodes
+                              if n.op == "call_function")
+                print(f"frontend profile_ops: the step's {n_calls} nodes "
+                      f"at their signatures' medians sum to "
+                      f"{step_ms:.3f} ms (one device, unsharded)")
+            out[shape] = dict(secs=secs, timings=dict(res.timings),
+                              counters=dict(c), costs=res.solver_costs,
+                              replicated=res.replicated_flops_fraction,
+                              table=table, sharded_mm=len(mm))
+        out["run"] = run_rank0(dev, res, (state, tokens, targets), cfg)
+    finally:
+        set_device_mesh(None)
+        dist.destroy_process_group()
+        (edconfig.discovery_device, edconfig.discovery_crosscheck,
+         edconfig.prof_db_path) = saved
+    del res, state
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c) a real one-rank mesh
+    step, state = fresh()
+    backend = "nccl" if on_card else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_device_mesh((1,), ("dp",), device_type=dev.type)
+        compiled = easydist_compile(step, mesh=mesh)
+        losses = []
+        for _ in range(steps):
+            state, loss = compiled(state, tokens, targets)
+            losses.append(float(loss))
+    finally:
+        set_device_mesh(None)
+        dist.destroy_process_group()
+    print(f"frontend one-rank mesh ({backend}): losses {losses}, phase 7 "
+          f"compiled {list(f32_losses)}")
+    if losses != list(f32_losses):
+        raise AssertionError("one-rank mesh losses are not bitwise equal to "
+                             "the one-device compiled losses")
+    out["one_rank_losses"] = losses
+    return out
+
+
+def run_rank0(dev, res, args, cfg):
+    """Phase 9b: rank 0's emitted program once on `dev` (the fake group
+    answers its collectives); returns its launches and peaks."""
+    from torch.utils import _pytree as pytree
+
+    from easydist_tpu_torch.fxfront.bridge import fx_to_metagraph
+    from easydist_tpu_torch.schedule import plan_graph_memory
+
+    on_card = dev.type == "cuda"
+    flat = pytree.tree_leaves((args, {}))
+    counters = train_counters()
+    if on_card:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    local = [res.local_shard(x, p).clone()
+             for x, p in zip(flat, res.in_placements)]
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        outs = res.graph_module(*local)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() - base if on_card else None
+    del outs, local
+    sizes = [s.size for s in res.axis_specs]
+    graph = fx_to_metagraph(res.traced, {}, {}, world_size=min(sizes))
+    plan = plan_graph_memory(graph, res.strategies, sizes)
+    print(f"frontend rank 0 of {tuple(sizes)} on {dev.type}: one step "
+          f"{secs:.2f} s (fake group, values meaningless); launches "
+          f"{launches}; peak {peak} B measured (inputs included), planner "
+          f"{plan.peak_bytes} B skyline, {plan.peak_live_bytes} B live")
+    expect = cfg.layers if on_card else 0
+    if any(n != expect for n in launches.values()):
+        raise AssertionError(f"rank 0 launched {launches}, expected "
+                             f"{expect} each")
+    return {"secs": secs, "launches": launches, "peak": peak,
+            "plan_peak": plan.peak_bytes,
+            "plan_live_peak": plan.peak_live_bytes}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2087,12 +2364,13 @@ def main() -> int:
     paged_entries[1]["launches"] = int8_serve_phase(dev, ctx, paged_ids)
     del ctx
     torch.cuda.empty_cache()
-    launches, bf16_launches = train_phase(dev)
+    launches, bf16_launches, f32_losses = train_phase(dev)
     for e in train_entries:
         e["launches"] = launches[e["name"]]
         e["launches_bf16"] = bf16_launches[e["name"]]
     torch.cuda.empty_cache()
     sharding_phase(dev)
+    frontend_phase(dev, f32_losses)
     print(card_line())
     print(json.dumps({"kernels": [entry, *paged_entries, *train_entries]}))
     print(json.dumps({"ok": True, "device": {

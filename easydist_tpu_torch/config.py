@@ -1,6 +1,7 @@
 """Flat env-var-driven knobs of the port (the subset of
-easydist_tpu/config.py that the serving path, the ShardCombine engine and
-the solver read, under the same names and environment variables).
+easydist_tpu/config.py that the serving path, the ShardCombine engine,
+the solver and the multi-device frontend read, under the same names and
+environment variables).
 
 Every knob is a module global, read from its environment variable at
 import time and mutable at runtime.  Imported as `edconfig`.
@@ -61,6 +62,40 @@ discovery_max_candidates = _env_int("EASYDIST_DISCOVERY_MAX_CANDIDATES", 4096)
 # run a candidate's shards as one vmapped call instead of one call per
 # shard; an op without a batching rule falls back to the loop
 discovery_batch_probes = _env_bool("EASYDIST_DISCOVERY_BATCH_PROBES", True)
+# an op whose inputs and outputs hold more elements than this is
+# discovered on a proportionally shrunk instance (fxfront/interpreter.py)
+discovery_hint_numel = _env_int("EASYDIST_DISCOVERY_HINT_NUMEL", 2**24)
+# propagation groups: discover once per dim-role-canonical signature and
+# instantiate the rule for the other members (fxfront/discovery.py)
+discovery_prune = _env_bool("EASYDIST_DISCOVERY_PRUNE", True)
+# persist discovered rules across processes, keyed by canonical signature
+# and a salt of the knobs, torch's version and the discovery device type
+discovery_persistent_cache = _env_bool("EASYDIST_DISCOVERY_CACHE", True)
+# cache directory; empty = "<compile_cache_dir>/discovery"
+discovery_cache_dir = os.environ.get("EASYDIST_DISCOVERY_CACHE_DIR", "")
+# resolve aten ops with an analytic rule (fxfront/presets.py) first
+discovery_use_presets = _env_bool("EASYDIST_DISCOVERY_PRESETS", True)
+# execute-validate every preset rule against the ShardCombine harness on
+# small shapes (an audit of the preset bank: failures are counted and
+# logged, never raised)
+discovery_crosscheck = _env_bool("EASYDIST_DISCOVERY_CROSSCHECK", False)
+
+# ---------------- frontend (fxfront/) ----------------
+# persistent per-graph strategy cache: a hit skips discovery and solving
+enable_compile_cache = _env_bool("EASYDIST_COMPILE_CACHE", False)
+compile_cache_dir = os.environ.get("EASYDIST_COMPILE_CACHE_DIR",
+                                   "./.easydist_cache")
+# cone clustering before each axis's solve (level 0: one node a cluster)
+enable_graph_coarsen = _env_bool("EASYDIST_ENABLE_GRAPH_COARSEN", True)
+coarsen_level = _env_int("EASYDIST_COARSEN_LEVEL", 1)
+# let a later mesh axis pick the strategy an earlier axis chose for a node
+allow_repeated_axis_strategy = _env_bool(
+    "EASYDIST_ALLOW_REPEATED_AXIS_STRATEGY", False)
+# partial placements ride linear aten ops in the solver's pools
+enable_partial_pools = _env_bool("EASYDIST_PARTIAL_POOLS", True)
+# warn when more than this fraction of the modeled FLOPs run replicated
+replicate_warn_threshold = _env_float("EASYDIST_REPLICATE_WARN_THRESHOLD",
+                                      0.5)
 
 # ---------------- solver (autoflow/) ----------------
 solver_time_limit = _env_float("EASYDIST_SOLVER_TIME_LIMIT", 60.0)

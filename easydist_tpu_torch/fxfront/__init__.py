@@ -1,5 +1,10 @@
-from .api import (CompiledFunction, CompileResult, easydist_compile,
-                  infer_state_io)
+from .api import (CompiledFunction, CompileResult, compile_step,
+                  easydist_compile, get_opt_strategy, infer_state_io,
+                  solve_axes)
+from .mesh import (get_axis_specs, get_device_mesh, make_device_mesh,
+                   set_device_mesh)
 
-__all__ = ["CompiledFunction", "CompileResult", "easydist_compile",
-           "infer_state_io"]
+__all__ = ["CompiledFunction", "CompileResult", "compile_step",
+           "easydist_compile", "get_axis_specs", "get_device_mesh",
+           "get_opt_strategy", "infer_state_io", "make_device_mesh",
+           "set_device_mesh", "solve_axes"]

@@ -63,6 +63,9 @@ def test_every_port_module_imports_with_jax_blocked():
     modules = _port_modules()
     for name in ("serve.generation", "models.optim", "models.mlp",
                  "models.gpt", "ops.flash_attention", "fxfront.api",
+                 "fxfront.mesh", "fxfront.interpreter", "fxfront.presets",
+                 "fxfront.discovery", "fxfront.bridge", "fxfront.emit",
+                 "runtime.op_profile",
                  "platform.torch_backend", "metashard.metaop",
                  "metashard.metair", "autoflow.solver",
                  "schedule.memory_planner", "native"):
@@ -84,6 +87,24 @@ for m in {_smoke_modules()!r}:
     importlib.import_module(m)
 for case in chip_smoke.BACKEND_CASES.values():
     case("cpu")
+# the multi-device frontend end to end (discovery, solve, emission, the
+# emitted program) against a fake group of 2, and the spawned ranks'
+# module of the gloo tests
+import torch, torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from easydist_tpu_torch import config
+from easydist_tpu_torch.fxfront import easydist_compile, make_device_mesh
+from easydist_tpu_torch.runtime.op_profile import profile_ops
+config.discovery_device = "cpu"
+config.discovery_persistent_cache = False
+config.discovery_crosscheck = True
+dist.init_process_group("fake", rank=0, world_size=2, store=FakeStore())
+mesh = make_device_mesh((2,), ("dp",), device_type="cpu")
+res = easydist_compile(lambda a, b: (a @ b).sum(), mesh=mesh,
+                       compile_only=True)(torch.ones(8, 4), torch.ones(4, 8))
+res.graph_module(torch.ones(4, 4), torch.ones(4, 8))
+dist.destroy_process_group()
+importlib.import_module("tests.test_torch_fxfront_ranks")
 loaded = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in {BANNED!r})]
 assert not loaded, loaded
