@@ -118,6 +118,8 @@ import torch
 
 SERVE_SHAPE = (8, 12, 1024, 64)          # slots, heads, bucket, head_dim
 TRAIN_SHAPE = (8, 12, 1024, 64)          # batch, heads, seq, head_dim
+# one ring block of phase 10b: GPT-2 small's heads at seq 8192 over 8 ranks
+SHARD_SHAPE = (1, 12, 1024, 64)
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12                  # H100 SXM, float32 off the tensor cores
 TF32_FLOPS_PER_S = 495e12                # H100 SXM, TF32 tensor cores, dense
@@ -677,13 +679,16 @@ def check_close(tag: str, got, ref, rtol: float, atol: float,
     return err
 
 
-def train_kernel_phase(dev, shape=TRAIN_SHAPE, ragged_t: int = 1000):
+def train_kernel_phase(dev, shape=TRAIN_SHAPE, ragged_t: int = 1000,
+                       shard_shape=SHARD_SHAPE):
     """B1, B2 and B3 against their plain versions on the same inputs:
     float32 and bfloat16 (the plain version in f32 on the same rounded
     inputs); causal, full, a ragged causal length and a backward with a
     nonzero lse cotangent; the f32 forward also at head_dim 128 and a
     ragged length, and the f32 kernels at head_dim 128 (a ragged length
-    and one row past a tile).  Tolerances: the JAX tests' f32 bars
+    and one row past a tile); all three, causal and full, f32 and bf16,
+    at `shard_shape`, the ring's block on phase 10b's path (its key
+    blocks T/n: 1024 at n = 8, seq 8192).  Tolerances: the JAX tests' f32 bars
     (forward rtol 1e-4 / atol 1e-5, backward rtol 2e-4 / atol 2e-5); a
     bf16 output adds half an ulp of its rounding, 2^-8 |ref|, since the
     kernels round once: the f32 B1-B3 take three TF32 products of hi/lo
@@ -698,16 +703,19 @@ def train_kernel_phase(dev, shape=TRAIN_SHAPE, ragged_t: int = 1000):
     torch.backends.cudnn.allow_tf32 = False
     b, h, t, d = shape
     scale = 1.0 / np.sqrt(d)
-    cases = [("causal", True, t, False), ("full", False, t, False),
-             (f"causal T={ragged_t}", True, ragged_t, False),
-             ("causal, g_lse", True, t, True)]
+    cases = [("causal", True, shape, False), ("full", False, shape, False),
+             (f"causal T={ragged_t}", True, (b, h, ragged_t, d), False),
+             ("causal, g_lse", True, shape, True),
+             ("shard causal", True, shard_shape, False),
+             ("shard full", False, shard_shape, False)]
     worst = {name: {} for name in TRAIN_KERNELS}
     rs = np.random.RandomState(0)
-    for case, causal, t_case, with_glse in cases:
-        shp = (b, h, t_case, d)
+    for case, causal, shp, with_glse in cases:
+        t_case = shp[2]
         base = [torch.as_tensor(rs.standard_normal(shp), dtype=torch.float32,
                                 device=dev) for _ in range(4)]
-        g_lse = (torch.as_tensor(rs.standard_normal((b * h, t_case)),
+        g_lse = (torch.as_tensor(rs.standard_normal((shp[0] * shp[1],
+                                                     t_case)),
                                  dtype=torch.float32, device=dev)
                  if with_glse else None)
         for dtype in (torch.float32, torch.bfloat16):
@@ -784,7 +792,69 @@ def train_kernel_phase(dev, shape=TRAIN_SHAPE, ragged_t: int = 1000):
         del r_dq, r_dk, r_dv
     if dev.type != "cuda":
         return []
-    return train_kernel_times(dev, shape, worst)
+    entries = train_kernel_times(dev, shape, worst)
+    shard = shard_kernel_times(dev, shard_shape)
+    for e in entries:
+        e["shard"] = shard[e["name"]]
+    return entries
+
+
+def shard_kernel_times(dev, shape):
+    """B1-B3 at a ring block's shape, causal (the diagonal block) and full
+    (the blocks below it), f32 and bf16: kernel ms (CUDA events over 50
+    launches, profiler device ms per launch), plain version ms, bound.
+    Returns {kernel: {"<dtype> <mask>": {...}}}."""
+    from easydist_tpu_torch.ops import flash_attention as fa
+
+    scale = 1.0 / np.sqrt(shape[-1])
+    counters = train_counters()
+    before = {name: c.launches for name, c in counters.items()}
+    out = {name: {} for name in TRAIN_KERNELS}
+    for dtype in (torch.bfloat16, torch.float32):
+        copies = [[torch.randn(shape, device=dev, dtype=dtype)
+                   for _ in range(4)] for _ in range(TIMED_COPIES)]
+        saved = {}
+        for causal in (True, False):
+            saved[causal] = []
+            for q, k, v, do in copies:
+                o, lse = fa.flash_fwd(q, k, v, causal, scale)
+                saved[causal].append((lse, fa._flash_delta(o, do)))
+        for causal in (True, False):
+            def at(i, causal=causal):
+                j = i % TIMED_COPIES
+                return copies[j] + list(saved[causal][j])
+
+            calls = {
+                "flash_fwd": (
+                    lambda i: fa.flash_fwd(*at(i)[:3], causal, scale),
+                    lambda i: fa._flash_forward_xla(*at(i)[:3], causal,
+                                                    scale)),
+                "flash_bwd_dq": (
+                    lambda i: fa.flash_bwd_dq(*at(i), causal, scale),
+                    lambda i: fa._flash_bwd_dq_xla(*at(i), causal, scale)),
+                "flash_bwd_dkv": (
+                    lambda i: fa.flash_bwd_dkv(*at(i), causal, scale),
+                    lambda i: fa._flash_bwd_dkv_xla(*at(i), causal, scale))}
+            key = f"{str(dtype)[6:]} {'causal' if causal else 'full'}"
+            for name, (kernel, plain) in calls.items():
+                symbol = TRAIN_KERNELS[name][0 if dtype == torch.bfloat16
+                                             else 1]
+                ms = time_ms(kernel)
+                prof_ms, seen = profiled_ms(kernel, symbol)
+                plain_ms = time_ms(plain, n=10)
+                bound, by = train_bound_ms(name, shape, causal,
+                                           dtype.itemsize)
+                print(f"time {name} {key} {list(shape)} (ring block, "
+                      f"{symbol}): kernel {ms:.4f} ms "
+                      f"({profiled_text(prof_ms, seen)}), plain "
+                      f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+                out[name][key] = {"ms": ms, "profiled_ms": prof_ms,
+                                  "plain_ms": plain_ms, "bound_ms": bound,
+                                  "bound_by": by}
+        del copies, saved
+    for name, c in counters.items():
+        c.launches = before[name]  # timing runs don't count
+    return out
 
 
 def timed_calls(copies, scale: float):
@@ -2097,10 +2167,12 @@ FRONTEND_MESHES = (((8,), ("dp",)), ((4, 2), ("dp", "tp")))
 
 def moved_bytes(kind: str, nbytes: float, n: int) -> float:
     """Bytes one rank sends for a collective over `nbytes` held across a
-    group of `n` (ring algorithms; no penalty factor)."""
+    group of `n` (ring algorithms; no penalty factor; a ppermute's
+    `nbytes` is what each rank sends)."""
     share = nbytes * (n - 1) / n
     return {"all_gather": share, "reduce_scatter": share,
-            "all_reduce": 2 * share, "all_to_all": share / n}[kind]
+            "all_reduce": 2 * share, "all_to_all": share / n,
+            "ppermute": nbytes}[kind]
 
 
 def check_priced(result, tag: str):
@@ -2123,10 +2195,15 @@ def check_priced(result, tag: str):
                   for c in emitted)
         if len(emitted) != len(result.priced[a]) \
                 or abs(got - priced) > 1e-9 * max(priced, 1.0):
+            from collections import Counter
+
+            e = Counter((c.kind, c.var) for c in emitted)
+            q = Counter((k, v) for k, v, _ in result.priced[a])
             raise AssertionError(
                 f"{tag} axis {spec.name}: emitted {len(emitted)} "
                 f"collectives, {got} wire bytes; the solver priced "
-                f"{len(result.priced[a])}, {priced}")
+                f"{len(result.priced[a])}, {priced}; emitted only "
+                f"{dict(e - q)}, priced only {dict(q - e)}")
         rows = table[spec.name] = {}
         for c in emitted:
             row = rows.setdefault(c.kind, [0, 0.0, 0.0])
@@ -2238,10 +2315,10 @@ def frontend_phase(dev, f32_losses, cfg_kw=None, batch: int = 8,
                   f"{res.solver_costs} s; replicated FLOPs "
                   f"{res.replicated_flops_fraction:.4f}; {len(mm)} mm nodes "
                   f"sharded")
-            for axis, rows in table.items():
-                print(f"{tag} axis {axis}: " + "; ".join(
-                    f"{k} x{r[0]}: priced {r[1]:.3f} MB, moved {r[2]:.3f} MB"
-                    for k, r in sorted(rows.items())) + " (per rank, step)")
+            print_table(tag, table)
+            by_producer = gathers_by_producer(res)
+            print(f"{tag}: all_gather MB per rank per step by producer "
+                  f"{producer_text(by_producer)}")
             if res.replicated_on_failure or c["crosscheck_failures"]:
                 raise AssertionError(
                     f"{tag}: replicated on failed discovery "
@@ -2270,8 +2347,11 @@ def frontend_phase(dev, f32_losses, cfg_kw=None, batch: int = 8,
             out[shape] = dict(secs=secs, timings=dict(res.timings),
                               counters=dict(c), costs=res.solver_costs,
                               replicated=res.replicated_flops_fraction,
-                              table=table, sharded_mm=len(mm))
-        out["run"] = run_rank0(dev, res, (state, tokens, targets), cfg)
+                              table=table, sharded_mm=len(mm),
+                              gathers=by_producer)
+        out["run"] = run_rank0(dev, res, (state, tokens, targets),
+                               {name: cfg.layers if on_card else 0
+                                for name in TRAIN_KERNELS})
     finally:
         set_device_mesh(None)
         dist.destroy_process_group()
@@ -2305,47 +2385,293 @@ def frontend_phase(dev, f32_losses, cfg_kw=None, batch: int = 8,
     return out
 
 
-def run_rank0(dev, res, args, cfg):
-    """Phase 9b: rank 0's emitted program once on `dev` (the fake group
-    answers its collectives); returns its launches and peaks."""
+def print_table(tag: str, table):
+    for axis, rows in table.items():
+        print(f"{tag} axis {axis}: " + "; ".join(
+            f"{k} x{r[0]}: priced {r[1]:.3f} MB, moved {r[2]:.3f} MB"
+            for k, r in sorted(rows.items())) + " (per rank, step)")
+
+
+def gathers_by_producer(res):
+    """{target of the node that made the value: MB one rank sends} over
+    the all_gathers of every axis, at the emitted program's shapes."""
+    nodes = {n.name: n for n in res.traced.graph.nodes}
+    sizes = {s.name: s.size for s in res.axis_specs}
+    out = {}
+    for c in res.collectives:
+        if c.kind != "all_gather":
+            continue
+        node = nodes[c.var.split(".")[0]]
+        key = str(node.target) if node.op == "call_function" else node.op
+        out[key] = out.get(key, 0.0) + moved_bytes(
+            c.kind, c.group_bytes, sizes[c.axis]) / 1e6
+    return out
+
+
+def producer_text(by_producer) -> str:
+    total = sum(by_producer.values())
+    return f"{total:.1f} in all: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(by_producer.items(),
+                                          key=lambda kv: -kv[1]))
+
+
+def run_rank0(dev, res, args, expect, coords=None, label="rank 0"):
+    """Phase 9b / 10b: one rank's emitted program once on `dev` (the fake
+    group answers its collectives): rank 0's, or the rank's at mesh
+    `coords`.  Its B1-B3 launches must equal `expect`; returns them, the
+    ring's permutes and the peaks (measured and planned)."""
     from torch.utils import _pytree as pytree
 
     from easydist_tpu_torch.fxfront.bridge import fx_to_metagraph
+    from easydist_tpu_torch.parallel.ring_attention import ring_hop
     from easydist_tpu_torch.schedule import plan_graph_memory
 
     on_card = dev.type == "cuda"
+    program = res.graph_module if coords is None else \
+        res.program_for(coords)[0]
     flat = pytree.tree_leaves((args, {}))
     counters = train_counters()
     if on_card:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-    local = [res.local_shard(x, p).clone()
+    local = [res.local_shard(x, p, coords).clone()
              for x, p in zip(flat, res.in_placements)]
     for c in counters.values():
         c.launches = 0
+    ring_hop.permutes = ring_hop.bytes = 0
     t0 = time.perf_counter()
     with torch.no_grad():
-        outs = res.graph_module(*local)
+        outs = program(*local)
     _sync(dev)
     secs = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
+    hops = (ring_hop.permutes, ring_hop.bytes)
     peak = torch.cuda.max_memory_allocated() - base if on_card else None
-    del outs, local
+    del outs, local, program
     sizes = [s.size for s in res.axis_specs]
     graph = fx_to_metagraph(res.traced, {}, {}, world_size=min(sizes))
     plan = plan_graph_memory(graph, res.strategies, sizes)
-    print(f"frontend rank 0 of {tuple(sizes)} on {dev.type}: one step "
+    print(f"frontend {label} of {tuple(sizes)} on {dev.type}: one step "
           f"{secs:.2f} s (fake group, values meaningless); launches "
-          f"{launches}; peak {peak} B measured (inputs included), planner "
+          f"{launches}; ring permutes {hops[0]} ({hops[1] / 1e6:.3f} MB); "
+          f"peak {peak} B measured (inputs included), planner "
           f"{plan.peak_bytes} B skyline, {plan.peak_live_bytes} B live")
-    expect = cfg.layers if on_card else 0
-    if any(n != expect for n in launches.values()):
-        raise AssertionError(f"rank 0 launched {launches}, expected "
-                             f"{expect} each")
-    return {"secs": secs, "launches": launches, "peak": peak,
+    if launches != expect:
+        raise AssertionError(f"{label} launched {launches}, expected "
+                             f"{expect}")
+    return {"secs": secs, "launches": launches, "permutes": hops[0],
+            "permute_bytes": hops[1], "peak": peak,
             "plan_peak": plan.peak_bytes,
             "plan_live_peak": plan.peak_live_bytes}
+
+
+# ------------------------------------------------ attention across ranks
+
+def attention_picks(res):
+    """Per mesh axis, {pick: count} over the attention composite's nodes:
+    "R", "S(d)", or "S(2):ring" / "S(2):ulysses"."""
+    out = []
+    for spec, chosen in zip(res.axis_specs, res.strategies):
+        counts = {}
+        for name, s in chosen.items():
+            if "ed_attention" not in name:
+                continue
+            meta = getattr(s, "meta", None) or {}
+            pick = "R" if s.is_all_replicate() else \
+                f"S({s.out_placements[0].dim})" + (
+                    f":{meta['variant']}" if meta.get("variant") else "")
+            counts[pick] = counts.get(pick, 0) + 1
+        out.append((spec.name, counts))
+    return out
+
+
+def pin_qkv(step, axis: str):
+    """`step` with block 0's qkv weight pinned column-sharded on `axis`
+    (`fix_sharding(w, None, axis)`), inside the step."""
+    from easydist_tpu_torch.fxfront import fix_sharding
+
+    def pinned(state, tokens, targets):
+        params, opt = state
+        blk = params["blocks"][0]
+        qkv = {**blk["attn"]["qkv"],
+               "w": fix_sharding(blk["attn"]["qkv"]["w"], None, axis)}
+        blocks = [{**blk, "attn": {**blk["attn"], "qkv": qkv}},
+                  *params["blocks"][1:]]
+        return step(({**params, "blocks": blocks}, opt), tokens, targets)
+
+    return pinned
+
+
+def compile_report(tag, step, args, mesh):
+    """Compile `step` on `mesh` (compile_only), gate emitted == priced,
+    print the stages, picks, tables and all_gathers by producer."""
+    from easydist_tpu_torch.fxfront import easydist_compile
+
+    t0 = time.perf_counter()
+    res = easydist_compile(step, mesh=mesh, compile_only=True)(*args)
+    secs = time.perf_counter() - t0
+    table = check_priced(res, tag)
+    picks = attention_picks(res)
+    gathers = gathers_by_producer(res)
+    print(f"{tag}: compile {secs:.2f} s (trace {res.timings['trace']:.2f}, "
+          f"discovery {res.timings['discovery']:.2f}, solve "
+          f"{res.timings['solve']:.2f}, emit {res.timings['emit']:.2f}); "
+          f"attention picks {picks}; solver comm cost per axis "
+          f"{res.solver_costs} s; replicated FLOPs "
+          f"{res.replicated_flops_fraction:.4f}")
+    print_table(tag, table)
+    print(f"{tag}: all_gather MB per rank per step by producer "
+          f"{producer_text(gathers)}")
+    if res.replicated_on_failure:
+        raise AssertionError(f"{tag}: replicated on failed discovery "
+                             f"{res.replicated_on_failure[:3]}")
+    return res, dict(secs=secs, timings=dict(res.timings), picks=picks,
+                     table=table, gathers=gathers,
+                     costs=res.solver_costs)
+
+
+def attention_phase(dev, flash_out, cfg_kw=None, long_kw=None,
+                    batch: int = 8, seed: int = 0, world: int = 8,
+                    meshes=FRONTEND_MESHES):
+    """Phase 10: the attention composite (GPTConfig(attention="auto"))
+    across ranks, against torch's fake group of `world` (structure only).
+
+    (a) Phase 9's f32 step with attention="auto" on its meshes, after
+    `profile_ops` timed its nodes: the pick of every attention node, the
+    all_gather MB per rank per step by producer beside phase 9's
+    (`flash_out`, flash kernels replicated), emitted equal to priced.  A
+    `fix_sharding` pin on block 0's qkv weight, column on "tp", on the
+    last mesh: the pin's strategy is the pinned one on every axis, and
+    the collectives emitted around it are those priced with it.
+    (b) GPT-2 small's widths at seq 8192, batch 1 on an (8,) "sp" mesh:
+    neither batch 1 nor 12 heads divides 8, so every attention node must
+    pick the seq strategy, ring (Ulysses needs heads % 8 == 0); emitted
+    equal to priced, permutes included; rank 0's program, then rank
+    n-1's, run once on `dev`: B1-B3 on [1, 12, T/8, 64] blocks, launches
+    equal to the derived counts, the ring's permutes equal to the
+    emitted ones.  The arguments shrink it for a rehearsal on the CPU."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from easydist_tpu_torch import config as edconfig
+    from easydist_tpu_torch.fxfront import make_device_mesh, set_device_mesh
+    from easydist_tpu_torch.models.gpt import GPTConfig, make_gpt_train_step
+    from easydist_tpu_torch.runtime.op_profile import profile_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = dev.type == "cuda"
+    base = dict(vocab=50304, seq=1024, dim=768, heads=12, layers=12,
+                attention="auto")
+
+    def fresh(cfg, b):
+        rs = np.random.RandomState(seed + 1)
+        tokens = torch.as_tensor(rs.randint(0, cfg.vocab, (b, cfg.seq)),
+                                 device=dev)
+        targets = torch.as_tensor(rs.randint(0, cfg.vocab, (b, cfg.seq)),
+                                  device=dev)
+        step_, init_ = make_gpt_train_step(cfg, lr=1e-4)
+        state_ = init_(torch.Generator(device=dev).manual_seed(seed),
+                       device=dev)
+        return step_, (state_, tokens, targets)
+
+    saved = (edconfig.discovery_device, edconfig.prof_db_path)
+    edconfig.discovery_device = dev.type
+    edconfig.prof_db_path = os.path.join(".easydist_cache", "perf.db")
+    out = {}
+    cfg = GPTConfig(**{**base, **(cfg_kw or {})})
+    step, args = fresh(cfg, batch)
+    t0 = time.perf_counter()
+    times = profile_ops(step, *args, trials=3)
+    print(f"attention (a) profile_ops: {len(times)} signatures in "
+          f"{time.perf_counter() - t0:.2f} s")
+    dist.init_process_group("fake", rank=0, world_size=world,
+                            store=FakeStore())
+    try:
+        for shape, names in meshes:
+            mesh = make_device_mesh(shape, names, device_type=dev.type)
+            tag = f"attention (a) {shape}"
+            res, out[shape] = compile_report(tag, step, args, mesh)
+            flash = flash_out[shape]["gathers"]
+            print(f"{tag}: all_gather MB per rank per step, auto "
+                  f"{sum(out[shape]['gathers'].values()):.1f} against "
+                  f"phase 9's flash (kernels replicated) "
+                  f"{sum(flash.values()):.1f} ({producer_text(flash)})")
+        # the pin, on the last mesh
+        shape, names = meshes[-1]
+        axis = names[-1]
+        tag = f"attention (a) {shape} pinned"
+        pinned, out["pinned"] = compile_report(tag, pin_qkv(step, axis),
+                                               args, mesh)
+        pin = [(spec.name, [repr(s.out_placements[0])
+                            for n, s in chosen.items()
+                            if n.startswith("fix_sharding")])
+               for spec, chosen in zip(pinned.axis_specs,
+                                       pinned.strategies)]
+        want = [(spec.name, ["S(1)" if spec.name == axis else "R"])
+                for spec in pinned.axis_specs]
+
+        def on_axis(r):
+            return sorted((c.kind, c.var) for c in r.collectives
+                          if c.axis == axis)
+        changed = on_axis(pinned) != on_axis(res)
+        at_pin = [(c.axis, c.kind, c.var) for c in pinned.collectives
+                  if c.var.startswith("fix_sharding")]
+        print(f"{tag}: the pin's strategy per axis {pin} (want {want}); "
+              f"emitted equal to priced with the pin; {axis} collectives "
+              f"differ from the unpinned compile's: {changed}; "
+              f"collectives of the pinned value {at_pin}")
+        if pin != want:
+            raise AssertionError(f"{tag}: the pin did not hold")
+        out["pinned"]["pin"] = pin
+        del res, pinned
+    finally:
+        set_device_mesh(None)
+        dist.destroy_process_group()
+    del step, args
+
+    # (b) long context
+    cfg = GPTConfig(**{**base, "seq": 8192, **(long_kw or {})})
+    step, args = fresh(cfg, 1)
+    dist.init_process_group("fake", rank=0, world_size=world,
+                            store=FakeStore())
+    try:
+        mesh = make_device_mesh((world,), ("sp",), device_type=dev.type)
+        tag = f"attention (b) ({world},) seq {cfg.seq}"
+        res, out["long"] = compile_report(tag, step, args, mesh)
+        picks = out["long"]["picks"][0][1]
+        if picks != {"S(2):ring": 2 * cfg.layers}:
+            raise AssertionError(f"{tag}: picks {picks}, want every "
+                                 f"attention node on the ring")
+        permutes = out["long"]["table"]["sp"]["ppermute"][0]
+        if permutes != 6 * (world - 1) * cfg.layers:
+            raise AssertionError(f"{tag}: {permutes} permutes emitted")
+        runs = {}
+        for r in (0, world - 1):
+            # causal: rank r computes blocks 0..r; its backward recomputes
+            # the forward, then B2 and B3 once a block
+            expect = ({"flash_fwd": 2 * cfg.layers * (r + 1),
+                       "flash_bwd_dq": cfg.layers * (r + 1),
+                       "flash_bwd_dkv": cfg.layers * (r + 1)} if on_card
+                      else {name: 0 for name in TRAIN_KERNELS})
+            runs[r] = run_rank0(dev, res, args, expect,
+                                coords=None if r == 0 else [r],
+                                label=f"rank {r}")
+            if runs[r]["permutes"] != permutes:
+                raise AssertionError(f"rank {r} permuted "
+                                     f"{runs[r]['permutes']} times, "
+                                     f"{permutes} emitted")
+        out["long"]["runs"] = runs
+        del res
+    finally:
+        set_device_mesh(None)
+        dist.destroy_process_group()
+        edconfig.discovery_device, edconfig.prof_db_path = saved
+    del step, args
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -2370,7 +2696,10 @@ def main() -> int:
         e["launches_bf16"] = bf16_launches[e["name"]]
     torch.cuda.empty_cache()
     sharding_phase(dev)
-    frontend_phase(dev, f32_losses)
+    flash_out = frontend_phase(dev, f32_losses)
+    ring = attention_phase(dev, flash_out)["long"]["runs"][0]["launches"]
+    for e in train_entries:
+        e["launches_ring_rank0"] = ring[e["name"]]
     print(card_line())
     print(json.dumps({"kernels": [entry, *paged_entries, *train_entries]}))
     print(json.dumps({"ok": True, "device": {

@@ -157,13 +157,39 @@ class CompileResult:
         self.replicated_flops_fraction = 0.0
 
     # ----------------------------------------------------- mesh plumbing
+    def program_for(self, coords):
+        """(GraphModule, [Collective]): the program the rank at mesh
+        coordinates `coords` runs, emitted from the solved strategies.
+        `graph_module` is this rank's; another rank's is for inspection
+        (its collectives run on this process's groups)."""
+        from .emit import emit_sharded_fn
+
+        specs = self.axis_specs
+        mesh_info = {"names": [s.name for s in specs],
+                     "sizes": [s.size for s in specs],
+                     "coords": list(coords),
+                     "groups": [self.mesh.get_group(i).group_name
+                                for i in range(len(specs))],
+                     "order": _axis_solve_order(specs)}
+        priced_sizes = [
+            {v.name: v.size_bytes() for node in g.all_nodes()
+             for v in node.outvars if v is not None} if g is not None
+            else {} for g in (self.graphs or [None] * len(specs))]
+        out_targets = {o: self.in_placements[i]
+                       for o, i in self.state_pairs.items()}
+        return emit_sharded_fn(self.traced, self.strategies, mesh_info,
+                               out_targets, priced_sizes)
+
     def _mesh_layout(self):
         return ([s.size for s in self.axis_specs],
                 list(self.mesh.get_coordinate()))
 
-    def local_shard(self, x: torch.Tensor, placements) -> torch.Tensor:
-        """This rank's shard of the whole tensor `x` under `placements`."""
-        sizes, coords = self._mesh_layout()
+    def local_shard(self, x: torch.Tensor, placements,
+                    coords=None) -> torch.Tensor:
+        """This rank's shard of the whole tensor `x` under `placements`
+        (the shard of the rank at mesh `coords`, when given)."""
+        sizes, here = self._mesh_layout()
+        coords = here if coords is None else coords
         for p, n, c in zip(placements, sizes, coords):
             if p.is_shard():
                 step = x.shape[p.dim] // n
@@ -259,7 +285,9 @@ class CompileResult:
         return pytree.tree_unflatten(out, tree)
 
 
-def _trace(func, args, kwargs):
+def _trace(func, args, kwargs, mesh=None):
+    from .scope import _compile_mesh_ctx
+
     flat, in_spec = pytree.tree_flatten((args, kwargs))
     traced = {}
 
@@ -270,25 +298,29 @@ def _trace(func, args, kwargs):
         traced["out"] = out
         return out_flat
 
-    with torch.no_grad():
+    # a `fix_sharding` inside the step targets the mesh being compiled
+    with torch.no_grad(), _compile_mesh_ctx(
+            mesh if _is_device_mesh(mesh) else None):
         gm = make_fx(flat_fn, tracing_mode="fake")(*flat)
     return gm, in_spec, traced["spec"], traced["out"]
 
 
 def compile_step(func, args, kwargs, mesh=None, state_io="auto",
-                 donate_state: bool = True) -> CompileResult:
+                 donate_state: bool = True,
+                 axis_specs=None) -> CompileResult:
     """Trace `func(*args, **kwargs)` with `make_fx` over fake tensors, pair
     its state (`infer_state_io`, or `state_io` {flat out: flat in}) and,
-    on a mesh of more than one rank, discover, solve and emit."""
+    on a mesh of more than one rank, discover, solve (over `axis_specs`,
+    default the mesh's) and emit."""
     t0 = time.perf_counter()
-    gm, in_spec, out_spec, out = _trace(func, args, kwargs)
+    gm, in_spec, out_spec, out = _trace(func, args, kwargs, mesh)
     trace_s = time.perf_counter() - t0
     pairs = (infer_state_io(args, out) if state_io == "auto"
              else {int(o): int(i) for o, i in state_io.items()})
     result = CompileResult(gm, in_spec, out_spec, pairs, donate_state, mesh)
     result.timings["trace"] = trace_s
     if _mesh_ranks(mesh) > 1:
-        _compile_on_mesh(result)
+        _compile_on_mesh(result, axis_specs)
     return result
 
 
@@ -313,12 +345,58 @@ def _shards_dim_twice(s: NodeStrategy, taken_in, taken_out) -> bool:
     return False
 
 
+def _apply_user_pins(graph, gm, axis, prev=()) -> None:
+    """Restrict each `fix_sharding` node's pool to the user's placement on
+    this axis (reference jaxfront/api.py:573-604): a pin that names the
+    axis on a dim becomes S(dim), one that does not becomes R.  A pin
+    that cannot be realised here (the dim does not divide by the axis, or
+    an earlier-solved axis already shards it) leaves the node free.
+    Without this the solver would treat the pin as a free identity and
+    pick a layout the user did not ask for."""
+    from .scope import pinned_axes
+
+    node_by_name = {n.name: n for n in graph.ops}
+    for fx_node in gm.graph.nodes:
+        axes = pinned_axes(fx_node)
+        node = node_by_name.get(fx_node.name)
+        if axes is None or node is None or not node.outvars:
+            continue
+        dims = [d for d, names in enumerate(axes) if axis.name in names]
+        if not dims:
+            node.pinned = node.replicate_strategy()
+            continue
+        dim = dims[-1]
+        shape = node.outvars[0].shape
+        taken = any(s is not None and any(
+            p is not None and p.is_shard() and p.dim == dim
+            for p in s.out_placements)
+            for s in (chosen.get(node.name) for chosen in prev))
+        if dim >= len(shape) or shape[dim] % axis.size != 0 or taken:
+            continue
+        node.pinned = NodeStrategy([Placement.shard(dim)],
+                                   [Placement.shard(dim)])
+
+
+def _earlier_out(chosen, node, pos) -> Optional[Placement]:
+    """The placement an earlier axis's `chosen` gave the producer of
+    `node`'s input `pos`, or None."""
+    var = node.invars[pos] if pos < len(node.invars) else None
+    if var is None or var.producer is None:
+        return None
+    s = chosen.get(var.producer.name)
+    if s is None or var.producer_idx >= len(s.out_placements):
+        return None
+    return s.out_placements[var.producer_idx]
+
+
 def solve_axes(gm, axis_specs, world, rules, shape_info, names,
                state_io_names=None):
     """The per-axis sequential solve (reference compile_auto.py:128-173):
     strategies chosen on earlier axes are excluded from later pools, and
     so is any strategy that would shard a tensor dim an earlier axis
-    already shards (emission keeps one layout per dim); sharded shapes
+    already shards (emission keeps one layout per dim), or take an input
+    on the dim an earlier axis moves it off (the two axes would trade
+    dims, which emission does only through R, unpriced); sharded shapes
     are pre-shrunk.  Returns (per_axis strategies, per-axis MetaGraphs,
     per-axis solvers), in mesh order; a size-1 axis gets {} and None."""
     from easydist_tpu_torch.autoflow import SpmdSolver
@@ -342,6 +420,7 @@ def solve_axes(gm, axis_specs, world, rules, shape_info, names,
                                 state_io=state_io_names or {})
         if edconfig.enable_partial_pools:
             _inject_partial_propagation(graph, axis.size)
+        _apply_user_pins(graph, gm, axis, prev)
 
         def exclude_map(node, _prev=tuple(prev), _size=axis.size):
             out = []
@@ -357,6 +436,14 @@ def solve_axes(gm, axis_specs, world, rules, shape_info, names,
                 for pos, p in enumerate(s.in_placements):
                     if p is not None and p.is_shard():
                         taken_in.setdefault(pos, set()).add(p.dim)
+                        # an earlier axis moving this input S(i) -> S(j)
+                        # keeps this axis off dim i here: with this axis
+                        # making S(j) -> S(i) the two would trade dims,
+                        # which emission can only do through R
+                        up = _earlier_out(chosen, node, pos)
+                        if up is not None and up.is_shard() \
+                                and up.dim != p.dim:
+                            taken_in[pos].add(up.dim)
                 for pos, p in enumerate(s.out_placements):
                     if p is not None and p.is_shard():
                         taken_out.setdefault(pos, set()).add(p.dim)
@@ -412,7 +499,10 @@ def _edge_kind(up: Placement, down: Placement) -> Optional[str]:
 def priced_collectives(solver, chosen) -> List[Tuple[str, str, float]]:
     """(kind, value name, value bytes) of every collective the solver
     priced for `chosen`: its inter-cluster and state edges at the picked
-    strategies, and each non-state graph output handed back replicated."""
+    strategies, each non-state graph output handed back replicated, and
+    the ring permutes or Ulysses all_to_alls inside an attention node on
+    its seq strategy (its intrinsic cost, counted by
+    `seq_collectives`' byte formulas at the node's q)."""
     graph = solver.graph
     pick: Dict[int, int] = {}
     for c in solver.clusters:
@@ -437,6 +527,24 @@ def priced_collectives(solver, chosen) -> List[Tuple[str, str, float]]:
                           Placement.replicate())
         if kind:
             out.append((kind, var.name, var.size_bytes()))
+    out += _intrinsic_collectives(graph, chosen, solver.axis.size)
+    return out
+
+
+def _intrinsic_collectives(graph, chosen, n: int):
+    from easydist_tpu_torch.ops.attention_prim import (seq_collectives,
+                                                       seq_variant)
+
+    out = []
+    for node in graph.ops:
+        meta = getattr(chosen.get(node.name), "meta", None)
+        if not meta or not meta.get("variant"):
+            continue
+        q = node.invars[0]
+        variant = seq_variant(meta["variant"], q.shape[1], n)
+        for kind, nbytes in seq_collectives(
+                q.size_bytes(), n, node.op_key.endswith("bwd"), variant):
+            out.append((kind, q.name, nbytes))
     return out
 
 
@@ -478,7 +586,7 @@ def _compile_cache_key(gm, axis_specs) -> str:
     from .interpreter import node_signature
 
     h = hashlib.sha256()
-    h.update(("fx-v1|" + "|".join(
+    h.update(("fx-v2|" + "|".join(
         f"{k}={getattr(edconfig, k)}" for k in
         ("nvlink_bandwidth", "ib_bandwidth", "nvlink_latency", "ib_latency",
          "hbm_bandwidth", "peak_flops", "all_to_all_punish_factor",
@@ -562,15 +670,15 @@ def _agree_across_ranks(per_axis):
     return box[0]
 
 
-def _compile_on_mesh(result: CompileResult) -> None:
+def _compile_on_mesh(result: CompileResult, axis_specs=None) -> None:
     """Discovery, the per-axis solve and emission of `result.traced` over
-    `result.mesh`, filling the result's mesh fields."""
-    from .emit import emit_sharded_fn
+    `result.mesh` (its axes `axis_specs`, default the mesh's), filling the
+    result's mesh fields."""
     from .interpreter import ShardingAnalyzer, VarNames
     from .mesh import get_axis_specs
 
     gm, mesh = result.traced, result.mesh
-    axis_specs = result.axis_specs = get_axis_specs(mesh)
+    axis_specs = result.axis_specs = list(axis_specs or get_axis_specs(mesh))
     names = VarNames()
     placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
     out_leaves = pytree.tree_leaves(gm.graph.output_node().args)
@@ -620,20 +728,8 @@ def _compile_on_mesh(result: CompileResult) -> None:
         [c[n.name].out_placements[0] if n.name in c else rep
          for c in per_axis] for n in placeholders]
     t0 = time.perf_counter()
-    mesh_info = {"names": [s.name for s in axis_specs],
-                 "sizes": [s.size for s in axis_specs],
-                 "coords": list(mesh.get_coordinate()),
-                 "groups": [mesh.get_group(i).group_name
-                            for i in range(len(axis_specs))],
-                 "order": _axis_solve_order(axis_specs)}
-    priced_sizes = [
-        {v.name: v.size_bytes() for node in g.all_nodes()
-         for v in node.outvars if v is not None} if g is not None else {}
-        for g in (result.graphs or [None] * len(axis_specs))]
-    out_targets = {o: result.in_placements[i]
-                   for o, i in result.state_pairs.items()}
-    result.graph_module, result.collectives = emit_sharded_fn(
-        gm, per_axis, mesh_info, out_targets, priced_sizes)
+    result.graph_module, result.collectives = result.program_for(
+        list(mesh.get_coordinate()))
     result.timings["emit"] = time.perf_counter() - t0
 
 
@@ -701,9 +797,16 @@ class CompiledFunction:
         return result.tree_jitted(*args, **kwargs)
 
 
+_PIPELINE_ARGS = ("pp_stages", "n_microbatches", "pp_axis", "schedule",
+                  "lr", "optimizer", "tp_axes")
+
+
 def easydist_compile(func=None, mesh=None, state_io="auto",
                      donate_state: Optional[bool] = None,
-                     compile_only: bool = False):
+                     compile_only: bool = False,
+                     max_solver_time: Optional[float] = None,
+                     liveness_only_input: Optional[bool] = None,
+                     **pipeline):
     """Decorator entry point: `easydist_compile(fn)`, `@easydist_compile`,
     `@easydist_compile()` or `easydist_compile(step, mesh=mesh)`.
 
@@ -714,10 +817,28 @@ def easydist_compile(func=None, mesh=None, state_io="auto",
     output index: flat input index} pairs explicitly.  `donate_state`
     (default True) writes paired outputs into their inputs (on a mesh:
     into DTensor inputs' shards); False returns new tensors.
-    `compile_only` returns the CompileResult instead of running.  The JAX
-    package's pipeline and solver arguments belong to slices not ported
-    yet."""
+    `compile_only` returns the CompileResult instead of running.
+    `max_solver_time` (seconds) and `liveness_only_input` set the
+    solver's knobs (`config.solver_time_limit`, `config.liveness_only_input`)
+    as the JAX package does.  The JAX package's pipeline arguments
+    (`pp_stages`, `n_microbatches`, `pp_axis`, `schedule`, `lr`,
+    `optimizer`, `tp_axes`) raise NotImplementedError: the hybrid
+    pipeline is not ported yet (ROADMAP queue A item 6b)."""
     from .mesh import get_device_mesh
+
+    unknown = sorted(set(pipeline) - set(_PIPELINE_ARGS))
+    if unknown:
+        raise TypeError(f"easydist_compile got unexpected arguments "
+                        f"{unknown}")
+    if pipeline:
+        raise NotImplementedError(
+            f"easydist_compile({', '.join(sorted(pipeline))}=...): the "
+            f"pipeline-parallel compile is not ported yet (ROADMAP queue A "
+            f"item 6b)")
+    if max_solver_time is not None:
+        edconfig.solver_time_limit = max_solver_time
+    if liveness_only_input is not None:
+        edconfig.liveness_only_input = liveness_only_input
 
     if not (state_io == "auto" or isinstance(state_io, dict)):
         raise ValueError(f"state_io must be 'auto' or a dict {{flat output "

@@ -9,7 +9,10 @@ read the producer's i-th outvar directly.  Constant tensors (`get_attr`)
 are inputs that stay replicated.
 
 `var_shapes` lets the frontend pre-shrink shapes already sharded on
-earlier-solved mesh axes.
+earlier-solved mesh axes.  A preset's explicit "strategies" (the
+attention composite's) become the node's whole pool, with their
+intrinsic and compute seconds and emission meta; its "compute" is the
+node's full compute proxy.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import torch
 from torch.utils import _pytree as pytree
 
 from easydist_tpu_torch.metashard import ShardSpace, view_rule
-from easydist_tpu_torch.metashard.metair import MetaGraph, MetaNode, MetaVar
+from easydist_tpu_torch.metashard.metair import (MetaGraph, MetaNode, MetaVar,
+                                                 NodeStrategy)
 from .interpreter import (VarNames, node_signature, node_tensor_inputs,
                           target_name)
 
@@ -43,6 +47,22 @@ def node_flops(node) -> float:
 
 def _dtype(val) -> str:
     return str(val.dtype).removeprefix("torch.")
+
+
+def _explicit(strategies):
+    """A preset's whole-node strategies, (ins, outs, intrinsic cost[,
+    compute seconds[, emission meta]]) each, as NodeStrategies (reference
+    jaxfront/bridge.py:140-153)."""
+    out = []
+    for ins, outs, cost, *rest in strategies:
+        s = NodeStrategy(ins, outs)
+        s.intrinsic_cost = float(cost)
+        if rest and rest[0] is not None:
+            s.compute_cost = float(rest[0])
+        if len(rest) > 1 and rest[1]:
+            s.meta = dict(rest[1])
+        out.append(s)
+    return out
 
 
 def fx_to_metagraph(gm: torch.fx.GraphModule, rules: Dict[str, dict],
@@ -101,6 +121,10 @@ def fx_to_metagraph(gm: torch.fx.GraphModule, rules: Dict[str, dict],
                              recombines=rule["recombines"], sig=sig)
             if node.target in _MATMULS:
                 mnode.flops = node_flops(node)
+            if rule.get("compute") is not None:
+                mnode.compute_proxy = float(rule["compute"])
+            if rule.get("strategies") is not None:
+                mnode.explicit_strategies = _explicit(rule["strategies"])
             graph.add_op(mnode)
         elif node.op == "output":
             for a in pytree.tree_leaves(node.args):

@@ -20,7 +20,13 @@ over functional collectives (`torch.ops._c10d_functional`):
   * a P-placed chain simply runs locally and is fenced by the collective
     the solver chose (no counterpart of jaxfront/partial_regions.py);
   * a paired state output is resharded back to its input's placement,
-    every other output to R.
+    every other output to R;
+  * an attention composite node (`ed_attention_fwd` / `_bwd`) on its seq
+    strategy becomes the ring or Ulysses program on the axis's group
+    (the variant in the strategy's meta, Ulysses re-checked against the
+    rank's heads; reference jaxfront/api.py:89-133), the backward the
+    vjp of the same program; its permutes / all_to_alls are recorded as
+    the collectives of that node.
 
 A tensor dim is never sharded on two axes at once (the frontend's solve
 excludes such strategies), so one layout per dim holds throughout.
@@ -43,12 +49,18 @@ from torch.utils import _pytree as pytree
 
 from easydist_tpu_torch.metashard.combination import Reduction
 from easydist_tpu_torch.metashard.metair import Placement
+# registers the attention composite's custom ops named below
+import easydist_tpu_torch.ops.attention_prim  # noqa: F401
 from .interpreter import VarNames, _is_tensor_node, node_tensor_inputs
 
 aten = torch.ops.aten
 _c10d = torch.ops._c10d_functional
 
 _R = Placement.replicate()
+
+_ATTENTION_BWD = torch.ops.easydist_tpu_torch.ed_attention_bwd.default
+_ATTENTION = {torch.ops.easydist_tpu_torch.ed_attention_fwd.default,
+              _ATTENTION_BWD}
 
 # (argument index, targets) of the shape-carrying arguments
 _SHAPE_ARG = {
@@ -65,10 +77,14 @@ class Collective:
     """One collective the emitter inserted."""
 
     axis: str
-    kind: str  # all_gather | all_reduce | reduce_scatter | all_to_all
+    # all_gather | all_reduce | reduce_scatter | all_to_all | ppermute
+    kind: str
     var: str
-    group_bytes: float  # bytes of the value across the axis's group
-    priced_bytes: float  # bytes the solver's axis graph gave the value
+    # bytes of the value across the axis's group (a ppermute: the bytes
+    # each rank sends)
+    group_bytes: float
+    # the same on the solver's axis graph
+    priced_bytes: float
 
 
 # --------------------------------------------------- local helper ops
@@ -299,10 +315,68 @@ class _Emitter:
             return names.name(src, idx)
         return names.name(fx_node)
 
+    def _seq_axis(self, node):
+        """(axis, variant) where `node` runs the attention composite's seq
+        strategy, else None."""
+        if node.target not in _ATTENTION:
+            return None
+        for a in range(len(self.names)):
+            meta = getattr(self._strategy(a, node.name), "meta", None)
+            if meta and meta.get("variant"):
+                return a, meta["variant"]
+        return None
+
+    def _emit_seq_attention(self, node, names, tensors, a, variant):
+        """The ring / Ulysses program of an attention node seq-sharded on
+        axis `a`, on this rank's shards `tensors`."""
+        from easydist_tpu_torch.ops.attention_prim import (seq_collectives,
+                                                           seq_variant)
+        from easydist_tpu_torch.parallel.ring_attention import (
+            ring_attention_local, ring_attention_local_vjp)
+        from easydist_tpu_torch.parallel.ulysses import (
+            ulysses_attention_local, ulysses_attention_local_vjp)
+
+        n, group, idx = self.sizes[a], self.groups[a], self.coords[a]
+        causal, scale = node.args[-2], node.args[-1]
+        q_node = node_tensor_inputs(node)[0]
+        q = q_node.meta["val"]
+        local = local_shape(q.shape, self._in_placements(node.name, 0),
+                            self.sizes)
+        variant = seq_variant(variant, local[1], n)
+        backward = node.target is _ATTENTION_BWD
+        if variant == "ring":
+            fn = ring_attention_local_vjp if backward \
+                else ring_attention_local
+            args = (*tensors, group, n, idx, causal, scale)
+        else:
+            fn = ulysses_attention_local_vjp if backward \
+                else ulysses_attention_local
+            args = (*tensors, group, n, causal, scale)
+        var = self._var_name(q_node, names)
+        moved = math.prod(local) * q.element_size() * n
+        priced = self.priced_sizes[a].get(var, float("nan"))
+        for (kind, nbytes), (_, pbytes) in zip(
+                seq_collectives(moved, n, backward, variant),
+                seq_collectives(priced, n, backward, variant)):
+            self.collectives.append(Collective(self.names[a], kind, var,
+                                               float(nbytes), float(pbytes)))
+        return self.graph.call_function(fn, args)
+
     def _emit_call(self, node, names):
         mapped = iter([self._input(a, self._var_name(a, names), pos,
                                    node.name)
                        for pos, a in enumerate(node_tensor_inputs(node))])
+        seq = self._seq_axis(node)
+        if seq is not None:
+            new = self._emit_seq_attention(node, names, list(mapped), *seq)
+            val = node.meta.get("val")
+            self.env[node.name] = (
+                new, self._out_placements(node.name, 0)
+                if isinstance(val, torch.Tensor) else
+                [self._out_placements(node.name, i) for i in range(len(val))],
+                val)
+            new.meta["orig"] = node.name
+            return
         leaves, spec = pytree.tree_flatten((tuple(node.args),
                                             dict(node.kwargs)))
         new_leaves = []

@@ -22,7 +22,10 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-# registers the kernels' custom ops, which the presets below name
+# register the custom ops the presets below name: the kernels', the
+# attention composite's and the sharding pin's
+import easydist_tpu_torch.fxfront.scope  # noqa: F401
+import easydist_tpu_torch.ops.attention_prim  # noqa: F401
 import easydist_tpu_torch.ops.flash_attention  # noqa: F401
 from easydist_tpu_torch.metashard.annotation import DimSharding, ShardSpace
 from easydist_tpu_torch.metashard.combination import Recombine, Reduction
@@ -540,6 +543,59 @@ def _create_rule(node, world_size):
     return _replicated(node)
 
 
+@register_preset(aten.bernoulli, aten.bernoulli_, aten.rand, aten.rand_like,
+                 aten.randn, aten.randn_like, aten.randint,
+                 aten.randint_like, aten.randperm, aten.native_dropout,
+                 aten.normal, aten.uniform, aten.uniform_, aten.normal_)
+def _random_rule(node, world_size):
+    """Random draws stay REPLICATED: every rank draws the whole tensor from
+    a generator in the same state, in the one-device program's order, so
+    the values equal the one-device draw and a consumer that wants a
+    shard slices it locally.  A draw of the shard alone would give each
+    rank other numbers (a generator's stream is sequential)."""
+    return _replicated(node)
+
+
+# ------------------------------------------------- torch's own attention
+
+@register_preset(aten._scaled_dot_product_flash_attention_for_cpu,
+                 aten._scaled_dot_product_flash_attention_for_cpu_backward)
+def _sdpa_rule(node, world_size):
+    """The CPU SDPA forward ((out, logsumexp) of q, k, v) and backward
+    ((dq, dk, dv)): batch and head dims shard every tensor input and
+    output together.  A probe would shard some inputs and not others,
+    and the CPU kernels read such inconsistent shapes past their
+    buffers, so the rule is analytic."""
+    avals = _inputs(node)
+    if any(a.ndim < 3 for a in avals):
+        return None
+    b, h = avals[0].shape[:2]
+    table = _rows(avals)
+    recombines, g = {}, 1
+    n_out = len(_out(node))
+    for d, size in ((0, b), (1, h)):
+        if size == 1:
+            continue
+        for row, a in zip(table, avals):
+            if a.ndim > d and a.shape[d] == size:
+                row[d] = DimSharding(group=g)
+        recombines[g] = [_concat(d)] * n_out
+        g += 1
+    return {"space": ShardSpace(table), "recombines": recombines}
+
+
+@register_preset(aten._scaled_dot_product_efficient_attention,
+                 aten._scaled_dot_product_efficient_attention_backward,
+                 aten._scaled_dot_product_flash_attention,
+                 aten._scaled_dot_product_flash_attention_backward,
+                 aten._scaled_dot_product_cudnn_attention,
+                 aten._scaled_dot_product_cudnn_attention_backward)
+def _sdpa_card_rule(node, world_size):
+    """The card's SDPA ops also return RNG seeds and sizes beside the
+    tensors: they stay replicated, and no probe runs them."""
+    return _replicated(node)
+
+
 # ------------------------------------------------------ the port's kernels
 
 @register_preset(torch.ops.easydist_tpu_torch.flash_fwd,
@@ -552,3 +608,85 @@ def _kernel_rule(node, world_size):
     batch/head/sequence strategies, which come with the attention
     composite of the parallel modes."""
     return _replicated(node)
+
+
+# ------------------------------------------------------- the sharding pin
+
+@register_preset(torch.ops.easydist_tpu_torch.fix_sharding)
+def _fix_sharding_rule(node, world_size):
+    """A `fix_sharding` pin passes through the solver as a freely
+    shardable identity; the frontend restricts its pool to the pinned
+    placement per axis (`api._apply_user_pins`)."""
+    (a,) = _inputs(node)
+    row = [DimSharding() for _ in range(a.ndim)]
+    live = [d for d in range(a.ndim) if a.shape[d] != 1]
+    for g, d in enumerate(live, start=1):
+        row[d] = DimSharding(group=g)
+    return {"space": ShardSpace([row]),
+            "recombines": {g: _concat(d) for g, d in enumerate(live, start=1)}}
+
+
+@register_preset(torch.ops.easydist_tpu_torch.scoped_call)
+def _scoped_call_rule(node, world_size):
+    """A `scoped_region` is solved on its own mesh: in the outer solve its
+    operands and results are replicated (no probe runs the region)."""
+    return _replicated(node)
+
+
+# ---------------------------------------------------- attention composite
+
+def _attention_strategies(node, world_size, backward):
+    """Explicit strategy pool of `ed_attention_fwd` / `_bwd` (the port of
+    jaxfront/presets.py:733-795).  Rows: fwd (q, k, v) / bwd (q, k, v,
+    dout), all [b, h, t, d].  Batch and head sharding are
+    communication-free; sequence sharding is priced as the cheaper of
+    ring and Ulysses as its intrinsic cost, the winner in the strategy's
+    meta for emission."""
+    from easydist_tpu_torch import config as edconfig
+    from easydist_tpu_torch.metashard.metair import Placement
+    from easydist_tpu_torch.ops.attention_prim import seq_strategy_costs
+
+    q = _inputs(node)[0]
+    b, h, t, d = q.shape
+    n_in = 4 if backward else 3
+    n_out = 3 if backward else 1
+    dtype_bytes = q.element_size()
+
+    def strat(dim):
+        return ([Placement.shard(dim)] * n_in, [Placement.shard(dim)] * n_out)
+
+    # tensor-core bound compute proxy: two products of 2 b h t^2 d FLOPs
+    # (the backward does ~2.5x)
+    flops = 4.0 * b * h * float(t) * t * d * (2.5 if backward else 1.0)
+    full_compute = flops / edconfig.peak_flops
+    shard_compute = full_compute / world_size
+
+    strategies = []
+    if b % world_size == 0:
+        strategies.append((*strat(0), 0.0, shard_compute, None))
+    if h % world_size == 0:
+        strategies.append((*strat(1), 0.0, shard_compute, None))
+    if t % world_size == 0 and world_size > 1:
+        ring, ulysses = seq_strategy_costs((b, h, t, d), dtype_bytes,
+                                           world_size, backward)
+        # Ulysses needs head divisibility for its head-sharded compute
+        if h % world_size == 0 and ulysses < ring:
+            cost, variant = ulysses, "ulysses"
+        else:
+            cost, variant = ring, "ring"
+        strategies.append((*strat(2), cost, shard_compute,
+                           {"variant": variant}))
+    if not strategies:
+        return None
+    return {"space": None, "recombines": {}, "strategies": strategies,
+            "compute": full_compute}
+
+
+@register_preset(torch.ops.easydist_tpu_torch.ed_attention_fwd)
+def _attention_fwd_rule(node, world_size):
+    return _attention_strategies(node, world_size, backward=False)
+
+
+@register_preset(torch.ops.easydist_tpu_torch.ed_attention_bwd)
+def _attention_bwd_rule(node, world_size):
+    return _attention_strategies(node, world_size, backward=True)

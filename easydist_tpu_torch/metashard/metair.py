@@ -107,6 +107,9 @@ class NodeStrategy:
         # not earn the whole body's 1/n discount); None -> the solver's
         # any-S factor heuristic
         self.compute_cost: Optional[float] = None
+        # emission metadata (the attention composite's seq variant, "ring"
+        # or "ulysses": same boundary placements, another lowering)
+        self.meta: Optional[dict] = None
 
     def is_all_replicate(self) -> bool:
         return all(p is None or p.is_replicate() for p in self.out_placements)

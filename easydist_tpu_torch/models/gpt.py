@@ -43,10 +43,15 @@ class GPTConfig:
     heads: int = 12
     layers: int = 12
     dtype: str = "float32"  # compute dtype; params stay float32
-    # attention backend of the full forward: "einsum" (plain torch) or
-    # "flash" (ops.flash_attention: the CUDA kernels B1-B3 on the card);
-    # "ring" and "auto" are not ported yet
+    # attention backend of the full forward: "einsum" (plain torch),
+    # "flash" (ops.flash_attention: the CUDA kernels B1-B3 on the card),
+    # "auto" (ops.attention_prim: the composite whose batch / head /
+    # sequence (ring or Ulysses) sharding the auto-parallel solver picks
+    # per mesh axis) or "ring" (parallel.ring_attention over the DeviceMesh
+    # `attn_mesh`'s axis `attn_axis`)
     attention: str = "einsum"
+    attn_mesh: object = None
+    attn_axis: str = "sp"
 
     @staticmethod
     def small(**kw):
@@ -135,10 +140,9 @@ def _qkv(x, p_at, dtype):
 
 
 def _attention(x, p, cfg: GPTConfig, dtype, return_kv: bool = False):
-    if cfg.attention not in ("einsum", "flash"):
-        raise NotImplementedError(
-            f"GPTConfig.attention={cfg.attention!r} is not ported yet; the "
-            f"port has the 'einsum' and 'flash' backends")
+    if cfg.attention not in ("einsum", "flash", "auto", "ring"):
+        raise ValueError(f"GPTConfig.attention={cfg.attention!r}: one of "
+                         f"'einsum', 'flash', 'auto', 'ring'")
     heads = cfg.heads
     b, t, d = x.shape
     hd = d // heads
@@ -148,10 +152,19 @@ def _attention(x, p, cfg: GPTConfig, dtype, return_kv: bool = False):
         return t_.reshape(b, t, heads, hd).transpose(1, 2)
 
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
-    if cfg.attention == "flash":
+    if cfg.attention == "auto":
+        from easydist_tpu_torch.ops.attention_prim import attention
+
+        out = attention(q, k, v, causal=True)
+    elif cfg.attention == "flash":
         from easydist_tpu_torch.ops.flash_attention import flash_attention
 
         out = flash_attention(q, k, v, True)
+    elif cfg.attention == "ring":
+        from easydist_tpu_torch.parallel import ring_attention
+
+        out = ring_attention(q, k, v, cfg.attn_mesh, axis=cfg.attn_axis,
+                             causal=True)
     else:
         att = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(hd)
         qi = torch.arange(t, device=x.device)[:, None]

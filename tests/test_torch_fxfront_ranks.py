@@ -443,3 +443,323 @@ def emit_ops(rank, world, out):
             rows.append((repr(s), err, [c.kind for c in colls]))
         res[name] = rows
     return res
+
+
+# ------------------------------------------------- attention across ranks
+
+def _load(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def long_context(rank, world, out, qkv=None):
+    """`ring_attention` (einsum and flash blocks, the flash kernels'
+    plain versions on the CPU) and `ulysses_attention` on a (world,) "sp"
+    mesh from the numpy q, k, v in `qkv`: per (program, causal), the
+    output and the gradients of mean(out ** 2) as numpy arrays, and the
+    ring's permute count; under "emit", `emit_seq`'s results."""
+    from easydist_tpu_torch.fxfront import make_device_mesh
+    from easydist_tpu_torch.parallel import ring_attention, ulysses_attention
+    from easydist_tpu_torch.parallel.ring_attention import ring_hop
+
+    mesh = make_device_mesh((world,), ("sp",), device_type="cpu")
+    arrays = _load(qkv)
+    programs = {
+        "ring": lambda c: lambda q, k, v: ring_attention(
+            q, k, v, mesh, "sp", causal=c, block_impl="einsum"),
+        "flash": lambda c: lambda q, k, v: ring_attention(
+            q, k, v, mesh, "sp", causal=c, block_impl="flash"),
+        "ulysses": lambda c: lambda q, k, v: ulysses_attention(
+            q, k, v, mesh, "sp", causal=c)}
+    res = {}
+    for name, make in programs.items():
+        for causal in (False, True):
+            q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrays)
+            ring_hop.permutes = 0
+            o = make(causal)(q, k, v)
+            grads = torch.autograd.grad((o ** 2).mean(), (q, k, v))
+            res[(name, causal)] = dict(
+                out=o.detach().numpy(), grads=[g.numpy() for g in grads],
+                hops=ring_hop.permutes)
+    res["emit"] = emit_seq(rank, world, out, mesh=mesh)
+    return res
+
+
+def attention_pick(strategy) -> str:
+    """"R", "S(d)" or "S(d):variant" of an attention node's strategy."""
+    if strategy.is_all_replicate():
+        return "R"
+    meta = getattr(strategy, "meta", None) or {}
+    pick = f"S({strategy.out_placements[0].dim})"
+    return f"{pick}:{meta['variant']}" if meta.get("variant") else pick
+
+
+def emitted_and_priced(result):
+    """Per axis: ({kind: [count, wire bytes]} emitted, the same priced),
+    both by the solver's formulas on the solver's sizes."""
+    from easydist_tpu_torch.autoflow.cost_model import collective_wire_bytes
+
+    table = {}
+    for a, spec in enumerate(result.axis_specs):
+        if spec.size == 1:
+            continue
+        emitted, priced = {}, {}
+        for c in result.collectives:
+            if c.axis == spec.name:
+                row = emitted.setdefault(c.kind, [0, 0.0])
+                row[0] += 1
+                row[1] += collective_wire_bytes(c.kind, c.priced_bytes,
+                                                spec.size)
+        for kind, _, nbytes in result.priced[a]:
+            row = priced.setdefault(kind, [0, 0.0])
+            row[0] += 1
+            row[1] += collective_wire_bytes(kind, nbytes, spec.size)
+        table[spec.name] = (emitted, priced)
+    return table
+
+
+def gpt_auto(rank, world, out, gpt_state=None, shape=None, names=None,
+             steps=3):
+    """The tiny GPT with attention="auto" from the state in `gpt_state`,
+    compiled for `shape` / `names`: losses (compiled and eager), the
+    attention nodes' picks per axis, emitted and priced collectives, and
+    the ring's permutes over the compiled steps."""
+    from easydist_tpu_torch.fxfront import easydist_compile, make_device_mesh
+    from easydist_tpu_torch.models import gpt as tg
+    from easydist_tpu_torch.parallel.ring_attention import ring_hop
+
+    mesh = make_device_mesh(tuple(shape), tuple(names), device_type="cpu")
+    blob = _load(gpt_state)
+    tok, tgt = (torch.from_numpy(a) for a in blob["tokens"])
+    cfg = tg.GPTConfig(**blob["cfg"], attention="auto")
+    step, _ = tg.make_gpt_train_step(cfg)
+    state0 = tuple(tg.params_from_numpy(blob["state"], device="cpu"))
+    compiled = easydist_compile(step, mesh=mesh, donate_state=False)
+    result = compiled.get_compiled(state0, tok, tgt)
+    ring_hop.permutes = ring_hop.bytes = 0
+    losses, eager, state, eager_state = _train(compiled, step, state0,
+                                               (tok, tgt), steps)
+    hops, hop_bytes = ring_hop.permutes, ring_hop.bytes
+    picks = [sorted((n.split("_")[2], attention_pick(s))
+                    for n, s in chosen.items() if "ed_attention" in n)
+             for chosen in result.strategies]
+    return dict(losses=losses, eager=eager, picks=picks,
+                err=_max_err(state, eager_state),
+                table=emitted_and_priced(result), hops=hops,
+                hop_bytes=hop_bytes)
+
+
+# ------------------------------------------------------- the user surface
+
+def pins(rank, world, out):
+    """`fix_sharding` on a (world,) "d" mesh (the JAX package's
+    test_fix_sharding_scope) and, at world 4, on a (2, 2) "dp" x "tp"
+    mesh; `scoped_region` at world 4: a (4,) region inside a step
+    compiled on the (2, 2) mesh (test_scoped_region_multi_mesh)."""
+    from easydist_tpu_torch.fxfront import (easydist_compile, fix_sharding,
+                                            make_device_mesh, scoped_region)
+
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(16, 32, generator=g)
+    x = torch.randn(8, 16, generator=g)
+    res = {}
+    meshes = [((world,), ("d",), "d")]
+    if world == 4:
+        meshes.append(((2, 2), ("dp", "tp"), "tp"))
+    for shape, names, axis in meshes:
+        mesh = make_device_mesh(shape, names, device_type="cpu")
+
+        def fwd(w, x, axis=axis):
+            w = fix_sharding(w, None, axis)  # column sharding
+            return torch.tanh(x @ w)
+
+        compiled = easydist_compile(fwd, mesh=mesh)
+        got = compiled(w, x)
+        result = compiled.get_compiled(w, x)
+        pin = [[repr(s.out_placements[0]) for n, s in chosen.items()
+                if n.startswith("fix_sharding")]
+               for chosen in result.strategies]
+        mm = [[repr(s.out_placements[0]) for n, s in chosen.items()
+               if n.startswith("mm")] for chosen in result.strategies]
+        res[shape] = dict(
+            err=float((got - torch.tanh(x @ w)).abs().max()), pin=pin,
+            mm=mm, collectives=[(c.axis, c.kind, c.var)
+                                for c in result.collectives],
+            table=emitted_and_priced(result),
+            plain=float((fwd(w, x) - torch.tanh(x @ w)).abs().max()))
+    if world == 4:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        outer = make_device_mesh((2, 2), ("dp", "tp"), device_type="cpu")
+        inner = init_device_mesh("cpu", (4,), mesh_dim_names=("d",))
+        g = torch.Generator().manual_seed(0)
+        w1 = torch.randn(256, 512, generator=g) / 16
+        w2 = torch.randn(512, 256, generator=g) / 22
+        xs = torch.randn(2048, 256, generator=g)
+
+        def inner_fn(h, w2):
+            return torch.tanh(h) @ w2
+
+        scoped = scoped_region(inner_fn, inner)
+
+        def step(w1, w2, x):
+            return scoped(x @ w1, w2).sum()
+
+        compiled = easydist_compile(step, mesh=outer, donate_state=False)
+        got = compiled(w1, w2, xs)
+        region = compiled.get_compiled(w1, w2, xs)
+        want = step(w1, w2, xs)
+        ref = (torch.tanh(xs @ w1) @ w2).sum()
+        res["scoped"] = dict(
+            got=float(got), want=float(want), ref=float(ref),
+            nodes=[str(n.target) for n in region.traced.graph.nodes
+                   if "scoped" in str(n.target)])
+    return res
+
+
+class SmallMLP(torch.nn.Module):
+    """The JAX package's torchfront test MLP (tests/test_torchfront/
+    test_convert.py:23)."""
+
+    def __init__(self):
+        super().__init__()
+        self.fc1 = torch.nn.Linear(16, 32)
+        self.ln = torch.nn.LayerNorm(32)
+        self.fc2 = torch.nn.Linear(32, 8)
+
+    def forward(self, x):
+        return self.fc2(torch.relu(self.ln(self.fc1(x))))
+
+
+class TinyTransformer(torch.nn.Module):
+    """A pre-norm transformer block over [b, t, 32] (causal SDPA, 4 heads,
+    a GELU MLP) with a linear head: the JAX package's convert handles
+    each of its ops (test_convert.py:34)."""
+
+    def __init__(self, dim=32, heads=4):
+        super().__init__()
+        self.ln1 = torch.nn.LayerNorm(dim)
+        self.qkv = torch.nn.Linear(dim, 3 * dim)
+        self.proj = torch.nn.Linear(dim, dim)
+        self.ln2 = torch.nn.LayerNorm(dim)
+        self.fc = torch.nn.Linear(dim, 4 * dim)
+        self.out = torch.nn.Linear(4 * dim, dim)
+        self.head = torch.nn.Linear(dim, 8)
+        self.heads = heads
+
+    def forward(self, x):
+        b, t, d = x.shape
+        qkv = self.qkv(self.ln1(x)).reshape(b, t, 3, self.heads,
+                                            d // self.heads)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        a = torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True)
+        x = x + self.proj(a.transpose(1, 2).reshape(b, t, d))
+        x = x + self.out(torch.nn.functional.gelu(self.fc(self.ln2(x))))
+        return self.head(x)
+
+
+TORCH_MODULES = {"mlp": (SmallMLP, (64, 16), (64, 8)),
+                 "transformer": (TinyTransformer, (8, 16, 32), (8, 16, 8))}
+
+
+def torch_module_inputs(name, seed: int = 1):
+    """(module, x, y) of `TORCH_MODULES[name]`, weights from torch seed
+    `seed`, data from a numpy seed."""
+    cls, x_shape, y_shape = TORCH_MODULES[name]
+    torch.manual_seed(seed)
+    module = cls()
+    rs = np.random.RandomState(seed)
+    x = torch.from_numpy(rs.randn(*x_shape).astype(np.float32))
+    y = torch.from_numpy(rs.randn(*y_shape).astype(np.float32))
+    return module, x, y
+
+
+def _mse(pred, target):
+    return ((pred - target) ** 2).mean()
+
+
+def torch_modules(rank, world, out, shape=None, names=None, steps=3):
+    """`make_torch_train_step` (Adam, lr 1e-2) on each module of
+    `TORCH_MODULES` over a `shape` / `names` mesh: compiled and eager
+    torch losses, and the worst parameter error against eager torch."""
+    from easydist_tpu_torch.fxfront import make_device_mesh
+    from easydist_tpu_torch.torchfront import make_torch_train_step
+
+    mesh = make_device_mesh(tuple(shape), tuple(names), device_type="cpu")
+    res = {}
+    for name in TORCH_MODULES:
+        module, x, y = torch_module_inputs(name)
+        step, init_state = make_torch_train_step(
+            module, (x,), _mse, optimizer="adam", lr=1e-2, mesh=mesh,
+            donate_state=False)
+        state = init_state()
+        losses = []
+        for _ in range(steps):
+            state, loss = step(state, x, y)
+            losses.append(float(loss))
+        opt = torch.optim.Adam(module.parameters(), lr=1e-2)
+        eager = []
+        for _ in range(steps):
+            opt.zero_grad()
+            loss = _mse(module(x), y)
+            loss.backward()
+            opt.step()
+            eager.append(float(loss))
+        res[name] = dict(losses=losses, eager=eager, err=_max_err(
+            [state[0][k] for k, _ in module.named_parameters()],
+            [p.detach() for _, p in module.named_parameters()]))
+    return res
+
+
+def emit_seq(rank, world, out, mesh=None):
+    """The attention composite's forward and backward ops, each emitted on
+    a (world,) mesh with every input seq-sharded and the node on its seq
+    strategy, once per variant (the solver picks Ulysses only on axes of
+    8 or more at the JAX package's constants, so the variant is set here
+    as the strategy's meta): {(variant, op): (max abs error against the
+    op run whole, [collective kinds recorded])}."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from easydist_tpu_torch.fxfront.emit import emit_sharded_fn
+    from easydist_tpu_torch.fxfront.mesh import make_device_mesh
+    from easydist_tpu_torch.metashard.metair import NodeStrategy, Placement
+
+    if mesh is None:
+        mesh = make_device_mesh((world,), ("sp",), device_type="cpu")
+    info = {"names": ["sp"], "sizes": [world],
+            "coords": list(mesh.get_coordinate()),
+            "groups": [mesh.get_group(0).group_name]}
+    g = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn(1, 4, 16, 8, generator=g) for _ in range(4))
+    ops = torch.ops.easydist_tpu_torch
+    cases = {"fwd": (lambda q, k, v: ops.ed_attention_fwd(q, k, v, True,
+                                                           0.25),
+                     (q, k, v)),
+             "bwd": (lambda q, k, v, do: list(ops.ed_attention_bwd(
+                 q, k, v, do, True, 0.25)), (q, k, v, do))}
+    s2 = Placement.shard(2)
+    res = {}
+    for variant in ("ring", "ulysses"):
+        for name, (fn, inputs) in cases.items():
+            with torch.no_grad():
+                gm = make_fx(fn, tracing_mode="fake")(*inputs)
+                want = pytree.tree_leaves(fn(*inputs))
+            node = next(n for n in gm.graph.nodes if "ed_attention" in
+                        str(n.target))
+            n_out = 3 if name == "bwd" else 1
+            strategy = NodeStrategy([s2] * len(inputs), [s2] * n_out)
+            strategy.meta = {"variant": variant}
+            chosen = {node.name: strategy}
+            for ph in gm.graph.nodes:
+                if ph.op == "placeholder":
+                    chosen[ph.name] = NodeStrategy([], [s2])
+            local_gm, colls = emit_sharded_fn(gm, [chosen], info, {})
+            size = 16 // world
+            local = [x.narrow(2, info["coords"][0] * size, size).contiguous()
+                     for x in inputs]
+            with torch.no_grad():
+                got = pytree.tree_leaves(local_gm(*local))
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            res[(variant, name)] = (err, [c.kind for c in colls])
+    return res

@@ -187,11 +187,20 @@ def test_bf16_forward_is_finite_and_casts_at_use(model):
 
 
 def test_flash_attention_config_not_ported(model):
-    """The attention configs still to port ("ring", "auto") raise."""
-    _, _, _, params_t = model
-    for attention in ("ring", "auto"):
+    """Every attention config of the JAX package is ported: "auto" (the
+    solver-visible composite) gives the JAX package's "auto" logits;
+    "ring" without a mesh and an unknown backend raise ValueError."""
+    cfg_j, params_j, _, params_t = model
+    tokens = np.random.RandomState(12).randint(0, cfg_j.vocab,
+                                               (2, cfg_j.seq))
+    want = jg.gpt_apply(params_j, jg.GPTConfig.tiny(attention="auto"),
+                        jnp.asarray(tokens))
+    got = tg.gpt_apply(params_t, tg.GPTConfig.tiny(attention="auto"),
+                       torch.from_numpy(tokens))
+    _close(got.numpy(), want)
+    for attention, match in (("ring", "attn_mesh"), ("sparse", "one of")):
         cfg = tg.GPTConfig.tiny(attention=attention)
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(ValueError, match=match):
             tg.gpt_apply(params_t, cfg, torch.zeros(1, 4, dtype=torch.int64))
 
 

@@ -65,7 +65,9 @@ def test_every_port_module_imports_with_jax_blocked():
                  "models.gpt", "ops.flash_attention", "fxfront.api",
                  "fxfront.mesh", "fxfront.interpreter", "fxfront.presets",
                  "fxfront.discovery", "fxfront.bridge", "fxfront.emit",
-                 "runtime.op_profile",
+                 "runtime.op_profile", "fxfront.scope",
+                 "ops.attention_prim", "parallel", "parallel.ring_attention",
+                 "parallel.ulysses", "torchfront", "torchfront.api",
                  "platform.torch_backend", "metashard.metaop",
                  "metashard.metair", "autoflow.solver",
                  "schedule.memory_planner", "native"):

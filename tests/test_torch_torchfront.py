@@ -1,0 +1,305 @@
+"""The torch-module surface (the port's `torchfront/api.py`) against the
+JAX package's `easydist_tpu.torchfront` and eager torch.
+
+  * `make_torch_train_step` on an MLP and a small transformer module
+    (modules the JAX package's `torchfront/convert.py` converts), Adam,
+    3 steps on gloo ranks, (2,) "d" and (2, 2) "dp" x "tp": losses equal
+    the JAX package's on the same mesh shape and eager torch's;
+  * `easydist_compile_torch`: the compiled forward equals the module's;
+  * every torch.optim translation, mirroring
+    tests/test_torchfront/test_train_mode.py:167-400 (warm Adam, AdamW
+    with two groups, centered RMSprop with momentum, Adagrad, per-group
+    Adam betas, Nesterov SGD; BN buffers frozen in eval export;
+    Adadelta raises), one device;
+  * train=True against eager torch drawing from a generator in the same
+    state: losses, parameters and batch-norm running statistics.
+
+Tolerances: losses rtol 1e-4 (the issue's bar); parameters rtol 2e-4 /
+atol 1e-5 (test_train_mode.py's).
+"""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn as nn
+
+from easydist_tpu_torch.torchfront import (easydist_compile_torch,
+                                           make_torch_pp_train_step,
+                                           make_torch_train_step)
+from tests import test_torch_fxfront_ranks as ranks
+from tests.test_torch_fxfront_e2e import _jax_constants
+
+STEPS = 3
+MESHES = {"d": ((2,), ("d",)), "dp_tp": ((2, 2), ("dp", "tp"))}
+
+
+def _jax_losses(name, shape, names, cpu_devices):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from easydist_tpu.torchfront import make_torch_train_step as jax_step
+
+    module, x, y = ranks.torch_module_inputs(name)
+    mesh = Mesh(np.array(cpu_devices[:int(np.prod(shape))]).reshape(shape),
+                names)
+    step, init_state = jax_step(
+        module, (x,), lambda p, t: jnp.mean((p - t) ** 2), optimizer="adam",
+        lr=1e-2, mesh=mesh, donate_state=False)
+    state = init_state()
+    jx, jy = jnp.asarray(x.numpy()), jnp.asarray(y.numpy())
+    losses = []
+    for _ in range(STEPS):
+        state, loss = step(state, jx, jy)
+        losses.append(float(jax.device_get(loss)))
+    return losses
+
+
+@pytest.fixture(scope="module", params=list(MESHES))
+def modules_on_ranks(request, tmp_path_factory, cpu_devices):
+    shape, names = MESHES[request.param]
+    out = ranks.spawn("torch_modules", int(np.prod(shape)),
+                      tmp_path_factory.mktemp(f"modules_{request.param}"),
+                      constants=_jax_constants(), shape=shape, names=names,
+                      steps=STEPS)
+    jax_losses = {name: _jax_losses(name, shape, names, cpu_devices)
+                  for name in ranks.TORCH_MODULES}
+    return out, jax_losses
+
+
+@pytest.mark.parametrize("name", list(ranks.TORCH_MODULES))
+def test_train_step_matches_jax_and_eager(modules_on_ranks, name):
+    out, jax_losses = modules_on_ranks
+    for r in out:
+        np.testing.assert_allclose(r[name]["losses"], r[name]["eager"],
+                                   rtol=1e-4)
+        np.testing.assert_allclose(r[name]["losses"], jax_losses[name],
+                                   rtol=1e-4)
+    # Adam amplifies rounding of near-zero gradients; the MLP's weights
+    # still hold the parameter bar after 3 steps
+    assert out[0]["mlp"]["err"] <= 1.0
+
+
+def test_compile_torch_forward():
+    module, x, _ = ranks.torch_module_inputs("transformer")
+    compiled, params = easydist_compile_torch(module, (x,))
+    with torch.no_grad():
+        want = module(x)
+    torch.testing.assert_close(compiled(params, x), want, rtol=1e-4,
+                               atol=1e-5)
+    assert module.training, "the module's own mode flag was changed"
+
+
+# -------------------------------------------------- optimizer translation
+
+def _mse(pred, target):
+    return ((pred - target) ** 2).mean()
+
+
+def _eager_steps(module, opt, x, y, n):
+    for _ in range(n):
+        opt.zero_grad()
+        _mse(module(x), y).backward()
+        opt.step()
+
+
+def _run(module, opt, x, y, warm, steps, interleaved=True):
+    """Warm `opt` by `warm` eager steps, translate it, then take `steps`
+    compiled steps beside `steps` eager ones; returns the compiled
+    params."""
+    _eager_steps(module, opt, x, y, warm)
+    step, init_state = make_torch_train_step(module, (x,), _mse,
+                                             optimizer=opt,
+                                             donate_state=False)
+    state = init_state()
+    for _ in range(steps):
+        state, _ = step(state, x, y)
+        if interleaved:
+            _eager_steps(module, opt, x, y, 1)
+    if not interleaved:
+        _eager_steps(module, opt, x, y, steps)
+    return state[0] if isinstance(state, tuple) else state
+
+
+def _assert_params(params, module):
+    ref = {k: v.detach() for k, v in module.state_dict().items()}
+    for k, v in params.items():
+        np.testing.assert_allclose(v.numpy(), ref[k].numpy(), rtol=2e-4,
+                                   atol=1e-5, err_msg=k)
+
+
+def _data(seed, n_in, n_out, batch=32):
+    torch.manual_seed(seed)
+    return torch.randn(batch, n_in), torch.randn(batch, n_out)
+
+
+def test_torch_adam_instance_translation():
+    """A warm torch.optim.Adam (hyperparameters and exp_avg state)
+    continues matching torch (test_train_mode.py:167)."""
+    torch.manual_seed(1)
+    module = nn.Sequential(nn.Linear(16, 8)).eval()
+    x, y = torch.randn(32, 16), torch.randn(32, 8)
+    opt = torch.optim.Adam(module.parameters(), lr=3e-3, betas=(0.8, 0.95),
+                           eps=1e-7, weight_decay=0.01)
+    _assert_params(_run(module, opt, x, y, warm=3, steps=3,
+                        interleaved=False), module)
+
+
+def test_unsupported_torch_optimizer_raises():
+    module = nn.Linear(4, 4)
+    opt = torch.optim.Adadelta(module.parameters())
+    with pytest.raises(NotImplementedError, match="Adadelta"):
+        make_torch_train_step(module.eval(), (torch.randn(2, 4),), _mse,
+                              optimizer=opt)
+
+
+class BNNet(nn.Module):
+    def __init__(self, p_drop=0.0):
+        super().__init__()
+        self.fc1 = nn.Linear(16, 32)
+        self.bn = nn.BatchNorm1d(32)
+        self.drop = nn.Dropout(p_drop)
+        self.fc2 = nn.Linear(32, 8)
+
+    def forward(self, x):
+        return self.fc2(self.drop(torch.relu(self.bn(self.fc1(x)))))
+
+
+def test_eval_mode_step_does_not_touch_bn_buffers():
+    torch.manual_seed(0)
+    module = BNNet(p_drop=0.0).eval()
+    x, y = torch.randn(32, 16), torch.randn(32, 8)
+    step, init_state = make_torch_train_step(module, (x,), _mse,
+                                             optimizer="adam", lr=0.1,
+                                             donate_state=False)
+    state = init_state()
+    before = {k: v.clone() for k, v in state[0].items()
+              if "running" in k or "num_batches" in k}
+    assert before, "BNNet should have running-stat buffers"
+    for _ in range(3):
+        state, _ = step(state, x, y)
+    for k, v0 in before.items():
+        assert torch.equal(state[0][k], v0), k
+
+
+def test_torch_adamw_two_groups_translation():
+    torch.manual_seed(2)
+    module = nn.Sequential(nn.Linear(16, 16), nn.Tanh(),
+                           nn.Linear(16, 8)).eval()
+    x, y = torch.randn(32, 16), torch.randn(32, 8)
+    decay = [p for n, p in module.named_parameters() if "weight" in n]
+    no_decay = [p for n, p in module.named_parameters() if "bias" in n]
+    opt = torch.optim.AdamW([
+        {"params": decay, "weight_decay": 0.1, "lr": 3e-3},
+        {"params": no_decay, "weight_decay": 0.0, "lr": 1e-3},
+    ], betas=(0.85, 0.97), eps=1e-7)
+    _assert_params(_run(module, opt, x, y, warm=0, steps=5), module)
+
+
+def test_torch_rmsprop_translation():
+    torch.manual_seed(4)
+    module = nn.Sequential(nn.Linear(10, 6), nn.Tanh(),
+                           nn.Linear(6, 4)).eval()
+    x, y = torch.randn(16, 10), torch.randn(16, 4)
+    opt = torch.optim.RMSprop(module.parameters(), lr=4e-3, alpha=0.95,
+                              eps=1e-7, momentum=0.8, centered=True,
+                              weight_decay=0.02)
+    _assert_params(_run(module, opt, x, y, warm=2, steps=4), module)
+
+
+def test_torch_adagrad_translation():
+    torch.manual_seed(5)
+    module = nn.Sequential(nn.Linear(8, 8), nn.Tanh()).eval()
+    x, y = torch.randn(16, 8), torch.randn(16, 8)
+    opt = torch.optim.Adagrad(module.parameters(), lr=5e-2, lr_decay=0.01,
+                              weight_decay=0.03,
+                              initial_accumulator_value=0.1)
+    _assert_params(_run(module, opt, x, y, warm=2, steps=4), module)
+
+
+def test_torch_adam_per_group_betas():
+    torch.manual_seed(6)
+    module = nn.Sequential(nn.Linear(12, 8), nn.Tanh(),
+                           nn.Linear(8, 4)).eval()
+    x, y = torch.randn(16, 12), torch.randn(16, 4)
+    weights = [p for n, p in module.named_parameters() if "weight" in n]
+    biases = [p for n, p in module.named_parameters() if "bias" in n]
+    opt = torch.optim.Adam([
+        {"params": weights, "betas": (0.8, 0.95), "lr": 2e-3},
+        {"params": biases, "betas": (0.95, 0.999), "lr": 1e-3},
+    ])
+    _assert_params(_run(module, opt, x, y, warm=0, steps=5), module)
+
+
+def test_torch_sgd_momentum_nesterov_translation():
+    torch.manual_seed(3)
+    module = nn.Sequential(nn.Linear(12, 6)).eval()
+    x, y = torch.randn(16, 12), torch.randn(16, 6)
+    opt = torch.optim.SGD(module.parameters(), lr=5e-2, momentum=0.9,
+                          nesterov=True, weight_decay=0.01)
+    _assert_params(_run(module, opt, x, y, warm=2, steps=4), module)
+
+
+def test_plain_sgd_state_is_the_params():
+    torch.manual_seed(7)
+    module = nn.Sequential(nn.Linear(6, 3)).eval()
+    x, y = torch.randn(8, 6), torch.randn(8, 3)
+    opt = torch.optim.SGD(module.parameters(), lr=0.1)
+    params = _run(module, opt, x, y, warm=0, steps=3)
+    assert isinstance(params, dict)
+    _assert_params(params, module)
+
+
+# ---------------------------------------------------------- training mode
+
+def test_train_mode_matches_eager_with_the_same_generator():
+    """Dropout draws from the step's generator in the order eager torch
+    draws from its own; batch-norm running statistics come back in the
+    state (test_train_mode.py's BNNet)."""
+    torch.manual_seed(8)
+    module = BNNet(p_drop=0.5)
+    x, y = torch.randn(32, 16), torch.randn(32, 8)
+    # SGD: fc1's bias feeds the batch norm, so its gradient is zero up to
+    # rounding, which Adam would scale into whole steps
+    opt = torch.optim.SGD(module.parameters(), lr=5e-2, momentum=0.9)
+    step, init_state = make_torch_train_step(
+        module, (x,), _mse, optimizer=opt, train=True, donate_state=False)
+    state = init_state()
+    rng = torch.Generator().manual_seed(11)
+    losses = []
+    for _ in range(STEPS):
+        state, loss = step(state, rng, x, y)
+        losses.append(float(loss))
+
+    module.train()
+    torch.manual_seed(11)
+    eager = []
+    for _ in range(STEPS):
+        opt.zero_grad()
+        loss = _mse(module(x), y)
+        loss.backward()
+        opt.step()
+        eager.append(float(loss.detach()))
+    np.testing.assert_allclose(losses, eager, rtol=1e-4)
+    (trainable, buffers), _ = state
+    _assert_params({**trainable, **buffers}, module)
+    assert int(buffers["bn.num_batches_tracked"]) == STEPS
+    # the generator advanced past the draws, and another seed differs
+    other = torch.Generator().manual_seed(12)
+    _, loss_other = step(init_state(), other, x, y)
+    assert float(loss_other) != losses[0]
+
+
+@pytest.mark.parametrize("mode", ["ddp", "zero2", "zero3"])
+def test_manual_modes_raise(mode):
+    module = nn.Linear(4, 4)
+    with pytest.raises(NotImplementedError, match="6b"):
+        make_torch_train_step(module, (torch.randn(2, 4),), _mse,
+                              parallel_mode=mode)
+
+
+def test_pipeline_step_raises():
+    module = nn.Linear(4, 4)
+    with pytest.raises(NotImplementedError, match="6b"):
+        make_torch_pp_train_step(module, (torch.randn(2, 4),), _mse,
+                                 mesh=None, pp_stages=2)
