@@ -91,9 +91,38 @@ Phases, each raising on failure (exit code != 0, no result line):
      (c) a real one-rank mesh on NCCL: 3 steps bitwise equal to phase
      7's compiled f32 losses.  One card cannot run a multi-rank program
      on NCCL: the CPU tests hold its numbers on gloo;
- 10. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
+ 10. attention across ranks (`attention_phase`): the attention
+     composite's picks on phase 9's meshes and GPT-2 small at seq 8192
+     on an (8,) "sp" mesh lowered to the ring, rank 0's and rank n-1's
+     programs run on the card;
+ 11. speculative decoding (`spec_phase`, speculate_k=4, f32): phase 4's
+     config and prompt lengths, each prompt ending with a repeat of its
+     own 16-token span: (a) bucketed with the n-gram drafter, (b) paged
+     with the n-gram drafter, (c) bucketed with the target as its own
+     draft model.  Ids must equal the uncached re-forward and a plain
+     session's; verify rounds must run, with one verify signature; B4
+     (a, c) / B5 (b) must launch 12 x the plain decode rounds (plus the
+     drafter's feeds in c, every proposal accepted); the page-table
+     audit runs after every paged rollback and no page leaks; bf16
+     tokens/s with and without speculation are printed;
+ 12. the host tier and the session lifecycle (`tier_phase`, paged, f32
+     and int8): a 32-page arena with a 256 MiB host tier under three
+     waves (8 prompts sharing a 512-token prefix, 8 without, the first 8
+     again): demotions and promotions, each promoted page bitwise equal
+     to its export before demotion, ids equal to the uncached
+     re-forward, the corrupt-fetch drill; `drain()`'s hot pages imported
+     by a fresh session, and `evacuate()` resumed elsewhere, both with
+     equal ids;
+ 13. `ServeEngine` (`engine_phase`) over `gpt_apply` with flash attention
+     (B1), compiled with the params as state and warmed over 3 x 2
+     buckets: 6 client threads x 4 requests, every result within rtol
+     1e-4 / atol 1e-5 of the request alone, B1 launched 12 x the
+     batches; the deadline, OOM-bucket and watchdog drills;
+ 14. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
      path's run; B1-B3 also with `launches_bf16`, their launches in the
-     bfloat16 flash steps), then the `{"ok": true, ...}` line.
+     bfloat16 flash steps; B1 with `launches_engine` (phase 13), B4 and
+     B5 with `launches_spec` (phase 11 a and b), B5 and B6 with
+     `launches_tier` (phase 12)), then the `{"ok": true, ...}` line.
 
 Each serving run sets every decode kernel's launch count to 0 just
 before it and reads the counts just after; launches made to compare or
@@ -1247,14 +1276,15 @@ def decode_counters():
     return {name: getattr(fa, fn) for name, fn in DECODE_KERNELS.items()}
 
 
-def serve(params, cfg, prompts, n_new: int, serve_cfg, dev):
+def serve(params, cfg, prompts, n_new: int, serve_cfg, dev, **session_kw):
     """Drive a session over `prompts`, every decode kernel's launch count
     set to 0 just before and read just after; returns (ids, session,
-    launches by kernel, decode_rounds, seconds) for this run alone."""
+    launches by kernel, decode_rounds, seconds) for this run alone.
+    `session_kw` goes to `GenerationSession.for_gpt` (`draft_model=`)."""
     from easydist_tpu_torch.serve import GenerationSession
 
     sess = GenerationSession.for_gpt(params, cfg, config=serve_cfg,
-                                     device=dev)
+                                     device=dev, **session_kw)
     counters = decode_counters()
     for c in counters.values():
         c.launches = 0
@@ -1545,7 +1575,7 @@ def profile_decode(params, cfg, serve_cfg, dev, prompts, n_new: int,
                and e.key != "easydist_compile.state_copy"]
     busy = sum(ms for _, ms in kernels)
     top = sorted(kernels, key=lambda kv: -kv[1])[:6]
-    program = sess._paged_c("decode") if sess._paged else sess._decode_c
+    program = sess._program("decode") if sess._paged else sess._decode_c
     n_ops = sum(n.op == "call_function"
                 for r in program._cache.values()
                 for n in r.graph_module.graph.nodes)
@@ -1556,6 +1586,644 @@ def profile_decode(params, cfg, serve_cfg, dev, prompts, n_new: int,
     for name, ms in top:
         print(f"  {ms:8.4f} ms/round  {name[:90]}")
     sess.run_until_drained()
+
+
+# ------------------------------------------------ speculation (phase 11)
+
+SPEC_K = 4
+
+
+def make_spec_prompts(vocab: int, seed: int = 0):
+    """Phase 4's prompts (`make_prompts`), each of 32 tokens or more
+    ending with a repeat of an earlier 16-token span of itself, so the
+    n-gram drafter has something to propose."""
+    rs = np.random.RandomState(seed + 11)
+    out = []
+    for p in make_prompts(vocab, seed):
+        p = list(p)
+        if len(p) >= 32:
+            j = int(rs.randint(0, len(p) - 31))
+            p[-16:] = p[j:j + 16]
+        out.append(p)
+    return out
+
+
+def check_ids(tag: str, ids, *refs):
+    """Every request's ids equal each reference's."""
+    for name, ref in refs:
+        bad = [i for i, (a, r) in enumerate(zip(ids, ref)) if a != r]
+        if bad or len(ids) != len(ref):
+            raise AssertionError(f"{tag}: ids differ from {name} in "
+                                 f"requests {bad}")
+
+
+def spec_counts(sess):
+    c = sess.metrics.snapshot()["counters"]
+    steps = c.get("verify_steps", 0)
+    return {"verify_rounds": steps,
+            "proposed": c.get("draft_tokens_proposed", 0),
+            "accepted": c.get("draft_tokens_accepted", 0),
+            "committed": c.get("verify_tokens_committed", 0),
+            "host_ms_per_verify_round": (c.get("verify_host_us", 0) / 1e3
+                                         / steps if steps else None)}
+
+
+def bf16_pass(params, cfg, prompts, n_new: int, serve_cfg, dev):
+    """One timed pass of `prompts` through a fresh session, with the host
+    time of each plain decode round and each bucketed verify round (both
+    end in the host copy of their ids, so no extra synchronisation).
+    Returns (tokens, seconds, {"decode"/"verify": (rounds, seconds)})."""
+    from easydist_tpu_torch.serve import GenerationSession
+
+    sess = GenerationSession.for_gpt(params, cfg, config=serve_cfg,
+                                     device=dev)
+    spent = {"decode": [0, 0.0], "verify": [0, 0.0]}
+    for name, key in (("_decode_round", "decode"),
+                      ("_verify_round_bucketed", "verify")):
+        def timed(*args, _fn=getattr(sess, name), _key=key):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args)
+            finally:
+                spent[_key][0] += 1
+                spent[_key][1] += time.perf_counter() - t0
+        setattr(sess, name, timed)
+    t0 = time.perf_counter()
+    futs = [sess.submit(p, max_new_tokens=n_new) for p in prompts]
+    sess.run_until_drained()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = sum(len(f.result(timeout=0)["ids"]) for f in futs)
+    return n, secs, {k: tuple(v) for k, v in spent.items()}
+
+
+def spec_phase(dev, cfg_kw=None, n_new: int = 32, serve_kw=None,
+               seed: int = 0, n_prompts: int = 12, bf16: bool = True):
+    """Phase 11: speculative decoding (speculate_k=4) on phase 4's
+    config, weights and prompt lengths, each prompt of 32 tokens or more
+    ending with a repeat of its own 16-token span.  (a) bucketed, n-gram
+    drafter: ids equal the uncached re-forward and a plain session's, at
+    least one verify round, one verify signature for the bucket, B4
+    launched 12 x the plain decode rounds.  (b) paged, n-gram drafter:
+    ids equal, a verify round, one verify signature, B5 launched 12 x the
+    plain rounds, the page-table audit run after every rollback, and
+    every arena page free once the trie is emptied after the drain.  (c)
+    bucketed, the target drafting for itself: ids equal, every proposal
+    accepted, one draft signature, the drafter's B4 launches 12 x its
+    feeds (and all B4 launches 12 x (plain rounds + feeds)).  Prints the
+    proposed / accepted / committed tokens, the host ms of a verify
+    round, and bf16 tokens/s with and without speculation on (a)'s
+    traffic (timed passes in the order plain, spec, spec, plain, with the
+    host ms of a decode round and of a verify round).  Returns B4's
+    launches in (a) and B5's in (b)."""
+    from easydist_tpu_torch.kv import audit_page_table
+    from easydist_tpu_torch.models.gpt import GPTConfig, gpt_init
+    from easydist_tpu_torch.ops import flash_attention as fa
+    from easydist_tpu_torch.serve import ServeConfig, speculate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg_kw = cfg_kw or {}
+    cfg = GPTConfig.small(**cfg_kw)
+    serve_kw = serve_kw or SERVE_KW
+    params = gpt_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                      device=dev)
+    prompts = make_spec_prompts(cfg.vocab, seed)[:n_prompts]
+    ref = [uncached_greedy(params, cfg, p, n_new) for p in prompts]
+    plain, *_ = serve(params, cfg, prompts, n_new, ServeConfig(**serve_kw),
+                      dev)
+    check_ids("spec plain", plain, ("the uncached re-forward", ref))
+    refs = (("the uncached re-forward", ref), ("the plain session", plain))
+    on_card = dev.type == "cuda"
+    out = {}
+
+    # (a) bucketed, n-gram drafter
+    spec_cfg = ServeConfig(**{**serve_kw, "speculate_k": SPEC_K})
+    ids, sess, launches, rounds, secs = serve(params, cfg, prompts, n_new,
+                                              spec_cfg, dev)
+    counts = spec_counts(sess)
+    check_ids("spec 11a", ids, *refs)
+    sigs = sess.stats()["verify_signatures"]
+    if counts["verify_rounds"] < 1 or sigs["size"] != 1:
+        raise AssertionError(f"spec 11a: {counts}, verify signatures {sigs}")
+    check_launches("spec 11a", launches, "flash_decode", cfg.layers, rounds,
+                   dev)
+    out["a"] = launches["flash_decode"]
+    print(f"spec 11a bucketed ngram f32: ids equal the uncached re-forward "
+          f"and the plain session for all {len(prompts)} requests; {counts}; "
+          f"1 verify signature; {rounds} plain decode rounds, B4 launches "
+          f"{launches['flash_decode']} = {cfg.layers} x {rounds}; "
+          f"{secs:.2f} s incl. tracing")
+
+    # (b) paged, n-gram drafter
+    paged_cfg = ServeConfig(**{**serve_kw, "speculate_k": SPEC_K,
+                               "kv_layout": "paged"})
+    ids, sess, launches, rounds, secs = serve(params, cfg, prompts, n_new,
+                                              paged_cfg, dev)
+    counts = spec_counts(sess)
+    check_ids("spec 11b", ids, *refs)
+    st = sess.stats()
+    c = st["metrics"]["counters"]
+    if counts["verify_rounds"] < 1 or st["verify_signatures"]["size"] != 1:
+        raise AssertionError(f"spec 11b: {counts}, verify signatures "
+                             f"{st['verify_signatures']}")
+    if c.get("speculative_rollback_audits") != counts["verify_rounds"]:
+        raise AssertionError(f"spec 11b: {c.get('speculative_rollback_audits')}"
+                             f" rollback audits for {counts['verify_rounds']} "
+                             f"verify rounds")
+    check_launches("spec 11b", launches, "paged_decode", cfg.layers, rounds,
+                   dev)
+    pool = next(iter(sess._pools.values()))
+    problems = audit_page_table(pool.pool, pool.table, trie=pool.trie)
+    trie_pages = pool.pool.in_use
+    while pool.trie is not None and pool.trie.evict_lru():
+        pass
+    if problems or pool.pool.n_free != pool.pool.n_pages:
+        raise AssertionError(f"spec 11b: audit {problems}; {pool.pool.n_free}"
+                             f" of {pool.pool.n_pages} pages free after the "
+                             f"drain and the trie's eviction")
+    out["b"] = launches["paged_decode"]
+    print(f"spec 11b paged ngram f32: ids equal for all {len(prompts)} "
+          f"requests; {counts}; 1 verify signature; page-table audit clean "
+          f"after each of {c['speculative_rollback_audits']} rollbacks "
+          f"({c.get('speculative_rollback_pages_released', 0)} spill pages "
+          f"released); after the drain the trie held {trie_pages} pages and "
+          f"all {pool.pool.n_pages} were free once it was emptied; {rounds} "
+          f"plain rounds, B5 launches {launches['paged_decode']} = "
+          f"{cfg.layers} x {rounds}; {secs:.2f} s incl. tracing")
+    del sess, pool
+
+    # (c) bucketed, the target's own weights as the draft model
+    feed = speculate.SmallModelDrafter._feed
+    drafter_launches = [0]
+
+    def counted_feed(self, st, token, pos):
+        before = fa.flash_decode_attention.launches
+        try:
+            return feed(self, st, token, pos)
+        finally:
+            drafter_launches[0] += fa.flash_decode_attention.launches - before
+
+    draft_cfg = ServeConfig(**{**serve_kw, "speculate_k": SPEC_K,
+                               "speculate_drafter": "draft_model"})
+    speculate.SmallModelDrafter._feed = counted_feed
+    try:
+        ids, sess, launches, rounds, secs = serve(
+            params, cfg, prompts, n_new, draft_cfg, dev,
+            draft_model=(params, cfg))
+    finally:
+        speculate.SmallModelDrafter._feed = feed
+    counts = spec_counts(sess)
+    drafter = sess._drafter
+    check_ids("spec 11c", ids, *refs)
+    if counts["proposed"] < 1 or counts["accepted"] != counts["proposed"]:
+        raise AssertionError(f"spec 11c: not every proposal accepted: "
+                             f"{counts}")
+    if drafter.cache_stats()["size"] != 1 or drafter.n_states:
+        raise AssertionError(f"spec 11c: draft signatures "
+                             f"{drafter.cache_stats()}, {drafter.n_states} "
+                             f"draft caches left after the drain")
+    want = cfg.layers * drafter.feeds if on_card else 0
+    if drafter_launches[0] != want:
+        raise AssertionError(f"spec 11c: the drafter launched B4 "
+                             f"{drafter_launches[0]} times, expected {want}")
+    check_launches("spec 11c", launches, "flash_decode", cfg.layers,
+                   rounds + drafter.feeds, dev)
+    print(f"spec 11c bucketed self-draft f32: ids equal for all "
+          f"{len(prompts)} requests; every proposal accepted {counts}; 1 "
+          f"draft signature; drafter B4 launches {drafter_launches[0]} = "
+          f"{cfg.layers} x {drafter.feeds} feeds; all B4 launches "
+          f"{launches['flash_decode']} = {cfg.layers} x ({rounds} plain "
+          f"rounds + {drafter.feeds} feeds); {secs:.2f} s incl. tracing")
+    del sess, drafter
+
+    if bf16:
+        cfg16 = GPTConfig.small(**{**cfg_kw, "dtype": "bfloat16"})
+        configs = {"plain": ServeConfig(**serve_kw), "spec": spec_cfg}
+        for sc in configs.values():
+            # an untimed pass first traces every program the timed passes
+            # run (the verify step only traces once a draft appears)
+            serve(params, cfg16, prompts, n_new, sc, dev)
+        for tag in ("plain", "spec", "spec", "plain"):
+            n16, secs16, rounds16 = bf16_pass(params, cfg16, prompts, n_new,
+                                              configs[tag], dev)
+            per_round = {k: f"{1e3 * s / n:.3f} ms x {n}"
+                         for k, (n, s) in rounds16.items() if n}
+            print(f"spec bf16 {tag}: {n16} tokens in {secs16:.3f} s = "
+                  f"{n16 / secs16:.1f} tokens/s, traced beforehand; host "
+                  f"clock a round: {per_round}")
+    print(f"spec phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ------------------------------------- host tier, lifecycle (phase 12)
+
+# two full-length sequences of 64-token pages (4.7 MB a page at GPT-2
+# small in f32); a trie budget above the arena's, so the arena binds
+TIER_KW = dict(kv_layout="paged", kv_arena_pages=32,
+               kv_host_tier_bytes=256 * 2**20, prefix_cache_bytes=2**30)
+
+
+def tier_waves(vocab: int, seed: int = 0):
+    """Wave 1: 8 prompts sharing a 512-token prefix; wave 2: 8 prompts
+    with no shared prefix (200-330 tokens), whose pages push wave 1's
+    trie pages to the host; wave 3: wave 1's prompts again."""
+    rs = np.random.RandomState(seed + 12)
+    shared = rs.randint(0, vocab, 512).tolist()
+    wave1 = [shared + rs.randint(0, vocab, n).tolist()
+             for n in (40, 70, 9, 100, 64, 33, 1, 150)]
+    wave2 = [rs.randint(0, vocab, n).tolist()
+             for n in (260, 200, 330, 240, 300, 210, 280, 250)]
+    return wave1, wave2, shared
+
+
+def watch_promotions(sess, tier):
+    """Record each page's digest at demotion (of the export the tier is
+    handed) and, right after each promotion's import, compare the arena
+    page exported again with it.  Returns the list of (key, equal)."""
+    from easydist_tpu_torch.kv.tier import page_digest
+
+    put_digest, seen, last = {}, [], {}
+    put, get, imp = tier.put, tier.get, sess._import_arena_page
+
+    def watched_put(key, arrays):
+        put_digest[key] = page_digest({k: v.cpu() for k, v in arrays.items()})
+        return put(key, arrays)
+
+    def watched_get(key):
+        last["key"] = key
+        return get(key)
+
+    def watched_import(pool, kv, pid):
+        imp(pool, kv, pid)
+        key = last.pop("key", None)
+        if key is not None:
+            back = sess._export_arena_page(pool, pid)
+            seen.append((key, page_digest({k: v.cpu() for k, v in
+                                           back.items()}) == put_digest[key]))
+
+    tier.put, tier.get = watched_put, watched_get
+    sess._import_arena_page = watched_import
+    return seen
+
+
+def run_waves(sess, waves, n_new: int):
+    ids = []
+    for wave in waves:
+        futs = [sess.submit(p, max_new_tokens=n_new) for p in wave]
+        sess.run_until_drained()
+        ids.append([f.result(timeout=0)["ids"] for f in futs])
+    return ids
+
+
+def tier_run(tag, params, cfg, waves, n_new, serve_cfg, dev, kernel,
+             plan=""):
+    """One tiered session over the three waves, every decode kernel's
+    count set to 0 just before and read just after; the demotion and
+    promotion gates.  Returns (ids by wave, session, launches)."""
+    from easydist_tpu_torch.kv import audit_page_table
+    from easydist_tpu_torch.resilience import faultinject
+    from easydist_tpu_torch.serve import GenerationSession
+
+    sess = GenerationSession.for_gpt(params, cfg, config=serve_cfg,
+                                     device=dev)
+    bucket = max(serve_cfg.decode_buckets)
+    sess._pool_for(bucket)
+    pool = sess._pools[bucket]
+    seen = watch_promotions(sess, pool.tier)
+    counters = decode_counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with faultinject.fault_plan(plan):
+        ids = run_waves(sess, waves, n_new)
+        unfired = faultinject.unfired()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    rounds = sess.metrics.counter("decode_steps")
+    check_launches(tag, launches, kernel, cfg.layers, rounds, dev)
+    ts = pool.tier.stats()
+    problems = audit_page_table(pool.pool, pool.table, trie=pool.trie,
+                                tier=pool.tier)
+    if unfired or ts["demotions"] < 1 or ts["promotions"] < 1 or problems:
+        raise AssertionError(f"{tag}: unfired {unfired}, tier {ts}, audit "
+                             f"{problems}")
+    if not seen or not all(ok for _, ok in seen):
+        raise AssertionError(f"{tag}: promoted pages not bitwise equal to "
+                             f"their export before demotion: {seen}")
+    reused = sess.metrics.counter("prefix_tokens_reused")
+    print(f"{tag}: {sum(len(w) for w in waves)} requests in 3 waves, "
+          f"{secs:.2f} s incl. tracing; tier {ts}; {len(seen)} promoted "
+          f"pages bitwise equal (digests{', scales included' if 'k_scale' in pool.arena else ''})"
+          f" to their export before demotion; page-table audit clean; "
+          f"prefix tokens reused {reused}; demote "
+          f"{1e3 * pool.demote_s / ts['demotions']:.3f} ms a page, promote "
+          f"{1e3 * pool.promote_s / ts['promotions']:.3f} ms a page (host "
+          f"clock); {kernel} launches {launches[kernel]} = {cfg.layers} x "
+          f"{rounds} rounds")
+    return ids, sess, launches
+
+
+def tier_phase(dev, cfg_kw=None, n_new: int = 32, serve_kw=None,
+               seed: int = 0, tier_kw=None):
+    """Phase 12: the host tier and the session lifecycle, paged, f32 and
+    int8, on three waves of traffic (`tier_waves`).  Tier gates: ids
+    equal the uncached re-forward (f32; int8: wave 3 equals wave 1), at
+    least one demotion and one promotion, every promoted page bitwise
+    equal to its export before demotion (digests; scales included on
+    int8), a clean page-table and tier audit, and B5 (f32) / B6 (int8)
+    launched 12 x the rounds.  The f32 run is a fault drill too:
+    `kv.tier.fetch_corrupt` armed once gives fetch_retries 1.
+    Lifecycle gates: `drain()`'s hot pages imported by a fresh session
+    make a prompt with the shared prefix hit its prefix cache with equal
+    ids; `evacuate()` after 8 steps returns descriptors whose prompt +
+    ids, resubmitted to a fresh session with the remaining budget, give
+    the uninterrupted ids.  Returns B5's and B6's launches."""
+    from easydist_tpu_torch.models.gpt import GPTConfig, gpt_init
+    from easydist_tpu_torch.serve import GenerationSession, ServeConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg_kw = cfg_kw or {}
+    cfg = GPTConfig.small(**cfg_kw)
+    serve_kw = {**(serve_kw or SERVE_KW), **(tier_kw or TIER_KW)}
+    params = gpt_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                      device=dev)
+    wave1, wave2, shared = tier_waves(cfg.vocab, seed)
+    ref1 = [uncached_greedy(params, cfg, p, n_new) for p in wave1]
+    ref2 = [uncached_greedy(params, cfg, p, n_new) for p in wave2]
+    f32_cfg = ServeConfig(**serve_kw)
+    ids, sess, launches = tier_run(
+        "tier f32", params, cfg, (wave1, wave2, wave1), n_new, f32_cfg, dev,
+        "paged_decode", plan="kv.tier.fetch_corrupt@1")
+    for k, (got, ref) in enumerate(zip(ids, (ref1, ref2, ref1))):
+        check_ids(f"tier f32 wave {k + 1}", got,
+                  ("the uncached re-forward", ref))
+    retries = next(iter(sess._pools.values())).tier.stats()["fetch_retries"]
+    if retries != 1:
+        raise AssertionError(f"tier f32: fetch_retries {retries} with "
+                             f"kv.tier.fetch_corrupt armed once")
+    print(f"tier f32: ids equal the uncached re-forward in all 3 waves; "
+          f"the corrupt-fetch drill refetched once (fetch_retries 1)")
+    out = {"paged_decode": launches["paged_decode"]}
+
+    # drain -> hot pages -> a fresh session imports them
+    pages = sess.drain()
+    n_paths = sum(len(v) for v in pages.values())
+    del sess
+    fresh = GenerationSession.for_gpt(params, cfg, config=f32_cfg,
+                                      device=dev)
+    imported = fresh.import_hot_pages(pages)
+    del pages
+    rs = np.random.RandomState(seed + 120)
+    probe = shared + rs.randint(0, cfg.vocab, 90).tolist()
+    affinity = fresh.prefix_affinity(probe)
+    fut = fresh.submit(probe, max_new_tokens=n_new)
+    fresh.run_until_drained()
+    reused = fresh.metrics.counter("prefix_tokens_reused")
+    check_ids("drain import", [fut.result(timeout=0)["ids"]],
+              ("the uncached re-forward",
+               [uncached_greedy(params, cfg, probe, n_new)]))
+    if imported < 1 or reused < len(shared):
+        raise AssertionError(f"drain import: {imported} chunks imported, "
+                             f"{reused} prefix tokens reused")
+    print(f"lifecycle drain: {n_paths} hot paths exported, {imported} "
+          f"chunks imported by a fresh session; a prompt with the shared "
+          f"prefix had affinity {affinity}, reused {reused} prefix tokens "
+          f"and gave the uncached re-forward's ids")
+    del fresh
+
+    # evacuate after 8 steps -> resume elsewhere
+    sess = GenerationSession.for_gpt(params, cfg, config=f32_cfg,
+                                     device=dev)
+    futs = [sess.submit(p, max_new_tokens=n_new) for p in wave1]
+    for _ in range(8):
+        sess.step()
+    descs = sess.evacuate()
+    partial = [f.result(timeout=0) for f in futs]
+    if len(descs) != len(wave1) or not any(d["ids"] for d in descs) \
+            or any(p["finish_reason"] != "evacuated" for p in partial):
+        raise AssertionError(f"evacuate: {len(descs)} descriptors, partial "
+                             f"lengths {[len(d['ids']) for d in descs]}")
+    del sess
+    resumed = GenerationSession.for_gpt(params, cfg, config=f32_cfg,
+                                        device=dev)
+    rfuts = [resumed.submit(d["prompt"] + d["ids"],
+                            max_new_tokens=d["max_new"] - len(d["ids"]))
+             for d in descs]
+    resumed.run_until_drained()
+    joined = {tuple(d["prompt"]): d["ids"] + f.result(timeout=0)["ids"]
+              for d, f in zip(descs, rfuts)}
+    check_ids("evacuate resume", [joined[tuple(p)] for p in wave1],
+              ("the uncached re-forward", ref1))
+    print(f"lifecycle evacuate: {len(descs)} descriptors after 8 steps "
+          f"(partial ids {[len(d['ids']) for d in descs]}); resubmitted "
+          f"with the remaining budget they give the uninterrupted ids")
+    del resumed
+
+    # int8 pages with the tier
+    int8_cfg = ServeConfig(**{**serve_kw, "kv_quant_dtype": "int8"})
+    ids8, sess, launches = tier_run(
+        "tier int8", params, cfg, (wave1, wave2, wave1), n_new, int8_cfg, dev,
+        "paged_decode_quant")
+    check_ids("tier int8 wave 3", ids8[2], ("wave 1", ids8[0]))
+    n = sum(map(len, ref1 + ref2))
+    same = sum(a == b for x, y in zip(ids8[0] + ids8[1], ref1 + ref2)
+               for a, b in zip(x, y))
+    print(f"tier int8: wave 3 ids equal wave 1's; ids equal the exact f32 "
+          f"re-forward at {same} of {n} positions")
+    out["paged_decode_quant"] = launches["paged_decode_quant"]
+    del sess
+    print(f"tier phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ---------------------------------------------- ServeEngine (phase 13)
+
+ENGINE_KW = dict(batch_buckets=(1, 4, 8), seq_buckets=(256, 1024),
+                 max_wait_ms=10, max_queue=64)
+
+
+def engine_phase(dev, cfg_kw=None, engine_kw=None, seed: int = 0,
+                 clients: int = 6, per_client: int = 4,
+                 lengths=(16, 1024), exec_timeout_ms: float = 500.0):
+    """Phase 13: `ServeEngine` over `gpt_apply` with attention="flash"
+    (B1 once per layer per batch), compiled by
+    `fxfront.easydist_compile(infer, state_io={})` with the params as
+    `state`, warmed over batch buckets (1, 4, 8) x seq buckets (256,
+    1024).  6 client threads x 4 requests of 16-1024 tokens (numpy seed
+    7).  Gates: every result within rtol 1e-4 / atol 1e-5 of the same
+    compiled function on the request alone at its seq bucket; 6
+    executables and 6 cache misses, both in the engine's counters and in
+    the compiled function's own signature cache (6 entries, 6 traces,
+    the reference calls included), 24 completed, none failed; B1
+    launched 12 x the batches executed; a request with deadline_ms=0
+    raises DeadlineExceededError and the engine serves on;
+    `serve.oom_bucket` armed once disables the bucket and its requests
+    are re-packed and answered; `serve.exec_timeout` with
+    `exec_timeout_ms` set raises ExecTimeoutError and the next batch is
+    served.  Prints e2e p50 / p99 and the batch occupancy.  Returns B1's
+    launches in the traffic."""
+    import threading
+
+    from easydist_tpu_torch.fxfront import easydist_compile
+    from easydist_tpu_torch.models.gpt import GPTConfig, gpt_apply, gpt_init
+    from easydist_tpu_torch.ops import flash_attention as fa
+    from easydist_tpu_torch.resilience import faultinject
+    from easydist_tpu_torch.serve import (DeadlineExceededError,
+                                          ExecTimeoutError, ServeConfig,
+                                          ServeEngine)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = GPTConfig.small(**{**(cfg_kw or {}), "attention": "flash"})
+    engine_kw = engine_kw or ENGINE_KW
+    params = gpt_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                      device=dev)
+
+    def infer(params, tokens):
+        return gpt_apply(params, cfg, tokens)
+
+    comp = easydist_compile(infer, state_io={})
+    eng = ServeEngine(comp, ServeConfig(**engine_kw), state=params,
+                      device=dev)
+    t0 = time.perf_counter()
+    warmed = eng.warmup([np.zeros(lengths[0], np.int32)])
+    n_buckets = len(engine_kw["batch_buckets"]) * len(engine_kw["seq_buckets"])
+    if warmed != n_buckets:
+        raise AssertionError(f"engine: warmed {warmed} of {n_buckets}")
+    print(f"engine: warmed {warmed} executables in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rs = np.random.RandomState(7)
+    reqs = [rs.randint(0, cfg.vocab, int(rs.randint(lengths[0],
+                                                    lengths[1] + 1)))
+            .astype(np.int32) for _ in range(clients * per_client)]
+    results, errors = {}, []
+
+    def client(cid):
+        try:
+            for j in range(per_client):
+                k = cid * per_client + j
+                results[k] = eng.infer(reqs[k], timeout=600)
+        except Exception as e:  # surfaced below
+            errors.append((cid, repr(e)))
+
+    fa.flash_fwd.launches = 0
+    t0 = time.perf_counter()
+    with eng:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        b1 = fa.flash_fwd.launches
+        st = eng.stats()
+        c = st["counters"]
+        batches = c.get("batches_executed", 0)
+        if errors or len(results) != len(reqs):
+            raise AssertionError(f"engine: client errors {errors}")
+        if (st["distinct_executables"], c.get("compile_cache_misses"),
+                c.get("requests_completed"), c.get("requests_failed", 0)) \
+                != (n_buckets, n_buckets, len(reqs), 0):
+            raise AssertionError(f"engine: stats {st}")
+        want = cfg.layers * batches if dev.type == "cuda" else 0
+        if b1 != want:
+            raise AssertionError(f"engine: B1 launched {b1} times, expected "
+                                 f"{cfg.layers} x {batches} batches")
+        worst, bitwise = 0.0, 0
+        pad = engine_kw.get("pad_value", 0)
+        with torch.no_grad():
+            for k, r in enumerate(reqs):
+                s = min(b for b in engine_kw["seq_buckets"] if b >= len(r))
+                alone = np.full((1, s), pad, np.int32)
+                alone[0, :len(r)] = r
+                ref = comp(params, torch.from_numpy(alone).to(dev))
+                ref = ref[0, :len(r)].cpu().numpy()
+                got = results[k]
+                if got.shape != ref.shape or not np.allclose(
+                        got, ref, rtol=1e-4, atol=1e-5):
+                    raise AssertionError(
+                        f"engine: request {k} ({len(r)} tokens) differs from "
+                        f"the compiled function on it alone: max "
+                        f"{np.abs(got - ref).max()}")
+                worst = max(worst, float(np.abs(got - ref).max()))
+                bitwise += bool(np.array_equal(got, ref))
+        # the engine's counters key on the packed shapes; the compiled
+        # function's own signature cache says how often it really traced
+        bc = eng.stats()["backend_cache"]
+        if (bc["size"], bc["misses"]) != (n_buckets, n_buckets):
+            raise AssertionError(
+                f"engine: the compiled function holds {bc['size']} "
+                f"signatures after {bc['misses']} traces, expected "
+                f"{n_buckets} of each")
+        e2e = st["latency"]["e2e"]
+        print(f"engine f32 flash: {len(reqs)} requests from {clients} "
+              f"threads in {secs:.2f} s, {batches} batches, B1 launches {b1}"
+              f" = {cfg.layers} x {batches}; {st['distinct_executables']} "
+              f"executables, cache misses {c['compile_cache_misses']}, hits "
+              f"{c.get('compile_cache_hits', 0)}; compiled function's "
+              f"signature cache {bc}; every result within rtol "
+              f"1e-4 / atol 1e-5 of the request alone (largest difference "
+              f"{worst:.3e}; bitwise equal {bitwise} of {len(reqs)}); e2e "
+              f"p50 {e2e.get('p50_s')} s, p99 {e2e.get('p99_s')} s (bucket "
+              f"upper bounds), mean {e2e.get('mean_s')} s; batch occupancy "
+              f"{st['batch_occupancy']}")
+
+        # drills: deadline, OOM bucket
+        try:
+            eng.infer(reqs[0], deadline_ms=0, timeout=60)
+            raise AssertionError("engine: deadline_ms=0 was served")
+        except DeadlineExceededError:
+            pass
+        np.testing.assert_allclose(eng.infer(reqs[0], timeout=60),
+                                   results[0], rtol=1e-4, atol=1e-5)
+        big = max(engine_kw["batch_buckets"])
+        n = min(len(reqs), big // 2 + 1)
+        with faultinject.fault_plan("serve.oom_bucket@1"):
+            futs = [eng.submit(reqs[k]) for k in range(n)]
+            outs = [f.result(timeout=600) for f in futs]
+            unfired = faultinject.unfired()
+        for k, o in enumerate(outs):
+            np.testing.assert_allclose(o, results[k], rtol=1e-4, atol=1e-5)
+        h = eng.health()
+        if unfired or h["disabled_batch_buckets"] != [big] \
+                or h["oom_degradations"] != 1:
+            raise AssertionError(f"engine: OOM drill {h}, unfired {unfired}")
+    print(f"engine drills: deadline_ms=0 raised DeadlineExceededError and "
+          f"the next request was served; serve.oom_bucket disabled bucket "
+          f"{big} and its {n} requests were re-packed and answered; health "
+          f"{h}")
+
+    # watchdog drill on a second engine over the same compiled function
+    eng2 = ServeEngine(comp, ServeConfig(**engine_kw,
+                                         exec_timeout_ms=exec_timeout_ms),
+                       state=params, device=dev)
+    short = next(r for r in reqs if len(r) <= min(engine_kw["seq_buckets"]))
+    with eng2:
+        with faultinject.fault_plan("serve.exec_timeout@1"):
+            try:
+                eng2.infer(short, timeout=60)
+                raise AssertionError("engine: the wedged dispatch was served")
+            except ExecTimeoutError:
+                pass
+        served = eng2.infer(short, timeout=60)
+        # let the abandoned dispatch finish before the engine stops
+        time.sleep(3 * exec_timeout_ms / 1e3)
+    h2 = eng2.health()
+    if h2["exec_timeouts"] != 1 or served.shape != (len(short), cfg.vocab):
+        raise AssertionError(f"engine: watchdog drill {h2}")
+    print(f"engine watchdog: serve.exec_timeout raised ExecTimeoutError "
+          f"after {exec_timeout_ms:.0f} ms and the next batch was served; "
+          f"engine phase {time.perf_counter() - t_phase:.1f} s")
+    return b1
 
 
 # ------------------------------------------------ sharding engine, solver
@@ -2700,6 +3368,16 @@ def main() -> int:
     ring = attention_phase(dev, flash_out)["long"]["runs"][0]["launches"]
     for e in train_entries:
         e["launches_ring_rank0"] = ring[e["name"]]
+    torch.cuda.empty_cache()
+    spec = spec_phase(dev)
+    entry["launches_spec"] = spec["a"]
+    paged_entries[0]["launches_spec"] = spec["b"]
+    torch.cuda.empty_cache()
+    tier = tier_phase(dev)
+    paged_entries[0]["launches_tier"] = tier["paged_decode"]
+    paged_entries[1]["launches_tier"] = tier["paged_decode_quant"]
+    torch.cuda.empty_cache()
+    train_entries[0]["launches_engine"] = engine_phase(dev)
     print(card_line())
     print(json.dumps({"kernels": [entry, *paged_entries, *train_entries]}))
     print(json.dumps({"ok": True, "device": {

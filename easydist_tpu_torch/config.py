@@ -152,3 +152,10 @@ prof_db_path = os.environ.get(
 # price the solver's compute redundancy with measured per-op seconds from
 # the PerfDB where a node's signature hits
 use_op_cost_db = _env_bool("EASYDIST_OP_COST_DB", True)
+
+# ---------------- serving (serve/) ----------------
+# speculative decoding defaults: `ServeConfig.speculate_k` and
+# `.speculate_drafter` read these at construction when not set explicitly
+# (k = draft tokens a verify round scores; 0 disables speculation)
+speculate_k = _env_int("EASYDIST_SPECULATE_K", 0)
+speculate_drafter = os.environ.get("EASYDIST_SPECULATE_DRAFTER", "ngram")

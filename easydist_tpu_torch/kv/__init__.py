@@ -20,6 +20,10 @@ package drops them with `mode="drop"`, which torch's indexed writes do
 not have), and every read clips page ids into [0, n_pages - 1], so the
 drop page is never read.
 
+`tier.HostTier` is the host memory tier below the arena: cold trie
+pages demote to host memory as `{"host": key}` references and promote
+back into arena pages on the next hit (`is_host_ref`).
+
 `audit_page_table` cross-checks pool, table and prefix trie (the JAX
 package's analyze rule KV001) and returns its findings as strings.
 """
@@ -30,8 +34,10 @@ from typing import List
 
 from .pool import PagePool
 from .table import PageTable
+from .tier import HostTier, TierError
 
-__all__ = ["PagePool", "PageTable", "audit_page_table", "is_page_ref"]
+__all__ = ["HostTier", "PagePool", "PageTable", "TierError",
+           "audit_page_table", "is_host_ref", "is_page_ref"]
 
 
 def is_page_ref(kv) -> bool:
@@ -41,8 +47,17 @@ def is_page_ref(kv) -> bool:
     return isinstance(kv, dict) and set(kv) == {"page"}
 
 
+def is_host_ref(kv) -> bool:
+    """True iff a trie-committed kv value was DEMOTED to the host tier
+    (`{"host": key}`, `tier.HostTier` holding the bytes).  Host refs own
+    no arena page: the trie node charges 0 bytes against its budget, and
+    promotion (tier.get + arena import) swaps the value back to a
+    `{"page": id}` ref before the slot's first decode step."""
+    return isinstance(kv, dict) and set(kv) == {"host"}
+
+
 def audit_page_table(pool: PagePool, table: PageTable,
-                     trie=None) -> List[str]:
+                     trie=None, tier=None) -> List[str]:
     """Consistency audit of a live (pool, table[, prefix trie of
     {"page": id} references]) triple — the checks of the JAX package's
     KV001 (`easydist_tpu/analyze/kv_rules.py`).  A bookkeeping slip here
@@ -55,8 +70,12 @@ def audit_page_table(pool: PagePool, table: PageTable,
       * every table entry and trie reference names a live page inside
         the arena;
       * no page has more holders (table occurrences + trie references)
-        than its refcount."""
+        than its refcount;
+      * with a host `tier`: its byte accounting and manifests hold (the
+        JAX package's KVQ003)."""
     problems = [f"pool: {p}" for p in pool.check_invariants()]
+    if tier is not None:
+        problems += [f"tier: {p}" for p in tier.check_invariants()]
     problems += [f"table: {p}" for p in table.check_invariants()]
     holders = {}
     for slot in range(table.max_slots):

@@ -1,6 +1,6 @@
 """GPT-2-style decoder transformer in PyTorch: the port of
 easydist_tpu/models/gpt.py's forwards, serving steps (bucketed and
-paged KV) and train step (`gpt_loss`, `make_gpt_train_step` with Adam).
+paged KV, with the speculative verify steps) and train step (`gpt_loss`, `make_gpt_train_step` with Adam).
 
 Functional, like the JAX model: parameters are the JAX package's nested
 dict/list with the same keys and layouts (`w` is [n_in, n_out]; no
@@ -295,6 +295,49 @@ def gpt_prefill(params, cfg: GPTConfig, cache, tokens, lengths):
     return cache, last.float() @ params["wte"].T
 
 
+def _chunk_hidden(params, cfg: GPTConfig, cache, tokens, start):
+    """The trunk `gpt_prefill_chunk` and `gpt_verify_step` share: run
+    `tokens` (int [batch, s]) at absolute positions `start + [0..s)` (int
+    [batch]), write their K/V into `cache` (in place) at those positions
+    (clamped as `_cache_write_chunk` clamps), attend the FULL cache window
+    with a `key_pos <= query_pos` mask, and return the final hidden
+    states [batch, s, dim] after ln_f."""
+    from easydist_tpu_torch.ops import chunk_attention
+
+    dtype = torch_dtype(cfg.dtype)
+    heads = cfg.heads
+    b, s = tokens.shape
+    hd = cfg.dim // heads
+    abs_pos = start[:, None] + torch.arange(s, device=tokens.device)[None]
+    x = params["wte"][tokens.long()].to(dtype) \
+        + params["wpe"][abs_pos].to(dtype)
+    for li, blk in enumerate(params["blocks"]):
+        p_at = blk["attn"]
+        h_in = _layernorm(x, blk["ln1"]["g"], blk["ln1"]["b"]).to(dtype)
+        q, k, v = _qkv(h_in, p_at, dtype)
+        q = q.reshape(b, s, heads, hd).transpose(1, 2)
+        k = k.reshape(b, s, heads, hd).transpose(1, 2)
+        v = v.reshape(b, s, heads, hd).transpose(1, 2)
+        ck = _cache_write_chunk(cache["k"][li], k, start)
+        cv = _cache_write_chunk(cache["v"][li], v, start)
+        att = chunk_attention(q, ck.to(dtype), cv.to(dtype), abs_pos)
+        att = att.transpose(1, 2).reshape(b, s, cfg.dim)
+        x = x + (att @ p_at["proj"]["w"].to(dtype)
+                 + p_at["proj"]["b"].to(dtype))
+        x = _mlp(x, blk, dtype)
+    return _layernorm(x, params["ln_f"]["g"], params["ln_f"]["b"])
+
+
+def _last_real_logits(params, x, start, lengths):
+    """Logits [batch, vocab] at each row's last real position of a chunk
+    whose hidden states `x` [batch, c, dim] start at `start` (int
+    [batch]); garbage for rows whose chunk does not hold `lengths - 1`."""
+    b, c_len = x.shape[:2]
+    rel_last = (lengths.long() - 1 - start).clamp(0, c_len - 1)
+    last = x[torch.arange(b, device=x.device), rel_last]
+    return last.float() @ params["wte"].T
+
+
 def gpt_prefill_chunk(params, cfg: GPTConfig, cache, tokens, start_pos,
                       lengths):
     """One fixed-size prefill chunk: run `tokens` (int [batch, chunk]) at
@@ -307,34 +350,30 @@ def gpt_prefill_chunk(params, cfg: GPTConfig, cache, tokens, start_pos,
     the traced shape is independent of how much prompt is cached: one
     compiled signature per bucket, and restored prefix chunks are
     consumed exactly as if recomputed."""
-    from easydist_tpu_torch.ops import chunk_attention
-
-    dtype = torch_dtype(cfg.dtype)
-    heads = cfg.heads
-    b, c_len = tokens.shape
-    hd = cfg.dim // heads
     start = start_pos.long()
-    abs_pos = start[:, None] + torch.arange(c_len, device=tokens.device)[None]
-    x = params["wte"][tokens.long()].to(dtype) \
-        + params["wpe"][abs_pos].to(dtype)
-    for li, blk in enumerate(params["blocks"]):
-        p_at = blk["attn"]
-        h_in = _layernorm(x, blk["ln1"]["g"], blk["ln1"]["b"]).to(dtype)
-        q, k, v = _qkv(h_in, p_at, dtype)
-        q = q.reshape(b, c_len, heads, hd).transpose(1, 2)
-        k = k.reshape(b, c_len, heads, hd).transpose(1, 2)
-        v = v.reshape(b, c_len, heads, hd).transpose(1, 2)
-        ck = _cache_write_chunk(cache["k"][li], k, start)
-        cv = _cache_write_chunk(cache["v"][li], v, start)
-        att = chunk_attention(q, ck.to(dtype), cv.to(dtype), abs_pos)
-        att = att.transpose(1, 2).reshape(b, c_len, cfg.dim)
-        x = x + (att @ p_at["proj"]["w"].to(dtype)
-                 + p_at["proj"]["b"].to(dtype))
-        x = _mlp(x, blk, dtype)
-    x = _layernorm(x, params["ln_f"]["g"], params["ln_f"]["b"])
-    rel_last = (lengths.long() - 1 - start).clamp(0, c_len - 1)
-    last = x[torch.arange(b, device=x.device), rel_last]
-    return cache, last.float() @ params["wte"].T
+    x = _chunk_hidden(params, cfg, cache, tokens, start)
+    return cache, _last_real_logits(params, x, start, lengths)
+
+
+def gpt_verify_step(params, cfg: GPTConfig, cache, tokens, pos):
+    """Speculative-decoding verify step: score `tokens` (int [batch, s] —
+    each row is [last committed token, draft_0, ..., draft_{s-2}]) at
+    absolute positions `pos + [0..s)` in ONE forward, write their K/V
+    into `cache` (in place) at those positions, and return (cache,
+    logits [batch, s, vocab]) for ALL s positions, so the host can accept
+    the longest greedily-matching draft prefix.
+
+    The trunk is `gpt_prefill_chunk`'s with s as the chunk length: the
+    write starts at `pos` (clamped as `_cache_write_chunk` clamps; one
+    traced signature per (bucket, s)) and attention over the full cache
+    window is masked to `key_pos <= query_pos`, so position i's logits
+    equal what `gpt_decode_step` gives after feeding the first i tokens
+    one by one — rejected-draft rows written past the accept boundary are
+    the stale rows the mask keeps out of every later step.  Callers must
+    guarantee pos + s <= T (the write would otherwise be clamped onto
+    committed rows)."""
+    x = _chunk_hidden(params, cfg, cache, tokens, pos.long())
+    return cache, x.float() @ params["wte"].T
 
 
 def gpt_decode_step(params, cfg: GPTConfig, cache, token, pos):
@@ -439,15 +478,6 @@ def _pages_write_row(pages_layer, new, write_page, offset):
     return pages_layer
 
 
-def _pages_write_chunk(pages_layer, new, write_page):
-    """Write one full page of K or V per sequence, in place: pages_layer
-    [n_pages + 1, h, pt, hd], new [b, h, pt, hd], write_page int [b].
-    Paged prefill is page-aligned (page_tokens == prefill chunk), so a
-    chunk fills exactly one page; dead rows write the drop page."""
-    pages_layer[write_page.long()] = new.to(pages_layer.dtype)
-    return pages_layer
-
-
 def _kv_operand(pages_layer, dtype):
     """An arena layer as decode attention's K/V operand: in its storage
     dtype where widening it to the compute dtype is exact (the same dtype,
@@ -459,56 +489,59 @@ def _kv_operand(pages_layer, dtype):
     return pages_layer.to(dtype)
 
 
-def gpt_prefill_chunk_paged(params, cfg: GPTConfig, pages, table, tokens,
-                            start_pos, lengths):
-    """`gpt_prefill_chunk` with the cache indirected through a page table:
-    `pages` is the arena (written in place), `table` int [batch,
-    max_pages] maps each row's windows to arena pages (sentinel-padded),
-    and the chunk's K/V is written INTO the row's page for window
-    `start_pos // page_tokens` — no staging cache and no restore copy; a
-    restored prefix is table entries pointing at the trie's pages.
-    Attention gathers the virtual contiguous cache [batch, heads,
-    max_pages * page_tokens, head_dim] through the table (plain torch, as
-    the JAX package leaves it to XLA).  Returns (pages, logits [batch,
-    vocab]) at each row's last real position.  Requires tokens.shape[1]
-    == page_tokens."""
+def _pages_write_rows(pages_layer, new, write_page, offset):
+    """Write `s` consecutive K or V rows per sequence through the page
+    table, in place: pages_layer [n_pages + 1, h, pt, hd], new [b, h, s,
+    hd], write_page / offset int [b, s] (per position — a run of s
+    positions may straddle a page boundary, so each resolves its own
+    page).  The advanced indices broadcast to [b, s] in front of the
+    update; sentinel pages are the drop page, so dead rows touch no
+    allocatable page."""
+    pages_layer[write_page.long(), :, offset.long()] = \
+        new.transpose(1, 2).to(pages_layer.dtype)
+    return pages_layer
+
+
+def _chunk_hidden_paged(params, cfg: GPTConfig, pages, table, tokens,
+                        start, wp, off):
+    """`_chunk_hidden` against the page arena, the trunk
+    `gpt_prefill_chunk_paged` and `gpt_verify_step_paged` share: the s
+    positions' K/V rows land (in place) in arena page `wp` at offset
+    `off` (int [batch, s] each, per position), int8 pages quantizing on
+    write; attention gathers the virtual contiguous cache [batch, heads,
+    max_pages * page_tokens, head_dim] through `table` AFTER the write,
+    so the chunk attends its own fresh rows (plain torch, as the JAX
+    package leaves it to XLA).  Returns the hidden states [batch, s, dim]
+    after ln_f."""
     from easydist_tpu_torch.ops import (chunk_attention, gather_pages,
                                         kv_dequantize, kv_quantize)
 
     dtype = torch_dtype(cfg.dtype)
     heads = cfg.heads
-    b, c_len = tokens.shape
-    pt = pages["k"].shape[3]
+    b, s = tokens.shape
     n_pages = _arena_pages(pages)
     quant_nb = pages["k_scale"].shape[-1] if "k_scale" in pages else 0
-    if c_len != pt:
-        raise ValueError(f"paged prefill chunk {c_len} != page_tokens {pt} "
-                         f"(chunks must fill exactly one page)")
     hd = cfg.dim // heads
-    start = start_pos.long()
     tbl = table.long()
-    # the page receiving this chunk (the drop page for inactive rows)
-    wp = tbl.gather(1, (start // pt)[:, None])[:, 0]
-    abs_pos = start[:, None] + torch.arange(c_len, device=tokens.device)[None]
+    abs_pos = start[:, None] + torch.arange(s, device=tokens.device)[None]
     x = params["wte"][tokens.long()].to(dtype) \
         + params["wpe"][abs_pos].to(dtype)
     for li, blk in enumerate(params["blocks"]):
         p_at = blk["attn"]
         h_in = _layernorm(x, blk["ln1"]["g"], blk["ln1"]["b"]).to(dtype)
         q, k, v = _qkv(h_in, p_at, dtype)
-        q = q.reshape(b, c_len, heads, hd).transpose(1, 2)
-        k = k.reshape(b, c_len, heads, hd).transpose(1, 2)
-        v = v.reshape(b, c_len, heads, hd).transpose(1, 2)
+        q = q.reshape(b, s, heads, hd).transpose(1, 2)
+        k = k.reshape(b, s, heads, hd).transpose(1, 2)
+        v = v.reshape(b, s, heads, hd).transpose(1, 2)
         if quant_nb:
             # quantize-on-commit: the page stores block-scaled int8, the
             # scale page rides the same write/gather indices
             k, sk = kv_quantize(k, quant_nb)
             v, sv = kv_quantize(v, quant_nb)
-            psk = _pages_write_chunk(pages["k_scale"][li], sk, wp)
-            psv = _pages_write_chunk(pages["v_scale"][li], sv, wp)
-        pk = _pages_write_chunk(pages["k"][li], k, wp)
-        pv = _pages_write_chunk(pages["v"][li], v, wp)
-        # gather AFTER the write so the chunk attends its own fresh page
+            psk = _pages_write_rows(pages["k_scale"][li], sk, wp, off)
+            psv = _pages_write_rows(pages["v_scale"][li], sv, wp, off)
+        pk = _pages_write_rows(pages["k"][li], k, wp, off)
+        pv = _pages_write_rows(pages["v"][li], v, wp, off)
         if quant_nb:
             ck = kv_dequantize(gather_pages(pk[:n_pages], tbl),
                                gather_pages(psk[:n_pages], tbl), dtype)
@@ -518,14 +551,67 @@ def gpt_prefill_chunk_paged(params, cfg: GPTConfig, pages, table, tokens,
             ck = gather_pages(pk[:n_pages], tbl)
             cv = gather_pages(pv[:n_pages], tbl)
         att = chunk_attention(q, ck.to(dtype), cv.to(dtype), abs_pos)
-        att = att.transpose(1, 2).reshape(b, c_len, cfg.dim)
+        att = att.transpose(1, 2).reshape(b, s, cfg.dim)
         x = x + (att @ p_at["proj"]["w"].to(dtype)
                  + p_at["proj"]["b"].to(dtype))
         x = _mlp(x, blk, dtype)
-    x = _layernorm(x, params["ln_f"]["g"], params["ln_f"]["b"])
-    rel_last = (lengths.long() - 1 - start).clamp(0, c_len - 1)
-    last = x[torch.arange(b, device=x.device), rel_last]
-    return pages, last.float() @ params["wte"].T
+    return _layernorm(x, params["ln_f"]["g"], params["ln_f"]["b"])
+
+
+def gpt_prefill_chunk_paged(params, cfg: GPTConfig, pages, table, tokens,
+                            start_pos, lengths):
+    """`gpt_prefill_chunk` with the cache indirected through a page table:
+    `pages` is the arena (written in place), `table` int [batch,
+    max_pages] maps each row's windows to arena pages (sentinel-padded),
+    and the chunk's K/V is written INTO the row's page for window
+    `start_pos // page_tokens` — no staging cache and no restore copy; a
+    restored prefix is table entries pointing at the trie's pages.
+    Returns (pages, logits [batch, vocab]) at each row's last real
+    position.  Requires tokens.shape[1] == page_tokens."""
+    b, c_len = tokens.shape
+    pt = pages["k"].shape[3]
+    if c_len != pt:
+        raise ValueError(f"paged prefill chunk {c_len} != page_tokens {pt} "
+                         f"(chunks must fill exactly one page)")
+    start = start_pos.long()
+    # the page receiving this chunk (the drop page for inactive rows),
+    # every position of it at its own offset
+    wp = table.long().gather(1, (start // pt)[:, None]).expand(b, c_len)
+    off = torch.arange(c_len, device=tokens.device)[None].expand(b, c_len)
+    x = _chunk_hidden_paged(params, cfg, pages, table, tokens, start, wp,
+                            off)
+    return pages, _last_real_logits(params, x, start, lengths)
+
+
+def gpt_verify_step_paged(params, cfg: GPTConfig, pages, table, tokens,
+                          pos):
+    """`gpt_verify_step` against the page arena: the s positions' K/V
+    rows land (in place) through the table per position (window
+    `(pos + i) // page_tokens`, offset `(pos + i) % page_tokens` — a
+    verify window may straddle a page boundary, unlike page-aligned
+    prefill chunks; a window past the table's end goes to the drop page,
+    as the JAX package's out-of-range take drops it), and attention
+    gathers the virtual contiguous cache through the table as the paged
+    prefill chunk does (plain torch).  Int8 pages quantize on write and
+    dequantize after the gather.  Returns (pages, logits [batch, s,
+    vocab]) for all s positions.  Callers must have every touched window
+    mapped (or the whole row sentinel — dead rows drop); rejected
+    positions live in mapped pages until the host truncates the table
+    tail past the reservation."""
+    s = tokens.shape[1]
+    pt = pages["k"].shape[3]
+    start = pos.long()
+    tbl = table.long()
+    abs_pos = start[:, None] + torch.arange(s, device=tokens.device)[None]
+    # per-position page + offset: [b, s] each (sentinel rows stay
+    # sentinel through the gather, so every write of a dead row drops)
+    win = abs_pos // pt
+    inside = win < tbl.shape[1]
+    wp = torch.where(inside, tbl.gather(1, win.clamp(max=tbl.shape[1] - 1)),
+                     torch.full_like(win, _arena_pages(pages)))
+    x = _chunk_hidden_paged(params, cfg, pages, table, tokens, start, wp,
+                            abs_pos % pt)
+    return pages, x.float() @ params["wte"].T
 
 
 def gpt_decode_step_paged(params, cfg: GPTConfig, pages, table, token,

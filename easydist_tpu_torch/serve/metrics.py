@@ -1,9 +1,11 @@
-"""Serving observability: counters, gauges, latency histograms.
+"""Serving observability: counters, gauges, latency histograms (port of
+easydist_tpu/serve/metrics.py).
 
-Port of easydist_tpu/serve/metrics.py for the generation session's
-bucketed and paged paths.  The PerfDB export, the replica label, the
-prompt-length histogram and the recorders of layers not ported yet
-(request batching, speculation) are left out.
+Everything a dashboard needs to judge a serving deployment — queue depth,
+batch occupancy (real rows / bucket rows), executable-cache hit rate,
+p50/p95/p99 latency — collected lock-cheap in-process and exported through
+the existing runtime plumbing (`runtime.perfdb.PerfDB`), so serving history
+lands next to the step-time history `EASYDIST_RUNTIME_PROF` already keeps.
 """
 
 from __future__ import annotations
@@ -63,32 +65,49 @@ class LatencyHistogram:
 
 
 class ServeMetrics:
-    """Thread-safe counters/gauges/histograms for one generation session.
+    """Thread-safe counters/gauges/histograms for one `ServeEngine` or
+    `GenerationSession`.
 
-    Counters (monotonically increasing): requests_submitted /
-      requests_completed, tokens_generated (decode steps x active
-      slots; a prefill's first token is not counted), decode_steps,
-      prefills (admissions), prefill_chunks (batched chunk calls),
-      prefill_tokens_real (prompt tokens needing prefill, prefix reuse
-      deducted), prefill_tokens_padded (rows x chunk per call),
-      prefix_tokens_reused / prefix_tokens_total,
-      copy_on_restore_bytes_saved (paged: prefix bytes mapped into a
-      page table instead of copied).
-    Gauges: queue_depth, decode_slot_occupancy (active / total slots at
-      the last decode step), prefill_padding_ratio (executed token slots
-      per real prefill token), prefix_cache_hit_rate (fraction of prompt
-      tokens restored from the prefix trie); paged: kv_pages_in_use,
-      kv_page_utilization (real tokens / capacity of the live pages),
-      kv_quant_bytes_saved (int8 arena bytes not spent vs model
-      precision on the live pages).
-    Histograms: execute (one prefill chunk call), per_token (one decode
-      step, all slots), ttft (submit -> first token)."""
+    Counter names (all monotonically increasing):
+      requests_submitted / completed / failed / timed_out / rejected /
+      shed (circuit open), batches_executed, batch_rows_real,
+      batch_rows_padded, compile_cache_hits, compile_cache_misses,
+      oom_degradations, transient_retries, exec_timeouts (watchdog),
+      tokens_generated (decode steps x active slots).
+    Chunked-prefill counters: prefills (admissions), prefill_chunks
+      (batched chunk calls), prefill_tokens_real (prompt tokens actually
+      needing prefill, prefix reuse already deducted),
+      prefill_tokens_padded (executed token slots = rows x chunk per
+      call), prefix_tokens_reused / prefix_tokens_total,
+      prefix_cache_hits / misses / evictions (trie chunk events).
+    Speculative-decoding counters (serve/speculate.py): verify_steps,
+      draft_tokens_proposed / draft_tokens_accepted,
+      verify_tokens_committed (tokens the verify rounds emitted),
+      verify_host_us (the rounds' host time outside the compiled call),
+      speculative_rollback_audits (paged page-table audits),
+      speculative_rollback_pages_released (paged rollback returns);
+      gauge acceptance_rate (lifetime accepted / proposed).
+    Paged: copy_on_restore_bytes_saved; gauges kv_pages_in_use,
+      kv_page_utilization, kv_quant_bytes_saved.
+    Gauges: decode_slot_occupancy (active slots / total slots at the last
+      decode step), prefill_padding_ratio (executed token slots per real
+      prefill token, 1.0 = zero waste), prefix_cache_hit_rate (fraction
+      of prompt tokens restored from the prefix trie).
+    Histograms: queue_wait (submit->drain), execute (device time incl.
+    host roundtrip), e2e (submit->future resolution), per_token (one
+    decode-step wall time, all slots), ttft (submit->first token)."""
 
-    def __init__(self):
+    def __init__(self, replica_id: Optional[str] = None):
+        # fleet label: stamped into every snapshot and the default PerfDB
+        # sub_key so N replicas' histories never collide under one key
+        self.replica_id = replica_id
         self._lock = threading.Lock()
         self._counters: Dict[str, int] = {}
         self._gauges: Dict[str, float] = {}
+        self._prompt_hist: Dict[int, int] = {}  # prompt_len -> admissions
+        self.queue_wait = LatencyHistogram()
         self.execute = LatencyHistogram()
+        self.e2e = LatencyHistogram()
         self.per_token = LatencyHistogram()
         self.ttft = LatencyHistogram()
 
@@ -105,6 +124,17 @@ class ServeMetrics:
         with self._lock:
             getattr(self, hist_name).observe(seconds)
 
+    def record_batch(self, n_real: int, bucket: int,
+                     execute_s: float) -> None:
+        with self._lock:
+            self._counters["batches_executed"] = \
+                self._counters.get("batches_executed", 0) + 1
+            self._counters["batch_rows_real"] = \
+                self._counters.get("batch_rows_real", 0) + n_real
+            self._counters["batch_rows_padded"] = \
+                self._counters.get("batch_rows_padded", 0) + bucket
+            self.execute.observe(execute_s)
+
     def record_decode_step(self, n_active: int, n_slots: int,
                            step_s: float) -> None:
         """One token step across the whole slot pool: `n_active` slots
@@ -118,6 +148,44 @@ class ServeMetrics:
                 (n_active / n_slots) if n_slots else 0.0
             self.per_token.observe(step_s)
 
+    def record_speculation(self, proposed: int, accepted: int,
+                           committed: int, n_ran: int, n_slots: int,
+                           step_s: float,
+                           pages_released: int = 0) -> None:
+        """One speculative verify round (serve/speculate.py): `proposed`
+        draft tokens entered the verify step, `accepted` of them were
+        ratified, `committed` tokens were emitted in total (accepted
+        drafts + one correction/bonus per slot — these count toward
+        `tokens_generated` exactly like decode-step tokens, since they
+        ARE the plain-greedy tokens).  `n_ran` slots rode the verify
+        program out of `n_slots` rows; `pages_released` arena pages were
+        returned by the paged rollback.  `acceptance_rate` is the
+        lifetime accepted/proposed ratio — the drafter-quality signal
+        (speedup ~ committed tokens per verify step)."""
+        with self._lock:
+            self._counters["verify_steps"] = \
+                self._counters.get("verify_steps", 0) + 1
+            self._counters["draft_tokens_proposed"] = \
+                self._counters.get("draft_tokens_proposed", 0) + proposed
+            self._counters["draft_tokens_accepted"] = \
+                self._counters.get("draft_tokens_accepted", 0) + accepted
+            self._counters["tokens_generated"] = \
+                self._counters.get("tokens_generated", 0) + committed
+            self._counters["verify_tokens_committed"] = \
+                self._counters.get("verify_tokens_committed", 0) + committed
+            if pages_released:
+                self._counters["speculative_rollback_pages_released"] = \
+                    self._counters.get(
+                        "speculative_rollback_pages_released", 0) \
+                    + pages_released
+            total = self._counters["draft_tokens_proposed"]
+            if total:
+                self._gauges["acceptance_rate"] = \
+                    self._counters["draft_tokens_accepted"] / total
+            self._gauges["decode_slot_occupancy"] = \
+                (n_ran / n_slots) if n_slots else 0.0
+            self.per_token.observe(step_s)
+
     def record_admission(self, prompt_len: int, prefix_len: int) -> None:
         """One prompt admitted into the chunked-prefill scheduler:
         `prefix_len` of its `prompt_len` tokens were restored from the
@@ -125,6 +193,10 @@ class ServeMetrics:
         with self._lock:
             self._counters["prefills"] = \
                 self._counters.get("prefills", 0) + 1
+            # prompt-length histogram (exact counts per length): the
+            # prompt distribution a capacity planner reconstructs
+            self._prompt_hist[prompt_len] = \
+                self._prompt_hist.get(prompt_len, 0) + 1
             self._counters["prefill_tokens_real"] = \
                 self._counters.get("prefill_tokens_real", 0) \
                 + (prompt_len - prefix_len)
@@ -157,9 +229,13 @@ class ServeMetrics:
         """Paged-KV pool occupancy: `pages_in_use` arena pages are live
         (slot-mapped or trie-held) holding `mapped_tokens` real tokens of
         `pages_in_use * page_tokens` capacity.  `kv_page_utilization` is
-        the fill fraction (1 - it is the paged layout's only padding
-        waste); `quant_bytes_saved` is the device memory the live pages
-        did NOT spend versus model-precision storage."""
+        the intra-page fill fraction — 1.0 means zero fragmentation, and
+        (1 - it) is the only padding waste the paged layout CAN have
+        (the bucketed pool pads every row to the bucket instead).
+        `quant_bytes_saved` is device memory the live pages did NOT spend
+        versus model-precision storage (block-scaled int8 payload + scales vs
+        model dtype) — the quantized arena's density win, exported to
+        the PerfDB with every snapshot."""
         with self._lock:
             self._gauges["kv_pages_in_use"] = pages_in_use
             cap = pages_in_use * page_tokens
@@ -171,7 +247,7 @@ class ServeMetrics:
     def record_copy_on_restore_saved(self, nbytes: int) -> None:
         """A prefix restore mapped `nbytes` of committed pages into a
         sequence's page table instead of copying them — the zero-copy
-        restore, measured."""
+        restore contract, measured."""
         with self._lock:
             self._counters["copy_on_restore_bytes_saved"] = \
                 self._counters.get("copy_on_restore_bytes_saved", 0) + nbytes
@@ -181,6 +257,20 @@ class ServeMetrics:
             return self._counters.get(name, 0)
 
     # ------------------------------------------------------------- reporting
+    def batch_occupancy(self) -> Optional[float]:
+        """Mean fraction of bucket rows carrying real requests — the
+        padding waste signal (1.0 = every executed row was real work)."""
+        with self._lock:
+            padded = self._counters.get("batch_rows_padded", 0)
+            real = self._counters.get("batch_rows_real", 0)
+        return real / padded if padded else None
+
+    def compile_cache_hit_rate(self) -> Optional[float]:
+        with self._lock:
+            h = self._counters.get("compile_cache_hits", 0)
+            m = self._counters.get("compile_cache_misses", 0)
+        return h / (h + m) if (h + m) else None
+
     def prefill_padding_ratio(self) -> Optional[float]:
         """Executed prefill token slots per real prefill token (>= 1.0;
         1.0 = every executed slot carried a real token)."""
@@ -201,10 +291,38 @@ class ServeMetrics:
         with self._lock:
             counters = dict(self._counters)
             gauges = dict(self._gauges)
-            hists = {"execute": self.execute.snapshot(),
+            prompt_hist = dict(self._prompt_hist)
+            hists = {"queue_wait": self.queue_wait.snapshot(),
+                     "execute": self.execute.snapshot(),
+                     "e2e": self.e2e.snapshot(),
                      "per_token": self.per_token.snapshot(),
                      "ttft": self.ttft.snapshot()}
-        return {"counters": counters, "gauges": gauges,
+        return {"replica_id": self.replica_id,
+                "counters": counters, "gauges": gauges,
+                "prompt_hist": prompt_hist,
                 "latency": hists,
+                "batch_occupancy": self.batch_occupancy(),
+                "compile_cache_hit_rate": self.compile_cache_hit_rate(),
                 "prefill_padding_ratio": self.prefill_padding_ratio(),
                 "prefix_cache_hit_rate": self.prefix_cache_hit_rate()}
+
+    def export(self, db=None, key: str = "serving",
+               sub_key: Optional[str] = None, persist: bool = True):
+        """Record the snapshot into the persistent PerfDB (the same store
+        runtime profiling uses), appended to a bounded history list.  The
+        default sub_key carries the replica label ("engine[r1]") so fleet
+        replicas keep separate histories."""
+        if db is None:
+            from easydist_tpu_torch.runtime.perfdb import PerfDB
+
+            db = PerfDB()
+        if sub_key is None:
+            sub_key = (f"engine[{self.replica_id}]" if self.replica_id
+                       else "engine")
+        db.append_history(key, sub_key, self.snapshot())
+        if persist:
+            try:
+                db.persist()
+            except Exception:  # metrics export must never fail serving
+                pass
+        return db

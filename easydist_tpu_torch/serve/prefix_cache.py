@@ -13,10 +13,11 @@ stay under the byte budget.
 The paged layout's trie commits page REFERENCES ({"page": id}) at the
 arena page's byte cost (`commit(..., nbytes=)`); `on_evict` hands an
 evicted node's page back to the pool, and `evict_lru` evicts on demand
-when admission needs arena room.  The host-tier and fleet transport
-hooks of the JAX module (`peek`, `export_path`/`import_path`/
-`hot_paths`, `lru_node`/`reaccount`/`evict_node`) belong to layers not
-ported yet.
+when admission needs arena room.  The host tier picks its demotion
+victim with `lru_node`, swaps a node's value in place with `reaccount`
+and evicts a specific node with `evict_node`; drain migration and
+prefix transport use `peek`, `export_path`, `hot_paths` and
+`import_path`.
 """
 
 from __future__ import annotations
@@ -101,6 +102,26 @@ class PrefixCache:
             self.misses += max_chunks - len(nodes)
         return len(nodes) * self.chunk, nodes
 
+    def peek(self, prompt: Sequence[int],
+             max_tokens: Optional[int] = None) -> int:
+        """Length (tokens) of the longest cached whole-chunk prefix of
+        `prompt` WITHOUT touching LRU ticks or hit/miss counters — the
+        fleet router probes every replica's trie per request, and a probe
+        that mutated recency would let routing decisions evict pages the
+        chosen replica is about to restore."""
+        limit = len(prompt) if max_tokens is None else min(
+            len(prompt), max_tokens)
+        node = self._root
+        matched = 0
+        for j in range(limit // self.chunk):
+            child = node.children.get(
+                chunk_key(prompt[j * self.chunk:(j + 1) * self.chunk]))
+            if child is None:
+                break
+            matched += 1
+            node = child
+        return matched * self.chunk
+
     def lookup_node(self, nodes: List[_Node],
                     chunk_tokens: Sequence[int]) -> Optional[_Node]:
         """Child of the path `nodes` (empty = root) for `chunk_tokens`,
@@ -174,12 +195,87 @@ class PrefixCache:
         self._evict_to(self.bytes_used - 1)
         return self.n_nodes < before
 
+    def evict_node(self, node: _Node) -> bool:
+        """Evict one SPECIFIC unpinned childless node.  `evict_lru`'s
+        byte-driven walk cannot express "only victims holding a device
+        page", which the host tier's eviction fallback needs (evicting a
+        demoted node frees no arena page), so the tier picks its victim
+        via `lru_node` and unlinks it here."""
+        if node.children or node.refcount > 0:
+            return False
+        del node.parent.children[node.key]
+        self.bytes_used -= node.nbytes
+        self.n_nodes -= 1
+        self.evictions += 1
+        if self.on_evict is not None:
+            self.on_evict(node)
+        return True
+
     def _walk(self):
         stack = list(self._root.children.values())
         while stack:
             node = stack.pop()
             yield node
             stack.extend(node.children.values())
+
+    # ----------------------------------------------------------- refcounts
+    # ------------------------------------------------------- export/import
+    def export_path(self, prompt: Sequence[int],
+                    max_tokens: Optional[int] = None) -> List[Tuple[
+                        Tuple[int, ...], Dict[str, object]]]:
+        """Hand the longest cached whole-chunk prefix of `prompt` out as
+        [(chunk_tokens, kv)] pairs for transfer to another trie (drain
+        page migration, disaggregated-prefill handoff).  Does not evict or
+        unpin anything — the pages stay committed here; the caller decides
+        the source trie's fate."""
+        limit = len(prompt) if max_tokens is None else min(
+            len(prompt), max_tokens)
+        node = self._root
+        out: List[Tuple[Tuple[int, ...], Dict[str, object]]] = []
+        for j in range(limit // self.chunk):
+            key = chunk_key(prompt[j * self.chunk:(j + 1) * self.chunk])
+            child = node.children.get(key)
+            if child is None:
+                break
+            out.append((key, child.kv))
+            node = child
+        return out
+
+    def hot_paths(self, min_refcount: int = 0) -> List[List[Tuple[
+            Tuple[int, ...], Dict[str, object]]]]:
+        """Root-to-leaf chunk paths worth migrating on drain: every path
+        ending at a leaf whose refcount > `min_refcount`, plus (with the
+        default 0) all leaves — ordered hottest-first by the leaf's LRU
+        tick so a byte-budget-limited importer keeps the most recent."""
+        paths = []
+        for node in self._walk():
+            if node.children or node.refcount < min_refcount:
+                continue
+            path = []
+            cur = node
+            while cur is not self._root:
+                path.append((cur.key, cur.kv))
+                cur = cur.parent
+            paths.append((node.last_used, list(reversed(path))))
+        paths.sort(key=lambda t: -t[0])
+        return [p for _, p in paths]
+
+    def import_path(self, path: Sequence[Tuple[Tuple[int, ...],
+                                               Dict[str, object]]]) -> int:
+        """Commit a chunk path exported from another trie, root-first.
+        First-commit-wins exactly like `commit` (an existing node keeps
+        its kv — both sides computed bitwise-identical pages, so either
+        copy serves).  Returns the number of chunks now present along the
+        path (existing + newly committed); stops early when the byte
+        budget refuses a chunk (children without their parent would be
+        unreachable)."""
+        nodes: List[_Node] = []
+        for key, kv in path:
+            node = self.commit(nodes, key, kv)
+            if node is None:
+                break
+            nodes.append(node)
+        return len(nodes)
 
     # ----------------------------------------------------------- refcounts
     def pin(self, nodes: Sequence[_Node]) -> None:
@@ -190,6 +286,36 @@ class PrefixCache:
     def unpin(self, nodes: Sequence[_Node]) -> None:
         for node in nodes:
             node.refcount -= 1
+
+    # ----------------------------------------------------------- reporting
+    # ---------------------------------------------------------- tier hooks
+    def lru_node(self, predicate=None) -> Optional[_Node]:
+        """Least-recently-used unpinned node matching `predicate`,
+        INTERIOR nodes included — the host tier's demotion victim
+        selector.  Unlike eviction (which must unlink childless nodes to
+        keep the trie connected), demotion swaps a node's kv in place and
+        leaves it in the trie, so any unpinned node still holding a
+        device page is fair game even when its descendants do too."""
+        victim = None
+        for node in self._walk():
+            if node.refcount > 0:
+                continue
+            if predicate is not None and not predicate(node):
+                continue
+            if victim is None or node.last_used < victim.last_used:
+                victim = node
+        return victim
+
+    def reaccount(self, node: _Node, nbytes: int, kv=None) -> None:
+        """Atomically swap a node's kv value and re-charge its byte cost
+        (demotion: `{"page": id}` -> `{"host": key}` at 0 bytes;
+        promotion: back to the arena page's bytes).  Keeping `node.nbytes`
+        and `self.bytes_used` in one motion is what keeps
+        `check_invariants`' byte audit sound across tier moves."""
+        self.bytes_used += nbytes - node.nbytes
+        node.nbytes = nbytes
+        if kv is not None:
+            node.kv = kv
 
     # ----------------------------------------------------------- reporting
     def stats(self) -> Dict[str, int]:

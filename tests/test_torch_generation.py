@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from easydist_tpu.models import gpt as jg
+from easydist_tpu.serve import ServeConfig as JaxServeConfig
 from easydist_tpu_torch.models import gpt as tg
 from easydist_tpu_torch.serve import (GenerationSession, PrefixCache,
                                       ReplicaDrainingError,
@@ -177,18 +178,23 @@ def test_for_gpt_checks_buckets_and_param_device(model):
     # (tests/test_serve/test_paged_generation.py:309-312, test_kv_quant.py)
     (dict(kv_layout="paged", decode_buckets=(32,), prefill_chunk=8,
           kv_page_tokens=4), ValueError),
-    (dict(speculate_k=2), NotImplementedError),
+    # speculation and ServeEngine are ported: their fields follow the JAX
+    # rules (tests/test_serve/test_speculate.py TestKnobValidation,
+    # tests/test_resilience/test_serve_degradation.py)
+    (dict(speculate_k=31, decode_buckets=(32,)), ValueError),
     (dict(decode_buckets=(96,), prefill_chunk=64), ValueError),
     (dict(kv_cache_dtype="not_a_dtype"), ValueError),
     (dict(kv_quant_dtype="int8"), ValueError),
-    # fields only ServeEngine / speculation read
-    (dict(max_queue=8), NotImplementedError),
+    (dict(retry_jitter=1.5), ValueError),
     (dict(kv_layout="paged", kv_page_tokens=16), ValueError),
-    (dict(speculate_drafter="model"), NotImplementedError),
+    (dict(speculate_k=2, speculate_drafter="model"), ValueError),
 ])
 def test_serve_config_validation(kw, exc):
     with pytest.raises(exc):
         ServeConfig(**kw)
+    with pytest.raises(exc):
+        JaxServeConfig(**kw)
+    assert ServeConfig(speculate_k=2, max_queue=8).speculate_k == 2
     assert ServeConfig(kv_cache_dtype="bfloat16").kv_cache_dtype == "bfloat16"
     assert ServeConfig(kv_layout="paged").kv_layout == "paged"
 

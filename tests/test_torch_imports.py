@@ -70,7 +70,10 @@ def test_every_port_module_imports_with_jax_blocked():
                  "parallel.ulysses", "torchfront", "torchfront.api",
                  "platform.torch_backend", "metashard.metaop",
                  "metashard.metair", "autoflow.solver",
-                 "schedule.memory_planner", "native"):
+                 "schedule.memory_planner", "native", "kv.tier",
+                 "serve.speculate", "serve.engine", "serve.batcher",
+                 "serve.admission", "resilience", "resilience.faultinject",
+                 "resilience.breaker"):
         assert f"easydist_tpu_torch.{name}" in modules
     code = f"""
 import importlib, importlib.abc, sys

@@ -431,9 +431,11 @@ def test_config_accepted_and_host_tier_not_ported():
                      kv_quant_dtype="int8", kv_quant_block=4,
                      kv_page_tokens=32, prefill_chunk=64)
     assert sc.kv_quant_dtype == "int8" and sc.kv_page_tokens == 32
-    with pytest.raises(NotImplementedError, match="host tier"):
-        ServeConfig(decode_buckets=(32,), kv_layout="paged",
-                    kv_host_tier_bytes=1 << 20)
+    # the host tier is ported: the port accepts what the JAX package does
+    for cls in (JaxServeConfig, ServeConfig):
+        tiered = cls(decode_buckets=(32,), kv_layout="paged",
+                     kv_host_tier_bytes=1 << 20)
+        assert tiered.kv_host_tier_bytes == 1 << 20
 
 
 def test_prefix_cache_evict_hook_and_page_refs():
