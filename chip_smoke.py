@@ -118,11 +118,36 @@ Phases, each raising on failure (exit code != 0, no result line):
      buckets: 6 client threads x 4 requests, every result within rtol
      1e-4 / atol 1e-5 of the request alone, B1 launched 12 x the
      batches; the deadline, OOM-bucket and watchdog drills;
- 14. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
+ 14. the manual parallel modes (`pipeline_phase`) on GPT-2 small's f32
+     flash workload (TF32 off): (a) `make_gpt_pipeline_step` with 4
+     stages of 3 blocks chained on the card (`LocalStages(4)`, 1f1b,
+     batch 8 as 4 microbatches of 2): the loss and every gradient equal
+     the one-device ones at rtol 1e-4 / atol 1e-5; (b) one step of each
+     rank's program on fake groups, gpipe / remat / 1f1b on (4,) "pp"
+     (M=8) and 1f1b with n_virtual=2 on (2,) "pp": P2P messages and
+     bytes, and B1-B3 launches, equal what the tables and the rank's
+     blocks give; rank 0's peak at M=16 lower under 1f1b than gpipe;
+     (c) `easydist_compile(pp_stages=4)` of the loss on (4, 2) "pp" x
+     "dp" (fake group of 8): the split equals the CPU's trace of the
+     same graph, each stage's launches its flash nodes x M, one packed
+     row all_gather and one reduce_scatter a step of the row's bytes;
+     (d) ddp / zero2 / zero3 rank 0 on (8,) "dp" (fake group of 8): B1-B3
+     12 launches each, collectives by kind (zero3: the forward's gather
+     of every leaf and the backward's of the weights, norm scales and
+     wte it reads) and state bytes equal to the leaves' formulas,
+     zero3's peak below zero2's; a one-rank NCCL mesh
+     per mode within rtol 1e-4 of the step written eagerly; (e) MoE at
+     d_model 768 / d_ff 3072, 16 experts, top-1 and top-2, 8 x 1024
+     tokens on (8,) "ep": rank 0's all_to_all bytes equal the capacity
+     formula; on a one-rank NCCL mesh one rank's 1024 tokens equal
+     `moe_reference` at rtol 1e-4 / atol 1e-5;
+ 15. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
      path's run; B1-B3 also with `launches_bf16`, their launches in the
      bfloat16 flash steps; B1 with `launches_engine` (phase 13), B4 and
      B5 with `launches_spec` (phase 11 a and b), B5 and B6 with
-     `launches_tier` (phase 12)), then the `{"ok": true, ...}` line.
+     `launches_tier` (phase 12); B1-B3 with `launches_pp`, per schedule
+     a list by rank (14b, and "compile" for 14c's stages), and
+     `launches_dp`, per mode (14d)), then the `{"ok": true, ...}` line.
 
 Each serving run sets every decode kernel's launch count to 0 just
 before it and reads the counts just after; launches made to compare or
@@ -3342,6 +3367,533 @@ def attention_phase(dev, flash_out, cfg_kw=None, long_kw=None,
     return out
 
 
+
+# ------------------------------------- manual parallel modes (phase 14)
+
+PP_KW = dict(vocab=50304, seq=1024, dim=768, heads=12, layers=12,
+             attention="flash")
+COLLECTIVE_KINDS = ("all_reduce", "reduce_scatter_tensor",
+                    "all_gather_into_tensor", "all_to_all_single")
+
+
+class CollectiveLog:
+    """Counts the functional collectives issued inside it by kind:
+    {kind: [count, bytes of the inputs]} (a TorchDispatchMode, so an eager
+    run is counted as it goes; P2P is counted by the pipeline itself)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        log = self.log = {}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = func.__name__.split(".")[0]
+                if func.namespace == "_c10d_functional" \
+                        and name in COLLECTIVE_KINDS:
+                    x = args[0]
+                    c = log.setdefault(name, [0, 0])
+                    c[0] += 1
+                    c[1] += x.numel() * x.element_size()
+                return func(*args, **(kwargs or {}))
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+@contextlib.contextmanager
+def fake_group(world: int, rank: int):
+    """torch's fake process group as rank `rank` of `world` (structure
+    only: collectives copy their input, P2P moves nothing)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from easydist_tpu_torch.fxfront import set_device_mesh
+
+    dist.init_process_group("fake", rank=rank, world_size=world,
+                            store=FakeStore())
+    try:
+        yield
+    finally:
+        set_device_mesh(None)
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def one_rank_group(dev):
+    """A real one-rank process group: NCCL on the card, gloo on the CPU."""
+    import torch.distributed as dist
+
+    from easydist_tpu_torch.fxfront import set_device_mesh
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        yield backend
+    finally:
+        set_device_mesh(None)
+        dist.destroy_process_group()
+
+
+def _tokens(dev, cfg, shape, seed):
+    rs = np.random.RandomState(seed)
+    return (torch.as_tensor(rs.randint(0, cfg.vocab, shape), device=dev),
+            torch.as_tensor(rs.randint(0, cfg.vocab, shape), device=dev))
+
+
+def p2p_expect(S: int, V: int, M: int, stage: int):
+    """Messages one rank sends (and receives) a step by the tables: an
+    activation per forward unit whose global stage has a successor, a
+    gradient per backward unit whose stage has a predecessor."""
+    js = [k * S + stage for k in range(V)]
+    return M * sum(j != S * V - 1 for j in js) + M * sum(j != 0 for j in js)
+
+
+def _launch_counts():
+    return {name: c.launches for name, c in train_counters().items()}
+
+
+def _zero_launches():
+    for c in train_counters().values():
+        c.launches = 0
+
+
+def pp_rank_step(dev, cfg, world, rank, M, schedule, V=1, mb=2, seed=0):
+    """One step of `make_gpt_pipeline_step` as rank `rank` of a fake
+    (world,) "pp" group: its launches, P2P traffic, host seconds and peak
+    memory (None on the CPU)."""
+    from easydist_tpu_torch.fxfront import make_device_mesh
+    from easydist_tpu_torch.models.gpt import make_gpt_pipeline_step
+
+    on_card = dev.type == "cuda"
+    with fake_group(world, rank):
+        mesh = make_device_mesh((world,), ("pp",), device_type=dev.type)
+        step, init = make_gpt_pipeline_step(cfg, mesh, M, lr=1e-4,
+                                            schedule=schedule, n_virtual=V)
+        state = init(torch.Generator(device=dev).manual_seed(seed),
+                     device=dev)
+        tokens, targets = _tokens(dev, cfg, (M, mb, cfg.seq), seed + 1)
+        _sync(dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens, targets)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        out = dict(launches=_launch_counts(), stats=step.pipe.stats[0],
+                   secs=secs, blocks=len(step.layers),
+                   peak=torch.cuda.max_memory_allocated() if on_card
+                   else None)
+    del state, loss
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def pp_split_phase(dev, cfg, batch, seed):
+    """14a: make_gpt_pipeline_step's four stages chained on one device
+    (LocalStages(4), 1f1b, M=4) against the one-device loss and
+    gradients."""
+    from torch.utils import _pytree as pytree
+
+    from easydist_tpu_torch.models.gpt import (gpt_init, gpt_loss,
+                                               make_gpt_pipeline_step)
+    from easydist_tpu_torch.models.optim import value_and_grad
+    from easydist_tpu_torch.parallel import LocalStages
+
+    M = 4
+    params = gpt_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                      device=dev)
+    tokens, targets = _tokens(dev, cfg, (batch, cfg.seq), seed + 1)
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(
+        lambda p: gpt_loss(p, cfg, tokens, targets), params)
+    _sync(dev)
+    one_s = time.perf_counter() - t0
+    step, _ = make_gpt_pipeline_step(cfg, LocalStages(4), M, lr=1e-4,
+                                     schedule="1f1b")
+    shape = (M, batch // M, cfg.seq)
+    t0 = time.perf_counter()
+    p_loss, p_grads = step.loss_and_grads(params, tokens.reshape(shape),
+                                          targets.reshape(shape))
+    _sync(dev)
+    chain_s = time.perf_counter() - t0
+    got, want = pytree.tree_leaves(p_grads), pytree.tree_leaves(grads)
+    worst = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    bitwise = float(p_loss) == float(loss) and all(
+        torch.equal(g, w) for g, w in zip(got, want))
+    print(f"pipeline 14a (split at full width, 4 stages chained, 1f1b, "
+          f"M={M}): loss {float(p_loss)!r} vs one-device {float(loss)!r}; "
+          f"largest gradient difference {worst:.3e} over {len(got)} leaves; "
+          f"bitwise {bitwise}; one-device {one_s:.2f} s, chained "
+          f"{chain_s:.2f} s (host clock)")
+    np.testing.assert_allclose(float(p_loss), float(loss), rtol=1e-4,
+                               err_msg="chained pipeline loss != one-device")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    return dict(loss=float(p_loss), ref=float(loss), worst=worst,
+                bitwise=bitwise)
+
+
+def pp_schedule_phase(dev, cfg, seed):
+    """14b: rank programs on fake groups: (4,) "pp" for gpipe, remat and
+    1f1b (M=8), (2,) "pp" for 1f1b with n_virtual=2; rank 0 at M=16
+    under gpipe and 1f1b for the peak."""
+    on_card = dev.type == "cuda"
+    act_bytes = 2 * cfg.seq * cfg.dim * 4
+    launches, runs = {}, {}
+    for schedule, world, V in (("gpipe", 4, 1), ("remat", 4, 1),
+                               ("1f1b", 4, 1), ("1f1b", 2, 2)):
+        key = schedule if V == 1 else f"{schedule}_v{V}"
+        M = 8
+        launches[key] = []
+        for rank in range(world):
+            r = pp_rank_step(dev, cfg, world, rank, M, schedule, V,
+                             seed=seed)
+            n = p2p_expect(world, V, M, rank)
+            st = r["stats"]
+            fwd = r["blocks"] * M * (2 if schedule == "remat" else 1)
+            bwd = r["blocks"] * M
+            expect = ({"flash_fwd": fwd, "flash_bwd_dq": bwd,
+                       "flash_bwd_dkv": bwd} if on_card
+                      else {name: 0 for name in TRAIN_KERNELS})
+            print(f"pipeline 14b {key} rank {rank}/{world}: {r['blocks']} "
+                  f"blocks, launches {r['launches']}, sends "
+                  f"{st['sends']} ({st['send_bytes'] / 1e6:.2f} MB), recvs "
+                  f"{st['recvs']} ({st['recv_bytes'] / 1e6:.2f} MB), live "
+                  f"residual sets {st['max_live']}, host {r['secs'] * 1e3:.1f}"
+                  f" ms a step (fake group)")
+            if (st["sends"], st["recvs"]) != (n, n) or \
+                    st["send_bytes"] != st["recv_bytes"] or \
+                    st["send_bytes"] != n * act_bytes:
+                raise AssertionError(f"14b {key} rank {rank}: P2P {st}, "
+                                     f"the tables give {n} messages of "
+                                     f"{act_bytes} B each way")
+            if r["launches"] != expect:
+                raise AssertionError(f"14b {key} rank {rank}: launches "
+                                     f"{r['launches']}, expected {expect}")
+            launches[key].append(r["launches"])
+            runs[(key, rank)] = r
+    peaks = {}
+    for schedule in ("gpipe", "1f1b"):
+        r = pp_rank_step(dev, cfg, 4, 0, 16, schedule, seed=seed)
+        peaks[schedule] = r
+        print(f"pipeline 14b rank 0 of 4 at M=16, {schedule}: peak "
+              f"{r['peak']} B, live residual sets {r['stats']['max_live']}, "
+              f"host {r['secs'] * 1e3:.1f} ms a step")
+    if on_card and not peaks["1f1b"]["peak"] < peaks["gpipe"]["peak"]:
+        raise AssertionError(f"1f1b peak {peaks['1f1b']['peak']} is not "
+                             f"below gpipe's {peaks['gpipe']['peak']}")
+    return launches, {k: v["peak"] for k, v in peaks.items()}
+
+
+def _flash_nodes(nodes) -> int:
+    return sum(1 for n in nodes
+               if getattr(n.target, "__name__", "") == "flash_fwd.default")
+
+
+def pp_compile_phase(dev, cfg, batch, seed, M=4):
+    """14c: easydist_compile(pp_stages=4) of GPT-2 small's f32 loss on a
+    (4, 2) "pp" x "dp" mesh of a fake group of 8, one step as each
+    stage's dp-0 rank; the split against the CPU's trace of the same
+    graph."""
+    from torch.utils import _pytree as pytree
+
+    from easydist_tpu_torch.fxfront import easydist_compile, make_device_mesh
+    from easydist_tpu_torch.models.gpt import gpt_init, gpt_loss
+    from easydist_tpu_torch.parallel.auto_pipeline import StagePlan, trace
+
+    on_card = dev.type == "cuda"
+
+    def loss_fn(params, tokens, targets):
+        return gpt_loss(params, cfg, tokens, targets)
+
+    tokens, targets = _tokens(dev, cfg, (batch, cfg.seq), seed + 1)
+    launches, splits = [], []
+    for rank in (0, 2, 4, 6):
+        with fake_group(8, rank):
+            mesh = make_device_mesh((4, 2), ("pp", "dp"),
+                                    device_type=dev.type)
+            compiled = easydist_compile(loss_fn, mesh=mesh, pp_stages=4,
+                                        n_microbatches=M)
+            params = gpt_init(cfg, torch.Generator(device=dev).manual_seed(
+                seed), device=dev)
+            t0 = time.perf_counter()
+            state = compiled.init_state(params, tokens, targets)
+            build_s = time.perf_counter() - t0
+            del params
+            _zero_launches()
+            with CollectiveLog() as log:
+                t0 = time.perf_counter()
+                state, loss = compiled(state, tokens, targets)
+                _sync(dev)
+                secs = time.perf_counter() - t0
+            got = _launch_counts()
+            plan, prep = compiled.stage_plan, compiled.pipe.prep
+            s = rank // 2
+            flash = _flash_nodes(plan.stage_nodes[s])
+            expect = {name: flash * M if on_card else 0
+                      for name in TRAIN_KERNELS}
+            rows = {"all_gather_into_tensor": [1, prep.row_elems * 4 // 2],
+                    "reduce_scatter_tensor": [1, prep.row_elems * 4]}
+            stats = compiled.pipe.stats[0]
+            print(f"pipeline 14c rank {rank} (stage {s}): build "
+                  f"{build_s:.2f} s, step {secs * 1e3:.1f} ms (fake group); "
+                  f"{flash} flash nodes, launches {got}; collectives {log.log}"
+                  f"; P2P sends {stats['sends']} "
+                  f"({stats['send_bytes'] / 1e6:.2f} MB)")
+            if got != expect:
+                raise AssertionError(f"14c rank {rank}: launches {got}, "
+                                     f"expected {expect}")
+            for kind, want in rows.items():
+                if log.log.get(kind) != want:
+                    raise AssertionError(
+                        f"14c rank {rank}: {kind} {log.log.get(kind)}, the "
+                        f"packed row ({prep.row_elems} f32) gives {want}")
+            launches.append(got)
+            splits.append((plan.ends, plan.stage_flops,
+                           [_flash_nodes(n) for n in plan.stage_nodes]))
+            del state, compiled
+        if on_card:
+            torch.cuda.empty_cache()
+    if any(sp != splits[0] for sp in splits):
+        raise AssertionError(f"the ranks split differently: {splits}")
+    # the same loss traced on the CPU at the same local shape
+    cpu_params = gpt_init(cfg, torch.Generator().manual_seed(seed),
+                          device="cpu")
+    leaves, spec = pytree.tree_flatten(cpu_params)
+    local = (batch // M // 2, cfg.seq)
+    mb = (torch.zeros(local, dtype=tokens.dtype),
+          torch.zeros(local, dtype=targets.dtype))
+    gm, n_p, _, _ = trace(
+        lambda p, b: loss_fn(pytree.tree_unflatten(p, spec), *b), leaves, mb)
+    cpu_ends = StagePlan(gm, 4, n_p).ends
+    del cpu_params, leaves, gm
+    ends, flops, flash = splits[0]
+    print(f"pipeline 14c split: node ends {ends} (CPU trace {cpu_ends}), "
+          f"stage FLOPs {[f'{f:.4g}' for f in flops]}, flash nodes a stage "
+          f"{flash}")
+    if cpu_ends != ends:
+        raise AssertionError(f"the card split {ends}, the CPU {cpu_ends}")
+    return launches, dict(ends=ends, flops=flops, flash=flash)
+
+
+def _leaf_bytes(tree):
+    from torch.utils import _pytree as pytree
+
+    return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(tree))
+
+
+def dp_phase(dev, cfg, batch, seed, world=8, steps=3):
+    """14d: ddp, zero2 and zero3 of the f32 flash train step on (8,) "dp":
+    rank 0's step once on a fake group of 8 (launches, collectives by
+    kind and state bytes against their formulas, peaks), then a one-rank
+    mesh per mode against the same step written eagerly."""
+    from torch.utils import _pytree as pytree
+
+    from easydist_tpu_torch.fxfront import make_device_mesh
+    from easydist_tpu_torch.models.gpt import gpt_init, gpt_loss
+    from easydist_tpu_torch.models.optim import (adam_init, adam_update,
+                                                 value_and_grad)
+    from easydist_tpu_torch.parallel import ddp_step, zero2_step, zero3_step
+
+    on_card = dev.type == "cuda"
+
+    def loss_fn(params, tokens, targets):
+        return gpt_loss(params, cfg, tokens, targets)
+
+    def build(mode, mesh, params):
+        if mode == "ddp":
+            return ddp_step(loss_fn, mesh), params
+        if mode == "zero2":
+            step, init_opt = zero2_step(loss_fn, mesh)
+            return step, (params, init_opt(params), torch.zeros(
+                (), dtype=torch.int32, device=dev))
+        step, init = zero3_step(loss_fn, mesh)
+        return step, init(params)
+
+    def fresh():
+        return gpt_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+
+    tokens, targets = _tokens(dev, cfg, (batch, cfg.seq), seed + 1)
+    params = fresh()
+    leaves = pytree.tree_leaves(params)
+    P = sum(t.numel() * 4 for t in leaves)
+    L = len(leaves)
+    shard = [t.numel() * 4 for t in leaves if t.shape[0] % world == 0]
+    repl = [t.numel() * 4 for t in leaves if t.shape[0] % world]
+    blocks = sum(shard) // world + sum(repl)
+    # what zero3's backward reads of the params, so gathers again: every
+    # matmul weight, every norm's scale and the tied head (wte)
+    read = [params["wte"], params["ln_f"]["g"]] + [
+        t for blk in params["blocks"] for t in (
+            blk["ln1"]["g"], blk["attn"]["qkv"]["w"], blk["attn"]["proj"]["w"],
+            blk["ln2"]["g"], blk["mlp"]["fc"]["w"], blk["mlp"]["proj"]["w"])]
+    again = [t.numel() * 4 for t in read if t.shape[0] % world == 0]
+    del leaves, params, read
+    want = {
+        "ddp": ({"all_reduce": [L + 1, P + 4]}, P),
+        "zero2": ({"reduce_scatter_tensor": [len(shard), sum(shard)],
+                   "all_gather_into_tensor": [len(shard), sum(shard) // world],
+                   "all_reduce": [len(repl) + 1, sum(repl) + 4]},
+                  P + 2 * blocks + 4),
+        "zero3": ({"all_gather_into_tensor": [
+            len(shard) + len(again), (sum(shard) + sum(again)) // world],
+                   "reduce_scatter_tensor": [len(shard), sum(shard)],
+                   "all_reduce": [len(repl) + 1, sum(repl) + 4]},
+                  3 * blocks + 4)}
+    launches, peaks, out = {}, {}, {}
+    for mode in ("ddp", "zero2", "zero3"):
+        with fake_group(world, 0):
+            mesh = make_device_mesh((world,), ("dp",), device_type=dev.type)
+            step, state = build(mode, mesh, fresh())
+            state_bytes = _leaf_bytes(state)
+            _sync(dev)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            _zero_launches()
+            with CollectiveLog() as log:
+                t0 = time.perf_counter()
+                state, loss = step(state, tokens, targets)
+                _sync(dev)
+                secs = time.perf_counter() - t0
+            launches[mode] = _launch_counts()
+            peaks[mode] = torch.cuda.max_memory_allocated() if on_card \
+                else None
+            del state, loss, step
+        if on_card:
+            torch.cuda.empty_cache()
+        coll = {k: v for k, v in log.log.items()}
+        print(f"dp 14d {mode} rank 0 of ({world},): launches "
+              f"{launches[mode]}, collectives {coll}, state {state_bytes} B,"
+              f" peak {peaks[mode]} B, host {secs * 1e3:.1f} ms a step "
+              f"(fake group)")
+        expect = {name: cfg.layers if on_card else 0
+                  for name in TRAIN_KERNELS}
+        if launches[mode] != expect:
+            raise AssertionError(f"14d {mode}: launches {launches[mode]}, "
+                                 f"expected {expect}")
+        if coll != want[mode][0] or state_bytes != want[mode][1]:
+            raise AssertionError(f"14d {mode}: collectives {coll} and state "
+                                 f"{state_bytes} B, the leaves give "
+                                 f"{want[mode][0]} and {want[mode][1]} B")
+    if on_card and not peaks["zero3"] < peaks["zero2"]:
+        raise AssertionError(f"zero3 peak {peaks['zero3']} is not below "
+                             f"zero2's {peaks['zero2']}")
+
+    # a real one-rank mesh per mode against the step written eagerly
+    for mode in ("ddp", "zero2", "zero3"):
+        with one_rank_group(dev) as backend:
+            mesh = make_device_mesh((1,), ("dp",), device_type=dev.type)
+            step, state = build(mode, mesh, fresh())
+            params = fresh()
+            opt = adam_init(params) if mode != "ddp" else None
+            got, ref = [], []
+            for _ in range(steps):
+                state, loss = step(state, tokens, targets)
+                got.append(float(loss))
+                loss_e, grads = value_and_grad(
+                    lambda p: loss_fn(p, tokens, targets), params)
+                ref.append(float(loss_e))
+                if mode == "ddp":
+                    params = pytree.tree_map(lambda p, g: p - 1e-2 * g,
+                                             params, grads)
+                else:
+                    params, opt = adam_update(params, grads, opt, lr=1e-2)
+            final = state if mode == "ddp" else state[0]
+            worst = max(float((a - b).abs().max()) for a, b in zip(
+                pytree.tree_leaves(final), pytree.tree_leaves(params)))
+            print(f"dp 14d {mode} one-rank mesh ({backend}): losses {got}, "
+                  f"eager {ref}, bitwise {got == ref}; largest parameter "
+                  f"difference after {steps} steps {worst:.3e}")
+            np.testing.assert_allclose(got, ref, rtol=1e-4,
+                                       err_msg=f"{mode} one-rank != eager")
+            out[mode] = dict(losses=got, eager=ref, worst=worst)
+            del state, params, opt, step
+        if on_card:
+            torch.cuda.empty_cache()
+    return launches, peaks, out
+
+
+def moe_phase(dev, seed, world=8, tokens_per_rank=1024):
+    """14e: MoE at GPT-2 small's widths (16 experts, top-1 and top-2) on
+    (8,) "ep": rank 0's all_to_all bytes against the capacity formula on
+    a fake group of 8, and one rank's share of the tokens on a one-rank
+    mesh against moe_reference."""
+    from easydist_tpu_torch.fxfront import make_device_mesh
+    from easydist_tpu_torch.parallel.moe import (MoEConfig, capacity_of,
+                                                 moe_init, moe_layer,
+                                                 moe_reference)
+
+    out = {}
+    for top_k in (1, 2):
+        cfg = MoEConfig(n_experts=16, d_model=768, d_ff=3072, top_k=top_k)
+        params = moe_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                          device=dev)
+        x = torch.randn((world * tokens_per_rank, cfg.d_model),
+                        generator=torch.Generator(device=dev).manual_seed(
+                            seed + 1), device=dev)
+        cap = capacity_of(cfg, tokens_per_rank)
+        want = [2, 2 * cfg.n_experts * cap * cfg.d_model * 4]
+        with fake_group(world, 0):
+            mesh = make_device_mesh((world,), ("ep",), device_type=dev.type)
+            with torch.no_grad(), CollectiveLog() as log:
+                y, aux = moe_layer(params, x, mesh, cfg)
+                _sync(dev)
+        got = log.log.get("all_to_all_single")
+        with one_rank_group(dev) as backend:
+            mesh = make_device_mesh((1,), ("ep",), device_type=dev.type)
+            x1 = x[:tokens_per_rank]
+            with torch.no_grad():
+                y1, aux1 = moe_layer(params, x1, mesh, cfg)
+                y_ref, aux_ref = moe_reference(params, x1, cfg, 1)
+        worst = float((y1 - y_ref).abs().max())
+        print(f"moe 14e top-{top_k}: capacity {cap}, rank 0's all_to_all "
+              f"{got} (formula {want}); one-rank mesh ({backend}) vs "
+              f"moe_reference over {tokens_per_rank} tokens: largest "
+              f"difference {worst:.3e}, aux {float(aux1)!r} vs "
+              f"{float(aux_ref)!r}")
+        if got != want:
+            raise AssertionError(f"14e top-{top_k}: all_to_all {got}, the "
+                                 f"capacity formula gives {want}")
+        torch.testing.assert_close(y1, y_ref, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(float(aux1), float(aux_ref), rtol=1e-4)
+        out[f"top{top_k}"] = dict(capacity=cap, a2a=got, worst=worst)
+        del params, x, y, y1, y_ref
+    return out
+
+
+def pipeline_phase(dev, cfg_kw=None, batch: int = 8, seed: int = 0):
+    """Phase 14: the manual parallel modes on GPT-2 small's f32 flash
+    workload (14a split, 14b schedules, 14c easydist_compile(pp_stages=),
+    14d ddp / zero2 / zero3) and MoE at its widths (14e).  Returns the
+    B1-B3 launches of the pipeline runs (per schedule, per rank) and of
+    the dp runs (per mode), and the printed numbers.  The arguments
+    shrink it for a rehearsal on the CPU."""
+    from easydist_tpu_torch.models.gpt import GPTConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig(**{**PP_KW, **(cfg_kw or {})})
+    t_phase = time.perf_counter()
+    out = {"split": pp_split_phase(dev, cfg, batch, seed)}
+    launches_pp, out["peaks_pp"] = pp_schedule_phase(dev, cfg, seed)
+    launches_pp["compile"], out["compile"] = pp_compile_phase(dev, cfg,
+                                                              batch, seed)
+    launches_dp, out["peaks_dp"], out["dp"] = dp_phase(dev, cfg, batch,
+                                                       seed)
+    out["moe"] = moe_phase(dev, seed)
+    print(f"pipeline phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches_pp, launches_dp, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3378,6 +3930,13 @@ def main() -> int:
     paged_entries[1]["launches_tier"] = tier["paged_decode_quant"]
     torch.cuda.empty_cache()
     train_entries[0]["launches_engine"] = engine_phase(dev)
+    torch.cuda.empty_cache()
+    launches_pp, launches_dp, _ = pipeline_phase(dev)
+    for e in train_entries:
+        e["launches_pp"] = {sched: [r[e["name"]] for r in ranks]
+                            for sched, ranks in launches_pp.items()}
+        e["launches_dp"] = {mode: r[e["name"]]
+                            for mode, r in launches_dp.items()}
     print(card_line())
     print(json.dumps({"kernels": [entry, *paged_entries, *train_entries]}))
     print(json.dumps({"ok": True, "device": {

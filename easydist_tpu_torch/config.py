@@ -145,6 +145,20 @@ comm_quant_dtype = os.environ.get("EASYDIST_COMM_QUANT", "none")
 comm_quant_block = _env_int("EASYDIST_COMM_QUANT_BLOCK", 256)
 # leaves below this many elements are never quantized
 comm_quant_min_numel = _env_int("EASYDIST_COMM_QUANT_MIN_NUMEL", 2048)
+# pack gradient leaves into buckets of this many bytes before reducing
+# (0 = one collective per leaf).  Only 0 is ported: `comm.reduce` raises
+# for any other value (quantized and bucketed reduction come with ROADMAP
+# queue A item 7), as for `comm_quant_dtype` != "none"
+comm_bucket_bytes = _env_int("EASYDIST_COMM_BUCKET_BYTES", 0)
+# flush gradients in backward emission order, overlapped with the
+# backward (item 7 as well; `comm.reduce` raises when it is set)
+comm_overlap = _env_bool("EASYDIST_COMM_OVERLAP", False)
+# K-microbatch gradient accumulation of the manual dp / ZeRO steps
+# (0 and 1 both mean off); the steps' `grad_accum_microbatches=` wins
+grad_accum_microbatches = _env_int("EASYDIST_GRAD_ACCUM_MICROBATCHES", 0)
+# the NaN/Inf skip-and-hold guard of the manual dp / ZeRO steps: not
+# ported (it comes with item 7), so True raises when a step is built
+resilience_step_guard = _env_bool("EASYDIST_STEP_GUARD", False)
 
 # ---------------- op-time database ----------------
 prof_db_path = os.environ.get(

@@ -797,8 +797,9 @@ class CompiledFunction:
         return result.tree_jitted(*args, **kwargs)
 
 
-_PIPELINE_ARGS = ("pp_stages", "n_microbatches", "pp_axis", "schedule",
-                  "lr", "optimizer", "tp_axes")
+_PIPELINE_DEFAULTS = {"pp_stages": None, "n_microbatches": None,
+                      "pp_axis": "pp", "schedule": "gpipe", "lr": None,
+                      "optimizer": "adam", "tp_axes": None}
 
 
 def easydist_compile(func=None, mesh=None, state_io="auto",
@@ -820,25 +821,66 @@ def easydist_compile(func=None, mesh=None, state_io="auto",
     `compile_only` returns the CompileResult instead of running.
     `max_solver_time` (seconds) and `liveness_only_input` set the
     solver's knobs (`config.solver_time_limit`, `config.liveness_only_input`)
-    as the JAX package does.  The JAX package's pipeline arguments
-    (`pp_stages`, `n_microbatches`, `pp_axis`, `schedule`, `lr`,
-    `optimizer`, `tp_axes`) raise NotImplementedError: the hybrid
-    pipeline is not ported yet (ROADMAP queue A item 6b)."""
+    as the JAX package does.
+
+    With `pp_stages=` the decorated function is a LOSS `loss_fn(params,
+    *batch) -> scalar` (mean over the batch) and the result a hybrid
+    pipeline x data parallel train step (`fxfront.pp_compile`), with
+    `n_microbatches` (default 2 * pp_stages), `pp_axis` ("pp"),
+    `schedule` ("gpipe" | "remat" | "1f1b"), `lr` and `optimizer`
+    ("adam" | "sgd" | an (init, update) pair).  That path manages its own
+    state, so `state_io`, `donate_state` and `compile_only` are refused
+    with it, as are the pipeline arguments without it.  `tp_axes` (the
+    solver inside stages) raises NotImplementedError: ROADMAP queue A
+    item 6c."""
     from .mesh import get_device_mesh
 
-    unknown = sorted(set(pipeline) - set(_PIPELINE_ARGS))
+    unknown = sorted(set(pipeline) - set(_PIPELINE_DEFAULTS))
     if unknown:
         raise TypeError(f"easydist_compile got unexpected arguments "
                         f"{unknown}")
-    if pipeline:
+    pp = {**_PIPELINE_DEFAULTS, **pipeline}
+    if pp["tp_axes"]:
         raise NotImplementedError(
-            f"easydist_compile({', '.join(sorted(pipeline))}=...): the "
-            f"pipeline-parallel compile is not ported yet (ROADMAP queue A "
-            f"item 6b)")
+            "easydist_compile(tp_axes=...): the tensor-parallel solve "
+            "inside pipeline stages is not ported yet (ROADMAP queue A "
+            "item 6c)")
     if max_solver_time is not None:
         edconfig.solver_time_limit = max_solver_time
     if liveness_only_input is not None:
         edconfig.liveness_only_input = liveness_only_input
+
+    if pp["pp_stages"] is not None:
+        dropped = [name for name, val, default in (
+            ("state_io", state_io, "auto"),
+            ("donate_state", donate_state, None),
+            ("compile_only", compile_only, False)) if val != default]
+        if dropped:
+            raise ValueError(
+                f"easydist_compile(pp_stages=...) does not support "
+                f"{dropped}: the hybrid path manages its own train state "
+                f"and always builds lazily on the first init_state call")
+        m = mesh if mesh is not None else get_device_mesh()
+        if m is None:
+            raise ValueError("pp_stages= needs an explicit mesh")
+
+        def wrap_pp(f):
+            from .pp_compile import PPCompiledFunction
+
+            return PPCompiledFunction(
+                f, m, pp_stages=pp["pp_stages"],
+                n_microbatches=pp["n_microbatches"] or pp["pp_stages"] * 2,
+                pp_axis=pp["pp_axis"], schedule=pp["schedule"], lr=pp["lr"],
+                optimizer=pp["optimizer"])
+
+        return wrap_pp(func) if func is not None else wrap_pp
+    pp_only = sorted(name for name, val in pp.items()
+                     if val != _PIPELINE_DEFAULTS[name])
+    if pp_only:
+        raise ValueError(
+            f"{pp_only} only apply with pp_stages=; without it the "
+            f"decorated function IS the train step (it owns its optimizer), "
+            f"so silently dropping them would change training behavior")
 
     if not (state_io == "auto" or isinstance(state_io, dict)):
         raise ValueError(f"state_io must be 'auto' or a dict {{flat output "

@@ -1,6 +1,8 @@
 """GPT-2-style decoder transformer in PyTorch: the port of
 easydist_tpu/models/gpt.py's forwards, serving steps (bucketed and
-paged KV, with the speculative verify steps) and train step (`gpt_loss`, `make_gpt_train_step` with Adam).
+paged KV, with the speculative verify steps) and train steps (`gpt_loss`,
+`make_gpt_train_step` with Adam; `make_gpt_pipeline_step`, the blocks
+pipelined over a mesh axis).
 
 Functional, like the JAX model: parameters are the JAX package's nested
 dict/list with the same keys and layouts (`w` is [n_in, n_out]; no
@@ -29,10 +31,13 @@ from typing import Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import _pytree as _pytree
 
 from easydist_tpu_torch import resolve_device, torch_dtype
 
 from .optim import adam_init, adam_update, value_and_grad
+
+_tree_map = _pytree.tree_map
 
 
 @dataclass
@@ -220,6 +225,129 @@ def make_gpt_train_step(cfg: GPTConfig, lr=1e-4):
         new_params, new_opt = adam_update(params, grads, opt, lr=lr)
         return (new_params, new_opt), loss
 
+    return train_step, init_state
+
+
+
+def make_gpt_pipeline_step(cfg: GPTConfig, mesh, n_microbatches: int,
+                           lr: float = 1e-4, axis: str = "pp",
+                           data_axis=None, schedule: str = "gpipe",
+                           n_virtual: int = 1):
+    """Pipeline-parallel GPT training (the port of the JAX package's
+    `make_gpt_pipeline_step`): the transformer blocks are pipelined over
+    the mesh axis `axis` (`parallel.pipeline.spmd_pipeline_grad` with the
+    head as its aux loss), the embedding sits in front of the pipelined
+    middle and the final norm and tied head behind it.
+
+    Every rank embeds the microbatches (stage 0 feeds them in), the last
+    stage runs the head and the loss, and the pipeline returns the input
+    gradients and the head's gradients summed over the pipeline group, so
+    every rank forms the tied `wte` gradient as the JAX package does,
+    embedding part + head part, and applies the same Adam update to the
+    shared leaves.  A rank keeps only its own blocks: state = (params,
+    adam state) with params {"wte", "wpe", "blocks": this rank's blocks in
+    chunk order, "ln_f"}; `train_step.layers` lists their global indices.
+    `mesh` may be `parallel.pipeline.LocalStages(n)`: every stage in this
+    process, the whole model in the state.  `train_step.loss_and_grads(
+    params, tokens, targets)` gives the loss and gradients without the
+    update; `train_step.pipe.stats` each stage's P2P traffic.
+
+    schedule "gpipe" / "remat" / "1f1b"; n_virtual > 1 interleaves chunks.
+    Requires cfg.layers % (n_stages * n_virtual) == 0.  Returns
+    (train_step, init_state): train_step(state, tokens, targets) ->
+    (state, loss) with tokens [n_microbatches, mb, seq];
+    init_state(generator, device=None, params=None) draws `gpt_init` (or
+    takes the full `params`) and keeps this rank's part."""
+    from easydist_tpu_torch import comm
+    from easydist_tpu_torch.parallel._axes import local_block, mesh_axis
+    from easydist_tpu_torch.parallel.pipeline import (LocalStages,
+                                                      PipelineConfig,
+                                                      spmd_pipeline_grad)
+
+    if isinstance(mesh, LocalStages):
+        n_stages, stage = mesh.n, None
+    else:
+        ax = mesh_axis(mesh, axis)
+        n_stages, stage = ax.size, ax.index
+    V = max(1, n_virtual)
+    n_chunks = n_stages * V
+    if cfg.layers % n_chunks != 0:
+        raise ValueError(f"layers {cfg.layers} not divisible by "
+                         f"{n_chunks} pipeline stages x virtual chunks")
+    per_stage = cfg.layers // n_chunks
+    owned = list(range(cfg.layers)) if stage is None else [
+        (k * n_stages + stage) * per_stage + i
+        for k in range(V) for i in range(per_stage)]
+    dtype = torch_dtype(cfg.dtype)
+
+    def stage_fn(stage_blocks, x):
+        for i in range(per_stage):
+            blk = _tree_map(lambda p: p[i], stage_blocks)
+            x = x + _attention(
+                _layernorm(x, blk["ln1"]["g"], blk["ln1"]["b"]).to(dtype),
+                blk["attn"], cfg, dtype)
+            x = _mlp(x, blk, dtype)
+        return x
+
+    def head_loss(x_mb, targets_mb, hp):
+        x = _layernorm(x_mb, hp["ln_f"]["g"], hp["ln_f"]["b"])
+        logp = F.log_softmax(x.float() @ hp["wte"].T, dim=-1)
+        return -torch.gather(logp, -1, targets_mb.long()[..., None]).mean()
+
+    pipe_grad = spmd_pipeline_grad(
+        stage_fn, head_loss, mesh,
+        PipelineConfig(n_stages, n_microbatches, axis_name=axis,
+                       schedule=schedule, data_axis=data_axis, n_virtual=V),
+        aux=True)
+
+    def stack_blocks(blocks):
+        # this rank's blocks -> [chunks, per_stage, ...] leading dims
+        chunks = [_tree_map(lambda *xs: torch.stack(xs),
+                            *blocks[c * per_stage:(c + 1) * per_stage])
+                  for c in range(len(blocks) // per_stage)]
+        return _tree_map(lambda *xs: torch.stack(xs), *chunks)
+
+    def loss_and_grads(params, tokens_mb, targets_mb):
+        tokens_mb = tokens_mb.long()
+        seq = tokens_mb.shape[-1]
+        with torch.enable_grad():
+            wte = params["wte"].detach().requires_grad_()
+            wpe = params["wpe"].detach().requires_grad_()
+            x_mb = wte[tokens_mb].to(dtype) + wpe.to(dtype)[None, None, :seq]
+        hp = {"ln_f": params["ln_f"], "wte": params["wte"]}
+        loss, sgrads, dx_mb, dhp = pipe_grad(
+            stack_blocks(params["blocks"]), x_mb.detach(), targets_mb, hp)
+        x_emb = x_mb
+        if data_axis is not None:
+            dax = mesh_axis(mesh, data_axis)
+            x_emb = local_block(x_mb, 1, dax.size, dax.index)
+        dwte_emb, dwpe = torch.autograd.grad(x_emb, [wte, wpe], dx_mb)
+        if data_axis is not None:
+            dwte_emb = comm.all_reduce_sum(dwte_emb, dax.group)
+            dwpe = comm.all_reduce_sum(dwpe, dax.group)
+        dblocks = [_tree_map(lambda g: g[c][i], sgrads)
+                   for c in range(len(params["blocks"]) // per_stage)
+                   for i in range(per_stage)]
+        grads = {"wte": dwte_emb + dhp["wte"], "wpe": dwpe,
+                 "blocks": dblocks, "ln_f": dhp["ln_f"]}
+        return loss, {k: grads[k] for k in params}
+
+    def init_state(generator=None, device=None, params=None):
+        full = params if params is not None else gpt_init(cfg, generator,
+                                                          device=device)
+        local = {k: (v if k != "blocks" else [v[i] for i in owned])
+                 for k, v in full.items()}
+        return (local, adam_init(local))
+
+    def train_step(state, tokens_mb, targets_mb):
+        params, opt = state
+        loss, grads = loss_and_grads(params, tokens_mb, targets_mb)
+        new_params, new_opt = adam_update(params, grads, opt, lr=lr)
+        return (new_params, new_opt), loss
+
+    train_step.layers = owned
+    train_step.pipe = pipe_grad
+    train_step.loss_and_grads = loss_and_grads
     return train_step, init_state
 
 

@@ -32,12 +32,6 @@ from easydist_tpu_torch.models.optim import (adagrad_init, adagrad_update,
 _MANUAL_MODES = ("ddp", "zero2", "zero3")
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: the manual data-parallel and pipeline "
-        f"modes come with ROADMAP queue A item 6b; use parallel_mode='auto'")
-
-
 class _ModuleFn:
     """`module`'s forward as a function of a {name: tensor} dict of its
     parameters and buffers, in eval or training mode whatever the
@@ -270,8 +264,15 @@ def make_torch_train_step(module, example_args, loss_fn: Callable,
     Adam / AdamW / SGD / RMSprop / Adagrad INSTANCE built on this module:
     its hyperparameters (per-group lr / weight_decay / betas included) and
     warm buffers are carried into the functional update.
-    parallel_mode: "auto" (the solver's SPMD plan); the manual modes
-    "ddp" / "zero2" / "zero3" are not ported yet (ROADMAP 6b).
+    parallel_mode: "auto" (the solver's SPMD plan) or the manual modes
+    "ddp" / "zero2" / "zero3" (`parallel.dp`: per-rank steps on the
+    mesh's first axis, which shards the batch; every rank passes the
+    global batch).  In eval export ddp trains with SGD and zero2 / zero3
+    with Adam, as in the JAX package: step(params, inputs, *targets) ->
+    (params, loss) for ddp, step(state, inputs, *targets) -> (state,
+    loss) with zero2's state (params, opt, count) and zero3's (param
+    blocks, opt blocks, count).  With train=True any optimizer runs, its
+    state sharded like the ZeRO mode's (see `_manual_train_step`).
     train: False (default) trains with eval-mode semantics whatever the
     module's flag; True trains in training mode (dropout active,
     batch-norm batch statistics, running statistics updated) and the
@@ -285,10 +286,14 @@ def make_torch_train_step(module, example_args, loss_fn: Callable,
     from the module's current weights (and the optimizer's buffers).
     `kwargs` go to `easydist_compile`."""
     del example_args
-    if parallel_mode in _MANUAL_MODES:
-        raise _not_ported(f"parallel_mode={parallel_mode!r}")
-    if parallel_mode != "auto":
+    if parallel_mode not in ("auto",) + _MANUAL_MODES:
         raise ValueError(f"unknown parallel_mode {parallel_mode!r}")
+    if parallel_mode != "auto":
+        from easydist_tpu_torch.fxfront.mesh import get_device_mesh
+
+        mesh = mesh if mesh is not None else get_device_mesh()
+        if mesh is None:
+            raise ValueError(f"parallel_mode={parallel_mode!r} needs a mesh")
     train = bool(train)
     translate_state = None
     hyper = {}
@@ -307,8 +312,15 @@ def make_torch_train_step(module, example_args, loss_fn: Callable,
                 {k: v for k, v in params.items() if k in buffer_names})
 
     if train:
+        if parallel_mode != "auto":
+            return _manual_train_step(parallel_mode, fwd, loss_fn, opt_init,
+                                      opt_update, params0, split, mesh,
+                                      **kwargs)
         return _make_train_mode_step(fwd, loss_fn, opt_init, opt_update,
                                      params0, split, mesh, **kwargs)
+    if parallel_mode != "auto":
+        return _manual_eval_step(parallel_mode, fwd, loss_fn, optimizer, lr,
+                                 params0, mesh, **kwargs)
 
     trainable0, _ = split(params0)
     stateless = optimizer == "sgd" and not hyper.get("momentum")
@@ -402,9 +414,189 @@ def _make_train_mode_step(fwd, loss_fn, opt_init, opt_update, params0,
     return rng_step, init_state
 
 
-def make_torch_pp_train_step(module, example_args, loss_fn: Callable,
-                             mesh, pp_stages: int, **kwargs):
-    """Pipeline-parallel training of a torch module (reference
-    easydist_tpu/torchfront/api.py:483): not ported yet."""
-    raise _not_ported("make_torch_pp_train_step")
+def _manual_eval_step(mode, fwd, loss_fn, optimizer, lr, params0, mesh,
+                      **kwargs):
+    """The JAX package's eval-export manual modes: ddp_step (SGD),
+    zero2_step / zero3_step (Adam) over every parameter and buffer."""
+    from easydist_tpu_torch.parallel import ddp_step, zero2_step, zero3_step
 
+    if kwargs:
+        raise ValueError(f"{sorted(kwargs)} do not apply to "
+                         f"parallel_mode={mode!r} (the manual modes bypass "
+                         f"easydist_compile)")
+    # manual modes carry their own optimizer: reject a contradictory one
+    if mode == "ddp" and optimizer != "sgd":
+        raise ValueError("parallel_mode='ddp' trains with SGD; pass "
+                         "optimizer='sgd' (or use parallel_mode='auto')")
+    if mode in ("zero2", "zero3") and optimizer != "adam":
+        raise ValueError(f"parallel_mode={mode!r} trains with Adam; pass "
+                         f"optimizer='adam'")
+    axis = mesh.mesh_dim_names[0]
+
+    def objective(p, inputs, *targets):
+        return loss_fn(fwd(p, inputs), *targets)
+
+    def fresh():
+        return {k: v.clone() for k, v in params0.items()}
+
+    if mode == "ddp":
+        return ddp_step(objective, mesh, axis=axis, lr=lr), fresh
+    if mode == "zero2":
+        step, init_opt = zero2_step(objective, mesh, axis=axis, lr=lr)
+
+        def init_state2():
+            p = fresh()
+            return (p, init_opt(p), torch.zeros(
+                (), dtype=torch.int32, device=next(iter(p.values())).device))
+
+        return step, init_state2
+    step, init_state3 = zero3_step(objective, mesh, axis=axis, lr=lr)
+    return step, lambda: init_state3(fresh())
+
+
+def _manual_train_step(mode, fwd, loss_fn, opt_init, opt_update, params0,
+                       split, mesh, **kwargs):
+    """Training-mode export of the manual modes, per rank on the mesh's
+    first axis: state = ((trainable, buffers), opt); step(state, rng,
+    inputs, *targets) -> (state, loss).  Each rank runs its block of the
+    batch with `rng`'s stream (dropout masks are the rank's own) and the
+    optimizer runs leafwise (every optimizer of models/optim.py is
+    elementwise):
+      ddp    gradients all_reduce'd (mean), state replicated;
+      zero2  gradients reduce_scatter'd, the optimizer state of a leaf
+             whose dim 0 divides the axis holds the rank's dim-0 block,
+             updated blocks all_gathered;
+      zero3  trainable params held as blocks too, all_gathered at the
+             start of each step.
+    Batch-norm running statistics are the rank's block's, averaged over
+    the axis after the step: where the JAX package's single program keeps
+    global-batch statistics, this is torch DDP's per-rank normalisation
+    with synchronised running statistics."""
+    from easydist_tpu_torch import comm
+    from easydist_tpu_torch.parallel._axes import local_block, mesh_axis
+
+    if kwargs:
+        raise ValueError(f"{sorted(kwargs)} do not apply to "
+                         f"parallel_mode={mode!r} (the manual modes bypass "
+                         f"easydist_compile)")
+    ax = mesh_axis(mesh, mesh.mesh_dim_names[0])
+    n = ax.size
+    trainable0, buffers0 = split(params0)
+    flags = {k: v.ndim > 0 and v.shape[0] % n == 0 and mode != "ddp"
+             for k, v in trainable0.items()}
+
+    def block(tree):
+        return {k: local_block(v, 0, n, ax.index).clone() if flags[k]
+                else v.clone() for k, v in tree.items()}
+
+    def gather(tree):
+        return {k: comm.all_gather_dim0(v, ax.group, n) if flags[k] else v
+                for k, v in tree.items()}
+
+    def reduce(grads):
+        return {k: comm.reduce_scatter_grad(g, ax.group, n) if flags[k]
+                else comm.all_reduce_grad(g, ax.group, n)
+                for k, g in grads.items()}
+
+    def init_state():
+        tp = {k: v.clone() for k, v in trainable0.items()}
+        opt = opt_init(block(tp))
+        if mode == "zero3":
+            tp = block(tp)
+        return ((tp, {k: v.clone() for k, v in buffers0.items()}), opt)
+
+    def step(state, rng, inputs, *targets):
+        (tp, buffers), opt = state
+        full = gather(tp) if mode == "zero3" else tp
+        new_buf = {k: v.clone() for k, v in buffers.items()}
+        inputs_l = local_block(inputs, 0, n, ax.index)
+        targets_l = [local_block(t, 0, n, ax.index) for t in targets]
+
+        def objective(t):
+            return loss_fn(fwd({**t, **new_buf}, inputs_l), *targets_l)
+
+        with _drawing_from(rng):
+            loss, grads = value_and_grad(objective, full)
+        g_blocks = reduce(grads)
+        p_blocks = tp if mode == "zero3" else \
+            {k: local_block(v, 0, n, ax.index) if flags[k] else v
+             for k, v in tp.items()}
+        new_blocks, new_opt = opt_update(p_blocks, g_blocks, opt)
+        new_tp = new_blocks if mode == "zero3" else gather(new_blocks)
+        new_buf = {k: comm.all_reduce_sum(v, ax.group) / n
+                   if v.is_floating_point() else v
+                   for k, v in new_buf.items()}
+        loss = comm.all_reduce_sum(loss, ax.group) / n
+        return ((new_tp, new_buf), new_opt), loss
+
+    return step, init_state
+
+
+def make_torch_pp_train_step(module, example_args, loss_fn: Callable,
+                             mesh, pp_stages: int,
+                             n_microbatches: Optional[int] = None,
+                             lr: Optional[float] = None,
+                             optimizer: str = "adam",
+                             schedule: str = "gpipe", tp_axes=None,
+                             train: bool = False, pp_axis: str = "pp"):
+    """Pipeline-parallel training of a torch module: the torch frontend's
+    entry to `easydist_compile(pp_stages=...)` (reference
+    easydist/torch/experimental/pp/api.py).  The module's forward, its
+    parameters passed in as a dict, is auto-split into `pp_stages`
+    stages (`fxfront.pp_compile`).
+
+    Returns (compiled, params0):
+        state = compiled.init_state(params0, inputs, *targets)
+        state, loss = compiled(state, inputs, *targets)
+
+    loss_fn(outputs, *targets) -> scalar loss (mean reduction).
+    train=True runs training-mode semantics; modules with batch-norm or
+    active dropout are refused (their buffer updates and masks do not
+    thread through the stages).  optimizer: 'adam' or 'sgd' (a
+    torch.optim instance's per-group settings cannot address the packed
+    stage rows).  pp_axis names the mesh axis the stages lie on; every
+    other axis is a batch sibling.  `tp_axes` is ROADMAP item 6c."""
+    if not isinstance(optimizer, str):
+        raise NotImplementedError(
+            "torch.optim instances are not supported with pp_stages: the "
+            "pipeline optimizer runs on packed flat stage rows, which "
+            "per-parameter-group hyperparameters cannot address; pass "
+            "optimizer='adam'/'sgd' + lr=")
+    if mesh is None:
+        raise ValueError("make_torch_pp_train_step needs a mesh")
+    if tp_axes:
+        raise NotImplementedError(
+            "tp_axes: the tensor-parallel solve inside pipeline stages is "
+            "not ported yet (ROADMAP queue A item 6c)")
+    if pp_axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError(
+            f"pp_axis {pp_axis!r} is not a mesh axis (mesh has "
+            f"{tuple(mesh.mesh_dim_names or ())}); pass pp_axis= matching "
+            f"your mesh's pipeline axis name")
+    del example_args
+    if train:
+        stateful = [type(m).__name__ for m in module.modules()
+                    if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+                    or (isinstance(m, torch.nn.modules.dropout._DropoutNd)
+                        and m.p > 0)]
+        if stateful:
+            raise NotImplementedError(
+                f"modules {sorted(set(stateful))} cannot pipeline in "
+                f"training mode yet (running statistics and dropout masks "
+                f"do not thread through the stages); use "
+                f"make_torch_train_step(..., parallel_mode='auto')")
+    fwd = _ModuleFn(module, train=bool(train))
+    params0 = fwd.params()
+    # buffers are not weights: they stay out of the pipeline optimizer
+    buffers0 = {k: v for k, v in params0.items() if k in fwd.buffer_names}
+    params0 = {k: v for k, v in params0.items()
+               if k not in fwd.buffer_names}
+
+    def loss(params, inputs, *targets):
+        return loss_fn(fwd({**params, **buffers0}, inputs), *targets)
+
+    compiled = easydist_compile(
+        loss, mesh=mesh, pp_stages=pp_stages,
+        n_microbatches=n_microbatches or pp_stages * 2, lr=lr,
+        optimizer=optimizer, schedule=schedule, pp_axis=pp_axis)
+    return compiled, params0

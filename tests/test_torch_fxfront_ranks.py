@@ -26,7 +26,8 @@ RTOL_PARAM, ATOL_PARAM = 1e-4, 1e-5
 
 def spawn(scenario: str, world: int, tmp_path, timeout: float = 300.0,
           **kw):
-    """Run `scenario(rank, world, **kw)` on `world` gloo ranks; returns
+    """Run `scenario(rank, world, **kw)` on `world` gloo ranks (a function
+    of this module, or "module:function" of another); returns
     each rank's result.  A rank that fails stops the others (their
     collectives time out after 120 s at most); ranks still running after
     `timeout` seconds are killed and the call raises."""
@@ -67,7 +68,7 @@ def _entry(rank, world, scenario, out, kw):
     for name, value in kw.pop("constants", {}).items():
         setattr(edconfig, name, value)
     try:
-        result = globals()[scenario](rank, world, out=out, **kw)
+        result = _scenario(scenario)(rank, world, out=out, **kw)
     finally:
         from easydist_tpu_torch.fxfront import set_device_mesh
 
@@ -76,6 +77,16 @@ def _entry(rank, world, scenario, out, kw):
         dist.destroy_process_group()
     with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(result, f)
+
+
+def _scenario(name: str):
+    """A scenario of this module, or "module:function" of another."""
+    if ":" not in name:
+        return globals()[name]
+    import importlib
+
+    module, fn = name.split(":")
+    return getattr(importlib.import_module(module), fn)
 
 
 def _full(x):

@@ -73,7 +73,10 @@ def test_every_port_module_imports_with_jax_blocked():
                  "schedule.memory_planner", "native", "kv.tier",
                  "serve.speculate", "serve.engine", "serve.batcher",
                  "serve.admission", "resilience", "resilience.faultinject",
-                 "resilience.breaker"):
+                 "resilience.breaker", "comm", "comm.counters",
+                 "comm.reduce", "comm.overlap", "parallel.dp",
+                 "parallel.pipeline", "parallel.auto_pipeline",
+                 "parallel.moe", "fxfront.pp_compile"):
         assert f"easydist_tpu_torch.{name}" in modules
     code = f"""
 import importlib, importlib.abc, sys
@@ -110,6 +113,7 @@ res = easydist_compile(lambda a, b: (a @ b).sum(), mesh=mesh,
 res.graph_module(torch.ones(4, 4), torch.ones(4, 8))
 dist.destroy_process_group()
 importlib.import_module("tests.test_torch_fxfront_ranks")
+importlib.import_module("tests.test_torch_parallel_ranks")
 loaded = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in {BANNED!r})]
 assert not loaded, loaded

@@ -292,14 +292,22 @@ def test_train_mode_matches_eager_with_the_same_generator():
 
 @pytest.mark.parametrize("mode", ["ddp", "zero2", "zero3"])
 def test_manual_modes_raise(mode):
+    """The manual modes are ported (tests/test_torch_dp.py runs them on
+    ranks); without a mesh they raise ValueError, as the JAX package's
+    train-mode export does."""
+    from easydist_tpu_torch.fxfront import set_device_mesh
+
+    set_device_mesh(None)
     module = nn.Linear(4, 4)
-    with pytest.raises(NotImplementedError, match="6b"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         make_torch_train_step(module, (torch.randn(2, 4),), _mse,
                               parallel_mode=mode)
 
 
 def test_pipeline_step_raises():
+    """Ported (tests/test_torch_pp_compile.py); without a mesh it raises
+    ValueError."""
     module = nn.Linear(4, 4)
-    with pytest.raises(NotImplementedError, match="6b"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         make_torch_pp_train_step(module, (torch.randn(2, 4),), _mse,
                                  mesh=None, pp_stages=2)
