@@ -141,13 +141,40 @@ Phases, each raising on failure (exit code != 0, no result line):
      tokens on (8,) "ep": rank 0's all_to_all bytes equal the capacity
      formula; on a one-rank NCCL mesh one rank's 1024 tokens equal
      `moe_reference` at rtol 1e-4 / atol 1e-5;
- 15. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
+ 15. the rest of the parallel modes and sessions over a mesh
+     (`tail_phase`), on phase 14's f32 flash workload (TF32 off, batch
+     8): (a) the one-device train step uncapped and under a cap midway
+     between the planner's floor (its plan at a cap of 1 byte) and the
+     uncapped model peak: a plan with base peak > cap >= planned peak,
+     the capped step's measured peak (above its inputs) below the
+     uncapped one and, with its inputs, within the cap the user gave,
+     the 3 losses equal at rtol 1e-5, B1-B3 12 launches a step in both;
+     rank 0 of (8,) "dp" (fake group of 8) capped the same way: a plan,
+     emitted collectives equal the priced ones; (b) GPTConfig(remat=)
+     "none", "full", "dots" and "full" with scan_layers: losses equal
+     none's at rtol 1e-5, the stacked layout bitwise the list layout,
+     B1 24 launches a step under "full" and "dots" (B2, B3 12), their
+     peaks below none's; the remat'd step's collectives on (8,) "dp"
+     equal its twin's (einsum attention, as the JAX test); (c) easydist_compile(pp_stages=2, tp_axes=("tp",),
+     n_microbatches=4) of the loss on (2, 2, 2) "pp" x "dp" x "tp" (fake
+     group of 8), ranks 0 and 4: the tp plan shards, each rank's tp
+     collectives equal its plan's conversions x M, B1-B3 launches equal
+     its stage's flash nodes x M, rank 0's peak below the same loss
+     without tp_axes on (2, 2) "pp" x "dp"; (d) phase 4's bucketed and
+     paged f32 sessions on a one-rank NCCL (1,) "tp" mesh: ids equal the
+     one-device session's and the uncached re-forward, B4 / B5 12 x
+     decode rounds; rank 0's decode programs on (2,) "tp" (fake group of
+     2): the cache placement picked, emitted collectives equal the
+     priced ones;
+ 16. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
      path's run; B1-B3 also with `launches_bf16`, their launches in the
      bfloat16 flash steps; B1 with `launches_engine` (phase 13), B4 and
      B5 with `launches_spec` (phase 11 a and b), B5 and B6 with
      `launches_tier` (phase 12); B1-B3 with `launches_pp`, per schedule
      a list by rank (14b, and "compile" for 14c's stages), and
-     `launches_dp`, per mode (14d)), then the `{"ok": true, ...}` line.
+     `launches_dp`, per mode (14d); B1-B3 with `launches_remat`, by run
+     of 15a and 15b, and `launches_pp_tp`, by rank of 15c; B4 and B5 with
+     `launches_mesh` (15d)), then the `{"ok": true, ...}` line.
 
 Each serving run sets every decode kernel's launch count to 0 just
 before it and reads the counts just after; launches made to compare or
@@ -3378,13 +3405,15 @@ COLLECTIVE_KINDS = ("all_reduce", "reduce_scatter_tensor",
 
 class CollectiveLog:
     """Counts the functional collectives issued inside it by kind:
-    {kind: [count, bytes of the inputs]} (a TorchDispatchMode, so an eager
-    run is counted as it goes; P2P is counted by the pipeline itself)."""
+    {kind: [count, bytes of the inputs]}, also by process group in
+    `by_group` (a TorchDispatchMode, so an eager run is counted as it
+    goes; P2P is counted by the pipeline itself)."""
 
     def __enter__(self):
         from torch.utils._python_dispatch import TorchDispatchMode
 
         log = self.log = {}
+        by_group = self.by_group = {}
 
         class Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -3392,9 +3421,11 @@ class CollectiveLog:
                 if func.namespace == "_c10d_functional" \
                         and name in COLLECTIVE_KINDS:
                     x = args[0]
-                    c = log.setdefault(name, [0, 0])
-                    c[0] += 1
-                    c[1] += x.numel() * x.element_size()
+                    group = args[-1] if isinstance(args[-1], str) else None
+                    for table in (log, by_group.setdefault(group, {})):
+                        c = table.setdefault(name, [0, 0])
+                        c[0] += 1
+                        c[1] += x.numel() * x.element_size()
                 return func(*args, **(kwargs or {}))
 
         self._mode = Mode()
@@ -3870,6 +3901,466 @@ def moe_phase(dev, seed, world=8, tokens_per_rank=1024):
     return out
 
 
+# ------------------------ remat, tp inside stages, sessions over a mesh
+# (phase 15)
+
+def _peak_run(dev, comp, state, tokens, targets, steps: int = 3):
+    """`steps` compiled steps from `state` (traced first, untimed): the
+    losses, B1-B3's launches over the steps, ms a step (host clock, each
+    step ending in the loss's read; the first step, which meets the
+    first launches, left out), and the peak allocated above what was
+    allocated before (None off the card)."""
+    comp.get_compiled(state, tokens, targets)
+    on_card = dev.type == "cuda"
+    _sync(dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    _zero_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, loss = comp(state, tokens, targets)
+        losses.append(float(loss))  # synchronises
+        times.append(time.perf_counter() - t0)
+    ms = 1e3 * sum(times[1:]) / max(len(times) - 1, 1)
+    above = torch.cuda.max_memory_allocated() - before if on_card else None
+    return dict(losses=losses, launches=_launch_counts(), ms=ms,
+                above=above)
+
+
+def _midway_cap(result):
+    """(base peak, planner's floor, cap midway, the cap a user gives for
+    it) of `result`'s program under the port's liveness model; the
+    floor is the plan at a cap of 1 byte."""
+    from easydist_tpu_torch import config as edconfig
+    from easydist_tpu_torch.schedule.remat import plan_remat, program_peak
+
+    prog = result.planning_program()
+    base = program_peak(prog)
+    floor = plan_remat(prog, 1).predicted_peak
+    cap = (base + floor) // 2
+    return base, floor, cap, int(cap / edconfig.memory_ratio) + 1
+
+
+def _bitwise(a, b) -> bool:
+    return list(a) == list(b)
+
+
+def remat_cap_phase(dev, cfg, batch, seed, steps=3):
+    """15a: compiler-chosen remat of GPT-2 small's f32 train step under a
+    cap midway between the planner's floor and the uncapped peak, on the
+    card, then rank 0 of (8,) "dp" against a fake group of 8."""
+    from easydist_tpu_torch import config as edconfig
+    from easydist_tpu_torch.fxfront import easydist_compile, make_device_mesh
+    from easydist_tpu_torch.models.gpt import make_gpt_train_step
+
+    on_card = dev.type == "cuda"
+    tokens, targets = _tokens(dev, cfg, (batch, cfg.seq), seed + 1)
+    step, init = make_gpt_train_step(cfg, lr=1e-4)
+
+    def state():
+        return init(torch.Generator(device=dev).manual_seed(seed),
+                    device=dev)
+
+    saved = edconfig.per_device_memory_cap
+    try:
+        edconfig.per_device_memory_cap = 0
+        c0 = easydist_compile(step, mesh=dev)
+        s0 = state()
+        in_bytes = _leaf_bytes((s0, tokens, targets))
+        base, floor, cap, user_cap = _midway_cap(
+            c0.get_compiled(s0, tokens, targets))
+        uncapped = _peak_run(dev, c0, s0, tokens, targets, steps)
+        del s0, c0
+        edconfig.per_device_memory_cap = user_cap
+        c1 = easydist_compile(step, mesh=dev)
+        s1 = state()
+        t0 = time.perf_counter()
+        res = c1.get_compiled(s1, tokens, targets)
+        compile_s = time.perf_counter() - t0
+        plan = res.remat_plan
+        capped = _peak_run(dev, c1, s1, tokens, targets, steps)
+        del s1, c1
+    finally:
+        edconfig.per_device_memory_cap = saved
+    if on_card:
+        torch.cuda.empty_cache()
+    n_clones = sum(1 for n in res.graph_module.graph.nodes
+                   if "remat_of" in n.meta)
+    print(f"remat 15a (one device): model peak {base} B uncapped, planner "
+          f"floor {floor} B, cap {cap} B (user cap {user_cap} B); plan "
+          f"{'none' if plan is None else plan.n_remat_vars} values, "
+          f"{n_clones} recomputed nodes, planned peak "
+          f"{None if plan is None else plan.predicted_peak} B, priced "
+          f"recompute {0 if plan is None else plan.recompute_seconds * 1e3:.3f}"
+          f" ms; planning {res.timings.get('remat', 0.0):.2f} s of "
+          f"{compile_s:.2f} s compile")
+    print(f"remat 15a: measured peak above the inputs ({in_bytes} B) "
+          f"{uncapped['above']} B uncapped, {capped['above']} B capped; "
+          f"step {uncapped['ms']:.1f} ms uncapped, {capped['ms']:.1f} ms "
+          f"capped (host clock); losses {uncapped['losses']} / "
+          f"{capped['losses']} (bitwise {_bitwise(uncapped['losses'], capped['losses'])}); "
+          f"launches {uncapped['launches']} / {capped['launches']}")
+    if plan is None or not plan.base_peak > cap >= plan.predicted_peak:
+        raise AssertionError(f"15a: no plan with base > cap >= planned "
+                             f"({plan and plan.base_peak}, {cap}, "
+                             f"{plan and plan.predicted_peak})")
+    np.testing.assert_allclose(capped["losses"], uncapped["losses"],
+                               rtol=1e-5, err_msg="15a capped losses")
+    expect = {name: cfg.layers * steps if on_card else 0
+              for name in TRAIN_KERNELS}
+    for run in (uncapped, capped):
+        if run["launches"] != expect:
+            raise AssertionError(f"15a launches {run['launches']}, "
+                                 f"expected {expect}")
+    if on_card and not (capped["above"] < uncapped["above"]
+                        and capped["above"] + in_bytes <= user_cap):
+        raise AssertionError(
+            f"15a: capped peak {capped['above']} B (+{in_bytes} B inputs) "
+            f"not below the uncapped {uncapped['above']} B and within the "
+            f"user cap {user_cap} B")
+    out = dict(base=base, floor=floor, cap=cap, user_cap=user_cap,
+               plan_peak=plan.predicted_peak, values=plan.n_remat_vars,
+               nodes=n_clones, in_bytes=in_bytes, uncapped=uncapped,
+               capped=capped, planning_s=res.timings.get("remat"))
+    del res, plan
+
+    # rank 0 of (8,) "dp", capped the same way; the solver's own liveness
+    # cap on the inputs alone (liveness_only_input), so that it keeps its
+    # picks and the activations are left to the remat planner
+    s8 = state()
+    saved_only = edconfig.liveness_only_input
+    with fake_group(8, 0):
+        mesh = make_device_mesh((8,), ("dp",), device_type=dev.type)
+        try:
+            edconfig.per_device_memory_cap = 0
+            r0 = easydist_compile(step, mesh=mesh, compile_only=True,
+                                  liveness_only_input=True)(
+                s8, tokens, targets)
+            base8, floor8, cap8, user8 = _midway_cap(r0)
+            edconfig.per_device_memory_cap = user8
+            t0 = time.perf_counter()
+            r1 = easydist_compile(step, mesh=mesh, compile_only=True,
+                                  liveness_only_input=True)(
+                s8, tokens, targets)
+            secs = time.perf_counter() - t0
+        finally:
+            edconfig.per_device_memory_cap = saved
+            edconfig.liveness_only_input = saved_only
+        table = check_priced(r1, "remat 15a (8,) dp")
+        plan8 = r1.remat_plan
+
+        print(f"remat 15a rank 0 of (8,) dp: model peak {base8} B, floor "
+              f"{floor8} B, cap {cap8} B; plan "
+              f"{None if plan8 is None else plan8.n_remat_vars} values, "
+              f"planned peak {None if plan8 is None else plan8.predicted_peak}"
+              f" B; compile {secs:.2f} s ({ {k: round(v, 2) for k, v in r1.timings.items()} }); "
+              f"emitted collectives equal the priced ones")
+        print_table("remat 15a (8,) dp", table)
+        if plan8 is None or not plan8.base_peak > cap8 >= plan8.predicted_peak:
+            raise AssertionError("15a (8,) dp: no plan under the cap")
+        out["dp8"] = dict(base=base8, floor=floor8, cap=cap8,
+                          plan_peak=plan8.predicted_peak,
+                          values=plan8.n_remat_vars)
+        del r0, r1
+    del s8
+    return out
+
+
+REMAT_MODES = (("none", False), ("full", False), ("dots", False),
+               ("full", True))
+
+
+def remat_config_phase(dev, cfg, batch, seed, steps=3):
+    """15b: GPTConfig(remat=) "none", "full", "dots" and "full" with
+    scan_layers on the one-device step, then the remat'd step's emitted
+    collectives against its twin's on (8,) "dp" (fake group of 8)."""
+    import dataclasses
+
+    from easydist_tpu_torch import config as edconfig
+    from easydist_tpu_torch.fxfront import easydist_compile, make_device_mesh
+    from easydist_tpu_torch.models.gpt import make_gpt_train_step
+
+    on_card = dev.type == "cuda"
+    tokens, targets = _tokens(dev, cfg, (batch, cfg.seq), seed + 1)
+    saved = edconfig.per_device_memory_cap
+    edconfig.per_device_memory_cap = 0
+    runs = {}
+    try:
+        for remat, scan in REMAT_MODES:
+            key = remat + ("_scan" if scan else "")
+            c = dataclasses.replace(cfg, remat=remat, scan_layers=scan)
+            step, init = make_gpt_train_step(c, lr=1e-4)
+            state = init(torch.Generator(device=dev).manual_seed(seed),
+                         device=dev)
+            comp = easydist_compile(step, mesh=dev)
+            t0 = time.perf_counter()
+            comp.get_compiled(state, tokens, targets)
+            trace_s = time.perf_counter() - t0
+            run = runs[key] = _peak_run(dev, comp, state, tokens, targets,
+                                        steps)
+            run["trace_s"] = trace_s
+            del state, comp
+            if on_card:
+                torch.cuda.empty_cache()
+            print(f"remat 15b {key}: losses {run['losses']}, launches "
+                  f"{run['launches']}, peak above the inputs {run['above']} "
+                  f"B, step {run['ms']:.1f} ms (host clock), trace "
+                  f"{trace_s:.2f} s")
+    finally:
+        edconfig.per_device_memory_cap = saved
+    none = runs["none"]
+    for key, run in runs.items():
+        np.testing.assert_allclose(run["losses"], none["losses"], rtol=1e-5,
+                                   err_msg=f"15b {key} losses")
+    bitwise = {k: _bitwise(r["losses"], none["losses"])
+               for k, r in runs.items()}
+    print(f"remat 15b: losses equal none's at rtol 1e-5; bitwise {bitwise}")
+    if not _bitwise(runs["full_scan"]["losses"], runs["full"]["losses"]):
+        raise AssertionError("15b: the stacked layout's losses are not "
+                             "bitwise the list layout's")
+    per = cfg.layers * steps if on_card else 0
+    want_full = {"flash_fwd": 2 * per, "flash_bwd_dq": per,
+                 "flash_bwd_dkv": per}
+    # "dots" keeps the matmuls' outputs only: the flash forward, no
+    # matmul, is recomputed in the backward as under "full"
+    for key in ("full", "full_scan", "dots"):
+        if runs[key]["launches"] != want_full:
+            raise AssertionError(f"15b {key}: launches "
+                                 f"{runs[key]['launches']}, expected "
+                                 f"{want_full}")
+    if on_card and not (runs["full"]["above"] < none["above"]
+                        and runs["dots"]["above"] < none["above"]):
+        raise AssertionError(f"15b: peaks {[r['above'] for r in runs.values()]}"
+                             f" B: full's and dots' are not below none's")
+
+    # the remat'd step against its twin on (8,) "dp", with the einsum
+    # attention of the JAX test: the flash kernels' ops stay replicated
+    # on the mesh, so a recomputed flash forward gathers q, k, v again
+    colls, timings = {}, {}
+    with fake_group(8, 0):
+        mesh = make_device_mesh((8,), ("dp",), device_type=dev.type)
+        edconfig.per_device_memory_cap = 0
+        try:
+            for remat in ("none", "full"):
+                step, init = make_gpt_train_step(
+                    dataclasses.replace(cfg, remat=remat,
+                                        attention="einsum"), lr=1e-4)
+                state = init(torch.Generator(device=dev).manual_seed(seed),
+                             device=dev)
+                t0 = time.perf_counter()
+                r = easydist_compile(step, mesh=mesh, compile_only=True)(
+                    state, tokens, targets)
+                timings[remat] = dict(r.timings,
+                                      total=time.perf_counter() - t0)
+                colls[remat] = [(c.kind, c.group_bytes)
+                                for c in r.collectives]
+                del r, state
+        finally:
+            edconfig.per_device_memory_cap = saved
+    print(f"remat 15b (8,) dp, einsum attention: {len(colls['none'])} "
+          f"collectives "
+          f"({sum(b for _, b in colls['none']) / 1e6:.3f} MB) un-remat'd, "
+          f"{len(colls['full'])} remat'd; compile seconds by stage "
+          f"{ {k: {s: round(v, 2) for s, v in t.items()} for k, t in timings.items()} }")
+    if sorted(colls["full"]) != sorted(colls["none"]):
+        raise AssertionError("15b: the remat'd step's collectives differ "
+                             "from its twin's")
+    return {k: dict(r) for k, r in runs.items()}, timings
+
+
+def pp_tp_phase(dev, cfg, batch, seed, M=4):
+    """15c: easydist_compile(gpt_loss, pp_stages=2, tp_axes=("tp",)) on
+    (2, 2, 2) "pp" x "dp" x "tp", one step as rank 0 (stage 0) and rank 4
+    (stage 1) of a fake group of 8; rank 0's peak against the same loss
+    without tp_axes on (2, 2) "pp" x "dp" (the same local microbatch)."""
+    from easydist_tpu_torch.fxfront import easydist_compile, make_device_mesh
+    from easydist_tpu_torch.models.gpt import gpt_init, gpt_loss
+
+    on_card = dev.type == "cuda"
+
+    def loss_fn(params, tokens, targets):
+        return gpt_loss(params, cfg, tokens, targets)
+
+    tokens, targets = _tokens(dev, cfg, (batch, cfg.seq), seed + 1)
+    launches, out = [], {}
+    for world, rank, shape, names, tp in (
+            (8, 0, (2, 2, 2), ("pp", "dp", "tp"), ("tp",)),
+            (8, 4, (2, 2, 2), ("pp", "dp", "tp"), ("tp",)),
+            (4, 0, (2, 2), ("pp", "dp"), None)):
+        with fake_group(world, rank):
+            mesh = make_device_mesh(shape, names, device_type=dev.type)
+            compiled = easydist_compile(loss_fn, mesh=mesh, pp_stages=2,
+                                        n_microbatches=M, tp_axes=tp)
+            params = gpt_init(cfg, torch.Generator(device=dev).manual_seed(
+                seed), device=dev)
+            t0 = time.perf_counter()
+            state = compiled.init_state(params, tokens, targets)
+            build_s = time.perf_counter() - t0
+            del params
+            prep = compiled.pipe.prep
+            group = prep.tp[1].group.group_name if tp else None
+            _sync(dev)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            _zero_launches()
+            with CollectiveLog() as log:
+                t0 = time.perf_counter()
+                state, loss = compiled(state, tokens, targets)
+                _sync(dev)
+                secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() if on_card else None
+            s = prep.pp.index
+            flash = _flash_nodes(compiled.stage_plan.stage_nodes[s])
+            got = _launch_counts()
+            key = f"rank{rank}" + ("" if tp else "_no_tp")
+            out[key] = dict(peak=peak, build_s=build_s, secs=secs,
+                            launches=got)
+            if tp:
+                summary = compiled.tp_summary()
+                want = {k: [c * M, b * M]
+                        for k, (c, b) in prep.tp_collectives(s).items()}
+                seen = log.by_group.get(group, {})
+                print(f"pp_tp 15c rank {rank} (stage {s}): build "
+                      f"{build_s:.2f} s, step {secs * 1e3:.1f} ms (fake "
+                      f"group); tp plan {summary}; tp collectives {seen}, "
+                      f"the plan's conversions x M give {want}; {flash} "
+                      f"flash nodes, launches {got}; peak {peak} B")
+                if not summary["sharded"]:
+                    raise AssertionError("15c: the tp plan shards nothing")
+                if seen != want:
+                    raise AssertionError(f"15c rank {rank}: tp collectives "
+                                         f"{seen}, the plan gives {want}")
+                expect = {name: flash * M if on_card else 0
+                          for name in TRAIN_KERNELS}
+                if got != expect:
+                    raise AssertionError(f"15c rank {rank}: launches {got}, "
+                                         f"expected {expect}")
+                launches.append(got)
+                out[key].update(summary=summary, tp=seen)
+            else:
+                print(f"pp_tp 15c without tp_axes, rank 0 of (2, 2): build "
+                      f"{build_s:.2f} s, step {secs * 1e3:.1f} ms, peak "
+                      f"{peak} B")
+            del state, compiled
+        if on_card:
+            torch.cuda.empty_cache()
+    if on_card and not out["rank0"]["peak"] < out["rank0_no_tp"]["peak"]:
+        raise AssertionError(f"15c: rank 0's peak {out['rank0']['peak']} B "
+                             f"with tp is not below "
+                             f"{out['rank0_no_tp']['peak']} B without")
+    return launches, out
+
+
+def mesh_serve_phase(dev, ctx):
+    """15d: phase 4's bucketed and paged f32 sessions on a one-rank NCCL
+    (1,) "tp" mesh, then rank 0's decode programs compiled for (2,) "tp"
+    against a fake group of 2.  Returns B4's and B5's launches."""
+    from easydist_tpu_torch.fxfront import make_device_mesh
+    from easydist_tpu_torch.models.gpt import (GPTConfig, init_kv_cache,
+                                               init_kv_pages)
+    from easydist_tpu_torch.serve import GenerationSession, ServeConfig
+
+    cfg = GPTConfig.small(**ctx["cfg_kw"])
+    params, prompts, n_new = ctx["params"], ctx["prompts"], ctx["n_new"]
+    layouts = (("bucketed", "flash_decode", ctx["ids"]),
+               ("paged", "paged_decode", ctx["paged_ids"]))
+    launches = {}
+    with one_rank_group(dev) as backend:
+        mesh = make_device_mesh((1,), ("tp",), device_type=dev.type)
+        for layout, kernel, one_ids in layouts:
+            serve_cfg = ServeConfig(**{**ctx["serve_kw"],
+                                       "kv_layout": layout})
+            ids, sess, got, rounds, secs = serve(params, cfg, prompts, n_new,
+                                                 serve_cfg, dev, mesh=mesh)
+            bad = [i for i, (a, r, o) in enumerate(zip(ids, ctx["ref"],
+                                                        one_ids))
+                   if a != r or a != o]
+            if bad:
+                raise AssertionError(f"15d {layout}: ids differ from the "
+                                     f"one-device session or the uncached "
+                                     f"re-forward in requests {bad}")
+            check_launches(f"15d {layout}", got, kernel, cfg.layers, rounds,
+                           dev)
+            launches[kernel] = got[kernel]
+            print(f"mesh serve 15d {layout} on a one-rank {backend} (1,) tp "
+                  f"mesh: {len(prompts)} requests, {rounds} decode rounds, "
+                  f"{secs:.2f} s incl. tracing; ids equal the one-device "
+                  f"session's and the uncached re-forward; launches {got}")
+            del sess
+    # rank 0's decode programs on (2,) "tp"
+    slots = ctx["serve_kw"]["max_decode_slots"]
+    bucket = max(ctx["serve_kw"]["decode_buckets"])
+    chunk = ctx["serve_kw"]["prefill_chunk"]
+    token = torch.zeros(slots, dtype=torch.int32, device=dev)
+    out = {}
+    with fake_group(2, 0):
+        mesh = make_device_mesh((2,), ("tp",), device_type=dev.type)
+        for layout in ("bucketed", "paged"):
+            sess = GenerationSession.for_gpt(
+                params, cfg, device=dev, mesh=mesh,
+                config=ServeConfig(**{**ctx["serve_kw"],
+                                      "kv_layout": layout}))
+            t0 = time.perf_counter()
+            if layout == "bucketed":
+                cache = init_kv_cache(cfg, slots, bucket, device=dev)
+                res = sess._decode_c.get_compiled(cache, params, token, token)
+            else:
+                pages = bucket // chunk
+                cache = init_kv_pages(cfg, (slots + 1) * pages, chunk,
+                                      device=dev)
+                table = torch.zeros((slots, pages), dtype=torch.int32,
+                                    device=dev)
+                res = sess._program("decode").get_compiled(
+                    cache, params, table, token, token)
+            secs = time.perf_counter() - t0
+            picks = {k: [repr(q) for q in pl]
+                     for k, pl in zip(("k", "v"), res.in_placements[:2])}
+            table_ = check_priced(res, f"15d {layout} (2,) tp")
+            print(f"mesh serve 15d rank 0 of (2,) tp, {layout} decode: "
+                  f"compile {secs:.2f} s; the solver places the cache "
+                  f"{picks}; replicated FLOPs "
+                  f"{res.replicated_flops_fraction:.3f}; emitted "
+                  f"collectives equal the priced ones {table_}")
+            out[layout] = dict(picks=picks, table=table_, secs=secs)
+            del sess, cache, res
+    return launches, out
+
+
+def tail_phase(dev, ctx, cfg_kw=None, batch: int = 8, seed: int = 0):
+    """Phase 15: compiler-chosen remat under a cap (15a), GPTConfig.remat
+    and scan_layers (15b), tp_axes inside pipeline stages (15c) on GPT-2
+    small's f32 flash workload, and sessions over a mesh (15d) on phase
+    4's.  Returns the B1-B3 launches by run and B4 / B5's in 15d.  The
+    arguments shrink it for a rehearsal on the CPU."""
+    from easydist_tpu_torch.models.gpt import GPTConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig(**{**PP_KW, **(cfg_kw or {})})
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    cap = remat_cap_phase(dev, cfg, batch, seed)
+    times = {"15a": time.perf_counter() - t}
+    t = time.perf_counter()
+    modes, _ = remat_config_phase(dev, cfg, batch, seed)
+    times["15b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    launches_tp, tp = pp_tp_phase(dev, cfg, batch, seed)
+    times["15c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    launches_mesh, mesh = mesh_serve_phase(dev, ctx)
+    times["15d"] = time.perf_counter() - t
+    print(f"tail phase: {time.perf_counter() - t_phase:.1f} s "
+          f"{ {k: round(v, 1) for k, v in times.items()} }")
+    remat = {"uncapped": cap["uncapped"]["launches"],
+             "capped": cap["capped"]["launches"],
+             **{k: r["launches"] for k, r in modes.items()}}
+    return dict(remat=remat, pp_tp=launches_tp, mesh=launches_mesh,
+                out=dict(cap=cap, modes=modes, tp=tp, mesh=mesh))
+
+
 def pipeline_phase(dev, cfg_kw=None, batch: int = 8, seed: int = 0):
     """Phase 14: the manual parallel modes on GPT-2 small's f32 flash
     workload (14a split, 14b schedules, 14c easydist_compile(pp_stages=),
@@ -3908,6 +4399,9 @@ def main() -> int:
     entry["launches"] = ctx["launches"]
     paged_entries[0]["launches"], paged_ids = paged_serve_phase(dev, ctx)
     paged_entries[1]["launches"] = int8_serve_phase(dev, ctx, paged_ids)
+    mesh_ctx = {k: ctx[k] for k in ("params", "cfg_kw", "serve_kw",
+                                    "prompts", "n_new", "ref", "ids")}
+    mesh_ctx["paged_ids"] = paged_ids
     del ctx
     torch.cuda.empty_cache()
     launches, bf16_launches, f32_losses = train_phase(dev)
@@ -3937,6 +4431,14 @@ def main() -> int:
                             for sched, ranks in launches_pp.items()}
         e["launches_dp"] = {mode: r[e["name"]]
                             for mode, r in launches_dp.items()}
+    torch.cuda.empty_cache()
+    tail = tail_phase(dev, mesh_ctx)
+    for e in train_entries:
+        e["launches_remat"] = {run: r[e["name"]]
+                               for run, r in tail["remat"].items()}
+        e["launches_pp_tp"] = [r[e["name"]] for r in tail["pp_tp"]]
+    entry["launches_mesh"] = tail["mesh"]["flash_decode"]
+    paged_entries[0]["launches_mesh"] = tail["mesh"]["paged_decode"]
     print(card_line())
     print(json.dumps({"kernels": [entry, *paged_entries, *train_entries]}))
     print(json.dumps({"ok": True, "device": {

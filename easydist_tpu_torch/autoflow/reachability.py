@@ -34,7 +34,8 @@ _HEAVY_OPS = {"dot_general", "conv_general_dilated", "matmul", "mm", "bmm",
 
 
 def _node_flops(node: MetaNode) -> float:
-    if node.op_key not in _HEAVY_OPS:
+    # the FX bridge keys a node "aten.<op>" (`fxfront.bridge.target_name`)
+    if node.op_key.removeprefix("aten.") not in _HEAVY_OPS:
         return 0.0
     if node.flops is not None:
         return node.flops  # exact MACs recorded by the bridge

@@ -106,10 +106,19 @@ beam_width = _env_int("EASYDIST_BEAM_WIDTH", 100)
 # tie the ILP variables of isomorphic clusters (repeated layers)
 solver_cluster_dedup = _env_bool("EASYDIST_SOLVER_CLUSTER_DEDUP", True)
 # per-device memory cap in bytes: > 0 is a hard cap per liveness step,
-# 0 is off, -1 is "ask the device" (resolved by the multi-device
-# frontend, not ported yet; the solver reads only a cap > 0)
+# 0 is off, -1 is "ask the device" (`schedule.remat.resolve_memory_cap`:
+# the CUDA device's total memory, uncapped on the CPU).  The solver reads
+# a cap > 0 as it is; the remat planner reads the resolved cap.  Both
+# scale it by `memory_ratio`.
 per_device_memory_cap = _env_int("EASYDIST_MEMORY_CAP", -1)
 memory_ratio = _env_float("EASYDIST_MEMORY_RATIO", 0.9)
+# compiler-chosen rematerialization when the planned peak exceeds the
+# resolved cap (schedule/remat.py); most nodes one recompute chain holds
+enable_auto_remat = _env_bool("EASYDIST_AUTO_REMAT", True)
+remat_max_chain_len = _env_int("EASYDIST_REMAT_MAX_CHAIN", 96)
+# checkpoint policy of a compiled forward that a caller differentiates
+# through: "none" | "dots" (save matmul outputs) | "all" (save nothing)
+remat_policy = os.environ.get("EASYDIST_REMAT_POLICY", "none")
 # cap only placeholder tensors (parameters and state) per liveness step
 liveness_only_input = _env_bool("EASYDIST_LIVENESS_ONLY_INPUT", False)
 # discount a resharding edge by the independent compute that can hide it

@@ -131,7 +131,9 @@ class CompileResult:
     `strategies` the solved {node name: NodeStrategy} per axis;
     `collectives` what emission inserted; `priced` per axis the
     (kind, value, bytes) the solver priced for its picks; `timings`
-    seconds by stage; `counters` the analyzer's counts."""
+    seconds by stage; `counters` the analyzer's counts.  `remat_plan` is
+    the compiler-chosen remat (`schedule.remat.RematPlan`) applied to
+    `graph_module` (this rank's program), or None."""
 
     def __init__(self, graph_module, in_spec, out_spec,
                  state_pairs: Dict[int, int], donate_state: bool = True,
@@ -155,6 +157,7 @@ class CompileResult:
         self.counters: Dict[str, float] = {}
         self.replicated_on_failure: List[str] = []
         self.replicated_flops_fraction = 0.0
+        self.remat_plan = None
 
     # ----------------------------------------------------- mesh plumbing
     def program_for(self, coords):
@@ -219,11 +222,13 @@ class CompileResult:
 
         local = [self._local_input(x, p)
                  for x, p in zip(flat, self.in_placements)]
+        grad = _needs_grad(local)
+        outs = self._call(local, grad)
         with torch.no_grad():
-            outs = list(self.graph_module(*local))
             for o, i in self.state_pairs.items():
                 want = _dtensor_placements(self.in_placements[i])
-                if self.donate_state and isinstance(flat[i], DTensor) \
+                if self.donate_state and not grad \
+                        and isinstance(flat[i], DTensor) \
                         and tuple(flat[i].placements) == tuple(want):
                     with torch.profiler.record_function(
                             "easydist_compile.state_copy"):
@@ -235,9 +240,10 @@ class CompileResult:
         return pytree.tree_unflatten(outs, self.out_spec)
 
     def _run_local(self, flat):
+        grad = _needs_grad(flat)
+        outs = self._call(flat, grad)
         with torch.no_grad():
-            outs = list(self.graph_module(*flat))
-            if self.donate_state:
+            if self.donate_state and not grad:
                 with torch.profiler.record_function(
                         "easydist_compile.state_copy"):
                     for o, i in self.state_pairs.items():
@@ -245,6 +251,46 @@ class CompileResult:
                             flat[i].copy_(outs[o])
                             outs[o] = flat[i]
         return pytree.tree_unflatten(outs, self.out_spec)
+
+    def _call(self, flat, grad: bool):
+        """Run the program.  Where an input requires grad (and grad mode
+        is on) the replay records autograd, under `config.remat_policy`'s
+        checkpoint (reference jaxfront/api.py:1010-1022); else it runs
+        under no_grad.  Paired state is then returned, not written back."""
+        if not grad:
+            with torch.no_grad():
+                return list(self.graph_module(*flat))
+        bad = sorted({str(n.target) for n in self.graph_module.graph.nodes
+                      if n.op == "call_function" and _no_autograd(n.target)})
+        if bad:
+            raise NotImplementedError(
+                f"differentiating through this compiled function needs the "
+                f"autograd formula of {bad}, which the emitted program's "
+                f"collectives do not have; compile the train step whole "
+                f"instead")
+        policy = edconfig.remat_policy
+        if policy == "none":
+            return list(self.graph_module(*flat))
+        from torch.utils.checkpoint import checkpoint
+
+        from easydist_tpu_torch.schedule.remat import dots_context
+
+        kw = {"context_fn": dots_context} if policy == "dots" else {}
+        return list(checkpoint(self.graph_module, *flat,
+                               use_reentrant=False, **kw))
+
+    def planning_program(self):
+        """A copy of this rank's program as the remat planner reads it:
+        dead nodes dropped (autograd's unused views would hold values
+        alive in the model that the replay frees), every node's
+        `meta["val"]` at this rank's shapes.  None when fake tensors
+        cannot run the program."""
+        if self.in_placements is not None and not _size_rank_program(self):
+            return None
+        gm = _copy_gm(self.graph_module)
+        gm.graph.eliminate_dead_code()
+        gm.recompile()
+        return gm
 
     def materialize(self, init_fn, *init_args, arg_offset: int = 0):
         """The state `init_fn(*init_args)` builds, as DTensors with the
@@ -285,6 +331,48 @@ class CompileResult:
         return pytree.tree_unflatten(out, tree)
 
 
+def _needs_grad(flat) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in flat)
+
+
+def _no_autograd(target) -> bool:
+    """An emitted collective (a functional collective, or the ring /
+    Ulysses program of an attention node): no autograd formula."""
+    if isinstance(target, torch._ops.OpOverload):
+        return target.namespace == "_c10d_functional"
+    return getattr(target, "__module__", "").startswith(
+        ("easydist_tpu_torch.parallel.ring_attention",
+         "easydist_tpu_torch.parallel.ulysses"))
+
+
+_REMAT_POLICIES = ("none", "dots", "all")
+
+
+def _global_fakes(flat):
+    """`flat` as make_fx traces it: unchanged without DTensors; else every
+    tensor as a fake tensor of one mode, a DTensor at its global shape
+    (a compiled program traces the whole tensors, whatever their
+    placements)."""
+    from torch.distributed.tensor import DTensor
+
+    if not any(isinstance(x, DTensor) for x in flat):
+        return flat
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    out = []
+    for x in flat:
+        if isinstance(x, DTensor):
+            with mode:
+                x = torch.empty(tuple(x.shape), dtype=x.dtype,
+                                device=x.device)
+        elif isinstance(x, torch.Tensor):
+            x = mode.from_tensor(x)
+        out.append(x)
+    return out
+
+
 def _trace(func, args, kwargs, mesh=None):
     from .scope import _compile_mesh_ctx
 
@@ -301,7 +389,7 @@ def _trace(func, args, kwargs, mesh=None):
     # a `fix_sharding` inside the step targets the mesh being compiled
     with torch.no_grad(), _compile_mesh_ctx(
             mesh if _is_device_mesh(mesh) else None):
-        gm = make_fx(flat_fn, tracing_mode="fake")(*flat)
+        gm = make_fx(flat_fn, tracing_mode="fake")(*_global_fakes(flat))
     return gm, in_spec, traced["spec"], traced["out"]
 
 
@@ -312,8 +400,15 @@ def compile_step(func, args, kwargs, mesh=None, state_io="auto",
     its state (`infer_state_io`, or `state_io` {flat out: flat in}) and,
     on a mesh of more than one rank, discover, solve (over `axis_specs`,
     default the mesh's) and emit."""
+    if edconfig.remat_policy not in _REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {edconfig.remat_policy!r}; "
+                         f"expected none|dots|all")
+    from easydist_tpu_torch.schedule.remat import apply_checkpoint_tags
+
     t0 = time.perf_counter()
     gm, in_spec, out_spec, out = _trace(func, args, kwargs, mesh)
+    # a selective checkpoint in the step only tagged its nodes
+    apply_checkpoint_tags(gm)
     trace_s = time.perf_counter() - t0
     pairs = (infer_state_io(args, out) if state_io == "auto"
              else {int(o): int(i) for o, i in state_io.items()})
@@ -321,7 +416,101 @@ def compile_step(func, args, kwargs, mesh=None, state_io="auto",
     result.timings["trace"] = trace_s
     if _mesh_ranks(mesh) > 1:
         _compile_on_mesh(result, axis_specs)
+    _auto_remat(result)
     return result
+
+
+# ------------------------------------------------------------ auto remat
+
+def _copy_gm(gm):
+    graph = torch.fx.Graph()
+    graph.output(graph.graph_copy(gm.graph, {}))
+    return torch.fx.GraphModule(gm, graph)
+
+
+def _size_rank_program(result) -> bool:
+    """Fill `meta["val"]` of the rank program's nodes with fake tensors
+    at this rank's shapes (emission does not carry them)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.fx.passes.fake_tensor_prop import FakeTensorProp
+
+    from .emit import local_shape
+
+    sizes = [s.size for s in result.axis_specs]
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    fakes = []
+    for n, pl in zip([n for n in result.traced.graph.nodes
+                      if n.op == "placeholder"], result.in_placements):
+        v = n.meta.get("val")
+        if isinstance(v, torch.Tensor):
+            with mode:
+                v = torch.empty(local_shape(v.shape, pl, sizes),
+                                dtype=v.dtype, device=v.device)
+        fakes.append(v)
+    try:
+        FakeTensorProp(result.graph_module, mode)\
+            .propagate_dont_convert_inputs(*fakes)
+    except Exception as exc:  # a program fake tensors cannot run
+        logger.warning("[remat] could not size the rank program (%s: %s); "
+                       "no remat", type(exc).__name__, exc)
+        return False
+    return True
+
+
+def _program_device(result):
+    for n in result.traced.graph.nodes:
+        v = n.meta.get("val")
+        if n.op == "placeholder" and isinstance(v, torch.Tensor):
+            return v.device
+    return None
+
+
+def _auto_remat(result: CompileResult) -> None:
+    """Plan remat over the program this rank runs when the resolved cap
+    is above 0 and the planned peak is over it (reference
+    jaxfront/api.py:934-995), and apply it.  The second opinion is
+    `schedule.memory_planner` over the same program (where the JAX
+    package asks XLA's memory_analysis): the plan is dropped when that
+    model already fits the program under the cap, and when the rewrite
+    does not lower its peak."""
+    if not edconfig.enable_auto_remat:
+        return
+    from easydist_tpu_torch.schedule.remat import (apply_remat,
+                                                   memory_planner_peak,
+                                                   plan_remat,
+                                                   resolve_memory_cap)
+
+    mesh = result.mesh if _is_device_mesh(result.mesh) else None
+    cap = resolve_memory_cap(mesh, device=_program_device(result))
+    if cap <= 0:
+        return
+    t0 = time.perf_counter()
+    gm = result.planning_program()
+    if gm is None:
+        return
+    plan = plan_remat(gm, cap)
+    if plan is not None:
+        before = memory_planner_peak(gm)
+        if before <= cap:
+            logger.info("[remat] liveness peak %.3f GiB over the cap, the "
+                        "memory planner's %.3f GiB under it (cap %.3f): no "
+                        "remat", plan.base_peak / 2**30, before / 2**30,
+                        cap / 2**30)
+            plan = None
+        else:
+            trial = apply_remat(_copy_gm(gm), plan)
+            after = memory_planner_peak(trial)
+            if after >= before:
+                logger.warning(
+                    "[remat] the rewrite does not lower the memory "
+                    "planner's peak (%.3f -> %.3f GiB); dropping it, the "
+                    "program exceeds the %.3f GiB cap", before / 2**30,
+                    after / 2**30, cap / 2**30)
+                plan = None
+            else:
+                result.graph_module = trial
+    result.remat_plan = plan
+    result.timings["remat"] = time.perf_counter() - t0
 
 
 # ------------------------------------------------------------ the solve
@@ -597,7 +786,9 @@ def _compile_cache_key(gm, axis_specs) -> str:
          "liveness_only_input", "comm_quant_dtype", "comm_quant_block",
          "comm_quant_min_numel", "comm_overlap_ratio_source",
          "comm_overlap_ratio_measured", "discovery_use_presets",
-         "discovery_nshards", "extend_space", "use_op_cost_db"))
+         "discovery_nshards", "extend_space", "use_op_cost_db",
+         "enable_auto_remat", "remat_max_chain_len", "remat_policy",
+         "memory_ratio"))
         + f"|db={db_mtime() if edconfig.use_op_cost_db else None}"
     ).encode())
     h.update(gm.code.encode())
@@ -821,18 +1012,23 @@ def easydist_compile(func=None, mesh=None, state_io="auto",
     `compile_only` returns the CompileResult instead of running.
     `max_solver_time` (seconds) and `liveness_only_input` set the
     solver's knobs (`config.solver_time_limit`, `config.liveness_only_input`)
-    as the JAX package does.
+    as the JAX package does.  Under a memory cap
+    (`config.per_device_memory_cap`, resolved by
+    `schedule.remat.resolve_memory_cap`) the program is rewritten with
+    compiler-chosen remat when its planned peak is over the cap
+    (`config.enable_auto_remat`); a caller may differentiate through a
+    compiled forward, under `config.remat_policy`'s checkpoint.
 
     With `pp_stages=` the decorated function is a LOSS `loss_fn(params,
     *batch) -> scalar` (mean over the batch) and the result a hybrid
     pipeline x data parallel train step (`fxfront.pp_compile`), with
     `n_microbatches` (default 2 * pp_stages), `pp_axis` ("pp"),
     `schedule` ("gpipe" | "remat" | "1f1b"), `lr` and `optimizer`
-    ("adam" | "sgd" | an (init, update) pair).  That path manages its own
-    state, so `state_io`, `donate_state` and `compile_only` are refused
-    with it, as are the pipeline arguments without it.  `tp_axes` (the
-    solver inside stages) raises NotImplementedError: ROADMAP queue A
-    item 6c."""
+    ("adam" | "sgd" | an (init, update) pair), and `tp_axes` (one non-pp
+    mesh axis whose tensor parallelism inside each stage the solver
+    picks).  That path manages its own state, so `state_io`,
+    `donate_state` and `compile_only` are refused with it, as are the
+    pipeline arguments without it."""
     from .mesh import get_device_mesh
 
     unknown = sorted(set(pipeline) - set(_PIPELINE_DEFAULTS))
@@ -840,11 +1036,6 @@ def easydist_compile(func=None, mesh=None, state_io="auto",
         raise TypeError(f"easydist_compile got unexpected arguments "
                         f"{unknown}")
     pp = {**_PIPELINE_DEFAULTS, **pipeline}
-    if pp["tp_axes"]:
-        raise NotImplementedError(
-            "easydist_compile(tp_axes=...): the tensor-parallel solve "
-            "inside pipeline stages is not ported yet (ROADMAP queue A "
-            "item 6c)")
     if max_solver_time is not None:
         edconfig.solver_time_limit = max_solver_time
     if liveness_only_input is not None:
@@ -871,7 +1062,7 @@ def easydist_compile(func=None, mesh=None, state_io="auto",
                 f, m, pp_stages=pp["pp_stages"],
                 n_microbatches=pp["n_microbatches"] or pp["pp_stages"] * 2,
                 pp_axis=pp["pp_axis"], schedule=pp["schedule"], lr=pp["lr"],
-                optimizer=pp["optimizer"])
+                optimizer=pp["optimizer"], tp_axes=pp["tp_axes"])
 
         return wrap_pp(func) if func is not None else wrap_pp
     pp_only = sorted(name for name, val in pp.items()

@@ -20,17 +20,26 @@ scalar` and returns a train step over a pp x (anything) mesh:
      `models/optim.py`) runs elementwise on the packed row block and the
      shared leaves, so its state is sharded like the params.
 
-`tp_axes` (the solver inside stages) is ROADMAP queue A item 6c and
-raises NotImplementedError.
+`tp_axes=("tp",)` names one non-pp axis on which the solver picks
+tensor parallelism inside every stage (`_solve_tp`: discovery and the
+per-axis ILP on the batch-local loss graph, at the tp axis's size; the
+same graph feeds the split, so the plan's node names are the stages').
+The tp axis does not divide the batch; each stage replays its nodes
+under the plan with collectives on the tp group
+(`parallel.auto_pipeline._run_nodes_tp`).  When nothing is worth
+sharding the axis idles: its lanes run the stage replicated.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import Callable, Optional
 
 import torch
 from torch.utils import _pytree as pytree
+
+logger = logging.getLogger(__name__)
 
 
 def _struct(tree):
@@ -62,10 +71,17 @@ class PPCompiledFunction:
                 f"'gpipe', 'remat' (gpipe + per-stage rematerialization) "
                 f"and '1f1b' (one-forward-one-backward, O(n_stages) "
                 f"residual memory)")
-        if tp_axes:
+        tp_axes = tuple(tp_axes or ())
+        if len(tp_axes) > 1:
             raise NotImplementedError(
-                "tp_axes: the tensor-parallel solve inside pipeline stages "
-                "is not ported yet (ROADMAP queue A item 6c)")
+                "one tp axis per hybrid compile for now")
+        names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+        for name in tp_axes:
+            if name == pp_axis or name not in names:
+                raise ValueError(f"tp axis {name!r} must be a non-pp mesh "
+                                 f"axis (mesh has {names})")
+        self.tp_axes = tp_axes
+        self._tp_plan = None
         pair = _is_pair(optimizer)
         if not pair and optimizer not in ("adam", "sgd"):
             raise ValueError(
@@ -92,7 +108,8 @@ class PPCompiledFunction:
     def _build(self, params, batch):
         from easydist_tpu_torch.models.optim import (adam_init, adam_update,
                                                      sgd_update)
-        from easydist_tpu_torch.parallel.auto_pipeline import pipeline_grad
+        from easydist_tpu_torch.parallel.auto_pipeline import (pipeline_grad,
+                                                               trace)
 
         M = self.n_microbatches
         mesh, pp_axis = self.mesh, self.pp_axis
@@ -104,8 +121,9 @@ class PPCompiledFunction:
                 f"mesh axis {pp_axis!r} has size "
                 f"{mesh.size(names.index(pp_axis))}, expected pp_stages="
                 f"{self.pp_stages}")
+        # the non-tp siblings divide the batch; a tp axis sees it whole
         n_batch = math.prod(mesh.size(i) for i, n in enumerate(names)
-                            if n != pp_axis)
+                            if n != pp_axis and n not in self.tp_axes)
 
         # non-float param leaves (masks, index tables) are baked into the
         # traced closure as constants; only the float leaves pipeline
@@ -138,10 +156,26 @@ class PPCompiledFunction:
             return mb[: mb.shape[0] // n_batch]
 
         mb_local = tuple(pytree.tree_map(to_local_mb, b) for b in batch)
+        diff_example = [all_leaves[i] for i in diff_idx]
+        # one trace serves the tp solve and the split
+        traced = trace(loss_flat_mb, diff_example, mb_local)
+        tp_axis = None
+        if self.tp_axes:
+            tp_axis = self.tp_axes[0]
+            self._tp_plan = self._solve_tp(
+                traced[0], tp_axis, mesh.size(names.index(tp_axis)))
+            if not self._tp_plan:
+                # the lanes then run every stage replicated, and the
+                # sibling reduction averages their equal gradients
+                logger.warning(
+                    "[pp-hybrid] tp solver found nothing profitable to "
+                    "shard; axis %r runs idle - drop tp_axes= for batch "
+                    "parallelism instead", tp_axis)
         pipe_grad, pack_params = pipeline_grad(
-            loss_flat_mb, [all_leaves[i] for i in diff_idx], mb_local, mesh,
+            loss_flat_mb, diff_example, mb_local, mesh,
             n_stages=self.pp_stages, n_microbatches=M, axis=pp_axis,
-            schedule=self.schedule)
+            schedule=self.schedule, traced=traced, tp_axis=tp_axis,
+            tp_plan=self._tp_plan)
         self.pipe = pipe_grad
 
         if self._is_pair:
@@ -177,14 +211,71 @@ class PPCompiledFunction:
 
     @property
     def tp_plan(self):
-        """The tensor-parallel plan inside stages: always empty here (the
-        tp solve is ROADMAP item 6c)."""
-        return {}
+        """A copy of the tensor-parallel plan inside stages: {node name of
+        the traced loss graph: NodeStrategy} (empty when tp_axes was not
+        given, nothing was profitable, or before the first init_state
+        builds)."""
+        return dict(self._tp_plan) if self._tp_plan else {}
 
     def tp_summary(self):
-        """{'planned': strategies, 'sharded': strategies that shard an
-        operand}: zeros while the tp solve is not ported."""
-        return {"planned": 0, "sharded": 0}
+        """{'planned': strategies, 'sharded': strategies that shard at
+        least one operand}."""
+        plan = self.tp_plan
+        sharded = sum(
+            1 for s in plan.values()
+            if any(q is not None and q.is_shard()
+                   for q in list(s.in_placements) + list(s.out_placements)))
+        return {"planned": len(plan), "sharded": sharded}
+
+    # ------------------------------------------------------------ tp solve
+
+    @staticmethod
+    def _tp_replay_skip(node) -> bool:
+        """The port's custom ops (the flash kernels, the attention
+        composite, split_point and the scope ops; reference
+        `_TP_REPLAY_SKIP`): their strategies describe whole-op programs
+        that a replay on sliced operands cannot honour, so they stay
+        replicated over tp."""
+        t = node.target
+        return getattr(t, "namespace", None) == "easydist_tpu_torch"
+
+    def _solve_tp(self, gm, tp_axis: str, tp_size: int):
+        """Per-node tensor-parallel plan for the tp axis (reference
+        jaxfront/pp_compile.py:289-329): discovery and the per-axis ILP on
+        the batch-local loss graph at the tp axis's own size.  Returns
+        {node name: NodeStrategy} for the nodes the replay shards."""
+        from easydist_tpu_torch import config as edconfig
+        from easydist_tpu_torch.autoflow.cost_model import MeshAxisSpec
+        from easydist_tpu_torch.metashard.combination import Reduction
+
+        from .api import solve_axes
+        from .interpreter import ShardingAnalyzer, VarNames
+
+        analyzer = ShardingAnalyzer(gm, world_size=tp_size)
+        rules, shape_info = analyzer.run()
+        # one node a cluster: a cone cluster offers a chain one layout
+        # throughout, which hides the column-then-row split of a layer pair
+        level = edconfig.coarsen_level
+        edconfig.coarsen_level = 0
+        try:
+            per_axis, _, _ = solve_axes(
+                gm, [MeshAxisSpec(tp_axis, tp_size)], tp_size, rules,
+                shape_info, VarNames())
+        finally:
+            edconfig.coarsen_level = level
+        chosen = per_axis[0] or {}
+        plan = {}
+        for node in gm.graph.nodes:
+            s = chosen.get(node.name)
+            if node.op != "call_function" or s is None \
+                    or s.is_all_replicate() or self._tp_replay_skip(node):
+                continue
+            if any(p is not None and p.is_partial()
+                   and p.reduction not in (Reduction.SUM, Reduction.AVG)
+                   for p in s.out_placements):
+                continue  # a max / min partial: the replay sums only
+            plan[node.name] = s
+        return plan
 
     @property
     def stage_plan(self):

@@ -1,7 +1,8 @@
 from .gpt import (GPTConfig, gpt_apply, gpt_decode_step,
                   gpt_decode_step_paged, gpt_init, gpt_loss, gpt_prefill,
                   gpt_prefill_chunk, gpt_prefill_chunk_paged, init_kv_cache,
-                  init_kv_pages, make_gpt_train_step, params_from_numpy)
+                  init_kv_pages, make_gpt_train_step, params_from_numpy,
+                  stack_gpt_blocks)
 from .mlp import make_mlp_train_step, mlp_apply, mlp_init
 from .optim import (adagrad_init, adagrad_update, adam_init, adam_update,
                     adamw_update, rmsprop_init, rmsprop_update, sgd_init,
@@ -11,6 +12,7 @@ __all__ = ["GPTConfig", "gpt_apply", "gpt_decode_step",
            "gpt_decode_step_paged", "gpt_init", "gpt_loss", "gpt_prefill",
            "gpt_prefill_chunk", "gpt_prefill_chunk_paged", "init_kv_cache",
            "init_kv_pages", "make_gpt_train_step", "params_from_numpy",
+           "stack_gpt_blocks",
            "make_mlp_train_step", "mlp_apply", "mlp_init",
            "adagrad_init", "adagrad_update", "adam_init", "adam_update",
            "adamw_update", "rmsprop_init", "rmsprop_update", "sgd_init",

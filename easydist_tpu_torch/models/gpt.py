@@ -10,7 +10,7 @@ transposed `nn.Linear`), so `params_from_numpy` carries the JAX
 package's weights across.  Params stay float32 and are cast to
 `cfg.dtype` at each use; logits are `x.float() @ wte.T`.
 
-Three differences from the JAX functions, all deliberate:
+Four differences from the JAX functions, all deliberate:
   * the KV cache and the page arena are written IN PLACE (`index_put_`
     into the tensors the caller passed, which are also returned) where
     the JAX package returns new ones and relies on buffer donation —
@@ -19,7 +19,10 @@ Three differences from the JAX functions, all deliberate:
     exactly as `jax.lax.dynamic_update_slice` does;
   * the page arena holds one extra page, the drop page, which takes the
     writes the JAX package discards with `mode="drop"` (see
-    `init_kv_pages`).
+    `init_kv_pages`);
+  * `GPTConfig.scan_layers` keeps the layer-stacked params, but every
+    forward loops over the layer index (torch has no stable scan), so
+    `make_fx` unrolls what the JAX package traces once.
 """
 
 from __future__ import annotations
@@ -57,6 +60,17 @@ class GPTConfig:
     attention: str = "einsum"
     attn_mesh: object = None
     attn_axis: str = "sp"
+    # per-block rematerialization of the full forward: "none", "full"
+    # (`torch.utils.checkpoint` around each block: the backward recomputes
+    # the block's forward) or "dots" (a selective checkpoint that saves
+    # the outputs of mm / addmm / bmm / baddbmm and recomputes the rest)
+    remat: str = "none"
+    # layer-stacked params: params["blocks"] is one block pytree whose
+    # leaves have a leading dim of `layers` (`stack_gpt_blocks`).  torch has
+    # no stable scan, so every forward loops over the layer index and
+    # `make_fx` unrolls the loop: the trace grows with depth where the JAX
+    # package's `lax.scan` is traced once
+    scan_layers: bool = False
 
     @staticmethod
     def small(**kw):
@@ -106,7 +120,24 @@ def gpt_init(cfg: GPTConfig, generator: torch.Generator,
             "mlp": {"fc": linear(cfg.dim, 4 * cfg.dim),
                     "proj": linear(4 * cfg.dim, cfg.dim, proj_scale)},
         })
+    if cfg.scan_layers:
+        params["blocks"] = stack_gpt_blocks(params["blocks"])
     return params
+
+
+def stack_gpt_blocks(blocks):
+    """Per-layer block list -> one layer-stacked pytree (leading dim L)."""
+    return _tree_map(lambda *xs: torch.stack(xs), *blocks)
+
+
+def _block_list(params, cfg):
+    """Per-layer block pytrees whether `params["blocks"]` is a list or the
+    scan_layers layer-stacked form (views of the stacked leaves)."""
+    blocks = params["blocks"]
+    if cfg.scan_layers:
+        return [_tree_map(lambda p, i=i: p[i], blocks)
+                for i in range(cfg.layers)]
+    return list(blocks)
 
 
 def params_from_numpy(tree, device=None):
@@ -187,17 +218,44 @@ def _attention(x, p, cfg: GPTConfig, dtype, return_kv: bool = False):
     return out
 
 
+def _block(blk, x, cfg: GPTConfig, dtype):
+    x = x + _attention(
+        _layernorm(x, blk["ln1"]["g"], blk["ln1"]["b"]).to(dtype),
+        blk["attn"], cfg, dtype)
+    return _mlp(x, blk, dtype)
+
+
+def _block_fn(cfg: GPTConfig, dtype):
+    """`_block` under `cfg.remat`."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown GPTConfig.remat {cfg.remat!r}; "
+                         f"expected none|full|dots")
+    if cfg.remat == "none":
+        return lambda blk, x: _block(blk, x, cfg, dtype)
+    from torch.utils.checkpoint import checkpoint
+
+    from easydist_tpu_torch.schedule.remat import dots_context, tag_dots_region
+
+    if cfg.remat == "full":
+        return lambda blk, x: checkpoint(_block, blk, x, cfg, dtype,
+                                         use_reentrant=False)
+
+    def dots(blk, x):
+        return checkpoint(_block, blk, x, cfg, dtype, use_reentrant=False,
+                          context_fn=dots_context)
+
+    return lambda blk, x: tag_dots_region(dots, blk, x)
+
+
 def gpt_apply(params, cfg: GPTConfig, tokens):
     """tokens: int [batch, seq] -> logits float32 [batch, seq, vocab]."""
     dtype = torch_dtype(cfg.dtype)
+    block = _block_fn(cfg, dtype)
     tokens = tokens.long()
     x = params["wte"][tokens].to(dtype) \
         + params["wpe"].to(dtype)[None, :tokens.shape[1]]
-    for blk in params["blocks"]:
-        x = x + _attention(
-            _layernorm(x, blk["ln1"]["g"], blk["ln1"]["b"]).to(dtype),
-            blk["attn"], cfg, dtype)
-        x = _mlp(x, blk, dtype)
+    for blk in _block_list(params, cfg):
+        x = block(blk, x)
     x = _layernorm(x, params["ln_f"]["g"], params["ln_f"]["b"])
     return x.float() @ params["wte"].T
 
@@ -282,11 +340,8 @@ def make_gpt_pipeline_step(cfg: GPTConfig, mesh, n_microbatches: int,
 
     def stage_fn(stage_blocks, x):
         for i in range(per_stage):
-            blk = _tree_map(lambda p: p[i], stage_blocks)
-            x = x + _attention(
-                _layernorm(x, blk["ln1"]["g"], blk["ln1"]["b"]).to(dtype),
-                blk["attn"], cfg, dtype)
-            x = _mlp(x, blk, dtype)
+            x = _block(_tree_map(lambda p: p[i], stage_blocks), x, cfg,
+                       dtype)
         return x
 
     def head_loss(x_mb, targets_mb, hp):
@@ -300,8 +355,14 @@ def make_gpt_pipeline_step(cfg: GPTConfig, mesh, n_microbatches: int,
                        schedule=schedule, data_axis=data_axis, n_virtual=V),
         aux=True)
 
+    n_own = len(owned)
+
     def stack_blocks(blocks):
         # this rank's blocks -> [chunks, per_stage, ...] leading dims
+        if cfg.scan_layers:
+            return _tree_map(lambda p: p.reshape(
+                (n_own // per_stage, per_stage) + tuple(p.shape[1:])),
+                blocks)
         chunks = [_tree_map(lambda *xs: torch.stack(xs),
                             *blocks[c * per_stage:(c + 1) * per_stage])
                   for c in range(len(blocks) // per_stage)]
@@ -325,9 +386,13 @@ def make_gpt_pipeline_step(cfg: GPTConfig, mesh, n_microbatches: int,
         if data_axis is not None:
             dwte_emb = comm.all_reduce_sum(dwte_emb, dax.group)
             dwpe = comm.all_reduce_sum(dwpe, dax.group)
-        dblocks = [_tree_map(lambda g: g[c][i], sgrads)
-                   for c in range(len(params["blocks"]) // per_stage)
-                   for i in range(per_stage)]
+        if cfg.scan_layers:
+            dblocks = _tree_map(
+                lambda g: g.reshape((n_own,) + tuple(g.shape[2:])), sgrads)
+        else:
+            dblocks = [_tree_map(lambda g: g[c][i], sgrads)
+                       for c in range(n_own // per_stage)
+                       for i in range(per_stage)]
         grads = {"wte": dwte_emb + dhp["wte"], "wpe": dwpe,
                  "blocks": dblocks, "ln_f": dhp["ln_f"]}
         return loss, {k: grads[k] for k in params}
@@ -335,7 +400,14 @@ def make_gpt_pipeline_step(cfg: GPTConfig, mesh, n_microbatches: int,
     def init_state(generator=None, device=None, params=None):
         full = params if params is not None else gpt_init(cfg, generator,
                                                           device=device)
-        local = {k: (v if k != "blocks" else [v[i] for i in owned])
+        if cfg.scan_layers:
+            idx = torch.tensor(owned)
+            blocks = _tree_map(
+                lambda p: p.index_select(0, idx.to(p.device)),
+                full["blocks"])
+        else:
+            blocks = [full["blocks"][i] for i in owned]
+        local = {k: (v if k != "blocks" else blocks)
                  for k, v in full.items()}
         return (local, adam_init(local))
 
@@ -407,7 +479,7 @@ def gpt_prefill(params, cfg: GPTConfig, cache, tokens, lengths):
     b, t = tokens.shape
     x = params["wte"][tokens].to(dtype) + params["wpe"].to(dtype)[None, :t]
     ks, vs = [], []
-    for blk in params["blocks"]:
+    for blk in _block_list(params, cfg):
         attn_out, k, v = _attention(
             _layernorm(x, blk["ln1"]["g"], blk["ln1"]["b"]).to(dtype),
             blk["attn"], cfg, dtype, return_kv=True)
@@ -439,7 +511,7 @@ def _chunk_hidden(params, cfg: GPTConfig, cache, tokens, start):
     abs_pos = start[:, None] + torch.arange(s, device=tokens.device)[None]
     x = params["wte"][tokens.long()].to(dtype) \
         + params["wpe"][abs_pos].to(dtype)
-    for li, blk in enumerate(params["blocks"]):
+    for li, blk in enumerate(_block_list(params, cfg)):
         p_at = blk["attn"]
         h_in = _layernorm(x, blk["ln1"]["g"], blk["ln1"]["b"]).to(dtype)
         q, k, v = _qkv(h_in, p_at, dtype)
@@ -519,7 +591,7 @@ def gpt_decode_step(params, cfg: GPTConfig, cache, token, pos):
     pos = pos.to(torch.int32)
     x = params["wte"][token.long()].to(dtype) \
         + params["wpe"][pos.long()].to(dtype)
-    for li, blk in enumerate(params["blocks"]):
+    for li, blk in enumerate(_block_list(params, cfg)):
         p_at = blk["attn"]
         h_in = _layernorm(x, blk["ln1"]["g"], blk["ln1"]["b"]).to(dtype)
         q, k, v = _qkv(h_in, p_at, dtype)
@@ -654,7 +726,7 @@ def _chunk_hidden_paged(params, cfg: GPTConfig, pages, table, tokens,
     abs_pos = start[:, None] + torch.arange(s, device=tokens.device)[None]
     x = params["wte"][tokens.long()].to(dtype) \
         + params["wpe"][abs_pos].to(dtype)
-    for li, blk in enumerate(params["blocks"]):
+    for li, blk in enumerate(_block_list(params, cfg)):
         p_at = blk["attn"]
         h_in = _layernorm(x, blk["ln1"]["g"], blk["ln1"]["b"]).to(dtype)
         q, k, v = _qkv(h_in, p_at, dtype)
@@ -767,7 +839,7 @@ def gpt_decode_step_paged(params, cfg: GPTConfig, pages, table, token,
     off = pos.long() % pt
     x = params["wte"][token.long()].to(dtype) \
         + params["wpe"][pos.long()].to(dtype)
-    for li, blk in enumerate(params["blocks"]):
+    for li, blk in enumerate(_block_list(params, cfg)):
         p_at = blk["attn"]
         h_in = _layernorm(x, blk["ln1"]["g"], blk["ln1"]["b"]).to(dtype)
         q, k, v = _qkv(h_in, p_at, dtype)

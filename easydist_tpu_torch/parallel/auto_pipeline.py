@@ -24,6 +24,20 @@ Params used by exactly one stage (float32 / bfloat16 / float16) are
 packed into that stage's f32 row; the rows are flat-sharded over the
 sibling (non-pp) axes, all_gathered once per step and their gradients
 reduce_scattered.  Params several stages use stay replicated.
+
+With a tensor-parallel plan (`tp_plan`, {node name: NodeStrategy} on one
+sibling axis, `fxfront.pp_compile` solves it) each stage replays its
+nodes placement-tracked on that axis (`_tp_convert`, the port of the JAX
+package's): an input the strategy wants sharded is sliced locally, a
+sharded value read whole is all_gathered on the tp group, a partial sum
+a node creates is all_reduced at once, and every boundary value leaves
+the stage whole.  The tp axis does not divide the batch.  Gradients
+follow from autograd: the slice's gradient is the zero-padded shard, the
+gather's a reduce_scatter, the all_reduce's an all_reduce, so every
+lane's gradient of a weight is its contribution and the sibling
+reduction (sum over every sibling lane, divided by their count) sums
+the shard gradients of a weight tp splits and averages over the tp lanes
+the gradient of a weight tp replicates.
 """
 
 from __future__ import annotations
@@ -36,6 +50,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from easydist_tpu_torch import comm
+from easydist_tpu_torch.metashard.combination import Reduction
 
 from ._axes import Axis, local_block, mesh_axis
 from .pipeline import LocalStages, drive_local, drive_p2p, rank_core, \
@@ -239,18 +254,195 @@ def _run_nodes(gm, nodes, env):
         env[n] = n.target(*args, **kwargs)
 
 
+# ------------------------------------------- tensor parallel inside stages
+
+def _to_front(x, dim: int):
+    return torch.movedim(x, dim, 0)
+
+
+class _TpGather(torch.autograd.Function):
+    """S(dim) -> R on the tp group: all_gather forward, reduce_scatter of
+    the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, axis: Axis):
+        ctx.dim, ctx.axis = dim, axis
+        y = comm.all_gather_dim0(_to_front(x, dim), axis.group, axis.size)
+        return torch.movedim(y, 0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        d, ax = ctx.dim, ctx.axis
+        y = comm.reduce_scatter_sum(_to_front(g, d), ax.group, ax.size)
+        return torch.movedim(y, 0, d), None, None
+
+
+class _TpSum(torch.autograd.Function):
+    """P(sum) -> R on the tp group: all_reduce forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis: Axis):
+        ctx.axis = axis
+        return comm.all_reduce_sum(x, axis.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return comm.all_reduce_sum(g, ctx.axis.group), None
+
+
+def _tp_convert(val, cur, want, axis: Axis):
+    """Move a stage-local value between tp placements (reference
+    parallel/auto_pipeline.py:290-319): S -> R all_gathers, R -> S slices
+    the rank's block, S(i) -> S(j) goes through R; a partial `want` reads
+    the value whole.  Every collective's group lies inside one pipeline
+    stage, so the stage's lanes reach each one together."""
+    cur_dim = cur.dim if cur is not None and cur.is_shard() else None
+    want_dim = want.dim if want is not None and want.is_shard() else None
+    if cur_dim == want_dim:
+        return val
+    if cur_dim is not None:
+        val = _TpGather.apply(val, cur_dim, axis)
+    if want_dim is not None:
+        size = val.shape[want_dim]
+        if size % axis.size:
+            raise ValueError(
+                f"tp plan wants dim {want_dim} of shape {tuple(val.shape)} "
+                f"sharded {axis.size}-way but it does not divide")
+        step = size // axis.size
+        val = val.narrow(want_dim, axis.index * step, step)
+    return val
+
+
+def _resolve_partial(val, p, created: bool, axis: Axis):
+    """A partial output: summed over the tp group where this node creates
+    it (a mean's partial divided by the group), else already whole (the
+    node propagated a partial its inputs resolved)."""
+    if not created:
+        return val
+    val = _TpSum.apply(val, axis)
+    return val / axis.size if p.reduction == Reduction.AVG else val
+
+
+def _run_nodes_tp(nodes, env, place, plan, axis: Axis):
+    """`_run_nodes` under the tp plan: `place` maps a node to its tp
+    Placement where it is sharded (absent: whole)."""
+    from easydist_tpu_torch.fxfront.emit import _SHAPE_ARG, local_shape
+    from easydist_tpu_torch.fxfront.interpreter import _is_tensor_node
+
+    for n in nodes:
+        if n.target is operator.getitem:
+            src, i = n.args
+            env[n] = env[src][i]
+            p = place.get((src, i))
+            if p is not None:
+                place[n] = p
+            continue
+        strat = plan.get(n.name)
+        leaves, spec = pytree.tree_flatten((tuple(n.args), dict(n.kwargs)))
+        pos, new = 0, []
+        for leaf in leaves:
+            if _is_tensor_node(leaf):
+                want = strat.in_placements[pos] if strat is not None \
+                    and pos < len(strat.in_placements) else None
+                new.append(_tp_convert(env[leaf], place.get(leaf), want,
+                                       axis))
+                pos += 1
+            elif isinstance(leaf, torch.fx.Node):
+                new.append(env[leaf])
+            else:
+                new.append(leaf)
+        args, kwargs = pytree.tree_unflatten(new, spec)
+        val = n.meta.get("val")
+        if strat is None:
+            env[n] = n.target(*args, **kwargs)
+            continue
+        outs = list(strat.out_placements)
+        if isinstance(val, torch.Tensor):
+            for idx, targets in _SHAPE_ARG.items():
+                if n.target in targets:
+                    args = list(args)
+                    args[idx] = list(local_shape(val.shape, outs[:1],
+                                                 [axis.size]))
+                    args = tuple(args)
+        out = n.target(*args, **kwargs)
+        created = not any(q is not None and q.is_partial()
+                          for q in strat.in_placements)
+        if isinstance(val, torch.Tensor):
+            outs, out = outs[:1], [out]
+        else:
+            out = list(out)
+        for i, p in enumerate(outs[:len(out)]):
+            if p is not None and p.is_partial():
+                out[i] = _resolve_partial(out[i], p, created, axis)
+            elif p is not None and p.is_shard():
+                place[n if isinstance(val, torch.Tensor) else (n, i)] = p
+        env[n] = out[0] if isinstance(val, torch.Tensor) else tuple(out)
+
+
+def tp_conversions(plan: "StagePlan", s: int, tp_plan, size: int):
+    """(kind, input bytes) of every tp collective stage `s` issues in one
+    microbatch's forward, in program order: the counterpart of
+    `_run_nodes_tp`'s conversions, from the traced shapes."""
+    place, out = {}, []
+    from easydist_tpu_torch.fxfront.interpreter import _is_tensor_node
+
+    def nbytes(node, p=None):
+        v = node.meta["val"]
+        n = v.numel() * v.element_size()
+        return n // size if p is not None else n
+
+    def convert(node, cur, want):
+        cur_dim = cur.dim if cur is not None and cur.is_shard() else None
+        want_dim = want.dim if want is not None and want.is_shard() \
+            else None
+        if cur_dim is not None and cur_dim != want_dim:
+            out.append(("all_gather_into_tensor", nbytes(node, cur)))
+
+    for n in plan.stage_nodes[s]:
+        if n.target is operator.getitem:
+            if (n.args[0], n.args[1]) in place:
+                place[n] = place[(n.args[0], n.args[1])]
+            continue
+        strat = tp_plan.get(n.name)
+        pos = 0
+        for leaf in pytree.tree_leaves((tuple(n.args), dict(n.kwargs))):
+            if _is_tensor_node(leaf):
+                want = strat.in_placements[pos] if strat is not None \
+                    and pos < len(strat.in_placements) else None
+                convert(leaf, place.get(leaf), want)
+                pos += 1
+        if strat is None:
+            continue
+        created = not any(q is not None and q.is_partial()
+                          for q in strat.in_placements)
+        val = n.meta.get("val")
+        vals = [val] if isinstance(val, torch.Tensor) else list(val)
+        for i, p in enumerate(list(strat.out_placements)[:len(vals)]):
+            key = n if isinstance(val, torch.Tensor) else (n, i)
+            if p is not None and p.is_partial() and created:
+                v = vals[i]
+                out.append(("all_reduce", v.numel() * v.element_size()))
+            elif p is not None and p.is_shard():
+                place[key] = p
+    outs = plan.boundaries[s] if s < plan.n_stages - 1 else plan.out_nodes
+    for n in outs:
+        convert(n, place.get(n), None)
+    return out
+
+
 class _AutoStageProgram:
     """Rank `s`'s program of an auto-split pipeline: its stage's nodes,
     interpreted eagerly over the values its boundary brings."""
 
     def __init__(self, plan: StagePlan, s: int, param_vals: Dict,
-                 data_vals, remat: bool, train: bool):
+                 data_vals, remat: bool, train: bool, tp=None):
         self.plan, self.S, self.s, self.V = plan, plan.n_stages, s, 1
         self.nodes = plan.stage_nodes[s]
         self.ins = plan.boundaries[s - 1] if s > 0 else []
         self.outs = plan.boundaries[s] if s < self.S - 1 else plan.out_nodes
         self.data_vals = data_vals  # [data leaf [M, ...]]
         self.remat = remat
+        self.tp = tp  # (tp_plan, tp Axis) or None
         self.device = data_vals[0].device if data_vals else \
             next(iter(param_vals.values())).device
         self.param_nodes = list(param_vals)
@@ -283,8 +475,14 @@ class _AutoStageProgram:
         env.update((n, x[m]) for n, x in zip(self.plan.data_nodes,
                                              self.data_vals))
         env.update(zip(self.ins, ins))
-        _run_nodes(self.plan.gm, self.nodes, env)
-        return [env[n] for n in self.outs]
+        if self.tp is None:
+            _run_nodes(self.plan.gm, self.nodes, env)
+            return [env[n] for n in self.outs]
+        place: Dict = {}
+        tp_plan, axis = self.tp
+        _run_nodes_tp(self.nodes, env, place, tp_plan, axis)
+        return [_tp_convert(env[n], place.get(n), None, axis)
+                for n in self.outs]
 
     def body(self, k, m, ins):
         if not self.remat:
@@ -300,9 +498,11 @@ class _AutoStageProgram:
         return list(checkpoint(run, *ins, *self.leaves, use_reentrant=False))
 
 
-def _sibling_axis(mesh, axis: str) -> Optional[Axis]:
-    """The non-pp axes of `mesh` as one axis (None when there are none)."""
-    names = [n for n in (mesh.mesh_dim_names or ()) if n != axis]
+def _sibling_axis(mesh, axis: str, exclude=()) -> Optional[Axis]:
+    """The non-pp axes of `mesh` (less `exclude`) as one axis (None when
+    there are none)."""
+    names = [n for n in (mesh.mesh_dim_names or ())
+             if n != axis and n not in exclude]
     if not names:
         return None
     if len(names) == 1:
@@ -317,8 +517,9 @@ class _Prep:
     layout, the mesh's pipeline and sibling axes."""
 
     def __init__(self, fn, example_params, example_mb, mesh, n_stages: int,
-                 axis: str, shard_params: bool):
-        self.gm, self.n_p, self.n_d, self.out_spec = trace(
+                 axis: str, shard_params: bool, traced=None, tp_axis=None,
+                 tp_plan=None):
+        self.gm, self.n_p, self.n_d, self.out_spec = traced or trace(
             fn, example_params, example_mb)
         self.plan = StagePlan(self.gm, n_stages, self.n_p)
         self.p_spec = pytree.tree_structure(example_params)
@@ -328,6 +529,9 @@ class _Prep:
                 raise ValueError(f"LocalStages({mesh.n}), expected "
                                  f"n_stages={n_stages}")
             self.pp, self.sib = None, None
+            if tp_axis is not None:
+                raise ValueError("a tp axis needs a DeviceMesh, not "
+                                 "LocalStages")
         else:
             self.pp = mesh_axis(mesh, axis)
             if self.pp.size != n_stages:
@@ -335,6 +539,12 @@ class _Prep:
                                  f"{self.pp.size}, expected n_stages="
                                  f"{n_stages}")
             self.sib = _sibling_axis(mesh, axis)
+        # the axes that divide the batch: the siblings less the tp axis
+        self.batch = self.sib
+        self.tp = None
+        if tp_axis is not None:
+            self.batch = _sibling_axis(mesh, axis, exclude=(tp_axis,))
+            self.tp = (dict(tp_plan or {}), mesh_axis(mesh, tp_axis))
         self.n_sib = self.sib.size if self.sib else 1
         self.shard_params = shard_params
         self.layouts = self.shared = None
@@ -416,10 +626,29 @@ class _Prep:
             raise ValueError(
                 f"microbatches pytree has {len(leaves)} leaves; the "
                 f"traced function expects {self.n_d}")
-        if self.sib is None:
+        if self.batch is None:
             return leaves
-        return [local_block(x, 1, self.sib.size, self.sib.index)
+        return [local_block(x, 1, self.batch.size, self.batch.index)
                 for x in leaves]
+
+    def tp_collectives(self, s: int):
+        """{kind: [count, input bytes]} of the tp collectives stage `s`
+        issues in one microbatch's forward and backward (forward
+        conversions: an all_gather per S -> R, an all_reduce per partial
+        created; their gradients: a reduce_scatter of the whole value per
+        gather, an all_reduce per all_reduce)."""
+        out: Dict[str, List[int]] = {}
+        if self.tp is None:
+            return out
+        tp_plan, axis = self.tp
+        for kind, nbytes in tp_conversions(self.plan, s, tp_plan, axis.size):
+            back = ("reduce_scatter_tensor", nbytes * axis.size) \
+                if kind == "all_gather_into_tensor" else (kind, nbytes)
+            for k, b in ((kind, nbytes), back):
+                c = out.setdefault(k, [0, 0])
+                c[0] += 1
+                c[1] += b
+        return out
 
 
 def pipeline_forward(fn: Callable, example_params, example_mb, mesh,
@@ -480,7 +709,8 @@ def pipeline_forward(fn: Callable, example_params, example_mb, mesh,
 
 def pipeline_grad(fn: Callable, example_params, example_mb, mesh,
                   n_stages: int, n_microbatches: int, axis: str = "pp",
-                  schedule: str = "1f1b"):
+                  schedule: str = "1f1b", traced=None, tp_axis=None,
+                  tp_plan=None):
     """Auto-split `fn(params, mb) -> scalar mean loss` into a training
     pipeline on `schedule` ("gpipe", "remat", "1f1b").
 
@@ -491,9 +721,13 @@ def pipeline_grad(fn: Callable, example_params, example_mb, mesh,
     microbatches) -> (loss, (d row block, d shared)): the loss is the mean
     over microbatches and sibling lanes; the row gradient comes back
     reduce_scattered to the rank's block, the shared gradients summed over
-    the stages and averaged over the siblings."""
+    the stages and averaged over the siblings.  `traced` reuses a
+    `trace(fn, ...)` result (the graph `tp_plan`'s node names refer to);
+    `tp_axis` names the sibling axis `tp_plan` splits tensors on inside
+    the stages (it does not divide the batch)."""
     prep = _Prep(fn, example_params, example_mb, mesh, n_stages, axis,
-                 shard_params=True)
+                 shard_params=True, traced=traced, tp_axis=tp_axis,
+                 tp_plan=tp_plan)
     plan, M = prep.plan, n_microbatches
     if len(plan.out_nodes) != 1 or StagePlan.meta(plan.out_nodes[0])[0]:
         raise NotImplementedError(
@@ -504,7 +738,7 @@ def pipeline_grad(fn: Callable, example_params, example_mb, mesh,
 
     def stage_prog(s, full_row, shared, data):
         return _AutoStageProgram(plan, s, prep.stage_param_vals(
-            s, full_row, shared), data, remat, True)
+            s, full_row, shared), data, remat, True, tp=prep.tp)
 
     def grads_of(s, prog, result):
         """(d full row [row_elems], d shared) of stage `s`."""

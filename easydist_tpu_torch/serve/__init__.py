@@ -13,7 +13,7 @@ from .admission import (CircuitOpenError, DeadlineExceededError,
 from .batcher import (MicroBatcher, PackMeta, Request, RequestQueue,
                       pack_requests, scatter_results, select_bucket)
 from .engine import ServeConfig, ServeEngine
-from .generation import GenerationSession
+from .generation import GenerationSession, kv_cache_specs
 from .metrics import LatencyHistogram, ServeMetrics
 from .prefix_cache import PrefixCache, chunk_key
 from .speculate import NGramDrafter, SmallModelDrafter, accept_length
@@ -25,5 +25,6 @@ __all__ = ["CircuitOpenError", "DeadlineExceededError", "EngineStoppedError",
            "RequestQueue", "RequestTooLargeError", "ServeConfig",
            "ServeEngine", "ServeError", "ServeMetrics", "SmallModelDrafter",
            "accept_length", "chunk_key", "is_oom_error",
-           "is_transient_error", "pack_requests", "retry_transient",
+           "is_transient_error", "kv_cache_specs", "pack_requests",
+           "retry_transient",
            "scatter_results", "select_bucket"]

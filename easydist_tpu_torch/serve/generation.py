@@ -54,8 +54,15 @@ decoding: the argmax runs inside the compiled step, so only int32 ids
 cross to the host per token.  Without `model_prefill_chunk` the session
 runs the one-shot prefill (one pow2-padded prefill per prompt).
 
-Not ported (ROADMAP.md lists each): the `analyze` audits other than the
-page-table one, and sessions over a mesh.
+Over a mesh (`mesh=` a `DeviceMesh`) every program of the session is
+compiled by `easydist_compile(mesh=)` with the caches and pages as paired
+state: the solver picks their placements (`kv_cache_specs` names the
+head-sharded one), every rank runs the same host scheduler on the same
+requests, and the ids each program returns reach the host through a
+broadcast from the mesh's first rank, so the ranks agree.
+
+Not ported (ROADMAP.md lists it): the `analyze` audits other than the
+page-table one.
 """
 
 from __future__ import annotations
@@ -110,6 +117,22 @@ _SPEC_PROBE_EVERY = 12
 # of the wider program: sum(ewma) > (cost - 1) * rows.  Rounds that
 # close below that line pause speculation for a probe interval.
 _SPEC_VERIFY_COST = 2.0
+
+
+def kv_cache_specs(axis: str = "tp", mesh_dim_names=None):
+    """The placements of a KV cache {"k", "v"} of shape [layers,
+    batch/slots, heads, max_len, head_dim] sharded on its heads over mesh
+    axis `axis`, everything else replicated (the placement consistent
+    with a tensor-parallel attention strategy): per leaf, one DTensor
+    placement per mesh dim of `mesh_dim_names` (default: the one axis),
+    for `torch.distributed.tensor.distribute_tensor`."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh_dim_names or (axis,))
+    if axis not in names:
+        raise ValueError(f"{axis!r} is not an axis of {names}")
+    spec = tuple(Shard(2) if n == axis else Replicate() for n in names)
+    return {"k": spec, "v": spec}
 
 
 @dataclass
@@ -421,7 +444,9 @@ class GenerationSession:
 
     `compile_key` (any hashable; `for_gpt` derives one from the model
     config and device) opts the session into the process-level memo of
-    compiled programs, shared with other sessions of the same key.
+    compiled programs, shared with other sessions of the same key and
+    mesh.  `mesh` (a `DeviceMesh`) compiles every program over it; None
+    keeps the one-device programs.
     `replica_id` labels the session's metrics (and their PerfDB key).
     """
 
@@ -439,7 +464,7 @@ class GenerationSession:
                  eos_id: Optional[int] = None,
                  max_prompt_len: Optional[int] = None,
                  replica_id: Optional[str] = None,
-                 compile_key: Optional[object] = None):
+                 compile_key: Optional[object] = None, mesh=None):
         self.config = config or ServeConfig()
         self.replica_id = replica_id
         if max_prompt_len is not None:
@@ -455,6 +480,7 @@ class GenerationSession:
                              "(chunked prefill) or model_prefill (one-shot)")
         self.params = params
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.eos_id = eos_id
         self.metrics = ServeMetrics(replica_id=replica_id)
         self._draining = False
@@ -558,19 +584,20 @@ class GenerationSession:
         if model_verify is not None:
             self._program_defs["verify_bucketed"] = _verify
 
-        shared = _COMPILED_MEMO.get(compile_key) \
-            if compile_key is not None else None
+        memo_key = (compile_key, mesh) if compile_key is not None \
+            else None
+        shared = _COMPILED_MEMO.get(memo_key) if memo_key else None
         if shared is None:
-            shared = (easydist_compile(_prefill) if model_prefill else None,
-                      easydist_compile(_prefill_chunk)
+            shared = (self._compile(_prefill) if model_prefill else None,
+                      self._compile(_prefill_chunk)
                       if model_prefill_chunk else None,
-                      easydist_compile(_restore),
-                      easydist_compile(_migrate),
-                      easydist_compile(_decode), {}, {})
-            if compile_key is not None:
+                      self._compile(_restore),
+                      self._compile(_migrate),
+                      self._compile(_decode), {}, {})
+            if memo_key is not None:
                 while len(_COMPILED_MEMO) >= 32:  # live sessions keep refs
                     _COMPILED_MEMO.pop(next(iter(_COMPILED_MEMO)))
-                _COMPILED_MEMO[compile_key] = shared
+                _COMPILED_MEMO[memo_key] = shared
         (self._prefill_c, self._prefill_chunk_c, self._restore_c,
          self._migrate_c, self._decode_c, self._extract_cs,
          self._programs) = shared
@@ -580,7 +607,7 @@ class GenerationSession:
         static, so each chunk length is its own program)."""
         fn = self._extract_cs.get(chunk_len)
         if fn is None:
-            fn = easydist_compile(_extract_program(chunk_len))
+            fn = self._compile(_extract_program(chunk_len))
             self._extract_cs[chunk_len] = fn
         return fn
 
@@ -591,9 +618,26 @@ class GenerationSession:
         `_extract_for`."""
         fn = self._programs.get(name)
         if fn is None:
-            fn = easydist_compile(self._program_defs[name])
+            fn = self._compile(self._program_defs[name])
             self._programs[name] = fn
         return fn
+
+    def _compile(self, fn) -> Callable:
+        """`fn` compiled on the session's mesh (one device without one)."""
+        return easydist_compile(fn, mesh=self.mesh)
+
+    def _host(self, ids) -> np.ndarray:
+        """A program's int32 ids on the host.  Over a mesh of several
+        ranks, the mesh's first rank's ids, broadcast to every rank."""
+        if self.mesh is not None and self.mesh.size() > 1:
+            import torch.distributed as dist
+
+            ids = ids.clone()
+            group = self.mesh._flatten().get_group() \
+                if self.mesh.ndim > 1 else self.mesh.get_group()
+            src = int(self.mesh.mesh.flatten()[0])
+            dist.broadcast(ids, src=src, group=group)
+        return ids.cpu().numpy()
 
     def _tensor(self, x) -> torch.Tensor:
         """Host ints / int32 arrays as int32 tensors on the device."""
@@ -779,7 +823,7 @@ class GenerationSession:
         self.metrics.record_admission(len(prompt), 0)
         self.metrics.observe("ttft", time.perf_counter() - t_submit)
         slot = _Slot(request_id=self._next_request_id, future=fut,
-                     pos=len(prompt), token=int(first.cpu()[0]),
+                     pos=len(prompt), token=int(self._host(first)[0]),
                      max_new=max_new, eos_id=eos, prompt=prompt)
         self._next_request_id += 1
         slot.generated.append(slot.token)
@@ -892,7 +936,7 @@ class GenerationSession:
             result = self._prefill_chunk_c.get_compiled(*args)
             t0 = time.perf_counter()
             pool.staging, first = result.tree_jitted(*args)
-            first = first.cpu().numpy()
+            first = self._host(first)
             self.metrics.record_prefill_chunk(
                 pool.n_rows, c_len, time.perf_counter() - t0)
             calls += 1
@@ -932,7 +976,7 @@ class GenerationSession:
             result = self._program("chunk").get_compiled(*args)
             t0 = time.perf_counter()
             pool.arena, first = result.tree_jitted(*args)
-            first = first.cpu().numpy()
+            first = self._host(first)
             self.metrics.record_prefill_chunk(
                 pool.n_rows, c_len, time.perf_counter() - t0)
             calls += 1
@@ -1104,7 +1148,7 @@ class GenerationSession:
             pool.arena, nxt = result.tree_jitted(*args)
         else:
             pool.cache, nxt = result.tree_jitted(*args)
-        nxt = nxt.cpu().numpy()
+        nxt = self._host(nxt)
         dt = time.perf_counter() - t0
         for idx in live:
             slot = pool.slots[idx]
@@ -1186,7 +1230,7 @@ class GenerationSession:
         result = self._program("verify_bucketed").get_compiled(*args)
         t0 = time.perf_counter()
         pool.cache, nxt = result.tree_jitted(*args)
-        nxt = nxt.cpu().numpy()
+        nxt = self._host(nxt)
         dt = time.perf_counter() - t0
         # rejected rows need no explicit cleanup in the bucketed layout:
         # the pos cursor does not advance past the accepted prefix, the
@@ -1238,7 +1282,7 @@ class GenerationSession:
         result = self._program("verify").get_compiled(*args)
         t0 = time.perf_counter()
         pool.arena, nxt = result.tree_jitted(*args)
-        nxt = nxt.cpu().numpy()
+        nxt = self._host(nxt)
         dt = time.perf_counter() - t0
         # reservation sizes BEFORE the commit walk can retire the slots
         reserved = {idx: pool.pages_needed(len(pool.slots[idx].prompt),
@@ -1672,8 +1716,10 @@ class GenerationSession:
     @classmethod
     def for_gpt(cls, params, cfg, *, device=None, draft_model=None, **kw):
         """Session over models/gpt.py on `device` (default: the card),
-        where `params` must already live.  decode_buckets must fit
-        cfg.seq (the learned-position-table bound).
+        where `params` must already live (whole: over a `mesh=`, each
+        rank holds them and each program takes its shards).
+        decode_buckets must fit cfg.seq (the learned-position-table
+        bound).
         `draft_model=(params, cfg)` wires a `SmallModelDrafter` over a
         second (smaller) gpt, for `speculate_drafter="draft_model"`."""
         from easydist_tpu_torch.models import gpt

@@ -555,7 +555,8 @@ def make_torch_pp_train_step(module, example_args, loss_fn: Callable,
     thread through the stages).  optimizer: 'adam' or 'sgd' (a
     torch.optim instance's per-group settings cannot address the packed
     stage rows).  pp_axis names the mesh axis the stages lie on; every
-    other axis is a batch sibling.  `tp_axes` is ROADMAP item 6c."""
+    other axis is a batch sibling, except a `tp_axes` axis, on which the
+    solver picks tensor parallelism inside every stage."""
     if not isinstance(optimizer, str):
         raise NotImplementedError(
             "torch.optim instances are not supported with pp_stages: the "
@@ -564,10 +565,6 @@ def make_torch_pp_train_step(module, example_args, loss_fn: Callable,
             "optimizer='adam'/'sgd' + lr=")
     if mesh is None:
         raise ValueError("make_torch_pp_train_step needs a mesh")
-    if tp_axes:
-        raise NotImplementedError(
-            "tp_axes: the tensor-parallel solve inside pipeline stages is "
-            "not ported yet (ROADMAP queue A item 6c)")
     if pp_axis not in (mesh.mesh_dim_names or ()):
         raise ValueError(
             f"pp_axis {pp_axis!r} is not a mesh axis (mesh has "
@@ -598,5 +595,6 @@ def make_torch_pp_train_step(module, example_args, loss_fn: Callable,
     compiled = easydist_compile(
         loss, mesh=mesh, pp_stages=pp_stages,
         n_microbatches=n_microbatches or pp_stages * 2, lr=lr,
-        optimizer=optimizer, schedule=schedule, pp_axis=pp_axis)
+        optimizer=optimizer, schedule=schedule, pp_axis=pp_axis,
+        tp_axes=tp_axes)
     return compiled, params0

@@ -76,7 +76,8 @@ def test_every_port_module_imports_with_jax_blocked():
                  "resilience.breaker", "comm", "comm.counters",
                  "comm.reduce", "comm.overlap", "parallel.dp",
                  "parallel.pipeline", "parallel.auto_pipeline",
-                 "parallel.moe", "fxfront.pp_compile"):
+                 "parallel.moe", "fxfront.pp_compile", "schedule.remat",
+                 "schedule"):
         assert f"easydist_tpu_torch.{name}" in modules
     code = f"""
 import importlib, importlib.abc, sys

@@ -1,5 +1,6 @@
 """The per-rank programs that the manual-parallel-mode tests spawn on gloo
-(`tests/test_torch_{dp,pipeline,pp_compile,moe}.py`), through
+(`tests/test_torch_{dp,pipeline,pp_compile,moe}.py`, and
+`tests/test_torch_{pp_tp,gpt_remat,partial_regions,serve_mesh}.py`), through
 `tests.test_torch_fxfront_ranks.spawn("tests.test_torch_parallel_ranks:
 <scenario>", ...)`.
 
@@ -443,4 +444,209 @@ def moe_modes(rank, world, out, params, x, cfgs):
                          graph=collective_counts(
                              lambda p_, x_: moe_layer(p_, x_, mesh, cfg),
                              p, xs))
+    return res
+
+
+# ------------------------------------------ tensor parallelism in stages
+
+def wide_loss(params, x, y):
+    """4 tanh layers, wide enough that the tp solve shards them."""
+    h = x
+    for i in range(N_LAYERS):
+        h = torch.tanh(h @ params[f"w{i}"])
+    return torch.mean((h - y) ** 2)
+
+
+def mixed_loss(params, x, y):
+    """Two wide layers and a narrow head the tp solve keeps replicated."""
+    h = torch.tanh(x @ params["w0"])
+    h = torch.tanh(h @ params["w1"])
+    return torch.mean((h @ params["head"] - y) ** 2)
+
+
+GPT_TP_KW = dict(vocab=128, seq=64, dim=64, heads=4, layers=2)
+
+
+def gpt_tp_loss(params, tokens, targets):
+    """The tiny GPT's loss with flash attention (the kernel's custom op
+    stays replicated over tp)."""
+    from easydist_tpu_torch.models.gpt import GPTConfig, gpt_loss
+
+    cfg = GPTConfig.tiny(attention="flash", **GPT_TP_KW)
+    return gpt_loss(params, cfg, tokens, targets)
+
+
+def pp_tp_modes(rank, world, out, shape, cases):
+    """easydist_compile(pp_stages=2, tp_axes=("tp",)) on a "pp" x "dp" x
+    "tp" mesh of `shape`, per case (loss name, params, x, y, schedule,
+    M): 3 Adam steps (lr 1e-2) on one batch, the losses, the tp plan's
+    summary, its strategies' operand counts and
+    sharded nodes, the tp collectives this rank issued in the steps
+    ({kind: [count, bytes]}) and what the plan's conversions give for one
+    microbatch."""
+    from easydist_tpu_torch.fxfront import easydist_compile
+
+    mesh = _mesh(shape, ("pp", "dp", "tp"))
+    losses_fn = {"wide": wide_loss, "mixed": mixed_loss, "pp": pp_loss,
+                 "gpt": gpt_tp_loss}
+    res = {}
+    for key, (loss, params, x, y, schedule, M) in cases.items():
+        compiled = easydist_compile(losses_fn[loss], mesh=mesh, pp_stages=2,
+                                    n_microbatches=M, lr=1e-2,
+                                    tp_axes=("tp",), schedule=schedule)
+        p0, xt, yt = from_numpy(params), torch.from_numpy(x), \
+            torch.from_numpy(y)
+        state = compiled.init_state(p0, xt, yt)
+        prep = compiled.pipe.prep
+        tp_group = prep.tp[1].group.group_name
+        losses, seen = [], {}
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Count(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func.namespace == "_c10d_functional" \
+                        and tp_group in args:
+                    c = seen.setdefault(func.__name__.split(".")[0], [0, 0])
+                    c[0] += 1
+                    c[1] += args[0].numel() * args[0].element_size()
+                return func(*args, **(kwargs or {}))
+
+        for _ in range(3):
+            with Count():
+                state, lv = compiled(state, xt, yt)
+            losses.append(float(lv))
+        s = prep.pp.index
+        res[key] = dict(
+            losses=losses, summary=compiled.tp_summary(),
+            operands=[len(st.in_placements)
+                      for st in compiled.tp_plan.values()],
+            sharded_ops=sorted(
+                name for name, st in compiled.tp_plan.items()
+                if any(q is not None and q.is_shard()
+                       for q in list(st.in_placements)
+                       + list(st.out_placements))),
+            seen=seen, per_mb=prep.tp_collectives(s), steps_mb=3 * M,
+            stage=s)
+    return res
+
+
+# ------------------------------------------------- sessions over a mesh
+
+def serve_mesh_modes(rank, world, out, params, cfg_kw, prompts, n_new,
+                     runs):
+    """GenerationSession.for_gpt(mesh=) on (world,) "tp", per run (name:
+    ServeConfig keywords): every prompt's ids, the solver's placements of
+    each program's first two inputs (the cache or arena leaves), and the
+    verify steps taken."""
+    from easydist_tpu_torch.models.gpt import GPTConfig, params_from_numpy
+    from easydist_tpu_torch.serve import GenerationSession, ServeConfig
+
+    mesh = _mesh((world,), ("tp",))
+    cfg = GPTConfig.tiny(**cfg_kw)
+    p = params_from_numpy(params, device=CPU)
+    res = {}
+    for name, kw in runs.items():
+        sess = GenerationSession.for_gpt(p, cfg, config=ServeConfig(**kw),
+                                         device=CPU, mesh=mesh)
+        futs = [sess.submit(pr, max_new_tokens=n_new) for pr in prompts]
+        sess.run_until_drained()
+        ids = [f.result()["ids"] for f in futs]
+        picks = {}
+        progs = {"decode": sess._decode_c, **sess._programs}
+        for prog_name, fn in progs.items():
+            for result in fn._cache.values():
+                picks[prog_name] = [[repr(q) for q in pl]
+                                    for pl in result.in_placements[:2]]
+        res[name] = dict(ids=ids, picks=picks,
+                         verify_steps=sess.metrics.counter("verify_steps"))
+    return res
+
+
+# ------------------------------------------------ GPTConfig.remat on dp
+
+def gpt_remat_modes(rank, world, out, params, tokens, cfg_kw, modes):
+    """The GPT train step under each GPTConfig(remat=...) mode compiled on
+    (world,) "dp": the emitted collectives (kind, bytes) and one step's
+    loss from the JAX weights."""
+    from easydist_tpu_torch.fxfront import easydist_compile
+    from easydist_tpu_torch.models.gpt import (GPTConfig,
+                                               make_gpt_train_step,
+                                               params_from_numpy)
+    from easydist_tpu_torch.models.optim import adam_init
+
+    mesh = _mesh((world,), ("dp",))
+    tok = torch.from_numpy(tokens)
+    res = {}
+    for mode in modes:
+        step, _ = make_gpt_train_step(GPTConfig.tiny(remat=mode, **cfg_kw))
+        p = params_from_numpy(params, device=CPU)
+        compiled = easydist_compile(step, mesh=mesh)
+        state = (p, adam_init(p))
+        result = compiled.get_compiled(state, tok, tok)
+        _, loss = compiled(state, tok, tok)
+        res[mode] = dict(collectives=[(c.kind, c.group_bytes)
+                                      for c in result.collectives],
+                         loss=float(loss))
+    return res
+
+
+# ------------------------------------- P-placed chains (partial regions)
+
+def chain_deferral(x, w1, w2):
+    """mm with a contracted-sharded pin -> elementwise -> mm -> sum."""
+    from easydist_tpu_torch.fxfront import fix_sharding
+
+    x = fix_sharding(x, None, "tp")
+    w1 = fix_sharding(w1, "tp", None)
+    return torch.sum(-(x @ w1) @ w2)
+
+
+def chain_hybrid(x, w1, w2):
+    """The deferral chain batch-sharded over dp, contracted over tp; the
+    (batch,) sums come back."""
+    from easydist_tpu_torch.fxfront import fix_sharding
+
+    x = fix_sharding(x, "dp", "tp")
+    w1 = fix_sharding(w1, "tp", None)
+    return torch.sum(-(x @ w1) @ w2, dim=1)
+
+
+def chain_scatter(x, w):
+    """A partial chain whose consumer wants row shards: the fence is a
+    reduce_scatter."""
+    from easydist_tpu_torch.fxfront import fix_sharding
+
+    x = fix_sharding(x, None, "tp")
+    w = fix_sharding(w, "tp", None)
+    z = fix_sharding((x @ w) * 2.0, "tp", None)
+    return torch.sum(z)
+
+
+CHAINS = {"deferral": (chain_deferral, ("tp",)),
+          "hybrid": (chain_hybrid, ("dp", "tp")),
+          "scatter": (chain_scatter, ("tp",))}
+
+
+def partial_chains(rank, world, out, cases):
+    """Each chain compiled with the partial pools on and off on its mesh
+    (case: chain name, mesh shape, numpy inputs): the outputs and the
+    emitted collectives (kind, bytes of the value across the group)."""
+    from easydist_tpu_torch import config as edconfig
+    from easydist_tpu_torch.fxfront import easydist_compile
+
+    res = {}
+    for key, (chain, shape, inputs) in cases.items():
+        fn, names = CHAINS[chain]
+        mesh = _mesh(shape, names)
+        args = [torch.from_numpy(a) for a in inputs]
+        res[key] = {}
+        for pools in (False, True):
+            edconfig.enable_partial_pools = pools
+            compiled = easydist_compile(fn, mesh=mesh, state_io={})
+            result = compiled.get_compiled(*args)
+            res[key][pools] = dict(
+                out=to_numpy(compiled(*args)),
+                collectives=[(c.kind, c.group_bytes)
+                             for c in result.collectives])
+        edconfig.enable_partial_pools = True
     return res

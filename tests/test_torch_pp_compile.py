@@ -248,7 +248,20 @@ def test_bad_schedule_or_optimizer(kw):
         PPCompiledFunction(_loss_t, object(), 2, 4, **kw)
 
 
+class _PPMesh:
+    mesh_dim_names = ("pp", "tp")
+
+
 def test_tp_axes_names_6c():
-    with pytest.raises(NotImplementedError, match="6c"):
-        easydist_compile(_loss_t, pp_stages=2, mesh=object(),
-                         tp_axes=("tp",))
+    """tp_axes (ROADMAP queue A item 6c) follows the JAX package's rules
+    for the same call: more than one tp axis is NotImplementedError, a pp
+    or unknown axis a ValueError, one non-pp axis is taken."""
+    with pytest.raises(NotImplementedError, match="one tp axis"):
+        easydist_compile(_loss_t, pp_stages=2, mesh=_PPMesh(),
+                         tp_axes=("tp", "pp"))
+    for bad in (("pp",), ("dp",)):
+        with pytest.raises(ValueError, match="non-pp mesh axis"):
+            easydist_compile(_loss_t, pp_stages=2, mesh=_PPMesh(),
+                             tp_axes=bad)
+    assert easydist_compile(_loss_t, pp_stages=2, mesh=_PPMesh(),
+                            tp_axes=("tp",)).tp_axes == ("tp",)

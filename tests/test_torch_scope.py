@@ -123,15 +123,11 @@ def test_solver_arguments_set_the_knobs(monkeypatch):
                                  "tp_axes"])
 def test_pipeline_arguments_raise(arg):
     """The JAX package's rules for the same call: pp_stages without a mesh
-    and a pipeline argument without pp_stages are ValueErrors; tp_axes
-    (the solver inside stages) is not ported and names item 6c."""
+    and a pipeline argument without pp_stages (tp_axes among them) are
+    ValueErrors."""
     from easydist_tpu_torch.fxfront import set_device_mesh
 
     set_device_mesh(None)
-    if arg == "tp_axes":
-        with pytest.raises(NotImplementedError, match="6c"):
-            easydist_compile(lambda x: x, **{arg: 2})
-        return
     match = "explicit mesh" if arg == "pp_stages" else "only apply with"
     with pytest.raises(ValueError, match=match):
         easydist_compile(lambda x: x, **{arg: 2})
