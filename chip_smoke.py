@@ -166,7 +166,31 @@ Phases, each raising on failure (exit code != 0, no result line):
      decode rounds; rank 0's decode programs on (2,) "tp" (fake group of
      2): the cache placement picked, emitted collectives equal the
      priced ones;
- 16. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
+ 16. comm, runtime and resilience (`runtime_phase`) on phase 14's f32
+     flash workload (TF32 off, batch 8): (a) ddp / zero2 / zero3 rank 0
+     on (8,) "dp" (fake group of 8) under int8 (block 256, 1 MiB
+     buckets), bf16 and the overlapped flush (256 KiB buckets, no
+     quantization): collectives by kind, the counters' wire bytes and
+     quantized launches equal the closed forms over the bucket plan, the
+     quantizable leaves are wte, wpe and four weight matrices a block,
+     the overlapped step's first collective comes before its last
+     backward product and its schedulable overlap is > 0; on a one-rank
+     NCCL mesh the int8 and overlapped losses are bitwise the exact
+     ones; (b) easydist_compile(mesh=) of the train step on (8,) "dp"
+     under int8: emitted collectives equal the priced ones in kind,
+     count and wire bytes, and rank 0's program sends at run time what
+     was priced; (c) `run_training` on the card over a 2^24-token file
+     read by `TokenLoader`, the compiled step (donate_state=False) with
+     the guard on, 6 steps, checkpoints every 2 (1.49 GB of params and
+     Adam each, keep 2): B1-B3 12 launches a step; SIGTERM at step 4
+     resumed bitwise with no batch drawn twice, a torn write invisible,
+     a corrupt committed step and a corrupt checkpoint found at restore
+     falling back and ending bitwise, a NaN loss scale holding the state
+     bitwise with one skip, a data stall raising `DataStallError`;
+     save / restore seconds and GB/s, the sha256 share, the guard's and
+     the loader's ms; (d) the step's FLOPs beside 6 N T, its modeled
+     memory peak beside the measured one, the card's datasheet row;
+ 17. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
      path's run; B1-B3 also with `launches_bf16`, their launches in the
      bfloat16 flash steps; B1 with `launches_engine` (phase 13), B4 and
      B5 with `launches_spec` (phase 11 a and b), B5 and B6 with
@@ -174,7 +198,8 @@ Phases, each raising on failure (exit code != 0, no result line):
      a list by rank (14b, and "compile" for 14c's stages), and
      `launches_dp`, per mode (14d); B1-B3 with `launches_remat`, by run
      of 15a and 15b, and `launches_pp_tp`, by rank of 15c; B4 and B5 with
-     `launches_mesh` (15d)), then the `{"ok": true, ...}` line.
+     `launches_mesh` (15d); B1-B3 with `launches_runtime`, their launches
+     in 16c's uninterrupted run), then the `{"ok": true, ...}` line.
 
 Each serving run sets every decode kernel's launch count to 0 just
 before it and reads the counts just after; launches made to compare or
@@ -4385,6 +4410,668 @@ def pipeline_phase(dev, cfg_kw=None, batch: int = 8, seed: int = 0):
     return launches_pp, launches_dp, out
 
 
+# ------------------------------- comm, runtime and resilience (phase 16)
+
+COMM_SETTINGS = {
+    # bench.py:663-664: int8, block 256, 1 MiB buckets
+    "int8": dict(comm_quant_dtype="int8", comm_quant_block=256,
+                 comm_bucket_bytes=1 << 20, comm_overlap=False),
+    "bf16": dict(comm_quant_dtype="bf16", comm_quant_block=256,
+                 comm_bucket_bytes=1 << 20, comm_overlap=False),
+    # bench.py:757-761: the overlapped flush, quantization off
+    "overlap": dict(comm_quant_dtype="none", comm_bucket_bytes=256 << 10,
+                    comm_overlap=True),
+}
+COMM_KNOBS = ("comm_quant_dtype", "comm_quant_block", "comm_bucket_bytes",
+              "comm_overlap", "comm_quant_min_numel")
+
+
+@contextlib.contextmanager
+def comm_config(**knobs):
+    """The comm knobs set for the block, restored after it."""
+    from easydist_tpu_torch import config as edconfig
+
+    saved = {k: getattr(edconfig, k) for k in COMM_KNOBS}
+    try:
+        for k, v in knobs.items():
+            setattr(edconfig, k, v)
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(edconfig, k, v)
+
+
+def gpt2_quantizable(cfg):
+    """The keystr paths of GPT-2's leaves that stay quantizable under the
+    default `comm_quant_skip` and `comm_quant_min_numel`: the embeddings
+    and the four weight matrices of every block (the CPU tests hold the
+    same set against the JAX package's)."""
+    return {"['wte']", "['wpe']"} | {
+        f"['blocks'][{i}]['{m}']['{w}']['w']" for i in range(cfg.layers)
+        for m, w in (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc"),
+                     ("mlp", "proj"))}
+
+
+def comm_expect(mode, setting, params, world):
+    """What rank 0's step of `mode` must issue under `setting`, from the
+    leaves and the bucket plan: ({kind: count} of the functional
+    collectives, counters' bytes_on_wire, quantized launches)."""
+    from easydist_tpu_torch import comm
+    from easydist_tpu_torch import config as edconfig
+
+    leaves, paths, _, order = comm.keyed_leaves(params)
+    q = comm.quant_mode()
+    n = world
+    kinds, wire, nq = {}, 0.0, 0
+
+    def add(kind, k=1):
+        kinds[kind] = kinds.get(kind, 0) + k
+
+    add("all_reduce")  # the loss's mean over the axis
+    if mode == "ddp":
+        ordered = [leaves[i] for i in order]
+        flags = [comm.leaf_quantizable(paths[i], leaves[i].numel())
+                 for i in order]
+        for b in comm.plan_buckets(ordered, edconfig.comm_bucket_bytes,
+                                   flags):
+            numel = sum(ordered[j].numel() for j in b.indices)
+            quant = b.quantize and q != "none"
+            wire += comm.wire_bytes("all_reduce", numel, 4, n, q, quant)
+            nq += quant
+            if quant and q == "int8":
+                add("all_to_all_single", 2)
+                add("all_gather_into_tensor", 2)
+            else:
+                add("all_reduce")
+        return kinds, wire, nq
+    for leaf, path in zip(leaves, paths):
+        kind = "reduce_scatter" if leaf.shape[0] % n == 0 else "all_reduce"
+        quant = comm.leaf_quantizable(path, leaf.numel())
+        wire += comm.wire_bytes(kind, leaf.numel(), 4, n, q, quant)
+        nq += quant
+        if quant and q == "int8":
+            add("all_to_all_single", 2)
+            if kind == "all_reduce":
+                add("all_gather_into_tensor", 2)
+        else:
+            add("reduce_scatter_tensor" if kind == "reduce_scatter"
+                else "all_reduce")
+    return kinds, wire, nq
+
+
+def sent_bytes(kind: str, input_bytes: float, n: int) -> float:
+    """Bytes one rank sends for a functional collective given
+    `input_bytes` (what `CollectiveLog` records): ring all_reduce
+    2 (n-1)/n, reduce_scatter and equal-split all_to_all (n-1)/n, an
+    all_gather its block to n-1 peers."""
+    return input_bytes * {"all_reduce": 2.0 * (n - 1) / n,
+                          "all_gather_into_tensor": n - 1.0}.get(
+                              kind, (n - 1) / n)
+
+
+def _is_backward_mm(node) -> bool:
+    name = getattr(node.target, "__name__", "")
+    return node.op == "call_function" and name.startswith(
+        ("mm.", "flash_bwd_dkv."))
+
+
+def overlap_trace(step, state, tokens, targets):
+    """make_fx of rank 0's overlapped ddp step (fake tensors): the index
+    of the first collective and of the backward's last product."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    from torch.utils import _pytree as pytree
+
+    leaves, spec = pytree.tree_flatten(state)
+
+    def flat(*xs):
+        return pytree.tree_leaves(step(pytree.tree_unflatten(
+            list(xs[:len(leaves)]), spec), *xs[len(leaves):]))
+
+    gm = make_fx(flat, tracing_mode="fake")(*leaves, tokens, targets)
+    nodes = [n for n in gm.graph.nodes if n.op == "call_function"]
+    first = next(i for i, n in enumerate(nodes)
+                 if getattr(n.target, "__name__", "").startswith(
+                     "all_reduce."))
+    last = max(i for i, n in enumerate(nodes) if _is_backward_mm(n))
+    return first, last, len(nodes)
+
+
+def comm_phase(dev, cfg, batch, seed, world=8, steps=3):
+    """16a: ddp / zero2 / zero3 rank 0 on (8,) "dp" (fake group of 8)
+    under int8, bf16 and the overlapped flush: collectives by kind, the
+    counters' wire bytes and quantized launches against the closed forms
+    over the bucket plan; the overlapped step's first collective before
+    its last backward product.  Then a one-rank NCCL mesh per mode and
+    setting: int8 and overlap losses bitwise the exact mode's (at n = 1
+    the int8 collectives are the identity), bf16 within 1e-2."""
+    from easydist_tpu_torch import comm
+    from easydist_tpu_torch.fxfront import make_device_mesh
+    from easydist_tpu_torch.models.gpt import gpt_init, gpt_loss
+    from easydist_tpu_torch.parallel import ddp_step, zero2_step, zero3_step
+
+    on_card = dev.type == "cuda"
+
+    def loss_fn(params, tokens, targets):
+        return gpt_loss(params, cfg, tokens, targets)
+
+    def fresh():
+        return gpt_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+
+    def build(mode, mesh, params):
+        if mode == "ddp":
+            return ddp_step(loss_fn, mesh), params
+        if mode == "zero2":
+            step, init_opt = zero2_step(loss_fn, mesh)
+            return step, (params, init_opt(params), torch.zeros(
+                (), dtype=torch.int32, device=dev))
+        step, init = zero3_step(loss_fn, mesh)
+        return step, init(params)
+
+    tokens, targets = _tokens(dev, cfg, (batch, cfg.seq), seed + 1)
+    leaves, paths, _, _ = comm.keyed_leaves(fresh())
+    with comm_config(comm_quant_dtype="int8"):
+        got = {p for p, x in zip(paths, leaves)
+               if comm.leaf_quantizable(p, x.numel())}
+    del leaves
+    if got != gpt2_quantizable(cfg):
+        raise AssertionError(f"16a quantizable leaves {sorted(got)}")
+    print(f"comm 16a: {len(got)} of {len(paths)} leaves quantizable "
+          f"(wte, wpe and 4 weight matrices a block)")
+    out = {"quantizable": len(got)}
+    for setting, knobs in COMM_SETTINGS.items():
+        for mode in ("ddp", "zero2", "zero3"):
+            with comm_config(**knobs), fake_group(world, 0):
+                mesh = make_device_mesh((world,), ("dp",),
+                                        device_type=dev.type)
+                params = fresh()
+                if setting != "overlap":
+                    want = comm_expect(mode, setting, params, world)
+                step, state = build(mode, mesh, params)
+                comm.comm_counters.reset()
+                _zero_launches()
+                with CollectiveLog() as log:
+                    t0 = time.perf_counter()
+                    state, loss = step(state, tokens, targets)
+                    _sync(dev)
+                    secs = time.perf_counter() - t0
+                snap = comm.comm_counters.snapshot()
+                launches = _launch_counts()
+                kinds = {k: v[0] for k, v in log.log.items()}
+                row = dict(kinds=kinds, ratio=snap["compression_ratio"],
+                           wire_mb=snap["bytes_on_wire"] / 1e6,
+                           fp32_mb=snap["bytes_fp32_equiv"] / 1e6,
+                           quantized=snap["quantized_launches"],
+                           launches=launches, ms=secs * 1e3)
+                if setting == "overlap" and mode == "ddp":
+                    first, last, n_nodes = overlap_trace(step, state,
+                                                         tokens, targets)
+                    frac = comm.schedulable_overlap_fraction(
+                        loss_fn, params, tokens[:batch // world],
+                        targets[:batch // world])
+                    row.update(first=first, last=last, nodes=n_nodes,
+                               schedulable=frac)
+                    if not (first < last and frac > 0):
+                        raise AssertionError(
+                            f"16a overlap: first collective at node {first}"
+                            f", last backward product at {last}, "
+                            f"schedulable fraction {frac}")
+                del state, loss, step, params
+            if on_card:
+                torch.cuda.empty_cache()
+            print(f"comm 16a {setting} {mode} rank 0 of ({world},): "
+                  f"collectives {kinds}, wire {row['wire_mb']:.3f} MB of "
+                  f"{row['fp32_mb']:.3f} MB f32 (ratio {row['ratio']:.4f})"
+                  f", {row['quantized']} quantized launches, host "
+                  f"{row['ms']:.1f} ms (fake group)"
+                  + (f"; first collective at node {row['first']} of "
+                     f"{row['nodes']}, last backward product at "
+                     f"{row['last']}, schedulable overlap "
+                     f"{row['schedulable']:.4f}" if "first" in row else ""))
+            expect = {name: cfg.layers if on_card else 0
+                      for name in TRAIN_KERNELS}
+            if launches != expect:
+                raise AssertionError(f"16a {setting} {mode}: launches "
+                                     f"{launches}, expected {expect}")
+            if setting != "overlap":
+                kinds_w, wire_w, nq_w = want
+                if mode != "ddp":
+                    # ZeRO's exact parameter gathers are phase 14d's gate
+                    kinds = {k: v for k, v in kinds.items()
+                             if k != "all_gather_into_tensor"}
+                    kinds_w = {k: v for k, v in kinds_w.items()
+                               if k != "all_gather_into_tensor"}
+                if kinds != kinds_w or abs(snap["bytes_on_wire"] - wire_w) \
+                        > 1e-6 * wire_w or snap["quantized_launches"] != nq_w:
+                    raise AssertionError(
+                        f"16a {setting} {mode}: collectives {kinds}, wire "
+                        f"{snap['bytes_on_wire']}, {snap['quantized_launches']}"
+                        f" quantized; the plan gives {kinds_w}, {wire_w}, "
+                        f"{nq_w}")
+            out[f"{setting}_{mode}"] = row
+
+    # a real one-rank mesh: the comm knobs leave the losses as they were
+    for mode in ("ddp", "zero2", "zero3"):
+        runs = {}
+        for setting in ("exact", *COMM_SETTINGS):
+            knobs = COMM_SETTINGS.get(setting, {})
+            with comm_config(**knobs), one_rank_group(dev) as backend:
+                mesh = make_device_mesh((1,), ("dp",), device_type=dev.type)
+                step, state = build(mode, mesh, fresh())
+                ls = []
+                for _ in range(steps):
+                    state, loss = step(state, tokens, targets)
+                    ls.append(float(loss))
+                runs[setting] = ls
+                del state, step
+            if on_card:
+                torch.cuda.empty_cache()
+        print(f"comm 16a {mode} one-rank mesh ({backend}): {runs}")
+        for setting in ("int8", "overlap"):
+            if on_card and runs[setting] != runs["exact"]:
+                raise AssertionError(f"16a {mode} {setting} one-rank losses "
+                                     f"{runs[setting]} != exact "
+                                     f"{runs['exact']}")
+            # (a CPU rehearsal: the CPU's matmuls are not bitwise from
+            # run to run, so there the bar is rtol 1e-5)
+            np.testing.assert_allclose(runs[setting], runs["exact"],
+                                       rtol=1e-5)
+        np.testing.assert_allclose(runs["bf16"], runs["exact"], rtol=1e-2,
+                                   err_msg=f"16a {mode} bf16 one-rank")
+        out[f"one_rank_{mode}"] = runs
+    return out
+
+
+def fence_phase(dev, cfg, batch, seed, world=8):
+    """16b: easydist_compile(mesh=) of the f32 train step on (8,) "dp"
+    under int8 (fake group of 8): per axis the emitted collectives equal
+    the priced ones in kind, count and wire bytes, and rank 0's program
+    run once sends, at run time, the bytes it was priced at."""
+    from collections import Counter
+
+    from easydist_tpu_torch import comm
+    from easydist_tpu_torch.fxfront import easydist_compile, make_device_mesh
+    from easydist_tpu_torch.models.gpt import make_gpt_train_step
+
+    tokens, targets = _tokens(dev, cfg, (batch, cfg.seq), seed + 1)
+    step, init = make_gpt_train_step(cfg, lr=1e-4)
+    with comm_config(comm_quant_dtype="int8"), fake_group(world, 0):
+        mesh = make_device_mesh((world,), ("dp",), device_type=dev.type)
+        state = init(torch.Generator(device=dev).manual_seed(seed),
+                     device=dev)
+        comm.comm_counters.reset()
+        t0 = time.perf_counter()
+        res = easydist_compile(step, mesh=mesh, compile_only=True)(
+            state, tokens, targets)
+        compile_s = time.perf_counter() - t0
+        snap = comm.comm_counters.snapshot()
+        table = {}
+        for a, spec in enumerate(res.axis_specs):
+            emitted = Counter((c.kind, c.var, round(c.wire_bytes, 3))
+                              for c in res.collectives
+                              if c.axis == spec.name)
+            priced = Counter((k, v, round(b, 3))
+                             for k, v, b in res.priced_wire[a])
+            if emitted != priced:
+                raise AssertionError(
+                    f"16b axis {spec.name}: emitted only "
+                    f"{dict(emitted - priced)}, priced only "
+                    f"{dict(priced - emitted)}")
+            for (k, _, b), c in emitted.items():
+                row = table.setdefault(k, [0, 0.0])
+                row[0] += c
+                row[1] += b * c / 1e6
+        routes = Counter(c.route for c in res.collectives)
+        # rank 0's program once, its collectives' bytes taken at run time
+        flat = torch.utils._pytree.tree_leaves((state, tokens, targets))
+        local = [res.local_shard(x, pl).clone()
+                 for x, pl in zip(flat, res.in_placements)]
+        del state
+        with CollectiveLog() as log, torch.no_grad():
+            outs = res.graph_module(*local)
+            _sync(dev)
+        sent = sum(sent_bytes(k, b, world) for k, (_, b) in log.log.items())
+        priced_mb = sum(b for _, _, b in res.priced_wire[0]) / 1e6
+        del outs, local, res
+    print(f"fence 16b int8 ({world},) \"dp\": compiled in {compile_s:.1f} s;"
+          f" routes {dict(routes)}; emitted = priced by kind "
+          f"{ {k: [v[0], round(v[1], 3)] for k, v in table.items()} } "
+          f"(count, MB a rank sends); {priced_mb:.3f} MB priced, "
+          f"{sent / 1e6:.3f} MB sent at run time; counters "
+          f"{snap['quantized_launches']} quantized launches, ratio "
+          f"{snap['compression_ratio']:.4f}")
+    if abs(sent / 1e6 - priced_mb) > 1e-6 * max(priced_mb, 1.0):
+        raise AssertionError(f"16b: rank 0 sent {sent} B, priced "
+                             f"{priced_mb * 1e6} B")
+    return dict(table=table, routes=dict(routes), priced_mb=priced_mb,
+                sent_mb=sent / 1e6, compile_s=compile_s)
+
+
+def gpt_scaled_step(cfg, lr=1e-4):
+    """Phase 7's train step with a float loss scale beside the batch: the
+    `step.nan_grad` drill poisons the first float argument, and GPT-2's
+    batch is int tokens (scale 1.0 leaves the step bitwise as it was)."""
+    from easydist_tpu_torch.models.gpt import gpt_loss
+    from easydist_tpu_torch.models.optim import adam_update, value_and_grad
+
+    def step(state, tokens, targets, scale):
+        params, opt = state
+        loss, grads = value_and_grad(
+            lambda p: gpt_loss(p, cfg, tokens, targets) * scale, params)
+        new_params, new_opt = adam_update(params, grads, opt, lr=lr)
+        return (new_params, new_opt), loss
+
+    return step
+
+
+def _bitwise_tree(a, b) -> bool:
+    from torch.utils import _pytree as pytree
+
+    return all(torch.equal(x, y) for x, y in zip(pytree.tree_leaves(a),
+                                                  pytree.tree_leaves(b)))
+
+
+def _du(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def training_run_phase(dev, cfg, batch, seed, steps=6, every=2, keep=2,
+                       n_tokens=1 << 24):
+    """16c: `run_training` on one card: a token file of `n_tokens` uint16
+    tokens from the seed, read by `TokenLoader`; the one-device compiled
+    step (donate_state=False, the guard holds the pre-step state) for
+    `steps` steps with the guard on, checkpoints every `every` steps,
+    `keep` kept.  The drills, each from a fresh directory: SIGTERM,
+    a torn write, a corrupt committed step, a corrupt checkpoint found at
+    restore (the uninterrupted run's last one), a NaN through the loss
+    scale, a data stall.  Returns the B1-B3 launches of the
+    uninterrupted run and the printed numbers."""
+    import shutil
+    import tempfile
+
+    from easydist_tpu_torch.fxfront import easydist_compile
+    from easydist_tpu_torch.models.gpt import make_gpt_train_step
+    from easydist_tpu_torch.resilience import (GuardedStep, InjectedFault,
+                                               PreemptedError, fault_plan)
+    from easydist_tpu_torch.runtime import checkpoint as ck
+    from easydist_tpu_torch.runtime.data import TokenLoader
+    from easydist_tpu_torch.runtime.elastic import (DataStallError,
+                                                    run_training)
+
+    on_card = dev.type == "cuda"
+    root = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
+    # bitwise resume needs a step that is bitwise from run to run: the
+    # embedding's index backward accumulates in a nondeterministic order
+    # unless deterministic algorithms are asked for
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        path = os.path.join(root, "tokens.bin")
+        np.random.RandomState(seed + 2).randint(
+            0, cfg.vocab, n_tokens).astype(np.uint16).tofile(path)
+        _, init = make_gpt_train_step(cfg, lr=1e-4)
+        compiled = easydist_compile(gpt_scaled_step(cfg), mesh=dev,
+                                    donate_state=False)
+
+        def init_state():
+            return init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+
+        def prepare(b, device):
+            return (torch.as_tensor(b[0], dtype=torch.int64).to(device),
+                    torch.as_tensor(b[1], dtype=torch.int64).to(device),
+                    torch.ones((), dtype=torch.float32, device=device))
+
+        def run(name, total=steps, **kw):
+            losses = []
+            loader = TokenLoader(path, batch=batch, seq=cfg.seq, seed=seed)
+            if not loader.native:
+                raise AssertionError("16c: the token loader is not native")
+            try:
+                state = run_training(
+                    compiled, init_state, loader, os.path.join(root, name),
+                    total, checkpoint_every=every, keep=keep, device=dev,
+                    prepare_batch=prepare, step_guard=True,
+                    on_step=lambda s, l: losses.append((s, float(l))), **kw)
+            finally:
+                loader.close()
+            return state, losses
+
+        # the uninterrupted run: the reference every drill ends on
+        _zero_launches()
+        t0 = time.perf_counter()
+        base, base_losses = run("base")
+        _sync(dev)
+        base_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        expect = {name: cfg.layers * steps if on_card else 0
+                  for name in TRAIN_KERNELS}
+        if launches != expect:
+            raise AssertionError(f"16c launches {launches}, expected "
+                                 f"{expect}")
+        save = dict(ck.last_save_report())
+        disk = _du(os.path.join(root, "base"))
+        guard = ck.checkpoint_meta(os.path.join(root, "base"),
+                                   steps)["guard"]
+        if guard["skips"] != 0 or guard["steps"] != steps:
+            raise AssertionError(f"16c guard {guard}")
+        out = dict(base_s=base_s, losses=base_losses, save=save, disk=disk)
+        ck.load_checkpoint(os.path.join(root, "base"), init_state())
+        out["restore"] = dict(ck.last_restore_report())
+        _sync(dev)
+
+        def same(tag, state, losses=None):
+            if not _bitwise_tree(state, base):
+                raise AssertionError(f"16c {tag}: final state differs from "
+                                     f"the uninterrupted run's")
+            if losses is not None and losses != base_losses[-len(losses):]:
+                raise AssertionError(f"16c {tag}: losses {losses}, the "
+                                     f"uninterrupted run's {base_losses}")
+
+        # SIGTERM at the 4th step boundary: final checkpoint, resume
+        with fault_plan("preempt.sigterm@4"):
+            try:
+                run("preempt")
+                raise AssertionError("16c: preempt.sigterm did not preempt")
+            except PreemptedError as e:
+                stopped, final_s = e.step, e.checkpoint_s
+        meta = ck.checkpoint_meta(os.path.join(root, "preempt"), stopped)
+        state, losses = run("preempt")
+        same("preempt", state, losses)
+        if meta["batches_consumed"] != stopped or \
+                [s for s, _ in losses] != list(range(stopped, steps)):
+            raise AssertionError(f"16c preempt: cursor {meta}, resumed "
+                                 f"steps {losses}")
+        out["preempt"] = dict(step=stopped, final_ckpt_s=final_s)
+
+        # a torn write: latest_step stays where it was
+        with fault_plan("ckpt.write.partial@2"):
+            try:
+                run("partial")
+                raise AssertionError("16c: ckpt.write.partial did not fire")
+            except InjectedFault:
+                pass
+        latest = ck.latest_step(os.path.join(root, "partial"))
+        if latest != every:
+            raise AssertionError(f"16c partial: latest step {latest}")
+
+        # bit rot in the committed preemption checkpoint: resume falls
+        # back to the step before and replays
+        with fault_plan("ckpt.manifest.corrupt@2,preempt.sigterm@4"):
+            try:
+                run("corrupt")
+            except PreemptedError:
+                pass
+        if ck.verify_checkpoint(os.path.join(root, "corrupt",
+                                             f"step_{stopped}")) == []:
+            raise AssertionError("16c corrupt: the manifest missed the rot")
+        same("manifest.corrupt", run("corrupt")[0])
+
+        # the uninterrupted run's last checkpoint found corrupt at restore:
+        # resume from the one before, replay its last steps
+        with fault_plan("elastic.restore.chunk_corrupt@1"):
+            state, losses = run("base")
+        if [s for s, _ in losses] != list(range(steps - every, steps)):
+            raise AssertionError(f"16c chunk_corrupt: resumed steps "
+                                 f"{losses}")
+        same("restore.chunk_corrupt", state, losses)
+        del state
+
+        # a NaN through the loss scale: the state held bitwise, one skip
+        loader = TokenLoader(path, batch=batch, seq=cfg.seq, seed=seed)
+        w = loader.next_batch()
+        loader.close()
+        tokens, targets, scale = prepare((w[:, :-1], w[:, 1:]), dev)
+        state0 = init_state()
+        guarded = GuardedStep(compiled, device=dev)
+        held = torch.utils._pytree.tree_map(torch.clone, state0)
+        with fault_plan("step.nan_grad@1"):
+            state1, loss = guarded(state0, tokens, targets, scale)
+        if not (_bitwise_tree(state1, held) and guarded.stats()["skips"] == 1
+                and not np.isfinite(float(loss))):
+            raise AssertionError(f"16c nan: held {_bitwise_tree(state1, held)}"
+                                 f", stats {guarded.stats()}, loss {loss}")
+        # the guard's cost: guarded against unguarded steps
+        times = {}
+        for tag, fn in (("plain", compiled), ("guarded", guarded)):
+            s = state1
+            s, _ = fn(s, tokens, targets, scale)
+            _sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                s, _ = fn(s, tokens, targets, scale)
+            _sync(dev)
+            times[tag] = (time.perf_counter() - t0) * 1e3 / 3
+            del s
+        out["guard_ms"] = times
+        del state0, state1, held, guarded
+
+        # a data stall past the watchdog
+        with fault_plan("data.stall@2"):
+            try:
+                run("stall", data_timeout_s=1.0)
+                raise AssertionError("16c: data.stall did not raise")
+            except DataStallError as e:
+                out["stall_s"] = e.elapsed_s
+        loader = TokenLoader(path, batch=batch, seq=cfg.seq, seed=seed)
+        loader.next_batch()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            loader.next_batch()
+        out["loader_ms"] = (time.perf_counter() - t0) * 1e3 / 20
+        loader.close()
+        del base
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+        shutil.rmtree(root, ignore_errors=True)
+        if on_card:
+            torch.cuda.empty_cache()
+    gb = out["save"]["bytes"] / 1e9
+    r = out["restore"]
+    print(f"runtime 16c: {steps} guarded steps, checkpoints every {every} "
+          f"(keep {keep}): {out['base_s']:.1f} s; losses "
+          f"{[l for _, l in base_losses]}; launches {launches}")
+    print(f"runtime 16c checkpoint: {gb:.3f} GB a save, "
+          f"{out['save']['total_s']:.2f} s ({gb / out['save']['total_s']:.2f}"
+          f" GB/s; write {out['save']['write_s']:.2f} s, sha256 "
+          f"{out['save']['hash_s']:.2f} s = "
+          f"{out['save']['hash_s'] / out['save']['total_s']:.0%}); restore "
+          f"{r['verify_s'] + r['load_s']:.2f} s "
+          f"({gb / (r['verify_s'] + r['load_s']):.2f} GB/s; verify "
+          f"{r['verify_s']:.2f} s = "
+          f"{r['verify_s'] / (r['verify_s'] + r['load_s']):.0%}); disk "
+          f"{out['disk'] / 1e9:.3f} GB for {keep} kept steps")
+    print(f"runtime 16c drills: preempted at step {out['preempt']['step']} "
+          f"(final checkpoint {out['preempt']['final_ckpt_s']:.2f} s), "
+          f"resumed bitwise; torn write invisible; corrupt manifest and "
+          f"corrupt restore fell back, resumed bitwise; NaN step held "
+          f"bitwise, 1 "
+          f"skip; stall raised after {out['stall_s']:.2f} s; guard "
+          f"{out['guard_ms']['guarded']:.1f} ms a step against "
+          f"{out['guard_ms']['plain']:.1f} ms unguarded; loader "
+          f"{out['loader_ms']:.3f} ms a batch")
+    return launches, out
+
+
+def profiler_phase(dev, cfg, batch, seed):
+    """16d: `op_cost_analysis` of the compiled f32 step (FLOPs beside
+    6 N T), `memory_analysis` beside the measured peak, and
+    `detect_device_constants()` for the card."""
+    from torch.utils import _pytree as pytree
+
+    from easydist_tpu_torch.fxfront import easydist_compile
+    from easydist_tpu_torch.models.gpt import make_gpt_train_step
+    from easydist_tpu_torch.runtime.calibrate import detect_device_constants
+    from easydist_tpu_torch.runtime.profiler import (memory_analysis,
+                                                     op_cost_analysis)
+
+    on_card = dev.type == "cuda"
+    tokens, targets = _tokens(dev, cfg, (batch, cfg.seq), seed + 1)
+    step, init = make_gpt_train_step(cfg, lr=1e-4)
+    state = init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    compiled = easydist_compile(step, mesh=dev, donate_state=False)
+    res = compiled.get_compiled(state, tokens, targets)
+    cost = op_cost_analysis(res)
+    mem = memory_analysis(res)
+    n_params = sum(t.numel() for t in pytree.tree_leaves(state[0]))
+    six_nt = 6.0 * n_params * batch * cfg.seq
+    if on_card:
+        _sync(dev)
+        torch.cuda.reset_peak_memory_stats()
+    out_state, _ = compiled(state, tokens, targets)
+    _sync(dev)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    del out_state, state
+    consts = detect_device_constants() if on_card else None
+    print(f"profiler 16d: {cost['flops'] / 1e12:.3f} TFLOP a step on the "
+          f"tensor-core ops ({cost['flops_total'] / 1e12:.3f} with the "
+          f"rest), 6 N T = {six_nt / 1e12:.3f} TFLOP (N = {n_params}); "
+          f"{cost['bytes accessed'] / 1e9:.2f} GB accessed; memory model "
+          f"peak {mem['peak_bytes'] / 1e9:.3f} GB, planner "
+          f"{mem['planner_peak_bytes'] / 1e9:.3f} GB, measured "
+          f"{peak / 1e9 if peak else 0:.3f} GB; device constants {consts}")
+    if not 0.5 * six_nt < cost["flops"] < 2.0 * six_nt:
+        raise AssertionError(f"16d: {cost['flops']} FLOPs against 6 N T "
+                             f"{six_nt}")
+    if on_card and consts is None:
+        raise AssertionError(f"16d: no datasheet row for "
+                             f"{torch.cuda.get_device_name(0)}")
+    return dict(cost=cost, mem=mem, peak=peak, six_nt=six_nt, consts=consts)
+
+
+def runtime_phase(dev, cfg_kw=None, batch: int = 8, seed: int = 0,
+                  world: int = 8, n_tokens: int = 1 << 24):
+    """Phase 16: comm on (8,) "dp" (16a), the repaired fence (16b),
+    `run_training` with its drills (16c), profiler and device constants
+    (16d), on GPT-2 small's f32 flash workload (TF32 off).  Returns the
+    B1-B3 launches of 16c's uninterrupted run and the printed numbers.
+    The arguments shrink it for a rehearsal on the CPU."""
+    from easydist_tpu_torch.models.gpt import GPTConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig(**{**PP_KW, **(cfg_kw or {})})
+    t_phase = time.perf_counter()
+    times, out = {}, {}
+    t = time.perf_counter()
+    out["comm"] = comm_phase(dev, cfg, batch, seed, world)
+    times["16a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["fence"] = fence_phase(dev, cfg, batch, seed, world)
+    times["16b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    launches, out["run"] = training_run_phase(dev, cfg, batch, seed,
+                                              n_tokens=n_tokens)
+    times["16c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["profiler"] = profiler_phase(dev, cfg, batch, seed)
+    times["16d"] = time.perf_counter() - t
+    print(f"runtime phase: {time.perf_counter() - t_phase:.1f} s "
+          f"{ {k: round(v, 1) for k, v in times.items()} }")
+    return launches, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4439,6 +5126,10 @@ def main() -> int:
         e["launches_pp_tp"] = [r[e["name"]] for r in tail["pp_tp"]]
     entry["launches_mesh"] = tail["mesh"]["flash_decode"]
     paged_entries[0]["launches_mesh"] = tail["mesh"]["paged_decode"]
+    torch.cuda.empty_cache()
+    launches_runtime, _ = runtime_phase(dev)
+    for e in train_entries:
+        e["launches_runtime"] = launches_runtime[e["name"]]
     print(card_line())
     print(json.dumps({"kernels": [entry, *paged_entries, *train_entries]}))
     print(json.dumps({"ok": True, "device": {

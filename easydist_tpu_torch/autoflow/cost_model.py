@@ -96,19 +96,6 @@ def overlap_discount_ratio() -> float:
     return float(min(max(ratio, 0.0), 1.0))
 
 
-def comm_compression_ratio() -> float:
-    """Wire-bytes ratio of the configured gradient-collective compression
-    (`comm_quant_dtype`): 1.0 when off, 0.5 for bf16, ~0.26 for int8
-    (payload + one f32 scale per `comm_quant_block` elements)."""
-    mode = (edconfig.comm_quant_dtype or "none").lower()
-    if mode == "bf16":
-        return 0.5
-    if mode == "int8":
-        block = max(edconfig.comm_quant_block, 1)
-        return (1.0 + 4.0 / block) / 4.0
-    return 1.0
-
-
 def quantize_compute_cost(var_bytes: float) -> float:
     """Seconds of quantize/dequantize compute a compressed reduction pays:
     block-amax + scale + round + dequant is a handful of memory-bound
@@ -116,44 +103,72 @@ def quantize_compute_cost(var_bytes: float) -> float:
     return 4.0 * var_bytes / edconfig.hbm_bandwidth
 
 
+def reduction_wire(kind: str, var_bytes: float, n: int,
+                   itemsize: int = 4) -> tuple:
+    """(wire bytes a rank sends, quantized) for a reduction edge ("all_reduce"
+    for P -> R, "reduce_scatter" for P -> S) of a sum, as the emitted fence
+    sends it (`comm.reduce.fence_plan`): under `comm_quant_dtype` the value
+    is quantized when `comm.quant.leaf_quantizable("", numel)` passes (size
+    alone decides, the JAX fence's rule), and then moves the int8 or bf16
+    wire bytes; otherwise the exact ring bytes."""
+    from easydist_tpu_torch.comm.quant import leaf_quantizable, quant_mode
+    from easydist_tpu_torch.comm.reduce import wire_bytes
+
+    mode = quant_mode()
+    numel = int(var_bytes // itemsize)
+    quantized = leaf_quantizable("", numel, mode)
+    return wire_bytes(kind, numel, itemsize, n, mode, quantized), quantized
+
+
+def _sums(p: Placement) -> bool:
+    from easydist_tpu_torch.metashard.combination import Reduction
+
+    return p.reduction in (Reduction.SUM, Reduction.AVG)
+
+
+def edge_wire_bytes(up: Placement, down: Placement, var_bytes: float,
+                    n: int, itemsize: int = 4, punish: bool = False) -> float:
+    """Wire bytes a rank sends for the up -> down edge of one value: the
+    ring closed forms, a sum's reduction edges as `reduction_wire`.
+    `punish` scales an all_to_all by `all_to_all_punish_factor` (the
+    solver's price; the bytes themselves are without it)."""
+    if n <= 1 or up is None or down is None:
+        return 0.0
+    if up.is_shard():
+        if down.is_shard():
+            if up.dim == down.dim:
+                return 0.0
+            return (_all_to_all(var_bytes, n) if punish
+                    else var_bytes * (n - 1) / (n * n))
+        return _all_gather(var_bytes, n)
+    if up.is_partial() and not down.is_partial():
+        kind = "reduce_scatter" if down.is_shard() else "all_reduce"
+        if _sums(up):
+            return reduction_wire(kind, var_bytes, n, itemsize)[0]
+        return (_reduce_scatter if down.is_shard() else _all_reduce)(
+            var_bytes, n)
+    return 0.0
+
+
 def resharding_cost(var_bytes: float, up: Placement, down: Placement,
-                    axis: MeshAxisSpec) -> float:
+                    axis: MeshAxisSpec, itemsize: int = 4) -> float:
     """Seconds to reshard one tensor from `up` to `down` along `axis`.
 
     `up` is what the producer emits, `down` what the consumer needs.
     Replicate -> anything is free (slicing is local); the collective cases
     mirror reference solver.py:58-72 plus the reduce_scatter case it lacks.
 
-    When gradient-collective compression is enabled (`comm_quant_dtype`),
-    the REDUCTION edges (P -> R all_reduce, P -> S reduce_scatter — the
-    shapes the comm layer's quantized fences actually emit) are priced at
-    min(exact, compressed): wire bytes scaled by the compression ratio
-    plus the quantize-compute passes.  The ILP then defers/compresses only
-    where the byte saving beats the quantize cost — exactly the
-    solver-priced-compression contract of docs/COMM.md.
+    Under `comm_quant_dtype` a sum's reduction edges (P -> R all_reduce,
+    P -> S reduce_scatter) are priced as the emitted fence sends them:
+    the compressed wire bytes plus the quantize passes whenever the fence
+    quantizes (`reduction_wire`), so the ILP's price and the bytes the
+    emitted program moves agree edge by edge.
     """
     n = axis.size
     if n <= 1:
         return 0.0
-
-    reduction_edge = False
-    if up.is_shard():
-        if down.is_shard():
-            bytes_wire = 0.0 if up.dim == down.dim else _all_to_all(var_bytes, n)
-        else:  # S -> R (or consumer tolerating partial): all_gather
-            bytes_wire = _all_gather(var_bytes, n)
-    elif up.is_partial():
-        if down.is_shard():
-            bytes_wire = _reduce_scatter(var_bytes, n)
-            reduction_edge = True
-        elif down.is_partial():
-            bytes_wire = 0.0
-        else:  # P -> R
-            bytes_wire = _all_reduce(var_bytes, n)
-            reduction_edge = True
-    else:  # R -> anything is a local slice / no-op
-        bytes_wire = 0.0
-
+    bytes_wire = edge_wire_bytes(up, down, var_bytes, n, itemsize,
+                                 punish=True)
     if bytes_wire == 0.0:
         return 0.0
     # alpha-beta model: a collective pays a fixed launch/synchronization
@@ -162,13 +177,9 @@ def resharding_cost(var_bytes: float, up: Placement, down: Placement,
     # all_reduce) and the memory tie-break scatters small params across the
     # mesh, emitting dozens of sub-KB collectives that cost pure latency.
     cost = axis.resolved_latency() + bytes_wire / axis.resolved_bandwidth()
-    if reduction_edge and var_bytes >= 4.0 * edconfig.comm_quant_min_numel:
-        ratio = comm_compression_ratio()
-        if ratio < 1.0:
-            compressed = (axis.resolved_latency()
-                          + bytes_wire * ratio / axis.resolved_bandwidth()
-                          + quantize_compute_cost(var_bytes))
-            cost = min(cost, compressed)
+    if up.is_partial() and not down.is_partial() and _sums(up) \
+            and reduction_wire("all_reduce", var_bytes, n, itemsize)[1]:
+        cost += quantize_compute_cost(var_bytes)
     return cost
 
 

@@ -277,8 +277,9 @@ class SpmdSolver:
                 p = c.strategies[s][var.producer.uid][1].out_placements[
                     var.producer_idx]
                 if p is not None:
-                    costs[s] += resharding_cost(var.size_bytes(), p,
-                                                Placement.replicate(), self.axis)
+                    costs[s] += resharding_cost(
+                        var.size_bytes(), p, Placement.replicate(),
+                        self.axis, var.itemsize())
 
     def _build_matrices(self):
         for e in self.edges:
@@ -293,7 +294,8 @@ class SpmdSolver:
                     pd = e.down_placement(j)
                     if pu is None or pd is None:
                         continue
-                    comm[i, j] = resharding_cost(size, pu, pd, self.axis)
+                    comm[i, j] = resharding_cost(size, pu, pd, self.axis,
+                                                 e.var.itemsize())
                     mem[i, j] = (placement_bytes(size, pu, self.axis.size)
                                  + placement_bytes(size, pd, self.axis.size))
                     # a P edge carries an unrealized reduction: when a

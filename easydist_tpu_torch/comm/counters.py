@@ -12,9 +12,9 @@ counters and the solver agree on what a collective costs:
   all_gather       payload * (n-1)/n
 
 `bytes_fp32_equiv` is what the same reductions would move at full
-precision without bucketing (the denominator of the compression ratio;
-equal to `bytes_on_wire` for f32 gradients while quantization is not
-ported).  Counters export to the port's PerfDB under ``comm_stats``.
+precision without bucketing (the denominator of the compression ratio).
+The int8 route's wire bytes are `comm.quant.int8_wire_bytes`.  Counters
+export to the port's PerfDB under ``comm_stats``.
 """
 
 from __future__ import annotations

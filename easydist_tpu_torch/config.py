@@ -129,8 +129,8 @@ predict_comm_overlap = _env_bool("EASYDIST_PREDICT_COMM_OVERLAP", False)
 comm_overlap_ratio = _env_float("EASYDIST_COMM_OVERLAP_RATIO", 0.5)
 comm_overlap_ratio_source = os.environ.get("EASYDIST_COMM_OVERLAP_SOURCE",
                                            "auto")
-# achieved overlap fraction measured on this card, or None: a calibration
-# run records it (not ported yet), until then it stays None and "auto"
+# achieved overlap fraction measured over a process group, or None:
+# `runtime.calibrate.calibrate_overlap` records it; until then "auto"
 # resolves to `comm_overlap_ratio`
 comm_overlap_ratio_measured = None
 
@@ -142,32 +142,91 @@ hbm_bandwidth = _env_float("EASYDIST_HBM_BANDWIDTH", 3.35e12)
 nvlink_bandwidth = _env_float("EASYDIST_NVLINK_BANDWIDTH", 450e9)
 # NDR InfiniBand between hosts: 400 Gb/s = 50 GB/s a port
 ib_bandwidth = _env_float("EASYDIST_IB_BANDWIDTH", 50e9)
-# alpha term, seconds per collective launch: placeholders, not measured
-# (a calibration pass for the card comes with the runtime)
+# alpha term, seconds per collective launch: placeholders until
+# `runtime.calibrate.calibrate(group)` measures them over two or more cards
 nvlink_latency = _env_float("EASYDIST_NVLINK_LATENCY", 5e-6)
 ib_latency = _env_float("EASYDIST_IB_LATENCY", 1e-5)
 
-# ---------------- gradient-collective compression ----------------
-# wire dtype of reductions: "none" | "int8" (block-scaled) | "bf16"
+# ---------------- gradient-collective compression (comm/) ----------------
+# wire dtype of gradient reductions and of the solver's reduction fences:
+# "none" (exact, one collective per leaf) | "int8" (two-pass block-scaled,
+# ~3.9x fewer wire bytes) | "bf16" (cast, 2x)
 comm_quant_dtype = os.environ.get("EASYDIST_COMM_QUANT", "none")
 # elements per int8 scaling block (one f32 scale each)
 comm_quant_block = _env_int("EASYDIST_COMM_QUANT_BLOCK", 256)
+# pack gradient leaves into buckets of at most this many bytes before
+# reducing (0 = one collective per leaf)
+comm_bucket_bytes = _env_int("EASYDIST_COMM_BUCKET_BYTES", 0)
+# leaves whose keystr path matches this regex (case-insensitive) stay
+# exact: norm gains and biases are small and sensitive to quantization
+# (`'b'` catches the models' bias keys, as in "['blocks'][0]['ln1']['b']")
+comm_quant_skip = os.environ.get(
+    "EASYDIST_COMM_QUANT_SKIP", r"bias|norm|\bln\b|scale|gamma|beta|'b'")
 # leaves below this many elements are never quantized
 comm_quant_min_numel = _env_int("EASYDIST_COMM_QUANT_MIN_NUMEL", 2048)
-# pack gradient leaves into buckets of this many bytes before reducing
-# (0 = one collective per leaf).  Only 0 is ported: `comm.reduce` raises
-# for any other value (quantized and bucketed reduction come with ROADMAP
-# queue A item 7), as for `comm_quant_dtype` != "none"
-comm_bucket_bytes = _env_int("EASYDIST_COMM_BUCKET_BYTES", 0)
-# flush gradients in backward emission order, overlapped with the
-# backward (item 7 as well; `comm.reduce` raises when it is set)
+# flush gradient buckets in backward emission order, each issued from the
+# backward as soon as its last gradient exists (comm/overlap.py)
 comm_overlap = _env_bool("EASYDIST_COMM_OVERLAP", False)
 # K-microbatch gradient accumulation of the manual dp / ZeRO steps
 # (0 and 1 both mean off); the steps' `grad_accum_microbatches=` wins
 grad_accum_microbatches = _env_int("EASYDIST_GRAD_ACCUM_MICROBATCHES", 0)
-# the NaN/Inf skip-and-hold guard of the manual dp / ZeRO steps: not
-# ported (it comes with item 7), so True raises when a step is built
+# replace `peak_flops` / `hbm_bandwidth` with the card's datasheet values
+# at compile time (runtime/calibrate.py; unknown kinds keep the defaults)
+auto_device_constants = _env_bool("EASYDIST_AUTO_DEVICE_CONSTANTS", True)
+# load measured alpha / beta / HBM values from the PerfDB when present
+# (`runtime.calibrate.calibrate(group)` records them)
+auto_calibration = _env_bool("EASYDIST_AUTO_CALIBRATION", True)
+
+# ---------------- resilience (resilience/, runtime/) ----------------
+# deterministic fault schedule, e.g. "step.nan_grad@7,ckpt.write.partial@2":
+# names from resilience.faultinject.FAULT_POINTS; the elastic loop arms it
+fault_plan = os.environ.get("EASYDIST_FAULT_PLAN", "")
+# the NaN/Inf skip-and-hold guard of the dp / ZeRO steps and run_training
 resilience_step_guard = _env_bool("EASYDIST_STEP_GUARD", False)
+# consecutive non-finite steps the guard holds before raising
+resilience_guard_max_skips = _env_int("EASYDIST_GUARD_MAX_SKIPS", 8)
+# the overflow scale decays by this factor on each held step ...
+resilience_guard_scale_decay = _env_float("EASYDIST_GUARD_SCALE_DECAY", 0.5)
+# ... and doubles back (capped at its initial value) after this many
+# clean steps
+resilience_guard_scale_growth_every = _env_int(
+    "EASYDIST_GUARD_GROWTH_EVERY", 200)
+# checkpoint I/O retries: exponential backoff with jitter
+resilience_ckpt_retries = _env_int("EASYDIST_CKPT_RETRIES", 3)
+resilience_ckpt_backoff_s = _env_float("EASYDIST_CKPT_BACKOFF", 0.05)
+resilience_ckpt_backoff_jitter = _env_float("EASYDIST_CKPT_JITTER", 0.25)
+# SIGTERM grace budget the final checkpoint must land inside
+resilience_preempt_grace_s = _env_float("EASYDIST_PREEMPT_GRACE", 30.0)
+# a batch fetch of the elastic loop that takes longer raises
+# DataStallError (0 = watchdog off)
+resilience_data_timeout_s = _env_float("EASYDIST_DATA_TIMEOUT", 0.0)
+
+
+def _validate_resilience() -> None:
+    """Fail at import on out-of-range resilience knobs."""
+    checks = (
+        ("EASYDIST_GUARD_MAX_SKIPS", resilience_guard_max_skips,
+         resilience_guard_max_skips >= 1, ">= 1"),
+        ("EASYDIST_GUARD_SCALE_DECAY", resilience_guard_scale_decay,
+         0.0 < resilience_guard_scale_decay <= 1.0, "in (0, 1]"),
+        ("EASYDIST_GUARD_GROWTH_EVERY", resilience_guard_scale_growth_every,
+         resilience_guard_scale_growth_every >= 1, ">= 1"),
+        ("EASYDIST_CKPT_RETRIES", resilience_ckpt_retries,
+         resilience_ckpt_retries >= 0, ">= 0"),
+        ("EASYDIST_CKPT_BACKOFF", resilience_ckpt_backoff_s,
+         resilience_ckpt_backoff_s >= 0, ">= 0"),
+        ("EASYDIST_CKPT_JITTER", resilience_ckpt_backoff_jitter,
+         0.0 <= resilience_ckpt_backoff_jitter <= 1.0, "in [0, 1]"),
+        ("EASYDIST_PREEMPT_GRACE", resilience_preempt_grace_s,
+         resilience_preempt_grace_s > 0, "> 0"),
+        ("EASYDIST_DATA_TIMEOUT", resilience_data_timeout_s,
+         resilience_data_timeout_s >= 0, ">= 0"))
+    for env, value, ok, want in checks:
+        if not ok:
+            raise ValueError(f"{env} must be {want}, got {value}")
+
+
+_validate_resilience()
 
 # ---------------- op-time database ----------------
 prof_db_path = os.environ.get(

@@ -130,7 +130,9 @@ class CompileResult:
     mesh axis (the counterpart of the JAX package's `in_shardings`);
     `strategies` the solved {node name: NodeStrategy} per axis;
     `collectives` what emission inserted; `priced` per axis the
-    (kind, value, bytes) the solver priced for its picks; `timings`
+    (kind, value, bytes) the solver priced for its picks, `priced_wire`
+    the same with the bytes a rank sends for each (`Collective.
+    wire_bytes` is the emitted side); `timings`
     seconds by stage; `counters` the analyzer's counts.  `remat_plan` is
     the compiler-chosen remat (`schedule.remat.RematPlan`) applied to
     `graph_module` (this rank's program), or None."""
@@ -152,6 +154,7 @@ class CompileResult:
         self.solvers = []
         self.collectives = []
         self.priced: List[List[Tuple[str, str, float]]] = []
+        self.priced_wire: List[List[Tuple[str, str, float]]] = []
         self.solver_costs: List[Optional[float]] = []
         self.timings: Dict[str, float] = {}
         self.counters: Dict[str, float] = {}
@@ -405,6 +408,12 @@ def compile_step(func, args, kwargs, mesh=None, state_io="auto",
                          f"expected none|dots|all")
     from easydist_tpu_torch.schedule.remat import apply_checkpoint_tags
 
+    if edconfig.auto_calibration:
+        # measured constants (and the card's datasheet ones) beat the
+        # defaults when recorded (`runtime.calibrate`)
+        from easydist_tpu_torch.runtime.calibrate import apply_calibration
+
+        apply_calibration()
     t0 = time.perf_counter()
     gm, in_spec, out_spec, out = _trace(func, args, kwargs, mesh)
     # a selective checkpoint in the step only tagged its nodes
@@ -685,14 +694,21 @@ def _edge_kind(up: Placement, down: Placement) -> Optional[str]:
     return None
 
 
-def priced_collectives(solver, chosen) -> List[Tuple[str, str, float]]:
+def priced_collectives(solver, chosen, wire: bool = False
+                       ) -> List[Tuple[str, str, float]]:
     """(kind, value name, value bytes) of every collective the solver
     priced for `chosen`: its inter-cluster and state edges at the picked
     strategies, each non-state graph output handed back replicated, and
     the ring permutes or Ulysses all_to_alls inside an attention node on
     its seq strategy (its intrinsic cost, counted by
-    `seq_collectives`' byte formulas at the node's q)."""
+    `seq_collectives`' byte formulas at the node's q).  `wire=True` gives
+    the bytes a rank sends for each instead of the value bytes
+    (`autoflow.cost_model.edge_wire_bytes`: a sum's reduction edges as
+    the quantized fence sends them under `comm_quant_dtype`)."""
+    from easydist_tpu_torch.autoflow.cost_model import edge_wire_bytes
+
     graph = solver.graph
+    n = solver.axis.size
     pick: Dict[int, int] = {}
     for c in solver.clusters:
         for s in range(c.strategy_count()):
@@ -701,22 +717,26 @@ def priced_collectives(solver, chosen) -> List[Tuple[str, str, float]]:
                 pick[c.cid] = s
                 break
     out = []
-    for e in solver.edges:
-        kind = _edge_kind(e.up_placement(pick[e.up_cluster.cid]),
-                          e.down_placement(pick[e.down_cluster.cid]))
+
+    def add(up, down, var):
+        kind = _edge_kind(up, down)
         if kind:
-            out.append((kind, e.var.name, e.var.size_bytes()))
+            size = (edge_wire_bytes(up, down, var.size_bytes(), n,
+                                    var.itemsize()) if wire
+                    else var.size_bytes())
+            out.append((kind, var.name, size))
+
+    for e in solver.edges:
+        add(e.up_placement(pick[e.up_cluster.cid]),
+            e.down_placement(pick[e.down_cluster.cid]), e.var)
     state_outs = set(graph.state_io)
     for var in graph.outputs:
         if var.name in state_outs or var.producer is None:
             continue
         s = chosen.get(var.producer.name)
-        kind = _edge_kind(s.out_placements[var.producer_idx]
-                          if s is not None else None,
-                          Placement.replicate())
-        if kind:
-            out.append((kind, var.name, var.size_bytes()))
-    out += _intrinsic_collectives(graph, chosen, solver.axis.size)
+        add(s.out_placements[var.producer_idx] if s is not None else None,
+            Placement.replicate(), var)
+    out += _intrinsic_collectives(graph, chosen, n)
     return out
 
 
@@ -896,6 +916,9 @@ def _compile_on_mesh(result: CompileResult, axis_specs=None) -> None:
             gm, axis_specs, world, rules, shape_info, names, state_io_names)
         result.timings["solve"] = time.perf_counter() - t0
         result.graphs, result.solvers = graphs, solvers
+        result.priced_wire = [priced_collectives(sv, c, wire=True)
+                              if sv is not None else []
+                              for sv, c in zip(solvers, per_axis)]
         result.priced = [priced_collectives(sv, c) if sv is not None else []
                          for sv, c in zip(solvers, per_axis)]
         result.solver_costs = [sv.last_comm_cost if sv is not None else None

@@ -18,7 +18,11 @@ over functional collectives (`torch.ops._c10d_functional`):
     creation ops) are rewritten to the local shape the node's output
     placements give;
   * a P-placed chain simply runs locally and is fenced by the collective
-    the solver chose (no counterpart of jaxfront/partial_regions.py);
+    the solver chose (no counterpart of jaxfront/partial_regions.py); a
+    sum's fence goes through `comm.reduce.fence_plan`, so under
+    `comm_quant_dtype` it is the block-scaled int8 (or bf16) collective of
+    `comm.quant` exactly where the solver priced it so (the JAX fence's
+    rule: quantizable by size);
   * a paired state output is resharded back to its input's placement,
     every other output to R;
   * an attention composite node (`ed_attention_fwd` / `_bwd`) on its seq
@@ -32,9 +36,10 @@ A tensor dim is never sharded on two axes at once (the frontend's solve
 excludes such strategies), so one layout per dim holds throughout.
 
 Every inserted collective is recorded (`Collective`): the axis, the kind,
-the value it moves, the bytes of that value across the axis's group, and
-the bytes the solver's graph of that axis gave the same value, which the
-frontend sums against what the solver priced.
+the value it moves, the bytes of that value across the axis's group, the
+bytes the solver's graph of that axis gave the same value, which the
+frontend sums against what the solver priced, the bytes a rank sends for
+it and its route.
 """
 
 from __future__ import annotations
@@ -47,6 +52,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
+from easydist_tpu_torch.comm.quant import (bf16_psum, bf16_psum_scatter,
+                                           quantized_psum,
+                                           quantized_psum_scatter)
+from easydist_tpu_torch.comm.reduce import fence_plan
 from easydist_tpu_torch.metashard.combination import Reduction
 from easydist_tpu_torch.metashard.metair import Placement
 # registers the attention composite's custom ops named below
@@ -85,6 +94,11 @@ class Collective:
     group_bytes: float
     # the same on the solver's axis graph
     priced_bytes: float
+    # bytes one rank sends for it (the ring closed forms; a fence as
+    # `comm.reduce.fence_plan` sends it)
+    wire_bytes: float = float("nan")
+    # "exact", or the fence's quantized route ("int8" | "bf16")
+    route: str = "exact"
 
 
 # --------------------------------------------------- local helper ops
@@ -180,13 +194,28 @@ class _Emitter:
         return out
 
     # ---------------------------------------------------------- reshard
-    def _record(self, a, kind, var, val, cur):
+    def _record(self, a, kind, var, val, cur, fence: bool = False):
+        """Record one collective on axis `a`; a sum's fence (`fence`) goes
+        through `comm.reduce.fence_plan`, which picks its route under
+        `comm_quant_dtype` and records it in the comm counters.  Returns
+        the route."""
         full = [p if b != a else _R for b, p in enumerate(cur)]
-        nbytes = math.prod(local_shape(val.shape, full, self.sizes)) \
-            * val.element_size()
+        numel = math.prod(local_shape(val.shape, full, self.sizes))
+        nbytes = float(numel * val.element_size())
+        n = self.sizes[a]
+        route = "exact"
+        if fence:
+            route, wire = fence_plan(kind, numel, val.element_size(), n)
+        elif kind == "all_to_all":
+            wire = nbytes * (n - 1) / (n * n)
+        elif kind == "all_reduce":
+            wire = 2.0 * nbytes * (n - 1) / n
+        else:  # all_gather, reduce_scatter
+            wire = nbytes * (n - 1) / n
         self.collectives.append(Collective(
-            self.names[a], kind, var, float(nbytes),
-            float(self.priced_sizes[a].get(var, float("nan")))))
+            self.names[a], kind, var, nbytes,
+            float(self.priced_sizes[a].get(var, float("nan"))), wire, route))
+        return route
 
     def _call(self, fn, *args):
         return self.graph.call_function(fn, args)
@@ -221,17 +250,31 @@ class _Emitter:
             y = self._step(x, a, p, _R, var, val, cur)
             return self._step(y, a, _R, q, var, val, cur)
         if p.is_partial():
+            sums = p.reduction in (Reduction.SUM, Reduction.AVG)
             if q.is_replicate():
-                self._record(a, "all_reduce", var, val, cur)
-                y = self._call(_c10d.all_reduce.default,
-                               self._call(_to_front, x, 0), _reduce_name(p), g)
-                y = self._call(_c10d.wait_tensor.default, y)
+                route = self._record(a, "all_reduce", var, val, cur, sums)
+                if route == "int8":
+                    y = self._call(quantized_psum, x, g, n)
+                elif route == "bf16":
+                    y = self._call(bf16_psum, x, g)
+                else:
+                    y = self._call(_c10d.all_reduce.default,
+                                   self._call(_to_front, x, 0),
+                                   _reduce_name(p), g)
+                    y = self._call(_c10d.wait_tensor.default, y)
             else:
-                self._record(a, "reduce_scatter", var, val, cur)
+                route = self._record(a, "reduce_scatter", var, val, cur,
+                                     sums)
                 y = self._call(_to_front, x, q.dim)
-                y = self._call(_c10d.reduce_scatter_tensor.default, y,
-                               _reduce_name(p), n, g)
-                y = self._call(_c10d.wait_tensor.default, y)
+                if route == "int8":
+                    y = self._call(quantized_psum_scatter, y, g, n)
+                elif route == "bf16":
+                    y = self.graph.call_function(bf16_psum_scatter, (y, g),
+                                                 {"axis_size": n})
+                else:
+                    y = self._call(_c10d.reduce_scatter_tensor.default, y,
+                                   _reduce_name(p), n, g)
+                    y = self._call(_c10d.wait_tensor.default, y)
                 if q.dim != 0:
                     y = self._call(_from_front, y, q.dim)
             if p.reduction == Reduction.AVG:
@@ -359,7 +402,8 @@ class _Emitter:
                 seq_collectives(moved, n, backward, variant),
                 seq_collectives(priced, n, backward, variant)):
             self.collectives.append(Collective(self.names[a], kind, var,
-                                               float(nbytes), float(pbytes)))
+                                               float(nbytes), float(pbytes),
+                                               float(nbytes)))
         return self.graph.call_function(fn, args)
 
     def _emit_call(self, node, names):

@@ -141,6 +141,9 @@ class MetaVar:
         n = math.prod(self.shape) if self.shape else 1
         return _DTYPE_BYTES.get(self.dtype, 4) * n
 
+    def itemsize(self) -> int:
+        return _DTYPE_BYTES.get(self.dtype, 4)
+
     def __repr__(self) -> str:
         return f"{self.name}({self.dtype}{list(self.shape)})"
 

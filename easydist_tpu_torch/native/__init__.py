@@ -1,13 +1,15 @@
-"""Native (C++) helpers of the solver and the memory planner, built at
-first use.
+"""Native (C++) helpers of the solver, the memory planner and the token
+loader, built at first use.
 
-`csrc/beam.cpp` (the beam-search core) and `csrc/memplan.cpp` (skyline
-packing, lifetime-overlap check, live-bytes peak) have a plain C
-interface.  At first use they are compiled with `g++` into one shared
+`csrc/beam.cpp` (the beam-search core), `csrc/memplan.cpp` (skyline
+packing, lifetime-overlap check, live-bytes peak) and
+`csrc/dataloader.cpp` (the prefetching token-window sampler of
+`runtime/data.py`) have a plain C interface.  At first use they are compiled with `g++` into one shared
 library under `_build/` beside this file (listed in `.gitignore`), named
 by the hash of the sources and flags, and bound with `ctypes`.  Nothing is
-built when the module is imported.  Every function has a Python version
-(`*_py`, the same algorithm), used when no compiler is present.
+built when the module is imported.  Every solver and planner function
+has a Python version (`*_py`, the same algorithm), used when no compiler
+is present; the loader falls back to numpy (`runtime/data.py`).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ logger = logging.getLogger(__name__)
 
 _SRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
@@ -82,6 +84,15 @@ def get_lib() -> Optional[ctypes.CDLL]:
             lib.ed_beam_search.argtypes = [
                 ctypes.c_int64, i64p, f64p, i64p, ctypes.c_int64, i64p, i64p,
                 f64p, i64p, ctypes.c_int64, i32p]
+            lib.ed_loader_open.restype = ctypes.c_void_p
+            lib.ed_loader_open.argtypes = [
+                ctypes.c_char_p, ctypes.c_int, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_uint64]
+            lib.ed_loader_next.restype = ctypes.c_int
+            lib.ed_loader_next.argtypes = [ctypes.c_void_p, i32p]
+            lib.ed_loader_num_tokens.restype = ctypes.c_int64
+            lib.ed_loader_num_tokens.argtypes = [ctypes.c_void_p]
+            lib.ed_loader_close.argtypes = [ctypes.c_void_p]
             _LIB = lib
     return _LIB
 

@@ -24,10 +24,22 @@ package's shard_map hands each device: zero2's moments of a sharded leaf
 are [1, d0/n, ...], zero3's params and moments [d0/n, ...].
 
 `grad_accum_microbatches=K` (or `config.grad_accum_microbatches`)
-accumulates K microbatches in the JAX fold order (`comm.overlap`).  The
-step guard (`step_guard=True`, `config.resilience_step_guard`) and the
-comm knobs raise NotImplementedError: they come with ROADMAP queue A
-item 7.
+accumulates K microbatches in the JAX fold order (`comm.overlap`).
+
+Every gradient reduction goes through `easydist_tpu_torch.comm`: with the
+default config one exact collective per leaf; with `comm_quant_dtype` /
+`comm_bucket_bytes` set, block-quantized and / or bucketed (ddp buckets
+the tree; the ZeRO paths quantize per leaf, by the leaf's keystr path).
+`comm_overlap` issues the reductions from the backward in emission order
+(ddp's buckets and zero2's leaves from tensor hooks; zero3 already
+reduce_scatters each gradient in the backward as soon as it is
+complete).
+
+`step_guard=True` (or `config.resilience_step_guard`) folds the NaN/Inf
+skip-and-hold guard (`resilience.guard`) into the step: the state
+becomes `(state, guard_state)` (seed the second with
+`resilience.init_guard_state()`), the finite flag is the minimum over
+the axis's ranks, and a non-finite step holds the previous state.
 """
 
 from __future__ import annotations
@@ -52,13 +64,33 @@ def _accum_k(grad_accum_microbatches: Optional[int]) -> int:
     return int(k) if k else 0
 
 
-def _check_guard(step_guard: Optional[bool]) -> None:
+def _maybe_guard(step: Callable, step_guard: Optional[bool], ax):
+    """The step with the skip-and-hold guard folded in when asked; off
+    returns `step` itself."""
     on = (edconfig.resilience_step_guard if step_guard is None
           else bool(step_guard))
-    if on:
-        raise NotImplementedError(
-            "step_guard: the NaN/Inf skip-and-hold guard (resilience/"
-            "guard.py) is not ported yet (ROADMAP queue A item 7)")
+    if not on:
+        return step
+    from easydist_tpu_torch.resilience.guard import guard_train_step
+
+    return guard_train_step(step, group=ax.group)
+
+
+class _Orders:
+    """Emission orders of the gradients, traced once per signature of the
+    parameters and the batch (`comm.grad_emission_order`)."""
+
+    def __init__(self, loss_fn):
+        self.loss_fn, self.cache = loss_fn, {}
+
+    def __call__(self, params, *batch):
+        leaves, spec = pytree.tree_flatten((params, batch))
+        key = (spec, tuple((tuple(x.shape), x.dtype) if isinstance(
+            x, torch.Tensor) else x for x in leaves))
+        if key not in self.cache:
+            self.cache[key] = comm.grad_emission_order(self.loss_fn, params,
+                                                       *batch)
+        return self.cache[key]
 
 
 def _local_batch(batch, ax):
@@ -69,12 +101,13 @@ def _shardable(p, n: int) -> bool:
     return p.ndim > 0 and p.shape[0] % n == 0
 
 
-def _grads(loss_fn, params, batch, k: int, ax, reduce_tree):
+def _grads(loss_fn, params, batch, k: int, ax, reduce_tree,
+           overlapped: bool = False):
     """(reduced grads, local mean loss) over the rank's batch block."""
     if k > 1:
         return comm.accumulate_gradients(
             loss_fn, params, batch, group=ax.group, axis_size=ax.size,
-            n_micro=k, reduce_tree=reduce_tree)
+            n_micro=k, reduce_tree=reduce_tree, overlapped=overlapped)
     loss, grads = value_and_grad(loss_fn, params, *batch)
     return reduce_tree(grads), loss
 
@@ -88,21 +121,30 @@ def ddp_step(loss_fn: Callable, mesh, axis: str = "dp", lr: float = 1e-2,
              step_guard: Optional[bool] = None):
     """SGD DDP step: batch sharded over `axis`, gradients averaged.
     Returns step(params, *batch) -> (new_params, loss), the loss averaged
-    over the axis."""
-    _check_guard(step_guard)
-    comm.check_comm_knobs()
+    over the axis; with the guard on, step((params, guard_state), *batch)
+    -> ((params, guard_state), loss)."""
     ax = mesh_axis(mesh, axis)
+    orders = _Orders(loss_fn)
 
     def step(params, *batch):
         k = _accum_k(grad_accum_microbatches)
-        grads, loss = _grads(
-            loss_fn, params, _local_batch(batch, ax), k, ax,
-            lambda g: comm.reduce_gradients(g, ax.group, ax.size,
-                                            op="pmean"))
+        local = _local_batch(batch, ax)
+        if k > 1:
+            grads, loss = comm.accumulate_gradients(
+                loss_fn, params, local, group=ax.group, axis_size=ax.size,
+                n_micro=k)
+        elif edconfig.comm_overlap:
+            loss, grads = comm.overlapped_value_and_grad(
+                loss_fn, params, *local, group=ax.group, axis_size=ax.size,
+                emission_order=orders(params, *local))
+        else:
+            loss, grads = value_and_grad(loss_fn, params, *local)
+            grads = comm.reduce_gradients(grads, ax.group, ax.size,
+                                          op="pmean")
         new_params = pytree.tree_map(lambda p, g: p - lr * g, params, grads)
         return new_params, _pmean(loss, ax)
 
-    return step
+    return _maybe_guard(step, step_guard, ax)
 
 
 def zero_shard_params(params, mesh, axis: str = "dp"):
@@ -131,26 +173,28 @@ class _Gathered(torch.autograd.Function):
     the backward, as soon as the leaf's gradient is complete."""
 
     @staticmethod
-    def forward(ctx, block, group, n):
-        ctx.group, ctx.n = group, n
+    def forward(ctx, block, group, n, path):
+        ctx.group, ctx.n, ctx.path = group, n, path
         return comm.all_gather_dim0(block, group, n)
 
     @staticmethod
     def backward(ctx, g):
-        return comm.reduce_scatter_grad(g, ctx.group, ctx.n), None, None
+        return (comm.reduce_scatter_grad(g, ctx.group, ctx.n, path=ctx.path),
+                None, None, None)
 
 
 class _Replicated(torch.autograd.Function):
     """A replicated leaf: identity forward, gradient all_reduce'd (mean)."""
 
     @staticmethod
-    def forward(ctx, p, group, n):
-        ctx.group, ctx.n = group, n
+    def forward(ctx, p, group, n, path):
+        ctx.group, ctx.n, ctx.path = group, n, path
         return p.view_as(p)
 
     @staticmethod
     def backward(ctx, g):
-        return comm.all_reduce_grad(g, ctx.group, ctx.n), None, None
+        return (comm.all_reduce_grad(g, ctx.group, ctx.n, path=ctx.path),
+                None, None, None)
 
 
 class _Regather:
@@ -198,12 +242,13 @@ def zero3_step(loss_fn: Callable, mesh, axis: str = "dp", lr: float = 1e-2,
     parameter would stay alive from the forward to the backward, and the
     peak would stand above ZeRO-2's.)
 
+    The reductions run in the backward, each as soon as its gradient is
+    complete, so `comm_overlap` changes nothing here.
+
     Returns (step, init_state): init_state(params) -> (param blocks,
     {"mu", "nu"} blocks, count); step(state, *batch) -> (state, loss).
     Which leaves are sharded is decided from the full shapes init_state
     sees (a block's shape no longer tells)."""
-    _check_guard(step_guard)
-    comm.check_comm_knobs()
     ax = mesh_axis(mesh, axis)
     n = ax.size
     layouts = {}  # params treespec -> per-leaf sharded flags
@@ -224,16 +269,17 @@ def zero3_step(loss_fn: Callable, mesh, axis: str = "dp", lr: float = 1e-2,
         if flags is None:
             raise RuntimeError("zero3_step: build the state with its "
                                "init_state(params) first")
+        paths = comm.keyed_leaves(blocks)[1]
 
         def sharded_loss(leaves, *mb):
             hooks = _Regather(leaves, ax.group, n)
             full = []
             for i, (p, flag) in enumerate(zip(leaves, flags)):
                 if flag:
-                    full.append(_Gathered.apply(p, ax.group, n))
+                    full.append(_Gathered.apply(p, ax.group, n, paths[i]))
                     hooks.full[i] = full[-1]
                 else:
-                    full.append(_Replicated.apply(p, ax.group, n))
+                    full.append(_Replicated.apply(p, ax.group, n, paths[i]))
             try:
                 with torch.autograd.graph.saved_tensors_hooks(hooks.pack,
                                                               hooks.unpack):
@@ -247,7 +293,7 @@ def zero3_step(loss_fn: Callable, mesh, axis: str = "dp", lr: float = 1e-2,
         # the gradients come out of the backward already reduced
         grads, loss = _grads(sharded_loss, flat_p, _local_batch(batch, ax),
                              _accum_k(grad_accum_microbatches), ax,
-                             lambda g: g)
+                             lambda g: g, overlapped=False)
         count = count + 1
         c1, c2 = _bias_corrections(count, b1, b2)
         new = [_adam(p, g, m, v, c1, c2, lr, b1, b2, eps)
@@ -259,7 +305,7 @@ def zero3_step(loss_fn: Callable, mesh, axis: str = "dp", lr: float = 1e-2,
                                for i in range(3))
         return (new_p, {"mu": new_m, "nu": new_v}, count), _pmean(loss, ax)
 
-    return step, init_state
+    return _maybe_guard(step, step_guard, ax), init_state
 
 
 def zero2_step(loss_fn: Callable, mesh, axis: str = "dp", lr: float = 1e-2,
@@ -272,10 +318,9 @@ def zero2_step(loss_fn: Callable, mesh, axis: str = "dp", lr: float = 1e-2,
 
     Returns (step, init_opt): init_opt(params) -> {"mu", "nu"};
     step((params, opt, count), *batch) -> ((params, opt, count), loss)."""
-    _check_guard(step_guard)
-    comm.check_comm_knobs()
     ax = mesh_axis(mesh, axis)
     n = ax.size
+    orders = _Orders(loss_fn)
 
     def init_opt(params):
         def moment(p):
@@ -291,17 +336,33 @@ def zero2_step(loss_fn: Callable, mesh, axis: str = "dp", lr: float = 1e-2,
         params, opt, count = state
         flat_p, spec = pytree.tree_flatten(params)
         flags = [_shardable(p, n) for p in flat_p]
+        paths = comm.keyed_leaves(params)[1]
+        local = _local_batch(batch, ax)
+        k = _accum_k(grad_accum_microbatches)
+        overlap = bool(edconfig.comm_overlap)
+
+        def reduce_leaf(i, g):
+            if flags[i]:
+                return comm.reduce_scatter_grad(g, ax.group, n,
+                                                path=paths[i])
+            return comm.all_reduce_grad(g, ax.group, n, path=paths[i])
 
         def reduce_tree(gtree):
             fg = pytree.tree_leaves(gtree)
-            return pytree.tree_unflatten(
-                [comm.reduce_scatter_grad(g, ax.group, n) if flag
-                 else comm.all_reduce_grad(g, ax.group, n)
-                 for g, flag in zip(fg, flags)], spec)
+            if overlap:
+                fg = comm.chain_leaf_reduces(fg, orders(params, *local),
+                                             reduce_leaf)
+            else:
+                fg = [reduce_leaf(i, g) for i, g in enumerate(fg)]
+            return pytree.tree_unflatten(fg, spec)
 
-        grads, loss = _grads(loss_fn, params, _local_batch(batch, ax),
-                             _accum_k(grad_accum_microbatches), ax,
-                             reduce_tree)
+        if overlap and k <= 1:
+            loss, fg = comm.overlapped_leaf_grads(
+                loss_fn, params, *local, reduce_leaf_fn=reduce_leaf)
+            grads = pytree.tree_unflatten(fg, spec)
+        else:
+            grads, loss = _grads(loss_fn, params, local, k, ax, reduce_tree,
+                                 overlapped=overlap)
         count = count + 1
         c1, c2 = _bias_corrections(count, b1, b2)
         new = []
@@ -320,4 +381,4 @@ def zero2_step(loss_fn: Callable, mesh, axis: str = "dp", lr: float = 1e-2,
                                for i in range(3))
         return (new_p, {"mu": new_m, "nu": new_v}, count), _pmean(loss, ax)
 
-    return step, init_opt
+    return _maybe_guard(step, step_guard, ax), init_opt

@@ -2,9 +2,9 @@
 easydist_tpu/resilience/faultinject.py, which imports nothing of JAX; the
 port keeps its own copy with the same plan grammar and point names).
 
-Every recovery path of the port's serving layer is exercised by NAMED
-fault points armed from a schedule string — the same code path a real
-failure takes, reproduced on the CPU.  A fault point is a call site like::
+Every recovery path of the port's serving and training layers is
+exercised by NAMED fault points armed from a schedule string — the same
+code path a real failure takes, reproduced on the CPU.  A fault point is a call site like::
 
     if faultinject.fire("kv.tier.fetch_corrupt"):
         <site-specific corruption>
@@ -33,12 +33,21 @@ suggestion (a typo'd plan must not silently test nothing).
 from __future__ import annotations
 
 import difflib
+import os
 import threading
 from typing import Dict, List, Optional, Tuple
 
 # closed catalog: every instrumented fault point, with the recovery
 # contract it exercises
 FAULT_POINTS = frozenset({
+    # checkpoint commit protocol (runtime/checkpoint.py)
+    "ckpt.write.partial",     # crash mid-write: tempdir left, no commit
+    "ckpt.manifest.corrupt",  # bit rot in a COMMITTED checkpoint's data
+    # training loop (runtime/elastic.py + resilience/guard.py)
+    "preempt.sigterm",        # host preemption signal at a step boundary
+    "step.nan_grad",          # poisoned batch -> non-finite gradients
+    "data.stall",             # input pipeline stops producing
+    "elastic.restore.chunk_corrupt",  # bit rot in the checkpoint restored
     # serving (serve/engine.py)
     "serve.exec_timeout",     # executable dispatch exceeds the watchdog
     "serve.oom_bucket",       # batch-bucket execution exhausts device memory
@@ -235,3 +244,17 @@ class fault_plan:
             _hits.clear()
             _fired.clear()
 
+
+def arm_from_config() -> None:
+    """Arm from `config.fault_plan` (the EASYDIST_FAULT_PLAN schedule).
+    Called by the entry points that own a process lifetime (the elastic
+    loop); library code never arms implicitly."""
+    from easydist_tpu_torch import config as edconfig
+
+    if edconfig.fault_plan:
+        arm(edconfig.fault_plan)
+
+
+# the env plan is validated at import (a typo'd plan fails before a run)
+if os.environ.get("EASYDIST_FAULT_PLAN"):
+    parse_plan(os.environ["EASYDIST_FAULT_PLAN"])

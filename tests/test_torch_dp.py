@@ -229,22 +229,45 @@ def test_torchfront_mode_matches_jax(dp_runs, mode):
                                    rtol=RTOL_LOSS, atol=ATOL_LOSS)
 
 
+class _OneAxis:
+    """A stand-in DeviceMesh of one "dp" axis (the step makers read only
+    its axis names, group, sizes and this rank's coordinate)."""
+
+    mesh_dim_names = ("dp",)
+
+    def get_group(self, axis):
+        return "unused"
+
+    def size(self, dim=None):
+        return 2
+
+    def get_local_rank(self, axis):
+        return 0
+
+
 @pytest.mark.parametrize("knob,value", [("comm_quant_dtype", "int8"),
                                         ("comm_bucket_bytes", 1 << 20),
                                         ("comm_overlap", True)])
 def test_comm_knobs_raise(monkeypatch, knob, value):
+    """The comm knobs no longer raise (they raised NotImplementedError
+    naming ROADMAP item 7 before `comm/` was ported): the step builds.
+    Their values are held against the JAX package's in
+    tests/test_torch_comm_quant.py and tests/test_torch_overlap.py."""
     from easydist_tpu_torch import config as tconfig
     from easydist_tpu_torch.parallel import ddp_step as port_ddp
 
     monkeypatch.setattr(tconfig, knob, value)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port_ddp(lambda p, x: x.sum(), mesh=None)
+    assert callable(port_ddp(lambda p, x: x.sum(), mesh=_OneAxis()))
 
 
 @pytest.mark.parametrize("make", ["ddp_step", "zero2_step", "zero3_step"])
 def test_step_guard_raises(make):
+    """`step_guard=True` no longer raises: the step makers fold in the guard
+    (`resilience.guard.guard_train_step`); its values are held in
+    tests/test_torch_guard.py."""
     from easydist_tpu_torch import parallel
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        getattr(parallel, make)(lambda p, x: x.sum(), mesh=None,
-                                step_guard=True)
+    made = getattr(parallel, make)(lambda p, x: x.sum(), mesh=_OneAxis(),
+                                   step_guard=True)
+    step = made if make == "ddp_step" else made[0]
+    assert step.__name__ == "gstep"

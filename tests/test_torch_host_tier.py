@@ -240,9 +240,14 @@ class TestFaultDrills:
                         "kv.tier.host_oom": "*"}
         with pytest.raises(faultinject.FaultPlanError, match="did you mean"):
             faultinject.parse_plan("serve.oom_bucket_@1")
+        # the serving points, and the training points of the elastic loop
+        # and the checkpoints
         assert {"serve.oom_bucket", "serve.exec_timeout",
                 "kv.tier.fetch_corrupt", "kv.tier.host_oom",
-                "fleet.replica.crash"} == set(faultinject.FAULT_POINTS)
+                "fleet.replica.crash", "ckpt.write.partial",
+                "ckpt.manifest.corrupt", "preempt.sigterm", "step.nan_grad",
+                "data.stall", "elastic.restore.chunk_corrupt"} == \
+            set(faultinject.FAULT_POINTS)
 
 
 # ------------------------------------------------------------- sessions

@@ -77,7 +77,10 @@ def test_every_port_module_imports_with_jax_blocked():
                  "comm.reduce", "comm.overlap", "parallel.dp",
                  "parallel.pipeline", "parallel.auto_pipeline",
                  "parallel.moe", "fxfront.pp_compile", "schedule.remat",
-                 "schedule"):
+                 "schedule", "comm.quant", "comm.bucketer",
+                 "resilience.guard", "resilience.preempt",
+                 "runtime.checkpoint", "runtime.data", "runtime.elastic",
+                 "runtime.profiler", "runtime.calibrate"):
         assert f"easydist_tpu_torch.{name}" in modules
     code = f"""
 import importlib, importlib.abc, sys
@@ -115,6 +118,7 @@ res.graph_module(torch.ones(4, 4), torch.ones(4, 8))
 dist.destroy_process_group()
 importlib.import_module("tests.test_torch_fxfront_ranks")
 importlib.import_module("tests.test_torch_parallel_ranks")
+importlib.import_module("tests.test_torch_comm_ranks")
 loaded = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in {BANNED!r})]
 assert not loaded, loaded
