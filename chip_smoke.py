@@ -190,8 +190,32 @@ Phases, each raising on failure (exit code != 0, no result line):
      save / restore seconds and GB/s, the sha256 share, the guard's and
      the loader's ms; (d) the step's FLOPs beside 6 N T, its modeled
      memory peak beside the measured one, the card's datasheet row;
- 17. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
-     path's run; B1-B3 also with `launches_bf16`, their launches in the
+ 17. a Llama at Llama-3-8B's published widths and full depth (`llama_phase`;
+     vocab 128256, dim 4096, 32 query heads over 8 KV heads at head_dim
+     128, ffn 14336, 32 layers, rope_theta 500000; random f32 weights from
+     a seeded generator) through `GenerationSession.for_llama` on phase
+     4's traffic and config: (a) bucketed f32, ids equal the
+     teacher-forced `llama_apply` reference, B4 32 x rounds; (b) paged
+     f32, ids equal (a)'s, B5 32 x rounds, the audit clean; (c) int8
+     pages, B6 32 x rounds, identical rerun, drift within 0.25 x spread;
+     (d) bf16 on both layouts with profiled decode windows and the GQA
+     repeat's ms; (e) speculate_k=4 on both layouts, with a 2-layer llama
+     drafter and with the target drafting for itself (drafts accepted),
+     ids equal (a)'s; (f) `make_llama_train_step` with 2 layers,
+     batch 2, seq 1024: compiled equals uncompiled at rtol 1e-4.  Phase 3
+     holds B4-B6 at this decode shape (B4 on the repeated caches
+     [8,32,1024,128], B5 / B6 over pages [144,8,64,128]) in f32 and bf16;
+ 18. restore across a topology change (`reshard_phase`): phase 16's
+     GPT-2 small f32 Adam state saved by gloo CPU ranks spawned from the
+     script (zero2 on 4, zero3 on 2), restored on the card as one rank:
+     bitwise the one-device state of the same seed, the memory above the
+     restored state within the plan's chunked bound; the
+     `elastic.restore.oom` drill halves the chunk and stays bitwise;
+ 19. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
+     path's run; B4-B6 also with `llama` (phase 3's Llama-shape checks
+     and times) and `launches_llama` (17a-c), B4 and B5 with
+     `launches_llama_spec` (17e); B1-B3 also with `launches_bf16`,
+     their launches in the
      bfloat16 flash steps; B1 with `launches_engine` (phase 13), B4 and
      B5 with `launches_spec` (phase 11 a and b), B5 and B6 with
      `launches_tier` (phase 12); B1-B3 with `launches_pp`, per schedule
@@ -716,6 +740,224 @@ def paged_kernel_times(dev, worst):
     for name, c in counters.items():
         c.launches = before[name]  # timing runs don't count
     return entries
+
+
+# -------------------------------- B4-B6 at the Llama decode shape (phase 3)
+
+# slots, query heads, bucket, head_dim of Llama-3-8B's decode (phase 17):
+# B4 reads the caches repeated to the 32 query heads
+LLAMA_DECODE_SHAPE = (8, 32, 1024, 128)
+LLAMA_KV_HEADS = 8
+# rows, query heads, page_tokens, head_dim, max_pages, arena pages: the
+# paged session's default arena, pages [144, 8, 64, 128]
+LLAMA_PAGED_SHAPE = (8, 32, 64, 128, 16, 144)
+LLAMA_LENGTHS = (1, 5, 77, 128, 300, 513, 999, 1024)
+
+
+def llama_kernel_phase(dev):
+    """B4, B5 and B6 at Llama-3-8B's decode shape against their plain
+    versions, in f32 and bf16: B4 over caches already repeated to the 32
+    query heads (the bucketed path's operands), B5 / B6 with 32 query
+    heads over 8 KV heads (the kernels' GQA head map), at the lengths of
+    a mixed batch and around the 128-token splits; the bars of the
+    serving shape.  Then each one's times per dtype at every row's full
+    length (CUDA events over rotated copies, the profiler's device time,
+    the plain version, SDPA: on the repeated cache for B4, with
+    enable_gqa on the gathered (and dequantized) kv_heads cache for
+    B5 / B6, the gather excluded) and bounds: B4's bytes of its operands;
+    B5 / B6 both the unique bytes (each KV row once) and the bytes the
+    kernels read (each KV head's rows once per query head, 4x).  Returns
+    {kernel name: the fields the kernels line adds as "llama"}."""
+    import torch.nn.functional as F
+
+    from easydist_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, t, d = LLAMA_DECODE_SHAPE
+    kvh = LLAMA_KV_HEADS
+    scale = 1.0 / np.sqrt(d)
+    rs = np.random.RandomState(4)
+    worst = {}
+
+    def keep(name, key, err):
+        worst.setdefault(name, {})
+        worst[name][key] = max(worst[name].get(key, 0.0), err)
+
+    q32, k32, v32 = decode_inputs(dev, rs, t, d, b=b, h=h)
+    for dtype in (torch.float32, torch.bfloat16):
+        key = "bf16" if dtype == torch.bfloat16 else "f32"
+        for lens in (LLAMA_LENGTHS, SPLIT_LENGTHS_128):
+            q, k, v = (x.to(dtype) for x in (q32, k32, v32))
+            L = torch.tensor(lens, dtype=torch.int32, device=dev)
+            out = fa.flash_decode_attention(q, k, v, L)
+            torch.cuda.synchronize()
+            ref = fa._decode_attention_xla(q.float(), k.float(), v.float(),
+                                           L, scale)
+            ref[L == 0] = 0.0
+            keep("flash_decode", key, check_close(
+                f"flash_decode llama {key} lengths {lens[:3]}...", out, ref,
+                0.0, 1e-5, dtype == torch.bfloat16))
+    del q32, k32, v32
+    for lens in (PAGED_LENGTHS, SPLIT_LENGTHS_128):
+        q32, kp, vp, table, L = paged_inputs(dev, rs, h, kvh, d, lengths=lens,
+                                             shape=LLAMA_PAGED_SHAPE)
+        empty = L == 0
+        kq, ks = fa.kv_quantize(kp, 1)
+        vq, vs = fa.kv_quantize(vp, 1)
+        for dtype in (torch.float32, torch.bfloat16):
+            key = "bf16" if dtype == torch.bfloat16 else "f32"
+            q, k, v = q32.to(dtype), kp.to(dtype), vp.to(dtype)
+            out = fa.flash_paged_decode_attention(q, k, v, table, L)
+            torch.cuda.synchronize()
+            ref = fa._paged_decode_attention_xla(q.float(), k.float(),
+                                                 v.float(), table, L, scale)
+            ref[empty] = 0.0
+            keep("paged_decode", key, check_close(
+                f"paged_decode llama 32/8 {key} lengths {lens[:3]}...", out,
+                ref, 0.0, 1e-5, dtype == torch.bfloat16))
+            out = fa.flash_paged_decode_quant_attention(q, kq, vq, ks, vs,
+                                                        table, L)
+            torch.cuda.synchronize()
+            ref = fa._paged_decode_attention_quant_xla(q.float(), kq, vq, ks,
+                                                       vs, table, L, scale)
+            ref[empty] = 0.0
+            keep("paged_decode_quant", key, check_close(
+                f"paged_decode_quant llama 32/8 q {key} lengths "
+                f"{lens[:3]}...", out, ref, 0.0, 1e-5,
+                dtype == torch.bfloat16))
+    return llama_kernel_times(dev, worst)
+
+
+def llama_kernel_times(dev, worst):
+    """The times of `llama_kernel_phase`, every row at length 1024."""
+    import torch.nn.functional as F
+
+    from easydist_tpu_torch.ops import flash_attention as fa
+
+    b, h, t, d = LLAMA_DECODE_SHAPE
+    kvh = LLAMA_KV_HEADS
+    _, _, pt, _, mp, n_pages = LLAMA_PAGED_SHAPE
+    scale = 1.0 / np.sqrt(d)
+    lens = [t] * b
+    rs = np.random.RandomState(5)
+    counters = decode_counters()
+    before = {name: c.launches for name, c in counters.items()}
+    out = {name: {"shape": shape, "max_abs_err": worst[name]["bf16"],
+                  "max_abs_err_f32": worst[name]["f32"]}
+           for name, shape in (
+               ("flash_decode", f"q [{b},{h},{d}] k/v [{b},{h},{t},{d}] "
+                                f"(repeated from {kvh} KV heads), lengths "
+                                f"{t}"),
+               ("paged_decode", f"q [{b},{h},{d}], pages [{n_pages},{kvh},"
+                                f"{pt},{d}], table [{b},{mp}], lengths "
+                                f"{t}"),
+               ("paged_decode_quant", f"q [{b},{h},{d}], int8 pages "
+                                      f"[{n_pages},{kvh},{pt},{d}] + 1 scale "
+                                      f"a row, table [{b},{mp}], lengths "
+                                      f"{t}"))}
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    mask = (torch.arange(t, device=dev)[None, :] < L[:, None])[:, None, None]
+    for dtype in (torch.float32, torch.bfloat16):
+        key = "bf16" if dtype == torch.bfloat16 else "f32"
+        itemsize = torch.finfo(dtype).bits // 8
+        # B4 on caches repeated to the query heads
+        qs = [torch.randn(b, h, d, device=dev, dtype=dtype)
+              for _ in range(TIMED_COPIES)]
+        ks = [torch.randn(b, h, t, d, device=dev, dtype=dtype)
+              for _ in range(TIMED_COPIES)]
+        vs = [torch.randn(b, h, t, d, device=dev, dtype=dtype)
+              for _ in range(TIMED_COPIES)]
+
+        def b4(i):
+            j = i % TIMED_COPIES
+            return fa.flash_decode_attention(qs[j], ks[j], vs[j], L)
+
+        def sdpa(i):
+            j = i % TIMED_COPIES
+            return F.scaled_dot_product_attention(qs[j][:, :, None], ks[j],
+                                                  vs[j], attn_mask=mask)
+
+        kernel_ms = time_ms(b4)
+        plain_ms = time_ms(lambda i: fa._decode_attention_xla(
+            qs[i % TIMED_COPIES], ks[i % TIMED_COPIES], vs[i % TIMED_COPIES],
+            L, scale), n=10)
+        library_ms = time_ms(sdpa)
+        prof_ms, seen = profiled_ms(b4, "flash_decode_kernel")
+        bound_ms, bound_by = decode_bound_ms(lens, LLAMA_DECODE_SHAPE,
+                                             itemsize)
+        print(f"time flash_decode llama {key} {list(LLAMA_DECODE_SHAPE)} "
+              f"lengths {t}: kernel {kernel_ms:.4f} ms "
+              f"({profiled_text(prof_ms, seen)}), plain {plain_ms:.4f} ms, "
+              f"library (SDPA, masked) {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        out["flash_decode"][key] = {
+            "ms": kernel_ms, "profiled_ms": prof_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        del qs, ks, vs
+        # B5 / B6 over kv_heads pages
+        copies = []
+        for _ in range(TIMED_COPIES):
+            q, k, v, table, Lp = paged_inputs(
+                dev, rs, h, kvh, d, lengths=lens, shape=LLAMA_PAGED_SHAPE,
+                dead=())
+            kq, ksc = fa.kv_quantize(k, 1)
+            vq, vsc = fa.kv_quantize(v, 1)
+            q, k, v = (x.to(dtype) for x in (q, k, v))
+            gathered = [fa.gather_pages(x, table).contiguous()
+                        for x in (k, v)]
+            dequant = [fa.kv_dequantize(fa.gather_pages(x, table),
+                                        fa.gather_pages(sc, table),
+                                        dtype).contiguous()
+                       for x, sc in ((kq, ksc), (vq, vsc))]
+            copies.append((q, k, v, table, Lp, kq, ksc, vq, vsc, gathered,
+                           dequant))
+        calls = {
+            "paged_decode": (
+                lambda c: fa.flash_paged_decode_attention(*c[:5]),
+                lambda c: fa._paged_decode_attention_xla(*c[:5], scale),
+                lambda c: F.scaled_dot_product_attention(
+                    c[0][:, :, None], *c[9], enable_gqa=True),
+                "paged_decode_kernel", itemsize),
+            "paged_decode_quant": (
+                lambda c: fa.flash_paged_decode_quant_attention(
+                    c[0], c[5], c[7], c[6], c[8], c[3], c[4]),
+                lambda c: fa._paged_decode_attention_quant_xla(
+                    c[0], c[5], c[7], c[6], c[8], c[3], c[4], scale),
+                lambda c: F.scaled_dot_product_attention(
+                    c[0][:, :, None], *c[10], enable_gqa=True),
+                "paged_decode_quant_kernel", 1 + 4 / d),
+        }
+        for name, (kernel, plain, library, symbol, kv_size) in \
+                calls.items():
+            def at(fn):
+                return lambda i: fn(copies[i % TIMED_COPIES])
+
+            kernel_ms = time_ms(at(kernel))
+            plain_ms = time_ms(at(plain), n=10)
+            library_ms = time_ms(at(library))
+            prof_ms, seen = profiled_ms(at(kernel), symbol)
+            bound_ms, bound_by = paged_bound_ms(lens, LLAMA_PAGED_SHAPE, h,
+                                                kvh, d, kv_size, itemsize)
+            read_ms, read_by = paged_bound_ms(lens, LLAMA_PAGED_SHAPE, h, h,
+                                              d, kv_size, itemsize)
+            print(f"time {name} llama 32/8 q {key}: kernel {kernel_ms:.4f} "
+                  f"ms ({profiled_text(prof_ms, seen)}), plain "
+                  f"{plain_ms:.4f} ms, library (SDPA enable_gqa on the "
+                  f"gathered cache) {library_ms:.4f} ms, bound {bound_ms:.4f}"
+                  f" ms ({bound_by}, unique KV bytes), {read_ms:.4f} ms "
+                  f"({read_by}, the bytes the kernel reads: each KV head "
+                  f"once per query head)")
+            out[name][key] = {
+                "ms": kernel_ms, "profiled_ms": prof_ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bound_read_ms": read_ms,
+                "bound_read_by": read_by}
+        del copies
+    for name, c in counters.items():
+        c.launches = before[name]  # timing runs don't count
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------- training kernels B1-B3
@@ -1323,18 +1565,18 @@ def make_prompts(vocab: int, seed: int = 0):
     return prompts
 
 
-def uncached_greedy(params, cfg, prompt, n_new: int):
-    """Greedy ids by re-running the whole sequence through gpt_apply for
-    every token (no KV cache)."""
+def uncached_greedy(params, cfg, prompt, n_new: int, apply=None):
+    """Greedy ids by re-running the whole sequence through `apply`
+    (default gpt_apply) for every token (no KV cache)."""
     from easydist_tpu_torch.models.gpt import gpt_apply
 
+    apply = apply or gpt_apply
     dev = params["wte"].device
     cur = list(prompt)
     out = []
     with torch.no_grad():
         for _ in range(n_new):
-            logits = gpt_apply(params, cfg,
-                               torch.tensor([cur], device=dev))
+            logits = apply(params, cfg, torch.tensor([cur], device=dev))
             nxt = int(torch.argmax(logits[0, len(cur) - 1]))
             out.append(nxt)
             cur.append(nxt)
@@ -1353,15 +1595,18 @@ def decode_counters():
     return {name: getattr(fa, fn) for name, fn in DECODE_KERNELS.items()}
 
 
-def serve(params, cfg, prompts, n_new: int, serve_cfg, dev, **session_kw):
+def serve(params, cfg, prompts, n_new: int, serve_cfg, dev, factory=None,
+          **session_kw):
     """Drive a session over `prompts`, every decode kernel's launch count
     set to 0 just before and read just after; returns (ids, session,
     launches by kernel, decode_rounds, seconds) for this run alone.
-    `session_kw` goes to `GenerationSession.for_gpt` (`draft_model=`)."""
+    `factory` is the session constructor (default
+    `GenerationSession.for_gpt`); `session_kw` goes to it
+    (`draft_model=`)."""
     from easydist_tpu_torch.serve import GenerationSession
 
-    sess = GenerationSession.for_gpt(params, cfg, config=serve_cfg,
-                                     device=dev, **session_kw)
+    factory = factory or GenerationSession.for_gpt
+    sess = factory(params, cfg, config=serve_cfg, device=dev, **session_kw)
     counters = decode_counters()
     for c in counters.values():
         c.launches = 0
@@ -1439,8 +1684,9 @@ def serve_phase(dev, cfg_kw=None, n_new: int = 32, serve_kw=None,
           f"{len(prompts)} requests; 1 decode signature; prefix cache hits "
           f"{hits}; launches {launches['flash_decode']} = {cfg.layers} x "
           f"{rounds} rounds")
-    serve_bf16("serve", params, cfg_kw, prompts, n_new, serve_cfg, ids,
-               "flash_decode", dev)
+    serve_bf16("serve", params, GPTConfig.small(**{**cfg_kw,
+                                                  "dtype": "bfloat16"}),
+               prompts, n_new, serve_cfg, ids, "flash_decode", dev)
     return {"launches": launches["flash_decode"], "params": params,
             "cfg_kw": cfg_kw, "serve_kw": serve_kw,
             "prompts": prompts, "n_new": n_new, "ref": ref, "ids": ids}
@@ -1451,23 +1697,24 @@ def prefix_hits(stats) -> int:
                if b["prefix_cache"])
 
 
-def serve_bf16(tag: str, params, cfg_kw, prompts, n_new: int, serve_cfg,
-               ids32, kernel: str, dev):
-    """The same weights and traffic with bf16 compute: one warm-up
-    request traces first; the kernel's launches, finite logits, tokens/s
-    and the id agreement with f32; then a profiled decode window."""
-    from easydist_tpu_torch.models.gpt import GPTConfig, gpt_apply
+def serve_bf16(tag: str, params, cfg16, prompts, n_new: int, serve_cfg,
+               ids32, kernel: str, dev, factory=None, apply=None):
+    """The same weights and traffic with bf16 compute (`cfg16`): one
+    warm-up request traces first; the kernel's launches, finite logits
+    (of `apply`, default gpt_apply), tokens/s and the id agreement with
+    f32; then a profiled decode window.  Returns the printed numbers."""
+    from easydist_tpu_torch.models.gpt import gpt_apply
 
-    cfg16 = GPTConfig.small(**{**cfg_kw, "dtype": "bfloat16"})
-    serve(params, cfg16, prompts[1:2], 2, serve_cfg, dev)
-    ids16, _, launches16, rounds16, secs16 = serve(params, cfg16, prompts,
-                                                   n_new, serve_cfg, dev)
+    apply = apply or gpt_apply
+    serve(params, cfg16, prompts[1:2], 2, serve_cfg, dev, factory)
+    ids16, _, launches16, rounds16, secs16 = serve(
+        params, cfg16, prompts, n_new, serve_cfg, dev, factory)
     check_launches(f"{tag} bf16", launches16, kernel, cfg16.layers,
                    rounds16, dev)
     with torch.no_grad():
         for p, out in zip(prompts, ids16):
             seq = torch.tensor([p + out[:-1]], device=dev)
-            if not torch.isfinite(gpt_apply(params, cfg16, seq)).all():
+            if not torch.isfinite(apply(params, cfg16, seq)).all():
                 raise AssertionError("bf16 logits are not finite")
     n16 = sum(len(x) for x in ids16)
     same = sum(a == b for x, y in zip(ids32, ids16) for a, b in zip(x, y))
@@ -1475,8 +1722,11 @@ def serve_bf16(tag: str, params, cfg_kw, prompts, n_new: int, serve_cfg,
           f"{n16 / secs16:.1f} tokens/s ({rounds16} decode rounds, "
           f"traced beforehand); logits finite; ids equal to f32 at "
           f"{same} of {n16} positions")
+    out = {"tokens_per_s": n16 / secs16, "agreement": same / n16}
     if dev.type == "cuda":
-        profile_decode(params, cfg16, serve_cfg, dev, prompts, n_new, tag)
+        out["profile"] = profile_decode(params, cfg16, serve_cfg, dev,
+                                        prompts, n_new, tag, factory=factory)
+    return out
 
 
 def paged_serve_phase(dev, ctx):
@@ -1527,8 +1777,9 @@ def paged_serve_phase(dev, ctx):
           f"copied; launches {launches['paged_decode']} = {cfg.layers} x "
           f"{rounds} rounds, B4 0; page-table audit clean; gauges "
           f"{ {k: v for k, v in stats['metrics']['gauges'].items() if k.startswith('kv_')} }")
-    serve_bf16("paged", ctx["params"], ctx["cfg_kw"], prompts, n_new,
-               serve_cfg, ids, "paged_decode", dev)
+    serve_bf16("paged", ctx["params"],
+               GPTConfig.small(**{**ctx["cfg_kw"], "dtype": "bfloat16"}),
+               prompts, n_new, serve_cfg, ids, "paged_decode", dev)
     return launches["paged_decode"], ids
 
 
@@ -1540,10 +1791,10 @@ def int8_serve_phase(dev, ctx, exact_ids):
     within 0.25 x the logit spread (tests/test_serve/test_kv_quant.py's
     bar).  The id agreement with the exact f32 ids is printed, not gated:
     random GPT-2 weights have near-tied logits.  Returns B6's launches."""
-    from easydist_tpu_torch.models.gpt import GPTConfig
+    from easydist_tpu_torch.models import gpt
     from easydist_tpu_torch.serve import ServeConfig
 
-    cfg = GPTConfig.small(**ctx["cfg_kw"])
+    cfg = gpt.GPTConfig.small(**ctx["cfg_kw"])
     serve_cfg = ServeConfig(**{**ctx["serve_kw"], "kv_layout": "paged",
                                "kv_quant_dtype": "int8"})
     prompts, n_new = ctx["prompts"], ctx["n_new"]
@@ -1567,7 +1818,9 @@ def int8_serve_phase(dev, ctx, exact_ids):
     if again != ids:
         raise AssertionError("an int8 rerun gave other ids")
     drift, spread = int8_drift(ctx["params"], cfg, prompts[3], n_new, dev,
-                               pt=serve_cfg.prefill_chunk)
+                               serve_cfg.prefill_chunk, gpt.init_kv_pages,
+                               gpt.gpt_prefill_chunk_paged,
+                               gpt.gpt_decode_step_paged)
     print(f"int8 f32: rerun ids identical; kv_quant_bytes_saved {saved}; "
           f"teacher-forced drift {drift:.4e} against logit spread "
           f"{spread:.4e} (bar 0.25 x spread = {0.25 * spread:.4e})")
@@ -1582,25 +1835,25 @@ def int8_serve_phase(dev, ctx, exact_ids):
     return launches["paged_decode_quant"]
 
 
-def int8_drift(params, cfg, prompt, n_new: int, dev, pt: int):
+def int8_drift(params, cfg, prompt, n_new: int, dev, pt: int, init_pages,
+               prefill_chunk_paged, decode_step_paged):
     """Teacher-forced paged run, exact arena against int8 arena, at the
-    model level: prefill `prompt` in page-sized chunks, then decode
-    n_new - 1 steps feeding the exact arm's greedy tokens to both.
-    Returns (max |logit difference| over all steps, max logit spread of
-    the exact arm)."""
-    from easydist_tpu_torch.models import gpt
-
+    model level, through the model's own `init_kv_pages`, paged chunk
+    prefill and paged decode step: prefill `prompt` in page-sized chunks,
+    then decode n_new - 1 steps feeding the exact arm's greedy tokens to
+    both.  Returns (max |logit difference| over all steps, max logit
+    spread of the exact arm)."""
     n_pages = -(-(len(prompt) + n_new) // pt)
     table = torch.arange(n_pages, dtype=torch.int32, device=dev)[None]
     logits = {}
     forced = None
     with torch.no_grad():
         for quant in (None, "int8"):
-            pages = gpt.init_kv_pages(cfg, n_pages, pt, quant_dtype=quant,
-                                      device=dev)
+            pages = init_pages(cfg, n_pages, pt, quant_dtype=quant,
+                               device=dev)
             toks = list(prompt) + [0] * pt
             for c0 in range(0, len(prompt), pt):
-                pages, lg = gpt.gpt_prefill_chunk_paged(
+                pages, lg = prefill_chunk_paged(
                     params, cfg, pages, table,
                     torch.tensor([toks[c0:c0 + pt]], device=dev),
                     torch.tensor([c0], device=dev),
@@ -1608,7 +1861,7 @@ def int8_drift(params, cfg, prompt, n_new: int, dev, pt: int):
             steps = [lg[0]]
             cur = [int(torch.argmax(lg[0]))] if forced is None else forced
             for i in range(n_new - 1):
-                pages, lg = gpt.gpt_decode_step_paged(
+                pages, lg = decode_step_paged(
                     params, cfg, pages, table,
                     torch.tensor([cur[i]], device=dev),
                     torch.tensor([len(prompt) + i], device=dev))
@@ -1624,16 +1877,17 @@ def int8_drift(params, cfg, prompt, n_new: int, dev, pt: int):
 
 
 def profile_decode(params, cfg, serve_cfg, dev, prompts, n_new: int,
-                   tag: str, rounds: int = 8):
+                   tag: str, rounds: int = 8, factory=None):
     """Device time of decode-only rounds (all 8 slots live, prefills
     done) under torch.profiler: ms per round on the host clock, device
-    busy ms per round (sum of kernel times), and the largest kernels."""
+    busy ms per round (sum of kernel times), and the largest kernels.
+    Returns (host ms, busy ms) a round."""
     from torch.profiler import ProfilerActivity, profile
 
     from easydist_tpu_torch.serve import GenerationSession
 
-    sess = GenerationSession.for_gpt(params, cfg, config=serve_cfg,
-                                     device=dev)
+    factory = factory or GenerationSession.for_gpt
+    sess = factory(params, cfg, config=serve_cfg, device=dev)
     for p in prompts[:serve_cfg.max_decode_slots]:
         sess.submit(p, max_new_tokens=n_new)
     while sess._pending or any(p.jobs for p in sess._pools.values()):
@@ -1663,6 +1917,7 @@ def profile_decode(params, cfg, serve_cfg, dev, prompts, n_new: int,
     for name, ms in top:
         print(f"  {ms:8.4f} ms/round  {name[:90]}")
     sess.run_until_drained()
+    return wall_ms, busy
 
 
 # ------------------------------------------------ speculation (phase 11)
@@ -1692,6 +1947,31 @@ def check_ids(tag: str, ids, *refs):
         if bad or len(ids) != len(ref):
             raise AssertionError(f"{tag}: ids differ from {name} in "
                                  f"requests {bad}")
+
+
+@contextlib.contextmanager
+def drafter_b4_launches():
+    """Counts B4's launches made inside `SmallModelDrafter._feed` (the
+    draft model's decode steps) while the block runs; yields a
+    one-element list that the count accumulates in."""
+    from easydist_tpu_torch.ops import flash_attention as fa
+    from easydist_tpu_torch.serve import speculate
+
+    feed = speculate.SmallModelDrafter._feed
+    count = [0]
+
+    def counted_feed(self, st, token, pos):
+        before = fa.flash_decode_attention.launches
+        try:
+            return feed(self, st, token, pos)
+        finally:
+            count[0] += fa.flash_decode_attention.launches - before
+
+    speculate.SmallModelDrafter._feed = counted_feed
+    try:
+        yield count
+    finally:
+        speculate.SmallModelDrafter._feed = feed
 
 
 def spec_counts(sess):
@@ -1756,8 +2036,7 @@ def spec_phase(dev, cfg_kw=None, n_new: int = 32, serve_kw=None,
     launches in (a) and B5's in (b)."""
     from easydist_tpu_torch.kv import audit_page_table
     from easydist_tpu_torch.models.gpt import GPTConfig, gpt_init
-    from easydist_tpu_torch.ops import flash_attention as fa
-    from easydist_tpu_torch.serve import ServeConfig, speculate
+    from easydist_tpu_torch.serve import ServeConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t_phase = time.perf_counter()
@@ -1832,25 +2111,12 @@ def spec_phase(dev, cfg_kw=None, n_new: int = 32, serve_kw=None,
     del sess, pool
 
     # (c) bucketed, the target's own weights as the draft model
-    feed = speculate.SmallModelDrafter._feed
-    drafter_launches = [0]
-
-    def counted_feed(self, st, token, pos):
-        before = fa.flash_decode_attention.launches
-        try:
-            return feed(self, st, token, pos)
-        finally:
-            drafter_launches[0] += fa.flash_decode_attention.launches - before
-
     draft_cfg = ServeConfig(**{**serve_kw, "speculate_k": SPEC_K,
                                "speculate_drafter": "draft_model"})
-    speculate.SmallModelDrafter._feed = counted_feed
-    try:
+    with drafter_b4_launches() as drafter_launches:
         ids, sess, launches, rounds, secs = serve(
             params, cfg, prompts, n_new, draft_cfg, dev,
             draft_model=(params, cfg))
-    finally:
-        speculate.SmallModelDrafter._feed = feed
     counts = spec_counts(sess)
     drafter = sess._drafter
     check_ids("spec 11c", ids, *refs)
@@ -4238,6 +4504,10 @@ def pp_tp_phase(dev, cfg, batch, seed, M=4):
             peak = torch.cuda.max_memory_allocated() if on_card else None
             s = prep.pp.index
             flash = _flash_nodes(compiled.stage_plan.stage_nodes[s])
+            if tp and flash == 0:
+                raise AssertionError(f"15c rank {rank}: stage {s} holds no "
+                                     f"flash attention node, so its gate "
+                                     f"would check no kernel")
             got = _launch_counts()
             key = f"rank{rank}" + ("" if tp else "_no_tp")
             out[key] = dict(peak=peak, build_s=build_s, secs=secs,
@@ -4353,23 +4623,27 @@ def mesh_serve_phase(dev, ctx):
     return launches, out
 
 
-def tail_phase(dev, ctx, cfg_kw=None, batch: int = 8, seed: int = 0):
+def tail_phase(dev, ctx, cfg_kw=None, remat_kw=None, batch: int = 8,
+               seed: int = 0):
     """Phase 15: compiler-chosen remat under a cap (15a), GPTConfig.remat
     and scan_layers (15b), tp_axes inside pipeline stages (15c) on GPT-2
     small's f32 flash workload, and sessions over a mesh (15d) on phase
-    4's.  Returns the B1-B3 launches by run and B4 / B5's in 15d.  The
-    arguments shrink it for a rehearsal on the CPU."""
+    4's.  `remat_kw` overrides the config of 15a-b alone (a cut of their
+    depth; 15c's two stages each need flash blocks).  Returns the B1-B3
+    launches by run and B4 / B5's in 15d.  The arguments shrink it for a
+    rehearsal on the CPU."""
     from easydist_tpu_torch.models.gpt import GPTConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = GPTConfig(**{**PP_KW, **(cfg_kw or {})})
+    remat_cfg = GPTConfig(**{**PP_KW, **(cfg_kw or {}), **(remat_kw or {})})
     t_phase = time.perf_counter()
     t = time.perf_counter()
-    cap = remat_cap_phase(dev, cfg, batch, seed)
+    cap = remat_cap_phase(dev, remat_cfg, batch, seed)
     times = {"15a": time.perf_counter() - t}
     t = time.perf_counter()
-    modes, _ = remat_config_phase(dev, cfg, batch, seed)
+    modes, _ = remat_config_phase(dev, remat_cfg, batch, seed)
     times["15b"] = time.perf_counter() - t
     t = time.perf_counter()
     launches_tp, tp = pp_tp_phase(dev, cfg, batch, seed)
@@ -5072,16 +5346,558 @@ def runtime_phase(dev, cfg_kw=None, batch: int = 8, seed: int = 0,
     return launches, out
 
 
+# ------------------------------------------------ Llama-3-8B (phase 17)
+
+# Meta's config.json for meta-llama/Meta-Llama-3-8B, typed in (nothing is
+# downloaded): 32 query heads over 8 KV heads at head_dim 128.  The JAX
+# model's RMSNorm eps (1e-5) is Llama-3's; its LM head is tied to wte, so
+# this is 7.50 B parameters, 30.0 GB in f32
+LLAMA3_8B = dict(vocab=128256, seq=8192, dim=4096, heads=32, kv_heads=8,
+                 layers=32, ffn_dim=14336, rope_theta=500000.0)
+# 17e: the small draft model, the same widths at 2 layers (another seed);
+# the self-drafting arms serve only the prompts of this many tokens or
+# fewer, since the drafter catches up on a prompt one token at a time
+# (a 32-layer step each)
+LLAMA_DRAFT_LAYERS = 2
+SELF_DRAFT_MAX_PROMPT = 128
+# 17f: the same widths with 2 layers, Adam
+LLAMA_TRAIN = dict(layers=2, batch=2, seq=1024, steps=3)
+
+
+def llama_forced_check(tag: str, params, cfg, prompts, ids, dev):
+    """Every request's ids against one teacher-forced `llama_apply` over
+    prompt + ids: the argmax at each position must be the next id.  On a
+    mismatch the top-2 gap there is printed and the request is re-checked
+    by growing forwards (`uncached_greedy`), which must then equal it.
+    Returns the requests re-checked."""
+    from easydist_tpu_torch.models.llama import llama_apply
+
+    regrown = []
+    with torch.no_grad():
+        for i, (p, out) in enumerate(zip(prompts, ids)):
+            seq = torch.tensor([p + out[:-1]], device=dev)
+            logits = llama_apply(params, cfg, seq)[0, len(p) - 1:]
+            want = logits.argmax(-1).tolist()
+            if want == out:
+                continue
+            j = next(k for k, (a, b) in enumerate(zip(want, out)) if a != b)
+            top = logits[j].topk(2).values
+            print(f"{tag}: request {i} leaves the teacher-forced argmax at "
+                  f"token {j} (top-2 gap {float(top[0] - top[1]):.3e}); "
+                  f"re-checking by growing forwards")
+            grown = uncached_greedy(params, cfg, p, len(out),
+                                    apply=llama_apply)
+            if grown != out:
+                raise AssertionError(f"{tag}: request {i}'s ids differ from "
+                                     f"the uncached reference")
+            regrown.append(i)
+    return regrown
+
+
+def llama_spec_launches(tag, launches, rounds, feeds, drafter_launches,
+                        layers: int, draft_layers: int, paged: bool, dev):
+    """Phase 11's formula with a draft model of other depth: the target's
+    kernel launches layers x plain rounds (B4 bucketed, B5 paged), the
+    drafter's B4 draft_layers x feeds, nothing else."""
+    on_card = dev.type == "cuda"
+    want = {name: 0 for name in DECODE_KERNELS}
+    if on_card:
+        want["paged_decode" if paged else "flash_decode"] += layers * rounds
+        want["flash_decode"] += draft_layers * feeds
+    if launches != want or drafter_launches != (draft_layers * feeds
+                                                if on_card else 0):
+        raise AssertionError(f"{tag}: launches {launches} (drafter "
+                             f"{drafter_launches}), expected {want}")
+
+
+def llama_phase(dev, cfg_kw=None, n_new: int = 32, serve_kw=None,
+                seed: int = 0, prompts=None, train_kw=None):
+    """Phase 17: a Llama at Llama-3-8B's published widths and full depth
+    (random f32 weights from a seeded generator) through
+    `GenerationSession.for_llama`, phase 4's traffic and config.  (a)
+    bucketed f32: ids equal the teacher-forced reference, one decode
+    signature, the prefix cache hits, B4 32 x rounds (B5, B6 none), then
+    a profiled f32 decode window on the card; (b)
+    paged f32: ids equal (a)'s, one decode and one prefill signature, B5
+    32 x rounds, the page-table audit clean after the drain; (c) int8
+    pages f32: B6 32 x rounds, a rerun gives identical ids,
+    `kv_quant_bytes_saved` > 0, teacher-forced drift against exact pages
+    within 0.25 x the logit spread; (d) bf16 on both layouts: finite
+    logits, tokens/s, host ms and device busy share of a profiled decode
+    window, the id agreement with f32, and the ms of the GQA repeat the
+    bucketed step pays; (e) speculate_k=4 on both layouts, with a 2-layer
+    llama of the same widths (another seed) as the draft model, and with
+    the target drafting for itself on the prompts of at most
+    SELF_DRAFT_MAX_PROMPT tokens (at least one draft accepted): ids equal
+    (a)'s, one verify signature, launches by phase 11's formula; (f)
+    `make_llama_train_step` at the same widths with 2 layers, batch 2,
+    seq 1024: 3 compiled steps equal 3 uncompiled at rtol 1e-4.  The
+    arguments shrink it for a rehearsal on the CPU.  Returns the launches
+    of (a)-(c), (e)'s, and the printed numbers."""
+    import dataclasses
+    import gc
+    import itertools
+
+    from torch.utils import _pytree as pytree
+
+    from easydist_tpu_torch.kv import audit_page_table
+    from easydist_tpu_torch.models import llama
+    from easydist_tpu_torch.serve import GenerationSession, ServeConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    times, out = {}, {}
+    cfg_kw = {**LLAMA3_8B, **(cfg_kw or {})}
+    cfg = llama.LlamaConfig(**cfg_kw, dtype="float32")
+    serve_kw = serve_kw or SERVE_KW
+    factory = GenerationSession.for_llama
+    params = llama.llama_init(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    n_params = sum(x.numel() for x in pytree.tree_leaves(params))
+    prompts = prompts or make_prompts(cfg.vocab, seed)
+    print(f"llama: {n_params / 1e9:.3f} B parameters "
+          f"({4 * n_params / 1e9:.2f} GB f32), {cfg}")
+
+    # (a) bucketed, f32
+    t = time.perf_counter()
+    ids, sess, launches, rounds, secs = serve(
+        params, cfg, prompts, n_new, ServeConfig(**serve_kw), dev, factory)
+    stats = sess.stats()
+    t_ref = time.perf_counter()
+    regrown = llama_forced_check("llama 17a", params, cfg, prompts, ids, dev)
+    ref_s = time.perf_counter() - t_ref
+    if stats["decode_signatures"]["size"] != 1:
+        raise AssertionError(f"llama 17a decode signatures "
+                             f"{stats['decode_signatures']}")
+    hits = prefix_hits(stats)
+    if hits <= 0:
+        raise AssertionError("llama 17a: the prefix cache never hit")
+    check_launches("llama 17a", launches, "flash_decode", cfg.layers, rounds,
+                   dev)
+    out["flash_decode"] = launches["flash_decode"]
+    print(f"llama 17a bucketed f32: {len(prompts)} requests, "
+          f"{sum(map(len, ids))} tokens, {rounds} decode rounds, {secs:.2f} s "
+          f"incl. tracing; ids equal the teacher-forced reference for all "
+          f"{len(prompts)} requests ({ref_s:.2f} s; re-checked by growing "
+          f"forwards: {regrown}); 1 decode signature; prefix hits {hits}; "
+          f"B4 {launches['flash_decode']} = {cfg.layers} x {rounds} rounds, "
+          f"B5 and B6 0")
+    del sess
+    if on_card:
+        out["profile_f32"] = profile_decode(
+            params, cfg, ServeConfig(**serve_kw), dev, prompts, n_new,
+            "llama bucketed f32", factory=factory)
+    times["17a"] = time.perf_counter() - t
+
+    # (b) paged, f32
+    t = time.perf_counter()
+    paged_cfg = ServeConfig(**{**serve_kw, "kv_layout": "paged"})
+    ids_b, sess, launches, rounds, secs = serve(params, cfg, prompts, n_new,
+                                                paged_cfg, dev, factory)
+    check_ids("llama 17b", ids_b, ("17a's ids", ids))
+    stats = sess.stats()
+    sigs = (stats["decode_signatures"]["size"],
+            stats["prefill_signatures"]["size"])
+    if sigs != (1, 1):
+        raise AssertionError(f"llama 17b decode/prefill signatures {sigs}")
+    check_launches("llama 17b", launches, "paged_decode", cfg.layers, rounds,
+                   dev)
+    pool = next(iter(sess._pools.values()))
+    problems = audit_page_table(pool.pool, pool.table, trie=pool.trie)
+    if problems or pool.table.n_mapped(0) or pool.jobs or pool.slots:
+        raise AssertionError(f"llama 17b page table after drain: {problems}")
+    out["paged_decode"] = launches["paged_decode"]
+    print(f"llama 17b paged f32: ids equal 17a's for all {len(prompts)} "
+          f"requests; 1 decode and 1 prefill signature; B5 "
+          f"{launches['paged_decode']} = {cfg.layers} x {rounds} rounds, B4 "
+          f"0; page-table audit clean; arena "
+          f"{tuple(pool.arena['k'].shape)}; {secs:.2f} s incl. tracing")
+    del sess, pool
+    times["17b"] = time.perf_counter() - t
+
+    # (c) int8 pages, f32
+    t = time.perf_counter()
+    q_cfg = ServeConfig(**{**serve_kw, "kv_layout": "paged",
+                           "kv_quant_dtype": "int8"})
+    ids_c, sess, launches, rounds, secs = serve(params, cfg, prompts, n_new,
+                                                q_cfg, dev, factory)
+    pool = next(iter(sess._pools.values()))
+    dtypes = {k: x.dtype for k, x in pool.arena.items()}
+    if dtypes != {"k": torch.int8, "v": torch.int8,
+                  "k_scale": torch.float32, "v_scale": torch.float32}:
+        raise AssertionError(f"llama 17c arena dtypes {dtypes}")
+    check_launches("llama 17c", launches, "paged_decode_quant", cfg.layers,
+                   rounds, dev)
+    saved = sess.metrics.snapshot()["gauges"].get("kv_quant_bytes_saved", 0)
+    if saved <= 0:
+        raise AssertionError(f"llama 17c kv_quant_bytes_saved {saved}")
+    del sess, pool
+    again, *_ = serve(params, cfg, prompts, n_new, q_cfg, dev, factory)
+    if again != ids_c:
+        raise AssertionError("llama 17c: an int8 rerun gave other ids")
+    drift, spread = int8_drift(params, cfg, prompts[3], n_new, dev,
+                               serve_kw["prefill_chunk"], llama.init_kv_pages,
+                               llama.llama_prefill_chunk_paged,
+                               llama.llama_decode_step_paged)
+    if not drift <= 0.25 * spread:
+        raise AssertionError(f"llama 17c int8 drift {drift} > 0.25 x "
+                             f"{spread}")
+    out["paged_decode_quant"] = launches["paged_decode_quant"]
+    n = sum(map(len, ids_c))
+    same = sum(a == b for x, y in zip(ids, ids_c) for a, b in zip(x, y))
+    print(f"llama 17c int8 f32: rerun ids identical; kv_quant_bytes_saved "
+          f"{saved}; teacher-forced drift {drift:.4e} against logit spread "
+          f"{spread:.4e} (bar {0.25 * spread:.4e}); B6 "
+          f"{launches['paged_decode_quant']} = {cfg.layers} x {rounds} "
+          f"rounds, B4 and B5 0; ids equal the exact ones at {same} of {n} "
+          f"positions")
+    times["17c"] = time.perf_counter() - t
+
+    # (d) bf16, both layouts, and the GQA repeat the bucketed step pays
+    t = time.perf_counter()
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    out["bf16"] = {}
+    for layout, kernel in (("bucketed", "flash_decode"),
+                           ("paged", "paged_decode")):
+        sc = ServeConfig(**{**serve_kw, "kv_layout": layout})
+        out["bf16"][layout] = serve_bf16(
+            f"llama {layout}", params, cfg16, prompts, n_new, sc, ids,
+            kernel, dev, factory=factory, apply=llama.llama_apply)
+    if on_card:
+        b, s_, t_ = SERVE_KW["max_decode_slots"], cfg.kv_heads, 1024
+        hd = cfg.dim // cfg.heads
+        rep = cfg.heads // cfg.kv_heads
+        out["repeat_ms"] = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            cache = [torch.randn(b, s_, t_, hd, device=dev, dtype=dtype)
+                     for _ in range(TIMED_COPIES)]
+            ms = time_ms(lambda i: cache[i % TIMED_COPIES].repeat_interleave(
+                rep, dim=1))
+            out["repeat_ms"][str(dtype)[6:]] = ms
+            nbytes = b * s_ * t_ * hd * (torch.finfo(dtype).bits // 8) \
+                * (1 + rep)
+            print(f"llama 17d GQA repeat {str(dtype)[6:]} [{b},{s_},{t_},"
+                  f"{hd}] -> {rep}x: {ms:.4f} ms a tensor, {2 * ms:.4f} ms "
+                  f"a layer (K and V), {2 * cfg.layers * ms:.3f} ms a decode "
+                  f"round; bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms a "
+                  f"tensor (bytes)")
+            del cache
+    times["17d"] = time.perf_counter() - t
+
+    # (e) speculation: a 2-layer llama of the same widths as drafter, and
+    # the target drafting for itself so that drafts are accepted
+    t = time.perf_counter()
+    dcfg = dataclasses.replace(cfg, layers=LLAMA_DRAFT_LAYERS)
+    dparams = llama.llama_init(
+        dcfg, torch.Generator(device=dev).manual_seed(seed + 1), device=dev)
+    short = [i for i, p in enumerate(prompts)
+             if len(p) <= SELF_DRAFT_MAX_PROMPT]
+    out["spec"] = {"bucketed": {}, "paged": {}}
+    for layout, drafter in itertools.product(out["spec"], ("small", "self")):
+        if drafter == "small":
+            dp, dc, arm = dparams, dcfg, range(len(prompts))
+        else:
+            dp, dc, arm = params, cfg, short
+        sc = ServeConfig(**{**serve_kw, "kv_layout": layout,
+                            "speculate_k": SPEC_K,
+                            "speculate_drafter": "draft_model"})
+        with drafter_b4_launches() as drafter_launches:
+            ids_e, sess, launches, rounds, secs = serve(
+                params, cfg, [prompts[i] for i in arm], n_new, sc, dev,
+                factory, draft_model=(dp, dc))
+        tag = f"llama 17e {layout} {drafter}-draft"
+        check_ids(tag, ids_e, ("17a's ids", [ids[i] for i in arm]))
+        counts = spec_counts(sess)
+        sigs = sess.stats()["verify_signatures"]
+        if counts["verify_rounds"] < 1 or sigs["size"] != 1:
+            raise AssertionError(f"{tag}: {counts}, verify signatures "
+                                 f"{sigs}")
+        if drafter == "self" and counts["accepted"] < 1:
+            raise AssertionError(f"{tag}: no draft accepted {counts}")
+        feeds = sess._drafter.feeds
+        llama_spec_launches(tag, launches, rounds, feeds,
+                            drafter_launches[0], cfg.layers, dc.layers,
+                            layout == "paged", dev)
+        out["spec"][layout][drafter] = launches
+        print(f"{tag} ({dc.layers} layers): ids equal 17a's for all "
+              f"{len(arm)} requests; {counts}; 1 verify signature; "
+              f"{rounds} plain rounds, {feeds} draft feeds, launches "
+              f"{launches} (drafter's B4 {drafter_launches[0]} = "
+              f"{dc.layers} x {feeds}); {secs:.2f} s incl. tracing")
+        del sess
+    del dparams, params, dp
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        print(f"llama: {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+              f"allocated after the serving arms")
+    times["17e"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    out["train"] = llama_train_phase(dev, cfg_kw, seed,
+                                     **{**LLAMA_TRAIN, **(train_kw or {})})
+    times["17f"] = time.perf_counter() - t
+    print(f"llama phase: {time.perf_counter() - t_phase:.1f} s "
+          f"{ {k: round(v, 1) for k, v in times.items()} }")
+    return out
+
+
+def llama_train_phase(dev, cfg_kw, seed: int, layers: int, batch: int,
+                      seq: int, steps: int):
+    """17f: `make_llama_train_step` (f32, TF32 off) at `cfg_kw`'s widths
+    with `layers` layers: `steps` compiled steps against as many
+    uncompiled ones from the same state, rtol 1e-4.  Returns the losses
+    and the compiled step's ms."""
+    from torch.utils import _pytree as pytree
+
+    from easydist_tpu_torch.fxfront import easydist_compile
+    from easydist_tpu_torch.models.llama import (LlamaConfig,
+                                                 make_llama_train_step)
+
+    cfg = LlamaConfig(**{**cfg_kw, "layers": layers, "dtype": "float32"})
+    step, init = make_llama_train_step(cfg, lr=1e-4)
+    state = init(torch.Generator(device=dev).manual_seed(seed + 2),
+                 device=dev)
+    n_params = sum(x.numel() for x in pytree.tree_leaves(state[0]))
+    rs = np.random.RandomState(seed + 3)
+    tokens = torch.as_tensor(rs.randint(0, cfg.vocab, (batch, seq)),
+                             device=dev)
+    targets = torch.as_tensor(rs.randint(0, cfg.vocab, (batch, seq)),
+                              device=dev)
+    eager_state = pytree.tree_map(torch.clone, state)
+    compiled = easydist_compile(step, mesh=dev)
+    losses = []
+    t0 = time.perf_counter()
+    state, loss = compiled(state, tokens, targets)
+    losses.append(float(loss))
+    trace_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        state, loss = compiled(state, tokens, targets)
+        losses.append(float(loss))
+    step_ms = (time.perf_counter() - t0) * 1e3 / max(1, steps - 1)
+    del state
+    eager = []
+    for _ in range(steps):
+        eager_state, loss = step(eager_state, tokens, targets)
+        eager.append(float(loss))
+    peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else None)
+    print(f"llama 17f train f32 ({layers} layers, {n_params / 1e9:.3f} B "
+          f"parameters with Adam, batch {batch}, seq {seq}): compiled losses "
+          f"{losses}, uncompiled {eager}; first step {trace_s:.2f} s incl. "
+          f"tracing, then {step_ms:.1f} ms a step; peak "
+          f"{peak if peak is None else round(peak, 2)} GB")
+    np.testing.assert_allclose(losses, eager, rtol=1e-4,
+                               err_msg="llama compiled train step != "
+                                       "uncompiled")
+    if compiled.cache_stats()["size"] != 1:
+        raise AssertionError(f"llama 17f signatures {compiled.cache_stats()}")
+    print(f"llama 17f: compiled equals uncompiled at rtol 1e-4 over {steps} "
+          f"steps (bitwise: {losses == eager}); 1 signature")
+    return {"losses": losses, "eager": eager, "step_ms": step_ms}
+
+
+# ------------------------------ restore across a topology change (phase 18)
+
+# (mode, world) of the gloo CPU ranks that save phase 16's GPT-2 small
+# f32 Adam state
+RESHARD_SAVES = (("zero2", 4), ("zero3", 2))
+
+
+def reshard_full_state(cfg, seed: int):
+    """GPT-2 small's f32 Adam state, whole, from a seed, on the CPU:
+    (params, {"mu", "nu"}, count) with params from `gpt_init`, moments
+    made from them (mu = 0.1 p, nu = p^2: one draw, distinct values),
+    count 7."""
+    from torch.utils import _pytree as pytree
+
+    from easydist_tpu_torch.models.gpt import gpt_init
+
+    params = gpt_init(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    return (params, {"mu": pytree.tree_map(lambda p: p * 0.1, params),
+                     "nu": pytree.tree_map(torch.square, params)},
+            torch.tensor(7, dtype=torch.int32))
+
+
+def reshard_rank_state(full, mode: str, world: int, rank: int):
+    """This rank's blocks of the whole state under `mode` on `world`
+    ranks, with the layout `parallel.dp.dp_state_layout` states (zero2's
+    moment blocks as [1, d0/n, ...])."""
+    from torch.utils import _pytree as pytree
+
+    from easydist_tpu_torch.parallel import dp_state_layout
+    from easydist_tpu_torch.reshard import device_windows
+    from easydist_tpu_torch.reshard.plan import flatten_layout
+
+    layout = dp_state_layout(full[0], mode, world)
+    leaves, spec = pytree.tree_flatten(full)
+    local = []
+    for x, lay in zip(leaves, flatten_layout(layout, spec)):
+        if len(lay) > 2:
+            (lo, hi), *_ = device_windows(lay[2], lay[0], lay[1])[rank]
+            x = x[lo:hi]
+            x = x[None] if mode == "zero2" else x
+        local.append(x.clone())
+    return pytree.tree_unflatten(local, spec), layout
+
+
+def _reshard_save_rank(rank: int, world: int, mode: str, root: str,
+                       cfg_kw, seed: int, port: int):
+    """A gloo CPU rank of phase 18: its blocks of the seeded state, saved
+    with their layout through one commit."""
+    import torch.distributed as dist
+
+    from easydist_tpu_torch.models.gpt import GPTConfig
+    from easydist_tpu_torch.runtime.checkpoint import save_checkpoint
+
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        full = reshard_full_state(GPTConfig(**cfg_kw), seed)
+        local, layout = reshard_rank_state(full, mode, world, rank)
+        del full
+        save_checkpoint(root, local, step=1, layout=layout)
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def reshard_phase(dev, cfg_kw=None, seed: int = 0, root=None):
+    """Phase 18: phase 16's GPT-2 small f32 Adam state (params and
+    moments from a seed) saved by gloo CPU ranks spawned here, under zero2
+    on 4 ranks and under zero3 on 2, each restored on the card as one
+    rank: every leaf bitwise the one-device state of the same seed, the
+    device memory allocated above the restored state (and the template)
+    within the plan's `chunked_bound()`; restore seconds, GB/s,
+    `peak_live_bytes`.  Then the `elastic.restore.oom` drill: the chunk
+    halves and the restore stays bitwise.  The arguments shrink it for a
+    rehearsal on the CPU."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from torch.utils import _pytree as pytree
+
+    from easydist_tpu_torch import config as edconfig
+    from easydist_tpu_torch.models.gpt import GPTConfig
+    from easydist_tpu_torch.resilience import fault_plan
+    from easydist_tpu_torch.runtime import checkpoint as ck
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    cfg_kw = {**PP_KW, **(cfg_kw or {})}
+    cfg_kw.pop("attention", None)
+    base = root or tempfile.mkdtemp(prefix="reshard_", dir=".")
+    full = reshard_full_state(GPTConfig(**cfg_kw), seed)
+    ref = pytree.tree_map(lambda x: x.to(dev), full)
+    del full
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in pytree.tree_leaves(ref))
+    out = {}
+    try:
+        # both worlds save at once (6 gloo processes on the host's cores)
+        t = time.perf_counter()
+        saves = [mp.spawn(_reshard_save_rank,
+                          args=(world, mode, os.path.join(
+                              base, f"{mode}_w{world}"), cfg_kw, seed,
+                              _free_port()), nprocs=world, join=False)
+                 for mode, world in RESHARD_SAVES]
+        for save in saves:
+            while not save.join():
+                pass
+        save_s = time.perf_counter() - t
+        print(f"reshard 18: the gloo ranks of both worlds saved in "
+              f"{save_s:.2f} s incl. spawning")
+        for mode, world in RESHARD_SAVES:
+            root_m = os.path.join(base, f"{mode}_w{world}")
+            like = pytree.tree_map(torch.zeros_like, ref)
+            if on_card:
+                torch.cuda.synchronize()
+                floor = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            back = ck.load_checkpoint(root_m, like)
+            rep = dict(ck.last_restore_report())
+            above = (torch.cuda.max_memory_allocated(dev) - floor - nbytes
+                     if on_card else None)
+            same = _bitwise_tree(back, ref)
+            gbps = nbytes / rep["load_s"] / 1e9
+            print(f"reshard 18 {mode} saved on {world} gloo ranks -> 1 "
+                  f"rank on {dev.type}: "
+                  f"bitwise the one-device state {same}; restore "
+                  f"{rep['verify_s'] + rep['load_s']:.2f} s (verify "
+                  f"{rep['verify_s']:.2f}, load {rep['load_s']:.2f}: "
+                  f"{gbps:.3f} GB/s for {nbytes / 1e9:.3f} GB); "
+                  f"{rep['files_opened']} files, {rep['n_planned']} leaves "
+                  f"planned, topology shift {rep['topology_shift']}; plan "
+                  f"peak_live_bytes {rep['peak_live_bytes']}, chunked_bound "
+                  f"{rep['chunked_bound']}, chunk {rep['chunk_bytes']}; "
+                  f"allocated above the restored state {above}")
+            if not same or not rep["topology_shift"]:
+                raise AssertionError(f"reshard 18 {mode}: bitwise {same}, "
+                                     f"shift {rep['topology_shift']}")
+            if on_card and above > rep["chunked_bound"]:
+                raise AssertionError(f"reshard 18 {mode}: {above} B above "
+                                     f"the restored state, over the bound "
+                                     f"{rep['chunked_bound']}")
+            out[mode] = {"save_s": save_s, "verify_s": rep["verify_s"],
+                         "load_s": rep["load_s"], "gb_per_s": gbps,
+                         "above": above,
+                         "peak_live_bytes": rep["peak_live_bytes"],
+                         "chunked_bound": rep["chunked_bound"]}
+            del back, like
+        like = pytree.tree_map(torch.zeros_like, ref)
+        with fault_plan("elastic.restore.oom@1"):
+            back = ck.load_checkpoint(os.path.join(base, "zero2_w4"), like,
+                                      verify=False)
+        rep = ck.last_restore_report()
+        halved = (rep["chunk_bytes"] == edconfig.reshard_chunk_bytes // 2
+                  and [a["outcome"] for a in rep["attempts"]]
+                  == ["oom", "landed"])
+        same = _bitwise_tree(back, ref)
+        print(f"reshard 18 elastic.restore.oom drill: attempts "
+              f"{rep['attempts']}; chunk halved {halved}; bitwise {same}")
+        if not (halved and same):
+            raise AssertionError("reshard 18: the oom drill did not halve "
+                                 "the chunk or lost bits")
+    finally:
+        if root is None:
+            shutil.rmtree(base, ignore_errors=True)
+    print(f"reshard phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# Phases 11-13, 15a-b and 16 run GPT-2 small's widths at 6 layers in the
+# whole script (their gates follow cfg.layers; phase 14's 4-stage splits,
+# 15c's two stages, each of which must hold blocks, and 15d's use of phase
+# 4's sessions keep 12): phases 17-18 would otherwise take the script past
+# 800 s of its 1200 s limit
+CUT_DEPTH = dict(layers=6)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def mark(phase: str):
+        print(f"chip_smoke: {phase} done at "
+              f"{time.perf_counter() - t_start:.1f} s")
+
     print(card_line())
     build_kernels()
     entry = kernel_phase(dev)
     paged_entries = paged_kernel_phase(dev)
     train_entries = train_kernel_phase(dev)
+    llama_kernels = llama_kernel_phase(dev)
+    for e in (entry, *paged_entries):
+        e["llama"] = llama_kernels[e["name"]]
+    mark("phases 1-3")
     ctx = serve_phase(dev)
     entry["launches"] = ctx["launches"]
     paged_entries[0]["launches"], paged_ids = paged_serve_phase(dev, ctx)
@@ -5091,26 +5907,31 @@ def main() -> int:
     mesh_ctx["paged_ids"] = paged_ids
     del ctx
     torch.cuda.empty_cache()
+    mark("phases 4-6")
     launches, bf16_launches, f32_losses = train_phase(dev)
     for e in train_entries:
         e["launches"] = launches[e["name"]]
         e["launches_bf16"] = bf16_launches[e["name"]]
+    mark("phase 7")
     torch.cuda.empty_cache()
     sharding_phase(dev)
     flash_out = frontend_phase(dev, f32_losses)
     ring = attention_phase(dev, flash_out)["long"]["runs"][0]["launches"]
     for e in train_entries:
         e["launches_ring_rank0"] = ring[e["name"]]
+    mark("phases 8-10")
     torch.cuda.empty_cache()
-    spec = spec_phase(dev)
+    spec = spec_phase(dev, cfg_kw=CUT_DEPTH)
     entry["launches_spec"] = spec["a"]
     paged_entries[0]["launches_spec"] = spec["b"]
     torch.cuda.empty_cache()
-    tier = tier_phase(dev)
+    tier = tier_phase(dev, cfg_kw=CUT_DEPTH)
     paged_entries[0]["launches_tier"] = tier["paged_decode"]
     paged_entries[1]["launches_tier"] = tier["paged_decode_quant"]
     torch.cuda.empty_cache()
-    train_entries[0]["launches_engine"] = engine_phase(dev)
+    train_entries[0]["launches_engine"] = engine_phase(dev,
+                                                      cfg_kw=CUT_DEPTH)
+    mark("phases 11-13")
     torch.cuda.empty_cache()
     launches_pp, launches_dp, _ = pipeline_phase(dev)
     for e in train_entries:
@@ -5118,18 +5939,36 @@ def main() -> int:
                             for sched, ranks in launches_pp.items()}
         e["launches_dp"] = {mode: r[e["name"]]
                             for mode, r in launches_dp.items()}
+    mark("phase 14")
     torch.cuda.empty_cache()
-    tail = tail_phase(dev, mesh_ctx)
+    tail = tail_phase(dev, mesh_ctx, remat_kw=CUT_DEPTH)
     for e in train_entries:
         e["launches_remat"] = {run: r[e["name"]]
                                for run, r in tail["remat"].items()}
         e["launches_pp_tp"] = [r[e["name"]] for r in tail["pp_tp"]]
     entry["launches_mesh"] = tail["mesh"]["flash_decode"]
     paged_entries[0]["launches_mesh"] = tail["mesh"]["paged_decode"]
+    mark("phase 15")
     torch.cuda.empty_cache()
-    launches_runtime, _ = runtime_phase(dev)
+    launches_runtime, _ = runtime_phase(dev, cfg_kw=CUT_DEPTH)
     for e in train_entries:
         e["launches_runtime"] = launches_runtime[e["name"]]
+    mark("phase 16")
+    torch.cuda.empty_cache()
+    llama = llama_phase(dev)
+    for e in (entry, *paged_entries):
+        e["launches_llama"] = llama[e["name"]]
+    entry["launches_llama_spec"] = {
+        f"{layout} {drafter}": launches["flash_decode"]
+        for layout, arms in llama["spec"].items()
+        for drafter, launches in arms.items()}
+    paged_entries[0]["launches_llama_spec"] = {
+        drafter: launches["paged_decode"]
+        for drafter, launches in llama["spec"]["paged"].items()}
+    mark("phase 17")
+    torch.cuda.empty_cache()
+    reshard_phase(dev)
+    mark("phase 18")
     print(card_line())
     print(json.dumps({"kernels": [entry, *paged_entries, *train_entries]}))
     print(json.dumps({"ok": True, "device": {

@@ -177,6 +177,14 @@ auto_device_constants = _env_bool("EASYDIST_AUTO_DEVICE_CONSTANTS", True)
 # (`runtime.calibrate.calibrate(group)` records them)
 auto_calibration = _env_bool("EASYDIST_AUTO_CALIBRATION", True)
 
+# ---------------- reshard (easydist_tpu_torch.reshard) ----------------
+# chunk ceiling (bytes) of a redistribution plan: the "+ chunk" term of
+# the O(max(src_shard, dst_shard) + chunk) peak-live-bytes bound.  A plan
+# step stages at most this much beside one source and one destination
+# shard; the restore's `elastic.restore.oom` recovery halves it and
+# replans.  Salts nothing that is compiled.
+reshard_chunk_bytes = _env_int("EASYDIST_RESHARD_CHUNK_BYTES", 64 * 2**20)
+
 # ---------------- resilience (resilience/, runtime/) ----------------
 # deterministic fault schedule, e.g. "step.nan_grad@7,ckpt.write.partial@2":
 # names from resilience.faultinject.FAULT_POINTS; the elastic loop arms it

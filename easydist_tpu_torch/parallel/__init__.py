@@ -9,13 +9,15 @@ for mixture-of-experts (`moe`).
 """
 
 from .auto_pipeline import pipeline_forward, split_point
-from .dp import ddp_step, zero2_step, zero3_step, zero_shard_params
+from .dp import (ddp_step, dp_state_layout, zero2_step, zero3_step,
+                 zero_shard_params)
 from .pipeline import (LocalStages, PipelineConfig, spmd_pipeline,
                        spmd_pipeline_grad)
 from .ring_attention import ring_attention, ring_attention_local
 from .ulysses import ulysses_attention, ulysses_attention_local
 
-__all__ = ["LocalStages", "PipelineConfig", "ddp_step", "pipeline_forward",
+__all__ = ["LocalStages", "PipelineConfig", "ddp_step", "dp_state_layout",
+           "pipeline_forward",
            "ring_attention", "ring_attention_local", "split_point",
            "spmd_pipeline", "spmd_pipeline_grad", "ulysses_attention",
            "ulysses_attention_local", "zero2_step", "zero3_step",

@@ -147,6 +147,45 @@ def ddp_step(loss_fn: Callable, mesh, axis: str = "dp", lr: float = 1e-2,
     return _maybe_guard(step, step_guard, ax)
 
 
+def dp_state_layout(params, mode: str, mesh, axis: str = "dp"):
+    """The layout of a `mode` ("ddp" | "zero2" | "zero3") state of the
+    full `params` over `mesh` (a DeviceMesh, a `reshard.MeshDesc`, or a
+    world size: one "dp" axis over every rank), as `reshard` and
+    `runtime.checkpoint` read it: the state's tree with a `(MeshDesc,
+    spec)` tuple at every leaf, or `(MeshDesc, spec, whole_shape)`.
+
+    Dim 0 is sharded over `axis` exactly where `_shardable` shards it
+    (the whole shape is the parameter's: zero2 keeps a moment block as
+    [1, d0/n, ...], a view of the window [d0/n, ...]); everything else,
+    the step count included, is replicated.  The JAX package reads this
+    from its arrays' shardings; the port's per-rank states are plain
+    tensors, so the layout is stated.  The tree matches ddp's params,
+    zero2's (params, {"mu", "nu"}, count) and zero3's (blocks, {"mu",
+    "nu"}, count)."""
+    from easydist_tpu_torch.reshard.plan import MeshDesc
+
+    if isinstance(mesh, int):
+        desc = MeshDesc((axis,), (mesh,))
+    elif isinstance(mesh, MeshDesc):
+        desc = mesh
+    else:
+        desc = MeshDesc.from_mesh(mesh)
+    n = desc.axis_size(axis)
+    rep = (desc, ())
+
+    def block(p):
+        return (desc, (axis,), tuple(p.shape)) if _shardable(p, n) else rep
+
+    if mode == "ddp":
+        return pytree.tree_map(lambda p: rep, params)
+    if mode not in ("zero2", "zero3"):
+        raise ValueError(f"mode must be ddp|zero2|zero3, got {mode!r}")
+    moments = pytree.tree_map(block, params)
+    first = moments if mode == "zero3" else pytree.tree_map(lambda p: rep,
+                                                            params)
+    return (first, {"mu": moments, "nu": moments}, rep)
+
+
 def zero_shard_params(params, mesh, axis: str = "dp"):
     """This rank's ZeRO-3 placement of `params`: the dim-0 block of every
     leaf whose dim 0 divides the axis, the whole leaf otherwise."""

@@ -48,6 +48,10 @@ FAULT_POINTS = frozenset({
     "step.nan_grad",          # poisoned batch -> non-finite gradients
     "data.stall",             # input pipeline stops producing
     "elastic.restore.chunk_corrupt",  # bit rot in the checkpoint restored
+    # the world shrank: SIGTERM at a step boundary, restart on fewer ranks
+    "elastic.mesh.shrink",
+    # a chunked restore exceeds its memory budget: halve the chunk, replan
+    "elastic.restore.oom",
     # serving (serve/engine.py)
     "serve.exec_timeout",     # executable dispatch exceeds the watchdog
     "serve.oom_bucket",       # batch-bucket execution exhausts device memory

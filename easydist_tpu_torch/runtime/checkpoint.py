@@ -25,16 +25,29 @@ step.  I/O retries with exponential backoff and jitter
 
 The manifest carries caller metadata: the elastic loop records its data
 cursor there, so the batches a state has seen commit atomically with
-the state.  `meta["mesh"]["n_devices"]` stamps the world size the state
-was saved on; the port restores onto the template's devices and
-placements, and restoring a checkpoint saved on another world raises
-NotImplementedError (restore across a topology change comes with ROADMAP
-queue A item 8).
+the state.  `meta["mesh"]` is the state's fingerprint
+(`reshard.state_fingerprint`): the world size as `n_devices`, the device
+type and name, and per leaf its whole shape, dtype and, for a leaf
+spread over ranks, its (mesh, spec) — read from DTensor leaves, or from
+the `layout=` the caller states for plain per-rank tensors
+(`parallel.dp.dp_state_layout` gives a ddp / ZeRO state's).
+
+Restore onto another world: `load_checkpoint(..., layout=)` plans each
+leaf's destination on this rank (`reshard.plan_restore`), opens only the
+saved ranks' files whose windows overlap its own, with `torch.load(...,
+mmap=True)` so that the bytes it does not copy are never read, and
+copies chunk by chunk (`config.reshard_chunk_bytes` a chunk) into the
+template's devices.  A rank's live bytes beyond its restored state stay
+within one chunk.  A state saved on several ranks without a stated
+layout restores only on the same world (its per-rank blocks cannot be
+placed elsewhere).
 
 Fault points (resilience/faultinject): `ckpt.write.partial` truncates a
 just-written file and dies before the commit; `ckpt.manifest.corrupt`
 flips bytes in a committed file; `elastic.restore.chunk_corrupt` damages
-the checkpoint being restored, so verification falls back.
+the checkpoint being restored, so verification falls back;
+`elastic.restore.oom` fails a restore's first plan with
+`ReshardOOMError`, and the restore halves its chunk and replans.
 """
 
 from __future__ import annotations
@@ -50,11 +63,17 @@ import time
 import uuid
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from easydist_tpu_torch import config as edconfig
+from easydist_tpu_torch.reshard import (ReshardOOMError, plan_restore,
+                                        state_fingerprint)
+from easydist_tpu_torch.reshard.plan import (block_view, chunk_spans,
+                                             device_windows, dtype_name,
+                                             intersect, window_slices)
 from easydist_tpu_torch.resilience import faultinject
 
 logger = logging.getLogger(__name__)
@@ -160,17 +179,6 @@ def _barrier() -> None:
         dist.barrier()
 
 
-def mesh_stamp(state: Any) -> Dict[str, Any]:
-    """What the manifest records of the topology the state was saved on:
-    the world size as `n_devices` (the key the elastic loop reads) and the
-    device type of the state's tensors."""
-    _, world = _world()
-    dev = next((x.device.type for x in pytree.tree_leaves(state)
-                if isinstance(x, torch.Tensor)), "cpu")
-    return {"format": 1, "n_devices": world, "world_size": world,
-            "device_type": dev}
-
-
 # timings of the most recent save in this process
 _last_save_report: Optional[Dict[str, Any]] = None
 
@@ -183,22 +191,27 @@ def last_save_report() -> Optional[Dict[str, Any]]:
 
 
 def _host_leaves(state) -> List[Any]:
-    return [x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor)
-            else x for x in pytree.tree_leaves(state)]
+    """This rank's leaves on the host (a DTensor's local block)."""
+    return [getattr(x, "to_local", lambda: x)().detach().to(
+        "cpu", copy=True) if isinstance(x, torch.Tensor) else x
+        for x in pytree.tree_leaves(state)]
 
 
 def save_checkpoint(path: str, state: Any, step: int, keep: int = 3,
-                    meta: Optional[Dict[str, Any]] = None) -> str:
+                    meta: Optional[Dict[str, Any]] = None,
+                    layout: Any = None) -> str:
     """Atomically save `state` (a tree of tensors, this rank's blocks)
     under `path/step_{step}`.  Synchronous; every rank of the default
     process group calls it.  Returns the committed directory.  `meta`
     lands in the manifest (the elastic loop stores the data cursor there);
-    the topology is stamped as `meta["mesh"]`."""
+    the state's fingerprint is stamped as `meta["mesh"]`, with the layout
+    of plain per-rank tensors from `layout` (the state's tree with a
+    `(MeshDesc, spec[, whole_shape])` at every leaf)."""
     global _last_save_report
     t0 = time.perf_counter()
     rank, world = _world()
     meta = dict(meta or {})
-    meta.setdefault("mesh", mesh_stamp(state))
+    meta.setdefault("mesh", state_fingerprint(state, layout))
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     token = _broadcast(uuid.uuid4().hex[:8])
@@ -364,9 +377,12 @@ def verify_checkpoint(ckpt_dir: str) -> List[str]:
 
 def load_checkpoint(path: str, like: Any, step: Optional[int] = None,
                     verify: bool = True, fallback: bool = True,
-                    with_meta: bool = False) -> Any:
+                    with_meta: bool = False, layout: Any = None) -> Any:
     """Restore into the structure, devices and dtypes of `like` (a tree of
-    tensors as this rank holds them).
+    tensors as this rank holds them), on this world: `layout` states the
+    destination layout of plain per-rank tensors (DTensor leaves carry
+    their own), so a state saved on another world size restores as this
+    rank's blocks (see the module docstring).
 
     With `step=None` the committed steps are tried newest first; one that
     fails verification is skipped with a warning (fallback to the last
@@ -402,7 +418,7 @@ def load_checkpoint(path: str, like: Any, step: Optional[int] = None,
             last_err = msg
             continue
         meta = checkpoint_meta(path, cand)
-        state = _restore(ckpt_dir, like, meta, t_verify)
+        state = _restore(ckpt_dir, like, meta, t_verify, layout)
         return (state, cand, meta) if with_meta else state
     raise CheckpointCorruptionError(
         f"every committed checkpoint under {path} failed verification "
@@ -414,51 +430,162 @@ _last_restore_report: Optional[Dict[str, Any]] = None
 
 
 def last_restore_report() -> Optional[Dict[str, Any]]:
-    """Summary of the most recent restore: `ckpt_dir`, `topology_shift`
-    (always False: a shift raises), `saved_n_devices`, `bytes`,
-    `verify_s` (sha256 of every file), `load_s` (read and copy onto the
-    template's devices)."""
+    """Summary of the most recent restore: `ckpt_dir`, `topology_shift`,
+    `saved_n_devices`, the plan's `n_planned`, `n_replicated`,
+    `peak_live_bytes` against its `chunked_bound` (a rank's live bytes:
+    its source and destination windows and one chunk), `chunk_bytes`
+    (halved on each `elastic.restore.oom`), `attempts`, `files_opened` and
+    `bytes_copied` (this rank's), `verify_s` (sha256 of every file) and
+    `load_s` (planning, reading and copying onto the template's
+    devices)."""
     return _last_restore_report
 
 
+class _SavedRanks:
+    """The saved ranks' files, each opened at its first use with
+    `torch.load(mmap=True)`: a leaf's bytes are read only when a window
+    of it is copied."""
+
+    def __init__(self, ckpt_dir: str, n_leaves: int):
+        self.dir, self.n_leaves, self.blobs = ckpt_dir, n_leaves, {}
+        self.copied = 0  # bytes copied out of the files
+
+    def leaf(self, rank: int, i: int):
+        if rank not in self.blobs:
+            file = os.path.join(self.dir, _rank_file(rank))
+            blob = _retry_io(lambda: torch.load(
+                file, map_location="cpu", mmap=True, weights_only=True),
+                f"restore {self.dir}")
+            if len(blob["leaves"]) != self.n_leaves:
+                raise ValueError(
+                    f"checkpoint {self.dir} holds {len(blob['leaves'])} "
+                    f"leaves, the template {self.n_leaves}")
+            self.blobs[rank] = blob
+        return self.blobs[rank]["leaves"][i], self.blobs[rank]["paths"][i]
+
+
+def _restore_leaf(files, i: int, t, dest, saved: Dict[str, Any],
+                  saved_n: int, rank: int, chunk_bytes: int):
+    """Leaf i of this rank's restored state: its destination window
+    (`dest` = (MeshDesc, spec, whole shape)) built chunk by chunk from the
+    saved windows that overlap it, on the template's device."""
+    mesh, spec, shape = dest
+    local = getattr(t, "to_local", lambda: t)()
+    if tuple(saved.get("shape", shape)) != tuple(shape):
+        raise ValueError(f"checkpoint leaf {i}: saved as {saved['shape']}, "
+                         f"the template holds {list(shape)}")
+    if saved.get("dtype", dtype_name(t.dtype)) != dtype_name(t.dtype):
+        raise ValueError(f"checkpoint leaf {i}: saved {saved['dtype']}, "
+                         f"the template {t.dtype}")
+    if rank >= mesh.n_devices:
+        raise ValueError(f"checkpoint leaf {i}: rank {rank} is outside "
+                         f"the destination mesh of {mesh.n_devices}")
+    full = tuple((0, n) for n in shape)
+    dwin = device_windows(shape, mesh, spec)[rank] if shape else ()
+    if "mesh" in saved:
+        from easydist_tpu_torch.reshard import MeshDesc
+
+        s_wins = device_windows(shape, MeshDesc.from_meta(saved["mesh"]),
+                                saved["spec"])
+    else:
+        s_wins = [full] * saved_n
+    # one holder per distinct saved window: this rank when it holds it
+    holders = {}
+    for s, w in enumerate(s_wins):
+        if w not in holders or s == rank:
+            holders[w] = s
+    buf = torch.empty([hi - lo for lo, hi in dwin], dtype=local.dtype,
+                      device=local.device)
+    if not shape:
+        x, _ = files.leaf(holders[()], i)
+        buf.copy_(x)
+    else:
+        row = max(1, local.element_size() * int(np.prod(shape[1:])))
+        for lo, hi in chunk_spans(shape[0], max(1, chunk_bytes // row)):
+            region = intersect(dwin, ((lo, hi),) + full[1:])
+            if region is None:
+                continue
+            for swin, s in holders.items():
+                ov = intersect(swin, region)
+                if ov is None:
+                    continue
+                x, path = files.leaf(s, i)
+                if x.dtype != buf.dtype:
+                    raise ValueError(f"checkpoint leaf {path}: {x.dtype}, "
+                                     f"the template {buf.dtype}")
+                buf[window_slices(ov, dwin)] = \
+                    block_view(x, swin)[window_slices(ov, swin)]
+                files.copied += int(np.prod([b - a for a, b in ov])) * \
+                    local.element_size()
+    buf = buf.view(local.shape)
+    if hasattr(t, "device_mesh"):
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(buf, t.device_mesh, t.placements,
+                                  shape=t.shape, stride=t.stride())
+    return buf
+
+
 def _restore(ckpt_dir: str, like: Any, meta: Dict[str, Any],
-             verify_s: float) -> Any:
+             verify_s: float, layout: Any = None) -> Any:
     global _last_restore_report
     rank, world = _world()
-    saved = (meta.get("mesh") or {}).get("n_devices", world)
-    if saved != world:
-        raise NotImplementedError(
-            f"checkpoint {ckpt_dir} was saved on {saved} device(s), this "
-            f"job runs on {world}: restore across a topology change "
-            f"(reshard/) comes with ROADMAP queue A item 8")
+    fp = meta.get("mesh") or {}
+    saved_n = int(fp.get("n_devices", world))
+    if saved_n != world and saved_n > 1 and not fp.get("layout"):
+        raise ValueError(
+            f"checkpoint {ckpt_dir} was saved on {saved_n} ranks without "
+            f"a stated layout; its per-rank blocks restore only on "
+            f"{saved_n} ranks (save with layout= to restore elsewhere)")
     t0 = time.perf_counter()
-    file = os.path.join(ckpt_dir, _rank_file(rank))
-
-    def do_load():
-        with open(file, "rb") as f:
-            return torch.load(f, map_location="cpu", weights_only=True)
-
-    blob = _retry_io(do_load, f"restore {ckpt_dir}")
     tmpl, spec = pytree.tree_flatten(like)
-    got = blob["leaves"]
-    if len(got) != len(tmpl):
-        raise ValueError(f"checkpoint {ckpt_dir} holds {len(got)} leaves, "
-                         f"the template {len(tmpl)}")
-    out = []
-    for t, x, p in zip(tmpl, got, blob["paths"]):
-        if isinstance(t, torch.Tensor):
-            if tuple(x.shape) != tuple(t.shape) or x.dtype != t.dtype:
-                raise ValueError(
-                    f"checkpoint leaf {p}: {tuple(x.shape)} {x.dtype}, the "
-                    f"template {tuple(t.shape)} {t.dtype}")
-            x = x.to(t.device)
-        out.append(x)
+    saved_leaves = fp.get("leaves") or [{}] * len(tmpl)
+    if len(saved_leaves) != len(tmpl):
+        raise ValueError(f"checkpoint {ckpt_dir} holds {len(saved_leaves)} "
+                         f"leaves, the template {len(tmpl)}")
+    chunk_bytes = int(edconfig.reshard_chunk_bytes)
+    attempts: List[Dict[str, Any]] = []
+    while True:
+        rplan = plan_restore(like, meta, chunk_bytes=chunk_bytes,
+                             layout=layout, rank=rank, world=world)
+        files = _SavedRanks(ckpt_dir, len(tmpl))
+        try:
+            if faultinject.fire("elastic.restore.oom"):
+                raise ReshardOOMError("elastic.restore.oom (injected)")
+            out = []
+            for i, (t, dest) in enumerate(zip(tmpl, rplan.shardings)):
+                if dest is None:  # a non-tensor leaf: this rank's own
+                    out.append(files.leaf(rank if rank < saved_n else 0,
+                                          i)[0])
+                    continue
+                out.append(_restore_leaf(files, i, t, dest,
+                                         saved_leaves[i], saved_n, rank,
+                                         chunk_bytes))
+        except (ReshardOOMError, torch.cuda.OutOfMemoryError) as e:
+            attempts.append({"chunk_bytes": chunk_bytes, "outcome": "oom"})
+            if chunk_bytes <= 1:
+                raise
+            chunk_bytes = max(1, chunk_bytes // 2)
+            logger.warning("checkpoint: chunked restore exceeded its memory "
+                           "budget (%s); replanning with chunk_bytes=%d",
+                           e, chunk_bytes)
+            continue
+        attempts.append({"chunk_bytes": chunk_bytes, "outcome": "landed"})
+        break
     if any(isinstance(t, torch.Tensor) and t.device.type == "cuda"
            for t in tmpl):
         torch.cuda.synchronize()
+    if rplan.topology_shift:
+        logger.warning(
+            "checkpoint: topology shift restoring %s (saved on %d rank(s), "
+            "restored on %d): %d per-leaf redistribution(s), peak live %d B "
+            "under bound %d B, %d leaf/leaves replicated", ckpt_dir, saved_n,
+            world, len(rplan.plans), rplan.peak_live_bytes(),
+            rplan.chunked_bound(), len(rplan.replicated_leaves))
     _last_restore_report = {
-        "ckpt_dir": ckpt_dir, "topology_shift": False,
-        "saved_n_devices": saved, "bytes": os.path.getsize(file),
+        "ckpt_dir": ckpt_dir, **rplan.summary(), "saved_n_devices": saved_n,
+        "chunk_bytes": chunk_bytes, "attempts": attempts,
+        "files_opened": len(files.blobs), "bytes_copied": files.copied,
         "verify_s": verify_s, "load_s": time.perf_counter() - t0}
     return pytree.tree_unflatten(out, spec)
 

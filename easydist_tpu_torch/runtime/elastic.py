@@ -16,11 +16,18 @@ and carries on:
   * a batch that takes longer than `data_timeout_s` raises
     `DataStallError` instead of hanging the job.
 
+A restart may land on another world size: with `layout=` (the state's
+layout on the current world, `parallel.dp.dp_state_layout` for a ddp /
+ZeRO state) every checkpoint records it, and the resume restores each
+rank's blocks from whichever saved ranks hold them
+(runtime/checkpoint.py), logging the shift.
+
 Fault points: `preempt.sigterm`, `step.nan_grad`, `data.stall`,
 `ckpt.write.partial`, `ckpt.manifest.corrupt`,
-`elastic.restore.chunk_corrupt`.  A restart on another world size is
-ROADMAP queue A item 8 (`elastic.mesh.shrink` and `elastic.restore.oom`
-come with it).
+`elastic.restore.chunk_corrupt`, `elastic.restore.oom` (the restore
+halves its chunk and replans) and `elastic.mesh.shrink` (the world
+shrank: the same grace signal as a preemption, and the restart lands on
+fewer ranks).
 
 Batches: the loop draws host batches (numpy) from `data_iter` and hands
 them to the step on `device`, the card unless the caller names the CPU.
@@ -46,7 +53,8 @@ from easydist_tpu_torch.resilience.guard import GuardedStep
 from easydist_tpu_torch.resilience.preempt import (PreemptedError,
                                                     PreemptionHandler)
 
-from .checkpoint import latest_step, load_checkpoint, save_checkpoint
+from .checkpoint import (last_restore_report, latest_step, load_checkpoint,
+                         save_checkpoint)
 
 logger = logging.getLogger(__name__)
 
@@ -109,7 +117,7 @@ def run_training(step_fn: Callable, init_state: Callable, data_iter,
                  preempt_grace_s: Optional[float] = None,
                  data_timeout_s: Optional[float] = None,
                  keep: int = 3, device=None,
-                 prepare_batch: Optional[Callable] = None):
+                 prepare_batch: Optional[Callable] = None, layout=None):
     """Fault-tolerant training loop.
 
     step_fn(state, *batch) -> (state, loss); init_state() -> fresh state.
@@ -123,7 +131,10 @@ def run_training(step_fn: Callable, init_state: Callable, data_iter,
     `data_timeout_s` default to the EASYDIST_STEP_GUARD /
     EASYDIST_PREEMPT_GRACE / EASYDIST_DATA_TIMEOUT knobs; with the guard
     off `step_fn` is called directly (a guarded `easydist_compile` step
-    must be compiled with `donate_state=False`)."""
+    must be compiled with `donate_state=False`).  `layout` states the
+    layout of a state of plain per-rank tensors on this world; the
+    checkpoints record it and a resume on another world size restores
+    through it."""
     if step_guard is None:
         step_guard = edconfig.resilience_step_guard
     if preempt_grace_s is None:
@@ -144,8 +155,17 @@ def run_training(step_fn: Callable, init_state: Callable, data_iter,
         # step=None: a corrupt newest checkpoint falls back to the
         # previous committed step; `start` is what actually restored
         state, start, meta = load_checkpoint(ckpt_dir, init_state(),
-                                             with_meta=True)
+                                             with_meta=True, layout=layout)
         logger.info("elastic: resumed from step %d", start)
+        report = last_restore_report()
+        if report and report.get("topology_shift"):
+            logger.warning(
+                "elastic: resumed across a topology shift (checkpoint "
+                "saved on %s rank(s)): %d leaf redistribution(s) planned, "
+                "restore peak %d B under bound %d B",
+                report.get("saved_n_devices"), report.get("n_planned", 0),
+                report.get("peak_live_bytes", 0),
+                report.get("chunked_bound", 0))
         cursor = meta.get("batches_consumed")
         if cursor is None:
             cursor = start
@@ -170,12 +190,21 @@ def run_training(step_fn: Callable, init_state: Callable, data_iter,
             meta["guard"] = stepper.stats()
         if extra:
             meta.update(extra)
-        save_checkpoint(ckpt_dir, state, step, keep=keep, meta=meta)
+        save_checkpoint(ckpt_dir, state, step, keep=keep, meta=meta,
+                        layout=layout)
 
     t0 = time.perf_counter()
     with PreemptionHandler(grace_s=preempt_grace_s) as pre:
         for step in range(start, total_steps):
             if faultinject.fire("preempt.sigterm"):
+                signal.raise_signal(signal.SIGTERM)
+            if faultinject.fire("elastic.mesh.shrink"):
+                # the world shrank under us: the platform delivers the
+                # same grace signal as a preemption; the restart lands on
+                # fewer ranks, which the restore absorbs
+                logger.warning(
+                    "elastic: mesh shrink notice at step %d (injected); "
+                    "checkpointing and exiting for a smaller restart", step)
                 signal.raise_signal(signal.SIGTERM)
             if pre.requested:
                 t_ck = time.perf_counter()

@@ -1713,6 +1713,21 @@ class GenerationSession:
             init_cache=lambda b, L: init_cache(dcfg, b, L, device=device),
             max_len=max_len, device=device)
 
+    @staticmethod
+    def _params_device(params, draft_model, device) -> torch.device:
+        """The session's device (default: the card); raises unless the
+        params (and the draft model's) all live there."""
+        device = resolve_device(device)
+        want = torch.empty(0, device=device).device  # "cuda" -> "cuda:0"
+        where = {t.device for t in pytree.tree_leaves(params)}
+        if draft_model is not None:
+            where |= {t.device for t in pytree.tree_leaves(draft_model[0])}
+        if where != {want}:
+            raise ValueError(f"params live on {sorted(map(str, where))}, the "
+                             f"session runs on {want}; place them there "
+                             f"first")
+        return device
+
     @classmethod
     def for_gpt(cls, params, cfg, *, device=None, draft_model=None, **kw):
         """Session over models/gpt.py on `device` (default: the card),
@@ -1724,15 +1739,7 @@ class GenerationSession:
         second (smaller) gpt, for `speculate_drafter="draft_model"`."""
         from easydist_tpu_torch.models import gpt
 
-        device = resolve_device(device)
-        want = torch.empty(0, device=device).device  # "cuda" -> "cuda:0"
-        where = {t.device for t in pytree.tree_leaves(params)}
-        if draft_model is not None:
-            where |= {t.device for t in pytree.tree_leaves(draft_model[0])}
-        if where != {want}:
-            raise ValueError(f"params live on {sorted(map(str, where))}, the "
-                             f"session runs on {want}; place them there "
-                             f"first")
+        device = cls._params_device(params, draft_model, device)
         kw.setdefault("compile_key",
                       ("gpt", dataclasses.astuple(cfg), str(device)))
         if draft_model is not None:
@@ -1760,3 +1767,42 @@ class GenerationSession:
             model_verify_paged=lambda p, pg, tb, t, pos:
                 gpt.gpt_verify_step_paged(p, cfg, pg, tb, t, pos),
             device=device, max_prompt_len=cfg.seq, **kw)
+
+    @classmethod
+    def for_llama(cls, params, cfg, *, device=None, draft_model=None, **kw):
+        """Session over models/llama.py on `device` (default: the card),
+        where `params` must already live.  RoPE has no learned position
+        table, so neither the buckets nor the prompts are bound by
+        cfg.seq.  `draft_model=(params, cfg)` wires a `SmallModelDrafter`
+        over a second (smaller) llama, for
+        `speculate_drafter="draft_model"`."""
+        from easydist_tpu_torch.models import llama
+
+        device = cls._params_device(params, draft_model, device)
+        kw.setdefault("compile_key",
+                      ("llama", dataclasses.astuple(cfg), str(device)))
+        if draft_model is not None:
+            cls._wire_draft_model(kw, draft_model, llama.llama_decode_step,
+                                  llama.init_kv_cache, seq_bound=None,
+                                  device=device)
+        return cls(
+            params,
+            model_prefill=lambda p, c, t, l: llama.llama_prefill(
+                p, cfg, c, t, l),
+            model_prefill_chunk=lambda p, c, t, s, l:
+                llama.llama_prefill_chunk(p, cfg, c, t, s, l),
+            model_decode=lambda p, c, t, pos: llama.llama_decode_step(
+                p, cfg, c, t, pos),
+            init_cache=lambda b, L, dt=None: llama.init_kv_cache(
+                cfg, b, L, dtype=dt, device=device),
+            model_prefill_chunk_paged=lambda p, pg, tb, t, s, l:
+                llama.llama_prefill_chunk_paged(p, cfg, pg, tb, t, s, l),
+            model_decode_paged=lambda p, pg, tb, t, pos:
+                llama.llama_decode_step_paged(p, cfg, pg, tb, t, pos),
+            init_pages=lambda n, t, dt=None, **qkw: llama.init_kv_pages(
+                cfg, n, t, dtype=dt, device=device, **qkw),
+            model_verify=lambda p, c, t, pos: llama.llama_verify_step(
+                p, cfg, c, t, pos),
+            model_verify_paged=lambda p, pg, tb, t, pos:
+                llama.llama_verify_step_paged(p, cfg, pg, tb, t, pos),
+            device=device, **kw)

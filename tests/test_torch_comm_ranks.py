@@ -339,7 +339,8 @@ def _guard_mode(world, mode, params, x, y):
 def runtime_cases(rank, world, out, params, x, y, steps=2):
     """The guarded dp / ZeRO steps over the group, then zero2's state
     (moments [1, d0/n] on every rank) saved through one commit, restored
-    bitwise, and a checkpoint saved on another world refused."""
+    bitwise, and a checkpoint saved on another world without a stated
+    layout refused."""
     import os
 
     from easydist_tpu_torch.parallel import zero2_step
@@ -377,7 +378,7 @@ def runtime_cases(rank, world, out, params, x, y, steps=2):
     torch.distributed.barrier()
     try:
         ck.load_checkpoint(bad, like, verify=False)
-    except NotImplementedError as e:
+    except ValueError as e:
         refused = str(e)
     return {"same": same, "step": step, "meta": meta, "files": files,
             "refused": refused, "latest": ck.latest_step(root),

@@ -80,7 +80,9 @@ def test_every_port_module_imports_with_jax_blocked():
                  "schedule", "comm.quant", "comm.bucketer",
                  "resilience.guard", "resilience.preempt",
                  "runtime.checkpoint", "runtime.data", "runtime.elastic",
-                 "runtime.profiler", "runtime.calibrate"):
+                 "runtime.profiler", "runtime.calibrate", "models.llama",
+                 "reshard", "reshard.plan", "reshard.exec",
+                 "reshard.restore"):
         assert f"easydist_tpu_torch.{name}" in modules
     code = f"""
 import importlib, importlib.abc, sys
@@ -119,6 +121,7 @@ dist.destroy_process_group()
 importlib.import_module("tests.test_torch_fxfront_ranks")
 importlib.import_module("tests.test_torch_parallel_ranks")
 importlib.import_module("tests.test_torch_comm_ranks")
+importlib.import_module("tests.test_torch_reshard_ranks")
 loaded = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in {BANNED!r})]
 assert not loaded, loaded

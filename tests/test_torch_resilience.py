@@ -11,7 +11,8 @@ checkpoint_atomic}.py).
   * the commit protocol's cases (layout, torn write invisible, corrupt
     newest falls back, explicit step raises, GC invariants, I/O retry);
     zero2's per-rank state through one commit on world 2, restored
-    bitwise; a checkpoint of another world refused (ROADMAP item 8).
+    bitwise; a checkpoint of another world saved without a layout
+    refused.
 """
 
 import json
@@ -161,7 +162,7 @@ def test_per_rank_checkpoint_roundtrip(runtime_run):
         assert r["meta"]["batches_consumed"] == 2
         assert r["meta"]["mesh"]["n_devices"] == 2
         assert r["files"] == ["rank00000.pt", "rank00001.pt"]
-        assert "item 8" in r["refused"]
+        assert "without a stated layout" in r["refused"]
 
 
 # ------------------------------------------------------ commit protocol
