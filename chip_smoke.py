@@ -211,9 +211,48 @@ Phases, each raising on failure (exit code != 0, no result line):
      bitwise the one-device state of the same seed, the memory above the
      restored state within the plan's chunked bound; the
      `elastic.restore.oom` drill halves the chunk and stays bitwise;
- 19. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
+ 19. the fleet (`fleet_phase`): GPT-2 small at full width (f32, random
+     weights from a seeded generator, phase 4's config, so the sessions
+     share phase 4's and 5's compiled programs) as `FleetRouter`
+     replicas, 16 requests in two families sharing a 256-token prefix,
+     32 new tokens, every request's ids equal to one single session's:
+     (a) three decode replicas (two bucketed, one paged) and a paged
+     prefill replica under policy "affinity" and "random": every
+     handoff committed after its manifest verified, at least one across
+     layouts, affinity's prefix hit rate at least random's; (b) graceful
+     drain of the hottest decode replica mid-traffic, 0 dropped, its hot
+     pages migrated in waves of `migrate_wave_bytes`; (c) the chaos drill
+     of `bench.py --fleet-chaos` with speculate_k=3: each wave's
+     first-routed replica crashes in fleet round 3 and is revived, one
+     page is corrupted in flight and resent pristine, one probe flaps;
+     every request recovers bitwise, 0 dropped, every fault fired, the
+     TTFT p99 inflation against a calm fleet printed; (d)
+     `drain(mode="evacuate")`: the resume descriptors complete on the
+     survivors.  In each, B4 launches 12 x the bucketed sessions' decode
+     rounds, B5 12 x the paged ones', B6 never;
+ 20. the simulator, planner and autoscaler (`sim_phase`): (a) the seven
+     presets of `bench.py --simulate` on the card — the MLP block
+     [768, 3072, 768] over 8192 rows, GPT-2 small's f32 train step (batch
+     8, seq 1024), Llama-3-8B's widths at 2 layers (train step batch 2,
+     seq 1024; bucketed decode step and prefill chunk), GPT-2 small's
+     bucketed decode step (8 slots at length 1024) and prefill chunk
+     (8 rows x 64 tokens): one op datasheet by `profile_ops`, the
+     host's seconds a call fitted on GPT-2's decode step and prefill
+     chunk, one residual per domain from its
+     calibration preset (GPT-2's), every validation row within
+     `SIM_REL_ERROR_BOUND` (0.60); (b) `CapacityPlanner` over a
+     `ReplicaProfile` from (a)'s GPT-2 rows: `target_replicas` monotone
+     in the arrival rate; (c) the ramp drill of `bench.py --autoscale`
+     on phase 19's sessions: live replicas by phase equal the planner's
+     targets, every decision its target, no reversal inside the confirm
+     + cooldown window, 0 dropped, ids equal one session's; the
+     `autoscale.metrics.stale` and `autoscale.scaleup.fail` drills hold
+     and recover;
+ 21. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
      path's run; B4-B6 also with `llama` (phase 3's Llama-shape checks
-     and times) and `launches_llama` (17a-c), B4 and B5 with
+     and times, SDPA by events and by the profiler) and
+     `launches_llama` (17a-c), B4 and B5 with `launches_fleet`, by
+     sub-phase of 19, B1-B4 with `launches_sim` (phase 20), B4 and B5 with
      `launches_llama_spec` (17e); B1-B3 also with `launches_bf16`,
      their launches in the
      bfloat16 flash steps; B1 with `launches_engine` (phase 13), B4 and
@@ -363,21 +402,55 @@ def profiled_ms(fn, kernel: str, n: int = 20):
     return sum(e.self_device_time_total for e in hits) / 1e3 / seen, seen
 
 
-def profiled_call_ms(fn, n: int = 20) -> float:
-    """Device time per call of `fn(i)`: the time of every kernel it
-    launches, from torch.profiler over n calls (after a warm-up), over n.
-    For a library call whose kernels are not ours to name."""
+# the host calls that put work on the card's stream
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaMemsetAsync", "cudaMemcpyAsync")
+
+
+def profiled_call_ms(fn, n: int = 20):
+    """(ms, seen, issued): device time per call of `fn(i)` from
+    torch.profiler over n calls (after a warm-up), with the number of
+    device records the tracer kept and the number of launches (kernels,
+    memsets, copies) the host issued in those calls.  For a library call
+    whose kernels are not ours to name.  The tracer may drop a record, so
+    each kernel's time is averaged over the records kept and counted
+    ceil(kept / n) times a call; ms is None unless those counts account
+    for every launch the host issued."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(3):
         fn(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for i in range(n):
             fn(i)
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    events = prof.key_averages()
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen = sum(e.count for e in device)
+    issued = sum(e.count for e in events
+                 if e.device_type == torch.autograd.DeviceType.CPU
+                 and e.key in LAUNCH_APIS)
+    per_call = {e.key: -(-e.count // n) for e in device}
+    if not seen or n * sum(per_call.values()) != issued:
+        return None, seen, issued
+    return sum(e.self_device_time_total / e.count * per_call[e.key]
+               for e in device) / 1e3, seen, issued
+
+
+def call_text(prof_ms, seen: int, issued: int) -> str:
+    if prof_ms is None:
+        return (f"profiler: not measured ({seen} device records for "
+                f"{issued} launches)")
+    return (f"profiler {prof_ms:.4f} ms a call, {seen} of {issued} launches "
+            f"recorded")
+
+
+def factor(a, b) -> float:
+    """a / b, nan where either was not measured."""
+    return a / b if a is not None and b is not None else float("nan")
 
 
 def profiled_text(prof_ms, seen: int, n: int = 20) -> str:
@@ -504,7 +577,7 @@ def kernel_phase(dev):
             attn_mask=mask)
 
     library_ms = time_ms(library)
-    library_prof_ms = profiled_call_ms(library)
+    library_prof_ms, lib_seen, lib_issued = profiled_call_ms(library)
     kernel_ms_2 = time_ms(lambda i: flash_decode_attention(
         q, ks[i % TIMED_COPIES], vs[i % TIMED_COPIES], L))
     prof_ms, seen = profiled_ms(lambda i: flash_decode_attention(
@@ -516,7 +589,7 @@ def kernel_phase(dev):
           f"{kernel_ms:.4f} ms (again {kernel_ms_2:.4f}; "
           f"{profiled_text(prof_ms, seen)}), plain "
           f"{plain_ms:.4f} ms, library (SDPA, masked) {library_ms:.4f} ms "
-          f"(profiler {library_prof_ms:.4f} ms a call), bound "
+          f"({call_text(library_prof_ms, lib_seen, lib_issued)}), bound "
           f"{bound_ms:.4f} ms ({bound_by})")
     return {"name": "flash_decode", "route": "cuda",
             "source": "easydist_tpu_torch/ops/csrc/flash_decode.cu",
@@ -529,7 +602,8 @@ def kernel_phase(dev):
             "profiled_launches": seen,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "library_profiled_ms": library_prof_ms}
+            "library_profiled_ms": library_prof_ms,
+            "library_records": [lib_seen, lib_issued]}
 
 
 # ------------------------------------------------- paged decode B5, B6
@@ -882,18 +956,22 @@ def llama_kernel_times(dev, worst):
             qs[i % TIMED_COPIES], ks[i % TIMED_COPIES], vs[i % TIMED_COPIES],
             L, scale), n=10)
         library_ms = time_ms(sdpa)
+        library_prof_ms, lib_seen, lib_issued = profiled_call_ms(sdpa)
         prof_ms, seen = profiled_ms(b4, "flash_decode_kernel")
         bound_ms, bound_by = decode_bound_ms(lens, LLAMA_DECODE_SHAPE,
                                              itemsize)
         print(f"time flash_decode llama {key} {list(LLAMA_DECODE_SHAPE)} "
               f"lengths {t}: kernel {kernel_ms:.4f} ms "
               f"({profiled_text(prof_ms, seen)}), plain {plain_ms:.4f} ms, "
-              f"library (SDPA, masked) {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
+              f"library (SDPA, masked) {library_ms:.4f} ms "
+              f"({call_text(library_prof_ms, lib_seen, lib_issued)}), bound "
+              f"{bound_ms:.4f} ms ({bound_by}); kernel / library by the "
+              f"profiler {factor(prof_ms, library_prof_ms):.2f}")
         out["flash_decode"][key] = {
             "ms": kernel_ms, "profiled_ms": prof_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "library_ms": library_ms, "library_profiled_ms": library_prof_ms,
+            "library_records": [lib_seen, lib_issued],
+            "bound_ms": bound_ms, "bound_by": bound_by}
         del qs, ks, vs
         # B5 / B6 over kv_heads pages
         copies = []
@@ -936,6 +1014,8 @@ def llama_kernel_times(dev, worst):
             kernel_ms = time_ms(at(kernel))
             plain_ms = time_ms(at(plain), n=10)
             library_ms = time_ms(at(library))
+            library_prof_ms, lib_seen, lib_issued = profiled_call_ms(
+                at(library))
             prof_ms, seen = profiled_ms(at(kernel), symbol)
             bound_ms, bound_by = paged_bound_ms(lens, LLAMA_PAGED_SHAPE, h,
                                                 kvh, d, kv_size, itemsize)
@@ -944,15 +1024,20 @@ def llama_kernel_times(dev, worst):
             print(f"time {name} llama 32/8 q {key}: kernel {kernel_ms:.4f} "
                   f"ms ({profiled_text(prof_ms, seen)}), plain "
                   f"{plain_ms:.4f} ms, library (SDPA enable_gqa on the "
-                  f"gathered cache) {library_ms:.4f} ms, bound {bound_ms:.4f}"
-                  f" ms ({bound_by}, unique KV bytes), {read_ms:.4f} ms "
-                  f"({read_by}, the bytes the kernel reads: each KV head "
-                  f"once per query head)")
+                  f"gathered cache) {library_ms:.4f} ms "
+                  f"({call_text(library_prof_ms, lib_seen, lib_issued)}; "
+                  f"kernel / library by the profiler "
+                  f"{factor(prof_ms, library_prof_ms):.2f}), "
+                  f"bound {bound_ms:.4f} ms ({bound_by}, unique KV bytes), "
+                  f"{read_ms:.4f} ms ({read_by}, the bytes the kernel reads: "
+                  f"each KV head once per query head)")
             out[name][key] = {
                 "ms": kernel_ms, "profiled_ms": prof_ms, "plain_ms": plain_ms,
-                "library_ms": library_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "bound_read_ms": read_ms,
-                "bound_read_by": read_by}
+                "library_ms": library_ms,
+                "library_profiled_ms": library_prof_ms,
+                "library_records": [lib_seen, lib_issued],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_read_ms": read_ms, "bound_read_by": read_by}
         del copies
     for name, c in counters.items():
         c.launches = before[name]  # timing runs don't count
@@ -5875,6 +5960,806 @@ def reshard_phase(dev, cfg_kw=None, seed: int = 0, root=None):
 # 15c's two stages, each of which must hold blocks, and 15d's use of phase
 # 4's sessions keep 12): phases 17-18 would otherwise take the script past
 # 800 s of its 1200 s limit
+# ----------------------------------------------------- the fleet (phase 19)
+
+# two prefix families, each sharing 4 pages of 64 tokens
+FLEET_PREFIX = 256
+FLEET_REQUESTS = 16
+FLEET_SPEC_K = 3
+
+
+def fleet_prompts(vocab: int, seed: int = 0):
+    """FLEET_REQUESTS prompts in two families: family i % 2 shares one
+    FLEET_PREFIX-token prefix, each request adds a tail of 4..40
+    tokens."""
+    rs = np.random.RandomState(seed + 19)
+    shared = [rs.randint(0, vocab, FLEET_PREFIX).tolist() for _ in range(2)]
+    return [shared[i % 2] + rs.randint(0, vocab, 4 + 9 * (i % 5)).tolist()
+            for i in range(FLEET_REQUESTS)]
+
+
+class FleetKit:
+    """Phase 19's sessions: GPT-2 small replicas over one set of weights
+    and phase 4's config, so every session shares phase 4's and 5's
+    compiled programs through the process memo.  `made` lists the
+    sessions built since the last `counted()`, for the launch formula."""
+
+    def __init__(self, params, cfg, dev):
+        self.params, self.cfg, self.dev = params, cfg, dev
+        self.made = []
+
+    def mk(self, rid, layout="bucketed", **kw):
+        from easydist_tpu_torch.serve import GenerationSession, ServeConfig
+
+        sess = GenerationSession.for_gpt(
+            self.params, self.cfg, device=self.dev, replica_id=rid,
+            config=ServeConfig(**{**SERVE_KW, "kv_layout": layout,
+                                  **kw}))
+        self.made.append(sess)
+        return sess
+
+    def single(self, prompts, n_new: int):
+        """One bucketed session's ids: the reference every fleet arm must
+        equal."""
+        sess = self.mk("single")
+        futs = [sess.submit(p, max_new_tokens=n_new) for p in prompts]
+        sess.run_until_drained()
+        self.made.remove(sess)
+        return [f.result(timeout=0)["ids"] for f in futs]
+
+    @contextlib.contextmanager
+    def counted(self, tag: str, out):
+        """Every decode kernel's count set to 0 and the session list
+        emptied just before the block, read just after: B4 must have
+        launched layers x the decode rounds of the bucketed sessions, B5
+        layers x those of the paged ones, B6 never.  out[tag] gets the
+        launches."""
+        counters = decode_counters()
+        for c in counters.values():
+            c.launches = 0
+        self.made = []
+        yield
+        launches = {name: c.launches for name, c in counters.items()}
+        rounds = {layout: sum(s.metrics.counter("decode_steps")
+                              for s in self.made
+                              if s.config.kv_layout == layout)
+                  for layout in ("bucketed", "paged")}
+        on_card = self.dev.type == "cuda"
+        n = self.cfg.layers if on_card else 0
+        want = {"flash_decode": n * rounds["bucketed"],
+                "paged_decode": n * rounds["paged"],
+                "paged_decode_quant": 0}
+        if launches != want or (on_card and not sum(launches.values())):
+            raise AssertionError(f"fleet {tag}: decode kernel launches "
+                                 f"{launches}, expected {want} ({rounds})")
+        print(f"fleet {tag}: launches {launches} = {self.cfg.layers} x "
+              f"decode rounds {rounds}")
+        out[tag] = launches
+
+
+def fleet_waves(router, prompts, n_new: int, waves: int = 2):
+    """Submit `prompts` in `waves` equal waves, driving the router until
+    drained after each (wave 1 warms the tries); returns the futures."""
+    futs, per = [], len(prompts) // waves
+    for w in range(waves):
+        futs += [router.submit(p, max_new_tokens=n_new)
+                 for p in prompts[w * per:(w + 1) * per]]
+        router.run_until_drained()
+    return futs
+
+
+def fleet_results(tag: str, futs, want, router, crashes: int = 0) -> None:
+    """Every future's ids equal the single session's, nothing dropped,
+    and the router failed over exactly the `crashes` replicas the arm
+    injected: a replica whose step raises (a kernel wrapper included) is
+    failed over and its requests resume bitwise on a survivor, so equal
+    ids alone would hide it.  Every crash must be the injected fault."""
+    from easydist_tpu_torch.resilience.faultinject import InjectedFault
+
+    out = [f.result(timeout=0) for f in futs]
+    dropped = sum(o["finish_reason"] not in ("length", "eos") for o in out)
+    check_ids(tag, [o["ids"] for o in out], ("one session", want))
+    if dropped:
+        raise AssertionError(f"{tag}: {dropped} requests dropped")
+    injected = repr(InjectedFault("fleet.replica.crash"))
+    foreign = [c for c in router.crash_log if c["error"] != injected]
+    failover = {name: router.metrics.counter(name) for name in (
+        "replica_crashes", "requests_recovered", "handoff_fallbacks")}
+    if failover["replica_crashes"] != crashes \
+            or len(router.crash_log) != crashes or foreign \
+            or (not crashes and any(failover.values())):
+        raise AssertionError(f"{tag}: expected {crashes} injected replica "
+                             f"crashes, the router saw {failover}; crash "
+                             f"log {router.crash_log}")
+
+
+def hit_rate(router) -> float:
+    """Prefix tokens restored over prefix tokens seen, fleet-wide."""
+    reused = total = 0
+    for rid in router.stats()["replicas"]:
+        c = router.replica(rid).session.metrics.snapshot()["counters"]
+        reused += c.get("prefix_tokens_reused", 0)
+        total += c.get("prefix_tokens_total", 0)
+    return reused / total if total else 0.0
+
+
+def ttft_p99_ms(router) -> float:
+    """TTFT p99 over every live replica's histogram, merged."""
+    from easydist_tpu_torch.serve.metrics import LatencyHistogram
+
+    merged = LatencyHistogram()
+    for rid in router.stats()["replicas"]:
+        h = router.replica(rid).session.metrics.ttft
+        merged.counts = [a + b for a, b in zip(merged.counts, h.counts)]
+        merged.total += h.total
+        merged.sum += h.sum
+    return (merged.percentile(99) or 0.0) * 1e3
+
+
+def fleet_of(kit, tag, policy="affinity", transport=None, **kw):
+    """Three decode replicas (two bucketed, one paged) and one paged
+    prefill replica, so every handoff to a bucketed replica crosses
+    layouts."""
+    from easydist_tpu_torch.fleet import (FleetConfig, FleetRouter,
+                                          InProcessTransport)
+
+    return FleetRouter(
+        [kit.mk(f"{tag}0", **kw), kit.mk(f"{tag}1", **kw),
+         kit.mk(f"{tag}2", "paged", **kw)],
+        prefill_replicas=[kit.mk(f"{tag}p", "paged", **kw)],
+        transport=transport or InProcessTransport(),
+        config=FleetConfig(policy=policy, seed=0))
+
+
+def fleet_affinity_phase(kit, prompts, want, n_new, launches):
+    """19a: both policies over the same traffic; returns the hit rates."""
+    rates, crossing = {}, 0
+    for policy in ("affinity", "random"):
+        with kit.counted(f"19a {policy}", launches):
+            router = fleet_of(kit, policy[0], policy)
+            t0 = time.perf_counter()
+            futs = fleet_waves(router, prompts, n_new)
+            wall = time.perf_counter() - t0
+        fleet_results(f"fleet 19a {policy}", futs, want, router)
+        tp, m = router.transport, router.metrics
+        layouts = {rid: router.replica(rid).session.config.kv_layout
+                   for rid in router.stats()["replicas"]}
+        cross = sum(layouts[x["src"]] != layouts[x["dst"]]
+                    for x in tp.manifests)
+        committed = sum(e["event"] == "committed" for e in tp.transitions())
+        handoffs = m.counter("prefill_handoffs")
+        if not handoffs or committed != handoffs \
+                or m.counter("handoff_transport_failures"):
+            raise AssertionError(f"fleet 19a {policy}: {handoffs} handoffs, "
+                                 f"{committed} verified commits, "
+                                 f"{m.counter('handoff_transport_failures')}"
+                                 f" transport failures")
+        crossing += cross
+        rates[policy] = hit_rate(router)
+        print(f"fleet 19a {policy}: ids equal one session's for "
+              f"{len(futs)} requests; {handoffs} handoffs, each committed "
+              f"after its manifest verified ({tp.pages_moved} pages, {cross}"
+              f" across layouts); prefix hit rate {rates[policy]:.4f}; warm "
+              f"routes {m.counter('routed_warm')}; TTFT p99 "
+              f"{ttft_p99_ms(router):.1f} ms; {wall:.2f} s")
+        del router
+    if not crossing:
+        raise AssertionError("fleet 19a: no handoff crossed layouts")
+    if rates["affinity"] < rates["random"]:
+        raise AssertionError(f"fleet 19a: affinity hit rate "
+                             f"{rates['affinity']:.4f} below random's "
+                             f"{rates['random']:.4f}")
+    return rates
+
+
+def fleet_drain_phase(kit, prompts, want, n_new, launches):
+    """19b: graceful drain of the hottest decode replica mid-traffic; hot
+    pages migrate in waves of `migrate_wave_bytes`."""
+    from easydist_tpu_torch.fleet import InProcessTransport
+
+    class WaveLog(InProcessTransport):
+        def send_paths_chunked(self, *a, **kw):
+            res = super().send_paths_chunked(*a, **kw)
+            self.waves.append(res)
+            return res
+
+    tp = WaveLog()
+    tp.waves = []
+    half = len(prompts) // 2
+    with kit.counted("19b drain", launches):
+        router = fleet_of(kit, "g", transport=tp)
+        futs = fleet_waves(router, prompts[:half], n_new, waves=1)
+        futs += [router.submit(p, max_new_tokens=n_new)
+                 for p in prompts[half:]]
+        for _ in range(2):
+            router.step()
+        decode = [r for r in router.stats()["replicas"]
+                  if router.replica(r).role == "decode"]
+        victim = max(decode, key=lambda r: router.replica(
+            r).session.metrics.counter("prefix_tokens_total"))
+        live = router.replica(victim).session.queue_depth
+        router.drain(victim, mode="graceful")
+        router.run_until_drained()
+    fleet_results("fleet 19b", futs, want, router)
+    moved = router.drain_log[-1]["pages_migrated"] if router.drain_log else 0
+    waves = sum(w["waves"] for w in tp.waves)
+    nbytes = sum(w["bytes"] for w in tp.waves)
+    cap = router.config.migrate_wave_bytes
+    if victim in router.stats()["replicas"] or not moved or not waves:
+        raise AssertionError(f"fleet 19b: victim {victim} not drained or "
+                             f"nothing migrated ({moved} pages, {waves} "
+                             f"waves)")
+    print(f"fleet 19b: drained {victim} with {live} live requests, 0 "
+          f"dropped, ids equal; {moved} pages migrated in {waves} waves, "
+          f"{nbytes} bytes (wave cap {cap} bytes; a path is indivisible)")
+    return {"victim": victim, "pages": moved, "waves": waves,
+            "bytes": nbytes}
+
+
+def fleet_chaos_phase(kit, prompts, want, n_new, launches):
+    """19c: the chaos drill of `bench.py --fleet-chaos`: speculate_k=3 on
+    every replica, a calm fleet against one where each wave's
+    first-routed replica crashes in fleet round 3 (revived under its id
+    after the wave), one page corrupted in flight on the paged prefill
+    replica's first handoff and one probe flap."""
+    from easydist_tpu_torch.resilience import faultinject
+
+    spec = dict(speculate_k=FLEET_SPEC_K)
+    with kit.counted("19c calm", launches):
+        calm = fleet_of(kit, "k", **spec)
+        calm_futs = fleet_waves(calm, prompts, n_new)
+    fleet_results("fleet 19c calm", calm_futs, want, calm)
+    calm_p99 = ttft_p99_ms(calm)
+    del calm
+    half = len(prompts) // 2
+    fired = {}
+    with kit.counted("19c chaos", launches):
+        router = fleet_of(kit, "c", **spec)
+        futs, targets = [], []
+        for wave in range(2):
+            n_before = len(router.decision_log)
+            futs += [router.submit(p, max_new_tokens=n_new)
+                     for p in prompts[wave * half:(wave + 1) * half]]
+            target = router.decision_log[n_before]["replica_id"]
+            layout = router.replica(target).session.config.kv_layout
+            order = list(router.stats()["replicas"])
+            plan = (f"fleet.replica.crash@"
+                    f"{2 * len(order) + order.index(target) + 1}")
+            if wave == 0:
+                plan += (",fleet.transport.page_corrupt@1,"
+                         "fleet.probe.flap@1")
+            with faultinject.fault_plan(plan):
+                router.run_until_drained()
+                unfired = faultinject.unfired()
+                for point, n in faultinject.stats()["fired"].items():
+                    fired[point] = fired.get(point, 0) + n
+            if unfired:
+                raise AssertionError(f"fleet 19c wave {wave}: unfired "
+                                     f"{unfired}")
+            targets.append(target)
+            router.add_replica(kit.mk(target, layout, **spec))
+    fleet_results("fleet 19c chaos", futs, want, router, crashes=2)
+    m, tp = router.metrics, router.transport
+    events = [e["event"] for e in tp.transitions()]
+    verify = sum(s.metrics.counter("verify_steps") for s in kit.made)
+    if (not m.counter("requests_recovered")
+            or "rejected" not in events
+            or m.counter("handoff_transport_failures") or not verify):
+        raise AssertionError(f"fleet 19c: recovered "
+                             f"{m.counter('requests_recovered')}, transport "
+                             f"events {events}, verify rounds {verify}")
+    chaos_p99 = ttft_p99_ms(router)
+    inflation = chaos_p99 / calm_p99 if calm_p99 else float("nan")
+    print(f"fleet 19c: killed {targets}, {m.counter('requests_recovered')} "
+          f"requests recovered bitwise, 0 dropped; the corrupt page "
+          f"rejected then committed pristine ({events.count('rejected')} "
+          f"rejected, {events.count('committed')} committed); faults fired "
+          f"{fired}; {verify} verify rounds; TTFT p99 {chaos_p99:.1f} ms "
+          f"against calm {calm_p99:.1f} ms ({inflation:.2f}x)")
+    return {"targets": targets, "recovered": m.counter("requests_recovered"),
+            "fired": fired, "ttft_p99_ms": chaos_p99,
+            "calm_ttft_p99_ms": calm_p99, "inflation": inflation}
+
+
+def fleet_evacuate_phase(kit, prompts, want, n_new, launches):
+    """19d: `drain(mode="evacuate")` of the replica holding the first
+    routed request, three rounds in; its resume descriptors complete on
+    the survivors with the single session's ids."""
+    from easydist_tpu_torch.fleet import FleetRouter
+
+    with kit.counted("19d evacuate", launches):
+        router = FleetRouter([kit.mk("e0"), kit.mk("e1"),
+                              kit.mk("e2", "paged")])
+        futs = [router.submit(p, max_new_tokens=n_new) for p in prompts]
+        for _ in range(3):
+            router.step()
+        victim = router.decision_log[0]["replica_id"]
+        router.drain(victim, mode="evacuate")
+        router.run_until_drained()
+    fleet_results("fleet 19d", futs, want, router)
+    moved = router.metrics.counter("migrations")
+    if not moved or victim in router.stats()["replicas"]:
+        raise AssertionError(f"fleet 19d: {moved} requests migrated")
+    print(f"fleet 19d: evacuated {victim}; {moved} requests resumed on the "
+          f"survivors with the single session's ids")
+    return {"victim": victim, "migrations": moved}
+
+
+def fleet_phase(dev, cfg_kw=None, n_new: int = 32, seed: int = 0):
+    """Phase 19 (19a-d); returns the decode kernels' launches by sub-phase
+    and the kit phase 20's ramp drill reuses.  The arguments shrink it
+    for a rehearsal on the CPU."""
+    from easydist_tpu_torch.models.gpt import GPTConfig, gpt_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = GPTConfig.small(**(cfg_kw or {}))
+    params = gpt_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                      device=dev)
+    kit = FleetKit(params, cfg, dev)
+    prompts = fleet_prompts(cfg.vocab, seed)
+    want = kit.single(prompts, n_new)
+    launches, times = {}, {}
+    out = {"launches": launches, "kit": kit}
+    for name, fn, args in (
+            ("19a", fleet_affinity_phase, (prompts, want)),
+            ("19b", fleet_drain_phase, (prompts, want)),
+            ("19c", fleet_chaos_phase, (prompts, want)),
+            ("19d", fleet_evacuate_phase,
+             (prompts[:len(prompts) // 2], want[:len(prompts) // 2]))):
+        t = time.perf_counter()
+        out[name] = fn(kit, *args, n_new, launches)
+        times[name] = round(time.perf_counter() - t, 1)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    totals = {name: sum(n[name] for n in launches.values())
+              for name in ("flash_decode", "paged_decode")}
+    if dev.type == "cuda" and not all(totals.values()):
+        raise AssertionError(f"fleet phase: B4 / B5 launches {totals}")
+    print(f"fleet phase: {time.perf_counter() - t_phase:.1f} s {times}; "
+          f"B4 / B5 launches {totals}")
+    return out
+
+
+# -------------------------------- simulator, planner, autoscaler (phase 20)
+
+SIM_MLP_SIZES = (768, 3072, 768)     # one GPT-2 small MLP block
+SIM_MLP_ROWS = 8 * 1024              # GPT-2 small's tokens a step
+SIM_LLAMA_LAYERS = 2                 # Llama-3-8B's widths, depth cut
+SIM_TRAIN_CALLS = 3                  # timed calls of each train preset
+
+
+def sim_presets(dev, seed: int = 0, gpt_kw=None, llama_kw=None,
+                mlp_sizes=SIM_MLP_SIZES, mlp_rows: int = SIM_MLP_ROWS,
+                train_batch: int = 8, llama_train=(2, 1024)):
+    """The seven presets of `bench.py --simulate` at the port's widths:
+    (name, domain, role, build), where build() gives (fn, args) — the
+    program the session or the trainer compiles, on `dev`.  The serving
+    presets run SERVE_KW's shapes: a decode step over its slots, a
+    prefill chunk over its prefill batch."""
+    from easydist_tpu_torch.models import gpt, llama
+    from easydist_tpu_torch.models.mlp import make_mlp_train_step, mlp_init
+
+    def gen(k):
+        return torch.Generator(device=dev).manual_seed(seed + k)
+
+    rs = np.random.RandomState(seed + 20)
+    gcfg = gpt.GPTConfig.small(**(gpt_kw or {}))
+    lcfg = llama.LlamaConfig(**{**LLAMA3_8B, "layers": SIM_LLAMA_LAYERS,
+                                "dtype": "float32", **(llama_kw or {})})
+
+    def ids(vocab, *shape):
+        return torch.as_tensor(rs.randint(0, vocab, shape), device=dev)
+
+    def mlp():
+        params = mlp_init(gen(1), sizes=mlp_sizes, device=dev)
+        x = torch.randn(mlp_rows, mlp_sizes[0], generator=gen(2),
+                        device=dev)
+        y = torch.randn(mlp_rows, mlp_sizes[-1], generator=gen(3),
+                        device=dev)
+        return make_mlp_train_step(), (params, x, y)
+
+    def gpt_train():
+        cfg = gpt.GPTConfig(**{**dict(vocab=50304, seq=1024, dim=768,
+                                      heads=12, layers=12,
+                                      attention="flash"), **(gpt_kw or {})})
+        step, init = gpt.make_gpt_train_step(cfg, lr=1e-4)
+        return step, (init(gen(4), device=dev),
+                      ids(cfg.vocab, train_batch, cfg.seq),
+                      ids(cfg.vocab, train_batch, cfg.seq))
+
+    def llama_train_step():
+        step, init = llama.make_llama_train_step(lcfg, lr=1e-4)
+        b, t = llama_train
+        return step, (init(gen(5), device=dev), ids(lcfg.vocab, b, t),
+                      ids(lcfg.vocab, b, t))
+
+    slots, rows = SERVE_KW["max_decode_slots"], SERVE_KW["prefill_batch"]
+    chunk, bucket = SERVE_KW["prefill_chunk"], max(SERVE_KW["decode_buckets"])
+
+    def serving(mod, cfg, init, decode_step, prefill_chunk, which):
+        params = init(cfg, gen(6), device=dev)
+        if which == "decode":
+            def fn(cache, p, token, pos):
+                cache, logits = decode_step(p, cfg, cache, token, pos)
+                return cache, torch.argmax(logits, dim=-1).to(torch.int32)
+
+            # every row at the bucket's last position
+            return fn, (mod.init_kv_cache(cfg, slots, bucket, device=dev),
+                        params, ids(cfg.vocab, slots).to(torch.int32),
+                        torch.full((slots,), bucket - 1, dtype=torch.int32,
+                                   device=dev))
+
+        def fn(staging, p, tokens, start, lengths):
+            staging, logits = prefill_chunk(p, cfg, staging, tokens, start,
+                                            lengths)
+            return staging, torch.argmax(logits, dim=-1).to(torch.int32)
+
+        # the fifth chunk of a 320-token prompt
+        return fn, (mod.init_kv_cache(cfg, rows, bucket, device=dev), params,
+                    ids(cfg.vocab, rows, chunk).to(torch.int32),
+                    torch.full((rows,), 4 * chunk, dtype=torch.int32,
+                               device=dev),
+                    torch.full((rows,), 5 * chunk, dtype=torch.int32,
+                               device=dev))
+
+    def gpt_serving(which):
+        return lambda: serving(gpt, gcfg, gpt.gpt_init, gpt.gpt_decode_step,
+                               gpt.gpt_prefill_chunk, which)
+
+    def llama_serving(which):
+        return lambda: serving(llama, lcfg, llama.llama_init,
+                               llama.llama_decode_step,
+                               llama.llama_prefill_chunk, which)
+
+    # the decode calibration preset comes first: it fits the host's
+    # dispatch seconds every other prediction uses
+    return [("gpt_decode", "decode", "calibration", gpt_serving("decode")),
+            ("llama_decode", "decode", "validation",
+             llama_serving("decode")),
+            ("gpt_prefill", "prefill", "calibration",
+             gpt_serving("prefill")),
+            ("llama_prefill", "prefill", "validation",
+             llama_serving("prefill")),
+            ("mlp_train", "train", "validation", mlp),
+            ("gpt_train", "train", "calibration", gpt_train),
+            ("llama_train", "train", "validation", llama_train_step)]
+
+
+def measured_seconds(compiled, args, dev, n: int) -> float:
+    """Median host seconds of one compiled call ending in a synchronize,
+    after two untimed calls (the first traces)."""
+    ts = interleaved_seconds({"one": (compiled, args)}, dev, rounds=1,
+                             calls=n)["one"]
+    return ts[len(ts) // 2]
+
+
+def interleaved_seconds(runs, dev, rounds: int = 5, calls: int = 4):
+    """{name: sorted host seconds of its calls, each ending in a
+    synchronize} for every (compiled, args) in `runs`: two untimed calls each (the
+    first traces), then `rounds` rounds in which each program in turn
+    makes `calls` timed calls, so a change in the host's speed during the
+    measurement reaches every program alike."""
+    def call(compiled, args):
+        compiled(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for compiled, args in runs.values():
+        call(compiled, args)
+        call(compiled, args)
+    samples = {name: [] for name in runs}
+    for _ in range(rounds):
+        for name, (compiled, args) in runs.items():
+            for _ in range(calls):
+                t0 = time.perf_counter()
+                call(compiled, args)
+                samples[name].append(time.perf_counter() - t0)
+    return {name: sorted(ts) for name, ts in samples.items()}
+
+
+def sim_predict_phase(dev, presets):
+    """20a: one op datasheet (`profile_ops` on `dev`, persisted), the
+    launch floor every table time holds, the serving presets measured
+    together (`interleaved_seconds`), each serving domain's host seconds
+    a call fitted on its calibration preset (host-bound by far; the
+    train domain takes decode's), each preset's raw prediction and
+    measured seconds, one residual per domain from its calibration preset
+    (persisted), every validation row within SIM_REL_ERROR_BOUND.
+    Returns the rows."""
+    from easydist_tpu_torch.fxfront import easydist_compile
+    from easydist_tpu_torch.runtime.op_profile import profile_ops
+    from easydist_tpu_torch.sim import (SIM_REL_ERROR_BOUND, OpTimeTable,
+                                        measure_launch_floor,
+                                        predict_fn_seconds, relative_error,
+                                        store_dispatch, store_launch_floor,
+                                        store_residual)
+
+    floor = measure_launch_floor(dev)
+    store_launch_floor(floor)
+    print(f"sim 20a: launch floor {floor * 1e6:.2f} us (an add of one "
+          f"element, timed as profile_ops times an op)")
+    rows, n_sigs, dispatch = {}, 0, {}
+
+    def predict(name, domain, role, fn, args, meas):
+        rep = predict_fn_seconds(fn, *args,
+                                 op_table=OpTimeTable.from_perfdb(
+                                     domain=domain))
+        rows[name] = {"preset": name, "domain": domain, "role": role,
+                      "predicted_raw_s": rep.predicted_s, "measured_s": meas,
+                      "host_s": rep.host_s, "device_s": rep.compute_s,
+                      "calls": rep.n_ops, "hit_rate": rep.op_db_hit_rate}
+        print(f"sim 20a {name} ({domain}, {role}): raw {rep.predicted_s:.6e}"
+              f" s (host stream {rep.host_s:.6e} s over {rep.n_ops} calls, "
+              f"device stream {rep.compute_s:.6e} s, op-table hit rate "
+              f"{rep.op_db_hit_rate:.3f}), measured {meas:.6e} s")
+
+    # serving: every program held at once, measured in turn
+    serving = {}
+    for name, domain, role, build in presets:
+        if domain != "train":
+            fn, args = build()
+            n_sigs += len(profile_ops(fn, *args, trials=3))
+            serving[name] = (domain, role, fn, args,
+                             easydist_compile(fn, mesh=dev))
+    t = time.perf_counter()
+    samples = interleaved_seconds(
+        {n: (v[4], v[3]) for n, v in serving.items()}, dev)
+    meas = {n: ts[len(ts) // 2] for n, ts in samples.items()}
+    print(f"sim 20a: serving presets measured together in "
+          f"{time.perf_counter() - t:.1f} s; ms a call (min, quartiles, max) "
+          + "; ".join(f"{n} " + " ".join(f"{ts[k] * 1e3:.3f}" for k in (
+              0, len(ts) // 4, (3 * len(ts)) // 4, -1))
+              for n, ts in samples.items()))
+    for name, (domain, role, fn, args, _) in serving.items():
+        if role == "calibration":
+            # its wall time over its calls is what the host pays to issue
+            # one call of this domain's programs; decode's is the default
+            calls = predict_fn_seconds(fn, *args,
+                                       op_table=OpTimeTable({})).n_ops
+            dispatch[domain] = meas[name] / calls
+            store_dispatch(dispatch[domain], domain)
+            if domain == "decode":
+                store_dispatch(dispatch[domain])
+    for name, (domain, role, fn, args, _) in serving.items():
+        predict(name, domain, role, fn, args, meas[name])
+    del serving
+    for name, domain, role, build in presets:
+        if domain != "train":
+            continue
+        t = time.perf_counter()
+        fn, args = build()
+        n_sigs += len(profile_ops(fn, *args, trials=3))
+        compiled = easydist_compile(fn, mesh=dev)
+        predict(name, domain, role, fn, args,
+                measured_seconds(compiled, args, dev, SIM_TRAIN_CALLS))
+        print(f"sim 20a {name}: {time.perf_counter() - t:.1f} s")
+        del fn, args, compiled
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    rows = [rows[name] for name, *_ in presets]
+    residuals = {}
+    for row in rows:
+        if row["role"] == "calibration":
+            residuals[row["domain"]] = row["measured_s"] / \
+                row["predicted_raw_s"]
+            store_residual(row["domain"], residuals[row["domain"]])
+    for row in rows:
+        row["residual"] = residuals[row["domain"]]
+        row["predicted_s"] = row["predicted_raw_s"] * row["residual"]
+        row["relative_error"] = relative_error(row["predicted_s"],
+                                               row["measured_s"])
+        print(f"sim 20a {row['preset']}: predicted {row['predicted_s']:.6e}"
+              f" s (residual {row['residual']:.6f}), measured "
+              f"{row['measured_s']:.6e} s, relative error "
+              f"{row['relative_error']:.4f}")
+    # profile_ops draws every integer in [1, 8): B4 is timed on rows of
+    # at most 7 keys, where the presets run it at length 1024
+    table = OpTimeTable.from_perfdb()
+    for sig, secs in table.op_times.items():
+        if "flash_decode" in sig:
+            print(f"sim 20a: the op table's B4 {sig.split('|')[1][:60]}: "
+                  f"{secs * 1e3:.4f} ms, {table.node_seconds(sig, 0) * 1e3:.4f}"
+                  f" ms past the launch floor (lengths drawn in [1, 8))")
+    val = [r for r in rows if r["role"] == "validation"]
+    worst = max(r["relative_error"] for r in val)
+    print(f"sim 20a: {n_sigs} signatures timed; host seconds a call "
+          f"{ {d: round(x * 1e6, 2) for d, x in dispatch.items()} } us; "
+          f"residuals { {d: round(x, 6) for d, x in residuals.items()} }; "
+          f"worst validation error {worst:.4f} against the bound "
+          f"{SIM_REL_ERROR_BOUND}")
+    bad = [r["preset"] for r in val
+           if not r["relative_error"] <= SIM_REL_ERROR_BOUND]
+    if bad:
+        raise AssertionError(f"sim 20a: validation presets {bad} beyond "
+                             f"SIM_REL_ERROR_BOUND {SIM_REL_ERROR_BOUND}")
+    return rows
+
+
+def sim_planner_phase(rows):
+    """20b: a `ReplicaProfile` of a replica under SERVE_KW from 20a's
+    GPT-2 small serving rows (the calibrated predictions), and
+    `target_replicas` over a sweep of arrival rates: monotone, and
+    growing."""
+    from easydist_tpu_torch.reshard.plan import MeshDesc
+    from easydist_tpu_torch.sim import (SLO, CapacityPlanner,
+                                        ReplicaProfile, TrafficSpec)
+
+    by = {r["preset"]: r for r in rows}
+    profile = ReplicaProfile(per_token_s=by["gpt_decode"]["predicted_s"],
+                             chunk_s=by["gpt_prefill"]["predicted_s"],
+                             chunk_tokens=SERVE_KW["prefill_chunk"],
+                             n_slots=SERVE_KW["max_decode_slots"])
+    svc = profile.ttft_service_s(300, False)
+    slo = SLO(ttft_p99_s=4.0 * svc, per_token_p99_s=2.0 *
+              profile.per_token_s)
+    planner = CapacityPlanner(profile, MeshDesc(("replica",), (8,)),
+                              n_requests=512)
+    rates = [x / svc for x in (0.1, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0)]
+    targets = [planner.target_replicas(TrafficSpec(
+        req_per_s=r, prompt_lens=(260, 300), output_lens=(32,),
+        prefix_reuse=0.5), slo) for r in rates]
+    print(f"sim 20b: profile per_token {profile.per_token_s:.6e} s, chunk "
+          f"{profile.chunk_s:.6e} s; TTFT service of 300 tokens "
+          f"{svc:.6e} s; targets {targets} at {[round(r, 3) for r in rates]}"
+          f" req/s")
+    if targets != sorted(targets) or targets[-1] <= targets[0]:
+        raise AssertionError(f"sim 20b: targets {targets} not monotone in "
+                             f"the arrival rate")
+    return profile, targets
+
+
+def scale_window_ok(log, window: int) -> bool:
+    """No actuation follows one of the opposite direction within
+    `window` ticks."""
+    acts = [(d["tick"], 1 if d["action"] == "scale_up" else -1)
+            for d in log if d["action"] in ("scale_up", "scale_down")]
+    return all(not (b[1] == -a[1] and b[0] - a[0] < window)
+               for a, b in zip(acts, acts[1:]))
+
+
+AUTOSCALE_PROMPT = 6       # tokens a request, as `bench.py --autoscale`
+AUTOSCALE_NEW = 4
+AUTOSCALE_REQUESTS = 40
+
+
+def autoscale_phase(kit, profile, seed: int = 0):
+    """20c: the ramp drill of `bench.py --autoscale` on a live router of
+    phase 19's sessions: ramp up, hold, ramp down with the autoscaler
+    evaluated each router step; then the stale-metrics and failed
+    spin-up drills."""
+    from easydist_tpu_torch.fleet import FleetRouter
+    from easydist_tpu_torch.reshard.plan import MeshDesc
+    from easydist_tpu_torch.resilience import faultinject
+    from easydist_tpu_torch.sim import (SLO, Autoscaler, AutoscaleConfig,
+                                        CapacityPlanner, TrafficSpec)
+
+    plen, max_new = AUTOSCALE_PROMPT, AUTOSCALE_NEW
+    rs = np.random.RandomState(seed + 21)
+    prompts = [rs.randint(0, kit.cfg.vocab, plen).tolist()
+               for _ in range(AUTOSCALE_REQUESTS)]
+    want = kit.single(prompts, max_new)
+    svc = profile.ttft_service_s(plen, False)
+    slo = SLO(ttft_p99_s=8.0 * svc, per_token_p99_s=10.0 * svc)
+    high = TrafficSpec(req_per_s=1.3 / svc, prompt_lens=(plen,),
+                       output_lens=(max_new,))
+    low = TrafficSpec(req_per_s=0.25 / svc, prompt_lens=(plen,),
+                      output_lens=(max_new,))
+
+    def planner():
+        return CapacityPlanner(profile, MeshDesc(("replica",), (3,)),
+                               n_requests=256)
+
+    t_high = planner().target_replicas(high, slo)
+    t_low = planner().target_replicas(low, slo)
+    cfg = dict(min_replicas=1, max_replicas=3, confirm_evals=2,
+               cooldown_evals=2)
+
+    def drive(router, scaler, phases):
+        futs, live, queue = [], {}, list(prompts)
+        for name, traffic, per_tick, ticks in phases:
+            scaler.set_traffic_hint(traffic)
+            for _ in range(ticks):
+                for _ in range(per_tick):
+                    if queue:
+                        futs.append(router.submit(queue.pop(0),
+                                                  max_new_tokens=max_new))
+                router.step()
+                entry = scaler.evaluate()
+                if "target" in entry and entry.get("reason") != \
+                        "metrics_stale" and entry["target"] != \
+                        planner().target_replicas(traffic, slo):
+                    raise AssertionError(f"autoscale 20c: decision {entry}"
+                                         f" off the planner's target")
+            live[name] = len(router.live_decode_snapshot())
+        while queue:
+            futs.append(router.submit(queue.pop(0), max_new_tokens=max_new))
+            router.step()
+        router.run_until_drained()
+        fleet_results("autoscale 20c", futs, want, router)
+        return live
+
+    router = FleetRouter([kit.mk("a0")])
+    scaler = Autoscaler(router, spawn=kit.mk, planner=planner(), slo=slo,
+                        config=AutoscaleConfig(**cfg))
+    t0 = time.perf_counter()
+    live = drive(router, scaler, [("ramp_up", high, 2, 8),
+                                     ("hold", high, 2, 6),
+                                     ("ramp_down", low, 0, 12)])
+    wall = time.perf_counter() - t0
+    st = scaler.stats()
+    window = cfg["confirm_evals"] + cfg["cooldown_evals"]
+    if live != {"ramp_up": t_high, "hold": t_high, "ramp_down": t_low} \
+            or t_high <= t_low or not scale_window_ok(scaler.decision_log,
+                                                      window):
+        raise AssertionError(f"autoscale 20c: live replicas {live} against "
+                             f"the planner's {t_high} / {t_low}, decisions "
+                             f"{scaler.decision_log}")
+    print(f"autoscale 20c: live replicas by phase {live} = the planner's "
+          f"targets (high {t_high}, low {t_low}); {st['scale_ups']} up, "
+          f"{st['scale_downs']} down over {st['ticks']} ticks, none against "
+          f"the last inside {window} ticks; {len(prompts)} requests, 0 "
+          f"dropped, ids equal one session's; {wall:.2f} s")
+    arms = {}
+    for plan, reason in (("autoscale.metrics.stale@*", "metrics_stale"),
+                         ("autoscale.scaleup.fail@1", "scaleup_failed")):
+        with faultinject.fault_plan(plan):
+            router = FleetRouter([kit.mk("f0")])
+            scaler = Autoscaler(router, spawn=kit.mk, planner=planner(),
+                                slo=slo, config=AutoscaleConfig(
+                                    **cfg, replica_prefix="fa"))
+            arm_live = drive(router, scaler, [("ramp_up", high, 2, 14)])
+            unfired = faultinject.unfired()
+        reasons = {d.get("reason") for d in scaler.decision_log}
+        # a failed spin-up is retried: the fleet still reaches the target
+        retried = reason != "scaleup_failed" or \
+            arm_live["ramp_up"] == t_high
+        if unfired or reason not in reasons or not retried:
+            raise AssertionError(f"autoscale 20c {plan}: unfired {unfired},"
+                                 f" reasons {reasons}")
+        arms[plan] = arm_live
+        print(f"autoscale 20c {plan}: held ({reason}) with a warning, "
+              f"{arm_live['ramp_up']} live at the end, 0 dropped, ids "
+              f"equal one session's")
+    return {"live": live, "t_high": t_high, "t_low": t_low, "arms": arms}
+
+
+def sim_phase(dev, kit, presets=None):
+    """Phase 20 (20a-c); returns the training kernels' and B4's launches
+    over the phase, and its results."""
+    from easydist_tpu_torch import config as edconfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    counters = {**train_counters(), **decode_counters()}
+    for c in counters.values():
+        c.launches = 0
+    saved = edconfig.prof_db_path
+    edconfig.prof_db_path = os.path.join(".easydist_cache", "sim_perf.db")
+    if os.path.exists(edconfig.prof_db_path):
+        os.remove(edconfig.prof_db_path)
+    try:
+        rows = sim_predict_phase(dev, presets or sim_presets(dev))
+        t = time.perf_counter()
+        profile, targets = sim_planner_phase(rows)
+        ramp = autoscale_phase(kit, profile)
+        t_c = time.perf_counter() - t
+    finally:
+        edconfig.prof_db_path = saved
+    launches = {name: c.launches for name, c in counters.items()}
+    on_card = dev.type == "cuda"
+    used = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_decode")
+    if on_card and not all(launches[n] for n in used):
+        raise AssertionError(f"sim phase: launches {launches}; B1-B4 must "
+                             f"all run")
+    print(f"sim phase: launches {launches}; 20b-c {t_c:.1f} s; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "rows": rows, "targets": targets,
+            "ramp": ramp}
+
+
 CUT_DEPTH = dict(layers=6)
 
 
@@ -5969,6 +6854,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     reshard_phase(dev)
     mark("phase 18")
+    fleet = fleet_phase(dev)
+    for e, name in ((entry, "flash_decode"),
+                    (paged_entries[0], "paged_decode")):
+        e["launches_fleet"] = {sub: n[name]
+                               for sub, n in fleet["launches"].items()}
+    mark("phase 19")
+    torch.cuda.empty_cache()
+    sim = sim_phase(dev, fleet["kit"])
+    for e in (entry, *train_entries):
+        e["launches_sim"] = sim["launches"][e["name"]]
+    mark("phase 20")
     print(card_line())
     print(json.dumps({"kernels": [entry, *paged_entries, *train_entries]}))
     print(json.dumps({"ok": True, "device": {

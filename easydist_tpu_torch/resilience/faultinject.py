@@ -55,8 +55,15 @@ FAULT_POINTS = frozenset({
     # serving (serve/engine.py)
     "serve.exec_timeout",     # executable dispatch exceeds the watchdog
     "serve.oom_bucket",       # batch-bucket execution exhausts device memory
-    # a replica dies mid-decode (serve/generation.py, at the step boundary)
-    "fleet.replica.crash",
+    # fleet serving (serve/generation.py at the step boundary,
+    # fleet/transport.py, fleet/health.py)
+    "fleet.replica.crash",    # a replica dies mid-decode
+    "fleet.transport.stall",  # KV page transfer attempt hangs past budget
+    "fleet.transport.page_corrupt",  # bit flip in a page in flight
+    "fleet.probe.flap",       # health probe falsely reports no progress
+    # SLO autoscaler (sim/autoscale.py)
+    "autoscale.metrics.stale",   # planner sees frozen occupancy/p99
+    "autoscale.scaleup.fail",    # replica spin-up raises mid-ramp
     # host KV tier (kv/tier.py)
     "kv.tier.fetch_corrupt",  # demotion fetch corrupt: manifest catch+refetch
     "kv.tier.host_oom",       # host allocation fails: hold-and-warn pause

@@ -240,14 +240,18 @@ class TestFaultDrills:
                         "kv.tier.host_oom": "*"}
         with pytest.raises(faultinject.FaultPlanError, match="did you mean"):
             faultinject.parse_plan("serve.oom_bucket_@1")
-        # the serving points, and the training points of the elastic loop,
-        # the checkpoints and the restore across a topology change
+        # the serving points, the training points of the elastic loop,
+        # the checkpoints and the restore across a topology change, and
+        # the fleet's and the autoscaler's
         assert {"serve.oom_bucket", "serve.exec_timeout",
                 "kv.tier.fetch_corrupt", "kv.tier.host_oom",
                 "fleet.replica.crash", "ckpt.write.partial",
                 "ckpt.manifest.corrupt", "preempt.sigterm", "step.nan_grad",
                 "data.stall", "elastic.restore.chunk_corrupt",
-                "elastic.mesh.shrink", "elastic.restore.oom"} == \
+                "elastic.mesh.shrink", "elastic.restore.oom",
+                "fleet.transport.stall", "fleet.transport.page_corrupt",
+                "fleet.probe.flap", "autoscale.metrics.stale",
+                "autoscale.scaleup.fail"} == \
             set(faultinject.FAULT_POINTS)
 
 

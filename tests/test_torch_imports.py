@@ -82,7 +82,10 @@ def test_every_port_module_imports_with_jax_blocked():
                  "runtime.checkpoint", "runtime.data", "runtime.elastic",
                  "runtime.profiler", "runtime.calibrate", "models.llama",
                  "reshard", "reshard.plan", "reshard.exec",
-                 "reshard.restore"):
+                 "reshard.restore", "fleet", "fleet.hashring",
+                 "fleet.health", "fleet.failover", "fleet.transport",
+                 "fleet.router", "sim", "sim.events", "sim.simulate",
+                 "sim.capacity", "sim.autoscale"):
         assert f"easydist_tpu_torch.{name}" in modules
     code = f"""
 import importlib, importlib.abc, sys
