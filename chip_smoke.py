@@ -86,8 +86,9 @@ Phases, each raising on failure (exit code != 0, no result line):
      sharded, nothing may replicate because discovery failed; seconds
      by stage, the analyzer's counts, the solver's cost per axis, the
      replicated-FLOPs fraction and the collectives by kind with their
-     bytes are printed; (b) rank 0's (4, 2) program run once on the card
-     (B1-B3 launched 12 times each; peak memory beside the planner's);
+     bytes are printed; (b) rank 0's program of each mesh run once on the
+     card (B1-B3 launched 12 times each; peak memory beside the
+     planner's);
      (c) a real one-rank mesh on NCCL: 3 steps bitwise equal to phase
      7's compiled f32 losses.  One card cannot run a multi-rank program
      on NCCL: the CPU tests hold its numbers on gloo;
@@ -248,7 +249,26 @@ Phases, each raising on failure (exit code != 0, no result line):
      + cooldown window, 0 dropped, ids equal one session's; the
      `autoscale.metrics.stale` and `autoscale.scaleup.fail` drills hold
      and recover;
- 21. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
+ 21. the analyzer (`analyze_phase`, `easydist_tpu_torch.analyze`): (a)
+     phase 9's fresh compiles analysed (`CompiledFunction.analyze()`):
+     no error finding and no STRAT005 on either mesh, the solver audits,
+     rule transfers and the seconds printed, MEM004 clear against the
+     card's memory; with `analyze_hbm_budget` at half the predicted peak
+     one MEM004 with its remat advisory, and `analyze(raise_on_error=
+     True)` raises; (b) the predicted peak at least 0.95 x rank 0's
+     measured peak (phase 9b's runs, B1-B3 12 launches each, rank 0's
+     inputs counted in both); (c) 15a's remat plans: no MEM005; (d) phase
+     14's schedules (gpipe, remat, 1f1b at S=4, M=8; interleaved V=2 at
+     S=2): no error, bubble fractions printed; (e) phase 19's logs
+     replayed (`check_protocol_conformance`, `audit_routing`): no
+     PROTO003 or FLEET finding, the hooks logged no FLEET warning, and
+     exactly one FLEET002 for each page 19c damaged (its AnalysisError
+     became the transport's PageCorruptError); (f) phase 20's held-out
+     rows give no SIM001 at 0.60, its decision logs no SIM002; (g)
+     `python -m easydist_tpu_torch.analyze --targets ast,protocol,presets`
+     in a subprocess on the card: exit 0, every spec at its committed
+     state count, nothing new against `analyze_baseline_torch.json`;
+ 22. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
      path's run; B4-B6 also with `llama` (phase 3's Llama-shape checks
      and times, SDPA by events and by the profiler) and
      `launches_llama` (17a-c), B4 and B5 with `launches_fleet`, by
@@ -262,7 +282,8 @@ Phases, each raising on failure (exit code != 0, no result line):
      `launches_dp`, per mode (14d); B1-B3 with `launches_remat`, by run
      of 15a and 15b, and `launches_pp_tp`, by rank of 15c; B4 and B5 with
      `launches_mesh` (15d); B1-B3 with `launches_runtime`, their launches
-     in 16c's uninterrupted run), then the `{"ok": true, ...}` line.
+     in 16c's uninterrupted run, and `launches_analyze`, by mesh of 21b),
+     then the `{"ok": true, ...}` line.
 
 Each serving run sets every decode kernel's launch count to 0 just
 before it and reads the counts just after; launches made to compare or
@@ -276,6 +297,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -3329,9 +3351,11 @@ def frontend_phase(dev, f32_losses, cfg_kw=None, batch: int = 8,
     presets cross-checked on the first mesh, per-axis solve, emission);
     the emitted collectives must match what the solver priced
     (`check_priced`), at least one mm must be sharded, nothing may
-    replicate because discovery failed.  (b) Rank 0's program of the
-    last mesh run once on `dev`: B1-B3 launch `layers` times each; its
-    peak memory beside the planner's.  (c) A real one-rank mesh (NCCL on
+    replicate because discovery failed.  (b) Rank 0's program of each
+    mesh run once on `dev`: B1-B3 launch `layers` times each; its peak
+    memory beside the planner's (phase 21 holds it against the analyzer's
+    `predicted_peak_bytes` and keeps each mesh's `CompiledFunction` under
+    out[shape]["compiled"]).  (c) A real one-rank mesh (NCCL on
     the card, gloo on the CPU): `steps` losses bitwise equal to
     `f32_losses` (phase 7's compiled ones).  The arguments shrink it for
     a rehearsal on the CPU.  Returns the printed numbers."""
@@ -3390,8 +3414,8 @@ def frontend_phase(dev, f32_losses, cfg_kw=None, batch: int = 8,
             mesh = make_device_mesh(shape, names, device_type=dev.type)
             edconfig.discovery_crosscheck = (shape, names) == meshes[0]
             t0 = time.perf_counter()
-            res = easydist_compile(step, mesh=mesh, compile_only=True)(
-                state, tokens, targets)
+            compiled = easydist_compile(step, mesh=mesh, compile_only=True)
+            res = compiled(state, tokens, targets)
             secs = time.perf_counter() - t0
             c = res.counters
             tag = f"frontend {shape}"
@@ -3444,16 +3468,18 @@ def frontend_phase(dev, f32_losses, cfg_kw=None, batch: int = 8,
                               counters=dict(c), costs=res.solver_costs,
                               replicated=res.replicated_flops_fraction,
                               table=table, sharded_mm=len(mm),
-                              gathers=by_producer)
-        out["run"] = run_rank0(dev, res, (state, tokens, targets),
-                               {name: cfg.layers if on_card else 0
-                                for name in TRAIN_KERNELS})
+                              gathers=by_producer, compiled=compiled,
+                              result=res)
+            out[shape]["run"] = out["run"] = run_rank0(
+                dev, res, (state, tokens, targets),
+                {name: cfg.layers if on_card else 0
+                 for name in TRAIN_KERNELS})
     finally:
         set_device_mesh(None)
         dist.destroy_process_group()
         (edconfig.discovery_device, edconfig.discovery_crosscheck,
          edconfig.prof_db_path) = saved
-    del res, state
+    del res, compiled, state
     if on_card:
         torch.cuda.empty_cache()
 
@@ -4400,6 +4426,9 @@ def remat_cap_phase(dev, cfg, batch, seed, steps=3):
                plan_peak=plan.predicted_peak, values=plan.n_remat_vars,
                nodes=n_clones, in_bytes=in_bytes, uncapped=uncapped,
                capped=capped, planning_s=res.timings.get("remat"))
+    # what phase 21c audits: (program the planner read, plan, program run)
+    out["remat_audits"] = {"one device": (res.remat_source, plan,
+                                          res.graph_module)}
     del res, plan
 
     # rank 0 of (8,) "dp", capped the same way; the solver's own liveness
@@ -4439,6 +4468,8 @@ def remat_cap_phase(dev, cfg, batch, seed, steps=3):
         out["dp8"] = dict(base=base8, floor=floor8, cap=cap8,
                           plan_peak=plan8.predicted_peak,
                           values=plan8.n_remat_vars)
+        out["remat_audits"]["rank 0 of (8,) dp"] = (
+            r1.remat_source, plan8, r1.graph_module)
         del r0, r1
     del s8
     return out
@@ -5987,6 +6018,17 @@ class FleetKit:
     def __init__(self, params, cfg, dev):
         self.params, self.cfg, self.dev = params, cfg, dev
         self.made = []
+        # phase 21e's inputs: each arm's router, health and transport
+        # event streams and decision log
+        self.logs = {}
+
+    def keep(self, tag: str, router) -> None:
+        """Keep `router`'s logs under `tag` for phase 21e's audits."""
+        self.logs[tag] = {
+            "router": router.transitions(),
+            "health": router.health.transitions(),
+            "transport": router.transport.transitions(),
+            "decisions": list(router.decision_log)}
 
     def mk(self, rid, layout="bucketed", **kw):
         from easydist_tpu_torch.serve import GenerationSession, ServeConfig
@@ -6121,6 +6163,7 @@ def fleet_affinity_phase(kit, prompts, want, n_new, launches):
             futs = fleet_waves(router, prompts, n_new)
             wall = time.perf_counter() - t0
         fleet_results(f"fleet 19a {policy}", futs, want, router)
+        kit.keep(f"19a {policy}", router)
         tp, m = router.transport, router.metrics
         layouts = {rid: router.replica(rid).session.config.kv_layout
                    for rid in router.stats()["replicas"]}
@@ -6181,6 +6224,7 @@ def fleet_drain_phase(kit, prompts, want, n_new, launches):
         router.drain(victim, mode="graceful")
         router.run_until_drained()
     fleet_results("fleet 19b", futs, want, router)
+    kit.keep("19b", router)
     moved = router.drain_log[-1]["pages_migrated"] if router.drain_log else 0
     waves = sum(w["waves"] for w in tp.waves)
     nbytes = sum(w["bytes"] for w in tp.waves)
@@ -6196,6 +6240,27 @@ def fleet_drain_phase(kit, prompts, want, n_new, launches):
             "bytes": nbytes}
 
 
+def audited_transport():
+    """The transport of 19c's chaos arm: its `fleet002` lists, per rejected
+    handoff, the rule ids of the AnalysisError that the FLEET002 hook
+    raised in `_check` (the transport turns it into a PageCorruptError,
+    and the retry commits pristine pages)."""
+    from easydist_tpu_torch.analyze import AnalysisError
+    from easydist_tpu_torch.fleet import InProcessTransport
+
+    class Audited(InProcessTransport):
+        def _check(self, manifest, path):
+            try:
+                super()._check(manifest, path)
+            except AnalysisError as e:
+                self.fleet002.append([f.rule_id for f in e.report.findings])
+                raise
+
+    tp = Audited()
+    tp.fleet002 = []
+    return tp
+
+
 def fleet_chaos_phase(kit, prompts, want, n_new, launches):
     """19c: the chaos drill of `bench.py --fleet-chaos`: speculate_k=3 on
     every replica, a calm fleet against one where each wave's
@@ -6209,12 +6274,13 @@ def fleet_chaos_phase(kit, prompts, want, n_new, launches):
         calm = fleet_of(kit, "k", **spec)
         calm_futs = fleet_waves(calm, prompts, n_new)
     fleet_results("fleet 19c calm", calm_futs, want, calm)
+    kit.keep("19c calm", calm)
     calm_p99 = ttft_p99_ms(calm)
     del calm
     half = len(prompts) // 2
     fired = {}
     with kit.counted("19c chaos", launches):
-        router = fleet_of(kit, "c", **spec)
+        router = fleet_of(kit, "c", transport=audited_transport(), **spec)
         futs, targets = [], []
         for wave in range(2):
             n_before = len(router.decision_log)
@@ -6239,6 +6305,8 @@ def fleet_chaos_phase(kit, prompts, want, n_new, launches):
             targets.append(target)
             router.add_replica(kit.mk(target, layout, **spec))
     fleet_results("fleet 19c chaos", futs, want, router, crashes=2)
+    kit.keep("19c chaos", router)
+    kit.fleet002 = list(router.transport.fleet002)
     m, tp = router.metrics, router.transport
     events = [e["event"] for e in tp.transitions()]
     verify = sum(s.metrics.counter("verify_steps") for s in kit.made)
@@ -6277,6 +6345,7 @@ def fleet_evacuate_phase(kit, prompts, want, n_new, launches):
         router.drain(victim, mode="evacuate")
         router.run_until_drained()
     fleet_results("fleet 19d", futs, want, router)
+    kit.keep("19d", router)
     moved = router.metrics.counter("migrations")
     if not moved or victim in router.stats()["replicas"]:
         raise AssertionError(f"fleet 19d: {moved} requests migrated")
@@ -6302,6 +6371,39 @@ def fleet_phase(dev, cfg_kw=None, n_new: int = 32, seed: int = 0):
     want = kit.single(prompts, n_new)
     launches, times = {}, {}
     out = {"launches": launches, "kit": kit}
+    # every finding the analyzer's hooks log during the phase (the
+    # warnings: errors raise), for phase 21e
+    logged = FindingLog()
+    logging.getLogger("easydist_tpu_torch.analyze").addHandler(logged)
+    try:
+        run_fleet_arms(kit, prompts, want, n_new, launches, times, out)
+    finally:
+        logging.getLogger("easydist_tpu_torch.analyze").removeHandler(
+            logged)
+    out["logged"] = logged.found
+    totals = {name: sum(n[name] for n in launches.values())
+              for name in ("flash_decode", "paged_decode")}
+    if dev.type == "cuda" and not all(totals.values()):
+        raise AssertionError(f"fleet phase: B4 / B5 launches {totals}")
+    print(f"fleet phase: {time.perf_counter() - t_phase:.1f} s {times}; "
+          f"B4 / B5 launches {totals}")
+    return out
+
+
+class FindingLog(logging.Handler):
+    """Collects the Findings the analyzer's hooks log."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.found = []
+
+    def emit(self, record):
+        if record.args and hasattr(record.args[0], "rule_id"):
+            self.found.append(record.args[0])
+
+
+def run_fleet_arms(kit, prompts, want, n_new, launches, times, out):
+    """19a-d in turn, each arm's time into `times`."""
     for name, fn, args in (
             ("19a", fleet_affinity_phase, (prompts, want)),
             ("19b", fleet_drain_phase, (prompts, want)),
@@ -6311,15 +6413,8 @@ def fleet_phase(dev, cfg_kw=None, n_new: int = 32, seed: int = 0):
         t = time.perf_counter()
         out[name] = fn(kit, *args, n_new, launches)
         times[name] = round(time.perf_counter() - t, 1)
-        if dev.type == "cuda":
+        if kit.dev.type == "cuda":
             torch.cuda.empty_cache()
-    totals = {name: sum(n[name] for n in launches.values())
-              for name in ("flash_decode", "paged_decode")}
-    if dev.type == "cuda" and not all(totals.values()):
-        raise AssertionError(f"fleet phase: B4 / B5 launches {totals}")
-    print(f"fleet phase: {time.perf_counter() - t_phase:.1f} s {times}; "
-          f"B4 / B5 launches {totals}")
-    return out
 
 
 # -------------------------------- simulator, planner, autoscaler (phase 20)
@@ -6683,6 +6778,7 @@ def autoscale_phase(kit, profile, seed: int = 0):
     router = FleetRouter([kit.mk("a0")])
     scaler = Autoscaler(router, spawn=kit.mk, planner=planner(), slo=slo,
                         config=AutoscaleConfig(**cfg))
+    decisions = {"ramp": scaler.decision_log}
     t0 = time.perf_counter()
     live = drive(router, scaler, [("ramp_up", high, 2, 8),
                                      ("hold", high, 2, 6),
@@ -6711,6 +6807,7 @@ def autoscale_phase(kit, profile, seed: int = 0):
                                     **cfg, replica_prefix="fa"))
             arm_live = drive(router, scaler, [("ramp_up", high, 2, 14)])
             unfired = faultinject.unfired()
+        decisions[plan] = scaler.decision_log
         reasons = {d.get("reason") for d in scaler.decision_log}
         # a failed spin-up is retried: the fleet still reaches the target
         retried = reason != "scaleup_failed" or \
@@ -6722,7 +6819,8 @@ def autoscale_phase(kit, profile, seed: int = 0):
         print(f"autoscale 20c {plan}: held ({reason}) with a warning, "
               f"{arm_live['ramp_up']} live at the end, 0 dropped, ids "
               f"equal one session's")
-    return {"live": live, "t_high": t_high, "t_low": t_low, "arms": arms}
+    return {"live": live, "t_high": t_high, "t_low": t_low, "arms": arms,
+            "decisions": decisions, "window": window}
 
 
 def sim_phase(dev, kit, presets=None):
@@ -6758,6 +6856,242 @@ def sim_phase(dev, kit, presets=None):
           f"{time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "rows": rows, "targets": targets,
             "ramp": ramp}
+
+
+# -------------------------------------------- the analyzer (phase 21)
+
+# the upper-bound contract of the memory plan against the measured peak
+# (reference easydist_tpu/jaxfront/api.py:862-874: under by at most 5%)
+PEAK_UNDER_TOL = 0.05
+# phase 14's schedules: (schedule, stages, virtual stages, microbatches)
+PHASE14_SCHEDULES = (("gpipe", 4, 1, 8), ("remat", 4, 1, 8),
+                     ("1f1b", 4, 1, 8), ("1f1b", 2, 2, 8))
+
+
+class _Logged:
+    """A kept event stream, replayed as a component's `transitions()`."""
+
+    def __init__(self, events):
+        self.events = events
+
+    def transitions(self):
+        return list(self.events)
+
+
+def analyze_compiles(frontend, on_card: bool):
+    """21a-b: the analyzer over phase 9's fresh compiles of GPT-2 small's
+    f32 flash step, the MEM004 drill at half the predicted peak, and the
+    plan against rank 0's measured peak.  Returns the numbers."""
+    from easydist_tpu_torch import config as edconfig
+    from easydist_tpu_torch.analyze import (AnalysisError, layer_of,
+                                            resolve_hbm_budget)
+
+    out = {}
+    for shape, names in FRONTEND_MESHES:
+        comp, res = frontend[shape]["compiled"], frontend[shape]["result"]
+        t0 = time.perf_counter()
+        rep = comp.analyze(raise_on_error=False)
+        secs = time.perf_counter() - t0
+        by_layer = {}
+        for f in rep.findings:
+            key = f"{f.rule_id}:{f.severity}"
+            lay = by_layer.setdefault(layer_of(f.rule_id), {})
+            lay[key] = lay.get(key, 0) + 1
+        audits = [(a["axis"], a["reported"], a["recomputed"])
+                  for a in res.solver_audits]
+        transfers = res.counters.get("rules_from_group", 0) + \
+            res.counters.get("rules_from_cache", 0)
+        mesh = res.mesh
+        budget = resolve_hbm_budget(mesh)
+        predicted = res.predicted_peak_bytes
+        tag = f"analyze 21a {shape}"
+        print(f"{tag}: findings by layer {by_layer or 'none'}; solver "
+              f"audits (axis, reported, recomputed) {audits}; "
+              f"{transfers} rule transfers audited; memory plan peak "
+              f"{res.memory_plan.peak_bytes} B, predicted "
+              f"{predicted} B against the card's budget {budget} B; "
+              f"analyze() {secs:.3f} s")
+        bad = [str(f) for f in rep.findings
+               if f.severity == "error" or f.rule_id == "STRAT005"]
+        if bad or not audits or len(audits) != len(names) \
+                or predicted is None:
+            raise AssertionError(f"{tag}: findings {bad}, audits {audits}, "
+                                 f"predicted {predicted}")
+        if on_card and budget <= predicted:
+            raise AssertionError(f"{tag}: budget {budget} B not above the "
+                                 f"predicted peak {predicted} B")
+        saved = edconfig.analyze_hbm_budget
+        edconfig.analyze_hbm_budget = predicted // 2
+        try:
+            drill = comp.analyze(raise_on_error=False, export=False)
+            mem4 = [f for f in drill.findings if f.rule_id == "MEM004"]
+            try:
+                comp.analyze(raise_on_error=True, export=False)
+                raised = False
+            except AnalysisError:
+                raised = True
+        finally:
+            edconfig.analyze_hbm_budget = saved
+        print(f"{tag}: at half the predicted peak ({predicted // 2} B) "
+              f"{len(mem4)} MEM004, AnalysisError raised: {raised}; "
+              f"{mem4[0].message[:240] if mem4 else ''}")
+        if len(mem4) != 1 or "advisory" not in mem4[0].message \
+                or not raised:
+            raise AssertionError(f"{tag}: the MEM004 drill gave {mem4}, "
+                                 f"raised {raised}")
+        run = frontend[shape]["run"]
+        measured = run["peak"]
+        ratio = predicted / measured if measured else None
+        print(f"analyze 21b {shape}: rank 0's program launched "
+              f"{run['launches']} (phase 9b's run); peak {measured} B "
+              f"measured, {predicted} B predicted (graph plan "
+              f"{res.memory_plan.peak_bytes} B, rank program "
+              f"{res.program_peak_bytes} B), both with rank 0's inputs; "
+              f"predicted / measured "
+              f"{'not measured' if ratio is None else f'{ratio:.4f}'}")
+        if on_card and predicted < (1.0 - PEAK_UNDER_TOL) * measured:
+            raise AssertionError(f"analyze 21b {shape}: predicted peak "
+                                 f"{predicted} B under the measured "
+                                 f"{measured} B by more than "
+                                 f"{PEAK_UNDER_TOL:.0%}")
+        out[shape] = dict(findings=rep.rule_counts(), secs=secs,
+                          audits=audits, predicted=predicted,
+                          plan=res.memory_plan.peak_bytes,
+                          program=res.program_peak_bytes,
+                          measured=measured, budget=budget,
+                          launches=run["launches"])
+    return out
+
+
+def analyze_runs(tail, kit, fleet, sim):
+    """21c-f: 15a's remat plans, phase 14's schedules, phase 19's fleet
+    logs and phase 20's predictions and scale decisions."""
+    from easydist_tpu_torch.analyze import (audit_prediction,
+                                            audit_remat_plan, audit_routing,
+                                            audit_scale_decisions,
+                                            check_protocol_conformance,
+                                            schedule_stats,
+                                            verify_schedule_tables)
+    from easydist_tpu_torch.parallel.pipeline import schedule_tables
+    from easydist_tpu_torch.sim import SIM_REL_ERROR_BOUND
+
+    out = {}
+    for tag, (source, plan, program) in \
+            tail["out"]["cap"]["remat_audits"].items():
+        found = audit_remat_plan(source, plan, program=program)
+        print(f"analyze 21c 15a {tag}: {len(plan.records)} remat records "
+              f"audited, {len(found)} MEM005")
+        if found:
+            raise AssertionError(f"analyze 21c {tag}: {found}")
+    bubbles = {}
+    for schedule, S, V, M in PHASE14_SCHEDULES:
+        tables = schedule_tables(schedule, S, V, M)
+        found = verify_schedule_tables(tables, S, V, M,
+                                       stash_bound=schedule == "1f1b")
+        key = f"{schedule} S={S} V={V} M={M}"
+        bubbles[key] = schedule_stats(tables)["bubble_fraction"]
+        errors = [str(f) for f in found if f.severity == "error"]
+        print(f"analyze 21d {key}: bubble fraction {bubbles[key]:.4f}; "
+              f"findings {[f.rule_id for f in found]}")
+        if errors:
+            raise AssertionError(f"analyze 21d {key}: {errors}")
+    out["bubbles"] = bubbles
+    drift = {}
+    for tag, logs in kit.logs.items():
+        found = check_protocol_conformance(
+            router=_Logged(logs["router"]), health=_Logged(logs["health"]),
+            transport=_Logged(logs["transport"]), node=tag)
+        found += audit_routing(logs["decisions"], node=tag)
+        drift[tag] = [str(f) for f in found]
+    fleet_logged = [str(f) for f in fleet["logged"]
+                    if f.rule_id.startswith("FLEET")]
+    fired = fleet["19c"]["fired"].get("fleet.transport.page_corrupt", 0)
+    rejected = sum(e["event"] == "rejected"
+                   for e in kit.logs["19c chaos"]["transport"])
+    print(f"analyze 21e: {len(kit.logs)} fleet arms replayed "
+          f"{ {t: len(d) for t, d in drift.items()} } PROTO003 / FLEET "
+          f"findings; hooks logged {len(fleet_logged)} FLEET warnings; "
+          f"19c damaged {fired} page(s), FLEET002 per rejected handoff "
+          f"{kit.fleet002}, {rejected} rejected")
+    if any(drift.values()) or fleet_logged or not fired \
+            or kit.fleet002 != [["FLEET002"]] * fired or rejected != fired:
+        raise AssertionError(f"analyze 21e: drift {drift}, logged "
+                             f"{fleet_logged}, FLEET002 {kit.fleet002} for "
+                             f"{fired} damaged pages, {rejected} rejected")
+    val = [r for r in sim["rows"] if r["role"] == "validation"]
+    sim1 = audit_prediction(val, bound=SIM_REL_ERROR_BOUND)
+    window = sim["ramp"]["window"]
+    sim2 = [f for log in sim["ramp"]["decisions"].values()
+            for f in audit_scale_decisions(log, window=window)]
+    print(f"analyze 21f: {len(val)} held-out rows against "
+          f"{SIM_REL_ERROR_BOUND}: {len(sim1)} SIM001; "
+          f"{len(sim['ramp']['decisions'])} decision logs in a {window}-tick "
+          f"window: {len(sim2)} SIM002")
+    if sim1 or sim2:
+        raise AssertionError(f"analyze 21f: {sim1 + sim2}")
+    return out
+
+
+def analyze_cli(dev):
+    """21g: `python -m easydist_tpu_torch.analyze` over the ast, protocol
+    and presets targets in a subprocess (the presets compile on `dev`)."""
+    from easydist_tpu_torch.analyze import COMMITTED_STATES
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_json = os.path.abspath(os.path.join(".easydist_cache",
+                                            "analyze_cli.json"))
+    os.makedirs(os.path.dirname(out_json), exist_ok=True)
+    cmd = [sys.executable, "-m", "easydist_tpu_torch.analyze", "--targets",
+           "ast,protocol,presets", "--no-cache", "--json", out_json]
+    if dev.type != "cuda":
+        cmd += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          cwd=root)
+    secs = time.perf_counter() - t0
+    print(f"analyze 21g: {' '.join(cmd[1:])} exited {proc.returncode} in "
+          f"{secs:.1f} s: {proc.stdout.strip()[:600]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"analyze 21g: exit {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    with open(out_json) as f:
+        report = json.load(f)
+    states = {n: (st["states"], st["exhausted"])
+              for n, st in report["protocol"].items()}
+    if states != {n: (c, True) for n, c in COMMITTED_STATES.items()} \
+            or report["new_errors"] or "presets" not in report["targets"]:
+        raise AssertionError(f"analyze 21g: states {states}, new errors "
+                             f"{report['new_errors']}")
+    return dict(secs=secs, states=states, n_files=report["n_files"],
+                counts=report["counts"], discovery=report["discovery"])
+
+
+def analyze_phase(dev, frontend, tail, fleet, sim):
+    """Phase 21: the analyzer on the card — (a) phase 9's fresh compiles
+    analysed, the MEM004 drill, (b) the plan against the measured peak,
+    (c) 15a's remat plans, (d) phase 14's schedules, (e) phase 19's fleet
+    logs and FLEET002 per damaged page, (f) phase 20's rows and scale
+    decisions, (g) the CLI.  Returns the B1-B3 launches of 21b's runs by
+    mesh and the numbers."""
+    from easydist_tpu_torch import config as edconfig
+
+    t_phase = time.perf_counter()
+    saved = edconfig.prof_db_path
+    # analyze() exports its counts into a PerfDB inside the checkout
+    edconfig.prof_db_path = os.path.join(".easydist_cache",
+                                         "analyze_perf.db")
+    try:
+        out = {"compiles": analyze_compiles(frontend, dev.type == "cuda")}
+    finally:
+        edconfig.prof_db_path = saved
+    out.update(analyze_runs(tail, fleet["kit"], fleet, sim))
+    out["cli"] = analyze_cli(dev)
+    secs = time.perf_counter() - t_phase
+    print(f"analyze phase: {secs:.1f} s")
+    launches = {name: {str(shape): c["launches"][name]
+                       for shape, c in out["compiles"].items()}
+                for name in TRAIN_KERNELS}
+    return launches, out
 
 
 CUT_DEPTH = dict(layers=6)
@@ -6865,6 +7199,10 @@ def main() -> int:
     for e in (entry, *train_entries):
         e["launches_sim"] = sim["launches"][e["name"]]
     mark("phase 20")
+    launches_analyze, _ = analyze_phase(dev, flash_out, tail, fleet, sim)
+    for e in train_entries:
+        e["launches_analyze"] = launches_analyze[e["name"]]
+    mark("phase 21")
     print(card_line())
     print(json.dumps({"kernels": [entry, *paged_entries, *train_entries]}))
     print(json.dumps({"ok": True, "device": {

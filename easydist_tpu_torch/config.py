@@ -80,6 +80,34 @@ discovery_use_presets = _env_bool("EASYDIST_DISCOVERY_PRESETS", True)
 # logged, never raised)
 discovery_crosscheck = _env_bool("EASYDIST_DISCOVERY_CROSSCHECK", False)
 
+# ---------------- dumps (fxfront/api.py `_dump_strategies`) ----------------
+# directory for the solved MetaIR, clusters, strategies, the DOT graph and
+# each emitted rank program's code (None: no dump)
+dump_dir = os.environ.get("EASYDIST_DUMP_DIR", None)
+dump_strategy = _env_bool("EASYDIST_DUMP_STRATEGY", True)
+dump_cluster = _env_bool("EASYDIST_DUMP_CLUSTER", False)
+# graphviz DOT of the MetaIR graph with the chosen placements
+dump_graphviz = _env_bool("EASYDIST_DUMP_GRAPHVIZ", True)
+
+# ---------------- static analyzer (easydist_tpu_torch.analyze) ----------------
+# run the strategy verifier and the solver objective audit after every
+# per-axis solve, the discovery transfer audit after every trace, the
+# schedule, page-handoff, resume and drain hooks (pure Python over built
+# structures)
+enable_analyze = _env_bool("EASYDIST_ANALYZE", True)
+# error-severity findings raise AnalysisError; 0 demotes them to logging
+analyze_raise = _env_bool("EASYDIST_ANALYZE_RAISE", True)
+# MEM004 budget in bytes a device: -1 = ask the card (`torch.cuda`'s total
+# memory; `hbm_capacity_default` where no CUDA device answers), 0 = gate
+# off, > 0 = this budget.  It only verifies; `per_device_memory_cap`
+# drives remat.
+analyze_hbm_budget = _env_int("EASYDIST_ANALYZE_HBM_BUDGET", -1)
+# the device memory assumed where no CUDA device answers: an H100 80GB
+# HBM3's `total_memory` as torch reports it (PERF.md)
+hbm_capacity_default = _env_int("EASYDIST_HBM_CAPACITY", 85_017_493_504)
+# SCHED003: warn above this static bubble fraction of a tick schedule
+analyze_bubble_warn_frac = _env_float("EASYDIST_ANALYZE_BUBBLE_WARN", 0.6)
+
 # ---------------- frontend (fxfront/) ----------------
 # persistent per-graph strategy cache: a hit skips discovery and solving
 enable_compile_cache = _env_bool("EASYDIST_COMPILE_CACHE", False)
@@ -239,6 +267,9 @@ _validate_resilience()
 # ---------------- op-time database ----------------
 prof_db_path = os.environ.get(
     "EASYDIST_PERF_DB", os.path.expanduser("~/.easydist_tpu_torch/perf.db"))
+# fenced per-step seconds of every compiled call after the first, into the
+# PerfDB under ("step_times", <function name>)
+enable_runtime_prof = _env_bool("EASYDIST_RUNTIME_PROF", False)
 # price the solver's compute redundancy with measured per-op seconds from
 # the PerfDB where a node's signature hits
 use_op_cost_db = _env_bool("EASYDIST_OP_COST_DB", True)

@@ -20,8 +20,8 @@ through the fleet would take every replica down in sequence; instead its
 future fails with the structured `PoisonRequestError` naming the
 replicas it took down, and the fleet keeps serving everyone else.
 
-FLEET005 (the analyze layer, not ported yet) audits every resume before
-it is submitted: the resubmitted prompt must be exactly original-prompt
+FLEET005 (`analyze.check_resume_descriptor`, called by
+`FleetRouter._resubmit`) audits every resume before it is submitted: the resubmitted prompt must be exactly original-prompt
 + emitted-ids, the budget must have room left, and the emitted ids must
 not already contain eos.
 """

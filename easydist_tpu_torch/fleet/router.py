@@ -49,9 +49,13 @@ future fails with `PoisonRequestError` instead of rolling through the
 fleet.  Re-registering a crashed replica id via `add_replica` is the
 revive operation (the chaos drill's schedule does exactly that).
 
-The decision, drain, crash and protocol logs are the surfaces the JAX
-package's FLEET001-005 audits read; the port keeps them the same, and
-the audits come with the port's analyze layer.
+The decision, drain, crash and protocol logs are the surfaces the
+analyzer's fleet audits read (`analyze.fleet_rules`, the JAX package's
+FLEET001-005): every routing decision passes `check_fleet_routing`
+(FLEET001/004), every resume descriptor `check_resume_descriptor`
+before its resubmit (FLEET005), every drained session
+`check_fleet_drain` (FLEET003); `analyze.check_protocol_conformance`
+replays `transitions()` against the RouterSpec (PROTO003).
 """
 
 from __future__ import annotations
@@ -63,6 +67,9 @@ from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from easydist_tpu_torch.analyze import (check_fleet_drain,
+                                        check_fleet_routing,
+                                        check_resume_descriptor)
 from easydist_tpu_torch.resilience.breaker import OPEN, CircuitBreaker
 from easydist_tpu_torch.serve.admission import (AdmissionController,
                                           CircuitOpenError,
@@ -328,7 +335,7 @@ class FleetRouter:
                 chosen = min(eligible, key=score)
             affinity = aff.get(chosen.replica_id, 0) \
                 if self.config.policy == "affinity" else 0
-        self._log(self.decision_log, {
+        decision = {
             "request_id": request_id,
             "replica_id": chosen.replica_id,
             "breaker_state": (chosen.breaker.state if chosen.breaker
@@ -338,7 +345,11 @@ class FleetRouter:
             "affinity_tokens": affinity,
             "prompt_tokens": len(prompt),
             "policy": self.config.policy,
-        })
+        }
+        self._log(self.decision_log, decision)
+        # FLEET001/004: the decision as observed; raises under
+        # config.analyze_raise before the request reaches the replica
+        check_fleet_routing([decision], node=f"route[{request_id}]")
         if affinity:
             self.metrics.inc("routed_warm")
         self.metrics.inc("routed")
@@ -584,9 +595,13 @@ class FleetRouter:
 
     def _resubmit(self, rec: _Inflight) -> None:
         """Continue `rec` on a surviving replica from its descriptor:
-        resubmit prompt + emitted ids with the remaining budget."""
+        resubmit prompt + emitted ids with the remaining budget.  Audited
+        first (FLEET005): a descriptor that would change tokens fails
+        loudly, never resumes silently wrong."""
         desc = rec.resume
         resume_prompt = desc.resume_prompt()
+        check_resume_descriptor(desc.as_dict(), resume_prompt,
+                                node=f"resume[{desc.request_id}]")
         try:
             nxt = self._route(resume_prompt, rec.request_id)
         except CircuitOpenError as e:
@@ -784,6 +799,8 @@ class FleetRouter:
                     retries=cfg.handoff_retries,
                     backoff_s=cfg.handoff_backoff_ms / 1e3)
                 migrated += res["chunks"]
+        # FLEET003: a drained session must hold no pinned trie page
+        check_fleet_drain(rep.session, node=f"drain[{rep.replica_id}]")
         del self._replicas[rep.replica_id]
         self.metrics.inc("drains_completed")
         self.metrics.inc("pages_migrated", migrated)

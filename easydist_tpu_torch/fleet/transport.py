@@ -51,6 +51,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from easydist_tpu_torch.analyze import check_page_handoff
 from easydist_tpu_torch.resilience import faultinject
 
 logger = logging.getLogger(__name__)
@@ -308,7 +309,11 @@ class InProcessTransport(KVTransport):
         self._event_cap = 512
 
     def _event(self, event: str, key: tuple, src: str, dst: str) -> None:
-        self.events.append({"event": event, "key": key[1:],
+        # the whole idempotence key, destination included: a drain
+        # migrates one hot path to every survivor, and those are distinct
+        # commits (the JAX package's stream drops the destination, so its
+        # replay reads them as one key committed twice)
+        self.events.append({"event": event, "key": key,
                             "src": src, "dst": dst})
         del self.events[:-self._event_cap]
 
@@ -370,7 +375,12 @@ class InProcessTransport(KVTransport):
         return n
 
     def _check(self, manifest, path) -> None:
-        # commits abort on damage whatever the audit layer would say
+        # FLEET002 audit trail; raises AnalysisError under
+        # config.analyze_raise (the caller turns it into PageCorruptError)
+        check_page_handoff(manifest, path,
+                           node=f"handoff[{manifest['src']}->"
+                                f"{manifest['dst']}]")
+        # commits abort on damage even with analyze_raise off
         problems = verify_manifest(manifest, path)
         if problems:
             raise RuntimeError(f"KV page handoff corrupt: {problems}")

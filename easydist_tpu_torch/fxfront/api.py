@@ -30,6 +30,16 @@ copied into its input (a profiler range, "easydist_compile.state_copy",
 marks the copies), so paired state keeps its storage across calls
 either way.  `donate_state=False` leaves the inputs as they were and
 returns the new tensors.
+
+Static analysis (`easydist_tpu_torch.analyze`, under
+`config.enable_analyze`): every per-axis solve is verified (layer 1,
+STRAT001-005, with the solver's objective audited), every trace's rule
+transfers audited (layer 10, DISC001-002), and `CompiledFunction.analyze()`
+adds the memory layer (3a: the plan of the last solved axis re-derived,
+MEM004 against the card's memory, the remat rewrite audited).
+`config.dump_dir` dumps the solved MetaIR, clusters, strategies, the DOT
+graph and each rank's emitted program code; `config.enable_runtime_prof`
+records fenced per-call seconds into the PerfDB.
 """
 
 from __future__ import annotations
@@ -161,6 +171,110 @@ class CompileResult:
         self.replicated_on_failure: List[str] = []
         self.replicated_flops_fraction = 0.0
         self.remat_plan = None
+        # the program the remat planner read (its node names are the
+        # plan's), for the MEM005 audit
+        self.remat_source = None
+        # analyzer surfaces: layer-1 and layer-10 findings collected at
+        # compile time, the per-axis solver-objective audit records, and
+        # the memory plan of the last `analyze()`
+        self.analysis_findings: List[object] = []
+        self.solver_audits: List[Dict[str, float]] = []
+        self.memory_plan = None
+        self.predicted_peak_bytes: Optional[int] = None
+        # the liveness peak of the rank program that runs
+        # (`schedule.remat.program_peak`), sized once
+        self.program_peak_bytes: Optional[int] = None
+
+    # ---------------------------------------------------------- analysis
+    def analyze(self, include_program: bool = True,
+                include_memory: bool = True):
+        """Static analysis of this compiled result
+        (`easydist_tpu_torch.analyze`): the layer-1 strategy and layer-10
+        discovery findings recorded at compile time, plus, when
+        `include_memory`, the layer-3a memory verifier (graph memory plan
+        audit, the MEM004 budget gate, the remat-rewrite audit).
+        `include_program` names the lint of the emitted program, which
+        has nothing to lint in the port yet (its FX lints are ROADMAP
+        queue A item 9b); it adds no finding.  Returns an AnalysisReport;
+        raising is the caller's decision (`CompiledFunction.analyze`
+        gates it on `config.analyze_raise`)."""
+        from easydist_tpu_torch.analyze import AnalysisReport
+
+        report = AnalysisReport(self.analysis_findings)
+        if include_memory:
+            report.extend(self._memory_findings())
+        return report
+
+    def _solved_graph(self):
+        """(MetaGraph, axis spec, chosen) of the last solved axis, or
+        None: that graph's shapes are pre-shrunk by every earlier axis,
+        so dividing by its own placements gives per-device bytes."""
+        if not self.graphs:
+            return None
+        for a in reversed(_axis_solve_order(self.axis_specs)):
+            if self.graphs[a] is not None:
+                return self.graphs[a], self.axis_specs[a], \
+                    self.strategies[a]
+        return None
+
+    def _memory_findings(self) -> List[object]:
+        """Layer 3a: plan this result's graph memory and run the MEM rule
+        family over it (reference jaxfront/api.py:470-515)."""
+        from easydist_tpu_torch.analyze import (audit_remat_plan,
+                                                check_hbm_budget,
+                                                make_finding,
+                                                resolve_hbm_budget,
+                                                verify_memory_plan)
+        from easydist_tpu_torch.schedule import plan_graph_memory
+
+        findings: List[object] = []
+        if self.remat_plan is not None and self.remat_source is not None:
+            findings.extend(audit_remat_plan(self.remat_source,
+                                             self.remat_plan,
+                                             program=self.graph_module))
+        solved = self._solved_graph()
+        if solved is None:
+            return [make_finding(
+                "MEM000", "memory-plan",
+                "no MetaGraph on this result (strategy-cache hit or "
+                "one-device compile): the memory layer ran — if ever — "
+                "on the solving compile")] + findings
+        graph, axis, chosen = solved
+        try:
+            plan = plan_graph_memory(graph, [chosen], [axis.size])
+        except Exception as e:  # analysis must never be the thing that fails
+            return [make_finding(
+                "MEM000", "memory-plan",
+                f"memory planning failed ({type(e).__name__}: {e}); "
+                f"MEM rules skipped")] + findings
+        self.memory_plan = plan
+        self.predicted_peak_bytes = self._predicted_peak(plan)
+        findings.extend(verify_memory_plan(graph, plan, [chosen],
+                                           [axis.size]))
+        mesh = self.mesh if _is_device_mesh(self.mesh) else None
+        budget = resolve_hbm_budget(mesh, device=_program_device(self))
+        findings.extend(check_hbm_budget(
+            graph, plan, budget, remat_plan=self.remat_plan,
+            predicted=self.predicted_peak_bytes))
+        return findings
+
+    def _predicted_peak(self, plan) -> int:
+        """The per-device peak MEM004 verifies: the remat plan's peak of
+        the rewritten program when remat applied; else the larger of the
+        graph plan's skyline and the liveness peak of the rank program
+        that runs.  The graph plan sizes each value by its producer's
+        placement; the rank program also holds what emission inserts
+        (a collective's gathered output, say) and its inputs for the
+        whole call, as the caller does."""
+        from easydist_tpu_torch.schedule.remat import program_peak
+
+        if self.remat_plan:
+            return int(self.remat_plan.predicted_peak)
+        if self.program_peak_bytes is None:
+            gm = self.planning_program()
+            if gm is not None:
+                self.program_peak_bytes = program_peak(gm)
+        return max(int(plan.peak_bytes), self.program_peak_bytes or 0)
 
     # ----------------------------------------------------- mesh plumbing
     def program_for(self, coords):
@@ -486,7 +600,7 @@ def _auto_remat(result: CompileResult) -> None:
         return
     from easydist_tpu_torch.schedule.remat import (apply_remat,
                                                    memory_planner_peak,
-                                                   plan_remat,
+                                                   plan_remat, program_peak,
                                                    resolve_memory_cap)
 
     mesh = result.mesh if _is_device_mesh(result.mesh) else None
@@ -497,8 +611,10 @@ def _auto_remat(result: CompileResult) -> None:
     gm = result.planning_program()
     if gm is None:
         return
+    result.program_peak_bytes = program_peak(gm)
     plan = plan_remat(gm, cap)
     if plan is not None:
+        result.remat_source = gm
         before = memory_planner_peak(gm)
         if before <= cap:
             logger.info("[remat] liveness peak %.3f GiB over the cap, the "
@@ -518,6 +634,8 @@ def _auto_remat(result: CompileResult) -> None:
                 plan = None
             else:
                 result.graph_module = trial
+    if plan is None:
+        result.remat_source = None
     result.remat_plan = plan
     result.timings["remat"] = time.perf_counter() - t0
 
@@ -588,7 +706,7 @@ def _earlier_out(chosen, node, pos) -> Optional[Placement]:
 
 
 def solve_axes(gm, axis_specs, world, rules, shape_info, names,
-               state_io_names=None):
+               state_io_names=None, findings=None, audits=None):
     """The per-axis sequential solve (reference compile_auto.py:128-173):
     strategies chosen on earlier axes are excluded from later pools, and
     so is any strategy that would shard a tensor dim an earlier axis
@@ -596,7 +714,13 @@ def solve_axes(gm, axis_specs, world, rules, shape_info, names,
     on the dim an earlier axis moves it off (the two axes would trade
     dims, which emission does only through R, unpriced); sharded shapes
     are pre-shrunk.  Returns (per_axis strategies, per-axis MetaGraphs,
-    per-axis solvers), in mesh order; a size-1 axis gets {} and None."""
+    per-axis solvers), in mesh order; a size-1 axis gets {} and None.
+
+    When `findings` is a list and `config.enable_analyze` is on, the
+    layer-1 strategy verifier runs on each axis's (graph, chosen) pair
+    right after its solve — the only moment that exact pair exists —
+    appending Findings (reference jaxfront/api.py:672-700); `audits`
+    collects the per-axis solver-objective audit records."""
     from easydist_tpu_torch.autoflow import SpmdSolver
 
     from .bridge import fx_to_metagraph
@@ -661,6 +785,8 @@ def solve_axes(gm, axis_specs, world, rules, shape_info, names,
             reach = ReachabilityMap(graph)
         solver = SpmdSolver(graph, axis, reachability=reach)
         chosen = solver.solve()
+        if findings is not None and edconfig.enable_analyze:
+            _verify_solve(graph, solver, chosen, axis, findings, audits)
         per_axis[a], graphs[a], solvers[a] = chosen, graph, solver
         prev.append(chosen)
         logger.info("[solve] axis %s (%d devices) in %.2fs", axis.name,
@@ -676,6 +802,38 @@ def solve_axes(gm, axis_specs, world, rules, shape_info, names,
                         shape[p.dim] //= axis.size
                         var_shapes[v.name] = tuple(shape)
     return per_axis, graphs, solvers
+
+
+def _verify_solve(graph, solver, chosen, axis, findings, audits) -> None:
+    """Layer 1 over one axis's solve: STRAT001-004 on the placements,
+    STRAT005 on the solver's objective, OVL003 once when the comm-overlap
+    discount rests on no measured fraction."""
+    from easydist_tpu_torch.analyze import (audit_solver_objective,
+                                            make_finding, verify_axis)
+
+    findings.extend(verify_axis(graph, chosen, axis))
+    audit_finding, audit_record = audit_solver_objective(solver, chosen)
+    if audit_finding is not None:
+        findings.append(audit_finding)
+    if audits is not None and "reported" in audit_record:
+        audits.append(audit_record)
+    if edconfig.predict_comm_overlap:
+        from easydist_tpu_torch.autoflow.cost_model import (
+            overlap_discount_ratio, overlap_ratio_is_measured)
+
+        if not overlap_ratio_is_measured() and not any(
+                f.rule_id == "OVL003" for f in findings):
+            ratio = overlap_discount_ratio()
+            findings.append(make_finding(
+                "OVL003", f"axis:{axis.name}",
+                "predict_comm_overlap is on but no measured overlap "
+                "fraction exists for this backend "
+                f"(source={edconfig.comm_overlap_ratio_source!r} resolves "
+                f"to ratio={ratio:g}"
+                + (", the flat config guess" if ratio > 0
+                   else ", so the discount is inert")
+                + "); run runtime.calibrate.calibrate_overlap() on the "
+                "target to ground the discount"))
 
 
 def _edge_kind(up: Placement, down: Placement) -> Optional[str]:
@@ -903,6 +1061,13 @@ def _compile_on_mesh(result: CompileResult, axis_specs=None) -> None:
         per_axis = _strategy_cache_load(key)
         if per_axis is not None:
             logger.info("[compile cache] hit %s", key)
+            if edconfig.enable_analyze:
+                from easydist_tpu_torch.analyze import make_finding
+
+                result.analysis_findings.append(make_finding(
+                    "STRAT000", "compile",
+                    f"compile-cache hit {key}: layer-1 strategy findings "
+                    f"were produced by the solving compile"))
     if per_axis is None:
         t0 = time.perf_counter()
         world = min(s.size for s in axis_specs)
@@ -911,9 +1076,17 @@ def _compile_on_mesh(result: CompileResult, axis_specs=None) -> None:
         result.timings["discovery"] = time.perf_counter() - t0
         result.counters = analyzer.counters.snapshot()
         result.replicated_on_failure = list(analyzer.replicated_on_failure)
+        if edconfig.use_op_cost_db:
+            from easydist_tpu_torch.runtime.perfdb import record_discovery
+
+            record_discovery(result.counters)
+        # discovery findings (DISC001/DISC002) ride the same report as the
+        # solver layer's
+        result.analysis_findings.extend(analyzer.findings)
         t0 = time.perf_counter()
         per_axis, graphs, solvers = solve_axes(
-            gm, axis_specs, world, rules, shape_info, names, state_io_names)
+            gm, axis_specs, world, rules, shape_info, names, state_io_names,
+            findings=result.analysis_findings, audits=result.solver_audits)
         result.timings["solve"] = time.perf_counter() - t0
         result.graphs, result.solvers = graphs, solvers
         result.priced_wire = [priced_collectives(sv, c, wire=True)
@@ -945,6 +1118,52 @@ def _compile_on_mesh(result: CompileResult, axis_specs=None) -> None:
     result.graph_module, result.collectives = result.program_for(
         list(mesh.get_coordinate()))
     result.timings["emit"] = time.perf_counter() - t0
+    if edconfig.dump_dir:
+        _dump_strategies(result)
+
+
+def _dump_strategies(result: CompileResult) -> None:
+    """Write the last solved axis's MetaIR and clusters
+    (`config.dump_cluster`), the strategies per axis
+    (`config.dump_strategy`), the MetaIR as graphviz DOT with the chosen
+    placements (`config.dump_graphviz`) and every rank's emitted program
+    code into `config.dump_dir` (reference jaxfront/api.py:369-396; the
+    program code takes the place of the JAX package's optimized HLO)."""
+    import itertools
+    import os
+
+    d = edconfig.dump_dir
+    os.makedirs(d, exist_ok=True)
+    per_axis = [c if c is not None else {} for c in result.strategies]
+    axis_names = [s.name for s in result.axis_specs]
+    solved = result._solved_graph()
+    graph = solved[0] if solved is not None else None
+    if graph is not None and edconfig.dump_cluster:
+        with open(os.path.join(d, "metair.txt"), "w") as f:
+            f.write(repr(graph))
+        with open(os.path.join(d, "clusters.txt"), "w") as f:
+            for c in graph.clusters:
+                node_names = [n.name for n in c.nodes.values()]
+                f.write(f"cluster {c.cid}: {len(c.strategies)} strategies; "
+                        f"nodes {node_names}\n")
+    if edconfig.dump_strategy:
+        with open(os.path.join(d, "strategies.txt"), "w") as f:
+            for name in sorted({n for chosen in per_axis for n in chosen}):
+                parts = [f"{ax}: {chosen.get(name)}"
+                         for ax, chosen in zip(axis_names, per_axis)]
+                f.write(f"{name}\n  " + "\n  ".join(parts) + "\n")
+    if graph is not None and edconfig.dump_graphviz:
+        from easydist_tpu_torch.utils.dump import metagraph_to_dot
+
+        with open(os.path.join(d, "metair.dot"), "w") as f:
+            f.write(metagraph_to_dot(graph, per_axis, axis_names))
+    sizes = [s.size for s in result.axis_specs]
+    for coords in itertools.product(*(range(n) for n in sizes)):
+        program, _ = result.program_for(list(coords))
+        tag = "_".join(str(c) for c in coords)
+        with open(os.path.join(d, f"program_rank_{tag}.py"), "w") as f:
+            f.write(program.code)
+    logger.info("strategies and rank programs dumped to %s", d)
 
 
 class CompiledFunction:
@@ -962,6 +1181,11 @@ class CompiledFunction:
         self._cache: Dict[object, CompileResult] = {}
         self._cache_hits = 0
         self._cache_misses = 0
+        # the last-called result (`analyze()` with no arguments) and the
+        # runtime profiler's state
+        self._last: Optional[CompileResult] = None
+        self._perfdb = None
+        self._warmed: set = set()
         functools.update_wrapper(self, func)
 
     @staticmethod
@@ -1004,11 +1228,76 @@ class CompiledFunction:
         return {"size": len(self._cache), "hits": self._cache_hits,
                 "misses": self._cache_misses}
 
+    def analyze(self, *args, raise_on_error: Optional[bool] = None,
+                include_program: bool = True, include_memory: bool = True,
+                export: bool = True, **kwargs):
+        """Run the static analyzer (`easydist_tpu_torch.analyze`) on a
+        compiled signature: with args, the signature they resolve to
+        (tracing it first if needed); without, the last-called one
+        (reference jaxfront/api.py:1149-1180).
+
+        Exports finding counts to the runtime PerfDB under
+        ("analyze_stats", <function name>) and raises AnalysisError on
+        error-severity findings unless `raise_on_error=False` or the
+        `EASYDIST_ANALYZE_RAISE=0` escape hatch is set.  Returns the
+        AnalysisReport."""
+        if args or kwargs:
+            result = self.get_compiled(*args, **kwargs)
+        else:
+            result = self._last
+            if result is None:
+                raise RuntimeError(
+                    "analyze(): nothing compiled yet — call the function "
+                    "first or pass example args")
+        report = result.analyze(include_program=include_program,
+                                include_memory=include_memory)
+        if export:
+            report.export_to_perfdb(
+                sub_key=getattr(self.func, "__name__", "step"))
+        if raise_on_error is None:
+            raise_on_error = edconfig.analyze_raise
+        if raise_on_error:
+            report.raise_on_errors()
+        elif report.errors():
+            logger.warning("[analyze] %s", report.summary())
+        return report
+
     def __call__(self, *args, **kwargs):
         result = self.get_compiled(*args, **kwargs)
+        self._last = result
         if self.compile_only:
             return result
+        if edconfig.enable_runtime_prof:
+            return self._profiled_call(result, args, kwargs)
         return result.tree_jitted(*args, **kwargs)
+
+    def _profiled_call(self, result: CompileResult, args, kwargs):
+        """Fenced per-call seconds into the PerfDB under ("step_times",
+        <function name>), the last 64 kept (`config.enable_runtime_prof`;
+        reference jaxfront/api.py:1214-1236).  The fence is
+        `torch.cuda.synchronize` on the result's device; a result's first
+        call is not recorded (it pays the card's first launches)."""
+        from easydist_tpu_torch.runtime.perfdb import PerfDB
+
+        dev = _program_device(result)
+        t0 = time.perf_counter()
+        out = result.tree_jitted(*args, **kwargs)
+        if dev is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        if id(result) not in self._warmed:
+            self._warmed.add(id(result))
+            return out
+        if self._perfdb is None:
+            self._perfdb = PerfDB()
+        key = getattr(self.func, "__name__", "step")
+        hist = self._perfdb.get_op_perf("step_times", key) or []
+        self._perfdb.record_op_perf("step_times", key, (hist + [dt])[-64:])
+        try:
+            self._perfdb.persist()
+        except Exception:  # a read-only DB path must not fail a step
+            pass
+        return out
 
 
 _PIPELINE_DEFAULTS = {"pp_stages": None, "n_microbatches": None,

@@ -13,6 +13,12 @@ scan, cond and while discovery has no counterpart here (the reference's
 own torch path unrolls the same way, easydist/torch/compile.py:78-83).
 `getitem` of a multi-output node carries no rule of its own: the bridge
 folds it into its producer.
+
+Under `config.enable_analyze` every representative -> member transfer
+(a propagation group or the persistent rule cache) is recorded and
+audited at the end of the trace (`analyze.audit_rule_transfer`,
+DISC001), and a preset that declines an op the preset bank covers is a
+DISC002 warning; both land in `ShardingAnalyzer.findings`.
 """
 
 from __future__ import annotations
@@ -179,6 +185,10 @@ class ShardingAnalyzer:
         self.replicated_on_failure: List[str] = []
         self._dcache = get_cache()
         self._last_discovery_failed = False
+        # DISC001 / DISC002 findings and the transfer records the
+        # layer-10 audit reads
+        self.findings: List[object] = []
+        self._transfers: List[dict] = []
 
     # ------------------------------------------------------- probe inputs
     def _generator(self, device) -> torch.Generator:
@@ -259,6 +269,10 @@ class ShardingAnalyzer:
         c.groups = len(self.canon_rules)
         if self._dcache is not None:
             self._dcache.flush()
+        if edconfig.enable_analyze and self._transfers:
+            from easydist_tpu_torch.analyze import audit_rule_transfer
+
+            self.findings.extend(audit_rule_transfer(self._transfers))
         logger.info(
             "[discovery] %d signatures: %d preset, %d grouped, %d cached, "
             "%d discovered (%d probes, %d groups, %d replicated on failure) "
@@ -269,8 +283,9 @@ class ShardingAnalyzer:
     def _lookup_or_discover(self, node, sig: str) -> dict:
         """preset -> propagation group -> persistent cache -> discovery."""
         from . import discovery as disc
-        from .presets import preset_rule
+        from .presets import preset_rule, rule_for
 
+        name = target_name(node.target)
         if edconfig.discovery_use_presets:
             preset = preset_rule(node, self.world_size)
             if preset is not None:
@@ -278,6 +293,19 @@ class ShardingAnalyzer:
                 if edconfig.discovery_crosscheck:
                     self._crosscheck_preset(node, sig, preset)
                 return preset
+            if rule_for(node.target) is not None \
+                    and node.target not in _VIEW_TARGETS \
+                    and edconfig.enable_analyze:
+                from easydist_tpu_torch.analyze import make_finding
+
+                # DISC002: a preset-covered op falls through to the probe
+                # harness — the analytic rule declined this instance
+                self.findings.append(make_finding(
+                    "DISC002", f"discovery.{name}",
+                    f"analytic preset for {name!r} declined "
+                    f"{sig[:96]!r}; execution discovery runs instead — "
+                    f"extend the preset to cover this instance or fix "
+                    f"the decline"))
 
         csig = None
         if edconfig.discovery_prune or self._dcache is not None:
@@ -287,12 +315,22 @@ class ShardingAnalyzer:
             if got is not None and disc.rule_transferable(got[0], got[1],
                                                           node):
                 self.counters.rules_from_group += 1
+                self._transfers.append({
+                    "sig": sig, "prim": name, "rep_sig": got[2],
+                    "rep_shapes": got[1],
+                    "member_shapes": disc.node_tensor_shapes(node),
+                    "rule": got[0]})
                 return got[0]
         if csig is not None and self._dcache is not None:
             entry = self._dcache.get(csig)
             if entry is not None and disc.rule_transferable(
                     entry["rule"], entry["shapes"], node):
                 self.counters.rules_from_cache += 1
+                self._transfers.append({
+                    "sig": sig, "prim": name, "rep_sig": "<cache>",
+                    "rep_shapes": entry["shapes"],
+                    "member_shapes": disc.node_tensor_shapes(node),
+                    "rule": entry["rule"]})
                 if edconfig.discovery_prune:
                     self.canon_rules[csig] = (entry["rule"], entry["shapes"],
                                               sig)

@@ -24,8 +24,9 @@ drop page is never read.
 pages demote to host memory as `{"host": key}` references and promote
 back into arena pages on the next hit (`is_host_ref`).
 
-`audit_page_table` cross-checks pool, table and prefix trie (the JAX
-package's analyze rule KV001) and returns its findings as strings.
+`audit_page_table` cross-checks pool, table and prefix trie (the
+analyzer's KV001, `analyze.kv_rules`) and returns its findings as
+strings.
 """
 
 from __future__ import annotations
@@ -59,10 +60,10 @@ def is_host_ref(kv) -> bool:
 def audit_page_table(pool: PagePool, table: PageTable,
                      trie=None, tier=None) -> List[str]:
     """Consistency audit of a live (pool, table[, prefix trie of
-    {"page": id} references]) triple — the checks of the JAX package's
-    KV001 (`easydist_tpu/analyze/kv_rules.py`).  A bookkeeping slip here
-    does not crash: it serves one sequence another's K/V, or writes a
-    page after it was handed to someone else.  Returns one message per
+    {"page": id} references]) triple: the messages of the analyzer's KV001
+    findings (`analyze.kv_rules.audit_page_table`).  A bookkeeping slip
+    here does not crash: it serves one sequence another's K/V, or writes
+    a page after it was handed to someone else.  Returns one message per
     violated invariant; [] when the bookkeeping is consistent:
 
       * the pool's free-list and byte-conservation invariants, and the
@@ -73,33 +74,10 @@ def audit_page_table(pool: PagePool, table: PageTable,
         than its refcount;
       * with a host `tier`: its byte accounting and manifests hold (the
         JAX package's KVQ003)."""
-    problems = [f"pool: {p}" for p in pool.check_invariants()]
+    from easydist_tpu_torch.analyze.kv_rules import \
+        audit_page_table as kv001
+
+    problems = [f.message for f in kv001(pool, table, trie=trie)]
     if tier is not None:
         problems += [f"tier: {p}" for p in tier.check_invariants()]
-    problems += [f"table: {p}" for p in table.check_invariants()]
-    holders = {}
-    for slot in range(table.max_slots):
-        for pid in table.mapped(slot):
-            holders.setdefault(pid, []).append(f"slot{slot}")
-    if trie is not None:
-        for node in trie._walk():
-            if is_page_ref(node.kv):
-                holders.setdefault(node.kv["page"], []).append(
-                    f"trie@depth{node.depth}")
-    for pid, who in sorted(holders.items()):
-        if not 0 <= pid < pool.n_pages:
-            problems.append(f"page {pid} (held by {', '.join(who)}) is "
-                            f"outside the arena [0, {pool.n_pages})")
-            continue
-        rc = pool.refcount(pid)
-        if rc < 1:
-            problems.append(
-                f"page {pid} is mapped by {', '.join(who)} but has "
-                f"refcount {rc} (freed under a live holder — the "
-                f"allocator can hand it to another sequence)")
-        elif rc < len(who):
-            problems.append(
-                f"page {pid} has {len(who)} holders ({', '.join(who)}) "
-                f"but refcount {rc}: the first release frees it under the "
-                f"remaining holders")
     return problems

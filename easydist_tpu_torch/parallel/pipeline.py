@@ -180,14 +180,25 @@ def _gpipe_tables(S: int, V: int, M: int):
 def schedule_tables(schedule: str, S: int, V: int, M: int,
                     grad: bool = True):
     """The supertick tables a rank walks for `schedule` ("gpipe",
-    "remat", "1f1b"); forward only when `grad` is False."""
+    "remat", "1f1b"); forward only when `grad` is False.  Every table set
+    passes the analyzer's schedule verifier before a rank walks it
+    (`analyze.check_schedule_tables`: SCHED001 deadlock, SCHED002 stash
+    over the residual ring — and over the 1F1B bound for 1f1b — raise
+    under `config.analyze_raise`; the SCHED003 bubble report logs)."""
+    from easydist_tpu_torch.analyze import check_schedule_tables
+
     if schedule not in ("gpipe", "remat", "1f1b"):
         raise ValueError(f"unknown schedule {schedule!r}")
     if not grad:
-        return _1f1b_schedule_tables(S, V, M, fwd_only=True)
-    if schedule == "1f1b":
-        return _1f1b_schedule_tables(S, V, M)
-    return _gpipe_tables(S, V, M)
+        tables = _1f1b_schedule_tables(S, V, M, fwd_only=True)
+    elif schedule == "1f1b":
+        tables = _1f1b_schedule_tables(S, V, M)
+    else:
+        tables = _gpipe_tables(S, V, M)
+    check_schedule_tables(tables, S, V, M, fwd_only=not grad,
+                          node=f"pipeline.{schedule}",
+                          stash_bound=schedule == "1f1b")
+    return tables
 
 
 # ------------------------------------------------------------ rank core

@@ -61,8 +61,9 @@ head-sharded one), every rank runs the same host scheduler on the same
 requests, and the ids each program returns reach the host through a
 broadcast from the mesh's first rank, so the ranks agree.
 
-Not ported (ROADMAP.md lists it): the `analyze` audits other than the
-page-table one.
+The page-table audit is `kv.audit_page_table`, over the analyzer's
+KV001 (`analyze.kv_rules`).  Not ported yet (ROADMAP.md lists them): the session's other `analyze`
+audits (donation, chunked prefill, speculative rewind, host aliases).
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@ Safety properties, in priority order:
   * hysteresis: a move needs `confirm_evals` consecutive agreeing
     observations, and the opposite direction is suppressed for
     `cooldown_evals` after any actuation — A-B-A flapping is the SIM002
-    analyze finding;
+    finding of `analyze.audit_scale_decisions` over `decision_log`;
   * graceful degradation: frozen metrics (`autoscale.metrics.stale`) or
     a failing spin-up (`autoscale.scaleup.fail`) hold the current N with
     a loud warning instead of acting on bad data — both are catalogued

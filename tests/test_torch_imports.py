@@ -85,7 +85,14 @@ def test_every_port_module_imports_with_jax_blocked():
                  "reshard.restore", "fleet", "fleet.hashring",
                  "fleet.health", "fleet.failover", "fleet.transport",
                  "fleet.router", "sim", "sim.events", "sim.simulate",
-                 "sim.capacity", "sim.autoscale"):
+                 "sim.capacity", "sim.autoscale", "analyze",
+                 "analyze.findings", "analyze.strategy_rules",
+                 "analyze.discovery_rules", "analyze.memory_rules",
+                 "analyze.schedule_rules", "analyze.kv_rules",
+                 "analyze.fleet_rules", "analyze.sim_rules",
+                 "analyze.modelcheck", "analyze.protocol_rules",
+                 "analyze.alias_rules", "analyze.driver",
+                 "analyze.__main__", "utils", "utils.dump"):
         assert f"easydist_tpu_torch.{name}" in modules
     code = f"""
 import importlib, importlib.abc, sys
@@ -134,6 +141,37 @@ print("imported", len({modules!r}))
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert f"imported {len(modules)}" in proc.stdout
+
+
+def test_analyze_cli_runs_with_jax_blocked(tmp_path):
+    """`python -m easydist_tpu_torch.analyze --device cpu` over all three
+    targets, in an interpreter that refuses jax, jaxlib and easydist_tpu:
+    exit 0 against the committed empty baseline."""
+    code = f"""
+import importlib.abc, runpy, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in {BANNED!r}):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+from easydist_tpu_torch import config
+config.prof_db_path = {str(tmp_path / "p.db")!r}
+config.discovery_cache_dir = {str(tmp_path / "disc")!r}
+sys.argv = ["analyze", "--device", "cpu", "--targets",
+            "ast,protocol,presets", "--cache-dir", {str(tmp_path / "c")!r}]
+try:
+    runpy.run_module("easydist_tpu_torch.analyze", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "0 error(s) (0 new, 0 baselined)" in proc.stdout
+    assert "protocol[router]: 1048 states" in proc.stdout
 
 
 def test_no_import_statement_names_jax():
