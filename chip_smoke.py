@@ -268,7 +268,30 @@ Phases, each raising on failure (exit code != 0, no result line):
      `python -m easydist_tpu_torch.analyze --targets ast,protocol,presets`
      in a subprocess on the card: exit 0, every spec at its committed
      state count, nothing new against `analyze_baseline_torch.json`;
- 22. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
+ 22. the lints over traced programs (`program_lint_phase`): (a)
+     `CompileResult.analyze(include_program=True)` over phase 9's
+     compiles: every rank program of each mesh emitted and linted
+     (COLL001/004), COLL002 agreement across the 8, ALIAS001-003; no
+     error, the lint's seconds and rank 0's collectives printed; (b)
+     phase 16a's int8, bf16 and overlapped runs: rank 0's traced ddp
+     step clean, the COLL003 / OVL001 / OVL002 hooks ran with no finding,
+     each pinned flush issued its units once, in the plan's order; (c)
+     the SERVE001-003, KVQ001-003 and ALIAS004 audits of phases 4-6,
+     11-12 and 17 (`analyze.hook_tally`): each ran, none found
+     anything; (d) RES001: GPT-2 small's ddp step (16c's depth) traced
+     with the guard knob off equals the `step_guard=False` trace, and
+     the guarded one differs; (e) RESHARD001-002 ran on phase 18's
+     restores, no finding;
+ 23. the vision and graph models (`vision_graph_phase`, no TPU kernel):
+     ViT-B/16 (batch 32, Adam), the JAX ResNet at ResNet-18's widths
+     (224 x 224, batch 32, SGD) and GAT at the reference benchmark's
+     config (4096 nodes x 12288 features, SGD), f32 from a seeded
+     generator: each step compiled by the one-device `easydist_compile`
+     equals the uncompiled step over 3 steps (rtol 1e-4); then each on
+     (8,) "dp" against the fake group: emitted = priced, rank 0's
+     program once, the program lint clean; step ms, peak memory and
+     compile seconds printed with the card's name and power limit;
+ 24. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
      path's run; B4-B6 also with `llama` (phase 3's Llama-shape checks
      and times, SDPA by events and by the profiler) and
      `launches_llama` (17a-c), B4 and B5 with `launches_fleet`, by
@@ -298,6 +321,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import math
 import os
 import subprocess
 import sys
@@ -4905,9 +4929,9 @@ def _is_backward_mm(node) -> bool:
         ("mm.", "flash_bwd_dkv."))
 
 
-def overlap_trace(step, state, tokens, targets):
-    """make_fx of rank 0's overlapped ddp step (fake tensors): the index
-    of the first collective and of the backward's last product."""
+def trace_step(step, state, tokens, targets):
+    """make_fx of a rank's step (fake tensors): its program, as the
+    analyzer's layer 2 lints it."""
     from torch.fx.experimental.proxy_tensor import make_fx
     from torch.utils import _pytree as pytree
 
@@ -4917,7 +4941,12 @@ def overlap_trace(step, state, tokens, targets):
         return pytree.tree_leaves(step(pytree.tree_unflatten(
             list(xs[:len(leaves)]), spec), *xs[len(leaves):]))
 
-    gm = make_fx(flat, tracing_mode="fake")(*leaves, tokens, targets)
+    return make_fx(flat, tracing_mode="fake")(*leaves, tokens, targets)
+
+
+def overlap_trace(gm):
+    """Over the traced overlapped ddp step: the index of the first
+    collective and of the backward's last product."""
     nodes = [n for n in gm.graph.nodes if n.op == "call_function"]
     first = next(i for i, n in enumerate(nodes)
                  if getattr(n.target, "__name__", "").startswith(
@@ -4935,6 +4964,8 @@ def comm_phase(dev, cfg, batch, seed, world=8, steps=3):
     setting: int8 and overlap losses bitwise the exact mode's (at n = 1
     the int8 collectives are the identity), bf16 within 1e-2."""
     from easydist_tpu_torch import comm
+    from easydist_tpu_torch.analyze import lint_program
+    from easydist_tpu_torch.comm.overlap import record_issues
     from easydist_tpu_torch.fxfront import make_device_mesh
     from easydist_tpu_torch.models.gpt import gpt_init, gpt_loss
     from easydist_tpu_torch.parallel import ddp_step, zero2_step, zero3_step
@@ -4980,7 +5011,7 @@ def comm_phase(dev, cfg, batch, seed, world=8, steps=3):
                 step, state = build(mode, mesh, params)
                 comm.comm_counters.reset()
                 _zero_launches()
-                with CollectiveLog() as log:
+                with CollectiveLog() as log, record_issues() as issues:
                     t0 = time.perf_counter()
                     state, loss = step(state, tokens, targets)
                     _sync(dev)
@@ -4992,10 +5023,18 @@ def comm_phase(dev, cfg, batch, seed, world=8, steps=3):
                            wire_mb=snap["bytes_on_wire"] / 1e6,
                            fp32_mb=snap["bytes_fp32_equiv"] / 1e6,
                            quantized=snap["quantized_launches"],
-                           launches=launches, ms=secs * 1e3)
+                           launches=launches, ms=secs * 1e3,
+                           issue_logs=issues)
+                if mode == "ddp":
+                    # phase 22b: rank 0's traced ddp step under the
+                    # analyzer's layer 2 (COLL001/004)
+                    gm = trace_step(step, state, tokens, targets)
+                    row["lint"] = [str(f) for f in lint_program(gm, mesh)]
+                    row["lint_collectives"] = sum(
+                        1 for n in gm.graph.nodes
+                        if str(n.target).startswith("_c10d_functional."))
                 if setting == "overlap" and mode == "ddp":
-                    first, last, n_nodes = overlap_trace(step, state,
-                                                         tokens, targets)
+                    first, last, n_nodes = overlap_trace(gm)
                     frac = comm.schedulable_overlap_fraction(
                         loss_fn, params, tokens[:batch // world],
                         targets[:batch // world])
@@ -5006,6 +5045,8 @@ def comm_phase(dev, cfg, batch, seed, world=8, steps=3):
                             f"16a overlap: first collective at node {first}"
                             f", last backward product at {last}, "
                             f"schedulable fraction {frac}")
+                if mode == "ddp":
+                    del gm
                 del state, loss, step, params
             if on_card:
                 torch.cuda.empty_cache()
@@ -6890,7 +6931,8 @@ def analyze_compiles(frontend, on_card: bool):
     for shape, names in FRONTEND_MESHES:
         comp, res = frontend[shape]["compiled"], frontend[shape]["result"]
         t0 = time.perf_counter()
-        rep = comp.analyze(raise_on_error=False)
+        # the program lint is phase 22's (`program_lint_phase`)
+        rep = comp.analyze(raise_on_error=False, include_program=False)
         secs = time.perf_counter() - t0
         by_layer = {}
         for f in rep.findings:
@@ -6923,10 +6965,12 @@ def analyze_compiles(frontend, on_card: bool):
         saved = edconfig.analyze_hbm_budget
         edconfig.analyze_hbm_budget = predicted // 2
         try:
-            drill = comp.analyze(raise_on_error=False, export=False)
+            drill = comp.analyze(raise_on_error=False, export=False,
+                                 include_program=False)
             mem4 = [f for f in drill.findings if f.rule_id == "MEM004"]
             try:
-                comp.analyze(raise_on_error=True, export=False)
+                comp.analyze(raise_on_error=True, export=False,
+                             include_program=False)
                 raised = False
             except AnalysisError:
                 raised = True
@@ -7093,6 +7137,314 @@ def analyze_phase(dev, frontend, tail, fleet, sim):
                 for name in TRAIN_KERNELS}
     return launches, out
 
+# ------------------------------------ the program lints (phase 22)
+
+# the serving phases' analyzer hooks, by the phase group that ran them:
+# every rule must have run in its group, with no finding
+SERVE_AUDITS = {
+    "4-6": ("SERVE001", "SERVE002", "ALIAS004", "KVQ001", "KVQ002"),
+    "11-12": ("SERVE001", "SERVE002", "SERVE003", "ALIAS004", "KVQ003"),
+    "17": ("SERVE001", "SERVE002", "SERVE003", "ALIAS004", "KVQ001",
+           "KVQ002"),
+}
+
+
+def program_lint_phase(dev, frontend, comm_out, tallies, cfg_kw=None,
+                       batch: int = 8, seed: int = 0, world: int = 8):
+    """Phase 22: the analyzer's lints over traced programs on the card.
+    (a) `CompileResult.analyze(include_program=True)` over phase 9's
+    GPT-2 small compiles on (8,) and (4, 2): COLL001/004 over each of the
+    8 rank programs, COLL002 agreement across them, ALIAS001-003; no
+    error, the lint's seconds printed.  (b) Phase 16a's int8, bf16 and
+    overlapped runs: rank 0's traced ddp step linted (no COLL001/004),
+    the bucket plans' COLL003 and the flush's OVL001/002 hooks clean,
+    every issue log in the plan's order.  (c) The serving phases' SERVE,
+    KVQ and ALIAS004 audits (`analyze.hook_tally` by phase group): each
+    ran, none found anything.  (d) RES001: GPT-2 small's ddp step (16c's
+    widths and depth) traced with the guard knob off and with
+    `step_guard=False` is one program; with the guard on it is not.
+    (e) Phase 18's restores: RESHARD001-002 ran, found nothing.  Returns
+    the numbers."""
+    from easydist_tpu_torch.analyze import (audit_guard_parity,
+                                            lint_issue_log)
+    from easydist_tpu_torch.fxfront import make_device_mesh
+    from easydist_tpu_torch.models.gpt import GPTConfig, gpt_loss
+    from easydist_tpu_torch.parallel import ddp_step
+    from easydist_tpu_torch.resilience.guard import init_guard_state
+
+    t_phase = time.perf_counter()
+    out = {}
+    for shape, _ in FRONTEND_MESHES:
+        res = frontend[shape]["result"]
+        rep = res.analyze(include_program=True, include_memory=False)
+        st = res.program_lint_stats
+        tag = f"lint 22a {shape}"
+        print(f"{tag}: {int(st.get('rank_programs', 0))} rank programs "
+              f"linted in {st.get('seconds', float('nan')):.2f} s, "
+              f"{int(st.get('collectives', 0))} collectives in rank 0's, "
+              f"every group's members posting one sequence; findings "
+              f"{rep.rule_counts() or 'none'}")
+        bad = [str(f) for f in rep.findings if f.severity == "error"
+               or f.rule_id == "COLL000"]
+        if bad or st.get("rank_programs") != world:
+            raise AssertionError(f"{tag}: {bad[:4]}, stats {st}")
+        out[str(shape)] = dict(st, findings=rep.rule_counts())
+
+    t16 = tallies["16"]
+    rows = {}
+    for key, row in comm_out.items():
+        if not isinstance(row, dict) or "issue_logs" not in row:
+            continue
+        logs = row["issue_logs"]
+        found = [f for log in logs for f in lint_issue_log(log)]
+        in_order = all(log["issued"] == list(range(log["units"]))
+                       for log in logs)
+        rows[key] = dict(lint=row.get("lint"), logs=len(logs),
+                         units=[log["units"] for log in logs],
+                         pinned=all(log["pin_chain"] for log in logs),
+                         in_order=in_order, ovl002=len(found),
+                         collectives=row.get("lint_collectives"))
+        print(f"lint 22b 16a {key}: "
+              + (f"traced ddp step {row['lint_collectives']} functional "
+                 f"collectives, layer-2 findings {row['lint'] or 'none'}; "
+                 if "lint" in row else "")
+              + (f"{len(logs)} issue log(s) of {rows[key]['units']} units,"
+                 f" pinned {rows[key]['pinned']}, issued in the plan's "
+                 f"order {in_order}, {len(found)} OVL002"
+                 if logs else "no hooked flush (zero3 reduce-scatters "
+                 "each gradient from its own hook)"
+                 if key == "overlap_zero3" else "no hooked flush"))
+        # zero3 reduce-scatters each gradient from its own backward hook:
+        # no hooked flush, no issue log
+        if row.get("lint") or found or (logs and not in_order) \
+                or (key in ("overlap_ddp", "overlap_zero2") and not logs):
+            raise AssertionError(f"lint 22b {key}: {rows[key]}")
+    print(f"lint 22b phase 16 hooks (runs, findings): "
+          f"{ {r: (v['runs'], v['findings']) for r, v in t16.items()} }")
+    if any(t16.get(r, {}).get("runs", 0) == 0 for r in ("COLL003",
+                                                        "OVL001",
+                                                        "OVL002")) \
+            or any(v["findings"] for v in t16.values()):
+        raise AssertionError(f"lint 22b: phase 16 hooks {t16}")
+    out["16"] = dict(rows=rows, hooks=t16)
+
+    for group, rules in SERVE_AUDITS.items():
+        tally = tallies[group]
+        runs = {r: tally.get(r, {}).get("runs", 0) for r in rules}
+        found = {r: v["findings"] for r, v in tally.items() if v["findings"]}
+        print(f"lint 22c phases {group}: audits run {runs}, "
+              f"{sum(found.values())} findings")
+        if found or not all(runs.values()):
+            raise AssertionError(f"lint 22c phases {group}: runs {runs}, "
+                                 f"findings {found}")
+        out[f"serve {group}"] = runs
+
+    cfg = GPTConfig(**{**PP_KW, **(cfg_kw or {})})
+    tokens, targets = _tokens(dev, cfg, (batch, cfg.seq), seed + 1)
+
+    def loss_fn(params, tok, tgt):
+        return gpt_loss(params, cfg, tok, tgt)
+
+    from easydist_tpu_torch.models.gpt import gpt_init
+
+    params = gpt_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                      device=dev)
+    t0 = time.perf_counter()
+    with fake_group(world, 0):
+        mesh = make_device_mesh((world,), ("dp",), device_type=dev.type)
+        off = ddp_step(loss_fn, mesh, step_guard=False)
+        same = audit_guard_parity(ddp_step(loss_fn, mesh), off,
+                                  (params, tokens, targets))
+        guarded = ddp_step(loss_fn, mesh, step_guard=True)
+        differs = audit_guard_parity(
+            lambda p, a, b: guarded((p, init_guard_state()), a, b)[0][0],
+            lambda p, a, b: off(p, a, b)[0], (params, tokens, targets))
+    secs = time.perf_counter() - t0
+    del params
+    print(f"lint 22d RES001 on GPT-2 small's ddp step ({cfg.layers} "
+          f"layers): knob-default vs step_guard=False {len(same)} "
+          f"finding(s) (one program); guarded vs off "
+          f"{[f.rule_id for f in differs]}; {secs:.1f} s")
+    if same or [f.rule_id for f in differs] != ["RES001"]:
+        raise AssertionError(f"lint 22d: {same}, {differs}")
+    out["res001"] = dict(same=len(same), guarded=len(differs), secs=secs)
+
+    t18 = tallies["18"]
+    print(f"lint 22e phase 18 restores: hooks (runs, findings) "
+          f"{ {r: (v['runs'], v['findings']) for r, v in t18.items()} }")
+    if any(t18.get(r, {}).get("runs", 0) == 0
+           for r in ("RESHARD001", "RESHARD002")) \
+            or any(v["findings"] for v in t18.values()):
+        raise AssertionError(f"lint 22e: {t18}")
+    out["18"] = t18
+    print(f"lint phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# --------------------- the vision and graph models (phase 23)
+
+# ViT-B/16, ResNet-18's widths on the JAX ResNet, and the reference
+# benchmark's GAT (benchmark/bench_case.py:21-25 in the reference)
+VISION_BATCH = 32
+RESNET18 = dict(widths=(64, 128, 256, 512), blocks_per_stage=2,
+                classes=1000)
+GAT_EDGE_P = 0.1
+
+
+def model_cases(dev, seed: int = 0, vit_cfg=None, resnet_kw=None,
+                image: int = 224, gat_cfg=None, batch: int = VISION_BATCH):
+    """{name: (train_step, state, args)} of phase 23's three models at
+    full width, random f32 weights from a seeded torch.Generator; the
+    arguments shrink them for a rehearsal on the CPU."""
+    from easydist_tpu_torch.models import gat, resnet, vit
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cases = {}
+    vcfg = vit_cfg or vit.ViTConfig.b16()
+    step, init = vit.make_vit_train_step(vcfg)
+    images = torch.randn(batch, 3, vcfg.image, vcfg.image, generator=gen,
+                         device=dev)
+    labels = torch.randint(0, vcfg.classes, (batch,), generator=gen,
+                           device=dev)
+    cases["vit"] = (step, init(gen, device=dev), (images, labels))
+    kw = {**RESNET18, **(resnet_kw or {})}
+    params, arch = resnet.resnet_init(gen, device=dev, **kw)
+    x = torch.randn(batch, 3, image, image, generator=gen, device=dev)
+    y = torch.randint(0, kw["classes"], (batch,), generator=gen, device=dev)
+    cases["resnet"] = (resnet.make_resnet_train_step(arch), params, (x, y))
+    gcfg = gat_cfg or gat.GATConfig.bench()
+    n = gcfg.nodes
+    adj = (torch.rand(n, n, generator=gen, device=dev) < GAT_EDGE_P).float()
+    adj = torch.maximum(adj, torch.eye(n, device=dev))
+    feats = torch.randn(n, gcfg.features, generator=gen, device=dev)
+    node_labels = torch.randint(0, gcfg.classes, (n,), generator=gen,
+                                device=dev)
+    cases["gat"] = (gat.make_gat_train_step(gcfg),
+                    gat.gat_init(gcfg, gen, device=dev),
+                    (adj, feats, node_labels))
+    return cases
+
+
+def _clone_tree(tree):
+    return torch.utils._pytree.tree_map(
+        lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
+
+
+def vision_graph_phase(dev, cases=None, steps: int = 3, world: int = 8,
+                       mesh_batch=None):
+    """Phase 23: ViT-B/16, the JAX ResNet at ResNet-18's widths and GAT at
+    the reference benchmark's config, f32 (TF32 off), no TPU kernel.
+    Each train step compiled by the one-device `easydist_compile` equals
+    the uncompiled step over `steps` steps (losses rtol 1e-4); then each
+    is compiled on (8,) "dp" against the fake group of 8: emitted
+    collectives equal the priced ones, rank 0's program runs once, the
+    program lint over all 8 rank programs is clean.  `mesh_batch` cuts
+    the mesh compile's batch (`cases` shrink the models for a CPU
+    rehearsal).  Prints step ms, peak memory and compile seconds with the
+    card's name and power limit.  Returns the numbers."""
+    from easydist_tpu_torch import config as edconfig
+    from easydist_tpu_torch.analyze import lint_compiled
+    from easydist_tpu_torch.fxfront import easydist_compile, make_device_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    cases = cases or model_cases(dev)
+    card = card_line() if on_card else "cpu"
+    out = {}
+    for name in list(cases):
+        step, state0, args = cases.pop(name)
+        t0 = time.perf_counter()
+        want = []
+        state = _clone_tree(state0)
+        for _ in range(steps):
+            state, loss = step(state, *args)
+            want.append(float(loss))
+        del state
+        eager_s = time.perf_counter() - t0
+        compiled = easydist_compile(step, mesh=dev)
+        state = _clone_tree(state0)
+        _sync(dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        result = compiled.get_compiled(state, *args)
+        compile_s = time.perf_counter() - t0
+        got, times = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, loss = compiled(state, *args)
+            got.append(float(loss))
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() - base if on_card \
+            else None
+        del state
+        n_nodes = sum(1 for n in result.traced.graph.nodes
+                      if n.op == "call_function")
+        print(f"models 23 {name}: compiled losses {got}, uncompiled "
+              f"{want}; compile {compile_s:.2f} s ({n_nodes} aten nodes); "
+              f"compiled step {1e3 * min(times[1:] or times):.1f} ms "
+              f"(host clock, synchronized by the loss read), uncompiled "
+              f"{1e3 * eager_s / steps:.1f} ms a step; peak "
+              f"{peak} B above the inputs; {card}")
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   err_msg=f"23 {name} compiled")
+        if not all(math.isfinite(v) for v in got):
+            raise AssertionError(f"23 {name}: losses {got}")
+        del compiled, result
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # (8,) "dp" against the fake group: emitted = priced, rank 0 once
+        nb = mesh_batch if (mesh_batch and name != "gat") else None
+        margs = tuple(a[:nb] for a in args) if nb else args
+        saved = edconfig.discovery_device
+        edconfig.discovery_device = dev.type
+        try:
+            with fake_group(world, 0):
+                mesh = make_device_mesh((world,), ("dp",),
+                                        device_type=dev.type)
+                t0 = time.perf_counter()
+                res = easydist_compile(step, mesh=mesh, compile_only=True)(
+                    state0, *margs)
+                mesh_s = time.perf_counter() - t0
+                table = check_priced(res, f"models 23 {name} ({world},)")
+                run = run_rank0(dev, res, (state0, *margs),
+                                {k: 0 for k in TRAIN_KERNELS},
+                                label=f"models 23 {name} rank 0")
+                found, st = lint_compiled(res)
+        finally:
+            edconfig.discovery_device = saved
+        c = res.counters
+        mm = sum(1 for chosen in res.strategies for s in chosen.values()
+                 if not s.is_all_replicate())
+        print(f"models 23 {name} ({world},) \"dp\": compile {mesh_s:.2f} s "
+              f"(trace {res.timings['trace']:.2f}, discovery "
+              f"{res.timings['discovery']:.2f}, solve "
+              f"{res.timings['solve']:.2f}, emit {res.timings['emit']:.2f}"
+              f"); {c['rules_preset']} preset, {c['rules_from_group']} "
+              f"grouped, {c['rules_from_cache']} cached, "
+              f"{c['rules_discovered']} discovered; {mm} nodes sharded; "
+              f"replicated FLOPs {res.replicated_flops_fraction:.4f}; "
+              f"emitted = priced {table}; program lint "
+              f"{int(st['rank_programs'])} rank programs in "
+              f"{st['seconds']:.2f} s, {len(found)} findings")
+        if found or res.replicated_on_failure:
+            raise AssertionError(f"23 {name}: lint {found[:4]}, replicated "
+                                 f"on failure {res.replicated_on_failure}")
+        out[name] = dict(losses=got, compile_s=compile_s,
+                         step_ms=1e3 * min(times[1:] or times), peak=peak,
+                         mesh_compile_s=mesh_s, rank0_s=run["secs"],
+                         rank0_peak=run["peak"], sharded=mm,
+                         lint_s=st["seconds"], mesh_batch=nb)
+        del res, state0, args, step
+        if on_card:
+            torch.cuda.empty_cache()
+    print(f"models phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
 
 CUT_DEPTH = dict(layers=6)
 
@@ -7117,6 +7469,11 @@ def main() -> int:
     for e in (entry, *paged_entries):
         e["llama"] = llama_kernels[e["name"]]
     mark("phases 1-3")
+    # the analyzer's hooks by the phase group that ran them (phase 22)
+    from easydist_tpu_torch.analyze import hook_tally, reset_hook_tally
+
+    tallies = {}
+    reset_hook_tally()
     ctx = serve_phase(dev)
     entry["launches"] = ctx["launches"]
     paged_entries[0]["launches"], paged_ids = paged_serve_phase(dev, ctx)
@@ -7126,6 +7483,7 @@ def main() -> int:
     mesh_ctx["paged_ids"] = paged_ids
     del ctx
     torch.cuda.empty_cache()
+    tallies["4-6"] = hook_tally()
     mark("phases 4-6")
     launches, bf16_launches, f32_losses = train_phase(dev)
     for e in train_entries:
@@ -7140,6 +7498,7 @@ def main() -> int:
         e["launches_ring_rank0"] = ring[e["name"]]
     mark("phases 8-10")
     torch.cuda.empty_cache()
+    reset_hook_tally()
     spec = spec_phase(dev, cfg_kw=CUT_DEPTH)
     entry["launches_spec"] = spec["a"]
     paged_entries[0]["launches_spec"] = spec["b"]
@@ -7147,6 +7506,7 @@ def main() -> int:
     tier = tier_phase(dev, cfg_kw=CUT_DEPTH)
     paged_entries[0]["launches_tier"] = tier["paged_decode"]
     paged_entries[1]["launches_tier"] = tier["paged_decode_quant"]
+    tallies["11-12"] = hook_tally()
     torch.cuda.empty_cache()
     train_entries[0]["launches_engine"] = engine_phase(dev,
                                                       cfg_kw=CUT_DEPTH)
@@ -7169,12 +7529,16 @@ def main() -> int:
     paged_entries[0]["launches_mesh"] = tail["mesh"]["paged_decode"]
     mark("phase 15")
     torch.cuda.empty_cache()
-    launches_runtime, _ = runtime_phase(dev, cfg_kw=CUT_DEPTH)
+    reset_hook_tally()
+    launches_runtime, runtime_out = runtime_phase(dev, cfg_kw=CUT_DEPTH)
+    tallies["16"] = hook_tally()
     for e in train_entries:
         e["launches_runtime"] = launches_runtime[e["name"]]
     mark("phase 16")
     torch.cuda.empty_cache()
+    reset_hook_tally()
     llama = llama_phase(dev)
+    tallies["17"] = hook_tally()
     for e in (entry, *paged_entries):
         e["launches_llama"] = llama[e["name"]]
     entry["launches_llama_spec"] = {
@@ -7186,7 +7550,9 @@ def main() -> int:
         for drafter, launches in llama["spec"]["paged"].items()}
     mark("phase 17")
     torch.cuda.empty_cache()
+    reset_hook_tally()
     reshard_phase(dev)
+    tallies["18"] = hook_tally()
     mark("phase 18")
     fleet = fleet_phase(dev)
     for e, name in ((entry, "flash_decode"),
@@ -7203,6 +7569,14 @@ def main() -> int:
     for e in train_entries:
         e["launches_analyze"] = launches_analyze[e["name"]]
     mark("phase 21")
+    torch.cuda.empty_cache()
+    program_lint_phase(dev, flash_out, runtime_out["comm"], tallies,
+                       cfg_kw=CUT_DEPTH)
+    del flash_out, tail, fleet, sim
+    mark("phase 22")
+    torch.cuda.empty_cache()
+    vision_graph_phase(dev)
+    mark("phase 23")
     print(card_line())
     print(json.dumps({"kernels": [entry, *paged_entries, *train_entries]}))
     print(json.dumps({"ok": True, "device": {

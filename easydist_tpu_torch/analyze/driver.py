@@ -12,8 +12,11 @@ shared, arXiv:2112.02958):
   `easydist_tpu_torch/` + `examples/torch/`; `presets` compiles the MLP
   train step with `easydist_compile` on a (4, 2) "dp" x "tp" mesh
   against torch's fake process group of 8 and runs the
-  `CompileResult.analyze()` stack (strategy, discovery, memory plan)
-  over it — on the card unless `device="cpu"` is asked for; `protocol`
+  `CompileResult.analyze()` stack (strategy, discovery, memory plan, and
+  the program lint: COLL001/004 over every rank's emitted program,
+  COLL002 across them, ALIAS001-003 over the traced program and its
+  state pairs) over it — on the card unless `device="cpu"` is asked
+  for; `protocol`
   exhaustively explores the four layer-12 protocol specs (health,
   router, resume, transport — analyze/modelcheck.py) and gates on
   PROTO001/002 plus committed state-count drift.
@@ -66,7 +69,9 @@ _RULE_MODULE_FILES = (
     "findings.py", "alias_rules.py", "strategy_rules.py",
     "memory_rules.py", "schedule_rules.py", "fleet_rules.py",
     "kv_rules.py", "sim_rules.py", "discovery_rules.py", "modelcheck.py",
-    "protocol_rules.py", "driver.py",
+    "protocol_rules.py", "fx_rules.py", "overlap_rules.py",
+    "resilience_rules.py", "serve_rules.py", "kv_quant_rules.py",
+    "reshard_rules.py", "driver.py",
 )
 
 # the trees the `ast` target lints, relative to the repo root
@@ -356,8 +361,9 @@ def run_presets_target(root: str, cache: ResultCache, rules_ver: str,
                        device: str = "cuda") -> List[Finding]:
     """Compile the MLP train step (sizes 64-128-64, SGD) on a (4, 2)
     "dp" x "tp" mesh against torch's fake process group of 8 and run the
-    `CompileResult.analyze()` stack over it (layers 1, 3a and 10 ride
-    the same report).  Runs on `device`: the card by default, raising
+    `CompileResult.analyze()` stack over it (layers 1, 2, 3a, 10 and 11
+    ride the same report: the program lint covers all 8 rank programs).
+    Runs on `device`: the card by default, raising
     when no CUDA device answers rather than dropping to the CPU.  Builds
     and destroys its own process group, so the caller must hold none.
     Cached on the package source hash and the device."""

@@ -17,6 +17,8 @@ from typing import Callable, List, Sequence
 
 import torch
 
+from easydist_tpu_torch.analyze import check_bucket_plan
+
 
 @dataclass
 class Bucket:
@@ -72,9 +74,15 @@ def unpack(flat: torch.Tensor, bucket: Bucket, leaves: Sequence) -> dict:
 def bucketed_reduce(leaves: Sequence, quantize_flags: Sequence[bool],
                     bucket_bytes: int, reduce_fn: Callable) -> List:
     """Reduce `leaves` bucket by bucket; `reduce_fn(flat_1d, bucket)`
-    issues the collective.  Returns the reduced leaves in flat order."""
+    issues the collective.  The plan is linted first (COLL003,
+    `analyze.check_bucket_plan`).  Returns the reduced leaves in flat
+    order."""
+    buckets = plan_buckets(leaves, bucket_bytes, quantize_flags)
+    # COLL003: a plan whose slices do not tile the flat buffer silently
+    # corrupts gradients at unpack; O(leaves) on the host
+    check_bucket_plan(leaves, buckets)
     reduced: List = [None] * len(leaves)
-    for b in plan_buckets(leaves, bucket_bytes, quantize_flags):
+    for b in buckets:
         out = reduce_fn(pack(leaves, b), b)
         for i, leaf in unpack(out, b, leaves).items():
             reduced[i] = leaf

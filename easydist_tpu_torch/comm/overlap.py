@@ -25,7 +25,12 @@ Here the process group's stream already runs collectives in the order
 they are issued, so `pin_chain=True` means: a bucket that is complete is
 held back until every bucket before it in the plan has been issued (the
 plan's order on every rank); `pin_chain=False` issues each bucket the
-moment it is complete.
+moment it is complete.  The hooked flush logs the order in which it
+issues its units (`record_issues` collects the logs); with `pin_chain`
+the analyzer's OVL002 checks that order against the plan
+(`analyze.check_issue_log`).  A bad emission order raises OVL001
+(`analyze.check_overlap_plan`) before the flush falls back to flat
+order, and every reordered bucket plan is linted (COLL003).
 
 Values: quantization off, the overlapped flush packs the same leaves in a
 different order than the sequential one, so an element can sit in a
@@ -37,6 +42,7 @@ they are bitwise equal where both plans pack the same.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import operator
 from typing import Callable, List, Optional, Sequence
@@ -45,6 +51,8 @@ import torch
 from torch.utils import _pytree as pytree
 
 from easydist_tpu_torch import config as edconfig
+from easydist_tpu_torch.analyze import (check_issue_log,
+                                        check_overlap_plan)
 from easydist_tpu_torch.models.optim import value_and_grad
 
 from .bucketer import pack, plan_buckets, unpack
@@ -55,7 +63,24 @@ logger = logging.getLogger(__name__)
 __all__ = ["grad_emission_order", "schedulable_overlap_fraction",
            "overlapped_reduce_gradients", "overlapped_value_and_grad",
            "chain_leaf_reduces", "overlapped_leaf_grads",
-           "accumulate_gradients"]
+           "accumulate_gradients", "record_issues"]
+
+# the open `record_issues` collections: every hooked flush appends its
+# issue log to each
+_ISSUE_LOGS: List[list] = []
+
+
+@contextlib.contextmanager
+def record_issues():
+    """Collect the issue log of every hooked flush run inside the block:
+    a list of {"units": n, "issued": [unit index in issue order],
+    "pin_chain": bool}, one per flush (`analyze.lint_overlap_fn`)."""
+    logs: list = []
+    _ISSUE_LOGS.append(logs)
+    try:
+        yield logs
+    finally:
+        _ISSUE_LOGS.remove(logs)
 
 
 # ----------------------------------------------------------- emission order
@@ -135,10 +160,14 @@ def _valid_order(order, n: int) -> bool:
         return False
 
 
-def _checked_order(order, n: int, what: str) -> List[int]:
+def _checked_order(order, leaves, what: str) -> List[int]:
+    n = len(leaves)
     if order is None:
         return list(range(n))
     if not _valid_order(order, n):
+        # OVL001 raises under analyze_raise before the safe fallback, so a
+        # corrupt plan cannot silently reorder
+        check_overlap_plan(leaves, order)
         logger.warning("%s: order is not a permutation of %d leaves; "
                        "using flat tree order", what, n)
         return list(range(n))
@@ -151,7 +180,9 @@ def _plan(leaves, paths, order, mode):
     ordered = [leaves[i] for i in order]
     flags = [leaf_quantizable(paths[i], leaves[i].numel(), mode)
              for i in order]
-    return ordered, plan_buckets(ordered, edconfig.comm_bucket_bytes, flags)
+    buckets = plan_buckets(ordered, edconfig.comm_bucket_bytes, flags)
+    check_overlap_plan(ordered, order, buckets)
+    return ordered, buckets
 
 
 def overlapped_reduce_gradients(grads, group, axis_size: int,
@@ -185,8 +216,10 @@ def _hooked_grads(loss_fn: Callable, params, batch, units: List[List[int]],
     got: dict = {}
     left = [len(u) for u in units]
     issued: dict = {}
+    log = {"units": len(units), "issued": [], "pin_chain": bool(pin_chain)}
 
     def launch(k):
+        log["issued"].append(k)
         issued[k] = issue(k, {i: got.pop(i) for i in units[k]})
 
     def ready(k):
@@ -219,6 +252,10 @@ def _hooked_grads(loss_fn: Callable, params, batch, units: List[List[int]],
     for k in range(len(units)):  # units no gradient reached stay unissued
         if k not in issued:
             launch(k)
+    for logs in _ISSUE_LOGS:
+        logs.append(log)
+    if pin_chain:
+        check_issue_log(log)
     out: List = [None] * len(leaves)
     for k in range(len(units)):
         for i, r in issued[k]().items():
@@ -242,7 +279,7 @@ def overlapped_value_and_grad(loss_fn: Callable, params, *batch, group,
     leaves, paths, spec, _ = keyed_leaves(params)
     if emission_order is None:
         emission_order = grad_emission_order(loss_fn, params, *batch)
-    order = _checked_order(emission_order, len(leaves),
+    order = _checked_order(emission_order, leaves,
                            "overlapped_value_and_grad")
     _, buckets = _plan(leaves, paths, order, mode)
     units = [[order[j] for j in b.indices] for b in buckets]
@@ -266,7 +303,7 @@ def chain_leaf_reduces(flat_leaves: Sequence, order: Sequence[int],
     reduce_scatter or all_reduce) issued in `order`; returns the reduced
     leaves in their original positions."""
     del pin_chain  # issued in `order` either way
-    order = _checked_order(order, len(flat_leaves), "chain_leaf_reduces")
+    order = _checked_order(order, list(flat_leaves), "chain_leaf_reduces")
     reduced: List = [None] * len(flat_leaves)
     for i in order:
         reduced[i] = reduce_leaf_fn(i, flat_leaves[i])
@@ -379,7 +416,7 @@ def issue_tree(grads, group, axis_size: int, op: str = "pmean",
 
     mode = quant_mode()
     leaves, paths, spec, _ = keyed_leaves(grads)
-    order = _checked_order(emission_order, len(leaves), "issue_tree")
+    order = _checked_order(emission_order, leaves, "issue_tree")
     ordered, buckets = _plan(leaves, paths, order, mode)
     pending = [(b, issue_bucket(pack(ordered, b), b, group, axis_size,
                                 op == "pmean", mode)) for b in buckets]

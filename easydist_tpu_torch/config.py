@@ -7,6 +7,7 @@ Every knob is a module global, read from its environment variable at
 import time and mutable at runtime.  Imported as `edconfig`.
 """
 
+import logging
 import os
 
 
@@ -280,3 +281,7 @@ use_op_cost_db = _env_bool("EASYDIST_OP_COST_DB", True)
 # (k = draft tokens a verify round scores; 0 disables speculation)
 speculate_k = _env_int("EASYDIST_SPECULATE_K", 0)
 speculate_drafter = os.environ.get("EASYDIST_SPECULATE_DRAFTER", "ngram")
+
+# ---------------- logging (easydist_setup) ----------------
+log_level = getattr(logging, os.environ.get("EASYDIST_LOGLEVEL",
+                                            "INFO").upper())

@@ -34,9 +34,13 @@ returns the new tensors.
 Static analysis (`easydist_tpu_torch.analyze`, under
 `config.enable_analyze`): every per-axis solve is verified (layer 1,
 STRAT001-005, with the solver's objective audited), every trace's rule
-transfers audited (layer 10, DISC001-002), and `CompiledFunction.analyze()`
-adds the memory layer (3a: the plan of the last solved axis re-derived,
-MEM004 against the card's memory, the remat rewrite audited).
+transfers audited (layer 10, DISC001-002), every signature's state pairs
+checked at its first call (layer 11, ALIAS002/003, with the call's
+inputs), and `CompiledFunction.analyze()` adds the program lint (layer
+2: COLL001/004 over every rank's emitted program, COLL002 across them;
+layer 11: ALIAS001-003) and the memory layer (3a: the plan of the last
+solved axis re-derived, MEM004 against the card's memory, the remat
+rewrite audited).
 `config.dump_dir` dumps the solved MetaIR, clusters, strategies, the DOT
 graph and each rank's emitted program code; `config.enable_runtime_prof`
 records fenced per-call seconds into the PerfDB.
@@ -184,23 +188,44 @@ class CompileResult:
         # the liveness peak of the rank program that runs
         # (`schedule.remat.program_peak`), sized once
         self.program_peak_bytes: Optional[int] = None
+        # {"seconds", "rank_programs"} of the last program lint
+        self.program_lint_stats: Dict[str, float] = {}
+        self._group_names: Optional[List[str]] = None
 
     # ---------------------------------------------------------- analysis
     def analyze(self, include_program: bool = True,
                 include_memory: bool = True):
         """Static analysis of this compiled result
         (`easydist_tpu_torch.analyze`): the layer-1 strategy and layer-10
-        discovery findings recorded at compile time, plus, when
+        discovery findings recorded at compile time; when
+        `include_program`, the layer-2 lint of the emitted program
+        (COLL001/004 over this rank's program and, on a mesh, COLL002
+        over every rank's program; `program_lint_stats` keeps its
+        seconds) and the layer-11 aliasing sanitizer over the traced
+        program and its state pairs (ALIAS001-003); when
         `include_memory`, the layer-3a memory verifier (graph memory plan
-        audit, the MEM004 budget gate, the remat-rewrite audit).
-        `include_program` names the lint of the emitted program, which
-        has nothing to lint in the port yet (its FX lints are ROADMAP
-        queue A item 9b); it adds no finding.  Returns an AnalysisReport;
-        raising is the caller's decision (`CompiledFunction.analyze`
-        gates it on `config.analyze_raise`)."""
-        from easydist_tpu_torch.analyze import AnalysisReport
+        audit, the MEM004 budget gate, the remat-rewrite audit).  A lint
+        that cannot run reports COLL000 and never raises.  Returns an
+        AnalysisReport; raising is the caller's decision
+        (`CompiledFunction.analyze` gates it on `config.analyze_raise`)."""
+        from easydist_tpu_torch.analyze import (AnalysisReport,
+                                                audit_donation_pairs,
+                                                audit_program_aliases,
+                                                lint_compiled, make_finding)
 
         report = AnalysisReport(self.analysis_findings)
+        if include_program:
+            try:
+                findings, self.program_lint_stats = lint_compiled(self)
+                report.extend(findings)
+            except Exception as e:  # lint must never be the thing that fails
+                report.add(make_finding(
+                    "COLL000", "emitted-program",
+                    f"program lint skipped ({type(e).__name__}: {e})"))
+            if self.donate_state:
+                report.extend(audit_program_aliases(
+                    self.traced, self.state_pairs, node="traced-program"))
+            report.extend(audit_donation_pairs(self, node="state-io"))
         if include_memory:
             report.extend(self._memory_findings())
         return report
@@ -288,8 +313,7 @@ class CompileResult:
         mesh_info = {"names": [s.name for s in specs],
                      "sizes": [s.size for s in specs],
                      "coords": list(coords),
-                     "groups": [self.mesh.get_group(i).group_name
-                                for i in range(len(specs))],
+                     "groups": self.group_names(),
                      "order": _axis_solve_order(specs)}
         priced_sizes = [
             {v.name: v.size_bytes() for node in g.all_nodes()
@@ -299,6 +323,36 @@ class CompileResult:
                        for o, i in self.state_pairs.items()}
         return emit_sharded_fn(self.traced, self.strategies, mesh_info,
                                out_targets, priced_sizes)
+
+    def group_names(self) -> List[str]:
+        """The process-group name of each mesh axis, read from the mesh
+        once and kept: the emitted programs name these groups, and they
+        can still be emitted and linted once the groups are gone."""
+        if self._group_names is None:
+            self._group_names = [self.mesh.get_group(i).group_name
+                                 for i in range(len(self.axis_specs))]
+        return self._group_names
+
+    def rank_fakes(self) -> list:
+        """Fake tensors of this rank's flat inputs (each at its local
+        shape under `in_placements`), in placeholder order; non-tensor
+        inputs as they were traced."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        from .emit import local_shape
+
+        sizes = [s.size for s in self.axis_specs]
+        mode = FakeTensorMode(allow_non_fake_inputs=True)
+        fakes = []
+        for n, pl in zip([n for n in self.traced.graph.nodes
+                          if n.op == "placeholder"], self.in_placements):
+            v = n.meta.get("val")
+            if isinstance(v, torch.Tensor):
+                with mode:
+                    v = torch.empty(local_shape(v.shape, pl, sizes),
+                                    dtype=v.dtype, device=v.device)
+            fakes.append(v)
+        return fakes
 
     def _mesh_layout(self):
         return ([s.size for s in self.axis_specs],
@@ -554,25 +608,10 @@ def _copy_gm(gm):
 def _size_rank_program(result) -> bool:
     """Fill `meta["val"]` of the rank program's nodes with fake tensors
     at this rank's shapes (emission does not carry them)."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.fx.passes.fake_tensor_prop import FakeTensorProp
+    from easydist_tpu_torch.analyze.fx_rules import fake_propagate
 
-    from .emit import local_shape
-
-    sizes = [s.size for s in result.axis_specs]
-    mode = FakeTensorMode(allow_non_fake_inputs=True)
-    fakes = []
-    for n, pl in zip([n for n in result.traced.graph.nodes
-                      if n.op == "placeholder"], result.in_placements):
-        v = n.meta.get("val")
-        if isinstance(v, torch.Tensor):
-            with mode:
-                v = torch.empty(local_shape(v.shape, pl, sizes),
-                                dtype=v.dtype, device=v.device)
-        fakes.append(v)
     try:
-        FakeTensorProp(result.graph_module, mode)\
-            .propagate_dont_convert_inputs(*fakes)
+        fake_propagate(result.graph_module, result.rank_fakes())
     except Exception as exc:  # a program fake tensors cannot run
         logger.warning("[remat] could not size the rank program (%s: %s); "
                        "no remat", type(exc).__name__, exc)
@@ -1206,6 +1245,12 @@ class CompiledFunction:
             result = compile_step(self.func, args, kwargs, mesh=self.mesh,
                                   state_io=self.state_io,
                                   donate_state=self.donate_state)
+            # ALIAS002/003 once per signature, with the call's inputs: a
+            # storage passed through two paired positions takes both
+            # state writes
+            from easydist_tpu_torch.analyze import check_donation_pairs
+
+            check_donation_pairs(result, inputs=flat)
             self._cache[sig] = result
         else:
             self._cache_hits += 1

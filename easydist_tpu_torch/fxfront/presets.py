@@ -596,6 +596,62 @@ def _sdpa_card_rule(node, world_size):
     return _replicated(node)
 
 
+# ----------------------------------------------------------- convolutions
+
+def _plain_conv(node, transposed_at: int, groups_at: int) -> bool:
+    """A 2-D-or-more, untransposed, ungrouped convolution: the forms the
+    rules below describe."""
+    return (not _arg(node, transposed_at, "transposed", False)
+            and _arg(node, groups_at, "groups", 1) == 1)
+
+
+@register_preset(aten.convolution)
+def _conv_rule(node, world_size):
+    """input [N, C, ...] * weight [O, C, ...] (+ bias [O]): the batch dim
+    and the output channels concat; the input channels reduce, when there
+    is no bias (each shard would add it).  Spatial dims need halos and
+    are not sharded.  Other forms (transposed, grouped) stay replicated:
+    a probe of a convolution's operands at shapes that do not agree reads
+    past their buffers on the card, so no probe runs it."""
+    avals = _inputs(node)
+    if not _plain_conv(node, 6, 8) or len(avals) not in (2, 3):
+        return _replicated(node)
+    table = _rows(avals)
+    table[0][0] = DimSharding(group=1)
+    table[1][0] = DimSharding(group=2)
+    recombines = {1: _concat(0), 2: _concat(1)}
+    if len(avals) == 3:
+        table[2][0] = DimSharding(group=2)
+    else:
+        table[0][1] = table[1][1] = DimSharding(group=3)
+        recombines[3] = _reduce()
+    return {"space": ShardSpace(table), "recombines": recombines}
+
+
+@register_preset(aten.convolution_backward)
+def _conv_backward_rule(node, world_size):
+    """(grad_input, grad_weight, grad_bias) of grad_out [N, O, ...], input
+    [N, C, ...], weight [O, C, ...]: the batch dim concats grad_input and
+    sums the weight's and bias's gradients; the output channels sum
+    grad_input and concat the others; the input channels concat
+    grad_input and grad_weight and leave grad_bias whole.  Other forms
+    stay replicated (no probe runs a convolution, see `_conv_rule`)."""
+    avals = _inputs(node)
+    if not _plain_conv(node, 7, 9) or len(avals) != 3:
+        return _replicated(node)
+    live = [v is not None for v in _out(node)]
+    table = _rows(avals)
+    table[0][0] = table[1][0] = DimSharding(group=1)
+    table[0][1] = table[2][0] = DimSharding(group=2)
+    table[1][1] = table[2][1] = DimSharding(group=3)
+    per_out = {1: (_concat(0), _reduce(), _reduce()),
+               2: (_reduce(), _concat(0), _concat(0)),
+               3: (_concat(1), _concat(1), Recombine.identity)}
+    return {"space": ShardSpace(table),
+            "recombines": {g: [f for f, on in zip(fns, live) if on]
+                           for g, fns in per_out.items()}}
+
+
 # ------------------------------------------------------ the port's kernels
 
 @register_preset(torch.ops.easydist_tpu_torch.flash_fwd,

@@ -36,6 +36,8 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
+from easydist_tpu_torch.analyze import check_reshard_plan
+
 from . import plan as planlib
 from .plan import block_view, window_slices
 
@@ -66,7 +68,12 @@ def _resolve(layout, ndim: int):
             device_mesh, tuple(placements))
 
 
-def _check_budget(rplan: planlib.ReshardPlan) -> None:
+def _check_budget(rplan: planlib.ReshardPlan, node: str) -> None:
+    """RESHARD001 before any byte moves (the analyzer's finding, raised
+    under `analyze_raise`), then the plan's own budget: a plan over its
+    chunked bound raises ReshardOOMError, which a restore answers by
+    halving its chunk."""
+    check_reshard_plan(rplan, node=node)
     if rplan.peak_live_bytes() > rplan.chunked_bound():
         raise ReshardOOMError(
             f"plan stages {rplan.peak_live_bytes()} B, over its chunked "
@@ -110,7 +117,7 @@ def redistribute(x, dst, src=None, *, chunk_bytes: Optional[int] = None,
         rplan = planlib.plan_redistribute(shape, dtype, (s_mesh, s_spec),
                                           (d_mesh, d_spec),
                                           chunk_bytes=chunk_bytes)
-    _check_budget(rplan)
+    _check_budget(rplan, "redistribute")
     s_wins = planlib.device_windows(shape, s_mesh, s_spec)
     d_wins = planlib.device_windows(shape, d_mesh, d_spec)
     if rank in s_ranks:
@@ -247,7 +254,7 @@ def fetch_chunked(x, chunk_bytes: Optional[int] = None) -> torch.Tensor:
     rplan = planlib.plan_redistribute(shape, x.dtype, (mesh, spec),
                                       (planlib.HOST, ()),
                                       chunk_bytes=chunk_bytes)
-    _check_budget(rplan)
+    _check_budget(rplan, "fetch_chunked")
     if not shape:
         return x.full_tensor().cpu() if hasattr(x, "to_local") \
             else x.detach().cpu()

@@ -68,6 +68,7 @@ import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
+from easydist_tpu_torch import analyze
 from easydist_tpu_torch import config as edconfig
 from easydist_tpu_torch.reshard import (ReshardOOMError, plan_restore,
                                         state_fingerprint)
@@ -437,7 +438,8 @@ def last_restore_report() -> Optional[Dict[str, Any]]:
     (halved on each `elastic.restore.oom`), `attempts`, `files_opened` and
     `bytes_copied` (this rank's), `verify_s` (sha256 of every file) and
     `load_s` (planning, reading and copying onto the template's
-    devices)."""
+    devices), and `reshard_findings`, the RESHARD001-002 findings of the
+    restore's analyzer hooks."""
     return _last_restore_report
 
 
@@ -545,9 +547,15 @@ def _restore(ckpt_dir: str, like: Any, meta: Dict[str, Any],
                          f"leaves, the template {len(tmpl)}")
     chunk_bytes = int(edconfig.reshard_chunk_bytes)
     attempts: List[Dict[str, Any]] = []
+    findings = 0
     while True:
         rplan = plan_restore(like, meta, chunk_bytes=chunk_bytes,
                              layout=layout, rank=rank, world=world)
+        # RESHARD001 before any byte moves
+        for i, leaf_plan in rplan.plans:
+            findings += len(analyze.check_reshard_plan(
+                leaf_plan, node=f"restore[{os.path.basename(ckpt_dir)}]"
+                                f".leaf[{i}]"))
         files = _SavedRanks(ckpt_dir, len(tmpl))
         try:
             if faultinject.fire("elastic.restore.oom"):
@@ -587,7 +595,13 @@ def _restore(ckpt_dir: str, like: Any, meta: Dict[str, Any],
         "chunk_bytes": chunk_bytes, "attempts": attempts,
         "files_opened": len(files.blobs), "bytes_copied": files.copied,
         "verify_s": verify_s, "load_s": time.perf_counter() - t0}
-    return pytree.tree_unflatten(out, spec)
+    state = pytree.tree_unflatten(out, spec)
+    # RESHARD002: every leaf the template lays out over a mesh came back
+    # on exactly that layout
+    findings += len(analyze.check_restored_state(
+        state, like, node=f"restore[{os.path.basename(ckpt_dir)}]"))
+    _last_restore_report["reshard_findings"] = int(findings)
+    return state
 
 
 def _gc_old(path: str, keep: int, protect: Optional[int] = None) -> None:

@@ -61,9 +61,19 @@ head-sharded one), every rank runs the same host scheduler on the same
 requests, and the ids each program returns reach the host through a
 broadcast from the mesh's first rank, so the ranks agree.
 
-The page-table audit is `kv.audit_page_table`, over the analyzer's
-KV001 (`analyze.kv_rules`).  Not ported yet (ROADMAP.md lists them): the session's other `analyze`
-audits (donation, chunked prefill, speculative rewind, host aliases).
+The analyzer's audits (`easydist_tpu_torch.analyze`, under
+`config.enable_analyze`) run at the JAX package's points: once per
+compiled signature, the cache written in place (SERVE001), the chunked
+prefill's in-place staging and length mask (SERVE002), the verify
+program's (SERVE003), the quant program's dequantization (KVQ002) and
+the trie's host references against the buffers the next step writes
+(ALIAS004); the prefix trie's accounting after every prefill commit
+(SERVE002); the accept walk of every verify commit and the page table
+after every rollback that released pages (SERVE003); and the page-table
+audit (`kv.audit_page_table`, KV001, raising on any finding) with the
+quantized arena's structure (KVQ001) and the host tier's manifests
+(KVQ003) at the first decode, every retire and every rollback.
+`analyze.hook_tally()` counts the audits run and their findings by rule.
 """
 
 from __future__ import annotations
@@ -80,7 +90,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from easydist_tpu_torch import resolve_device
+from easydist_tpu_torch import analyze, resolve_device
 from easydist_tpu_torch.fxfront import easydist_compile
 from easydist_tpu_torch.kv import (PagePool, PageTable, audit_page_table,
                                    is_host_ref, is_page_ref)
@@ -501,6 +511,8 @@ class GenerationSession:
         self._pools: Dict[int, object] = {}
         self._next_request_id = 0
         self._audited: set = set()
+        self._audited_prefill: set = set()
+        self._audited_verify: set = set()
 
         # speculative decoding (serve/speculate.py): a drafter proposes k
         # tokens, one verify step scores all k+1 positions, the session
@@ -935,6 +947,9 @@ class GenerationSession:
             args = (pool.staging, self.params, self._tensor(tokens),
                     self._tensor(start), self._tensor(lengths))
             result = self._prefill_chunk_c.get_compiled(*args)
+            if pool.bucket not in self._audited_prefill:
+                self._audited_prefill.add(pool.bucket)
+                self._audit_chunked_prefill(result, pool.bucket)
             t0 = time.perf_counter()
             pool.staging, first = result.tree_jitted(*args)
             first = self._host(first)
@@ -975,6 +990,13 @@ class GenerationSession:
                     self._tensor(tokens), self._tensor(start),
                     self._tensor(lengths))
             result = self._program("chunk").get_compiled(*args)
+            if pool.bucket not in self._audited_prefill:
+                self._audited_prefill.add(pool.bucket)
+                # the paged program writes the arena through the table,
+                # which KV001 audits on the host: only the in-place half
+                # of SERVE002 applies, as the JAX session has it
+                self._audit_donation(
+                    result, f"prefill_chunk_paged[cap={pool.bucket}]")
             t0 = time.perf_counter()
             pool.arena, first = result.tree_jitted(*args)
             first = self._host(first)
@@ -1025,6 +1047,7 @@ class GenerationSession:
             pool.trie.unpin(job.prefix_nodes)
             pool.trie.pin(nodes)
             pinned = nodes
+            self._audit_prefix_cache(pool)
         pool.free_rows.append(row)
         self.metrics.observe("ttft", time.perf_counter() - job.t_submit)
 
@@ -1060,6 +1083,7 @@ class GenerationSession:
             pool.trie.unpin(job.prefix_nodes)
             pool.trie.pin(nodes)
             pinned = nodes
+            self._audit_prefix_cache(pool)
         pool.cache = self._migrate_c(pool.cache, pool.staging,
                                      self._tensor(row),
                                      self._tensor(job.slot_idx))
@@ -1141,9 +1165,14 @@ class GenerationSession:
                     self._tensor(pos))
             compiled = self._decode_c
         result = compiled.get_compiled(*args)
-        if self._paged and pool.bucket not in self._audited:
+        if pool.bucket not in self._audited:
             self._audited.add(pool.bucket)
-            self._audit_kv(pool, "first_decode")
+            self._audit_donation(result, f"decode[bucket={pool.bucket}]")
+            self._audit_host_aliases(pool)
+            if self._paged:
+                self._audit_kv(pool, "first_decode")
+                if "k_scale" in pool.arena:
+                    self._audit_quant_program(result, "first_decode")
         t0 = time.perf_counter()
         if self._paged:
             pool.arena, nxt = result.tree_jitted(*args)
@@ -1229,6 +1258,9 @@ class GenerationSession:
                 self._tensor(pos))
         t_trace = time.perf_counter()
         result = self._program("verify_bucketed").get_compiled(*args)
+        if ("bucketed", pool.bucket) not in self._audited_verify:
+            self._audited_verify.add(("bucketed", pool.bucket))
+            self._audit_verify(result, f"verify[bucket={pool.bucket}]")
         t0 = time.perf_counter()
         pool.cache, nxt = result.tree_jitted(*args)
         nxt = self._host(nxt)
@@ -1281,6 +1313,9 @@ class GenerationSession:
                 self._tensor(tokens), self._tensor(pos))
         t_trace = time.perf_counter()
         result = self._program("verify").get_compiled(*args)
+        if ("paged", pool.bucket) not in self._audited_verify:
+            self._audited_verify.add(("paged", pool.bucket))
+            self._audit_verify(result, f"verify[paged cap={pool.bucket}]")
         t0 = time.perf_counter()
         pool.arena, nxt = result.tree_jitted(*args)
         nxt = self._host(nxt)
@@ -1305,6 +1340,8 @@ class GenerationSession:
                 pool.pool.release(pid)
                 released += 1
         self._audit_kv(pool, "verify[rollback]")
+        if released:
+            self._audit_spec_rollback(pool)
         self.metrics.inc("speculative_rollback_audits")
         self.metrics.record_speculation(
             proposed, accepted, committed, len(eligible), pool.n_slots,
@@ -1345,6 +1382,7 @@ class GenerationSession:
             # draftless rows are safe — an accidental pad match is a
             # genuine accept; only REAL proposals count toward the rate
             n_acc = accept_length(d_row, g_row[:k])
+            self._audit_spec_bookkeeping(d_row, g_row, n_acc, f"slot={idx}")
             if idx in drafts:
                 proposed += k
                 accepted += n_acc
@@ -1371,16 +1409,75 @@ class GenerationSession:
 
     def _audit_kv(self, pool: _PagedPool, where: str) -> None:
         """Page-table/refcount audit (`kv.audit_page_table`, the JAX
-        package's KV001; with a host tier also its manifests and byte
-        accounting, KVQ003) at the transitions where drift would next
-        cause a wrong free: the first decode, every retire and every
+        package's KV001) at the transitions where drift would next cause
+        a wrong free: the first decode, every retire and every
         speculative rollback.  Raises on any finding: serving on would
-        hand one sequence another's K/V."""
-        problems = audit_page_table(pool.pool, pool.table, trie=pool.trie,
-                                    tier=pool.tier)
+        hand one sequence another's K/V.  Layer 13 rides along: KVQ001
+        (scale/payload desync) when the arena is quantized, KVQ003 (the
+        manifest round trip) when a host tier is up."""
+        problems = audit_page_table(pool.pool, pool.table, trie=pool.trie)
         if problems:
             raise RuntimeError(f"paged KV bookkeeping broken at {where}: "
                                + "; ".join(problems))
+        if "k_scale" in pool.arena:
+            analyze.check_quant_arena(pool.arena, node=f"kv.quant[{where}]")
+        if pool.tier is not None:
+            analyze.check_tier_roundtrip(pool.tier,
+                                         node=f"kv.tier[{where}]")
+
+    def _audit_verify(self, result, node: str) -> None:
+        """SERVE003 (program arm): the verify step writes its cache in
+        place and length-masks attention past the committed positions —
+        audited once per compiled verify signature."""
+        analyze.check_speculative_rewind(result=result, node=node)
+
+    def _audit_spec_bookkeeping(self, draft, target, n_accepted: int,
+                                node: str) -> None:
+        """SERVE003 (bookkeeping arm): the accepted prefix never advances
+        past the first draft/target mismatch."""
+        analyze.check_speculative_rewind(
+            draft=[int(t) for t in draft], target=[int(t) for t in target],
+            n_accepted=n_accepted, node=f"verify[{node}]")
+
+    def _audit_spec_rollback(self, pool: _PagedPool) -> None:
+        """SERVE003 (paged arm): after a rollback released spill pages,
+        no table row still points at a released page."""
+        analyze.check_speculative_rewind(
+            pool=pool.pool, table=pool.table, trie=pool.trie,
+            node="verify[rollback]")
+
+    def _audit_donation(self, result, node: str) -> None:
+        """SERVE001: the compiled step writes its cache in place."""
+        analyze.check_decode_donation(result, node=node)
+
+    def _audit_chunked_prefill(self, result, bucket: int) -> None:
+        analyze.check_chunked_prefill(
+            result, node=f"prefill_chunk[bucket={bucket}]")
+
+    def _audit_prefix_cache(self, pool) -> None:
+        analyze.check_prefix_cache(
+            pool.trie, node=f"prefix_cache[bucket={pool.bucket}]")
+
+    def _audit_host_aliases(self, pool) -> None:
+        """ALIAS004: the buffers the next step writes (cache + staging,
+        or the paged arena) are not reachable from host-held references
+        that outlive the step — trie nodes hold `_extract` copies
+        (bucketed) or page references (paged), never the buffers."""
+        if self._paged:
+            donated = {"arena": pool.arena}
+        else:
+            donated = {"cache": pool.cache, "staging": pool.staging}
+        holders = {}
+        if pool.trie is not None:
+            holders["trie"] = [node.kv for node in pool.trie._walk()]
+        analyze.check_host_aliases(
+            donated, holders, node=f"session[bucket={pool.bucket}]")
+
+    def _audit_quant_program(self, result, where: str) -> None:
+        """KVQ002: the compiled quant step never feeds int8 K/V into a
+        matmul undequantized — once per program."""
+        analyze.check_quant_program(result,
+                                    node=f"decode.quant[{where}]")
 
     # ------------------------------------------------------------- driving
     def step(self) -> int:

@@ -403,3 +403,34 @@ def test_solver_objective_against_jax_on_mlp(fake_world8, monkeypatch):
     np.testing.assert_allclose(jax_obj, JAX_OBJECTIVE, rtol=1e-6)
     assert any(n.startswith("mm") and not s.is_all_replicate()
                for n, s in result.strategies[0].items())
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_conv_presets_hold_against_discovery(bias):
+    """The convolution presets (no probe runs a convolution: on the card
+    a probe at disagreeing shapes read past its buffers) recombine as
+    ShardCombine finds on the CPU, forward and backward, at even sizes
+    (the harness cannot split an odd dim in two)."""
+    import torch.nn.functional as F
+
+    def conv_grads(x, w, b):
+        y = F.conv2d(F.pad(x, (0, 1, 0, 1)), w, b, stride=2)
+        return torch.autograd.grad((y * y).sum(), (x, w))
+
+    args = (torch.randn(4, 4, 8, 8).requires_grad_(),
+            torch.randn(6, 4, 3, 3).requires_grad_(),
+            torch.randn(6).requires_grad_() if bias else None)
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    gm = make_fx(conv_grads, tracing_mode="fake")(*args)
+    convs = [n for n in gm.graph.nodes
+             if str(n.target).startswith("aten.convolution")]
+    assert len(convs) == 2
+    a, rules = _analyze(gm, discovery_crosscheck=True,
+                        discovery_persistent_cache=False)
+    assert a.counters.crosscheck_checked >= 2
+    assert a.counters.crosscheck_failures == 0
+    for n in convs:
+        groups = rules[node_signature(n)]["space"].max_group()
+        assert groups == (2 if bias and n.target is torch.ops.aten.
+                          convolution.default else 3), n.target

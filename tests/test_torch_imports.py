@@ -1,6 +1,7 @@
-"""The port stands alone: `easydist_tpu_torch` and `chip_smoke.py` import
-neither JAX nor the JAX package, and `chip_smoke.py` fails without the
-repository around it."""
+"""The port stands alone: `easydist_tpu_torch`, `chip_smoke.py` and the
+torch example twins (`examples/torch/`, TWINS) import neither JAX nor the
+JAX package, and `chip_smoke.py` fails without the repository around
+it."""
 
 import ast
 import os
@@ -12,6 +13,10 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "easydist_tpu_torch")
 BANNED = ("jax", "jaxlib", "easydist_tpu")
+TWINS = ("train_gpt", "simple_function", "moe_layer", "pipeline_gpt",
+         "pipeline_1f1b_gpt", "hybrid_pp_tp")
+TWIN_PATHS = [os.path.join(REPO, "examples", "torch", f"{n}.py")
+              for n in TWINS]
 
 
 def _port_modules():
@@ -92,7 +97,12 @@ def test_every_port_module_imports_with_jax_blocked():
                  "analyze.fleet_rules", "analyze.sim_rules",
                  "analyze.modelcheck", "analyze.protocol_rules",
                  "analyze.alias_rules", "analyze.driver",
-                 "analyze.__main__", "utils", "utils.dump"):
+                 "analyze.__main__", "utils", "utils.dump",
+                 "analyze.fx_rules", "analyze.overlap_rules",
+                 "analyze.resilience_rules", "analyze.serve_rules",
+                 "analyze.kv_quant_rules", "analyze.reshard_rules",
+                 "models.vit", "models.resnet", "models.gat",
+                 "utils.timer"):
         assert f"easydist_tpu_torch.{name}" in modules
     code = f"""
 import importlib, importlib.abc, sys
@@ -132,6 +142,11 @@ importlib.import_module("tests.test_torch_fxfront_ranks")
 importlib.import_module("tests.test_torch_parallel_ranks")
 importlib.import_module("tests.test_torch_comm_ranks")
 importlib.import_module("tests.test_torch_reshard_ranks")
+importlib.import_module("tests.test_torch_examples")
+import importlib.util
+for path in {TWIN_PATHS!r}:
+    spec = importlib.util.spec_from_file_location("twin", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in {BANNED!r})]
 assert not loaded, loaded
@@ -175,7 +190,7 @@ except SystemExit as e:
 
 
 def test_no_import_statement_names_jax():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py")] + TWIN_PATHS
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     offenders = [f"{os.path.relpath(path, REPO)}:{line} {name}"
