@@ -6,8 +6,9 @@
 Phases, each raising on failure (exit code != 0, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build of every CUDA kernel from `csrc/`, one nvcc per source, all
-     started together; ptxas's register and spill report, which must
-     show no spills for the tensor-core kernels and B4-B6;
+     started together, with the build's seconds; ptxas's register and
+     spill report, which must show no spills for the tensor-core
+     kernels, the SIMT kernels and B4-B6 (every instantiation);
   3. each kernel against its plain PyTorch version on the card: the
      decode kernel (B4) at the serving shape, with head_dim 128, lengths
      around the split boundaries, a cache length that is no multiple of
@@ -26,7 +27,21 @@ Phases, each raising on failure (exit code != 0, no result line):
      printed on lines of their own and added to the entries.  One line
      per dtype holds the B2 + B3 pair against SDPA's whole backward (the
      one library call that computes dQ, dK and dV), and its times go
-     into both entries;
+     into both entries.  Then every head_dim: `estimate_smem_bytes`
+     equal to each of B1-B3's launches (static + dynamic shared memory)
+     at every head_dim 1..256 in both dtypes (`smem_phase`); B1-B6
+     against their plain versions at head_dim 8, 16, 32, 80, 96, 100
+     and 256 (`domain_phase`: the SIMT kernels and the padded decode
+     body; B4-B6 at their split boundaries with a length-0 row, B5 / B6
+     with 8 query heads over 2 at 80 and 100, B6 at every n_blocks of
+     `SWEEP_BLOCKS`); B1-B3 at [1, 12, 32768, 64], causal, bf16 and f32:
+     out and dQ on the last 512 query rows, dK and dV against the plain
+     version accumulated over query chunks of 2048, with each kernel's
+     time (`long_context_phase`); and B1-B6 at Cerebras-GPT-2.7B's
+     shapes, bf16 and f32, held against their plain versions at the bars
+     above, then timed (`cerebras_kernel_times`: B4 over
+     [8, 32, 2048, 80], B5 / B6 over pages [288, 32, 64, 80], B1-B3 at
+     [2, 32, 2048, 80] causal; SDPA beside each);
   4. serving: GPT-2 small at full width (random weights from a seeded
      generator) through `GenerationSession.for_gpt`, bucketed layout.
      In float32 every request's greedy ids must equal the uncached
@@ -191,14 +206,16 @@ Phases, each raising on failure (exit code != 0, no result line):
      save / restore seconds and GB/s, the sha256 share, the guard's and
      the loader's ms; (d) the step's FLOPs beside 6 N T, its modeled
      memory peak beside the measured one, the card's datasheet row;
- 17. a Llama at Llama-3-8B's published widths and full depth (`llama_phase`;
-     vocab 128256, dim 4096, 32 query heads over 8 KV heads at head_dim
-     128, ffn 14336, 32 layers, rope_theta 500000; random f32 weights from
+ 17. a Llama at Llama-3-8B's published widths (`llama_phase`; vocab
+     128256, dim 4096, 32 query heads over 8 KV heads at head_dim 128,
+     ffn 14336, rope_theta 500000; depth cut to 4 of its 32 layers,
+     `LLAMA_CUT_DEPTH`, since phase 24 joined; random f32 weights from
      a seeded generator) through `GenerationSession.for_llama` on phase
      4's traffic and config: (a) bucketed f32, ids equal the
-     teacher-forced `llama_apply` reference, B4 32 x rounds; (b) paged
-     f32, ids equal (a)'s, B5 32 x rounds, the audit clean; (c) int8
-     pages, B6 32 x rounds, identical rerun, drift within 0.25 x spread;
+     teacher-forced `llama_apply` reference, B4 layers x rounds; (b)
+     paged f32, ids equal (a)'s, B5 layers x rounds, the audit clean;
+     (c) int8 pages, B6 layers x rounds, identical rerun, drift within
+     0.25 x spread;
      (d) bf16 on both layouts with profiled decode windows and the GQA
      repeat's ms; (e) speculate_k=4 on both layouts, with a 2-layer llama
      drafter and with the target drafting for itself (drafts accepted),
@@ -291,8 +308,25 @@ Phases, each raising on failure (exit code != 0, no result line):
      (8,) "dp" against the fake group: emitted = priced, rank 0's
      program once, the program lint clean; step ms, peak memory and
      compile seconds printed with the card's name and power limit;
- 24. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
-     path's run; B4-B6 also with `llama` (phase 3's Llama-shape checks
+ 24. Cerebras-GPT-2.7B's published widths (`cerebras_phase`; Dey et al.
+     2023, arXiv:2304.03208, Table 1: vocab 50257, seq 2048, dim 2560,
+     32 heads at head_dim 80, 32 layers; the repo's GPT with its tanh
+     gelu, random f32 weights from a seeded generator) at full depth
+     through `GenerationSession.for_gpt`, 8 requests of 24 new tokens in
+     8 slots of the 2048-token bucket: (a) bucketed f32, ids equal one
+     teacher-forced `gpt_apply`, B4 32 x rounds; (b) paged f32, ids equal
+     (a)'s, B5 32 x rounds, the audit clean; (c) int8 pages, B6 32 x
+     rounds, drift within 0.25 x spread; (d) bf16 on both layouts with
+     profiled decode windows; (e) `make_gpt_train_step(attention=
+     "flash")` at the same widths with 4 layers, batch 2, seq 2048:
+     compiled equals uncompiled at rtol 1e-4 over 3 steps, B1-B3 4
+     launches a step each (the SIMT kernels);
+ 25. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
+     path's run; every kernel also with `domain` (phase 3's worst error
+     by head_dim and dtype), `cerebras` (phase 3's errors and times
+     at Cerebras-GPT-2.7B's shapes) and `launches_cerebras` (phase 24);
+     B1-B3 with `long` (the 32768-token run) and `smem_bytes`; B4-B6
+     also with `llama` (phase 3's Llama-shape checks
      and times, SDPA by events and by the profiler) and
      `launches_llama` (17a-c), B4 and B5 with `launches_fleet`, by
      sub-phase of 19, B1-B4 with `launches_sim` (phase 20), B4 and B5 with
@@ -380,8 +414,9 @@ def build_kernels():
 NO_SPILL_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
                     "flash_bwd_dkv_sm90_kernel", "flash_fwd_tf32_kernel",
                     "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel",
-                    "flash_decode_kernel", "paged_decode_kernel",
-                    "paged_decode_quant_kernel")
+                    "flash_fwd_simt_kernel", "flash_bwd_dq_simt_kernel",
+                    "flash_bwd_dkv_simt_kernel", "flash_decode_kernel",
+                    "paged_decode_kernel", "paged_decode_quant_kernel")
 
 
 def ptxas_spills(log: str):
@@ -1199,40 +1234,10 @@ def train_kernel_phase(dev, shape=TRAIN_SHAPE, ragged_t: int = 1000,
                  if with_glse else None)
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = (x.to(dtype) for x in base)
-            qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
-            rounded = dtype == torch.bfloat16
-            tag = f"{str(dtype)[6:]:8s} {case:16s}"
-            out, lse = fa.flash_fwd(q, k, v, causal, scale)
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            ref_out, ref_lse = fa._flash_forward_xla(qf, kf, vf, causal,
-                                                     scale)
-            errs = {"flash_fwd": max(
-                check_close(f"flash_fwd {tag} out", out, ref_out, 1e-4,
-                            1e-5, rounded),
-                check_close(f"flash_fwd {tag} lse", lse, ref_lse, 1e-4,
-                            1e-5, False))}
-            # both backward versions get the plain forward's out and lse
-            delta = fa._flash_delta(ref_out, dof, g_lse)
-            dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal, scale)
-            dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal,
-                                      scale)
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            r_dq = fa._flash_bwd_dq_xla(qf, kf, vf, dof, ref_lse, delta,
-                                        causal, scale)
-            r_dk, r_dv = fa._flash_bwd_dkv_xla(qf, kf, vf, dof, ref_lse,
-                                               delta, causal, scale)
-            errs["flash_bwd_dq"] = check_close(
-                f"flash_bwd_dq {tag} dq", dq, r_dq, 2e-4, 2e-5, rounded)
-            errs["flash_bwd_dkv"] = max(
-                check_close(f"flash_bwd_dkv {tag} dk", dk, r_dk, 2e-4, 2e-5,
-                            rounded),
-                check_close(f"flash_bwd_dkv {tag} dv", dv, r_dv, 2e-4, 2e-5,
-                            rounded))
+            errs = check_train_case(f"{str(dtype)[6:]:8s} {case:16s}", q, k,
+                                    v, do, causal, scale, g_lse)
             for name, err in errs.items():
                 worst[name][dtype] = max(worst[name].get(dtype, 0.0), err)
-            del out, lse, ref_out, ref_lse, delta, dq, dk, dv, r_dq, r_dk, r_dv
     # the f32 kernels' other tiles: head_dim 128 (B1 and B2 64-query
     # blocks, B3 16-query tiles) at the ragged length and one row past a
     # tile
@@ -1241,34 +1246,11 @@ def train_kernel_phase(dev, shape=TRAIN_SHAPE, ragged_t: int = 1000,
         q, k, v, do = (torch.as_tensor(
             rs.standard_normal((b, h, t_case, 128)), dtype=f32, device=dev)
             for _ in range(4))
-        s128 = 1.0 / np.sqrt(128)
-        out, lse = fa.flash_fwd(q, k, v, True, s128)
-        ref_out, ref_lse = fa._flash_forward_xla(q, k, v, True, s128)
-        delta = fa._flash_delta(ref_out, do)
-        dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, True, s128)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, True, s128)
-        r_dq = fa._flash_bwd_dq_xla(q, k, v, do, ref_lse, delta, True, s128)
-        r_dk, r_dv = fa._flash_bwd_dkv_xla(q, k, v, do, ref_lse, delta, True,
-                                           s128)
-        tag = f"float32  causal T={t_case} d128"
-        worst["flash_fwd"][f32] = max(
-            worst["flash_fwd"][f32],
-            check_close(f"flash_fwd {tag} out", out, ref_out, 1e-4, 1e-5,
-                        False),
-            check_close(f"flash_fwd {tag} lse", lse, ref_lse, 1e-4, 1e-5,
-                        False))
-        worst["flash_bwd_dq"][f32] = max(
-            worst["flash_bwd_dq"][f32],
-            check_close(f"flash_bwd_dq {tag} dq", dq, r_dq, 2e-4, 2e-5,
-                        False))
-        worst["flash_bwd_dkv"][f32] = max(
-            worst["flash_bwd_dkv"][f32],
-            check_close(f"flash_bwd_dkv {tag} dk", dk, r_dk, 2e-4, 2e-5,
-                        False),
-            check_close(f"flash_bwd_dkv {tag} dv", dv, r_dv, 2e-4, 2e-5,
-                        False))
-        del q, k, v, do, out, lse, ref_out, ref_lse, delta, dq, dk, dv
-        del r_dq, r_dk, r_dv
+        errs = check_train_case(f"float32  causal T={t_case} d128", q, k, v,
+                                do, True, 1.0 / np.sqrt(128))
+        for name, err in errs.items():
+            worst[name][f32] = max(worst[name][f32], err)
+        del q, k, v, do
     if dev.type != "cuda":
         return []
     entries = train_kernel_times(dev, shape, worst)
@@ -1464,6 +1446,344 @@ def add_pair_times(entries, shape):
         for e in pair:
             e.update({f"{pre}pair_ms": pair_ms, f"{pre}pair_source": source,
                       f"{pre}pair_library_ms": library})
+
+
+# ------------------------ every head_dim and the long context (phase 3)
+
+# head_dims the kernels take beyond the tensor-core routes' 64 and 128:
+# the tiny configs and the JAX tests (8, 16), 32, Cerebras-GPT-2.7B (80),
+# 96, OpenLLaMA-3B (100), GPT-J and Gemma (256)
+SWEEP_DIMS = (8, 16, 32, 80, 96, 100, 256)
+# B6's n_blocks at each: 1 and others that divide d (4 at 100 and 80
+# gives blocks that are no multiple of an int8 vector; 5 at 80 gives 16)
+SWEEP_BLOCKS = {8: (1, 2), 16: (1, 4), 32: (1, 4), 80: (1, 4, 5),
+                96: (1, 3, 4), 100: (1, 4), 256: (1, 4)}
+SWEEP_GQA_DIMS = (80, 100)            # B5 / B6 with 8 query heads over 2
+SWEEP_TRAIN = (2, 4, 200)             # batch, heads, seq of B1-B3's cases
+SWEEP_PAGED = (8, 4, 64, None, 16, 144)  # PAGED_SHAPE's pages at 4 heads
+LONG_SHAPE = (1, 12, 32768, 64)       # B1-B3's long-context run
+LONG_TAIL = 512                       # query rows checked of out and dQ
+LONG_CHUNK = 2048                     # query chunks of the dK / dV check
+
+
+def split_lengths(chunk: int, t: int):
+    """Lengths on both sides of the first two split boundaries of a
+    `chunk`-token split, an empty row, and the full cache."""
+    return (0, 1, chunk - 1, chunk, chunk + 1, min(2 * chunk + 1, t),
+            t - 1, t)
+
+
+def check_train_case(tag: str, q, k, v, do, causal: bool, scale: float,
+                     g_lse=None):
+    """B1, B2 and B3 on (q, k, v, dO) against their plain versions in f32
+    on the same (rounded) inputs, the backward from the plain forward's
+    out and lse; the JAX tests' f32 bars (forward rtol 1e-4 / atol 1e-5,
+    backward rtol 2e-4 / atol 2e-5), plus 2^-8 |ref| for a bf16 output.
+    Returns {kernel: largest absolute error}."""
+    from easydist_tpu_torch.ops import flash_attention as fa
+
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    rounded = q.dtype == torch.bfloat16
+    out, lse = fa.flash_fwd(q, k, v, causal, scale)
+    if q.is_cuda:
+        torch.cuda.synchronize()
+    ref_out, ref_lse = fa._flash_forward_xla(qf, kf, vf, causal, scale)
+    errs = {"flash_fwd": max(
+        check_close(f"flash_fwd {tag} out", out, ref_out, 1e-4, 1e-5,
+                    rounded),
+        check_close(f"flash_fwd {tag} lse", lse, ref_lse, 1e-4, 1e-5,
+                    False))}
+    delta = fa._flash_delta(ref_out, dof, g_lse)
+    dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal, scale)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal, scale)
+    if q.is_cuda:
+        torch.cuda.synchronize()
+    r_dq = fa._flash_bwd_dq_xla(qf, kf, vf, dof, ref_lse, delta, causal,
+                                scale)
+    r_dk, r_dv = fa._flash_bwd_dkv_xla(qf, kf, vf, dof, ref_lse, delta,
+                                       causal, scale)
+    errs["flash_bwd_dq"] = check_close(f"flash_bwd_dq {tag} dq", dq, r_dq,
+                                       2e-4, 2e-5, rounded)
+    errs["flash_bwd_dkv"] = max(
+        check_close(f"flash_bwd_dkv {tag} dk", dk, r_dk, 2e-4, 2e-5,
+                    rounded),
+        check_close(f"flash_bwd_dkv {tag} dv", dv, r_dv, 2e-4, 2e-5,
+                    rounded))
+    return errs
+
+
+def domain_phase(dev, dims=SWEEP_DIMS, train=SWEEP_TRAIN,
+                 paged=SWEEP_PAGED, decode_t: int = 1024):
+    """B1-B6 at every head_dim of `dims` against their plain versions on
+    the same inputs, f32 and bf16, at phase 3's bars: B1-B3 causal (with
+    an lse cotangent) and full at [2, 4, 200, d] (SIMT kernels: 200 is no
+    multiple of their tiles); B4 at [8, 4, 1024, d] with lengths around
+    its split boundaries (`_decode_split_tokens` at the body's padded
+    width) and a row of length 0; B5 and B6 over 64-token pages at their
+    split boundaries with a dead all-sentinel row, 8 query heads over 2
+    KV heads (4:1) at `SWEEP_GQA_DIMS`, B6 at every n_blocks of
+    `SWEEP_BLOCKS`.  Returns {kernel: {d: {"f32" | "bf16": worst
+    error}}}."""
+    from easydist_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(11)
+    worst = {}
+
+    def keep(name, d, key, err):
+        slot = worst.setdefault(name, {}).setdefault(d, {})
+        slot[key] = max(slot.get(key, 0.0), err)
+
+    dtypes = (("f32", torch.float32), ("bf16", torch.bfloat16))
+    for d in dims:
+        scale = 1.0 / np.sqrt(d)
+        b, h, t = train
+        base = [torch.as_tensor(rs.standard_normal((b, h, t, d)),
+                                dtype=torch.float32, device=dev)
+                for _ in range(4)]
+        g_lse = torch.as_tensor(rs.standard_normal((b * h, t)),
+                                dtype=torch.float32, device=dev)
+        for key, dtype in dtypes:
+            q, k, v, do = (x.to(dtype) for x in base)
+            for case, causal, gl in (("causal, g_lse", True, g_lse),
+                                     ("full", False, None)):
+                errs = check_train_case(f"d {d} {key:4s} {case:13s}", q, k,
+                                        v, do, causal, scale, gl)
+                for name, err in errs.items():
+                    keep(name, d, key, err)
+        # B4 over a contiguous cache
+        q32, k32, v32 = decode_inputs(dev, rs, decode_t, d, b=8, h=4)
+        for key, dtype in dtypes:
+            chunk = fa._decode_split_tokens(256, d, dtype.itemsize)
+            lens = split_lengths(chunk, decode_t)
+            q, k, v = (x.to(dtype) for x in (q32, k32, v32))
+            L = torch.tensor(lens, dtype=torch.int32, device=dev)
+            out = fa.flash_decode_attention(q, k, v, L)
+            torch.cuda.synchronize()
+            ref = fa._decode_attention_xla(q.float(), k.float(), v.float(),
+                                           L, scale)
+            ref[L == 0] = 0.0
+            keep("flash_decode", d, key, check_close(
+                f"flash_decode d {d} {key} split {chunk}", out, ref, 0.0,
+                1e-5, dtype == torch.bfloat16))
+        del q32, k32, v32
+        # B5 / B6 through a page table
+        heads, kvh = (8, 2) if d in SWEEP_GQA_DIMS else (4, 4)
+        shape = tuple(d if x is None else x for x in paged)
+        pt, mp = shape[2], shape[4]
+        for key, dtype in dtypes:
+            for quant in (False, True):
+                nbs = SWEEP_BLOCKS[d] if quant else (0,)
+                for nb in nbs:
+                    chunk = fa._split_tokens(pt, d, nb,
+                                             1 if quant else dtype.itemsize)
+                    lens = split_lengths(chunk, mp * pt)
+                    q32, kp, vp, table, L = paged_inputs(
+                        dev, rs, heads, kvh, d, lengths=lens, shape=shape)
+                    q = q32.to(dtype)
+                    if quant:
+                        kq, ks = fa.kv_quantize(kp, nb)
+                        vq, vs = fa.kv_quantize(vp, nb)
+                        out = fa.flash_paged_decode_quant_attention(
+                            q, kq, vq, ks, vs, table, L)
+                        ref = fa._paged_decode_attention_quant_xla(
+                            q.float(), kq, vq, ks, vs, table, L, scale)
+                        name, what = "paged_decode_quant", f"n_blocks {nb}"
+                    else:
+                        k, v = kp.to(dtype), vp.to(dtype)
+                        out = fa.flash_paged_decode_attention(q, k, v, table,
+                                                              L)
+                        ref = fa._paged_decode_attention_xla(
+                            q.float(), k.float(), v.float(), table, L,
+                            scale)
+                        name, what = "paged_decode", "exact"
+                    torch.cuda.synchronize()
+                    ref[L == 0] = 0.0
+                    keep(name, d, key, check_close(
+                        f"{name} d {d} {heads}/{kvh} {key} {what} split "
+                        f"{chunk}", out, ref, 0.0, 1e-5,
+                        dtype == torch.bfloat16))
+    secs = time.perf_counter() - t0
+    print(f"domain sweep: B1-B6 at head_dim {list(dims)} held against "
+          f"their plain versions in {secs:.1f} s")
+    return worst
+
+
+def smem_phase(dev):
+    """`estimate_smem_bytes` against the kernels: for every head_dim from
+    1 to 256 and both dtypes, each of B1, B2 and B3's table entry must
+    equal `cudaFuncGetAttributes`' static bytes plus the dynamic bytes
+    its launch passes, the estimate their largest, the same at T 256 and
+    32768, and under the card's 232448 bytes.  Returns {dtype: {d:
+    bytes}} at the sweep's and the tensor-core head_dims."""
+    from easydist_tpu_torch.ops import flash_attention as fa
+
+    limit = 232448
+    out = {}
+    worst = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        key = "bf16" if dtype == torch.bfloat16 else "f32"
+        for d in range(1, fa._MAX_HEAD_DIM + 1):
+            launched = fa._launch_smem_bytes(d, dtype)
+            est = fa.estimate_smem_bytes(256, 256, d, dtype)
+            for kernel, (st, dy) in launched.items():
+                if st + dy != fa._route_smem(kernel, d, dtype):
+                    raise AssertionError(
+                        f"estimate_smem_bytes' table has {kernel} at d {d} "
+                        f"{key} as {fa._route_smem(kernel, d, dtype)} B; "
+                        f"its launch takes {st} static + {dy} dynamic")
+            big = max(st + dy for st, dy in launched.values())
+            long = fa.estimate_smem_bytes(32768, 32768, d, dtype)
+            if not est == long == big < limit:
+                raise AssertionError(
+                    f"estimate_smem_bytes at d {d} {key}: {est} (T 256), "
+                    f"{long} (T 32768), launches {big}, limit {limit}")
+            worst = max(worst, big)
+            if d in SWEEP_DIMS + (64, 128):
+                out.setdefault(key, {})[d] = big
+    print(f"smem: estimate_smem_bytes equals the launches' static + "
+          f"dynamic shared memory of B1-B3 at every head_dim 1..256, f32 "
+          f"and bf16, at T 256 and 32768; largest {worst} B of {limit}; "
+          f"at the sweep {out}")
+    return out
+
+
+def tail_forward(q, k, v, scale: float, rows: int):
+    """The plain forward (`_flash_forward_xla`'s arithmetic: -1e30 fill,
+    1e-30 clamp) of the last `rows` query rows of a causal [b, h, t, d]
+    attention, in f32: (out, lse [b, h, rows], masked scores)."""
+    t = q.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, t - rows:].float() * scale,
+                     k.float())
+    pos = torch.arange(t - rows, t, device=q.device)
+    s = torch.where(torch.arange(t, device=q.device)[None, :]
+                    <= pos[:, None], s, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l_safe
+    return out, (m + torch.log(l_safe))[..., 0], s
+
+
+def chunked_dkv(q, k, v, do, lse, delta, scale: float, chunk: int):
+    """The plain dK, dV (`_flash_bwd_dkv_xla`'s arithmetic) of a causal
+    [b, h, t, d] attention accumulated over query chunks, in f32: a chunk
+    of queries reads only the keys up to its last."""
+    b, h, t, d = q.shape
+    dk = torch.zeros(b, h, t, d, device=q.device)
+    dv = torch.zeros(b, h, t, d, device=q.device)
+    lse = lse.reshape(b, h, t)
+    delta = delta.reshape(b, h, t)
+    for c0 in range(0, t, chunk):
+        c1 = min(t, c0 + chunk)
+        qc, doc = q[:, :, c0:c1].float(), do[:, :, c0:c1].float()
+        kc, vc = k[:, :, :c1].float(), v[:, :, :c1].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qc * scale, kc)
+        pos = torch.arange(c0, c1, device=q.device)
+        s = torch.where(torch.arange(c1, device=q.device)[None, :]
+                        <= pos[:, None], s, -1e30)
+        p = torch.exp(s - lse[:, :, c0:c1, None])
+        del s
+        dp = torch.einsum("bhqd,bhkd->bhqk", doc, vc)
+        ds = p * (dp - delta[:, :, c0:c1, None])
+        del dp
+        dk[:, :, :c1] += torch.einsum("bhqk,bhqd->bhkd", ds, qc)
+        dv[:, :, :c1] += torch.einsum("bhqk,bhqd->bhkd", p, doc)
+        del p, ds
+    return dk * scale, dv
+
+
+def signed_bias(got, ref) -> float:
+    """sum((got - ref) * sign(ref)) / sum(|ref|): the drift of `got`
+    away from (> 0) or toward (< 0) zero against `ref`, as a share of
+    its size."""
+    ref = ref.float()
+    return float(((got.float() - ref) * ref.sign()).sum() / ref.abs().sum())
+
+
+def long_context_phase(dev, shape=LONG_SHAPE, tail: int = LONG_TAIL,
+                       chunk: int = LONG_CHUNK):
+    """B1-B3 at `shape`, causal, bf16 and f32 (the tensor-core routes at
+    head_dim 64): out, lse and dQ against the plain version on the last
+    `tail` query rows; dK and dV against the plain version accumulated
+    over query chunks of `chunk` (B2 and B3 from B1's lse and delta, the
+    same inputs on both sides); phase 3's bars.  Each kernel's time (CUDA
+    events over 5 launches) and bound.  Returns {kernel: {dtype: {...}}}."""
+    from easydist_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    b, h, t, d = shape
+    scale = 1.0 / np.sqrt(d)
+    rs = np.random.RandomState(13)
+    base = [torch.as_tensor(rs.standard_normal(shape), dtype=torch.float32,
+                            device=dev) for _ in range(4)]
+    counters = train_counters()
+    before = {name: c.launches for name, c in counters.items()}
+    out_entries = {name: {} for name in TRAIN_KERNELS}
+    for dtype in (torch.bfloat16, torch.float32):
+        key = "bf16" if dtype == torch.bfloat16 else "f32"
+        rounded = dtype == torch.bfloat16
+        q, k, v, do = (x.to(dtype) for x in base)
+        tag = f"long {key} {list(shape)}"
+        out, lse = fa.flash_fwd(q, k, v, True, scale)
+        torch.cuda.synchronize()
+        ref_out, ref_lse, s = tail_forward(q, k, v, scale, tail)
+        errs = {"flash_fwd": max(
+            check_close(f"flash_fwd {tag} out, last {tail} rows",
+                        out[:, :, t - tail:], ref_out, 1e-4, 1e-5, rounded),
+            check_close(f"flash_fwd {tag} lse, last {tail} rows",
+                        lse.reshape(b, h, t)[:, :, t - tail:], ref_lse, 1e-4,
+                        1e-5, False))}
+        delta = fa._flash_delta(out, do)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)
+        torch.cuda.synchronize()
+        lse_t = lse.reshape(b, h, t)[:, :, t - tail:, None]
+        delta_t = delta.reshape(b, h, t)[:, :, t - tail:, None]
+        p = torch.exp(s - lse_t)
+        dp = torch.einsum("bhqd,bhkd->bhqk", do[:, :, t - tail:].float(),
+                          v.float())
+        r_dq = torch.einsum("bhqk,bhkd->bhqd", p * (dp - delta_t),
+                            k.float()) * scale
+        del s, p, dp
+        errs["flash_bwd_dq"] = check_close(
+            f"flash_bwd_dq {tag} dq, last {tail} rows", dq[:, :, t - tail:],
+            r_dq, 2e-4, 2e-5, rounded)
+        r_dk, r_dv = chunked_dkv(q, k, v, do, lse, delta, scale, chunk)
+        drift_out = signed_bias(out[:, :, t - tail:], ref_out)
+        print(f"bias {tag}: out {drift_out:.3e}, "
+              f"dq {signed_bias(dq[:, :, t - tail:], r_dq):.3e}, dk "
+              f"{signed_bias(dk, r_dk):.3e}, dv {signed_bias(dv, r_dv):.3e}"
+              f" (sum((kernel - plain) sign(plain)) / sum |plain|)")
+        errs["flash_bwd_dkv"] = max(
+            check_close(f"flash_bwd_dkv {tag} dk, chunks of {chunk}", dk,
+                        r_dk, 2e-4, 2e-5, rounded),
+            check_close(f"flash_bwd_dkv {tag} dv, chunks of {chunk}", dv,
+                        r_dv, 2e-4, 2e-5, rounded))
+        del r_dk, r_dv, ref_out, ref_lse, dq, dk, dv, r_dq
+        calls = {"flash_fwd": lambda i: fa.flash_fwd(q, k, v, True, scale),
+                 "flash_bwd_dq": lambda i: fa.flash_bwd_dq(
+                     q, k, v, do, lse, delta, True, scale),
+                 "flash_bwd_dkv": lambda i: fa.flash_bwd_dkv(
+                     q, k, v, do, lse, delta, True, scale)}
+        for name, fn in calls.items():
+            ms = time_ms(fn, n=5)
+            bound, by = train_bound_ms(name, shape, True, dtype.itemsize)
+            print(f"time {name} {tag} causal: kernel {ms:.4f} ms (events), "
+                  f"bound {bound:.4f} ms ({by})")
+            out_entries[name][key] = {"ms": ms, "bound_ms": bound,
+                                      "bound_by": by,
+                                      "max_abs_err": errs[name]}
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
+    for name, c in counters.items():
+        c.launches = before[name]  # checks and timing runs don't count
+    print(f"long context: B1-B3 at {list(shape)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out_entries
 
 
 # ------------------------------------------------------------ training
@@ -4800,10 +5120,78 @@ def tail_phase(dev, ctx, cfg_kw=None, remat_kw=None, batch: int = 8,
                 out=dict(cap=cap, modes=modes, tp=tp, mesh=mesh))
 
 
+def pp_export_phase(dev, cfg, batch, seed, chunk_bytes: int = 16 << 20):
+    """14f: `export_state_dict` on a real one-rank group (NCCL on the
+    card): easydist_compile(pp_stages=1) of GPT-2 small's f32 loss on a
+    (1, 1) "pp" x "dp" mesh, one step, then the export through
+    `reshard.fetch_chunked` in chunks of `chunk_bytes` against the tree
+    that the packed rows' all_gather gives (the export's gather before
+    `fetch_chunked`), bitwise, every leaf on the host, the row gathered
+    in more than one all_gather of at most a chunk each."""
+    from torch.utils import _pytree as pytree
+
+    from easydist_tpu_torch import comm
+    from easydist_tpu_torch import config as edconfig
+    from easydist_tpu_torch.fxfront import easydist_compile, make_device_mesh
+    from easydist_tpu_torch.models.gpt import gpt_init, gpt_loss
+
+    def loss_fn(params, tokens, targets):
+        return gpt_loss(params, cfg, tokens, targets)
+
+    t0 = time.perf_counter()
+    tokens, targets = _tokens(dev, cfg, (batch, cfg.seq), seed + 1)
+    saved = edconfig.reshard_chunk_bytes
+    with one_rank_group(dev) as backend:
+        mesh = make_device_mesh((1, 1), ("pp", "dp"), device_type=dev.type)
+        compiled = easydist_compile(loss_fn, mesh=mesh, pp_stages=1,
+                                    n_microbatches=2)
+        params = gpt_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                          device=dev)
+        state = compiled.init_state(params, tokens, targets)
+        del params
+        state, loss = compiled(state, tokens, targets)
+        edconfig.reshard_chunk_bytes = chunk_bytes
+        try:
+            with CollectiveLog() as log:
+                got = compiled.export_state_dict(state)
+        finally:
+            edconfig.reshard_chunk_bytes = saved
+        prep = compiled.pipe.prep
+        row, shared = state[0]
+        full = row[0]
+        if prep.sib is not None:
+            full = comm.all_gather_dim0(full, prep.sib.group, prep.sib.size)
+        rows = comm.all_gather_dim0(full[None], prep.pp.group, prep.pp.size)
+        leaves = prep.unpack_params(rows, shared)
+    got_leaves = [pytree.tree_leaves(got)[i] for i in compiled._diff_idx]
+    equal = all(torch.equal(a, b.cpu()) for a, b in zip(got_leaves, leaves))
+    devices = sorted({str(x.device) for x in pytree.tree_leaves(got)})
+    gathers, gathered = log.log.get("all_gather_into_tensor", [0, 0])
+    row_bytes = row.numel() * row.element_size()
+    print(f"pipeline 14f export on a one-rank mesh ({backend}): loss "
+          f"{float(loss):.6f}; packed row {row_bytes} B through "
+          f"fetch_chunked in {gathers} all_gathers of {gathered} B in all "
+          f"(chunks of {chunk_bytes} B); {len(got_leaves)} float leaves "
+          f"bitwise equal to the all_gather tree: {equal}; leaves on "
+          f"{devices}; {time.perf_counter() - t0:.1f} s")
+    if not (equal and devices == ["cpu"] and len(got_leaves) == len(leaves)):
+        raise AssertionError("14f: the export through fetch_chunked differs "
+                             "from the all_gather tree or left the host")
+    if gathers < 2 or gathered > gathers * chunk_bytes:
+        raise AssertionError(f"14f: {gathers} all_gathers of {gathered} B "
+                             f"for a {row_bytes} B row in chunks of "
+                             f"{chunk_bytes} B")
+    del state, compiled, rows, leaves, got
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(gathers=gathers, row_bytes=row_bytes, equal=equal)
+
+
 def pipeline_phase(dev, cfg_kw=None, batch: int = 8, seed: int = 0):
     """Phase 14: the manual parallel modes on GPT-2 small's f32 flash
     workload (14a split, 14b schedules, 14c easydist_compile(pp_stages=),
-    14d ddp / zero2 / zero3) and MoE at its widths (14e).  Returns the
+    14d ddp / zero2 / zero3), MoE at its widths (14e) and the pipeline
+    export through `fetch_chunked` on a real one-rank group (14f).  Returns the
     B1-B3 launches of the pipeline runs (per schedule, per rank) and of
     the dp runs (per mode), and the printed numbers.  The arguments
     shrink it for a rehearsal on the CPU."""
@@ -4820,6 +5208,7 @@ def pipeline_phase(dev, cfg_kw=None, batch: int = 8, seed: int = 0):
     launches_dp, out["peaks_dp"], out["dp"] = dp_phase(dev, cfg, batch,
                                                        seed)
     out["moe"] = moe_phase(dev, seed)
+    out["export"] = pp_export_phase(dev, cfg, batch, seed)
     print(f"pipeline phase: {time.perf_counter() - t_phase:.1f} s")
     return launches_pp, launches_dp, out
 
@@ -5521,19 +5910,17 @@ SELF_DRAFT_MAX_PROMPT = 128
 LLAMA_TRAIN = dict(layers=2, batch=2, seq=1024, steps=3)
 
 
-def llama_forced_check(tag: str, params, cfg, prompts, ids, dev):
-    """Every request's ids against one teacher-forced `llama_apply` over
-    prompt + ids: the argmax at each position must be the next id.  On a
-    mismatch the top-2 gap there is printed and the request is re-checked
-    by growing forwards (`uncached_greedy`), which must then equal it.
-    Returns the requests re-checked."""
-    from easydist_tpu_torch.models.llama import llama_apply
-
+def forced_check(tag: str, params, cfg, prompts, ids, dev, apply):
+    """Every request's ids against one teacher-forced `apply` (the
+    model's full forward) over prompt + ids: the argmax at each position
+    must be the next id.  On a mismatch the top-2 gap there is printed
+    and the request is re-checked by growing forwards (`uncached_greedy`),
+    which must then equal it.  Returns the requests re-checked."""
     regrown = []
     with torch.no_grad():
         for i, (p, out) in enumerate(zip(prompts, ids)):
             seq = torch.tensor([p + out[:-1]], device=dev)
-            logits = llama_apply(params, cfg, seq)[0, len(p) - 1:]
+            logits = apply(params, cfg, seq)[0, len(p) - 1:]
             want = logits.argmax(-1).tolist()
             if want == out:
                 continue
@@ -5542,8 +5929,7 @@ def llama_forced_check(tag: str, params, cfg, prompts, ids, dev):
             print(f"{tag}: request {i} leaves the teacher-forced argmax at "
                   f"token {j} (top-2 gap {float(top[0] - top[1]):.3e}); "
                   f"re-checking by growing forwards")
-            grown = uncached_greedy(params, cfg, p, len(out),
-                                    apply=llama_apply)
+            grown = uncached_greedy(params, cfg, p, len(out), apply=apply)
             if grown != out:
                 raise AssertionError(f"{tag}: request {i}'s ids differ from "
                                      f"the uncached reference")
@@ -5623,7 +6009,8 @@ def llama_phase(dev, cfg_kw=None, n_new: int = 32, serve_kw=None,
         params, cfg, prompts, n_new, ServeConfig(**serve_kw), dev, factory)
     stats = sess.stats()
     t_ref = time.perf_counter()
-    regrown = llama_forced_check("llama 17a", params, cfg, prompts, ids, dev)
+    regrown = forced_check("llama 17a", params, cfg, prompts, ids, dev,
+                           llama.llama_apply)
     ref_s = time.perf_counter() - t_ref
     if stats["decode_signatures"]["size"] != 1:
         raise AssertionError(f"llama 17a decode signatures "
@@ -5855,6 +6242,410 @@ def llama_train_phase(dev, cfg_kw, seed: int, layers: int, batch: int,
     print(f"llama 17f: compiled equals uncompiled at rtol 1e-4 over {steps} "
           f"steps (bitwise: {losses == eager}); 1 signature")
     return {"losses": losses, "eager": eager, "step_ms": step_ms}
+
+
+# ------------------------------------ Cerebras-GPT-2.7B's widths (phase 24)
+
+# Cerebras-GPT-2.7B (Dey et al. 2023, arXiv:2304.03208, Table 1): the
+# GPT-2 architecture at d_model 2560 with 32 heads (head_dim 80), 32
+# layers, seq 2048, GPT-2's vocab.  The repo's GPT keeps its tanh gelu;
+# only the widths come from the source.
+CEREBRAS_2P7B = dict(vocab=50257, seq=2048, dim=2560, heads=32, layers=32)
+CEREBRAS_SERVE_KW = dict(decode_buckets=(2048,), max_decode_slots=8,
+                         prefill_chunk=64, prefill_batch=4)
+CEREBRAS_NEW = 24
+CEREBRAS_TRAIN = dict(layers=4, batch=2, seq=2048, steps=3)
+# phase 3's times at its shapes: B4 over [8, 32, 2048, 80] (8 slots of the
+# 2048-token bucket), B5 / B6 over the paged session's default arena
+# ((8 + 1) x 32 pages of 64 tokens: [288, 32, 64, 80]), B1-B3 at the
+# train step's [2, 32, 2048, 80], causal
+CEREBRAS_DECODE_SHAPE = (8, 32, 2048, 80)
+CEREBRAS_PAGED_SHAPE = (8, 32, 64, 80, 32, 288)
+CEREBRAS_TRAIN_SHAPE = (2, 32, 2048, 80)
+SIMT_SYMBOLS = {"flash_fwd": "flash_fwd_simt_kernel",
+                "flash_bwd_dq": "flash_bwd_dq_simt_kernel",
+                "flash_bwd_dkv": "flash_bwd_dkv_simt_kernel"}
+
+
+def cerebras_prompts(vocab: int, seed: int = 0):
+    """8 prompts of 5..1500 tokens; prompts 0 and 6 share a 256-token
+    prefix (6 is admitted after 0 has committed it)."""
+    rs = np.random.RandomState(seed)
+    shared = rs.randint(0, vocab, 256).tolist()
+    lengths = [0, 5, 37, 700, 1000, 300, 0, 1500]
+    prompts = [rs.randint(0, vocab, n).tolist() for n in lengths]
+    prompts[0] = shared + rs.randint(0, vocab, 200).tolist()
+    prompts[6] = shared + rs.randint(0, vocab, 90).tolist()
+    return prompts
+
+
+def cerebras_kernel_times(dev):
+    """B1-B6 at Cerebras-GPT-2.7B's shapes (head_dim 80: the padded decode
+    body and the SIMT training kernels), bf16 and f32: each kernel held
+    against its plain version in f32 on the first timed copy's inputs at
+    phase 3's bars (B4-B6 atol 1e-5; B1-B3 through `check_train_case`),
+    then kernel (CUDA events over rotated copies, the profiler's device
+    time per launch), plain version, one library call (SDPA: masked over
+    the cache for B4, on the gathered (and dequantized) cache for B5 /
+    B6, causal forward and whole backward for B1-B3) and the bound.
+    Returns {kernel: {dtype: {...}}}, each with its `max_abs_err`."""
+    import torch.nn.functional as F
+
+    from easydist_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    counters = {**decode_counters(), **train_counters()}
+    before = {name: c.launches for name, c in counters.items()}
+    out = {name: {} for name in counters}
+    rs = np.random.RandomState(17)
+
+    def record(name, key, tag, err, kernel, symbol, plain, library, bound,
+               n_plain=10, lib_profile=True):
+        ms = time_ms(kernel)
+        prof_ms, seen = profiled_ms(kernel, symbol)
+        plain_ms = time_ms(plain, n=n_plain)
+        lib_ms = time_ms(library)
+        lib_prof = (profiled_call_ms(library) if lib_profile
+                    else (None, 0, 0))
+        bound_ms, bound_by = bound
+        print(f"time {name} cerebras {key} {tag}: kernel {ms:.4f} ms "
+              f"({profiled_text(prof_ms, seen)}), plain {plain_ms:.4f} ms, "
+              f"library {lib_ms:.4f} ms ({call_text(*lib_prof)}), bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        out[name][key] = {"shape": tag, "max_abs_err": err, "ms": ms,
+                          "profiled_ms": prof_ms,
+                          "profiled_launches": seen, "plain_ms": plain_ms,
+                          "library_ms": lib_ms,
+                          "library_profiled_ms": lib_prof[0],
+                          "bound_ms": bound_ms, "bound_by": bound_by}
+
+    for dtype in (torch.bfloat16, torch.float32):
+        key = "bf16" if dtype == torch.bfloat16 else "f32"
+        itemsize = dtype.itemsize
+        # B4 over the bucketed cache
+        b, h, t, d = CEREBRAS_DECODE_SHAPE
+        scale = 1.0 / np.sqrt(d)
+        L = torch.full((b,), t, dtype=torch.int32, device=dev)
+        mask = torch.ones(b, 1, 1, t, dtype=torch.bool, device=dev)
+        cp = [[torch.randn(s, device=dev, dtype=dtype)
+               for s in ((b, h, d), (b, h, t, d), (b, h, t, d))]
+              for _ in range(TIMED_COPIES)]
+        err = check_close(
+            f"flash_decode cerebras {key}",
+            fa.flash_decode_attention(*cp[0], L),
+            fa._decode_attention_xla(*(x.float() for x in cp[0]), L, scale),
+            0.0, 1e-5, dtype == torch.bfloat16)
+        record("flash_decode", key, f"q [{b},{h},{d}] k/v {[b, h, t, d]}, "
+               f"lengths {t}", err,
+               lambda i: fa.flash_decode_attention(*cp[i % TIMED_COPIES],
+                                                   L),
+               "flash_decode_kernel",
+               lambda i: fa._decode_attention_xla(*cp[i % TIMED_COPIES], L,
+                                                  scale),
+               lambda i: F.scaled_dot_product_attention(
+                   cp[i % TIMED_COPIES][0][:, :, None],
+                   *cp[i % TIMED_COPIES][1:], attn_mask=mask),
+               decode_bound_ms([t] * b, CEREBRAS_DECODE_SHAPE, itemsize))
+        del cp
+        # B5 / B6 over the arena
+        b, h, pt, d, mp, n_pages = CEREBRAS_PAGED_SHAPE
+        lens = [mp * pt] * b
+        copies = []
+        for _ in range(TIMED_COPIES):
+            q, k, v, table, Lp = paged_inputs(dev, rs, h, h, d, lengths=lens,
+                                              shape=CEREBRAS_PAGED_SHAPE,
+                                              dead=())
+            kq, ks = fa.kv_quantize(k, 1)
+            vq, vs = fa.kv_quantize(v, 1)
+            q, k, v = (x.to(dtype) for x in (q, k, v))
+            gathered = [fa.gather_pages(x, table).contiguous()
+                        for x in (k, v)]
+            dequant = [fa.kv_dequantize(fa.gather_pages(x, table),
+                                        fa.gather_pages(sc, table),
+                                        dtype).contiguous()
+                       for x, sc in ((kq, ks), (vq, vs))]
+            copies.append((q, k, v, table, Lp, kq, ks, vq, vs, gathered,
+                           dequant))
+
+        def at(fn):
+            return lambda i: fn(copies[i % TIMED_COPIES])
+
+        tag = (f"q [{b},{h},{d}], pages [{n_pages},{h},{pt},{d}], table "
+               f"[{b},{mp}], lengths {mp * pt}")
+        c = copies[0]
+        rounded = dtype == torch.bfloat16
+        err = check_close(
+            f"paged_decode cerebras {key}",
+            fa.flash_paged_decode_attention(*c[:5]),
+            fa._paged_decode_attention_xla(*(x.float() for x in c[:3]),
+                                           *c[3:5], scale),
+            0.0, 1e-5, rounded)
+        err_q = check_close(
+            f"paged_decode_quant cerebras {key} n_blocks 1",
+            fa.flash_paged_decode_quant_attention(c[0], c[5], c[7], c[6],
+                                                  c[8], c[3], c[4]),
+            fa._paged_decode_attention_quant_xla(c[0].float(), c[5], c[7],
+                                                 c[6], c[8], c[3], c[4],
+                                                 scale),
+            0.0, 1e-5, rounded)
+        del c
+        record("paged_decode", key, tag, err,
+               at(lambda c: fa.flash_paged_decode_attention(*c[:5])),
+               "paged_decode_kernel",
+               at(lambda c: fa._paged_decode_attention_xla(*c[:5], scale)),
+               at(lambda c: F.scaled_dot_product_attention(
+                   c[0][:, :, None], *c[9])),
+               paged_bound_ms(lens, CEREBRAS_PAGED_SHAPE, h, h, d, itemsize,
+                              itemsize))
+        record("paged_decode_quant", key, "int8 + 1 scale a row, " + tag,
+               err_q,
+               at(lambda c: fa.flash_paged_decode_quant_attention(
+                   c[0], c[5], c[7], c[6], c[8], c[3], c[4])),
+               "paged_decode_quant_kernel",
+               at(lambda c: fa._paged_decode_attention_quant_xla(
+                   c[0], c[5], c[7], c[6], c[8], c[3], c[4], scale)),
+               at(lambda c: F.scaled_dot_product_attention(
+                   c[0][:, :, None], *c[10])),
+               paged_bound_ms(lens, CEREBRAS_PAGED_SHAPE, h, h, d, 1 + 4 / d,
+                              itemsize))
+        del copies
+        # B1-B3 at the train step's shape, causal
+        shape = CEREBRAS_TRAIN_SHAPE
+        tcopies = [[torch.randn(shape, device=dev, dtype=dtype)
+                    for _ in range(4)] for _ in range(TIMED_COPIES)]
+        errs = check_train_case(f"cerebras {key} causal", *tcopies[0], True,
+                                1.0 / np.sqrt(shape[-1]))
+        torch.cuda.empty_cache()
+        calls = timed_calls(tcopies, 1.0 / np.sqrt(shape[-1]))
+        for name, (kernel, plain, library, _) in calls.items():
+            record(name, key, f"q/k/v/dO {list(shape)}, causal", errs[name],
+                   kernel,
+                   SIMT_SYMBOLS[name], plain, library,
+                   train_bound_ms(name, shape, True, itemsize), n_plain=3,
+                   lib_profile=name == "flash_fwd")
+        del tcopies, calls
+        torch.cuda.empty_cache()
+    for name, c in counters.items():
+        c.launches = before[name]  # timing runs don't count
+    print(f"cerebras kernel times: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def cerebras_phase(dev, cfg_kw=None, n_new: int = CEREBRAS_NEW,
+                   serve_kw=None, seed: int = 0, prompts=None,
+                   train_kw=None):
+    """Phase 24: Cerebras-GPT-2.7B's published widths at full depth
+    (`CEREBRAS_2P7B`; random f32 weights from a seeded generator; the
+    repo's GPT with its tanh gelu) through `GenerationSession.for_gpt`,
+    8 requests of `n_new` new tokens (`cerebras_prompts`), 8 slots of the
+    2048-token bucket: (a) bucketed f32: ids equal one teacher-forced
+    `gpt_apply` over prompt + ids (a near tie re-checked by growing
+    forwards), one decode signature, the prefix cache hits, B4 32 x
+    rounds (B5, B6 none); (b) paged f32: ids equal (a)'s, B5 32 x rounds,
+    the audit clean; (c) int8 pages f32: B6 32 x rounds, the
+    teacher-forced drift against exact pages within 0.25 x the logit
+    spread (phase 6's bar); (d) bf16 on both layouts: finite logits,
+    tokens/s, a profiled decode window's host ms and busy share; (e)
+    `make_gpt_train_step(attention="flash")` at the same widths, depth
+    cut to 4 layers, batch 2, seq 2048: 3 compiled steps equal 3
+    uncompiled at rtol 1e-4 (phase 7's bar), B1-B3 launched once a layer
+    a step (the SIMT kernels at head_dim 80).  The arguments shrink it
+    for a rehearsal on the CPU.  Returns the launches of (a)-(c) and
+    (e), and the printed numbers."""
+    import dataclasses
+    import gc
+
+    from torch.utils import _pytree as pytree
+
+    from easydist_tpu_torch.kv import audit_page_table
+    from easydist_tpu_torch.models import gpt
+    from easydist_tpu_torch.serve import ServeConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    times, out = {}, {}
+    cfg_kw = {**CEREBRAS_2P7B, **(cfg_kw or {})}
+    cfg = gpt.GPTConfig(**cfg_kw)
+    serve_kw = serve_kw or CEREBRAS_SERVE_KW
+    params = gpt.gpt_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                          device=dev)
+    n_params = sum(x.numel() for x in pytree.tree_leaves(params))
+    prompts = prompts or cerebras_prompts(cfg.vocab, seed)
+    print(f"cerebras: {n_params / 1e9:.3f} B parameters "
+          f"({4 * n_params / 1e9:.2f} GB f32), head_dim "
+          f"{cfg.dim // cfg.heads}, {cfg}")
+
+    # (a) bucketed, f32
+    t = time.perf_counter()
+    ids, sess, launches, rounds, secs = serve(
+        params, cfg, prompts, n_new, ServeConfig(**serve_kw), dev)
+    stats = sess.stats()
+    del sess
+    t_ref = time.perf_counter()
+    regrown = forced_check("cerebras 24a", params, cfg, prompts, ids, dev,
+                           gpt.gpt_apply)
+    ref_s = time.perf_counter() - t_ref
+    if stats["decode_signatures"]["size"] != 1:
+        raise AssertionError(f"cerebras 24a decode signatures "
+                             f"{stats['decode_signatures']}")
+    hits = prefix_hits(stats)
+    if hits <= 0:
+        raise AssertionError("cerebras 24a: the prefix cache never hit")
+    check_launches("cerebras 24a", launches, "flash_decode", cfg.layers,
+                   rounds, dev)
+    out["flash_decode"] = launches["flash_decode"]
+    print(f"cerebras 24a bucketed f32: {len(prompts)} requests, "
+          f"{sum(map(len, ids))} tokens, {rounds} decode rounds, {secs:.2f} "
+          f"s incl. tracing; ids equal the teacher-forced reference for all "
+          f"{len(prompts)} requests ({ref_s:.2f} s; re-checked by growing "
+          f"forwards: {regrown}); 1 decode signature; prefix hits {hits}; "
+          f"B4 {launches['flash_decode']} = {cfg.layers} x {rounds} rounds, "
+          f"B5 and B6 0")
+    times["24a"] = time.perf_counter() - t
+
+    # (b) paged, f32
+    t = time.perf_counter()
+    ids_b, sess, launches, rounds, secs = serve(
+        params, cfg, prompts, n_new,
+        ServeConfig(**{**serve_kw, "kv_layout": "paged"}), dev)
+    check_ids("cerebras 24b", ids_b, ("24a's ids", ids))
+    check_launches("cerebras 24b", launches, "paged_decode", cfg.layers,
+                   rounds, dev)
+    pool = next(iter(sess._pools.values()))
+    problems = audit_page_table(pool.pool, pool.table, trie=pool.trie)
+    if problems or pool.table.n_mapped(0) or pool.jobs or pool.slots:
+        raise AssertionError(f"cerebras 24b page table after drain: "
+                             f"{problems}")
+    out["paged_decode"] = launches["paged_decode"]
+    print(f"cerebras 24b paged f32: ids equal 24a's for all {len(prompts)} "
+          f"requests; B5 {launches['paged_decode']} = {cfg.layers} x "
+          f"{rounds} rounds, B4 0; page-table audit clean; arena "
+          f"{tuple(pool.arena['k'].shape)}; {secs:.2f} s incl. tracing")
+    del sess, pool
+    times["24b"] = time.perf_counter() - t
+
+    # (c) int8 pages, f32
+    t = time.perf_counter()
+    ids_c, sess, launches, rounds, secs = serve(
+        params, cfg, prompts, n_new,
+        ServeConfig(**{**serve_kw, "kv_layout": "paged",
+                       "kv_quant_dtype": "int8"}), dev)
+    check_launches("cerebras 24c", launches, "paged_decode_quant",
+                   cfg.layers, rounds, dev)
+    del sess
+    drift, spread = int8_drift(params, cfg, prompts[3], n_new, dev,
+                               serve_kw["prefill_chunk"], gpt.init_kv_pages,
+                               gpt.gpt_prefill_chunk_paged,
+                               gpt.gpt_decode_step_paged)
+    if not drift <= 0.25 * spread:
+        raise AssertionError(f"cerebras 24c int8 drift {drift} > 0.25 x "
+                             f"{spread}")
+    out["paged_decode_quant"] = launches["paged_decode_quant"]
+    n = sum(map(len, ids_c))
+    same = sum(a == b for x, y in zip(ids, ids_c) for a, b in zip(x, y))
+    print(f"cerebras 24c int8 f32: teacher-forced drift {drift:.4e} against "
+          f"logit spread {spread:.4e} (bar {0.25 * spread:.4e}); B6 "
+          f"{launches['paged_decode_quant']} = {cfg.layers} x {rounds} "
+          f"rounds, B4 and B5 0; ids equal the exact ones at {same} of {n} "
+          f"positions; {secs:.2f} s incl. tracing")
+    times["24c"] = time.perf_counter() - t
+
+    # (d) bf16, both layouts
+    t = time.perf_counter()
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    out["bf16"] = {}
+    for layout, kernel in (("bucketed", "flash_decode"),
+                           ("paged", "paged_decode")):
+        sc = ServeConfig(**{**serve_kw, "kv_layout": layout})
+        out["bf16"][layout] = serve_bf16(f"cerebras {layout}", params, cfg16,
+                                         prompts, n_new, sc, ids, kernel, dev)
+    del params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    times["24d"] = time.perf_counter() - t
+
+    # (e) the train step at the same widths, depth cut
+    t = time.perf_counter()
+    out["train"] = cerebras_train_phase(dev, cfg_kw, seed,
+                                        **{**CEREBRAS_TRAIN,
+                                           **(train_kw or {})})
+    times["24e"] = time.perf_counter() - t
+    print(f"cerebras phase: {time.perf_counter() - t_phase:.1f} s "
+          f"{ {k: round(v, 1) for k, v in times.items()} }")
+    return out
+
+
+def cerebras_train_phase(dev, cfg_kw, seed: int, layers: int, batch: int,
+                         seq: int, steps: int):
+    """24e: `make_gpt_train_step` with attention="flash" (f32, TF32 off)
+    at `cfg_kw`'s widths with `layers` layers: `steps` compiled steps
+    against as many uncompiled ones from the same state, rtol 1e-4, B1,
+    B2 and B3 each launched `layers` times a compiled step.  Returns the
+    launches a step, the losses and the compiled step's ms."""
+    from torch.utils import _pytree as pytree
+
+    from easydist_tpu_torch.fxfront import easydist_compile
+    from easydist_tpu_torch.models.gpt import GPTConfig, make_gpt_train_step
+
+    cfg = GPTConfig(**{**cfg_kw, "layers": layers, "seq": seq,
+                       "attention": "flash"})
+    step, init = make_gpt_train_step(cfg, lr=1e-4)
+    state = init(torch.Generator(device=dev).manual_seed(seed + 2),
+                 device=dev)
+    n_params = sum(x.numel() for x in pytree.tree_leaves(state[0]))
+    rs = np.random.RandomState(seed + 3)
+    tokens = torch.as_tensor(rs.randint(0, cfg.vocab, (batch, seq)),
+                             device=dev)
+    targets = torch.as_tensor(rs.randint(0, cfg.vocab, (batch, seq)),
+                              device=dev)
+    eager_state = pytree.tree_map(torch.clone, state)
+    compiled = easydist_compile(step, mesh=dev)
+    counters = train_counters()
+    losses, launches = [], []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        for c in counters.values():
+            c.launches = 0
+        if i == 1:
+            trace_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+        state, loss = compiled(state, tokens, targets)
+        losses.append(float(loss))
+        launches.append({name: c.launches for name, c in counters.items()})
+    step_ms = (time.perf_counter() - t1) * 1e3 / max(1, steps - 1)
+    del state
+    eager = []
+    for _ in range(steps):
+        eager_state, loss = step(eager_state, tokens, targets)
+        eager.append(float(loss))
+    del eager_state
+    peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else None)
+    print(f"cerebras 24e train f32 flash ({layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters with Adam, batch {batch}, seq "
+          f"{seq}): compiled losses {losses}, uncompiled {eager}; first step "
+          f"{trace_s:.2f} s incl. tracing, then {step_ms:.1f} ms a step; "
+          f"launches a step {launches[-1]}; peak "
+          f"{peak if peak is None else round(peak, 2)} GB")
+    np.testing.assert_allclose(losses, eager, rtol=1e-4,
+                               err_msg="cerebras compiled train step != "
+                                       "uncompiled")
+    if compiled.cache_stats()["size"] != 1:
+        raise AssertionError(f"cerebras 24e signatures "
+                             f"{compiled.cache_stats()}")
+    expect = layers if dev.type == "cuda" else 0
+    if any(n != expect for per_step in launches for n in per_step.values()):
+        raise AssertionError(f"cerebras 24e launches {launches}, expected "
+                             f"{expect} of each a step")
+    print(f"cerebras 24e: compiled equals uncompiled at rtol 1e-4 over "
+          f"{steps} steps (bitwise: {losses == eager}); 1 signature; B1 = B2 "
+          f"= B3 = {expect} launches a step")
+    return {"launches": launches[-1], "losses": losses, "eager": eager,
+            "step_ms": step_ms}
 
 
 # ------------------------------ restore across a topology change (phase 18)
@@ -7447,6 +8238,10 @@ def vision_graph_phase(dev, cases=None, steps: int = 3, world: int = 8,
 
 
 CUT_DEPTH = dict(layers=6)
+# phase 17's Llama at 4 of its 32 layers since phase 24 (Cerebras-GPT-2.7B
+# at full depth) joined: at 32 the script would pass its time limit, at 8
+# it ended at 1046 s of 1200
+LLAMA_CUT_DEPTH = dict(layers=4)
 
 
 def main() -> int:
@@ -7468,6 +8263,20 @@ def main() -> int:
     llama_kernels = llama_kernel_phase(dev)
     for e in (entry, *paged_entries):
         e["llama"] = llama_kernels[e["name"]]
+    t3 = time.perf_counter()
+    smem = smem_phase(dev)
+    domain = domain_phase(dev)
+    long = long_context_phase(dev)
+    cerebras_kernels = cerebras_kernel_times(dev)
+    for e in (entry, *paged_entries, *train_entries):
+        e["domain"] = domain[e["name"]]
+        e["cerebras"] = cerebras_kernels[e["name"]]
+    for e in train_entries:
+        e["long"] = long[e["name"]]
+        e["smem_bytes"] = smem
+    print(f"chip_smoke: phase 3's head_dim sweep, shared memory, long "
+          f"context and Cerebras-GPT-2.7B shapes took "
+          f"{time.perf_counter() - t3:.1f} s")
     mark("phases 1-3")
     # the analyzer's hooks by the phase group that ran them (phase 22)
     from easydist_tpu_torch.analyze import hook_tally, reset_hook_tally
@@ -7537,7 +8346,7 @@ def main() -> int:
     mark("phase 16")
     torch.cuda.empty_cache()
     reset_hook_tally()
-    llama = llama_phase(dev)
+    llama = llama_phase(dev, cfg_kw=LLAMA_CUT_DEPTH)
     tallies["17"] = hook_tally()
     for e in (entry, *paged_entries):
         e["launches_llama"] = llama[e["name"]]
@@ -7577,6 +8386,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     vision_graph_phase(dev)
     mark("phase 23")
+    torch.cuda.empty_cache()
+    cerebras = cerebras_phase(dev)
+    for e in (entry, *paged_entries):
+        e["launches_cerebras"] = cerebras[e["name"]]
+    for e in train_entries:
+        e["launches_cerebras"] = cerebras["train"]["launches"][e["name"]]
+    mark("phase 24")
     print(card_line())
     print(json.dumps({"kernels": [entry, *paged_entries, *train_entries]}))
     print(json.dumps({"ok": True, "device": {

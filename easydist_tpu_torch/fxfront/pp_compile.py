@@ -37,6 +37,7 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 logger = logging.getLogger(__name__)
@@ -329,30 +330,61 @@ class PPCompiledFunction:
         return self._built[0](state, *batch)
 
     def export_state_dict(self, state):
-        """The live train state's params as the logical params tree: the
-        packed rows gathered over the sibling and pipeline groups (every
-        rank calls it), each leaf sliced back out, the shared leaves and
-        the baked non-float constants merged in.  Optimizer state is not
-        exported (it lives in the packed representation)."""
-        from easydist_tpu_torch import comm
-
+        """The live train state's params as the logical params tree, on
+        the host: the packed rows (copied as they are when one process
+        holds every stage) gathered over the sibling and pipeline groups
+        through `reshard.fetch_chunked` (every rank calls it; as
+        the JAX package's export does, so the host stages at most one
+        chunk beyond the output and no device holds more than its own
+        block of a row and one chunk), each leaf sliced back out, the
+        shared leaves and the baked non-float constants merged in.
+        Optimizer state is not exported (it lives in the packed
+        representation)."""
         if self._built is None:
             raise RuntimeError("call init_state(params, *batch) first")
         prep = self._built[2]
         (row, shared) = state[0]
-        if prep.local:
-            rows = row
+        if prep.local:  # one process holds every stage's row
+            rows = row.detach().cpu()
         else:
-            full = row[0]
-            if prep.sib is not None:
-                full = comm.all_gather_dim0(full, prep.sib.group,
-                                            prep.sib.size)
-            rows = comm.all_gather_dim0(full[None], prep.pp.group,
-                                        prep.pp.size)
+            rows = self._fetch_rows(prep.plan.n_stages, row[0])
+        shared = tuple(s.detach().cpu() for s in shared)
         diff_leaves = prep.unpack_params(rows, shared)
         out = [None] * (len(self._diff_idx) + len(self._const_baked))
         for i, leaf in zip(self._diff_idx, diff_leaves):
             out[i] = leaf
         for i, baked in self._const_baked.items():
-            out[i] = baked
+            out[i] = baked.cpu()
         return pytree.tree_unflatten(out, self._params_treedef)
+
+    def _fetch_rows(self, n_stages: int, block):
+        """Every stage's packed row, [n_stages, row_elems] on the host,
+        from this rank's `block` of its stage's row.  The rows are laid
+        out for `fetch_chunked` as [blk, n_stages, *sibling sizes], this
+        rank's block at (:, its stage, its sibling coordinates), so each
+        of the plan's chunks (a window of dim 0) takes a slice of every
+        rank's block; the result lands in the row-major host buffer
+        through a permuted view of it."""
+        from easydist_tpu_torch import reshard
+
+        mesh = self.mesh
+        names = tuple(mesh.mesh_dim_names)
+        world = dist.get_world_size()
+        if mesh.mesh.flatten().tolist() != list(range(world)):
+            raise ValueError("export_state_dict needs a mesh over the "
+                             "whole default group in rank order")
+        sibs = [n for n in names if n != self.pp_axis]
+        sizes = [int(mesh.size(names.index(n))) for n in sibs]
+        blk = block.shape[0]
+        rows = torch.empty(n_stages, blk * math.prod(sizes),
+                           dtype=block.dtype)
+        view = rows.view(n_stages, *sizes, blk).permute(
+            len(sizes) + 1, *range(len(sizes) + 1))
+        spec = (None, self.pp_axis, *sibs)
+        shape = (blk, n_stages, *sizes)
+        reshard.fetch_chunked(
+            block.reshape(blk, *([1] * (len(sizes) + 1))),
+            node="pp_compile.export_state_dict",
+            layout=(reshard.MeshDesc.from_mesh(mesh), spec, shape),
+            out=view)
+        return rows

@@ -52,10 +52,6 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["HostTier", "TierError", "page_digest"]
 
-# bytes one step of the device-to-host copy stages by default
-_DEFAULT_CHUNK_BYTES = 16 * 2**20
-
-
 class TierError(RuntimeError):
     """A tier entry failed its manifest check (callers treat as a miss)."""
 
@@ -126,19 +122,18 @@ class HostTier:
         self.host_evictions = 0
 
     # ------------------------------------------------------------- demote
-    def _copy_to_host(self, x) -> torch.Tensor:
-        """One leaf as a CPU tensor of its own dtype and shape, copied
-        from the device `chunk_bytes` at a time (a numpy leaf is copied
-        as it is)."""
+    def _copy_to_host(self, x, label: str) -> torch.Tensor:
+        """One leaf as a CPU tensor of its own dtype and shape: a tensor
+        through `reshard.fetch_chunked` (no read stages more than
+        `chunk_bytes`; RESHARD001 names the node `kv.tier[<label>]`, as
+        the JAX package's tier does), a numpy leaf copied as it is."""
         if not isinstance(x, torch.Tensor):
             return torch.from_numpy(np.array(x, copy=True))
-        src = x.detach().contiguous().reshape(-1)
-        host = torch.empty(src.shape, dtype=src.dtype, device="cpu")
-        step = max(1, (self.chunk_bytes or _DEFAULT_CHUNK_BYTES)
-                   // max(1, src.element_size()))
-        for i in range(0, src.numel(), step):
-            host[i:i + step].copy_(src[i:i + step])
-        return host.reshape(x.shape)
+        from easydist_tpu_torch.reshard import fetch_chunked
+
+        return fetch_chunked(x.detach().contiguous(),
+                             chunk_bytes=self.chunk_bytes,
+                             node=f"kv.tier[{label}]")
 
     def _fetch_leaf(self, x, label: str) -> torch.Tensor:
         """One leaf device -> host with the corrupt-fetch drill: the
@@ -147,7 +142,7 @@ class HostTier:
         refetch succeeds because the device page is still live at
         demotion time."""
         for attempt in (1, 2):
-            host = self._copy_to_host(x)
+            host = self._copy_to_host(x, label)
             digest = hashlib.sha256(_leaf_bytes(host)).hexdigest()
             if faultinject.fire("kv.tier.fetch_corrupt"):
                 # simulated in-flight corruption of the host copy (bad

@@ -40,9 +40,32 @@
 // only on the length and the chunk and the merge order is fixed, so two
 // launches are bitwise equal.
 //
+// Head dims.  The body is a template on its width D, a power of two from
+// 64 to 256 (the score lanes read a row as four lanes of 16-byte vectors,
+// 64 bytes of int8 at the least; P.V gives each thread four dims of a
+// key group, so D / 4 must divide the block).  head_dim 64 and 128 run
+// the exact body, D = head_dim (kPad false: each row whole 16-byte
+// vectors, `cp.async` 16 bytes at a time).  Every other head_dim from 1
+// to 256 runs the padded body (kPad true) at the next such D: each key's
+// row is read in place from the cache or the arena at its own d, with
+// the widest copy both its byte length and the base align to (16, 8 or 4
+// bytes by `cp.async`; 2 or 1 by a plain load and store), into a shared
+// row of D elements whose dims at or past d are zeroed; q's padded dims
+// are zero too.  Zeros add nothing to q.k or p.v, so the result is
+// exact.  B6's scale of a padded dim is clamped to the row's last block
+// (its element is zero), and a vector spanning two scale blocks (d / nb
+// not a multiple of the vector) takes one scale an element.  No cache is
+// ever copied or padded outside the kernel.  64 and 128 keep the exact
+// body because it is faster there: run at those widths, the padded body
+// took 1-3% more device time for B4 and B6 and 6-7% more for B5 at
+// head_dim 128 (chip_smoke.py's phase-3 profiler times on an NVIDIA H100
+// 80GB HBM3 at 700 W; it computes row addresses at run time).
+// Registers: q's share of a lane is D / 4 floats, so the padded body
+// takes 40-96 registers a thread (D 64-256; ptxas, no spill).
+//
 // Known limits: a split of f32 keys at head_dim 128 takes up to 130 KB of
 // shared memory, one block an SM; the merge waits on the row's slowest
-// split.
+// split.  The padded body computes on its zero dims (d 80 runs at D 128).
 
 #pragma once
 
@@ -110,6 +133,7 @@ struct SplitArgs {
   int n_blocks;  // scale blocks per row (B6); 1 otherwise
   int chunk;     // tokens per split
   float scale;
+  int head_dim;  // d: D (the exact body) or 1..D (the padded body)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -130,6 +154,76 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+// a W-byte copy global -> shared: `cp.async` for 4, 8 and 16 bytes, a
+// plain load and store below that (ordered by the block's next barrier)
+template <int W>
+__device__ __forceinline__ void copy_bytes(void* dst, const void* src) {
+  if constexpr (W == 16) {
+    cp_async16(dst, src);
+  } else if constexpr (W == 8 || W == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "n"(W)
+                 : "memory");
+  } else if constexpr (W == 2) {
+    *static_cast<uint16_t*>(dst) = *static_cast<const uint16_t*>(src);
+  } else {
+    *static_cast<uint8_t*>(dst) = *static_cast<const uint8_t*>(src);
+  }
+}
+template <int W>
+__device__ __forceinline__ void zero_bytes(void* dst) {
+  if constexpr (W == 16) *static_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  else if constexpr (W == 8) *static_cast<uint2*>(dst) = make_uint2(0, 0);
+  else if constexpr (W == 4) *static_cast<uint32_t*>(dst) = 0u;
+  else if constexpr (W == 2) *static_cast<uint16_t*>(dst) = 0;
+  else *static_cast<uint8_t*>(dst) = 0;
+}
+
+// Rows j < n of a split of the padded body: key j's d elements from
+// element row `row_of(j)` of `src` (rows of d elements), W bytes a copy,
+// then zeros up to the shared row's D elements
+template <int W, typename TKV, int D, typename RowOf>
+__device__ __forceinline__ void copy_padded_rows(TKV* dst, const TKV* src,
+                                                 int n, int d,
+                                                 RowOf row_of) {
+  constexpr int kUnits = D * static_cast<int>(sizeof(TKV)) / W;
+  const int data = d * static_cast<int>(sizeof(TKV)) / W;
+  const size_t row_bytes = static_cast<size_t>(d) * sizeof(TKV);
+  for (int i = threadIdx.x; i < n * kUnits; i += kThreads) {
+    const int j = i / kUnits, u = i % kUnits;
+    unsigned char* to = reinterpret_cast<unsigned char*>(dst) +
+                        static_cast<size_t>(j) * D * sizeof(TKV) + u * W;
+    if (u < data)
+      copy_bytes<W>(to, reinterpret_cast<const unsigned char*>(src) +
+                            static_cast<size_t>(row_of(j)) * row_bytes +
+                            u * W);
+    else
+      zero_bytes<W>(to);
+  }
+}
+
+// copy_padded_rows at the widest copy that a row's bytes and both bases
+// align to
+template <typename TKV, int D, typename RowOf>
+__device__ __forceinline__ void copy_padded(TKV* dst, const TKV* src,
+                                            int n, int d, RowOf row_of) {
+  const uintptr_t align = static_cast<uintptr_t>(d) * sizeof(TKV) |
+                          reinterpret_cast<uintptr_t>(src);
+  if (align % 16 == 0)
+    copy_padded_rows<16, TKV, D>(dst, src, n, d, row_of);
+  else if (align % 8 == 0)
+    copy_padded_rows<8, TKV, D>(dst, src, n, d, row_of);
+  else if (align % 4 == 0)
+    copy_padded_rows<4, TKV, D>(dst, src, n, d, row_of);
+  else if constexpr (sizeof(TKV) <= 2) {
+    if (align % 2 == 0)
+      copy_padded_rows<2, TKV, D>(dst, src, n, d, row_of);
+    else if constexpr (sizeof(TKV) == 1)
+      copy_padded_rows<1, TKV, D>(dst, src, n, d, row_of);
+  }
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -201,8 +295,10 @@ __host__ __device__ inline SplitSmem split_smem(int chunk, int d,
 
 // One block's split of one row.  kPaged: keys through the page table
 // (B5, B6); else consecutive rows of a contiguous cache (B4).  kQuant:
-// int8 K/V with f32 block scales (B6).
-template <typename TQ, typename TKV, bool kQuant, bool kPaged, int D>
+// int8 K/V with f32 block scales (B6).  D: the body's width; kPad: rows
+// of a.head_dim < D elements (else exactly D).
+template <typename TQ, typename TKV, bool kQuant, bool kPaged, int D,
+          bool kPad>
 __device__ __forceinline__ void decode_split_body(const SplitArgs& a) {
   constexpr int kElems = 16 / sizeof(TKV);       // elements a vector
   constexpr int kVecs = D / kElems;              // vectors a row
@@ -211,9 +307,13 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a) {
   constexpr int kKeysPass = kThreads / kLanes;   // keys a pass
   constexpr int kColGroups = D / 4;              // four dims a thread (P.V)
   constexpr int kGroups = kThreads / kColGroups; // key groups of P.V
+  constexpr int kOuts = (D + kThreads - 1) / kThreads;  // dims a thread
   static_assert(kLaneVecs >= 1 && kVecs % kLanes == 0, "lanes split rows");
+  static_assert(kGroups >= 1 && kThreads % kColGroups == 0,
+                "P.V groups split the block");
   static_assert(kPaged || !kQuant, "scales ride the page table");
 
+  const int d = kPad ? a.head_dim : D;  // the row's own elements
   const int C = a.chunk;
   const int nb = kQuant ? a.n_blocks : 1;
   const SplitSmem lay = split_smem(C, D, sizeof(TKV), kQuant ? nb : 0,
@@ -240,10 +340,10 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a) {
   const int pt = a.page_tokens;
   const int len = max(0, min(a.lengths[bi], a.tokens));
   const int c0 = split * C;
-  TQ* out = static_cast<TQ*>(a.out) + static_cast<size_t>(row) * D;
+  TQ* out = static_cast<TQ*>(a.out) + static_cast<size_t>(row) * d;
   if (len == 0) {  // no keys: 0, as the TPU kernel's 0 / max(0, 1e-30)
     if (split == 0)
-      for (int i = tid; i < D; i += kThreads) out[i] = from_f32<TQ>(0.f);
+      for (int i = tid; i < d; i += kThreads) out[i] = from_f32<TQ>(0.f);
     return;
   }
   if (c0 >= len) return;  // past the row's keys: no partial, no arrival
@@ -256,19 +356,29 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a) {
   const uint4* kp = static_cast<const uint4*>(a.k);
   const uint4* vp = static_cast<const uint4*>(a.v);
   const long long first = static_cast<long long>(row) * a.tokens + c0;
+  auto key_row = [&](int j) -> long long {
+    if constexpr (kPaged) return row_s[j];
+    else return first + j;
+  };
   auto issue_copies = [&]() {
-    for (int i = tid; i < n * kVecs; i += kThreads)
-      cp_async16(reinterpret_cast<uint4*>(k_s) + i,
-                 kPaged ? kp + row_s[i / kVecs] * kVecs + i % kVecs
-                        : kp + first * kVecs + i);
+    if constexpr (kPad)
+      copy_padded<TKV, D>(k_s, static_cast<const TKV*>(a.k), n, d, key_row);
+    else
+      for (int i = tid; i < n * kVecs; i += kThreads)
+        cp_async16(reinterpret_cast<uint4*>(k_s) + i,
+                   kPaged ? kp + row_s[i / kVecs] * kVecs + i % kVecs
+                          : kp + first * kVecs + i);
     if constexpr (kQuant)
       for (int i = tid; i < n * nb; i += kThreads)
         cp_async4(ks_s + i, a.k_scale + row_s[i / nb] * nb + i % nb);
     cp_async_commit();
-    for (int i = tid; i < n * kVecs; i += kThreads)
-      cp_async16(reinterpret_cast<uint4*>(v_s) + i,
-                 kPaged ? vp + row_s[i / kVecs] * kVecs + i % kVecs
-                        : vp + first * kVecs + i);
+    if constexpr (kPad)
+      copy_padded<TKV, D>(v_s, static_cast<const TKV*>(a.v), n, d, key_row);
+    else
+      for (int i = tid; i < n * kVecs; i += kThreads)
+        cp_async16(reinterpret_cast<uint4*>(v_s) + i,
+                   kPaged ? vp + row_s[i / kVecs] * kVecs + i % kVecs
+                          : vp + first * kVecs + i);
     if constexpr (kQuant)
       for (int i = tid; i < n * nb; i += kThreads)
         cp_async4(vs_s + i, a.v_scale + row_s[i / nb] * nb + i % nb);
@@ -288,9 +398,10 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a) {
   } else {
     issue_copies();  // nothing to resolve: the copies go out at once
   }
-  // q times the softmax scale
-  const TQ* q = static_cast<const TQ*>(a.q) + static_cast<size_t>(row) * D;
-  for (int i = tid; i < D; i += kThreads) q_s[i] = to_f32(q[i]) * a.scale;
+  // q times the softmax scale (zeros past d)
+  const TQ* q = static_cast<const TQ*>(a.q) + static_cast<size_t>(row) * d;
+  for (int i = tid; i < D; i += kThreads)
+    q_s[i] = i < d ? to_f32(q[i]) * a.scale : 0.f;
   __syncthreads();
   if constexpr (kPaged) issue_copies();
 
@@ -299,7 +410,10 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a) {
   // quarter-warp's 16-byte reads fall in different halves of the banks
   const int sub = tid % kLanes, key_of = tid / kLanes;
   const int rot = (key_of & 1) * kLanes;
-  const int blk = D / nb;  // dims per scale block
+  const int blk = d / nb;  // dims per scale block
+  // one scale a vector (or a P.V quad) when no vector spans two blocks;
+  // a padded dim's block clamps to the last (its element is zero)
+  const bool vec_scale = blk % kElems == 0, quad_scale = blk % 4 == 0;
   float qr[kLaneVecs][kElems];
 #pragma unroll
   for (int m = 0; m < kLaneVecs; ++m)
@@ -321,16 +435,17 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a) {
         const int c = (sub + kLanes * m + rot) % kVecs;
         float x[kElems];
         unpack<TKV>(reinterpret_cast<const uint4*>(k_s + j * D)[c], x);
-        if (!kQuant || blk >= kElems) {
+        if (!kQuant || vec_scale) {
           float part = 0.f;
 #pragma unroll
           for (int e = 0; e < kElems; ++e) part = fmaf(qr[m][e], x[e], part);
-          s += kQuant ? part * ks_s[j * nb + c * kElems / blk] : part;
-        } else {  // blocks narrower than a vector
+          s += kQuant ? part * ks_s[j * nb + min(c * kElems / blk, nb - 1)]
+                      : part;
+        } else {  // blocks narrower than a vector, or not aligned to one
 #pragma unroll
           for (int e = 0; e < kElems; ++e)
-            s = fmaf(qr[m][e] * x[e], ks_s[j * nb + (c * kElems + e) / blk],
-                     s);
+            s = fmaf(qr[m][e] * x[e],
+                     ks_s[j * nb + min((c * kElems + e) / blk, nb - 1)], s);
         }
       }
     }
@@ -370,36 +485,52 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a) {
     float x[4];
     load4(v_s + j * D + 4 * cg, x);
     const float p = p_s[j];
-    if (!kQuant || blk >= 4) {
-      const float w = kQuant ? p * vs_s[j * nb + 4 * cg / blk] : p;
+    if (!kQuant || quad_scale) {
+      const float w =
+          kQuant ? p * vs_s[j * nb + min(4 * cg / blk, nb - 1)] : p;
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[e] = fmaf(w, x[e], acc[e]);
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        acc[e] = fmaf(p * vs_s[j * nb + (4 * cg + e) / blk], x[e], acc[e]);
+        acc[e] = fmaf(p * vs_s[j * nb + min((4 * cg + e) / blk, nb - 1)],
+                      x[e], acc[e]);
     }
   }
 #pragma unroll
   for (int e = 0; e < 4; ++e) acc_s[g * D + 4 * cg + e] = acc[e];
   __syncthreads();
-  float o = 0.f;
-  if (tid < D) {
+  // this thread's output dims tid, tid + kThreads, ... (below d)
+  float o[kOuts];
 #pragma unroll
-    for (int gg = 0; gg < kGroups; ++gg) o += acc_s[gg * D + tid];
+  for (int r = 0; r < kOuts; ++r) {
+    const int i = tid + r * kThreads;
+    o[r] = 0.f;
+    if (i < d) {
+#pragma unroll
+      for (int gg = 0; gg < kGroups; ++gg) o[r] += acc_s[gg * D + i];
+    }
   }
 
   if (n_live == 1) {  // the row's only split: the output itself
-    if (tid < D) out[tid] = from_f32<TQ>(o / fmaxf(l, 1e-30f));
+#pragma unroll
+    for (int r = 0; r < kOuts; ++r) {
+      const int i = tid + r * kThreads;
+      if (i < d) out[i] = from_f32<TQ>(o[r] / fmaxf(l, 1e-30f));
+    }
     return;
   }
 
   // a partial of a row with several splits; the row's last block merges
-  const size_t stride = D + 2;
+  const size_t stride = d + 2;
   float* part = a.work + (static_cast<size_t>(row) * gridDim.y + split) *
                              stride;
-  if (tid < D) part[tid] = o;
-  if (tid == 0) part[D] = m, part[D + 1] = l;
+#pragma unroll
+  for (int r = 0; r < kOuts; ++r) {
+    const int i = tid + r * kThreads;
+    if (i < d) part[i] = o[r];
+  }
+  if (tid == 0) part[d] = m, part[d + 1] = l;
   __threadfence();  // this thread's partial is visible device-wide ...
   __syncthreads();  // ... and every thread's, before the block counts in
   if (tid == 0)
@@ -407,17 +538,20 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a) {
   __syncthreads();
   if (!last_s) return;
   __threadfence();  // the other blocks' partials, seen through the counter
-  if (tid < D) {
-    const float* base = a.work + static_cast<size_t>(row) * gridDim.y * stride;
+  const float* base = a.work + static_cast<size_t>(row) * gridDim.y * stride;
+#pragma unroll
+  for (int r = 0; r < kOuts; ++r) {
+    const int i = tid + r * kThreads;
+    if (i >= d) continue;
     float mm = kNegInf;
-    for (int s = 0; s < n_live; ++s) mm = fmaxf(mm, __ldcg(base + s * stride + D));
+    for (int s = 0; s < n_live; ++s) mm = fmaxf(mm, __ldcg(base + s * stride + d));
     float ll = 0.f, oo = 0.f;
     for (int s = 0; s < n_live; ++s) {  // fixed split order
-      const float w = expf(__ldcg(base + s * stride + D) - mm);
-      ll = fmaf(__ldcg(base + s * stride + D + 1), w, ll);
-      oo = fmaf(__ldcg(base + s * stride + tid), w, oo);
+      const float w = expf(__ldcg(base + s * stride + d) - mm);
+      ll = fmaf(__ldcg(base + s * stride + d + 1), w, ll);
+      oo = fmaf(__ldcg(base + s * stride + i), w, oo);
     }
-    out[tid] = from_f32<TQ>(oo / fmaxf(ll, 1e-30f));
+    out[i] = from_f32<TQ>(oo / fmaxf(ll, 1e-30f));
   }
   if (tid == 0) a.counters[row] = 0;  // ready for the next launch
 }

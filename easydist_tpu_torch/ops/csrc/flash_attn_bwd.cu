@@ -14,8 +14,10 @@
 //   B3: dK = sum_q dS^T Q * scale,  dV = sum_q P^T dO
 //
 // in f32, outputs in the inputs' dtype.  q/k/v/dO [bh, t, d] float32 or
-// bfloat16, lse/delta f32 [bh, t_q], head_dim 64 and 128, causal or
-// full, any t_q and t_k (ragged tiles are masked here).
+// bfloat16, lse/delta f32 [bh, t_q], head_dim 64 and 128 on the kernels
+// below and every other head_dim from 1 to 256 on the SIMT kernels of
+// flash_attn_simt.cuh, causal or full, any t_q and t_k (ragged tiles
+// are masked here).
 //
 // What bounds them.  At the training shape (bh 96, t 1024, d 64, bf16,
 // causal): B2 moves 63.7 MB (q, k, v, dO, lse, delta, dQ) and needs
@@ -114,6 +116,14 @@
 //   dK += dS^T.Q takes Q^T.  Twelve products where the function has four.
 //   Two stages (192 KB) at head_dim 64; one (224 KB) at 128, where a
 //   transposed tile keeps its 128-byte rows (32 slots, 16 used).
+//   B3 f32 moves its dK / dV accumulators to device memory every 1024
+//   queries (added there on the CUDA cores) and restarts them at 0: a
+//   tensor-core f32 accumulator that sums the products of 32768 queries
+//   drifts toward zero (sum((kernel - plain) sign(plain)) / sum |plain|
+//   -2.4e-4 on dK, 1.9x the f32 bar on its worst element; -8.2e-6 with
+//   the flush, chip_smoke.py's long-context run).  A block of at most
+//   1024 queries never flushes.  B1 and B2 f32 drift alike (-2.0e-4 on
+//   out and dQ at 32768 keys) and stay inside the bar there.
 // No atomics: two launches are bitwise equal.  `ptxas -v`: no spills.
 //
 // Known limits: the bf16 kernels serialise each warpgroup's exponentials
@@ -121,6 +131,7 @@
 // head_dim 128 their single stage serialises conversion and products.
 
 #include "flash_attn_common.cuh"
+#include "flash_attn_simt.cuh"
 #include "flash_attn_sm90.cuh"
 
 namespace flash_train {
@@ -885,11 +896,52 @@ struct DkvTf32 {
   static constexpr int kConvBatch = 6;  // items a converter loads at once
                                         // (sm90::convert_items)
   static constexpr int kThreads = 160 + kConverters;
+  // query tiles between two flushes of the accumulators (1024 queries)
+  static constexpr int kFlushTiles = 1024 / kBQ;
   static constexpr size_t kSmem = 1024 + 4 * kKVBytes +
                                   kStages * (kStageBytes + 2 * kBQ * 4) +
                                   8 * (2 + 3 * kStages);
   static_assert(kSmem <= 227 * 1024, "the shared memory a block may use");
 };
+
+// A consumer thread's dK / dV accumulators (the rows key_a, key_b of its
+// fragment layout) against their partial sums in dk / dv, unscaled:
+// `to_memory` stores partial + accumulator there (the partial is 0 at
+// the first flush, `first`) and restarts the accumulator at 0; else the
+// accumulator takes partial + accumulator (the epilogue's last step).
+template <int D>
+__device__ __forceinline__ void flush_dkv(float* dk, float* dv,
+                                          float (&dk_acc)[D / 2],
+                                          float (&dv_acc)[D / 2],
+                                          size_t key0, int key_a, int key_b,
+                                          int t_k, int c2, bool first,
+                                          bool to_memory) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half ? key_b : key_a;
+    if (key >= t_k) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const size_t at = (key0 + key) * D + 8 * j + c2;
+      const int i = 4 * j + 2 * half;
+      float2 k_sum = make_float2(0.f, 0.f), v_sum = k_sum;
+      if (!first) {
+        k_sum = *reinterpret_cast<const float2*>(dk + at);
+        v_sum = *reinterpret_cast<const float2*>(dv + at);
+      }
+      k_sum.x += dk_acc[i], k_sum.y += dk_acc[i + 1];
+      v_sum.x += dv_acc[i], v_sum.y += dv_acc[i + 1];
+      if (to_memory) {
+        *reinterpret_cast<float2*>(dk + at) = k_sum;
+        *reinterpret_cast<float2*>(dv + at) = v_sum;
+        dk_acc[i] = dk_acc[i + 1] = dv_acc[i] = dv_acc[i + 1] = 0.f;
+      } else {
+        dk_acc[i] = k_sum.x, dk_acc[i + 1] = k_sum.y;
+        dv_acc[i] = v_sum.x, dv_acc[i + 1] = v_sum.y;
+      }
+    }
+  }
+}
 
 template <int D>
 __global__ void __launch_bounds__(DkvTf32<D>::kThreads, 1)
@@ -1000,6 +1052,8 @@ __global__ void __launch_bounds__(DkvTf32<D>::kThreads, 1)
   for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   const uint32_t k_hi = sm90::smem_u32(res_s), k_lo = k_hi + KV;
   const uint32_t v_hi = k_hi + 2 * KV, v_lo = k_hi + 3 * KV;
+  const size_t key0 = static_cast<size_t>(bh) * t_k;
+  bool flushed = false;  // dK / dV in device memory hold partial sums
   sm90::mbar_wait(kv_full, 0);
 
   for (int it = 0; it < n_qt; ++it) {
@@ -1091,9 +1145,23 @@ __global__ void __launch_bounds__(DkvTf32<D>::kThreads, 1)
     sm90::fence_regs(ds_lo);
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&conv_empty[s]);  // this warp is done
+    // Every kFlushTiles tiles (1024 queries) the accumulators move to dK
+    // and dV in device memory, added there on the CUDA cores (each
+    // thread owns its elements: no race), and restart at 0.  Products
+    // summed into one tensor-core accumulator drift from a rounded sum
+    // as their count grows (at 32768 queries 1.9x the f32 bar on dK);
+    // a block of at most 1024 queries never flushes, so its output is
+    // what it was before the flush existed.
+    if ((it + 1) % C::kFlushTiles == 0 && it + 1 < n_qt) {
+      flush_dkv<D>(dk, dv, dk_acc, dv_acc, key0, key_a, key_b, t_k, c2,
+                   !flushed, true);
+      flushed = true;
+    }
   }
 
-  const size_t key0 = static_cast<size_t>(bh) * t_k;
+  if (flushed)  // the sums so far join the accumulators' last part
+    flush_dkv<D>(dk, dv, dk_acc, dv_acc, key0, key_a, key_b, t_k, c2, false,
+                 false);
   if (key_a < t_k) {
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -1144,14 +1212,62 @@ cudaError_t launch_dkv_tf32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------- every other head_dim: SIMT (B2, B3)
+
+template <typename T, int DP>
+cudaError_t launch_dq_simt(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dq, int bh, int t_q,
+                           int t_k, int head_dim, int causal, float scale,
+                           cudaStream_t stream) {
+  using C = simt::Cfg<DP>;
+  dim3 grid;
+  if (!simt::row_grid<DP>(bh, t_q, &grid)) return cudaErrorInvalidValue;
+  static std::atomic<size_t> raised[kMaxDevices];
+  auto kernel = simt::flash_bwd_dq_simt_kernel<T, DP>;
+  cudaError_t e = allow_smem(kernel, C::kSmemDq, raised);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, simt::kThreads, C::kSmemDq, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), t_q, t_k, head_dim, causal, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t launch_dkv_simt(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dk, void* dv, int bh,
+                            int t_q, int t_k, int head_dim, int causal,
+                            float scale, cudaStream_t stream) {
+  using C = simt::Cfg<DP>;
+  dim3 grid;
+  if (!simt::row_grid<DP>(bh, t_k, &grid)) return cudaErrorInvalidValue;
+  static std::atomic<size_t> raised[kMaxDevices];
+  auto kernel = simt::flash_bwd_dkv_simt_kernel<T, DP>;
+  cudaError_t e = allow_smem(kernel, C::kSmemDkv, raised);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, simt::kThreads, C::kSmemDkv, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), t_q, t_k, head_dim, causal,
+      scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace flash_train
 
-// dtype: 0 float32 (the three-product TF32 kernels), 1 bfloat16; all on
-// the tensor cores.  q/dout [bh, t_q, head_dim], k/v [bh, t_k, head_dim],
-// lse/delta f32 [bh, t_q], outputs like their inputs; all contiguous on
-// the current device, 16-byte aligned.  Each returns cudaGetLastError()
-// after its launch (or the error of the tensor maps' encoding).
+// dtype: 0 float32, 1 bfloat16.  head_dim 64 and 128 take the tensor
+// cores (bfloat16 directly, float32 as three TF32 products); every other
+// head_dim from 1 to 256 the SIMT kernels (flash_attn_simt.cuh).
+// q/dout [bh, t_q, head_dim], k/v [bh, t_k, head_dim], lse/delta f32
+// [bh, t_q], outputs like their inputs; all contiguous on the current
+// device, 16-byte aligned on the tensor-core routes.  Each returns
+// cudaGetLastError() after its launch (or the error of the tensor maps'
+// encoding).
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int bh,
@@ -1160,6 +1276,12 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   if (bh == 0 || t_q == 0) return cudaSuccess;
   if (t_k < 1 || (t_q + 31) / 32 > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!flash_train::tensor_core_dim(head_dim))
+    return flash_train::simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
+      return flash_train::launch_dq_simt<decltype(t), decltype(d)::value>(
+          q, k, v, dout, lse, delta, dq, bh, t_q, t_k, head_dim, causal,
+          scale, s);
+    });
   return flash_train::dispatch(dtype, head_dim, [&](auto t, auto d) {
     constexpr int D = decltype(d)::value;
     if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
@@ -1180,6 +1302,12 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k,
   if (bh == 0 || t_k == 0) return cudaSuccess;
   if ((t_k + 31) / 32 > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!flash_train::tensor_core_dim(head_dim))
+    return flash_train::simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
+      return flash_train::launch_dkv_simt<decltype(t), decltype(d)::value>(
+          q, k, v, dout, lse, delta, dk, dv, bh, t_q, t_k, head_dim, causal,
+          scale, s);
+    });
   return flash_train::dispatch(dtype, head_dim, [&](auto t, auto d) {
     constexpr int D = decltype(d)::value;
     if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
@@ -1190,6 +1318,45 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k,
       return flash_train::launch_dkv_tf32<D>(q, k, v, dout, lse, delta, dk,
                                              dv, bh, t_q, t_k, causal, scale,
                                              s);
+  });
+}
+
+// The shared memory a launch of B2 (kernel 0) or B3 (kernel 1) at
+// (head_dim, dtype) takes, on the route the entries above pick: the
+// kernel's static bytes and the dynamic bytes its launch passes.
+// Returns a cudaError_t.
+extern "C" int flash_attn_bwd_smem(int kernel, int head_dim, int dtype,
+                                   int* static_bytes, int* dynamic_bytes) {
+  using namespace flash_train;
+  if (kernel != 0 && kernel != 1) return cudaErrorInvalidValue;
+  if (!tensor_core_dim(head_dim))
+    return simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
+      using T = decltype(t);
+      constexpr int DP = decltype(d)::value;
+      return kernel == 0
+                 ? report_smem(simt::flash_bwd_dq_simt_kernel<T, DP>,
+                               simt::Cfg<DP>::kSmemDq, static_bytes,
+                               dynamic_bytes)
+                 : report_smem(simt::flash_bwd_dkv_simt_kernel<T, DP>,
+                               simt::Cfg<DP>::kSmemDkv, static_bytes,
+                               dynamic_bytes);
+    });
+  return dispatch(dtype, head_dim, [&](auto t, auto d) {
+    constexpr int D = decltype(d)::value;
+    if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
+      return kernel == 0
+                 ? report_smem(flash_bwd_dq_sm90_kernel<D>, DqSm90<D>::kSmem,
+                               static_bytes, dynamic_bytes)
+                 : report_smem(flash_bwd_dkv_sm90_kernel<D>,
+                               DkvSm90<D>::kSmem, static_bytes,
+                               dynamic_bytes);
+    else
+      return kernel == 0
+                 ? report_smem(flash_bwd_dq_tf32_kernel<D>, DqTf32<D>::kSmem,
+                               static_bytes, dynamic_bytes)
+                 : report_smem(flash_bwd_dkv_tf32_kernel<D>,
+                               DkvTf32<D>::kSmem, static_bytes,
+                               dynamic_bytes);
   });
 }
 

@@ -1,6 +1,7 @@
 // Shared pieces of the training attention kernels (flash_attn_fwd.cu,
 // flash_attn_bwd.cu): the causal fill and the launch-side helpers (the
-// tensor-core pieces are in flash_attn_sm90.cuh).
+// tensor-core pieces are in flash_attn_sm90.cuh, the kernels for the
+// other head_dims in flash_attn_simt.cuh).
 
 #pragma once
 
@@ -36,6 +37,25 @@ cudaError_t allow_smem(Kernel kernel, size_t smem,
     raised[dev].store(smem, std::memory_order_relaxed);
   }
   return cudaSuccess;
+}
+
+// The shared memory a launch of `kernel` takes: its static bytes
+// (cudaFuncGetAttributes) and the dynamic bytes the launch passes.
+template <typename Kernel>
+cudaError_t report_smem(Kernel kernel, size_t dynamic, int* static_bytes,
+                        int* dynamic_bytes) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  *static_bytes = static_cast<int>(attr.sharedSizeBytes);
+  *dynamic_bytes = static_cast<int>(dynamic);
+  return cudaSuccess;
+}
+
+// Whether the tensor-core routes take a head_dim (the SIMT kernels of
+// flash_attn_simt.cuh take every other one from 1 to 256)
+inline bool tensor_core_dim(int head_dim) {
+  return head_dim == 64 || head_dim == 128;
 }
 
 // Calls f(T{}, std::integral_constant<int, D>{}) for dtype (0 float32,

@@ -12,7 +12,9 @@
 // causal (positions aligned at 0), running max m and denominator l in
 // f32, out = acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)), as
 // the TPU kernel computes them.  float32 and bfloat16, head_dim 64 and
-// 128, any t_q and t_k (ragged tiles are masked here, not shrunk).
+// 128 on the kernels below, every other head_dim from 1 to 256 on the
+// SIMT kernel of flash_attn_simt.cuh; any t_q and t_k (ragged tiles are
+// masked here, not shrunk).
 //
 // What bounds it.  At the training shape (bh 96, t 1024, d 64, bf16,
 // causal) the function moves 50.7 MB (q, k, v and out once, lse) and
@@ -94,6 +96,7 @@
 // pass over every K/V tile.
 
 #include "flash_attn_common.cuh"
+#include "flash_attn_simt.cuh"
 #include "flash_attn_sm90.cuh"
 
 namespace flash_train {
@@ -627,14 +630,37 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------------ every other head_dim: SIMT (B1)
+
+template <typename T, int DP>
+cudaError_t launch_simt(const void* q, const void* k, const void* v,
+                        void* out, void* lse, int bh, int t_q, int t_k,
+                        int head_dim, int causal, float scale,
+                        cudaStream_t stream) {
+  using C = simt::Cfg<DP>;
+  dim3 grid;
+  if (!simt::row_grid<DP>(bh, t_q, &grid)) return cudaErrorInvalidValue;
+  static std::atomic<size_t> raised[kMaxDevices];
+  auto kernel = simt::flash_fwd_simt_kernel<T, DP>;
+  cudaError_t e = allow_smem(kernel, C::kSmemFwd, raised);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, simt::kThreads, C::kSmemFwd, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<float*>(lse), t_q, t_k, head_dim, causal, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace flash_train
 
-// dtype: 0 float32 (the three-product TF32 kernel), 1 bfloat16; both on
-// the tensor cores.  q [bh, t_q, head_dim], k/v [bh, t_k, head_dim], out like q,
-// lse f32 [bh, t_q]; all contiguous on the current device, 16-byte
-// aligned.  Returns cudaGetLastError() after the launch (or the error of
-// the tensor maps' encoding).
+// dtype: 0 float32, 1 bfloat16.  head_dim 64 and 128 take the tensor
+// cores (bfloat16 directly, float32 as three TF32 products); every other
+// head_dim from 1 to 256 the SIMT kernel (flash_attn_simt.cuh).  q
+// [bh, t_q, head_dim], k/v [bh, t_k, head_dim], out like q, lse f32
+// [bh, t_q]; all contiguous on the current device, 16-byte aligned on
+// the tensor-core routes.  Returns cudaGetLastError() after the launch
+// (or the error of the tensor maps' encoding).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* out, void* lse, int bh, int t_q, int t_k,
                               int head_dim, int causal, float scale,
@@ -642,6 +668,11 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   if (bh == 0 || t_q == 0) return cudaSuccess;
   if (t_k < 1 || (t_q + 31) / 32 > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!flash_train::tensor_core_dim(head_dim))
+    return flash_train::simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
+      return flash_train::launch_simt<decltype(t), decltype(d)::value>(
+          q, k, v, out, lse, bh, t_q, t_k, head_dim, causal, scale, s);
+    });
   return flash_train::dispatch(dtype, head_dim, [&](auto t, auto d) {
     constexpr int D = decltype(d)::value;
     if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
@@ -650,6 +681,31 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
     else
       return flash_train::launch_tf32<D>(q, k, v, out, lse, bh, t_q, t_k,
                                          causal, scale, s);
+  });
+}
+
+// The shared memory a launch of B1 at (head_dim, dtype) takes, on the
+// route flash_attn_fwd picks: the kernel's static bytes and the dynamic
+// bytes its launch passes (the table `estimate_smem_bytes` keeps in
+// Python is held against these).  Returns a cudaError_t.
+extern "C" int flash_attn_fwd_smem(int head_dim, int dtype,
+                                   int* static_bytes, int* dynamic_bytes) {
+  using namespace flash_train;
+  if (!tensor_core_dim(head_dim))
+    return simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
+      constexpr int DP = decltype(d)::value;
+      return report_smem(simt::flash_fwd_simt_kernel<decltype(t), DP>,
+                         simt::Cfg<DP>::kSmemFwd, static_bytes,
+                         dynamic_bytes);
+    });
+  return dispatch(dtype, head_dim, [&](auto t, auto d) {
+    constexpr int D = decltype(d)::value;
+    if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
+      return report_smem(flash_fwd_sm90_kernel<D>, FwdSm90<D>::kSmem,
+                         static_bytes, dynamic_bytes);
+    else
+      return report_smem(flash_fwd_tf32_kernel<D>, FwdTf32<D>::kSmem,
+                         static_bytes, dynamic_bytes);
   });
 }
 

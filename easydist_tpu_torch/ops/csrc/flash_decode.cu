@@ -10,8 +10,10 @@
 //
 // in f32 arithmetic, keys at positions >= length masked, output in q's
 // dtype, denominator clamped at 1e-30 (a row of length 0 returns 0, as
-// the TPU kernel does).  Takes float32 and bfloat16 with head_dim 64 or
-// 128.
+// the TPU kernel does).  Takes float32 and bfloat16 with any head_dim
+// from 1 to 256: 64 and 128 on the exact body, every other one on the
+// padded body at the next of 64, 128, 256 (decode_split.cuh, "Head
+// dims"), reading the cache in place at its own width.
 //
 // What bounds it: memory, the live K/V bytes over 3.35 TB/s (8 x 12 rows
 // at length 1024, d = 64, bf16: 25.2 MB, 7.5 us).  The design is the
@@ -25,37 +27,38 @@
 
 namespace {
 
-template <typename T, int D>
+template <typename T, int D, bool kPad>
 __global__ void __launch_bounds__(kThreads)
     flash_decode_kernel(SplitArgs a) {
-  decode_split_body<T, T, false, false, D>(a);
+  decode_split_body<T, T, false, false, D, kPad>(a);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPad>
 cudaError_t launch(const SplitArgs& a, int rows, int n_splits,
                    cudaStream_t stream) {
-  return launch_split<flash_decode_kernel<T, D>>(
+  return launch_split<flash_decode_kernel<T, D, kPad>>(
       a, rows, n_splits, split_smem(a.chunk, D, sizeof(T), 0, false).total,
       stream);
 }
 
+// head_dim 64 and 128 on the exact body; 1..256 otherwise on the padded
+// body at the next of 64, 128, 256
 template <typename T>
 cudaError_t launch_dim(int head_dim, const SplitArgs& a, int rows,
                        int n_splits, cudaStream_t stream) {
-  switch (head_dim) {
-    case 64:
-      return launch<T, 64>(a, rows, n_splits, stream);
-    case 128:
-      return launch<T, 128>(a, rows, n_splits, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (head_dim == 64) return launch<T, 64, false>(a, rows, n_splits, stream);
+  if (head_dim == 128)
+    return launch<T, 128, false>(a, rows, n_splits, stream);
+  if (head_dim < 1 || head_dim > 256) return cudaErrorInvalidValue;
+  if (head_dim < 64) return launch<T, 64, true>(a, rows, n_splits, stream);
+  if (head_dim < 128) return launch<T, 128, true>(a, rows, n_splits, stream);
+  return launch<T, 256, true>(a, rows, n_splits, stream);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  All tensors contiguous on the current
-// device; k/v 16-byte aligned.  `chunk` tokens per split; the grid has
+// device; k/v 16-byte aligned at head_dim 64 and 128.  `chunk` tokens per split; the grid has
 // max(1, ceil(t_k / chunk)) splits a row.  `work` holds f32
 // [batch * heads, n_splits, head_dim + 2]; `counters` int32
 // [batch * heads], zero at the call and zero again after the launch.
@@ -73,7 +76,8 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
   const SplitArgs a{q, k, v, nullptr, nullptr, nullptr,
                     static_cast<const int*>(lengths), out,
                     static_cast<float*>(work), static_cast<int*>(counters),
-                    heads, heads, 0, 0, 0, t_k, 1, chunk, scale};
+                    heads, heads, 0, 0, 0, t_k, 1, chunk, scale,
+                    head_dim};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:

@@ -19,7 +19,10 @@
 // dtype with the denominator clamped at 1e-30 (a row of length 0 returns
 // 0, as the TPU kernel does).  B5 takes q and pages of float32 or
 // bfloat16 (pages in q's dtype, or bfloat16 pages under a float32 q:
-// widening is exact), head_dim 64 or 128, any page size.  B6 takes int8
+// widening is exact), any head_dim from 1 to 256 (64 and 128 on the
+// exact body, every other one on the padded body: decode_split.cuh,
+// "Head dims"; the arena is read in place at its own width), any page
+// size.  B6 takes int8
 // pages with f32 per-block scales [n_pages, kv_h, pt, n_blocks] riding
 // the same table index (n_blocks divides head_dim) and dequantizes each
 // element on chip (int8 * its block's scale): the int8 payload and the
@@ -42,45 +45,49 @@
 namespace {
 
 // B5: exact pages (f32 or bf16)
-template <typename TQ, typename TKV, int D>
+template <typename TQ, typename TKV, int D, bool kPad>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_kernel(SplitArgs a) {
-  decode_split_body<TQ, TKV, false, true, D>(a);
+  decode_split_body<TQ, TKV, false, true, D, kPad>(a);
 }
 
 // B6: block-scaled int8 pages, dequantized on chip
-template <typename TQ, int D>
+template <typename TQ, int D, bool kPad>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_quant_kernel(SplitArgs a) {
-  decode_split_body<TQ, int8_t, true, true, D>(a);
+  decode_split_body<TQ, int8_t, true, true, D, kPad>(a);
 }
 
 // B5 (kQuant false) or B6 (true) over `n_splits` splits a row
-template <typename TQ, typename TKV, bool kQuant, int D>
+template <typename TQ, typename TKV, bool kQuant, int D, bool kPad>
 cudaError_t launch(const SplitArgs& a, int rows, int n_splits,
                    cudaStream_t stream) {
   const size_t smem =
       split_smem(a.chunk, D, sizeof(TKV), kQuant ? a.n_blocks : 0, true)
           .total;
   if constexpr (kQuant)
-    return launch_split<paged_decode_quant_kernel<TQ, D>>(a, rows, n_splits,
-                                                          smem, stream);
+    return launch_split<paged_decode_quant_kernel<TQ, D, kPad>>(
+        a, rows, n_splits, smem, stream);
   else
-    return launch_split<paged_decode_kernel<TQ, TKV, D>>(a, rows, n_splits,
-                                                         smem, stream);
+    return launch_split<paged_decode_kernel<TQ, TKV, D, kPad>>(
+        a, rows, n_splits, smem, stream);
 }
 
+// head_dim 64 and 128 on the exact body; 1..256 otherwise on the padded
+// body at the next of 64, 128, 256
 template <typename TQ, typename TKV, bool kQuant>
 cudaError_t launch_dim(int head_dim, const SplitArgs& a, int rows,
                        int n_splits, cudaStream_t stream) {
-  switch (head_dim) {
-    case 64:
-      return launch<TQ, TKV, kQuant, 64>(a, rows, n_splits, stream);
-    case 128:
-      return launch<TQ, TKV, kQuant, 128>(a, rows, n_splits, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (head_dim == 64)
+    return launch<TQ, TKV, kQuant, 64, false>(a, rows, n_splits, stream);
+  if (head_dim == 128)
+    return launch<TQ, TKV, kQuant, 128, false>(a, rows, n_splits, stream);
+  if (head_dim < 1 || head_dim > 256) return cudaErrorInvalidValue;
+  if (head_dim < 64)
+    return launch<TQ, TKV, kQuant, 64, true>(a, rows, n_splits, stream);
+  if (head_dim < 128)
+    return launch<TQ, TKV, kQuant, 128, true>(a, rows, n_splits, stream);
+  return launch<TQ, TKV, kQuant, 256, true>(a, rows, n_splits, stream);
 }
 
 // The shape checks both entries share; the splits a row (whole pages of
@@ -97,7 +104,7 @@ bool valid_split_shape(int heads, int kv_heads, int n_pages, int page_tokens,
 
 // B5.  dtype codes: 0 float32, 1 bfloat16; (q, pages) in {(0, 0),
 // (1, 1), (0, 1)}.  All tensors contiguous on the current device; pages
-// 16-byte aligned.  `chunk` tokens per split; the grid has
+// 16-byte aligned at head_dim 64 and 128.  `chunk` tokens per split; the grid has
 // ceil(max_pages * page_tokens / chunk) splits a row.  `work` holds f32
 // [batch * heads, n_splits, head_dim + 2]; `counters` int32
 // [batch * heads], zero at the call and zero again after the launch.
@@ -120,7 +127,7 @@ extern "C" int paged_decode(const void* q, const void* k, const void* v,
                     static_cast<const int*>(lengths), out,
                     static_cast<float*>(work), static_cast<int*>(counters),
                     heads, kv_heads, n_pages, page_tokens, max_pages,
-                    max_pages * page_tokens, 1, chunk, scale};
+                    max_pages * page_tokens, 1, chunk, scale, head_dim};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && kv_dtype == 0)
     return launch_dim<float, float, false>(head_dim, a, rows, n_splits, s);
@@ -158,7 +165,8 @@ extern "C" int paged_decode_quant(const void* q, const void* k,
                     static_cast<const int*>(lengths), out,
                     static_cast<float*>(work), static_cast<int*>(counters),
                     heads, kv_heads, n_pages, page_tokens, max_pages,
-                    max_pages * page_tokens, n_blocks, chunk, scale};
+                    max_pages * page_tokens, n_blocks, chunk, scale,
+                    head_dim};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (q_dtype) {
     case 0:

@@ -54,7 +54,30 @@ _NEG_INF = -1e30
 # block; a margin is left for the kernel's static arrays)
 _TILE_SMEM_LIMIT = 200 * 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+# Every kernel takes every head_dim from 1 to _MAX_HEAD_DIM.  64 and 128
+# run B1-B3 on the tensor cores and B4-B6 on the decode body's exact
+# width; every other head_dim runs B1-B3's SIMT kernels
+# (csrc/flash_attn_simt.cuh) and B4-B6's padded body
+# (csrc/decode_split.cuh, "Head dims").  Above the limit they raise.
+_TENSOR_CORE_DIMS = (64, 128)
+_MAX_HEAD_DIM = 256
+
+
+def _check_head_dim(op: str, d: int) -> None:
+    if not 1 <= d <= _MAX_HEAD_DIM:
+        raise ValueError(f"{op} takes head_dim 1..{_MAX_HEAD_DIM} (64 and "
+                         f"128 on the tensor cores), got {d}")
+
+
+def _pow2_at_least(d: int, floor: int) -> int:
+    return max(floor, 1 << (d - 1).bit_length())
+
+
+def _decode_width(d: int) -> int:
+    """The width D of the decode body a head_dim runs on: d itself at 64
+    and 128, else the next of 64, 128, 256 (the padded body's shared rows
+    hold D elements a key)."""
+    return d if d in _TENSOR_CORE_DIMS else _pow2_at_least(d, 64)
 
 
 def _check_launch(lib, prefix: str, err: int):
@@ -197,8 +220,7 @@ def _check_train_inputs(op: str, q, k, v, *rows):
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     b, h, t_q, d = q.shape
     t_k = k.shape[2]
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{op} takes head_dim in {_HEAD_DIMS}, got {d}")
+    _check_head_dim(op, d)
     if k.shape != (b, h, t_k, d) or v.shape != k.shape or t_k < 1:
         raise ValueError(f"k/v must be [{b}, {h}, T >= 1, {d}], got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
@@ -212,9 +234,12 @@ def _check_train_inputs(op: str, q, k, v, *rows):
 
 
 def _check_aligned(op: str, *tensors) -> None:
-    """The kernels read q, k, v and dO through TMA tensor maps or with
-    16-byte loads, both of which need a 16-byte aligned base: raise on
-    any other, rather than copy."""
+    """The tensor-core kernels (head_dim 64 and 128) read q, k, v and dO
+    through TMA tensor maps or with 16-byte loads, both of which need a
+    16-byte aligned base: raise on any other, rather than copy.  The SIMT
+    kernels read elements and take any base."""
+    if tensors[0].shape[-1] not in _TENSOR_CORE_DIMS:
+        return
     for x in tensors:
         if x.data_ptr() % 16:
             raise ValueError(f"{op} needs 16-byte aligned q, k, v and dO; "
@@ -310,10 +335,10 @@ def _(q, k, v, do, lse, delta, causal, scale):
 
 def flash_fwd(q, k, v, causal: bool = True, scale: Optional[float] = None):
     """B1: (out, lse) of causal or full attention; q [b, h, t_q, d], k/v
-    [b, h, t_k, d] in float32 or bfloat16, d 64 or 128.  CPU tensors run
-    `_flash_forward_xla`; CUDA tensors launch `csrc/flash_attn_fwd.cu`
-    (both dtypes on the tensor cores: float32 as three TF32 products of
-    hi/lo halves).
+    [b, h, t_k, d] in float32 or bfloat16, d from 1 to 256.  CPU tensors
+    run `_flash_forward_xla`; CUDA tensors launch `csrc/flash_attn_fwd.cu`
+    (at d 64 and 128 both dtypes on the tensor cores, float32 as three
+    TF32 products of hi/lo halves; every other d on the SIMT kernel).
     `flash_fwd.launches` counts kernel launches (never a trace)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -324,8 +349,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
                  scale: Optional[float] = None):
     """B2: dQ from the saved lse and delta (`_flash_delta`).  CPU tensors
     run `_flash_bwd_dq_xla`; CUDA tensors launch the dQ kernel of
-    `csrc/flash_attn_bwd.cu` (both dtypes on the tensor cores: float32
-    as three TF32 products of hi/lo halves for each of S, dP and dQ)."""
+    `csrc/flash_attn_bwd.cu` (at d 64 and 128 both dtypes on the tensor
+    cores, float32 as three TF32 products of hi/lo halves for each of S,
+    dP and dQ; every other d on the SIMT kernel)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _flash_bwd_dq_op(q, k, v, do, lse, delta, bool(causal),
@@ -336,9 +362,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
                   scale: Optional[float] = None):
     """B3: (dK, dV) from the saved lse and delta.  CPU tensors run
     `_flash_bwd_dkv_xla`; CUDA tensors launch the dK/dV kernel of
-    `csrc/flash_attn_bwd.cu` (both dtypes on the tensor cores: float32
-    as three TF32 products of hi/lo halves for each of S^T, dP^T, dV and
-    dK)."""
+    `csrc/flash_attn_bwd.cu` (at d 64 and 128 both dtypes on the tensor
+    cores, float32 as three TF32 products of hi/lo halves for each of
+    S^T, dP^T, dV and dK; every other d on the SIMT kernel)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _flash_bwd_dkv_op(q, k, v, do, lse, delta, bool(causal),
@@ -395,6 +421,101 @@ def flash_attention(q, k, v, causal: bool = True,
     return out
 
 
+# ------------------------------- shared memory of B1-B3 (long context)
+
+# Each route's tile constants, as the C++ structs hold them
+# (csrc/flash_attn_fwd.cu FwdSm90 / FwdTf32, csrc/flash_attn_bwd.cu
+# DqSm90 / DqTf32 / DkvSm90 / DkvTf32, csrc/flash_attn_simt.cuh Cfg): the
+# dynamic shared memory each launch passes.  None depends on t_q or t_k:
+# every kernel blocks over the sequence with tiles of fixed size.  The
+# card holds this table equal to what each launch asks for
+# (`_launch_smem_bytes`).
+_SIMT_TILE = 32
+
+
+def _tensor_core_smem(kernel: str, d: int, f32: bool) -> int:
+    if kernel == "fwd" and not f32:
+        bq, bk, st = 128, 128 if d == 64 else 64, 2
+        return 1024 + bq * d * 2 + 2 * st * bk * d * 2 + 8 * (1 + 2 * st)
+    if kernel == "fwd":
+        wg, bk = (2 if d == 64 else 1), 32
+        raw, conv = (2, 4) if d == 64 else (1, 2)
+        tile = bk * d * 4
+        q_bytes = 0 if d == 64 else 2 * 64 * wg * d * 4
+        return (1024 + q_bytes + raw * 2 * tile + conv * 4 * tile
+                + 16 * (raw + conv))
+    if kernel == "dq" and not f32:
+        bq, bk, st = 128, 64, 2
+        return (1024 + 2 * bq * d * 2 + 2 * st * bk * d * 2
+                + 8 * (1 + 2 * st))
+    if kernel == "dq":
+        wg, bk, st = (2, 32, 3) if d == 64 else (1, 32, 1)
+        half = 64 * wg * d * 4
+        res = (2 if d == 64 else 4) * half
+        return 1024 + res + st * 6 * bk * d * 4 + 24 * st
+    if not f32:  # dkv
+        bk, bq, st = 128, 64 if d == 64 else 32, 2
+        return (1024 + 2 * bk * d * 2 + st * (2 * bq * d * 2 + 2 * bq * 4)
+                + 8 * (1 + 2 * st))
+    bk, bq, st = 64, (32 if d == 64 else 16), (2 if d == 64 else 1)
+    stage = 4 * bq * d * 4 + 4 * d * 128
+    return (1024 + 4 * bk * d * 4 + st * (stage + 2 * bq * 4)
+            + 8 * (2 + 3 * st))
+
+
+def _simt_smem(kernel: str, d: int) -> int:
+    width = _pow2_at_least(d, 32)
+    tiles = 2 * _SIMT_TILE * width * 4  # K and V, or Q and dO, as f32
+    return tiles + (2 * _SIMT_TILE * 4 if kernel == "dkv" else 0)
+
+
+def _route_smem(kernel: str, d: int, dtype) -> int:
+    """Dynamic shared memory of one launch of B1 ("fwd"), B2 ("dq") or B3
+    ("dkv") at head_dim d on the route the dispatch picks (the kernels
+    keep no static shared memory)."""
+    if d in _TENSOR_CORE_DIMS:
+        return _tensor_core_smem(kernel, d, dtype == torch.float32)
+    return _simt_smem(kernel, d)
+
+
+def estimate_smem_bytes(t_q: int, t_k: int, d: int, dtype) -> int:
+    """The largest per-block shared memory, static plus dynamic, that
+    B1, B2 and B3 take at [t_q, t_k] x head_dim d in `dtype` (float32 or
+    bfloat16) on the route the dispatch picks: the counterpart of the JAX
+    package's `estimate_vmem_bytes` (per-program VMEM of its Pallas
+    kernels).  Plain Python, from the routes' tile constants: every
+    kernel blocks over the sequence and keeps the head_dim whole, so the
+    value does not grow with t_q or t_k, and it stays under the card's
+    opt-in maximum of 232448 bytes a block for every d from 1 to 256."""
+    del t_q, t_k  # tiles are fixed: the long-context guarantee
+    _check_head_dim("estimate_smem_bytes", d)
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"estimate_smem_bytes takes float32 or bfloat16, "
+                        f"got {dtype}")
+    return max(_route_smem(k, d, dtype) for k in ("fwd", "dq", "dkv"))
+
+
+def _launch_smem_bytes(d: int, dtype) -> dict:
+    """{"fwd" | "dq" | "dkv": (static, dynamic)} bytes of shared memory
+    each kernel's launch at head_dim d in `dtype` takes on the card, from
+    the kernels themselves (`cudaFuncGetAttributes` and the size each
+    launch passes).  Needs the built libraries and a card."""
+    out = {}
+    code = _DTYPE_CODES[dtype]
+    st, dy = ctypes.c_int(), ctypes.c_int()
+    for lib_name, fn, args in (("flash_attn_fwd", "flash_attn_fwd_smem",
+                                (("fwd", ()),)),
+                               ("flash_attn_bwd", "flash_attn_bwd_smem",
+                                (("dq", (0,)), ("dkv", (1,))))):
+        lib = _train_lib(lib_name)
+        c_fn = getattr(lib, fn)
+        for kernel, lead in args:
+            err = c_fn(*lead, d, code, ctypes.byref(st), ctypes.byref(dy))
+            _check_launch(lib, lib_name, err)
+            out[kernel] = (st.value, dy.value)
+    return out
+
+
 # ------------------------------- split-K decode state (B4, B5, B6)
 
 # The three decode kernels' per-row arrival counters by (device, stream).
@@ -443,13 +564,16 @@ def _decode_lib():
 def _decode_split_tokens(block_k: int, d: int, itemsize: int) -> int:
     """Tokens per split of a B4 row: `block_k` (how many keys one
     online-softmax step takes, as in the JAX API), halved until a split's
-    K and V (`itemsize` bytes an element) and scores fit
-    `_TILE_SMEM_LIMIT` (a bound on the kernel's `split_smem`).  No divisor
-    of the cache length is needed: a row's last split may be partial."""
+    K and V (`itemsize` bytes an element, rows of the body's width
+    `_decode_width(d)`) and scores fit `_TILE_SMEM_LIMIT` (a bound on the
+    kernel's `split_smem`).  No divisor of the cache length is needed: a
+    row's last split may be partial."""
     if block_k < 1:
         raise ValueError(f"block_k must be >= 1, got {block_k}")
+    width = _decode_width(d)
     tokens = block_k
-    while tokens > 1 and tokens * (2 * d * itemsize + 4) > _TILE_SMEM_LIMIT:
+    while tokens > 1 and \
+            tokens * (2 * width * itemsize + 4) > _TILE_SMEM_LIMIT:
         tokens //= 2
     return tokens
 
@@ -466,9 +590,7 @@ def _flash_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{v.dtype}")
     b, h, d = q.shape
     t_k = k.shape[2]
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_decode takes head_dim in {_HEAD_DIMS}, "
-                         f"got {d}")
+    _check_head_dim("flash_decode", d)
     if k.shape != (b, h, t_k, d) or v.shape != k.shape:
         raise ValueError(f"k/v must be [{b}, {h}, T, {d}], got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
@@ -478,8 +600,9 @@ def _flash_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lengths = lengths.to(torch.int32).contiguous()
     if lengths.shape != (b,):
         raise ValueError(f"lengths must be [{b}], got {tuple(lengths.shape)}")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_decode needs 16-byte aligned k and v")
+    if d in _TENSOR_CORE_DIMS and (k.data_ptr() % 16 or v.data_ptr() % 16):
+        raise ValueError("flash_decode needs 16-byte aligned k and v at "
+                         "head_dim 64 and 128")
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     chunk = _decode_split_tokens(block_k, d, k.element_size())
     work = _split_work(q, b * h, max(1, -(-t_k // chunk)), d)
@@ -702,8 +825,7 @@ def _check_paged_inputs(op: str, q, k_pages, v_pages, table, lengths,
     b, h, d = q.shape
     n_pages, kvh, pt, _ = k_pages.shape
     mp = table.shape[1] if table.ndim == 2 else -1
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{op} takes head_dim in {_HEAD_DIMS}, got {d}")
+    _check_head_dim(op, d)
     if k_pages.shape != (n_pages, kvh, pt, d) or v_pages.shape != \
             k_pages.shape:
         raise ValueError(f"k/v pages must be [n_pages, kv_heads, "
@@ -725,8 +847,10 @@ def _check_paged_inputs(op: str, q, k_pages, v_pages, table, lengths,
     out += [table.to(torch.int32).contiguous(),
             lengths.to(torch.int32).contiguous()]
     out += [s.contiguous() for s in scales]
-    if out[1].data_ptr() % 16 or out[2].data_ptr() % 16:
-        raise ValueError(f"{op} needs 16-byte aligned k/v pages")
+    if d in _TENSOR_CORE_DIMS and (out[1].data_ptr() % 16
+                                   or out[2].data_ptr() % 16):
+        raise ValueError(f"{op} needs 16-byte aligned k/v pages at head_dim "
+                         f"64 and 128")
     return (b, h, kvh, n_pages, pt, mp, d), out
 
 
@@ -740,10 +864,11 @@ def _split_tokens(page_tokens: int, d: int, n_blocks: int,
     """Tokens per split of a B5/B6 row: whole pages up to
     `_SPLIT_TOKENS` (`_SPLIT_TOKENS` itself when a page is longer), the
     budget halved until a split's K and V (`elem_bytes` an element: 1 for
-    B6's int8 pages, 2 or 4 for B5's), scales (`n_blocks` a row; 0 for
-    B5), scores and arena rows fit `_TILE_SMEM_LIMIT` (a bound on the
-    kernel's `split_smem`)."""
-    per_key = 2 * d * elem_bytes + 8 * n_blocks + 12
+    B6's int8 pages, 2 or 4 for B5's; rows of the body's width
+    `_decode_width(d)`), scales (`n_blocks` a row; 0 for B5), scores and
+    arena rows fit `_TILE_SMEM_LIMIT` (a bound on the kernel's
+    `split_smem`)."""
+    per_key = 2 * _decode_width(d) * elem_bytes + 8 * n_blocks + 12
     tokens = _SPLIT_TOKENS
     while tokens > 16 and tokens * per_key + 96 > _TILE_SMEM_LIMIT:
         tokens //= 2

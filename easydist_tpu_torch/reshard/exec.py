@@ -235,39 +235,56 @@ def _exec_staged(x, out, rplan, s_wins, s_ranks, d_wins, d_ranks,
                     out[window_slices(ov, dwin)] = buf
 
 
-def fetch_chunked(x, chunk_bytes: Optional[int] = None) -> torch.Tensor:
+def fetch_chunked(x, chunk_bytes: Optional[int] = None, node: str = "fetch",
+                  layout=None, out: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """Device -> host gather in chunk-bounded reads: the whole tensor as a
     CPU tensor (the full host buffer is the point of an export; what the
-    plan bounds is the staging).  A DTensor is gathered chunk by chunk
-    over its mesh (every rank of the default group calls it and gets the
-    whole tensor); a plain tensor is copied one chunk of rows at a
-    time."""
-    shape = tuple(x.shape)
-    if hasattr(x, "device_mesh"):
+    plan bounds is the staging: no read moves more than one chunk, no
+    device holds more than its block and one chunk).  A DTensor is
+    gathered chunk by chunk over its mesh, and so is a plain block whose
+    `layout` the caller states (`(MeshDesc, spec, global_shape)` over
+    ranks 0..n-1 of the default group): every rank calls it and gets the
+    whole tensor.  A plain tensor without a layout is copied one chunk of
+    rows at a time.  `node` names the caller in RESHARD001 (the JAX
+    package's tier passes `kv.tier[<label>]`).  `out`, a CPU tensor of
+    the whole shape (a strided view will do), receives the result in
+    place of a new buffer."""
+    if layout is not None:
+        mesh, spec, ranks, _, _ = _resolve(layout, len(layout[2]))
+        shape = tuple(int(n) for n in layout[2])
+        local = x
+    elif hasattr(x, "device_mesh"):
         mesh, spec, ranks, _, _ = _resolve(
             (x.device_mesh, tuple(x.placements)), x.ndim)
-        if ranks != list(range(_group_world()[1])):
-            raise ValueError("fetch_chunked gathers a DTensor over a mesh "
-                             "of the whole default group, in rank order")
+        shape = tuple(x.shape)
+        local = x.to_local()
     else:
-        mesh, spec = planlib.MeshDesc(("rep",), (1,)), ()
+        mesh, spec, ranks = planlib.MeshDesc(("rep",), (1,)), (), None
+        shape = tuple(x.shape)
+        local = x
+    if ranks is not None and ranks != list(range(_group_world()[1])):
+        raise ValueError("fetch_chunked gathers over a mesh of the whole "
+                         "default group, in rank order")
     rplan = planlib.plan_redistribute(shape, x.dtype, (mesh, spec),
                                       (planlib.HOST, ()),
                                       chunk_bytes=chunk_bytes)
-    _check_budget(rplan, "fetch_chunked")
+    _check_budget(rplan, node)
+    if out is None:
+        out = torch.empty(shape, dtype=x.dtype)
     if not shape:
-        return x.full_tensor().cpu() if hasattr(x, "to_local") \
-            else x.detach().cpu()
-    out = torch.empty(shape, dtype=x.dtype)
-    if not hasattr(x, "device_mesh"):
+        out.copy_(x.full_tensor() if hasattr(x, "full_tensor")
+                  else local.detach())
+        return out
+    if ranks is None:
         for op in rplan.chunks:
             lo, hi = op.window[0]
-            out[lo:hi] = x[lo:hi]
+            out[lo:hi] = local[lo:hi]
         return out
     s_wins = planlib.device_windows(shape, mesh, spec)
     full = tuple((0, n) for n in shape)
-    _exec_collective(x.to_local(), out, rplan, s_wins,
-                     [full] * len(s_wins), _group_world()[0])
+    _exec_collective(local, out, rplan, s_wins, [full] * len(s_wins),
+                     _group_world()[0])
     return out
 
 

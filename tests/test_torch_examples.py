@@ -1,7 +1,8 @@
 """The torch twins of examples/jax/ (`examples/torch/{train_gpt,
 simple_function,moe_layer,pipeline_gpt,pipeline_1f1b_gpt,
-hybrid_pp_tp}.py`) at their small sizes on the CPU: the one-device ones
-in this process, the multi-rank ones on gloo ranks of world 4 (one
+hybrid_pp_tp}.py`) and of examples/serve_gpt.py
+(`examples/torch/serve_gpt.py`) at their small sizes on the CPU: the
+one-device ones in this process, the multi-rank ones on gloo ranks of world 4 (one
 spawn, `tests/test_torch_fxfront_ranks.spawn`).  Each example's `run`
 returns its numbers; the checks hold them to eager torch where the
 example computes something eager torch can (the function's value, the
@@ -62,6 +63,31 @@ def test_train_gpt_one_device_resumes(tmp_path):
     # a second run resumes from the committed step 6: nothing to train
     assert mod.run("cpu", small=True, steps=6, ckpt=str(tmp_path),
                    batch=4)["losses"] == []
+
+
+def test_serve_gpt_tiny_config():
+    # the tiny config (head_dim 8): every request of the concurrent
+    # clients answered, one executable a bucket, flash attention's plain
+    # version on the CPU (B1 launches only on the card)
+    r = load("serve_gpt").run("cpu", clients=3, requests=4, export=False)
+    assert r["errors"] == [] and r["requests_completed"] == 12
+    assert r["head_dim"] == 8 and r["device"] == "cpu"
+    assert 1 <= r["distinct_executables"] <= 4
+    assert r["flash_fwd_launches"] == 0
+    assert r["p50_ms"] > 0
+
+
+def test_serve_gpt_main_takes_device(capsys, monkeypatch, tmp_path):
+    import json
+
+    from easydist_tpu_torch import config as edconfig
+
+    # main() exports the metrics to the perf database
+    monkeypatch.setattr(edconfig, "prof_db_path", str(tmp_path / "perf.db"))
+    load("serve_gpt").main(["--device", "cpu", "--clients", "2",
+                            "--requests", "2"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["requests_completed"] == 4 and out["device"] == "cpu"
 
 
 def test_one_process_examples():

@@ -687,3 +687,108 @@ class TestKernelsOnCard:
         q, k, v = _t(*_rand(d=64, n=3))
         with pytest.raises(RuntimeError, match="CUDA tensors"):
             tfa.flash_fwd(q.to(cuda_device), k, v.to(cuda_device))
+
+
+# head_dims beyond the tensor-core routes' 64 and 128 (the SIMT kernels):
+# the tiny configs and the JAX tests (8, 16), Cerebras-GPT-2.7B (80),
+# OpenLLaMA-3B (100), GPT-J and Gemma (256), and the padded widths' edges
+SWEEP_DIMS = (1, 8, 16, 32, 33, 80, 96, 100, 129, 256)
+
+
+@pytest.mark.cuda
+class TestAllHeadDimsOnCard:
+    """B1-B3 at every head_dim the SIMT kernels take against their plain
+    versions, at the bars of TestKernelsOnCard: causal (with an lse
+    cotangent), full, fewer queries than keys and a ragged length; any
+    base alignment; the limit at 256; the shared memory each launch takes
+    against `estimate_smem_bytes`' table."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("causal,t_q,t_k", [
+        (True, 200, 200), (False, 200, 200), (True, 77, 130),
+        (False, 33, 1)])
+    @pytest.mark.parametrize("d", SWEEP_DIMS)
+    def test_kernels_match_plain(self, cuda_device, dtype, causal, t_q, t_k,
+                                 d):
+        rs = np.random.RandomState(d)
+        b, h = 2, 3
+        q, k, v, do = (
+            torch.as_tensor(rs.standard_normal((b, h, t, d)),
+                            dtype=torch.float32, device=cuda_device).to(dtype)
+            for t in (t_q, t_k, t_k, t_q))
+        g_lse = torch.as_tensor(rs.standard_normal((b * h, t_q)),
+                                dtype=torch.float32, device=cuda_device)
+        qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+        scale = 1.0 / math.sqrt(d)
+        extra = BF16_ULP if dtype == torch.bfloat16 else 0.0
+
+        def close(got, ref, rtol, atol, rounded=True):
+            tol = atol + (rtol + (extra if rounded else 0.0)) * ref.abs()
+            assert bool(((got.float() - ref).abs() <= tol).all())
+
+        counts = [tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+                  tfa.flash_bwd_dkv.launches]
+        out, lse = tfa.flash_fwd(q, k, v, causal, scale)
+        ref_out, ref_lse = tfa._flash_forward_xla(qf, kf, vf, causal, scale)
+        delta = tfa._flash_delta(ref_out, dof, g_lse)
+        dq = tfa.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal, scale)
+        dk, dv = tfa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal,
+                                   scale)
+        torch.cuda.synchronize()
+        assert [tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+                tfa.flash_bwd_dkv.launches] == [c + 1 for c in counts]
+        close(out, ref_out, **FWD)
+        close(lse, ref_lse, **FWD, rounded=False)
+        close(dq, tfa._flash_bwd_dq_xla(qf, kf, vf, dof, ref_lse, delta,
+                                        causal, scale), **BWD)
+        r_dk, r_dv = tfa._flash_bwd_dkv_xla(qf, kf, vf, dof, ref_lse, delta,
+                                            causal, scale)
+        close(dk, r_dk, **BWD)
+        close(dv, r_dv, **BWD)
+
+    @pytest.mark.parametrize("d", [80, 100])
+    def test_two_launches_are_bitwise_equal(self, cuda_device, d):
+        rs = np.random.RandomState(2)
+        q, k, v, do = (torch.as_tensor(rs.standard_normal((2, 4, 300, d)),
+                                       dtype=torch.bfloat16,
+                                       device=cuda_device)
+                       for _ in range(4))
+        runs = []
+        for _ in range(2):
+            out, lse = tfa.flash_fwd(q, k, v, True)
+            delta = tfa._flash_delta(out, do)
+            runs.append((out, lse,
+                         tfa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+                         *tfa.flash_bwd_dkv(q, k, v, do, lse, delta, True)))
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+    def test_any_alignment_on_the_simt_route(self, cuda_device):
+        # the SIMT kernels read elements: a base 2 bytes past a 16-byte
+        # boundary runs (the tensor-core routes raise, test above)
+        q, k, v = (torch.randn(2, 4, 64, 80, device=cuda_device,
+                               dtype=torch.bfloat16) for _ in range(3))
+        shifted = torch.randn(2 * 4 * 64 * 80 + 1, device=cuda_device,
+                              dtype=torch.bfloat16)[1:].view(q.shape)
+        out, _ = tfa.flash_fwd(shifted, k, v)
+        ref, _ = tfa._flash_forward_xla(shifted.float(), k.float(),
+                                        v.float(), True, 1 / math.sqrt(80))
+        assert bool(((out.float() - ref).abs()
+                     <= 1e-5 + (1e-4 + BF16_ULP) * ref.abs()).all())
+
+    @pytest.mark.parametrize("d", [257, 512])
+    def test_head_dim_above_256_raises(self, cuda_device, d):
+        q = torch.randn(1, 1, 8, d, device=cuda_device)
+        with pytest.raises(ValueError, match="head_dim 1..256"):
+            tfa.flash_fwd(q, q, q)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_smem_estimate_equals_the_launches(self, cuda_device, dtype):
+        for d in range(1, tfa._MAX_HEAD_DIM + 1):
+            launched = tfa._launch_smem_bytes(d, dtype)
+            for kernel, (st, dy) in launched.items():
+                assert st + dy == tfa._route_smem(kernel, d, dtype), \
+                    (d, kernel, st, dy)
+            assert tfa.estimate_smem_bytes(32768, 32768, d, dtype) == \
+                max(st + dy for st, dy in launched.values())

@@ -344,3 +344,62 @@ class TestKernelOnCard:
         with pytest.raises(RuntimeError, match="CPU tensors only"):
             tfa.decode_attention(q, k, v, L, backend="xla")
         assert tfa.flash_decode_attention.launches == before
+
+
+# head_dims beyond the exact body's 64 and 128 (the padded body)
+SWEEP_DIMS = (1, 7, 8, 16, 32, 80, 96, 100, 129, 256)
+
+
+@pytest.mark.cuda
+class TestAllHeadDimsOnCard:
+    """B4 on the padded body at every head_dim of the sweep, against its
+    plain version at its split boundaries (the split's tokens at the
+    padded width), f32 and bf16; two launches bitwise equal; the limit at
+    256; a cache whose base is not 16-byte aligned."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("d", SWEEP_DIMS)
+    def test_at_split_boundaries(self, cuda_device, dtype, d):
+        chunk = tfa._decode_split_tokens(256, d, dtype.itemsize)
+        t_k = 1000
+        lengths = [1, 0, chunk - 1, chunk, chunk + 1, 2 * chunk + 1,
+                   t_k - 1, t_k]
+        q, k, v, L = _card_inputs(cuda_device, dtype, lengths, t_k=t_k,
+                                  h=4, d=d, seed=d)
+        before = tfa.flash_decode_attention.launches
+        out = tfa.flash_decode_attention(q, k, v, L)
+        torch.cuda.synchronize()
+        assert tfa.flash_decode_attention.launches == before + 1
+        assert _b4_close(q, out, _b4_reference(q, k, v, L))
+
+    @pytest.mark.parametrize("d", [8, 80])
+    def test_is_deterministic(self, cuda_device, d):
+        lengths = [1000, 700, 257, 256, 0, 513, 1, 900]
+        q, k, v, L = _card_inputs(cuda_device, torch.bfloat16, lengths,
+                                  t_k=1000, h=4, d=d)
+        first = tfa.flash_decode_attention(q, k, v, L)
+        again = tfa.flash_decode_attention(q, k, v, L)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+        assert all(int(c.abs().sum()) == 0
+                   for c in tfa._SPLIT_COUNTERS.values())
+
+    def test_unaligned_cache_reads_in_place(self, cuda_device):
+        # rows of 7 bf16 elements (14 bytes) from a base 2 bytes past a
+        # 16-byte boundary: the padded body copies 2 bytes at a time
+        lengths = [5, 300, 0, 64]
+        q, k, v, L = _card_inputs(cuda_device, torch.bfloat16, lengths,
+                                  t_k=300, h=2, d=7)
+        flat = torch.empty(k.numel() + 1, device=cuda_device,
+                           dtype=k.dtype)
+        k_off = flat[1:].view(k.shape)
+        k_off.copy_(k)
+        out = tfa.flash_decode_attention(q, k_off, v, L)
+        torch.cuda.synchronize()
+        assert _b4_close(q, out, _b4_reference(q, k, v, L))
+
+    def test_head_dim_above_256_raises(self, cuda_device):
+        q, k, v, L = _card_inputs(cuda_device, torch.float32, [3], t_k=8,
+                                  h=1, d=257)
+        with pytest.raises(ValueError, match="head_dim 1..256"):
+            tfa.flash_decode_attention(q, k, v, L)

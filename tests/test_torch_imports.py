@@ -14,7 +14,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "easydist_tpu_torch")
 BANNED = ("jax", "jaxlib", "easydist_tpu")
 TWINS = ("train_gpt", "simple_function", "moe_layer", "pipeline_gpt",
-         "pipeline_1f1b_gpt", "hybrid_pp_tp")
+         "pipeline_1f1b_gpt", "hybrid_pp_tp", "serve_gpt")
 TWIN_PATHS = [os.path.join(REPO, "examples", "torch", f"{n}.py")
               for n in TWINS]
 

@@ -559,3 +559,63 @@ class TestKernelsOnCard:
         q, k, v, table, L = (x.to(cuda_device) for x in _t(*_paged([8])))
         with pytest.raises(RuntimeError, match="CPU tensors only"):
             tfa.paged_decode_attention(q, k, v, table, L, backend="xla")
+
+
+# head_dims beyond the exact body's 64 and 128 (the padded body), with
+# B6's n_blocks at each (1, and one that divides d)
+SWEEP_BLOCKS = {1: 1, 8: 2, 16: 4, 32: 4, 80: 5, 96: 3, 100: 4, 129: 3,
+                256: 4}
+
+
+@pytest.mark.cuda
+class TestAllHeadDimsOnCard:
+    """B5 and B6 on the padded body at every head_dim of the sweep,
+    against their plain versions at their split boundaries with a dead
+    all-sentinel row and an empty row, GQA 4:1 at 80 and 100, f32 and
+    bf16 q (B5 also bf16 pages under an f32 q); the limit at 256."""
+
+    @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                        (torch.bfloat16, torch.bfloat16),
+                                        (torch.float32, torch.bfloat16)])
+    @pytest.mark.parametrize("d", sorted(SWEEP_BLOCKS))
+    def test_b5_matches_plain(self, cuda_device, dtypes, d):
+        q_dt, kv_dt = dtypes
+        h, kvh = (8, 2) if d in (80, 100) else (4, 4)
+        chunk = tfa._split_tokens(64, d, 0, kv_dt.itemsize)
+        lengths = [1, 0, chunk - 1, chunk, chunk + 1, 700, 1024]
+        q, k, v, table, L = (x.to(cuda_device) for x in _t(*_paged(
+            lengths, h=h, kvh=kvh, d=d, pt=64, mp=16,
+            n_pages=16 * len(lengths), dead=(0,), seed=d)))
+        q, k, v = q.to(q_dt), k.to(kv_dt), v.to(kv_dt)
+        before = tfa.flash_paged_decode_attention.launches
+        out = tfa.paged_decode_attention(q, k, v, table, L)
+        torch.cuda.synchronize()
+        assert tfa.flash_paged_decode_attention.launches == before + 1
+        assert _b6_close(q, out, _b5_reference(q, k, v, table, L))
+
+    @pytest.mark.parametrize("q_dt", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("d", sorted(SWEEP_BLOCKS))
+    @pytest.mark.parametrize("one_block", [True, False])
+    def test_b6_matches_plain(self, cuda_device, q_dt, d, one_block):
+        nb = 1 if one_block else SWEEP_BLOCKS[d]
+        h, kvh = (8, 2) if d in (80, 100) else (4, 4)
+        chunk = tfa._split_tokens(64, d, nb)
+        lengths = [1, 0, chunk - 1, chunk, chunk + 1, 700, 1024]
+        q, k, v, table, L = (x.to(cuda_device) for x in _t(*_paged(
+            lengths, h=h, kvh=kvh, d=d, pt=64, mp=16,
+            n_pages=16 * len(lengths), dead=(0,), seed=d + 1)))
+        kq, ks = tfa.kv_quantize(k, nb)
+        vq, vs = tfa.kv_quantize(v, nb)
+        q = q.to(q_dt)
+        before = tfa.flash_paged_decode_quant_attention.launches
+        out = tfa.paged_decode_attention(q, kq, vq, table, L, k_scale=ks,
+                                         v_scale=vs)
+        torch.cuda.synchronize()
+        assert tfa.flash_paged_decode_quant_attention.launches == before + 1
+        assert _b6_close(q, out, _b6_reference(q, kq, vq, ks, vs, table, L))
+
+    def test_head_dim_above_256_raises(self, cuda_device):
+        q, k, v, table, L = (x.to(cuda_device) for x in _t(*_paged(
+            [3], d=300)))
+        with pytest.raises(ValueError, match="head_dim 1..256"):
+            tfa.flash_paged_decode_attention(q, k, v, table, L)
