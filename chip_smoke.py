@@ -30,9 +30,11 @@ Phases, each raising on failure (exit code != 0, no result line):
      into both entries.  Then every head_dim: `estimate_smem_bytes`
      equal to each of B1-B3's launches (static + dynamic shared memory)
      at every head_dim 1..256 in both dtypes (`smem_phase`); B1-B6
-     against their plain versions at head_dim 8, 16, 32, 80, 96, 100
-     and 256 (`domain_phase`: the SIMT kernels and the padded decode
-     body; B4-B6 at their split boundaries with a length-0 row, B5 / B6
+     against their plain versions at head_dim 8, 16, 32, 40, 80, 96,
+     100, 112, 129 and 256 (`domain_phase`: B1 and B3 on the tensor cores
+     at their padded widths, through TMA maps or the producer's own
+     copies, up to 128 and in bf16 up to 256; the SIMT kernels for B2
+     and f32 above 128; the padded decode body; B4-B6 at their split boundaries with a length-0 row, B5 / B6
      with 8 query heads over 2 at 80 and 100, B6 at every n_blocks of
      `SWEEP_BLOCKS`); B1-B3 at [1, 12, 32768, 64], causal, bf16 and f32:
      out and dQ on the last 512 query rows, dK and dV against the plain
@@ -41,7 +43,10 @@ Phases, each raising on failure (exit code != 0, no result line):
      shapes, bf16 and f32, held against their plain versions at the bars
      above, then timed (`cerebras_kernel_times`: B4 over
      [8, 32, 2048, 80], B5 / B6 over pages [288, 32, 64, 80], B1-B3 at
-     [2, 32, 2048, 80] causal; SDPA beside each);
+     [2, 32, 2048, 80] causal; SDPA beside each); B1-B3 at
+     [2, 32, 2048, 100] and [2, 16, 2048, 256] causal, bf16 and f32, held
+     and timed alike (`wide_kernel_times`: rows no TMA map takes, the
+     bf16 width 256, the f32 SIMT kernels past 128);
   4. serving: GPT-2 small at full width (random weights from a seeded
      generator) through `GenerationSession.for_gpt`, bucketed layout.
      In float32 every request's greedy ids must equal the uncached
@@ -320,12 +325,14 @@ Phases, each raising on failure (exit code != 0, no result line):
      profiled decode windows; (e) `make_gpt_train_step(attention=
      "flash")` at the same widths with 4 layers, batch 2, seq 2048:
      compiled equals uncompiled at rtol 1e-4 over 3 steps, B1-B3 4
-     launches a step each (the SIMT kernels);
+     launches a step each (B1 and B3 on the tensor cores at the padded
+     width 80, B2 on its SIMT kernel);
  25. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
      path's run; every kernel also with `domain` (phase 3's worst error
      by head_dim and dtype), `cerebras` (phase 3's errors and times
      at Cerebras-GPT-2.7B's shapes) and `launches_cerebras` (phase 24);
-     B1-B3 with `long` (the 32768-token run) and `smem_bytes`; B4-B6
+     B1-B3 with `long` (the 32768-token run), `smem_bytes` and `wide`
+     (phase 3's times at `WIDE_SHAPES`); B4-B6
      also with `llama` (phase 3's Llama-shape checks
      and times, SDPA by events and by the profiler) and
      `launches_llama` (17a-c), B4 and B5 with `launches_fleet`, by
@@ -455,13 +462,14 @@ def time_ms(fn, n: int = 50) -> float:
     return start.elapsed_time(stop) / n
 
 
-def profiled_ms(fn, kernel: str, n: int = 20):
+def profiled_ms(fn, kernel: str, n: int = 20, forbid: str = None):
     """(ms, seen): device time per launch of the kernel whose name holds
     `kernel`, from torch.profiler over n calls of `fn(i)` (after a
     warm-up), and the number of its launches the profiler recorded.  The
     tracer may drop some launch records, so the time is averaged over the
     launches it saw; ms is None when it saw none.  The host's issue rate
-    does not enter it."""
+    does not enter it.  Raises when a kernel whose name holds `forbid`
+    ran in the window."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(3):
@@ -471,9 +479,12 @@ def profiled_ms(fn, kernel: str, n: int = 20):
         for i in range(n):
             fn(i)
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and kernel in e.key]
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    hits = [e for e in device if kernel in e.key]
+    if forbid is not None and any(forbid in e.key for e in device):
+        raise AssertionError(f"{forbid!r} ran where {kernel!r} should: "
+                             f"{[e.key for e in device]}")
     seen = sum(e.count for e in hits)
     if seen > n:
         raise AssertionError(f"profiler saw {seen} launches of {kernel!r} "
@@ -1450,14 +1461,18 @@ def add_pair_times(entries, shape):
 
 # ------------------------ every head_dim and the long context (phase 3)
 
-# head_dims the kernels take beyond the tensor-core routes' 64 and 128:
-# the tiny configs and the JAX tests (8, 16), 32, Cerebras-GPT-2.7B (80),
-# 96, OpenLLaMA-3B (100), GPT-J and Gemma (256)
-SWEEP_DIMS = (8, 16, 32, 80, 96, 100, 256)
+# head_dims the kernels take beyond 64 and 128: the tiny configs and the
+# JAX tests (8, 16), 32, Cerebras-GPT-2.7B (80), 96, OpenLLaMA-3B (100:
+# rows no TMA map takes in bf16), GPT-J and Gemma (256), and the edges of
+# B1's and B3's tensor-core widths: 40 (width 64, half of the last k16
+# step is zeros), 112 (width 128) and 129 (bf16 width 256, one column
+# past 128)
+SWEEP_DIMS = (8, 16, 32, 40, 80, 96, 100, 112, 129, 256)
 # B6's n_blocks at each: 1 and others that divide d (4 at 100 and 80
 # gives blocks that are no multiple of an int8 vector; 5 at 80 gives 16)
-SWEEP_BLOCKS = {8: (1, 2), 16: (1, 4), 32: (1, 4), 80: (1, 4, 5),
-                96: (1, 3, 4), 100: (1, 4), 256: (1, 4)}
+SWEEP_BLOCKS = {8: (1, 2), 16: (1, 4), 32: (1, 4), 40: (1, 5),
+                80: (1, 4, 5), 96: (1, 3, 4), 100: (1, 4), 112: (1, 7),
+                129: (1, 3), 256: (1, 4)}
 SWEEP_GQA_DIMS = (80, 100)            # B5 / B6 with 8 query heads over 2
 SWEEP_TRAIN = (2, 4, 200)             # batch, heads, seq of B1-B3's cases
 SWEEP_PAGED = (8, 4, 64, None, 16, 144)  # PAGED_SHAPE's pages at 4 heads
@@ -1516,7 +1531,7 @@ def domain_phase(dev, dims=SWEEP_DIMS, train=SWEEP_TRAIN,
                  paged=SWEEP_PAGED, decode_t: int = 1024):
     """B1-B6 at every head_dim of `dims` against their plain versions on
     the same inputs, f32 and bf16, at phase 3's bars: B1-B3 causal (with
-    an lse cotangent) and full at [2, 4, 200, d] (SIMT kernels: 200 is no
+    an lse cotangent) and full at [2, 4, 200, d] (200 is no
     multiple of their tiles); B4 at [8, 4, 1024, d] with lengths around
     its split boundaries (`_decode_split_tokens` at the body's padded
     width) and a row of length 0; B5 and B6 over 64-token pages at their
@@ -6262,9 +6277,18 @@ CEREBRAS_TRAIN = dict(layers=4, batch=2, seq=2048, steps=3)
 CEREBRAS_DECODE_SHAPE = (8, 32, 2048, 80)
 CEREBRAS_PAGED_SHAPE = (8, 32, 64, 80, 32, 288)
 CEREBRAS_TRAIN_SHAPE = (2, 32, 2048, 80)
-SIMT_SYMBOLS = {"flash_fwd": "flash_fwd_simt_kernel",
-                "flash_bwd_dq": "flash_bwd_dq_simt_kernel",
-                "flash_bwd_dkv": "flash_bwd_dkv_simt_kernel"}
+# B1-B3's short names in `flash_attention._train_route`
+TRAIN_ROUTE_KEYS = {"flash_fwd": "fwd", "flash_bwd_dq": "dq",
+                    "flash_bwd_dkv": "dkv"}
+
+
+def train_symbol(name: str, d: int, dtype) -> str:
+    """The CUDA function training kernel `name` launches at head_dim d
+    in `dtype`, on the route its entry point picks (what the profiler
+    must find)."""
+    from easydist_tpu_torch.ops import flash_attention as fa
+
+    return fa.train_kernel_symbol(TRAIN_ROUTE_KEYS[name], d, dtype)
 
 
 def cerebras_prompts(vocab: int, seed: int = 0):
@@ -6281,7 +6305,9 @@ def cerebras_prompts(vocab: int, seed: int = 0):
 
 def cerebras_kernel_times(dev):
     """B1-B6 at Cerebras-GPT-2.7B's shapes (head_dim 80: the padded decode
-    body and the SIMT training kernels), bf16 and f32: each kernel held
+    body, B1 and B3 on the tensor cores at the padded width 80, B2 on its
+    SIMT kernel; the profiler times the symbol of the route that ran),
+    bf16 and f32: each kernel held
     against its plain version in f32 on the first timed copy's inputs at
     phase 3's bars (B4-B6 atol 1e-5; B1-B3 through `check_train_case`),
     then kernel (CUDA events over rotated copies, the profiler's device
@@ -6301,19 +6327,20 @@ def cerebras_kernel_times(dev):
     rs = np.random.RandomState(17)
 
     def record(name, key, tag, err, kernel, symbol, plain, library, bound,
-               n_plain=10, lib_profile=True):
+               n_plain=10, lib_profile=True, forbid=None):
         ms = time_ms(kernel)
-        prof_ms, seen = profiled_ms(kernel, symbol)
+        prof_ms, seen = profiled_ms(kernel, symbol, forbid=forbid)
         plain_ms = time_ms(plain, n=n_plain)
         lib_ms = time_ms(library)
         lib_prof = (profiled_call_ms(library) if lib_profile
                     else (None, 0, 0))
         bound_ms, bound_by = bound
-        print(f"time {name} cerebras {key} {tag}: kernel {ms:.4f} ms "
-              f"({profiled_text(prof_ms, seen)}), plain {plain_ms:.4f} ms, "
+        print(f"time {name} cerebras {key} {tag}: kernel {symbol} {ms:.4f} "
+              f"ms ({profiled_text(prof_ms, seen)}), plain {plain_ms:.4f} ms, "
               f"library {lib_ms:.4f} ms ({call_text(*lib_prof)}), bound "
               f"{bound_ms:.4f} ms ({bound_by})")
-        out[name][key] = {"shape": tag, "max_abs_err": err, "ms": ms,
+        out[name][key] = {"shape": tag, "symbol": symbol,
+                          "max_abs_err": err, "ms": ms,
                           "profiled_ms": prof_ms,
                           "profiled_launches": seen, "plain_ms": plain_ms,
                           "library_ms": lib_ms,
@@ -6419,16 +6446,84 @@ def cerebras_kernel_times(dev):
         torch.cuda.empty_cache()
         calls = timed_calls(tcopies, 1.0 / np.sqrt(shape[-1]))
         for name, (kernel, plain, library, _) in calls.items():
+            symbol = train_symbol(name, shape[-1], dtype)
+            simt = f"{name}_simt_kernel"
+            if name != "flash_bwd_dq" and symbol == simt:
+                raise AssertionError(f"{name} runs {symbol} at {shape} "
+                                     f"{key}: the tensor-core route takes "
+                                     f"head_dim {shape[-1]}")
             record(name, key, f"q/k/v/dO {list(shape)}, causal", errs[name],
-                   kernel,
-                   SIMT_SYMBOLS[name], plain, library,
+                   kernel, symbol, plain, library,
                    train_bound_ms(name, shape, True, itemsize), n_plain=3,
-                   lib_profile=name == "flash_fwd")
+                   lib_profile=name == "flash_fwd",
+                   forbid=None if symbol == simt else simt)
+            if not out[name][key]["profiled_launches"]:
+                raise AssertionError(f"the profiler recorded no launch of "
+                                     f"{symbol} ({name} {key})")
         del tcopies, calls
         torch.cuda.empty_cache()
     for name, c in counters.items():
         c.launches = before[name]  # timing runs don't count
     print(f"cerebras kernel times: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# B1-B3 at published head_dims past Cerebras' 80: OpenLLaMA-3B's 100
+# (bf16 rows of 200 bytes, which no TMA map takes: B1 and B3 fill their
+# tiles with their own copies) and GPT-J's / Gemma's 256 (bf16 on the
+# tensor cores at the width 256; f32 on the SIMT kernels), causal
+WIDE_SHAPES = ((2, 32, 2048, 100), (2, 16, 2048, 256))
+
+
+def wide_kernel_times(dev, shapes=WIDE_SHAPES):
+    """B1-B3 at `shapes`, bf16 and f32, causal: each held against its
+    plain version on the first timed copy (`check_train_case`, phase 3's
+    bars), then kernel (CUDA events; the profiler's device time of the
+    symbol of the route that ran, which must be recorded), plain
+    version, one library call (SDPA's causal forward; its whole backward
+    for B2 and B3) and the bound.  Returns {kernel: {"<d> <dtype>":
+    {...}}}; timing launches are not counted."""
+    counters = train_counters()
+    before = {name: c.launches for name, c in counters.items()}
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {name: {} for name in counters}
+    for shape in shapes:
+        scale = 1.0 / np.sqrt(shape[-1])
+        for dtype in (torch.bfloat16, torch.float32):
+            key = (f"{shape[-1]} "
+                   f"{'bf16' if dtype == torch.bfloat16 else 'f32'}")
+            copies = [[torch.randn(shape, device=dev, dtype=dtype)
+                       for _ in range(4)] for _ in range(TIMED_COPIES)]
+            errs = check_train_case(f"wide {key} causal", *copies[0], True,
+                                    scale)
+            calls = timed_calls(copies, scale)
+            for name, (kernel, plain, library, _) in calls.items():
+                symbol = train_symbol(name, shape[-1], dtype)
+                ms = time_ms(kernel, n=20)
+                prof_ms, seen = profiled_ms(kernel, symbol)
+                if not seen:
+                    raise AssertionError(f"the profiler recorded no launch "
+                                         f"of {symbol} ({name} {key})")
+                plain_ms = time_ms(plain, n=3)
+                lib_ms = time_ms(library, n=20)
+                bound_ms, bound_by = train_bound_ms(name, shape, True,
+                                                    dtype.itemsize)
+                print(f"time {name} wide {key} {list(shape)} causal: kernel "
+                      f"{symbol} {ms:.4f} ms ({profiled_text(prof_ms, seen)})"
+                      f", plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+                      f"bound {bound_ms:.4f} ms ({bound_by})")
+                out[name][key] = {
+                    "shape": list(shape), "symbol": symbol,
+                    "max_abs_err": errs[name], "ms": ms,
+                    "profiled_ms": prof_ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by}
+            del copies, calls
+            torch.cuda.empty_cache()
+    for name, c in counters.items():
+        c.launches = before[name]  # timing runs don't count
+    print(f"wide kernel times: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -6450,7 +6545,8 @@ def cerebras_phase(dev, cfg_kw=None, n_new: int = CEREBRAS_NEW,
     `make_gpt_train_step(attention="flash")` at the same widths, depth
     cut to 4 layers, batch 2, seq 2048: 3 compiled steps equal 3
     uncompiled at rtol 1e-4 (phase 7's bar), B1-B3 launched once a layer
-    a step (the SIMT kernels at head_dim 80).  The arguments shrink it
+    a step (at head_dim 80: B1 and B3 on the tensor cores, B2 on its
+    SIMT kernel).  The arguments shrink it
     for a rehearsal on the CPU.  Returns the launches of (a)-(c) and
     (e), and the printed numbers."""
     import dataclasses
@@ -8268,12 +8364,14 @@ def main() -> int:
     domain = domain_phase(dev)
     long = long_context_phase(dev)
     cerebras_kernels = cerebras_kernel_times(dev)
+    wide = wide_kernel_times(dev)
     for e in (entry, *paged_entries, *train_entries):
         e["domain"] = domain[e["name"]]
         e["cerebras"] = cerebras_kernels[e["name"]]
     for e in train_entries:
         e["long"] = long[e["name"]]
         e["smem_bytes"] = smem
+        e["wide"] = wide[e["name"]]
     print(f"chip_smoke: phase 3's head_dim sweep, shared memory, long "
           f"context and Cerebras-GPT-2.7B shapes took "
           f"{time.perf_counter() - t3:.1f} s")

@@ -14,10 +14,19 @@
 //   B3: dK = sum_q dS^T Q * scale,  dV = sum_q P^T dO
 //
 // in f32, outputs in the inputs' dtype.  q/k/v/dO [bh, t, d] float32 or
-// bfloat16, lse/delta f32 [bh, t_q], head_dim 64 and 128 on the kernels
-// below and every other head_dim from 1 to 256 on the SIMT kernels of
-// flash_attn_simt.cuh, causal or full, any t_q and t_k (ragged tiles
-// are masked here).
+// bfloat16, lse/delta f32 [bh, t_q], causal or full, any t_q and t_k
+// (ragged tiles are masked here).  On the kernels below: B2 at head_dim
+// 64 and 128, B3 at every head_dim up to 128 and in bf16 up to 256,
+// templated on a padded width DP as B1 is (flash_attn_fwd.cu, "Head
+// dims": TMA maps or the producer's own copies fill the tiles, S^T and
+// dP^T over every k16 / k8 step of the width, dV += P^T.dO and
+// dK += dS^T.Q with N = DP, the epilogue and the f32 flush at stride d;
+// in f32 the transposed Q^T and dO^T tiles hold DP rows, and two stages
+// fit at DP 64 and 80, one at 96 and 128; in bf16 at 256 one warpgroup's
+// dK and dV would take 256 registers a thread, so the two warpgroups
+// share the block's 64 keys, both compute S^T and dP^T, and each
+// accumulates half of the columns).  Every other head_dim from 1 to 256
+// runs the SIMT kernels of flash_attn_simt.cuh.
 //
 // What bounds them.  At the training shape (bh 96, t 1024, d 64, bf16,
 // causal): B2 moves 63.7 MB (q, k, v, dO, lse, delta, dQ) and needs
@@ -139,14 +148,20 @@ namespace {
 
 // ------------------------------------ B3, bfloat16: tensor cores (sm90)
 
-template <int D>
+template <int DP>
 struct DkvSm90 {
-  static constexpr int kBK = 128;                // two warpgroups of 64 keys
-  static constexpr int kBQ = D == 64 ? 64 : 32;  // queries a tile
+  // Above 128 columns one warpgroup's dK and dV for 64 keys would take
+  // DP registers a thread: the two warpgroups then share the block's 64
+  // keys (both compute S^T and dP^T) and each accumulates its half of the
+  // columns (kCols)
+  static constexpr bool kSplit = DP > 128;
+  static constexpr int kCols = kSplit ? DP / 2 : DP;  // dK / dV columns
+  static constexpr int kBK = kSplit ? 64 : 128;  // keys a block
+  static constexpr int kBQ = DP == 64 ? 64 : DP <= 128 ? 32 : 16;  // queries
   static constexpr int kStages = 2;
-  static constexpr int kPanels = D / sm90::kPanelCols;
-  static constexpr int kKVBytes = kBK * D * 2;   // the K or the V tile
-  static constexpr int kQBytes = kBQ * D * 2;    // one Q or dO tile
+  static constexpr int kPanels = (DP + sm90::kPanelCols - 1) / sm90::kPanelCols;
+  static constexpr int kKVBytes = kBK * kPanels * sm90::kRowBytes;  // K or V
+  static constexpr int kQBytes = kBQ * kPanels * sm90::kRowBytes;   // Q or dO
   static constexpr int kLseBytes = 2 * kBQ * 4;  // a tile's lse and delta
   static constexpr int kThreads = 384;  // + a producer warpgroup
   static constexpr size_t kSmem = 1024 + 2 * kKVBytes +
@@ -154,18 +169,19 @@ struct DkvSm90 {
                                   8 * (1 + 2 * kStages);
 };
 
-template <int D>
-__global__ void __launch_bounds__(DkvSm90<D>::kThreads, 1)
+template <int DP, bool kFill>
+__global__ void __launch_bounds__(DkvSm90<DP>::kThreads, 1)
     flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                               const __grid_constant__ CUtensorMap map_k,
                               const __grid_constant__ CUtensorMap map_v,
                               const __grid_constant__ CUtensorMap map_do,
+                              const sm90::Fill fill,
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
                               __nv_bfloat16* __restrict__ dk,
                               __nv_bfloat16* __restrict__ dv, int t_q,
-                              int t_k, int causal, float scale) {
-  using C = DkvSm90<D>;
+                              int t_k, int d, int causal, float scale) {
+  using C = DkvSm90<DP>;
   constexpr int BQ = C::kBQ, BK = C::kBK, S = C::kStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* k_s = sm90::align1024(smem_raw);
@@ -188,9 +204,10 @@ __global__ void __launch_bounds__(DkvSm90<D>::kThreads, 1)
   const size_t row0 = static_cast<size_t>(bh) * t_q;
 
   if (threadIdx.x == 0) {
-    sm90::mbar_init(kv_full, 1);
+    const uint32_t loads = kFill ? 128 : 1;  // arrivals a full phase
+    sm90::mbar_init(kv_full, loads);
     for (int s = 0; s < S; ++s) {
-      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&full[s], loads);
       sm90::mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
     sm90::fence_barrier_init();
@@ -199,6 +216,42 @@ __global__ void __launch_bounds__(DkvSm90<D>::kThreads, 1)
 
   if (warp >= 8) {  // producer warpgroup: one warp loads, three idle
     sm90::regs_release<sm90::kProducerRegs>();
+    if constexpr (kFill) {  // rows no map takes: the four warps fill
+      const int rb = d * 2, tid = threadIdx.x - 256;
+      const size_t q_slab = static_cast<size_t>(bh) * t_q * rb;
+      const size_t kv_slab = static_cast<size_t>(bh) * t_k * rb;
+      sm90::by_copy_width(fill.width, [&](auto w) {
+        constexpr int W = decltype(w)::value;
+        sm90::fill_tile<W, BK, C::kPanels>(sm90::smem_u32(k_s),
+                                           fill.src[1] + kv_slab, k0, t_k, rb,
+                                           tid, 128);
+        sm90::fill_tile<W, BK, C::kPanels>(sm90::smem_u32(v_s),
+                                           fill.src[2] + kv_slab, k0, t_k, rb,
+                                           tid, 128);
+        sm90::fill_commit();
+        sm90::mbar_arrive(kv_full);
+        for (int it = 0; it < n_qt; ++it) {
+          const int s = it % S;
+          const int q0 = q_begin + it * BQ;
+          if (it >= S) sm90::mbar_wait(&empty[s], (it / S - 1) & 1);
+          for (int r = tid; r < BQ; r += 128) {
+            const bool live = q0 + r < t_q;
+            rows_s[s * 2 * BQ + r] =
+                live ? lse[row0 + q0 + r] * sm90::kLog2e : 0.f;
+            rows_s[s * 2 * BQ + BQ + r] = live ? delta[row0 + q0 + r] : 0.f;
+          }
+          const uint32_t at = sm90::smem_u32(q_s) + s * C::kQBytes;
+          sm90::fill_tile<W, BQ, C::kPanels>(at, fill.src[0] + q_slab, q0,
+                                             t_q, rb, tid, 128);
+          sm90::fill_tile<W, BQ, C::kPanels>(at + S * C::kQBytes,
+                                             fill.src[3] + q_slab, q0, t_q,
+                                             rb, tid, 128);
+          sm90::fill_commit();
+          sm90::mbar_arrive(&full[s]);
+        }
+      });
+      return;
+    }
     if (warp > 8) return;
     if (lane == 0) {
       sm90::mbar_expect_tx(kv_full, 2 * C::kKVBytes);
@@ -228,18 +281,25 @@ __global__ void __launch_bounds__(DkvSm90<D>::kThreads, 1)
   }
 
   sm90::regs_take<sm90::kConsumerRegs>();
-  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 64
+  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 64 (with kSplit,
+  // keys k0 .. + 64 and columns kCols wg .. + kCols)
   const int wg = warp / 4;
-  const int key_a = k0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+  const int key_wg = C::kSplit ? 0 : 64 * wg;
+  const int col0 = C::kSplit ? C::kCols * wg : 0;
+  const int key_a = k0 + key_wg + 16 * (warp % 4) + lane / 4;
   const int key_b = key_a + 8;
   const int c2 = 2 * (lane % 4);
+  // every k16 step of S^T and dP^T at the width (as B1's S)
+  constexpr int kSteps = (DP + 15) / 16;
   const float scale_log2 = scale * sm90::kLog2e;
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[C::kCols / 2], dv_acc[C::kCols / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < C::kCols / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
-  const uint32_t k_addr = sm90::smem_u32(k_s) + 64 * wg * sm90::kRowBytes;
-  const uint32_t v_addr = sm90::smem_u32(v_s) + 64 * wg * sm90::kRowBytes;
+  const uint32_t k_addr = sm90::smem_u32(k_s) + key_wg * sm90::kRowBytes;
+  const uint32_t v_addr = sm90::smem_u32(v_s) + key_wg * sm90::kRowBytes;
+  // the first panel of this warpgroup's columns in a Q or dO tile
+  const uint32_t col_panel = (col0 / sm90::kPanelCols) * BQ * 128;
   sm90::mbar_wait(kv_full, 0);
   for (int it = 0; it < n_qt; ++it) {
     const int s = it % S;
@@ -252,18 +312,19 @@ __global__ void __launch_bounds__(DkvSm90<D>::kThreads, 1)
     float st[BQ / 2], dpt[BQ / 2];
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < kSteps; ++kk) {
       const uint32_t col = (kk % 4) * 32;  // bytes into the panel's rows
       sm90::wgmma_ss<0>(
           st, sm90::desc_k_major(k_addr + (kk / 4) * BK * 128 + col),
           sm90::desc_k_major(q_addr + (kk / 4) * BQ * 128 + col), kk > 0);
     }
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < kSteps; ++kk) {
       const uint32_t col = (kk % 4) * 32;
       sm90::wgmma_ss<0>(
           dpt, sm90::desc_k_major(v_addr + (kk / 4) * BK * 128 + col),
-          sm90::desc_k_major(do_addr + (kk / 4) * BQ * 128 + col), kk > 0);
+          sm90::desc_k_major(do_addr + (kk / 4) * BQ * 128 + col),
+          kk > 0);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait_all();
@@ -299,9 +360,9 @@ __global__ void __launch_bounds__(DkvSm90<D>::kThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
       const uint64_t d_do =
-          sm90::desc_mn_major(do_addr + kk * 16 * 128, BQ * 128);
+          sm90::desc_mn_major(do_addr + col_panel + kk * 16 * 128, BQ * 128);
       const uint64_t d_q =
-          sm90::desc_mn_major(q_addr + kk * 16 * 128, BQ * 128);
+          sm90::desc_mn_major(q_addr + col_panel + kk * 16 * 128, BQ * 128);
       sm90::wgmma_rs<1>(dv_acc, p_hi[kk], d_do);
       sm90::wgmma_rs<1>(dv_acc, p_lo[kk], d_do);
       sm90::wgmma_rs<1>(dk_acc, ds_hi[kk], d_q);
@@ -319,53 +380,65 @@ __global__ void __launch_bounds__(DkvSm90<D>::kThreads, 1)
     if (lane == 0) sm90::mbar_arrive(&empty[s]);  // this warp is done
   }
 
+  // columns at or past d are the padding of Q and dO: not stored
   const size_t key0 = static_cast<size_t>(bh) * t_k;
   if (key_a < t_k) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const size_t at = (key0 + key_a) * D + 8 * j + c2;
-      sm90::store_bf16x2(dk + at, dk_acc[4 * j] * scale,
-                         dk_acc[4 * j + 1] * scale);
-      sm90::store_bf16x2(dv + at, dv_acc[4 * j], dv_acc[4 * j + 1]);
+    for (int j = 0; j < C::kCols / 8; ++j) {
+      const size_t at = (key0 + key_a) * d;
+      const int col = col0 + 8 * j + c2;
+      sm90::store_pair<!kFill>(dk + at, col, d, dk_acc[4 * j] * scale,
+                               dk_acc[4 * j + 1] * scale);
+      sm90::store_pair<!kFill>(dv + at, col, d, dv_acc[4 * j],
+                               dv_acc[4 * j + 1]);
     }
   }
   if (key_b < t_k) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const size_t at = (key0 + key_b) * D + 8 * j + c2;
-      sm90::store_bf16x2(dk + at, dk_acc[4 * j + 2] * scale,
-                         dk_acc[4 * j + 3] * scale);
-      sm90::store_bf16x2(dv + at, dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
+    for (int j = 0; j < C::kCols / 8; ++j) {
+      const size_t at = (key0 + key_b) * d;
+      const int col = col0 + 8 * j + c2;
+      sm90::store_pair<!kFill>(dk + at, col, d, dk_acc[4 * j + 2] * scale,
+                               dk_acc[4 * j + 3] * scale);
+      sm90::store_pair<!kFill>(dv + at, col, d, dv_acc[4 * j + 2],
+                               dv_acc[4 * j + 3]);
     }
   }
 }
 
-template <int D>
+template <int DP>
 cudaError_t launch_dkv_sm90(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv, int bh,
-                            int t_q, int t_k, int causal, float scale,
+                            int t_q, int t_k, int d, int causal, float scale,
                             cudaStream_t stream) {
-  using C = DkvSm90<D>;
-  CUtensorMap map_q, map_k, map_v, map_do;
-  cudaError_t e = sm90::make_tile_map(&map_q, q, bh, t_q, D, C::kBQ);
-  if (e == cudaSuccess)
-    e = sm90::make_tile_map(&map_do, dout, bh, t_q, D, C::kBQ);
-  if (e == cudaSuccess)
-    e = sm90::make_tile_map(&map_k, k, bh, t_k, D, C::kBK);
-  if (e == cudaSuccess)
-    e = sm90::make_tile_map(&map_v, v, bh, t_k, D, C::kBK);
+  using C = DkvSm90<DP>;
+  CUtensorMap map_q{}, map_k{}, map_v{}, map_do{};
+  sm90::Fill fill = sm90::fill_of(q, k, v, dout, d * 2);
+  cudaError_t e = cudaSuccess;
+  if (!fill.width) {
+    e = sm90::make_tile_map(&map_q, q, bh, t_q, d, C::kBQ);
+    if (e == cudaSuccess)
+      e = sm90::make_tile_map(&map_do, dout, bh, t_q, d, C::kBQ);
+    if (e == cudaSuccess)
+      e = sm90::make_tile_map(&map_k, k, bh, t_k, d, C::kBK);
+    if (e == cudaSuccess)
+      e = sm90::make_tile_map(&map_v, v, bh, t_k, d, C::kBK);
+  }
   if (e != cudaSuccess) return e;
-  static std::atomic<size_t> raised[kMaxDevices];
-  auto kernel = flash_bwd_dkv_sm90_kernel<D>;
-  e = allow_smem(kernel, C::kSmem, raised);
-  if (e != cudaSuccess) return e;
+  static std::atomic<size_t> raised[2][kMaxDevices];
   const dim3 grid(bh, (t_k + C::kBK - 1) / C::kBK);
-  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
-      map_q, map_k, map_v, map_do, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), t_q, t_k, causal, scale);
-  return cudaGetLastError();
+  auto go = [&](auto kernel, std::atomic<size_t>(&up)[kMaxDevices]) {
+    cudaError_t err = allow_smem(kernel, C::kSmem, up);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+        map_q, map_k, map_v, map_do, fill, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), t_q, t_k, d, causal, scale);
+    return cudaGetLastError();
+  };
+  return fill.width ? go(flash_bwd_dkv_sm90_kernel<DP, true>, raised[1])
+                    : go(flash_bwd_dkv_sm90_kernel<DP, false>, raised[0]);
 }
 
 // ------------------------------------ B2, bfloat16: tensor cores (sm90)
@@ -876,31 +949,42 @@ cudaError_t launch_dq_tf32(const void* q, const void* k, const void* v,
 }
 
 // B3, float32
-template <int D>
+template <int DP, bool kFill = false>
 struct DkvTf32 {
-  static constexpr int kBK = 64;                   // keys a block
-  static constexpr int kBQ = D == 64 ? 32 : 16;    // queries a tile
-  static constexpr int kStages = D == 64 ? 2 : 1;
-  static constexpr int kPanels = D / sm90::kPanelColsF32;
-  static constexpr int kKVBytes = kBK * D * 4;     // one half of K or V
-  static constexpr int kTile = kBQ * D * 4;        // one half of a Q or dO tile
-  static constexpr int kTrBytes = D * 128;         // a transposed half
+  static constexpr int kBK = 64;                    // keys a block
+  // queries a tile: 32 halves the small S^T and dP^T products a query
+  // against 16; at DP 80, 16 keeps two stages (32 would leave one), and
+  // at 128 32 does not fit (`scripts/kernel_ab.py` times the choices)
+  static constexpr int kBQ = DP == 80 || DP == 128 ? 16 : 32;
+  static constexpr int kPanels =
+      (DP + sm90::kPanelColsF32 - 1) / sm90::kPanelColsF32;
+  static constexpr int kKVBytes = kBK * kPanels * sm90::kRowBytes;  // a half
+  // one half of a Q or dO tile
+  static constexpr int kTile = kBQ * kPanels * sm90::kRowBytes;
+  static constexpr int kTrBytes = DP * 128;         // a transposed half
   // Q_hi, Q_lo, dO_hi, dO_lo, Q^T_hi, Q^T_lo, dO^T_hi, dO^T_lo; TMA lands
   // Q in Q_lo, dO in dO_lo
   static constexpr int kStageBytes = 4 * kTile + 4 * kTrBytes;
   // One consumer warpgroup, a loading warp and the converters: their
-  // work bounds the kernel (its products wait on them), so head_dim 64
-  // takes seven warps (the kernel's 154 registers fit 384 threads' 168);
-  // head_dim 128 needs ~190, more than 384 threads allow, so three.
-  static constexpr int kConverters = D == 64 ? 224 : 96;
+  // work bounds the kernel at 64 (its products wait on them), so seven
+  // warps convert there and at 80 (the kernel's registers fit 384
+  // threads' 168: 154 at 64); at 96 and 128 the accumulators and tiles
+  // need more than 384 threads allow, so three, and so does the copy
+  // variant (kFill), whose loading warp's copies spilled at 64 with
+  // seven.
+  static constexpr int kConverters = DP <= 80 && !kFill ? 224 : 96;
   static constexpr int kConvBatch = 6;  // items a converter loads at once
                                         // (sm90::convert_items)
   static constexpr int kThreads = 160 + kConverters;
   // query tiles between two flushes of the accumulators (1024 queries)
   static constexpr int kFlushTiles = 1024 / kBQ;
-  static constexpr size_t kSmem = 1024 + 4 * kKVBytes +
-                                  kStages * (kStageBytes + 2 * kBQ * 4) +
-                                  8 * (2 + 3 * kStages);
+  // shared memory with one stage, and what each further stage adds; two
+  // stages where they fit (DP 64 and 80), else one (96 and 128)
+  static constexpr size_t kSmem1 =
+      1024 + 4 * kKVBytes + kStageBytes + 2 * kBQ * 4 + 8 * 5;
+  static constexpr size_t kStageSmem = kStageBytes + 2 * kBQ * 4 + 8 * 3;
+  static constexpr int kStages = kSmem1 + kStageSmem <= 227 * 1024 ? 2 : 1;
+  static constexpr size_t kSmem = kSmem1 + (kStages - 1) * kStageSmem;
   static_assert(kSmem <= 227 * 1024, "the shared memory a block may use");
 };
 
@@ -909,51 +993,52 @@ struct DkvTf32 {
 // `to_memory` stores partial + accumulator there (the partial is 0 at
 // the first flush, `first`) and restarts the accumulator at 0; else the
 // accumulator takes partial + accumulator (the epilogue's last step).
-template <int D>
+template <int DP>
 __device__ __forceinline__ void flush_dkv(float* dk, float* dv,
-                                          float (&dk_acc)[D / 2],
-                                          float (&dv_acc)[D / 2],
+                                          float (&dk_acc)[DP / 2],
+                                          float (&dv_acc)[DP / 2],
                                           size_t key0, int key_a, int key_b,
-                                          int t_k, int c2, bool first,
+                                          int t_k, int d, int c2, bool first,
                                           bool to_memory) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int key = half ? key_b : key_a;
     if (key >= t_k) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const size_t at = (key0 + key) * D + 8 * j + c2;
-      const int i = 4 * j + 2 * half;
-      float2 k_sum = make_float2(0.f, 0.f), v_sum = k_sum;
-      if (!first) {
-        k_sum = *reinterpret_cast<const float2*>(dk + at);
-        v_sum = *reinterpret_cast<const float2*>(dv + at);
+    for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + c2 + e;
+        if (col >= d) continue;  // the padding's columns
+        const size_t at = (key0 + key) * d + col;
+        const int i = 4 * j + 2 * half + e;
+        const float k_sum = (first ? 0.f : dk[at]) + dk_acc[i];
+        const float v_sum = (first ? 0.f : dv[at]) + dv_acc[i];
+        if (to_memory) {
+          dk[at] = k_sum;
+          dv[at] = v_sum;
+          dk_acc[i] = dv_acc[i] = 0.f;
+        } else {
+          dk_acc[i] = k_sum;
+          dv_acc[i] = v_sum;
+        }
       }
-      k_sum.x += dk_acc[i], k_sum.y += dk_acc[i + 1];
-      v_sum.x += dv_acc[i], v_sum.y += dv_acc[i + 1];
-      if (to_memory) {
-        *reinterpret_cast<float2*>(dk + at) = k_sum;
-        *reinterpret_cast<float2*>(dv + at) = v_sum;
-        dk_acc[i] = dk_acc[i + 1] = dv_acc[i] = dv_acc[i + 1] = 0.f;
-      } else {
-        dk_acc[i] = k_sum.x, dk_acc[i + 1] = k_sum.y;
-        dv_acc[i] = v_sum.x, dv_acc[i + 1] = v_sum.y;
-      }
-    }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(DkvTf32<D>::kThreads, 1)
+template <int DP, bool kFill>
+__global__ void __launch_bounds__(DkvTf32<DP, kFill>::kThreads, 1)
     flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
                               const __grid_constant__ CUtensorMap map_k,
                               const __grid_constant__ CUtensorMap map_v,
                               const __grid_constant__ CUtensorMap map_do,
+                              const sm90::Fill fill,
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
                               float* __restrict__ dk, float* __restrict__ dv,
-                              int t_q, int t_k, int causal, float scale) {
-  using C = DkvTf32<D>;
+                              int t_q, int t_k, int d, int causal,
+                              float scale) {
+  using C = DkvTf32<DP, kFill>;
   constexpr int BQ = C::kBQ, BK = C::kBK, S = C::kStages, T = C::kTile;
   constexpr int TR = C::kTrBytes, KV = C::kKVBytes;
   extern __shared__ uint8_t smem_raw[];
@@ -976,10 +1061,11 @@ __global__ void __launch_bounds__(DkvTf32<D>::kThreads, 1)
   const size_t row0 = static_cast<size_t>(bh) * t_q;
 
   if (threadIdx.x == 0) {
-    sm90::mbar_init(kv_raw, 1);
+    const uint32_t loads = kFill ? 32 : 1;  // arrivals a raw phase
+    sm90::mbar_init(kv_raw, loads);
     sm90::mbar_init(kv_full, C::kConverters);
     for (int s = 0; s < S; ++s) {
-      sm90::mbar_init(&raw_full[s], 1);
+      sm90::mbar_init(&raw_full[s], loads);
       sm90::mbar_init(&conv_full[s], C::kConverters);
       sm90::mbar_init(&conv_empty[s], 4);  // one per consumer warp
     }
@@ -988,6 +1074,38 @@ __global__ void __launch_bounds__(DkvTf32<D>::kThreads, 1)
   __syncthreads();
 
   if (warp >= 4) {  // producer warps: one loads, the others split
+    if constexpr (kFill) {  // rows no map takes: the loading warp fills
+      if (warp == 4) {
+        const int rb = d * 4;
+        const size_t q_slab = static_cast<size_t>(bh) * t_q * rb;
+        const size_t kv_slab = static_cast<size_t>(bh) * t_k * rb;
+        sm90::by_copy_width(fill.width, [&](auto w) {
+          constexpr int W = decltype(w)::value;
+          const uint32_t res = sm90::smem_u32(res_s);
+          sm90::fill_tile<W, BK, C::kPanels>(res + KV, fill.src[1] + kv_slab,
+                                             k0, t_k, rb, lane, 32);
+          sm90::fill_tile<W, BK, C::kPanels>(res + 3 * KV,
+                                             fill.src[2] + kv_slab, k0, t_k, rb,
+                                             lane, 32);
+          sm90::fill_commit();
+          sm90::mbar_arrive(kv_raw);
+          for (int it = 0; it < n_qt; ++it) {
+            const int s = it % S;
+            const int q0 = q_begin + it * BQ;
+            if (it >= S) sm90::mbar_wait(&conv_empty[s], (it / S - 1) & 1);
+            const uint32_t at = sm90::smem_u32(stage_s) + s * C::kStageBytes;
+            sm90::fill_tile<W, BQ, C::kPanels>(at + T, fill.src[0] + q_slab, q0,
+                                               t_q, rb, lane, 32);
+            sm90::fill_tile<W, BQ, C::kPanels>(at + 3 * T,
+                                               fill.src[3] + q_slab, q0, t_q,
+                                               rb, lane, 32);
+            sm90::fill_commit();
+            sm90::mbar_arrive(&raw_full[s]);
+          }
+        });
+        return;
+      }
+    }
     if (warp == 4) {
       if (lane == 0) {
         sm90::mbar_expect_tx(kv_raw, 2 * KV);
@@ -1022,10 +1140,10 @@ __global__ void __launch_bounds__(DkvTf32<D>::kThreads, 1)
       const int q0 = q_begin + it * BQ;
       uint8_t* st = stage_s + s * C::kStageBytes;
       sm90::mbar_wait(&raw_full[s], (it / S) & 1);
-      sm90::split_transposed<BQ, D, N, B>(st + T, st + 4 * T,
-                                          st + 4 * T + TR, ct);
-      sm90::split_transposed<BQ, D, N, B>(st + 3 * T, st + 4 * T + 2 * TR,
-                                          st + 4 * T + 3 * TR, ct);
+      sm90::split_transposed<BQ, DP, N, B>(st + T, st + 4 * T,
+                                           st + 4 * T + TR, ct);
+      sm90::split_transposed<BQ, DP, N, B>(st + 3 * T, st + 4 * T + 2 * TR,
+                                           st + 4 * T + 3 * TR, ct);
       float* rows = rows_s + s * 2 * BQ;
       for (int r = ct; r < BQ; r += N) {
         const bool live = q0 + r < t_q;
@@ -1047,9 +1165,9 @@ __global__ void __launch_bounds__(DkvTf32<D>::kThreads, 1)
   const int key_b = key_a + 8;
   const int c2 = 2 * (lane % 4);
   const float scale_log2 = scale * sm90::kLog2e;
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[DP / 2], dv_acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   const uint32_t k_hi = sm90::smem_u32(res_s), k_lo = k_hi + KV;
   const uint32_t v_hi = k_hi + 2 * KV, v_lo = k_hi + 3 * KV;
   const size_t key0 = static_cast<size_t>(bh) * t_k;
@@ -1071,7 +1189,7 @@ __global__ void __launch_bounds__(DkvTf32<D>::kThreads, 1)
     float st[BQ / 2], dpt[BQ / 2];
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
+    for (int kk = 0; kk < DP / 8; ++kk) {
       const uint32_t ac = (kk / 4) * BK * 128 + (kk % 4) * 32;
       const uint32_t bc = (kk / 4) * BQ * 128 + (kk % 4) * 32;
       const uint64_t da = sm90::desc_k_major(k_hi + ac);
@@ -1081,7 +1199,7 @@ __global__ void __launch_bounds__(DkvTf32<D>::kThreads, 1)
       sm90::wgmma_tf32_ss(st, sm90::desc_k_major(k_lo + ac), db, 1);
     }
 #pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
+    for (int kk = 0; kk < DP / 8; ++kk) {
       const uint32_t ac = (kk / 4) * BK * 128 + (kk % 4) * 32;
       const uint32_t bc = (kk / 4) * BQ * 128 + (kk % 4) * 32;
       const uint64_t da = sm90::desc_k_major(v_hi + ac);
@@ -1153,66 +1271,80 @@ __global__ void __launch_bounds__(DkvTf32<D>::kThreads, 1)
     // a block of at most 1024 queries never flushes, so its output is
     // what it was before the flush existed.
     if ((it + 1) % C::kFlushTiles == 0 && it + 1 < n_qt) {
-      flush_dkv<D>(dk, dv, dk_acc, dv_acc, key0, key_a, key_b, t_k, c2,
-                   !flushed, true);
+      flush_dkv<DP>(dk, dv, dk_acc, dv_acc, key0, key_a, key_b, t_k, d, c2,
+                    !flushed, true);
       flushed = true;
     }
   }
 
   if (flushed)  // the sums so far join the accumulators' last part
-    flush_dkv<D>(dk, dv, dk_acc, dv_acc, key0, key_a, key_b, t_k, c2, false,
-                 false);
+    flush_dkv<DP>(dk, dv, dk_acc, dv_acc, key0, key_a, key_b, t_k, d, c2,
+                  false, false);
+  // columns at or past d are the padding of Q and dO: not stored
   if (key_a < t_k) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const size_t at = (key0 + key_a) * D + 8 * j + c2;
-      *reinterpret_cast<float2*>(dk + at) =
-          make_float2(dk_acc[4 * j] * scale, dk_acc[4 * j + 1] * scale);
-      *reinterpret_cast<float2*>(dv + at) =
-          make_float2(dv_acc[4 * j], dv_acc[4 * j + 1]);
+    for (int j = 0; j < DP / 8; ++j) {
+      const size_t at = (key0 + key_a) * d;
+      sm90::store_pair<!kFill>(dk + at, 8 * j + c2, d,
+                               dk_acc[4 * j] * scale,
+                               dk_acc[4 * j + 1] * scale);
+      sm90::store_pair<!kFill>(dv + at, 8 * j + c2, d, dv_acc[4 * j],
+                               dv_acc[4 * j + 1]);
     }
   }
   if (key_b < t_k) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const size_t at = (key0 + key_b) * D + 8 * j + c2;
-      *reinterpret_cast<float2*>(dk + at) =
-          make_float2(dk_acc[4 * j + 2] * scale, dk_acc[4 * j + 3] * scale);
-      *reinterpret_cast<float2*>(dv + at) =
-          make_float2(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
+    for (int j = 0; j < DP / 8; ++j) {
+      const size_t at = (key0 + key_b) * d;
+      sm90::store_pair<!kFill>(dk + at, 8 * j + c2, d,
+                               dk_acc[4 * j + 2] * scale,
+                               dk_acc[4 * j + 3] * scale);
+      sm90::store_pair<!kFill>(dv + at, 8 * j + c2, d, dv_acc[4 * j + 2],
+                               dv_acc[4 * j + 3]);
     }
   }
 }
 
-template <int D>
+template <int DP>
 cudaError_t launch_dkv_tf32(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv, int bh,
-                            int t_q, int t_k, int causal, float scale,
+                            int t_q, int t_k, int d, int causal, float scale,
                             cudaStream_t stream) {
-  using C = DkvTf32<D>;
-  CUtensorMap map_q, map_k, map_v, map_do;
-  cudaError_t e = sm90::make_tile_map(&map_q, q, bh, t_q, D, C::kBQ, 4);
-  if (e == cudaSuccess)
-    e = sm90::make_tile_map(&map_do, dout, bh, t_q, D, C::kBQ, 4);
-  if (e == cudaSuccess)
-    e = sm90::make_tile_map(&map_k, k, bh, t_k, D, C::kBK, 4);
-  if (e == cudaSuccess)
-    e = sm90::make_tile_map(&map_v, v, bh, t_k, D, C::kBK, 4);
+  using C = DkvTf32<DP>;
+  CUtensorMap map_q{}, map_k{}, map_v{}, map_do{};
+  sm90::Fill fill = sm90::fill_of(q, k, v, dout, d * 4);
+  cudaError_t e = cudaSuccess;
+  if (!fill.width) {
+    e = sm90::make_tile_map(&map_q, q, bh, t_q, d, C::kBQ, 4);
+    if (e == cudaSuccess)
+      e = sm90::make_tile_map(&map_do, dout, bh, t_q, d, C::kBQ, 4);
+    if (e == cudaSuccess)
+      e = sm90::make_tile_map(&map_k, k, bh, t_k, d, C::kBK, 4);
+    if (e == cudaSuccess)
+      e = sm90::make_tile_map(&map_v, v, bh, t_k, d, C::kBK, 4);
+  }
   if (e != cudaSuccess) return e;
-  static std::atomic<size_t> raised[kMaxDevices];
-  auto kernel = flash_bwd_dkv_tf32_kernel<D>;
-  e = allow_smem(kernel, C::kSmem, raised);
-  if (e != cudaSuccess) return e;
+  static std::atomic<size_t> raised[2][kMaxDevices];
   const dim3 grid(bh, (t_k + C::kBK - 1) / C::kBK);
-  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
-      map_q, map_k, map_v, map_do, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dk),
-      static_cast<float*>(dv), t_q, t_k, causal, scale);
-  return cudaGetLastError();
+  // both variants take C::kSmem (the converters hold no shared memory)
+  auto go = [&](auto kernel, std::atomic<size_t>(&up)[kMaxDevices],
+                int threads) {
+    cudaError_t err = allow_smem(kernel, C::kSmem, up);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, threads, C::kSmem, stream>>>(
+        map_q, map_k, map_v, map_do, fill, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<float*>(dk),
+        static_cast<float*>(dv), t_q, t_k, d, causal, scale);
+    return cudaGetLastError();
+  };
+  return fill.width ? go(flash_bwd_dkv_tf32_kernel<DP, true>, raised[1],
+                         DkvTf32<DP, true>::kThreads)
+                    : go(flash_bwd_dkv_tf32_kernel<DP, false>, raised[0],
+                         C::kThreads);
 }
 
-// ------------------------------- every other head_dim: SIMT (B2, B3)
+// ---------- head_dims the tensor-core routes do not take: SIMT (B2, B3)
 
 template <typename T, int DP>
 cudaError_t launch_dq_simt(const void* q, const void* k, const void* v,
@@ -1260,12 +1392,14 @@ cudaError_t launch_dkv_simt(const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace flash_train
 
-// dtype: 0 float32, 1 bfloat16.  head_dim 64 and 128 take the tensor
-// cores (bfloat16 directly, float32 as three TF32 products); every other
-// head_dim from 1 to 256 the SIMT kernels (flash_attn_simt.cuh).
-// q/dout [bh, t_q, head_dim], k/v [bh, t_k, head_dim], lse/delta f32
-// [bh, t_q], outputs like their inputs; all contiguous on the current
-// device, 16-byte aligned on the tensor-core routes.  Each returns
+// dtype: 0 float32, 1 bfloat16.  B2 (dQ) takes the tensor cores at
+// head_dim 64 and 128 (bfloat16 directly, float32 as three TF32
+// products), B3 (dK, dV) at every head_dim up to 128 (bfloat16: up to
+// 256), at its padded width (`tensor_core_width`); every other head_dim
+// from 1 to 256 the SIMT kernels (flash_attn_simt.cuh).  q/dout
+// [bh, t_q, head_dim], k/v [bh, t_k, head_dim], lse/delta f32 [bh, t_q],
+// outputs like their inputs; all contiguous on the current device,
+// 16-byte aligned where a TMA map takes the rows.  Each returns
 // cudaGetLastError() after its launch (or the error of the tensor maps'
 // encoding).
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
@@ -1276,7 +1410,7 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   if (bh == 0 || t_q == 0) return cudaSuccess;
   if (t_k < 1 || (t_q + 31) / 32 > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!flash_train::tensor_core_dim(head_dim))
+  if (!flash_train::dq_tensor_core_dim(head_dim))
     return flash_train::simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
       return flash_train::launch_dq_simt<decltype(t), decltype(d)::value>(
           q, k, v, dout, lse, delta, dq, bh, t_q, t_k, head_dim, causal,
@@ -1302,22 +1436,23 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k,
   if (bh == 0 || t_k == 0) return cudaSuccess;
   if ((t_k + 31) / 32 > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!flash_train::tensor_core_dim(head_dim))
+  const int width = flash_train::tensor_core_width(head_dim, dtype);
+  if (width == 0)
     return flash_train::simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
       return flash_train::launch_dkv_simt<decltype(t), decltype(d)::value>(
           q, k, v, dout, lse, delta, dk, dv, bh, t_q, t_k, head_dim, causal,
           scale, s);
     });
-  return flash_train::dispatch(dtype, head_dim, [&](auto t, auto d) {
-    constexpr int D = decltype(d)::value;
+  return flash_train::dispatch_width(dtype, width, [&](auto t, auto w) {
+    constexpr int DP = decltype(w)::value;
     if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
-      return flash_train::launch_dkv_sm90<D>(q, k, v, dout, lse, delta, dk,
-                                             dv, bh, t_q, t_k, causal, scale,
-                                             s);
+      return flash_train::launch_dkv_sm90<DP>(q, k, v, dout, lse, delta, dk,
+                                              dv, bh, t_q, t_k, head_dim,
+                                              causal, scale, s);
     else
-      return flash_train::launch_dkv_tf32<D>(q, k, v, dout, lse, delta, dk,
-                                             dv, bh, t_q, t_k, causal, scale,
-                                             s);
+      return flash_train::launch_dkv_tf32<DP>(q, k, v, dout, lse, delta, dk,
+                                              dv, bh, t_q, t_k, head_dim,
+                                              causal, scale, s);
   });
 }
 
@@ -1328,35 +1463,43 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k,
 extern "C" int flash_attn_bwd_smem(int kernel, int head_dim, int dtype,
                                    int* static_bytes, int* dynamic_bytes) {
   using namespace flash_train;
-  if (kernel != 0 && kernel != 1) return cudaErrorInvalidValue;
-  if (!tensor_core_dim(head_dim))
-    return simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
-      using T = decltype(t);
-      constexpr int DP = decltype(d)::value;
-      return kernel == 0
-                 ? report_smem(simt::flash_bwd_dq_simt_kernel<T, DP>,
-                               simt::Cfg<DP>::kSmemDq, static_bytes,
-                               dynamic_bytes)
-                 : report_smem(simt::flash_bwd_dkv_simt_kernel<T, DP>,
-                               simt::Cfg<DP>::kSmemDkv, static_bytes,
-                               dynamic_bytes);
+  if (kernel == 0) {
+    if (!dq_tensor_core_dim(head_dim))
+      return simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
+        constexpr int DP = decltype(d)::value;
+        return report_smem(simt::flash_bwd_dq_simt_kernel<decltype(t), DP>,
+                           simt::Cfg<DP>::kSmemDq, static_bytes,
+                           dynamic_bytes);
+      });
+    return dispatch(dtype, head_dim, [&](auto t, auto d) {
+      constexpr int D = decltype(d)::value;
+      if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
+        return report_smem(flash_bwd_dq_sm90_kernel<D>, DqSm90<D>::kSmem,
+                           static_bytes, dynamic_bytes);
+      else
+        return report_smem(flash_bwd_dq_tf32_kernel<D>, DqTf32<D>::kSmem,
+                           static_bytes, dynamic_bytes);
     });
-  return dispatch(dtype, head_dim, [&](auto t, auto d) {
-    constexpr int D = decltype(d)::value;
+  }
+  if (kernel != 1) return cudaErrorInvalidValue;
+  const int width = tensor_core_width(head_dim, dtype);
+  if (width == 0)
+    return simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
+      constexpr int DP = decltype(d)::value;
+      return report_smem(simt::flash_bwd_dkv_simt_kernel<decltype(t), DP>,
+                         simt::Cfg<DP>::kSmemDkv, static_bytes,
+                         dynamic_bytes);
+    });
+  return dispatch_width(dtype, width, [&](auto t, auto w) {
+    constexpr int DP = decltype(w)::value;
     if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
-      return kernel == 0
-                 ? report_smem(flash_bwd_dq_sm90_kernel<D>, DqSm90<D>::kSmem,
-                               static_bytes, dynamic_bytes)
-                 : report_smem(flash_bwd_dkv_sm90_kernel<D>,
-                               DkvSm90<D>::kSmem, static_bytes,
-                               dynamic_bytes);
+      return report_smem(flash_bwd_dkv_sm90_kernel<DP, false>,
+                         DkvSm90<DP>::kSmem,
+                         static_bytes, dynamic_bytes);
     else
-      return kernel == 0
-                 ? report_smem(flash_bwd_dq_tf32_kernel<D>, DqTf32<D>::kSmem,
-                               static_bytes, dynamic_bytes)
-                 : report_smem(flash_bwd_dkv_tf32_kernel<D>,
-                               DkvTf32<D>::kSmem, static_bytes,
-                               dynamic_bytes);
+      return report_smem(flash_bwd_dkv_tf32_kernel<DP, false>,
+                         DkvTf32<DP>::kSmem,
+                         static_bytes, dynamic_bytes);
   });
 }
 

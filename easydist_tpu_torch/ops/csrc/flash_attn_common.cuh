@@ -1,7 +1,8 @@
 // Shared pieces of the training attention kernels (flash_attn_fwd.cu,
-// flash_attn_bwd.cu): the causal fill and the launch-side helpers (the
-// tensor-core pieces are in flash_attn_sm90.cuh, the kernels for the
-// other head_dims in flash_attn_simt.cuh).
+// flash_attn_bwd.cu): the causal fill, the routes' head_dims and the
+// launch-side helpers (the tensor-core pieces are in flash_attn_sm90.cuh,
+// the kernels for the head_dims the tensor-core routes do not take in
+// flash_attn_simt.cuh).
 
 #pragma once
 
@@ -52,14 +53,36 @@ cudaError_t report_smem(Kernel kernel, size_t dynamic, int* static_bytes,
   return cudaSuccess;
 }
 
-// Whether the tensor-core routes take a head_dim (the SIMT kernels of
-// flash_attn_simt.cuh take every other one from 1 to 256)
-inline bool tensor_core_dim(int head_dim) {
+// The tensor-core routes and the head_dims they take.
+//   * B2 (dQ) runs on the tensor cores at head_dim 64 and 128 only
+//     (`dq_tensor_core_dim`); the SIMT kernel of flash_attn_simt.cuh
+//     takes every other head_dim from 1 to 256.
+//   * B1 (forward) and B3 (dK, dV) run on the tensor cores at every
+//     head_dim up to 128, and in bfloat16 up to 256, templated on a padded
+//     width DP (64, 80, 96, 128; 256 for bfloat16's 129..256) with the
+//     true d at run time; the tiles' columns past d are zeros (they add
+//     nothing to the products over d, which run every 32-byte step of
+//     the width), the products whose N is the head_dim take N = DP, and
+//     the epilogues store at stride d.  Rows a TMA map takes (d * itemsize
+//     a multiple of 16) are loaded by the maps, whose extent d zero-fills
+//     the padding; other rows (bf16 100) by the producer's own copies into
+//     the same swizzled tiles (flash_attn_sm90.cuh, `fill_tile`).
+//     `tensor_core_width` gives DP, or 0 where the SIMT kernels take the
+//     head_dim (float32 above 128: the TF32 kernels' tiles of Q's, K's
+//     and V's halves do not fit a block's shared memory there).
+inline bool dq_tensor_core_dim(int head_dim) {
   return head_dim == 64 || head_dim == 128;
 }
 
+inline int tensor_core_width(int head_dim, int dtype) {
+  if (head_dim < 1 || head_dim > (dtype == 1 ? 256 : 128)) return 0;
+  return head_dim <= 64 ? 64 : head_dim <= 80 ? 80 : head_dim <= 96 ? 96
+                                               : head_dim <= 128 ? 128 : 256;
+}
+
 // Calls f(T{}, std::integral_constant<int, D>{}) for dtype (0 float32,
-// 1 bfloat16) and head_dim (64, 128); cudaErrorInvalidValue otherwise.
+// 1 bfloat16) and head_dim (64, 128): B2's routes; cudaErrorInvalidValue
+// otherwise.
 template <typename F>
 cudaError_t dispatch(int dtype, int head_dim, F&& f) {
   using D64 = std::integral_constant<int, 64>;
@@ -68,6 +91,29 @@ cudaError_t dispatch(int dtype, int head_dim, F&& f) {
   if (dtype == 0 && head_dim == 128) return f(float{}, D128{});
   if (dtype == 1 && head_dim == 64) return f(__nv_bfloat16{}, D64{});
   if (dtype == 1 && head_dim == 128) return f(__nv_bfloat16{}, D128{});
+  return cudaErrorInvalidValue;
+}
+
+// The same for B1's and B3's padded widths DP (64, 80, 96, 128; 256 in
+// bfloat16 only)
+template <typename F>
+cudaError_t dispatch_width(int dtype, int width, F&& f) {
+  auto by_width = [&](auto t) -> cudaError_t {
+    using T = decltype(t);
+    switch (width) {
+      case 64: return f(T{}, std::integral_constant<int, 64>{});
+      case 80: return f(T{}, std::integral_constant<int, 80>{});
+      case 96: return f(T{}, std::integral_constant<int, 96>{});
+      case 128: return f(T{}, std::integral_constant<int, 128>{});
+      case 256:
+        if constexpr (std::is_same_v<T, __nv_bfloat16>)
+          return f(T{}, std::integral_constant<int, 256>{});
+        return cudaErrorInvalidValue;
+      default: return cudaErrorInvalidValue;
+    }
+  };
+  if (dtype == 0) return by_width(float{});
+  if (dtype == 1) return by_width(__nv_bfloat16{});
   return cudaErrorInvalidValue;
 }
 

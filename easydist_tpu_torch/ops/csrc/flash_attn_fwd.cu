@@ -11,10 +11,10 @@
 // with s = (q . k) * scale, keys past the query filled with -1e30 when
 // causal (positions aligned at 0), running max m and denominator l in
 // f32, out = acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)), as
-// the TPU kernel computes them.  float32 and bfloat16, head_dim 64 and
-// 128 on the kernels below, every other head_dim from 1 to 256 on the
-// SIMT kernel of flash_attn_simt.cuh; any t_q and t_k (ragged tiles are
-// masked here, not shrunk).
+// the TPU kernel computes them.  float32 and bfloat16; on the kernels
+// below every head_dim up to 128, and in bfloat16 up to 256 ("Head
+// dims"); float32 above 128 on the SIMT kernel of flash_attn_simt.cuh;
+// any t_q and t_k (ragged tiles are masked here, not shrunk).
 //
 // What bounds it.  At the training shape (bh 96, t 1024, d 64, bf16,
 // causal) the function moves 50.7 MB (q, k, v and out once, lse) and
@@ -87,6 +87,32 @@
 // shared memory (split by the consumers themselves), one consumer
 // warpgroup of 64 queries, one raw and two converted stages (224 KB).
 //
+// Head dims.  Both kernels are templated on a padded width DP (64, 80,
+// 96, 128, and 256 for bf16; `tensor_core_width` in
+// flash_attn_common.cuh) and take the true d at run time.  A tile holds
+// ceil(d / panel) 128-byte panels a row (80 bf16 columns take two of 64,
+// 80 f32 ones three of 32), zeros from d to the panel's end: the tensor
+// maps' extent is d, so TMA fills them; where no map takes the rows
+// (d * itemsize no multiple of 16: bf16 100 is 200 bytes) the producer
+// copies the rows into the same swizzled layout itself (`fill_tile`, at
+// the widest copy the rows and bases allow, then one barrier arrival a
+// thread).  S = Q.K^T runs every k16 (bf16) or k8 (TF32) step of the
+// width, the zero ones past d too (a test of d between the `wgmma`s
+// made ptxas serialize all of them), O = P.V takes N = DP (one
+// `wgmma` of N 80 or 96: V read MN-major through the transpose bit spans
+// 1.25 or 1.5 panels in bf16), and the epilogue stores at stride d,
+// leaving the padding's columns out (a pair store where it lies inside
+// and is aligned, else two).  80 and 96 are instantiated at their own
+// width, so Cerebras-GPT-2.7B's 80 wastes no product; 64 and 128 keep
+// the tiles they had, and a head_dim between takes the next width up.
+// Tile sizes follow DP: bf16 key tiles of 128 up to 64, 64 up to 128 and
+// 32 at 256 (O takes 128 registers there); f32 two consumer warpgroups
+// below 128 (Q's halves in registers at 64, in shared memory at 80 and
+// 96: each converted K/V tile then serves 128 queries, not 64), one at
+// 128 (`scripts/kernel_ab.py` times one warpgroup against two).  f32 above 128 runs the
+// SIMT kernel: Q's and a K/V tile's TF32 halves do not fit a block's
+// shared memory there.
+//
 // Known limits: the bf16 kernel serialises, within a warpgroup, the
 // softmax of one tile and the products of the next (no ping-pong between
 // the two warpgroups, no overlap inside one), stores its output straight
@@ -104,28 +130,30 @@ namespace {
 
 // ------------------------------------------- bfloat16: tensor cores (sm90)
 
-template <int D>
+template <int DP>
 struct FwdSm90 {
-  static constexpr int kBQ = 128;                 // two warpgroups of 64 rows
-  static constexpr int kBK = D == 64 ? 128 : 64;  // keys a tile
+  static constexpr int kBQ = 128;                  // two warpgroups of 64 rows
+  // keys a tile: S (BK / 2 registers), O (DP / 2) and P's halves fit 232
+  static constexpr int kBK = DP <= 64 ? 128 : DP <= 128 ? 64 : 32;
   static constexpr int kStages = 2;
-  static constexpr int kPanels = D / sm90::kPanelCols;
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kKVBytes = kBK * D * 2;    // one K or V tile
+  static constexpr int kPanels = (DP + sm90::kPanelCols - 1) / sm90::kPanelCols;
+  static constexpr int kQBytes = kBQ * kPanels * sm90::kRowBytes;
+  static constexpr int kKVBytes = kBK * kPanels * sm90::kRowBytes;  // K or V
   static constexpr int kThreads = 384;  // + a producer warpgroup
   static constexpr size_t kSmem =
       1024 + kQBytes + 2 * kStages * kKVBytes + 8 * (1 + 2 * kStages);
 };
 
-template <int D>
-__global__ void __launch_bounds__(FwdSm90<D>::kThreads, 1)
+template <int DP, bool kFill>
+__global__ void __launch_bounds__(FwdSm90<DP>::kThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
+                          const sm90::Fill fill,
                           __nv_bfloat16* __restrict__ out,
-                          float* __restrict__ lse, int t_q, int t_k,
+                          float* __restrict__ lse, int t_q, int t_k, int d,
                           int causal, float scale_log2) {
-  using C = FwdSm90<D>;
+  using C = FwdSm90<DP>;
   constexpr int BQ = C::kBQ, BK = C::kBK, S = C::kStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_s = sm90::align1024(smem_raw);
@@ -143,9 +171,10 @@ __global__ void __launch_bounds__(FwdSm90<D>::kThreads, 1)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
-    sm90::mbar_init(q_full, 1);
+    const uint32_t loads = kFill ? 128 : 1;  // arrivals a full phase
+    sm90::mbar_init(q_full, loads);
     for (int s = 0; s < S; ++s) {
-      sm90::mbar_init(&kv_full[s], 1);
+      sm90::mbar_init(&kv_full[s], loads);
       sm90::mbar_init(&kv_empty[s], 8);  // one arrival per consumer warp
     }
     sm90::fence_barrier_init();
@@ -154,6 +183,32 @@ __global__ void __launch_bounds__(FwdSm90<D>::kThreads, 1)
 
   if (warp >= 8) {  // producer warpgroup: one warp loads, three idle
     sm90::regs_release<sm90::kProducerRegs>();
+    if constexpr (kFill) {  // rows no map takes: the four warps fill
+      const int rb = d * 2, tid = threadIdx.x - 256;
+      const size_t q_slab = static_cast<size_t>(bh) * t_q * rb;
+      const size_t kv_slab = static_cast<size_t>(bh) * t_k * rb;
+      sm90::by_copy_width(fill.width, [&](auto w) {
+        constexpr int W = decltype(w)::value;
+        sm90::fill_tile<W, BQ, C::kPanels>(sm90::smem_u32(q_s),
+                                           fill.src[0] + q_slab, q0, t_q, rb,
+                                           tid, 128);
+        sm90::fill_commit();
+        sm90::mbar_arrive(q_full);
+        for (int it = 0; it < n_kt; ++it) {
+          const int s = it % S;
+          if (it >= S) sm90::mbar_wait(&kv_empty[s], (it / S - 1) & 1);
+          const uint32_t at = sm90::smem_u32(k_s) + s * C::kKVBytes;
+          sm90::fill_tile<W, BK, C::kPanels>(at, fill.src[1] + kv_slab,
+                                             it * BK, t_k, rb, tid, 128);
+          sm90::fill_tile<W, BK, C::kPanels>(at + S * C::kKVBytes,
+                                             fill.src[2] + kv_slab, it * BK,
+                                             t_k, rb, tid, 128);
+          sm90::fill_commit();
+          sm90::mbar_arrive(&kv_full[s]);
+        }
+      });
+      return;
+    }
     if (warp > 8) return;
     if (lane == 0) {
       sm90::mbar_expect_tx(q_full, C::kQBytes);
@@ -177,9 +232,13 @@ __global__ void __launch_bounds__(FwdSm90<D>::kThreads, 1)
   const int row_a = q0 + 64 * wg + 16 * (warp % 4) + lane / 4;
   const int row_b = row_a + 8;
   const int c2 = 2 * (lane % 4);
-  float o[D / 2];
+  // every k16 step of S at the width, zeros past d included: a test of d
+  // between the `wgmma`s makes ptxas serialize every one in the kernel
+  // (note C7515), which cost more than the zero steps
+  constexpr int kSteps = (DP + 15) / 16;
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m_a = kMaskFill, m_b = kMaskFill, l_a = 0.f, l_b = 0.f;
 
   const uint32_t q_addr = sm90::smem_u32(q_s) + 64 * wg * sm90::kRowBytes;
@@ -194,7 +253,7 @@ __global__ void __launch_bounds__(FwdSm90<D>::kThreads, 1)
     float sc[BK / 2];
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < kSteps; ++kk) {
       const uint32_t col = (kk % 4) * 32;  // bytes into the panel's rows
       sm90::wgmma_ss<0>(
           sc, sm90::desc_k_major(q_addr + (kk / 4) * BQ * 128 + col),
@@ -247,7 +306,7 @@ __global__ void __launch_bounds__(FwdSm90<D>::kThreads, 1)
     l_a = l_a * al_a + ps_a;  // this lane's columns; quad-summed at the end
     l_b = l_b * al_b + ps_b;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DP / 8; ++j) {
       o[4 * j] *= al_a;
       o[4 * j + 1] *= al_a;
       o[4 * j + 2] *= al_b;
@@ -276,60 +335,73 @@ __global__ void __launch_bounds__(FwdSm90<D>::kThreads, 1)
   const float ls_a = fmaxf(sm90::quad_sum(l_a), 1e-30f);
   const float ls_b = fmaxf(sm90::quad_sum(l_b), 1e-30f);
   const size_t row0 = static_cast<size_t>(bh) * t_q;
+  // columns at or past d hold the zeros of V's padding: not stored
   if (row_a < t_q) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      sm90::store_bf16x2(out + (row0 + row_a) * D + 8 * j + c2,
-                         o[4 * j] / ls_a, o[4 * j + 1] / ls_a);
+    for (int j = 0; j < DP / 8; ++j)
+      sm90::store_pair<!kFill>(out + (row0 + row_a) * d, 8 * j + c2, d,
+                               o[4 * j] / ls_a, o[4 * j + 1] / ls_a);
     if (c2 == 0) lse[row0 + row_a] = m_a * sm90::kLn2 + logf(ls_a);
   }
   if (row_b < t_q) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      sm90::store_bf16x2(out + (row0 + row_b) * D + 8 * j + c2,
-                         o[4 * j + 2] / ls_b, o[4 * j + 3] / ls_b);
+    for (int j = 0; j < DP / 8; ++j)
+      sm90::store_pair<!kFill>(out + (row0 + row_b) * d, 8 * j + c2, d,
+                               o[4 * j + 2] / ls_b, o[4 * j + 3] / ls_b);
     if (c2 == 0) lse[row0 + row_b] = m_b * sm90::kLn2 + logf(ls_b);
   }
 }
 
-template <int D>
+template <int DP>
 cudaError_t launch_sm90(const void* q, const void* k, const void* v,
                         void* out, void* lse, int bh, int t_q, int t_k,
-                        int causal, float scale, cudaStream_t stream) {
-  using C = FwdSm90<D>;
-  CUtensorMap map_q, map_k, map_v;
-  cudaError_t e = sm90::make_tile_map(&map_q, q, bh, t_q, D, C::kBQ);
-  if (e == cudaSuccess)
-    e = sm90::make_tile_map(&map_k, k, bh, t_k, D, C::kBK);
-  if (e == cudaSuccess)
-    e = sm90::make_tile_map(&map_v, v, bh, t_k, D, C::kBK);
+                        int d, int causal, float scale, cudaStream_t stream) {
+  using C = FwdSm90<DP>;
+  CUtensorMap map_q{}, map_k{}, map_v{};
+  sm90::Fill fill = sm90::fill_of(q, k, v, nullptr, d * 2);
+  cudaError_t e = cudaSuccess;
+  if (!fill.width) {
+    e = sm90::make_tile_map(&map_q, q, bh, t_q, d, C::kBQ);
+    if (e == cudaSuccess)
+      e = sm90::make_tile_map(&map_k, k, bh, t_k, d, C::kBK);
+    if (e == cudaSuccess)
+      e = sm90::make_tile_map(&map_v, v, bh, t_k, d, C::kBK);
+  }
   if (e != cudaSuccess) return e;
-  static std::atomic<size_t> raised[kMaxDevices];
-  auto kernel = flash_fwd_sm90_kernel<D>;
-  e = allow_smem(kernel, C::kSmem, raised);
-  if (e != cudaSuccess) return e;
+  static std::atomic<size_t> raised[2][kMaxDevices];
   const dim3 grid(bh, (t_q + C::kBQ - 1) / C::kBQ);
-  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
-      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), t_q, t_k, causal, scale * sm90::kLog2e);
-  return cudaGetLastError();
+  auto go = [&](auto kernel, std::atomic<size_t>(&up)[kMaxDevices]) {
+    cudaError_t err = allow_smem(kernel, C::kSmem, up);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+        map_q, map_k, map_v, fill, static_cast<__nv_bfloat16*>(out),
+        static_cast<float*>(lse), t_q, t_k, d, causal, scale * sm90::kLog2e);
+    return cudaGetLastError();
+  };
+  return fill.width ? go(flash_fwd_sm90_kernel<DP, true>, raised[1])
+                    : go(flash_fwd_sm90_kernel<DP, false>, raised[0]);
 }
 
 // ----------------------------------- float32: tensor cores, three TF32 products
 
-template <int D>
+template <int DP>
 struct FwdTf32 {
-  static constexpr int kWG = D == 64 ? 2 : 1;        // consumer warpgroups
+  static constexpr int kWG = DP < 128 ? 2 : 1;       // consumer warpgroups
   static constexpr int kBQ = 64 * kWG;               // queries a block
   static constexpr int kBK = 32;                     // keys a tile
-  static constexpr bool kQRegs = D == 64;            // Q's halves in registers
-  static constexpr int kRaw = D == 64 ? 2 : 1;       // raw K/V stages
-  static constexpr int kConv = D == 64 ? 4 : 2;      // converted stages
-  static constexpr int kPanels = D / sm90::kPanelColsF32;
-  static constexpr int kTileBytes = kBK * D * 4;     // one f32 K or V tile
+  static constexpr bool kQRegs = DP == 64;           // Q's halves in registers
+  static constexpr int kRaw = DP == 64 ? 2 : 1;      // raw K/V stages
+  static constexpr int kConv = DP == 64 ? 4 : 2;     // converted stages
+  static constexpr int kPanels =
+      (DP + sm90::kPanelColsF32 - 1) / sm90::kPanelColsF32;
+  static constexpr int kRowPad = kPanels * sm90::kPanelColsF32;  // f32 a row
+  static constexpr int kTileBytes = kBK * kPanels * sm90::kRowBytes;  // K or V
+  static constexpr int kTrBytes = DP * kBK * 4;      // V^T_hi or V^T_lo
   static constexpr int kRawBytes = 2 * kTileBytes;   // K, V
-  static constexpr int kConvBytes = 4 * kTileBytes;  // K_hi, K_lo, V^T_hi, V^T_lo
-  static constexpr int kQBytes = kQRegs ? 0 : 2 * kBQ * D * 4;  // Q_hi, Q_lo
+  // K_hi, K_lo, V^T_hi, V^T_lo
+  static constexpr int kConvBytes = 2 * kTileBytes + 2 * kTrBytes;
+  static constexpr int kQHalf = kBQ * kPanels * sm90::kRowBytes;
+  static constexpr int kQBytes = kQRegs ? 0 : 2 * kQHalf;  // Q_hi, Q_lo
   static constexpr int kConverters = 96;             // producer warps 1-3
   static constexpr int kThreads = 128 * (1 + kWG);
   // registers a thread after `setmaxnreg` (two consumer warpgroups only;
@@ -343,35 +415,37 @@ struct FwdTf32 {
   static_assert(kSmem <= 227 * 1024, "the shared memory a block may use");
 };
 
-// One landed raw stage (K then V, each [BK rows][D] f32 in 128-byte
-// swizzled panels of 32 columns) into a converted stage: K_hi and K_lo in
-// the same layout, and V^T_hi, V^T_lo as [D rows][BK keys] in swizzled
-// panels of 32 keys, each 8-key group in the order 0 2 4 6 1 3 5 7.
-// Thread `ct` of the 96 converters; a warp takes 32 neighbouring columns
-// of V, so its reads and its transposed 16-byte writes are free of bank
-// conflicts.
-template <int D, int BK>
+// One landed raw stage (K then V, each [BK rows][DP] f32 in 128-byte
+// swizzled panels of 32 columns, zeros past d) into a converted stage:
+// K_hi and K_lo in the same layout, and V^T_hi, V^T_lo as [DP rows][BK
+// keys] in swizzled panels of 32 keys, each 8-key group in the order
+// 0 2 4 6 1 3 5 7.  Thread `ct` of the 96 converters; a warp takes 32
+// neighbouring columns of V, so its reads and its transposed 16-byte
+// writes are free of bank conflicts.
+template <int DP, int BK>
 __device__ __forceinline__ void convert_tile(const uint8_t* raw, uint8_t* conv,
                                              int ct) {
-  constexpr int T = BK * D * 4;
-  constexpr int kConverters = FwdTf32<D>::kConverters;
-  sm90::split_tile<T, kConverters>(raw, conv, conv + T, ct);
-  sm90::split_transposed<BK, D, kConverters>(raw + T, conv + 2 * T,
-                                             conv + 3 * T, ct);
+  using C = FwdTf32<DP>;
+  constexpr int T = C::kTileBytes, TR = C::kTrBytes;
+  sm90::split_tile<T, C::kConverters>(raw, conv, conv + T, ct);
+  sm90::split_transposed<BK, DP, C::kConverters>(raw + T, conv + 2 * T,
+                                                 conv + 2 * T + TR, ct);
 }
 
-template <int D>
-__global__ void __launch_bounds__(FwdTf32<D>::kThreads, 1)
+template <int DP, bool kFill>
+__global__ void __launch_bounds__(FwdTf32<DP>::kThreads, 1)
     flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
+                          const sm90::Fill fill,
                           const float* __restrict__ q,
                           float* __restrict__ out, float* __restrict__ lse,
-                          int t_q, int t_k, int causal, float scale_log2) {
-  using C = FwdTf32<D>;
+                          int t_q, int t_k, int d, int causal,
+                          float scale_log2) {
+  using C = FwdTf32<DP>;
   constexpr int BQ = C::kBQ, BK = C::kBK, R = C::kRaw, S = C::kConv;
-  constexpr int T = C::kTileBytes;
+  constexpr int T = C::kTileBytes, TR = C::kTrBytes, QH = C::kQHalf;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* q_s = sm90::align1024(smem_raw);     // Q_hi, Q_lo (head_dim 128)
+  uint8_t* q_s = sm90::align1024(smem_raw);     // Q_hi, Q_lo (DP above 64)
   uint8_t* raw_s = q_s + C::kQBytes;            // [R] raw K, V
   uint8_t* conv_s = raw_s + R * C::kRawBytes;   // [S] converted stages
   uint64_t* raw_full = reinterpret_cast<uint64_t*>(conv_s + S * C::kConvBytes);
@@ -388,7 +462,7 @@ __global__ void __launch_bounds__(FwdTf32<D>::kThreads, 1)
 
   if (threadIdx.x == 0) {
     for (int r = 0; r < R; ++r) {
-      sm90::mbar_init(&raw_full[r], 1);
+      sm90::mbar_init(&raw_full[r], kFill ? 32 : 1);
       sm90::mbar_init(&raw_empty[r], C::kConverters);
     }
     for (int s = 0; s < S; ++s) {
@@ -402,7 +476,24 @@ __global__ void __launch_bounds__(FwdTf32<D>::kThreads, 1)
   if (warp >= 4 * C::kWG) {  // producer warpgroup: one warp loads, three split
     if constexpr (C::kWG > 1) sm90::regs_release<C::kProducerRegs>();
     if (warp == 4 * C::kWG) {
-      if (lane == 0) {
+      if constexpr (kFill) {  // rows no map takes: the warp fills them
+        const int rb = d * 4;
+        const size_t kv_slab = static_cast<size_t>(bh) * t_k * rb;
+        sm90::by_copy_width(fill.width, [&](auto w) {
+          constexpr int W = decltype(w)::value;
+          for (int it = 0; it < n_kt; ++it) {
+            const int r = it % R;
+            if (it >= R) sm90::mbar_wait(&raw_empty[r], (it / R - 1) & 1);
+            const uint32_t at = sm90::smem_u32(raw_s) + r * C::kRawBytes;
+            sm90::fill_tile<W, BK, C::kPanels>(at, fill.src[1] + kv_slab,
+                                               it * BK, t_k, rb, lane, 32);
+            sm90::fill_tile<W, BK, C::kPanels>(at + T, fill.src[2] + kv_slab,
+                                               it * BK, t_k, rb, lane, 32);
+            sm90::fill_commit();
+            sm90::mbar_arrive(&raw_full[r]);
+          }
+        });
+      } else if (lane == 0) {  // TMA
         for (int it = 0; it < n_kt; ++it) {
           const int r = it % R;
           if (it >= R) sm90::mbar_wait(&raw_empty[r], (it / R - 1) & 1);
@@ -421,7 +512,7 @@ __global__ void __launch_bounds__(FwdTf32<D>::kThreads, 1)
       const int r = it % R, s = it % S;
       sm90::mbar_wait(&raw_full[r], (it / R) & 1);
       if (it >= S) sm90::mbar_wait(&conv_empty[s], (it / S - 1) & 1);
-      convert_tile<D, BK>(raw_s + r * C::kRawBytes,
+      convert_tile<DP, BK>(raw_s + r * C::kRawBytes,
                           conv_s + s * C::kConvBytes, ct);
       sm90::fence_proxy_async();  // the stores, before the consumers' wgmma
       sm90::mbar_arrive(&raw_empty[r]);
@@ -436,51 +527,62 @@ __global__ void __launch_bounds__(FwdTf32<D>::kThreads, 1)
   const int row_a = q0 + 64 * wg + 16 * (warp % 4) + lane / 4;
   const int row_b = row_a + 8;
   const int c = lane % 4, c2 = 2 * c;
-  const float* qb = q + static_cast<size_t>(bh) * t_q * D;
+  const float* qb = q + static_cast<size_t>(bh) * t_q * d;
 
   // Q's halves: A fragments (columns 8 kk + c and + 4 of rows a and b),
-  // or this warpgroup's 64 rows in shared memory, swizzled K-major
-  uint32_t q_hi[C::kQRegs ? D / 8 : 1][4], q_lo[C::kQRegs ? D / 8 : 1][4];
+  // or this warpgroup's 64 rows in shared memory, swizzled K-major;
+  // columns past d as zeros (a k8 step may straddle d: d % 8 == 4)
+  uint32_t q_hi[C::kQRegs ? DP / 8 : 1][4], q_lo[C::kQRegs ? DP / 8 : 1][4];
   const uint32_t q_addr = sm90::smem_u32(q_s) + 64 * wg * sm90::kRowBytes;
   if constexpr (C::kQRegs) {
 #pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk)
+    for (int kk = 0; kk < DP / 8; ++kk)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int row = i % 2 ? row_b : row_a;
         const int col = 8 * kk + c + 4 * (i / 2);
-        const float x = row < t_q ? qb[static_cast<size_t>(row) * D + col]
-                                  : 0.f;
+        const float x = row < t_q && col < d
+                            ? qb[static_cast<size_t>(row) * d + col]
+                            : 0.f;
         sm90::split_tf32(x, q_hi[kk][i], q_lo[kk][i]);
       }
   } else {
-    for (int i = threadIdx.x % 128; i < 64 * D / 4; i += 128) {
-      const int r = 64 * wg + i / (D / 4), col = 4 * (i % (D / 4));
+    constexpr int kVecs = C::kRowPad / 4;  // float4s a padded row
+    for (int i = threadIdx.x % 128; i < 64 * kVecs; i += 128) {
+      const int r = 64 * wg + i / kVecs, col = 4 * (i % kVecs);
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (q0 + r < t_q)
-        x = *reinterpret_cast<const float4*>(
-            qb + static_cast<size_t>(q0 + r) * D + col);
+      if (q0 + r < t_q && col < d) {
+        const float* src = qb + static_cast<size_t>(q0 + r) * d + col;
+        if (!kFill) {  // 16-byte rows (the launch checks the base)
+          x = *reinterpret_cast<const float4*>(src);
+        } else {
+          x.x = src[0];
+          if (col + 1 < d) x.y = src[1];
+          if (col + 2 < d) x.z = src[2];
+          if (col + 3 < d) x.w = src[3];
+        }
+      }
       const int off = (col / 32) * BQ * 128 + r * 128 +
                       ((((col % 32) / 4) ^ (r % 8)) * 16);
       uint4 hi, lo;
       sm90::split_tf32(x, hi, lo);
       *reinterpret_cast<uint4*>(q_s + off) = hi;
-      *reinterpret_cast<uint4*>(q_s + BQ * D * 4 + off) = lo;
+      *reinterpret_cast<uint4*>(q_s + QH + off) = lo;
     }
     sm90::fence_proxy_async();
     sm90::named_sync(1 + wg, 128);
   }
 
-  float o[D / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m_a = kMaskFill, m_b = kMaskFill, l_a = 0.f, l_b = 0.f;
 
   for (int it = 0; it < n_kt; ++it) {
     const int s = it % S;
     const int k0 = it * BK;
     const uint32_t k_hi = sm90::smem_u32(conv_s + s * C::kConvBytes);
-    const uint32_t k_lo = k_hi + T, v_hi = k_hi + 2 * T, v_lo = k_hi + 3 * T;
+    const uint32_t k_lo = k_hi + T, v_hi = k_hi + 2 * T, v_lo = v_hi + TR;
     sm90::mbar_wait(&conv_full[s], (it / S) & 1);
     if (causal && k0 > q0 + 64 * wg + 63) {  // wholly above this warpgroup
       __syncwarp();
@@ -492,19 +594,21 @@ __global__ void __launch_bounds__(FwdTf32<D>::kThreads, 1)
     float sc[BK / 2];
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
+    for (int kk = 0; kk < DP / 8; ++kk) {
       const uint32_t kc = (kk / 4) * BK * 128 + (kk % 4) * 32;
       if constexpr (C::kQRegs) {
         const uint64_t dk_hi = sm90::desc_k_major(k_hi + kc);
         sm90::wgmma_tf32_rs(sc, q_hi[kk], dk_hi, kk > 0);
-        sm90::wgmma_tf32_rs(sc, q_hi[kk], sm90::desc_k_major(k_lo + kc), 1);
+        sm90::wgmma_tf32_rs(sc, q_hi[kk], sm90::desc_k_major(k_lo + kc),
+                            1);
         sm90::wgmma_tf32_rs(sc, q_lo[kk], dk_hi, 1);
       } else {
         const uint32_t qc = q_addr + (kk / 4) * BQ * 128 + (kk % 4) * 32;
         const uint64_t dq_hi = sm90::desc_k_major(qc);
-        sm90::wgmma_tf32_ss(sc, dq_hi, sm90::desc_k_major(k_hi + kc), kk > 0);
+        sm90::wgmma_tf32_ss(sc, dq_hi, sm90::desc_k_major(k_hi + kc),
+                            kk > 0);
         sm90::wgmma_tf32_ss(sc, dq_hi, sm90::desc_k_major(k_lo + kc), 1);
-        sm90::wgmma_tf32_ss(sc, sm90::desc_k_major(qc + BQ * D * 4),
+        sm90::wgmma_tf32_ss(sc, sm90::desc_k_major(qc + QH),
                             sm90::desc_k_major(k_hi + kc), 1);
       }
     }
@@ -559,7 +663,7 @@ __global__ void __launch_bounds__(FwdTf32<D>::kThreads, 1)
     l_a = l_a * al_a + ps_a;  // this lane's columns; quad-summed at the end
     l_b = l_b * al_b + ps_b;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DP / 8; ++j) {
       o[4 * j] *= al_a;
       o[4 * j + 1] *= al_a;
       o[4 * j + 2] *= al_b;
@@ -574,7 +678,7 @@ __global__ void __launch_bounds__(FwdTf32<D>::kThreads, 1)
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 8; ++kk) {
-      const uint32_t vc = (kk / 4) * D * 128 + (kk % 4) * 32;
+      const uint32_t vc = (kk / 4) * DP * 128 + (kk % 4) * 32;
       const uint64_t dv_hi = sm90::desc_k_major(v_hi + vc);
       sm90::wgmma_tf32_rs(o, p_hi[kk], dv_hi, 1);
       sm90::wgmma_tf32_rs(o, p_hi[kk], sm90::desc_k_major(v_lo + vc), 1);
@@ -592,45 +696,54 @@ __global__ void __launch_bounds__(FwdTf32<D>::kThreads, 1)
   const float ls_a = fmaxf(sm90::quad_sum(l_a), 1e-30f);
   const float ls_b = fmaxf(sm90::quad_sum(l_b), 1e-30f);
   const size_t row0 = static_cast<size_t>(bh) * t_q;
+  // columns at or past d are V's padding: not stored
   if (row_a < t_q) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(out + (row0 + row_a) * D + 8 * j + c2) =
-          make_float2(o[4 * j] / ls_a, o[4 * j + 1] / ls_a);
+    for (int j = 0; j < DP / 8; ++j)
+      sm90::store_pair<!kFill>(out + (row0 + row_a) * d, 8 * j + c2, d,
+                               o[4 * j] / ls_a, o[4 * j + 1] / ls_a);
     if (c == 0) lse[row0 + row_a] = m_a * sm90::kLn2 + logf(ls_a);
   }
   if (row_b < t_q) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(out + (row0 + row_b) * D + 8 * j + c2) =
-          make_float2(o[4 * j + 2] / ls_b, o[4 * j + 3] / ls_b);
+    for (int j = 0; j < DP / 8; ++j)
+      sm90::store_pair<!kFill>(out + (row0 + row_b) * d, 8 * j + c2, d,
+                               o[4 * j + 2] / ls_b, o[4 * j + 3] / ls_b);
     if (c == 0) lse[row0 + row_b] = m_b * sm90::kLn2 + logf(ls_b);
   }
 }
 
-template <int D>
+template <int DP>
 cudaError_t launch_tf32(const void* q, const void* k, const void* v,
                         void* out, void* lse, int bh, int t_q, int t_k,
-                        int causal, float scale, cudaStream_t stream) {
-  using C = FwdTf32<D>;
-  if (reinterpret_cast<uintptr_t>(q) % 16) return cudaErrorInvalidValue;
-  CUtensorMap map_k, map_v;
-  cudaError_t e = sm90::make_tile_map(&map_k, k, bh, t_k, D, C::kBK, 4);
-  if (e == cudaSuccess)
-    e = sm90::make_tile_map(&map_v, v, bh, t_k, D, C::kBK, 4);
+                        int d, int causal, float scale, cudaStream_t stream) {
+  using C = FwdTf32<DP>;
+  CUtensorMap map_k{}, map_v{};
+  sm90::Fill fill = sm90::fill_of(q, k, v, nullptr, d * 4);
+  cudaError_t e = cudaSuccess;
+  if (!fill.width) {
+    if (reinterpret_cast<uintptr_t>(q) % 16) return cudaErrorInvalidValue;
+    e = sm90::make_tile_map(&map_k, k, bh, t_k, d, C::kBK, 4);
+    if (e == cudaSuccess)
+      e = sm90::make_tile_map(&map_v, v, bh, t_k, d, C::kBK, 4);
+  }
   if (e != cudaSuccess) return e;
-  static std::atomic<size_t> raised[kMaxDevices];
-  auto kernel = flash_fwd_tf32_kernel<D>;
-  e = allow_smem(kernel, C::kSmem, raised);
-  if (e != cudaSuccess) return e;
+  static std::atomic<size_t> raised[2][kMaxDevices];
   const dim3 grid(bh, (t_q + C::kBQ - 1) / C::kBQ);
-  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
-      map_k, map_v, static_cast<const float*>(q), static_cast<float*>(out),
-      static_cast<float*>(lse), t_q, t_k, causal, scale * sm90::kLog2e);
-  return cudaGetLastError();
+  auto go = [&](auto kernel, std::atomic<size_t>(&up)[kMaxDevices]) {
+    cudaError_t err = allow_smem(kernel, C::kSmem, up);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+        map_k, map_v, fill, static_cast<const float*>(q),
+        static_cast<float*>(out), static_cast<float*>(lse), t_q, t_k, d,
+        causal, scale * sm90::kLog2e);
+    return cudaGetLastError();
+  };
+  return fill.width ? go(flash_fwd_tf32_kernel<DP, true>, raised[1])
+                    : go(flash_fwd_tf32_kernel<DP, false>, raised[0]);
 }
 
-// ------------------------------------ every other head_dim: SIMT (B1)
+// ------------- head_dims the tensor-core routes do not take: SIMT (B1)
 
 template <typename T, int DP>
 cudaError_t launch_simt(const void* q, const void* k, const void* v,
@@ -654,12 +767,13 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace flash_train
 
-// dtype: 0 float32, 1 bfloat16.  head_dim 64 and 128 take the tensor
-// cores (bfloat16 directly, float32 as three TF32 products); every other
-// head_dim from 1 to 256 the SIMT kernel (flash_attn_simt.cuh).  q
-// [bh, t_q, head_dim], k/v [bh, t_k, head_dim], out like q, lse f32
-// [bh, t_q]; all contiguous on the current device, 16-byte aligned on
-// the tensor-core routes.  Returns cudaGetLastError() after the launch
+// dtype: 0 float32, 1 bfloat16.  Every head_dim up to 128 (bfloat16:
+// up to 256) takes the tensor cores at its padded width
+// (`tensor_core_width`: bfloat16 directly, float32 as three TF32
+// products); float32 above 128 the SIMT kernel (flash_attn_simt.cuh).
+// q [bh, t_q, head_dim], k/v [bh, t_k, head_dim], out like q, lse f32
+// [bh, t_q]; all contiguous on the current device, 16-byte aligned where
+// a TMA map takes the rows.  Returns cudaGetLastError() after the launch
 // (or the error of the tensor maps' encoding).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* out, void* lse, int bh, int t_q, int t_k,
@@ -668,19 +782,20 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   if (bh == 0 || t_q == 0) return cudaSuccess;
   if (t_k < 1 || (t_q + 31) / 32 > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!flash_train::tensor_core_dim(head_dim))
+  const int width = flash_train::tensor_core_width(head_dim, dtype);
+  if (width == 0)
     return flash_train::simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
       return flash_train::launch_simt<decltype(t), decltype(d)::value>(
           q, k, v, out, lse, bh, t_q, t_k, head_dim, causal, scale, s);
     });
-  return flash_train::dispatch(dtype, head_dim, [&](auto t, auto d) {
-    constexpr int D = decltype(d)::value;
+  return flash_train::dispatch_width(dtype, width, [&](auto t, auto w) {
+    constexpr int DP = decltype(w)::value;
     if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
-      return flash_train::launch_sm90<D>(q, k, v, out, lse, bh, t_q, t_k,
-                                         causal, scale, s);
+      return flash_train::launch_sm90<DP>(q, k, v, out, lse, bh, t_q, t_k,
+                                          head_dim, causal, scale, s);
     else
-      return flash_train::launch_tf32<D>(q, k, v, out, lse, bh, t_q, t_k,
-                                         causal, scale, s);
+      return flash_train::launch_tf32<DP>(q, k, v, out, lse, bh, t_q, t_k,
+                                          head_dim, causal, scale, s);
   });
 }
 
@@ -691,21 +806,22 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
 extern "C" int flash_attn_fwd_smem(int head_dim, int dtype,
                                    int* static_bytes, int* dynamic_bytes) {
   using namespace flash_train;
-  if (!tensor_core_dim(head_dim))
+  const int width = tensor_core_width(head_dim, dtype);
+  if (width == 0)
     return simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
       constexpr int DP = decltype(d)::value;
       return report_smem(simt::flash_fwd_simt_kernel<decltype(t), DP>,
                          simt::Cfg<DP>::kSmemFwd, static_bytes,
                          dynamic_bytes);
     });
-  return dispatch(dtype, head_dim, [&](auto t, auto d) {
-    constexpr int D = decltype(d)::value;
+  return dispatch_width(dtype, width, [&](auto t, auto w) {
+    constexpr int DP = decltype(w)::value;
     if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
-      return report_smem(flash_fwd_sm90_kernel<D>, FwdSm90<D>::kSmem,
-                         static_bytes, dynamic_bytes);
+      return report_smem(flash_fwd_sm90_kernel<DP, false>,
+                         FwdSm90<DP>::kSmem, static_bytes, dynamic_bytes);
     else
-      return report_smem(flash_fwd_tf32_kernel<D>, FwdTf32<D>::kSmem,
-                         static_bytes, dynamic_bytes);
+      return report_smem(flash_fwd_tf32_kernel<DP, false>,
+                         FwdTf32<DP>::kSmem, static_bytes, dynamic_bytes);
   });
 }
 

@@ -1,14 +1,17 @@
 // B1 (forward), B2 (dQ) and B3 (dK, dV) at every head_dim from 1 to 256
-// that the tensor-core routes do not take (they take 64 and 128), for
-// Hopper (sm_90a): `flash_fwd_simt_kernel`, `flash_bwd_dq_simt_kernel`,
-// `flash_bwd_dkv_simt_kernel`.
+// that the tensor-core routes do not take, for Hopper (sm_90a):
+// `flash_fwd_simt_kernel`, `flash_bwd_dq_simt_kernel`,
+// `flash_bwd_dkv_simt_kernel`.  The tensor-core routes
+// (flash_attn_common.cuh) take B2 at 64 and 128, and B1 and B3 at every
+// head_dim up to 128 (bfloat16: up to 256) at a padded width; so these
+// kernels run B2 at every other head_dim, and B1 and B3 in float32 above
+// 128, where the TF32 kernels' tiles of hi/lo halves do not fit a
+// block's shared memory.
 //
 // Replace the same TPU kernels as the tensor-core routes
 // (easydist_tpu/ops/flash_attention.py:78, :164, :197) over the rest of
 // their domain: the TPU kernels block over the sequence and keep the
-// head_dim whole, so they take any width.  The tensor-core routes cannot
-// as they stand: a TMA tensor map needs a row stride that is a multiple
-// of 16 bytes, and `wgmma` takes K in steps of 16 (bf16) or 8 (TF32).
+// head_dim whole, so they take any width.
 // These kernels compute the same functions as the tensor-core routes
 // (flash_attn_fwd.cu, flash_attn_bwd.cu), in f32 FMAs on the CUDA cores:
 // the -1e30 causal fill, the 1e-30 denominator clamp, lse = m + log(l),
@@ -23,8 +26,8 @@
 // products), 0.022 ms at the tensor cores' 989 TFLOP/s against 0.013 ms
 // of bytes at 3.35 TB/s.  These kernels run on the CUDA cores (67
 // TFLOP/s of f32 at best), which is what a first design that is right
-// gives up; the tensor cores at these widths (K padded to 16 with zeros)
-// are later work.
+// gives up.  At that shape B1 and B3 run on the tensor cores (the
+// padded width 80), B2 here.
 //
 // Design.  Rows q (B1, B2) or keys (B3) are shared by teams of
 // `DP / 8` lanes of one warp, each lane holding 8 of the row's dims
@@ -53,7 +56,7 @@
 //
 // Known limits: the team sums take log2(team) shuffles a score, every
 // product reads shared memory once a multiply-add, the padding to a
-// power of two wastes up to half the work (d 80 runs at DP 128), and a
+// power of two wastes up to half the work (B2 at d 80 runs at DP 128), and a
 // block at DP 256 holds only 8 rows a tile.  At [2, 32, 2048, 80]
 // (chip_smoke.py phase 3) they run slower than the plain version's
 // cuBLAS products.

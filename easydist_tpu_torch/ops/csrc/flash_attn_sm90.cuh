@@ -13,7 +13,10 @@
 // 128-byte swizzle (16-byte chunk c of row r stored at chunk c ^ (r % 8)).
 // Panels start on 1024-byte boundaries, so 8-row groups are 1024 bytes
 // apart.  A 32-byte step of the contracted index is 16 bf16 or 8 tf32
-// values: one `k16` or `k8` product.
+// values: one `k16` or `k8` product.  A head_dim d that is no multiple
+// of a panel takes ceil(d / panel) panels: the map's extent is d, so the
+// box columns at or past d land as zeros, and zeros add nothing to a
+// product (the kernels' padded width DP, flash_attn_common.cuh).
 //   * A product that contracts over the 64 columns (S = Q.K^T: Q and K both
 //     contract over d) reads the tile "K-major": the descriptor starts at
 //     row r0 of the panel plus 32 bytes per 16-column step, stride 1024
@@ -43,6 +46,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace flash_train {
 namespace sm90 {
@@ -143,6 +147,98 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// ------------------------------------------- tiles of rows no map takes
+//
+// A row of d * itemsize bytes that is no multiple of 16 has no tensor
+// map (bf16 head_dim 100 is 200 bytes).  The producer then fills the same
+// swizzled panels itself: W-byte copies global -> shared (`cp.async` for
+// 8 and 4 bytes, a plain load and store for 2), W the widest that the row
+// length and every base align to (`copy_width`), zeros past t and past d,
+// then `fill_commit` and one arrival a thread on the stage's barrier
+// (init count: the filling threads) where TMA would complete the bytes.
+
+// the widest copy (8, 4 or 2 bytes) that `align` (row bytes | bases)
+// allows
+__host__ __device__ inline int copy_width(uintptr_t align) {
+  return align % 8 == 0 ? 8 : align % 4 == 0 ? 4 : 2;
+}
+
+// one W-byte unit global -> shared (a 32-bit shared address), or zeros
+template <int W>
+__device__ __forceinline__ void copy_unit(uint32_t dst, const uint8_t* src) {
+  if constexpr (W == 2) {
+    const uint16_t x = *reinterpret_cast<const uint16_t*>(src);
+    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(x) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+                 "l"(src), "n"(W)
+                 : "memory");
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void zero_unit(uint32_t dst) {
+  if constexpr (W == 8)
+    asm volatile("st.shared.v2.u32 [%0], {%1, %1};\n" ::"r"(dst), "r"(0)
+                 : "memory");
+  else if constexpr (W == 4)
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(dst), "r"(0) : "memory");
+  else
+    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst),
+                 "h"(static_cast<uint16_t>(0))
+                 : "memory");
+}
+
+// Rows row .. row + ROWS - 1 of a [t][row_bytes] slab at `src` into the
+// layout `tma_load_tile` gives at shared address `dst` (PANELS panels of
+// ROWS x 128 bytes, the 128-byte swizzle at 16-byte chunks), thread `tid`
+// of `n`.  Few live values and a loop kept rolled: it runs in the
+// producer's 40 registers.
+template <int W, int ROWS, int PANELS>
+__device__ __forceinline__ void fill_tile(uint32_t dst, const uint8_t* src,
+                                          int row, int t, int row_bytes,
+                                          int tid, int n) {
+  constexpr int kUnits = kRowBytes / W;  // W-byte units of a panel's row
+  const uint8_t* first = src + static_cast<size_t>(row) * row_bytes;
+  const int rows = t - row;  // rows of the slab left from `row`
+#pragma unroll 1
+  for (int i = tid; i < ROWS * PANELS * kUnits; i += n) {
+    const int r = i / (PANELS * kUnits), u = i % kUnits;
+    const int p = (i / kUnits) % PANELS;
+    const int col = p * kRowBytes + u * W;  // byte of the padded row
+    const uint32_t to = dst + (p * ROWS + r) * kRowBytes +
+                        ((((u * W) / 16) ^ (r % 8)) * 16) + (u * W) % 16;
+    if (r < rows && col < row_bytes)
+      copy_unit<W>(to, first + r * row_bytes + col);
+    else
+      zero_unit<W>(to);
+  }
+}
+
+// The kernels' argument for such rows: the [bh][t][d] tensors a producer
+// fills from, in the kernel's order, and the copy width (0: the tensor
+// maps load every tile)
+struct Fill {
+  const uint8_t* src[4];
+  int width;
+};
+
+// f(std::integral_constant<int, W>{}) for the copy width w (8, 4, 2)
+template <typename F>
+__device__ __forceinline__ void by_copy_width(int w, F&& f) {
+  if (w == 8) f(std::integral_constant<int, 8>{});
+  else if (w == 4) f(std::integral_constant<int, 4>{});
+  else f(std::integral_constant<int, 2>{});
+}
+
+// This thread's fills have landed and are ordered before the `wgmma`
+// reads (async proxy) that its barrier arrival hands them to.
+__device__ __forceinline__ void fill_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  fence_proxy_async();
+}
+
 // -------------------------------------------------------- matrix descriptors
 
 __device__ __forceinline__ uint64_t desc_encode(uint32_t addr,
@@ -209,6 +305,19 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 // D[64 x N] = A[64 x 16] . B[16 x N] (+ D when `accumulate`), A and B from
 // shared memory (descriptors); TransB 1 reads B MN-major.  d has N / 2
 // registers a thread.
+
+template <int TransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, %11;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TransB));
+}
 
 template <int TransB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
@@ -328,6 +437,109 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TransB));
 }
 
+// N = 80 and 96: the padded widths of the head_dims between 64 and 128
+// (flash_attn_common.cuh, `tensor_core_width`)
+
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[40],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TransB));
+}
+
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[48],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TransB));
+}
+
+// N = 256: B1's width above 128 (bfloat16)
+
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TransB));
+}
+
 // D[64 x N] (+)= A[64 x 8] . B[8 x N] in TF32, both operands K-major
 // (the only layout TF32 takes): A from shared memory or from registers (a
 // fragment of four tf32 values a thread), B from shared memory.
@@ -420,6 +632,54 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[40],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[48],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
@@ -596,6 +856,36 @@ __device__ __forceinline__ void store_bf16x2(__nv_bfloat16* p, float x0,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
 }
 
+// Columns col and col + 1 (col even) of an output row of d elements; the
+// padding's columns at or past d are not stored.  kMapped: rows a tensor
+// map takes (d a multiple of 8 in bf16, of 4 in f32), where a pair is
+// inside the row and aligned whenever col < d.  Else one pair store where
+// both lie inside and the pair is aligned, element by element otherwise
+// (an odd d puts every other row's pairs off their alignment, and d may
+// split a pair).
+template <bool kMapped>
+__device__ __forceinline__ void store_pair(__nv_bfloat16* row, int col,
+                                           int d, float x0, float x1) {
+  if (kMapped || (col + 1 < d &&
+                  reinterpret_cast<uintptr_t>(row + col) % 4 == 0)) {
+    if (col < d) store_bf16x2(row + col, x0, x1);
+  } else {
+    if (col < d) row[col] = __float2bfloat16_rn(x0);
+    if (col + 1 < d) row[col + 1] = __float2bfloat16_rn(x1);
+  }
+}
+template <bool kMapped>
+__device__ __forceinline__ void store_pair(float* row, int col, int d,
+                                           float x0, float x1) {
+  if (kMapped || (col + 1 < d &&
+                  reinterpret_cast<uintptr_t>(row + col) % 8 == 0)) {
+    if (col < d) *reinterpret_cast<float2*>(row + col) = make_float2(x0, x1);
+  } else {
+    if (col < d) row[col] = x0;
+    if (col + 1 < d) row[col + 1] = x1;
+  }
+}
+
 // ------------------------------------------------------------------- host
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -624,17 +914,36 @@ inline cudaError_t encode_tiled(EncodeTiled* out) {
   return cudaSuccess;
 }
 
+// The tiles' source where no tensor map takes the rows (`row_bytes` no
+// multiple of 16): the tensors (up to four, in the kernel's order) and
+// the widest copy their bases and the rows allow; width 0 (the maps load
+// the tiles) otherwise.
+inline Fill fill_of(const void* a, const void* b, const void* c,
+                    const void* e, int row_bytes) {
+  Fill fill{{static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b),
+             static_cast<const uint8_t*>(c), static_cast<const uint8_t*>(e)},
+            0};
+  if (row_bytes % 16) {
+    uintptr_t align = static_cast<uintptr_t>(row_bytes);
+    for (const uint8_t* p : fill.src) align |= reinterpret_cast<uintptr_t>(p);
+    fill.width = copy_width(align);
+  }
+  return fill;
+}
+
 // The map of a contiguous bf16 (elem_bytes 2) or f32 (4) [bh][t][d]
 // tensor, read in boxes of `rows` rows by 128 bytes (64 or 32 columns)
-// with the 128-byte swizzle; rows past t read as zeros.  The base must be
-// 16-byte aligned (d * elem_bytes and t * d * elem_bytes, the strides,
-// always are multiples of 16 for d 64 and 128).
+// with the 128-byte swizzle; rows past t and columns past d read as
+// zeros.  The base must be 16-byte aligned, and so must the strides
+// d * elem_bytes and t * d * elem_bytes: d a multiple of 8 in bf16, of 4
+// in f32 (`fill_of` sends no other rows here).
 inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int bh,
                                  int t, int d, int rows, int elem_bytes = 2) {
   EncodeTiled encode;
   const cudaError_t e = encode_tiled(&encode);
   if (e != cudaSuccess) return e;
-  if (reinterpret_cast<uintptr_t>(base) % 16) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(base) % 16 || (d * elem_bytes) % 16)
+    return cudaErrorInvalidValue;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(t),
                               static_cast<cuuint64_t>(bh)};

@@ -54,19 +54,67 @@ _NEG_INF = -1e30
 # block; a margin is left for the kernel's static arrays)
 _TILE_SMEM_LIMIT = 200 * 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Every kernel takes every head_dim from 1 to _MAX_HEAD_DIM.  64 and 128
-# run B1-B3 on the tensor cores and B4-B6 on the decode body's exact
-# width; every other head_dim runs B1-B3's SIMT kernels
-# (csrc/flash_attn_simt.cuh) and B4-B6's padded body
-# (csrc/decode_split.cuh, "Head dims").  Above the limit they raise.
+# Every kernel takes every head_dim from 1 to _MAX_HEAD_DIM; above it
+# they raise.  The routes (`_train_route`):
+#   * B1 (forward) and B3 (dK, dV) run on the tensor cores at every
+#     head_dim up to 128, and in bf16 up to 256, at the padded width of
+#     `_TC_WIDTHS` that holds it (csrc/flash_attn_common.cuh,
+#     `tensor_core_width`; rows a TMA map takes, d * itemsize a multiple
+#     of 16, through the maps, others through the producer's own copies),
+#     and on the SIMT kernels (csrc/flash_attn_simt.cuh) in f32 above 128;
+#   * B2 (dQ) on the tensor cores at `_TENSOR_CORE_DIMS`, on its SIMT
+#     kernel elsewhere;
+#   * B4-B6 on the decode body's exact width at `_TENSOR_CORE_DIMS`, on
+#     its padded body elsewhere (csrc/decode_split.cuh, "Head dims").
 _TENSOR_CORE_DIMS = (64, 128)
+_TC_WIDTHS = (64, 80, 96, 128, 256)  # 256: bf16 only
 _MAX_HEAD_DIM = 256
 
 
 def _check_head_dim(op: str, d: int) -> None:
     if not 1 <= d <= _MAX_HEAD_DIM:
-        raise ValueError(f"{op} takes head_dim 1..{_MAX_HEAD_DIM} (64 and "
-                         f"128 on the tensor cores), got {d}")
+        raise ValueError(f"{op} takes head_dim 1..{_MAX_HEAD_DIM}, got {d}")
+
+
+def _tc_width(d: int, dtype) -> Optional[int]:
+    """The padded width B1's and B3's tensor-core kernels run head_dim d
+    on in `dtype`, or None where their SIMT kernels take it (f32 above
+    128: the TF32 kernels' tiles of halves do not fit shared memory)."""
+    if d > (256 if dtype == torch.bfloat16 else 128):
+        return None
+    return next(w for w in _TC_WIDTHS if d <= w)
+
+
+def _tma_rows(d: int, dtype) -> bool:
+    """Whether a TMA map takes rows of d elements of `dtype` (d * itemsize
+    a multiple of 16): the tensor-core kernels load those through maps,
+    which need 16-byte aligned bases, and other rows through their own
+    copies, which take any base."""
+    return (d * dtype.itemsize) % 16 == 0
+
+
+def _train_route(kernel: str, d: int, dtype) -> tuple:
+    """(route, width) of B1 ("fwd"), B2 ("dq") or B3 ("dkv") at head_dim
+    d in `dtype`, as the CUDA entry points pick it: route "sm90" (bf16 on
+    the tensor cores), "tf32" (f32 as three TF32 products) or "simt",
+    width the kernel's template width (the padded width of the SIMT
+    kernels' rows: 32, 64, 128 or 256)."""
+    if kernel == "dq":
+        width = d if d in _TENSOR_CORE_DIMS else None
+    else:
+        width = _tc_width(d, dtype)
+    if width is None:
+        return "simt", _pow2_at_least(d, 32)
+    return ("tf32" if dtype == torch.float32 else "sm90"), width
+
+
+def train_kernel_symbol(kernel: str, d: int, dtype) -> str:
+    """The CUDA function B1 ("fwd"), B2 ("dq") or B3 ("dkv") launches at
+    head_dim d in `dtype` (its name in a profiler's trace)."""
+    route, _ = _train_route(kernel, d, dtype)
+    stem = {"fwd": "flash_fwd", "dq": "flash_bwd_dq",
+            "dkv": "flash_bwd_dkv"}[kernel]
+    return f"{stem}_{route}_kernel"
 
 
 def _pow2_at_least(d: int, floor: int) -> int:
@@ -207,10 +255,10 @@ def _train_lib(name: str):
     return lib
 
 
-def _check_train_inputs(op: str, q, k, v, *rows):
-    """Validate CUDA inputs of a training kernel; returns (b, h, t_q,
-    t_k, d) and the inputs made contiguous (q, k, v in one dtype; the
-    row tensors lse/delta f32 [b*h, t_q])."""
+def _check_train_inputs(op: str, kernel: str, q, k, v, *rows):
+    """Validate CUDA inputs of training kernel `kernel` ("fwd", "dq" or
+    "dkv"); returns (b, h, t_q, t_k, d) and the inputs made contiguous
+    (q, k, v in one dtype; the row tensors lse/delta f32 [b*h, t_q])."""
     if not all(x.is_cuda for x in (q, k, v, *rows)):
         raise RuntimeError(f"{op} runs its kernel on CUDA tensors and its "
                            f"plain version on CPU tensors; got "
@@ -229,16 +277,19 @@ def _check_train_inputs(op: str, q, k, v, *rows):
             raise ValueError(f"lse/delta must be float32 [{b * h}, {t_q}], "
                              f"got {x.dtype} {tuple(x.shape)}")
     out = [x.contiguous() for x in (q, k, v, *rows)]
-    _check_aligned(op, *out[:3])
+    _check_aligned(op, kernel, *out[:3])
     return (b, h, t_q, t_k, d), out
 
 
-def _check_aligned(op: str, *tensors) -> None:
-    """The tensor-core kernels (head_dim 64 and 128) read q, k, v and dO
-    through TMA tensor maps or with 16-byte loads, both of which need a
-    16-byte aligned base: raise on any other, rather than copy.  The SIMT
-    kernels read elements and take any base."""
-    if tensors[0].shape[-1] not in _TENSOR_CORE_DIMS:
+def _check_aligned(op: str, kernel: str, *tensors) -> None:
+    """The tensor-core kernels read rows a TMA map takes (`_tma_rows`)
+    through the maps or with 16-byte loads, both of which need a 16-byte
+    aligned base: raise on any other, rather than copy.  Other rows, and
+    the SIMT kernels, take any base."""
+    x0 = tensors[0]
+    d = x0.shape[-1]
+    if _train_route(kernel, d, x0.dtype)[0] == "simt" or \
+            not _tma_rows(d, x0.dtype):
         return
     for x in tensors:
         if x.data_ptr() % 16:
@@ -256,8 +307,8 @@ def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     if q.device.type == "cpu":
         return _flash_forward_xla(q, k, v, causal, scale)
-    (b, h, t_q, t_k, d), (q, k, v) = _check_train_inputs("flash_fwd", q, k,
-                                                         v)
+    (b, h, t_q, t_k, d), (q, k, v) = _check_train_inputs("flash_fwd", "fwd",
+                                                         q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b * h, t_q), dtype=torch.float32, device=q.device)
     lib = _train_lib("flash_attn_fwd")
@@ -284,9 +335,9 @@ def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return _flash_bwd_dq_xla(q, k, v, do, lse, delta, causal, scale)
     (b, h, t_q, t_k, d), (q, k, v, lse, delta) = _check_train_inputs(
-        "flash_bwd_dq", q, k, v, lse, delta)
+        "flash_bwd_dq", "dq", q, k, v, lse, delta)
     do = do.to(q.dtype).contiguous()
-    _check_aligned("flash_bwd_dq", do)
+    _check_aligned("flash_bwd_dq", "dq", do)
     dq = torch.empty_like(q)
     lib = _train_lib("flash_attn_bwd")
     err = lib.flash_attn_bwd_dq(
@@ -312,9 +363,9 @@ def _flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return _flash_bwd_dkv_xla(q, k, v, do, lse, delta, causal, scale)
     (b, h, t_q, t_k, d), (q, k, v, lse, delta) = _check_train_inputs(
-        "flash_bwd_dkv", q, k, v, lse, delta)
+        "flash_bwd_dkv", "dkv", q, k, v, lse, delta)
     do = do.to(q.dtype).contiguous()
-    _check_aligned("flash_bwd_dkv", do)
+    _check_aligned("flash_bwd_dkv", "dkv", do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _train_lib("flash_attn_bwd")
@@ -337,8 +388,9 @@ def flash_fwd(q, k, v, causal: bool = True, scale: Optional[float] = None):
     """B1: (out, lse) of causal or full attention; q [b, h, t_q, d], k/v
     [b, h, t_k, d] in float32 or bfloat16, d from 1 to 256.  CPU tensors
     run `_flash_forward_xla`; CUDA tensors launch `csrc/flash_attn_fwd.cu`
-    (at d 64 and 128 both dtypes on the tensor cores, float32 as three
-    TF32 products of hi/lo halves; every other d on the SIMT kernel).
+    (on the tensor cores at every d up to 128, float32 as three TF32
+    products of hi/lo halves; above 128 on the SIMT kernel:
+    `_train_route`).
     `flash_fwd.launches` counts kernel launches (never a trace)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -362,9 +414,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
                   scale: Optional[float] = None):
     """B3: (dK, dV) from the saved lse and delta.  CPU tensors run
     `_flash_bwd_dkv_xla`; CUDA tensors launch the dK/dV kernel of
-    `csrc/flash_attn_bwd.cu` (at d 64 and 128 both dtypes on the tensor
-    cores, float32 as three TF32 products of hi/lo halves for each of
-    S^T, dP^T, dV and dK; every other d on the SIMT kernel)."""
+    `csrc/flash_attn_bwd.cu` (on the tensor cores at every d up to 128,
+    as B1, float32 as three TF32 products of hi/lo halves for each of
+    S^T, dP^T, dV and dK; above 128 on the SIMT kernel: `_train_route`)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _flash_bwd_dkv_op(q, k, v, do, lse, delta, bool(causal),
@@ -431,36 +483,46 @@ def flash_attention(q, k, v, causal: bool = True,
 # card holds this table equal to what each launch asks for
 # (`_launch_smem_bytes`).
 _SIMT_TILE = 32
+_SMEM_LIMIT = 227 * 1024
 
 
-def _tensor_core_smem(kernel: str, d: int, f32: bool) -> int:
+def _tensor_core_smem(kernel: str, w: int, f32: bool) -> int:
+    """At template width w: tiles hold ceil(w / panel) panels of 128-byte
+    rows (64 bf16 or 32 f32 columns), zeros past the head_dim."""
+    row = 128 * -(-w // (32 if f32 else 64))  # bytes a padded row
     if kernel == "fwd" and not f32:
-        bq, bk, st = 128, 128 if d == 64 else 64, 2
-        return 1024 + bq * d * 2 + 2 * st * bk * d * 2 + 8 * (1 + 2 * st)
+        bq, st = 128, 2
+        bk = 128 if w <= 64 else 64 if w <= 128 else 32
+        return 1024 + bq * row + 2 * st * bk * row + 8 * (1 + 2 * st)
     if kernel == "fwd":
-        wg, bk = (2 if d == 64 else 1), 32
-        raw, conv = (2, 4) if d == 64 else (1, 2)
-        tile = bk * d * 4
-        q_bytes = 0 if d == 64 else 2 * 64 * wg * d * 4
-        return (1024 + q_bytes + raw * 2 * tile + conv * 4 * tile
+        wg, bk = (2 if w < 128 else 1), 32
+        raw, conv = (2, 4) if w == 64 else (1, 2)
+        tile, tr = bk * row, w * bk * 4
+        q_bytes = 0 if w == 64 else 2 * 64 * wg * row
+        return (1024 + q_bytes + raw * 2 * tile + conv * (2 * tile + 2 * tr)
                 + 16 * (raw + conv))
     if kernel == "dq" and not f32:
         bq, bk, st = 128, 64, 2
-        return (1024 + 2 * bq * d * 2 + 2 * st * bk * d * 2
+        return (1024 + 2 * bq * w * 2 + 2 * st * bk * w * 2
                 + 8 * (1 + 2 * st))
     if kernel == "dq":
-        wg, bk, st = (2, 32, 3) if d == 64 else (1, 32, 1)
-        half = 64 * wg * d * 4
-        res = (2 if d == 64 else 4) * half
-        return 1024 + res + st * 6 * bk * d * 4 + 24 * st
-    if not f32:  # dkv
-        bk, bq, st = 128, 64 if d == 64 else 32, 2
-        return (1024 + 2 * bk * d * 2 + st * (2 * bq * d * 2 + 2 * bq * 4)
+        wg, bk, st = (2, 32, 3) if w == 64 else (1, 32, 1)
+        half = 64 * wg * w * 4
+        res = (2 if w == 64 else 4) * half
+        return 1024 + res + st * 6 * bk * w * 4 + 24 * st
+    if not f32:  # dkv; above 128 the warpgroups split the columns
+        bk, st = (128 if w <= 128 else 64), 2
+        bq = 64 if w == 64 else 32 if w <= 128 else 16
+        return (1024 + 2 * bk * row + st * (2 * bq * row + 2 * bq * 4)
                 + 8 * (1 + 2 * st))
-    bk, bq, st = 64, (32 if d == 64 else 16), (2 if d == 64 else 1)
-    stage = 4 * bq * d * 4 + 4 * d * 128
-    return (1024 + 4 * bk * d * 4 + st * (stage + 2 * bq * 4)
-            + 8 * (2 + 3 * st))
+    bk, bq = 64, (16 if w in (80, 128) else 32)
+    stage = 4 * bq * row + 4 * w * 128
+
+    def smem(st):
+        return (1024 + 4 * bk * row + st * (stage + 2 * bq * 4)
+                + 8 * (2 + 3 * st))
+
+    return smem(2) if smem(2) <= _SMEM_LIMIT else smem(1)
 
 
 def _simt_smem(kernel: str, d: int) -> int:
@@ -473,9 +535,10 @@ def _route_smem(kernel: str, d: int, dtype) -> int:
     """Dynamic shared memory of one launch of B1 ("fwd"), B2 ("dq") or B3
     ("dkv") at head_dim d on the route the dispatch picks (the kernels
     keep no static shared memory)."""
-    if d in _TENSOR_CORE_DIMS:
-        return _tensor_core_smem(kernel, d, dtype == torch.float32)
-    return _simt_smem(kernel, d)
+    route, width = _train_route(kernel, d, dtype)
+    if route == "simt":
+        return _simt_smem(kernel, d)
+    return _tensor_core_smem(kernel, width, route == "tf32")
 
 
 def estimate_smem_bytes(t_q: int, t_k: int, d: int, dtype) -> int:

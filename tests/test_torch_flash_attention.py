@@ -689,19 +689,22 @@ class TestKernelsOnCard:
             tfa.flash_fwd(q.to(cuda_device), k, v.to(cuda_device))
 
 
-# head_dims beyond the tensor-core routes' 64 and 128 (the SIMT kernels):
-# the tiny configs and the JAX tests (8, 16), Cerebras-GPT-2.7B (80),
-# OpenLLaMA-3B (100), GPT-J and Gemma (256), and the padded widths' edges
-SWEEP_DIMS = (1, 8, 16, 32, 33, 80, 96, 100, 129, 256)
+# head_dims beyond 64 and 128: the tiny configs and the JAX tests (8, 16),
+# Cerebras-GPT-2.7B (80), OpenLLaMA-3B (100), GPT-J and Gemma (256), the
+# SIMT kernels' padded widths' edges (1, 32, 33, 129), and B1's and B3's
+# tensor-core widths (`tfa._tc_width`) at their edges: 40 (half of the
+# last k16 step is zeros), 72 and 112 (inside the widths 80 and 128), 96
+SWEEP_DIMS = (1, 8, 16, 32, 33, 40, 72, 80, 96, 100, 112, 129, 256)
 
 
 @pytest.mark.cuda
 class TestAllHeadDimsOnCard:
-    """B1-B3 at every head_dim the SIMT kernels take against their plain
-    versions, at the bars of TestKernelsOnCard: causal (with an lse
+    """B1-B3 at head_dims beyond 64 and 128 (the SIMT kernels, and B1's
+    and B3's tensor-core kernels at their padded widths) against their
+    plain versions, at the bars of TestKernelsOnCard: causal (with an lse
     cotangent), full, fewer queries than keys and a ragged length; any
-    base alignment; the limit at 256; the shared memory each launch takes
-    against `estimate_smem_bytes`' table."""
+    base alignment on the SIMT route; the limit at 256; the shared memory
+    each launch takes against `estimate_smem_bytes`' table."""
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("causal,t_q,t_k", [
@@ -746,7 +749,7 @@ class TestAllHeadDimsOnCard:
         close(dk, r_dk, **BWD)
         close(dv, r_dv, **BWD)
 
-    @pytest.mark.parametrize("d", [80, 100])
+    @pytest.mark.parametrize("d", [80, 96, 100])
     def test_two_launches_are_bitwise_equal(self, cuda_device, d):
         rs = np.random.RandomState(2)
         q, k, v, do = (torch.as_tensor(rs.standard_normal((2, 4, 300, d)),
@@ -765,17 +768,69 @@ class TestAllHeadDimsOnCard:
             assert torch.equal(a, b)
 
     def test_any_alignment_on_the_simt_route(self, cuda_device):
-        # the SIMT kernels read elements: a base 2 bytes past a 16-byte
-        # boundary runs (the tensor-core routes raise, test above)
-        q, k, v = (torch.randn(2, 4, 64, 80, device=cuda_device,
-                               dtype=torch.bfloat16) for _ in range(3))
-        shifted = torch.randn(2 * 4 * 64 * 80 + 1, device=cuda_device,
-                              dtype=torch.bfloat16)[1:].view(q.shape)
+        # the SIMT kernels read elements: a base 4 bytes past a 16-byte
+        # boundary runs (the tensor-core routes raise, test above); B1
+        # runs on SIMT in f32 above head_dim 128
+        q, k, v = (torch.randn(2, 4, 64, 200, device=cuda_device)
+                   for _ in range(3))
+        shifted = torch.randn(2 * 4 * 64 * 200 + 1,
+                              device=cuda_device)[1:].view(q.shape)
         out, _ = tfa.flash_fwd(shifted, k, v)
         ref, _ = tfa._flash_forward_xla(shifted.float(), k.float(),
-                                        v.float(), True, 1 / math.sqrt(80))
+                                        v.float(), True, 1 / math.sqrt(200))
         assert bool(((out.float() - ref).abs()
-                     <= 1e-5 + (1e-4 + BF16_ULP) * ref.abs()).all())
+                     <= 1e-5 + 1e-4 * ref.abs()).all())
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("d", [40, 80])
+    def test_unaligned_input_raises_at_the_padded_widths(self, cuda_device,
+                                                          dtype, d):
+        # B1 and B3 read these widths through TMA maps (B2 through its
+        # SIMT kernel, which takes any base)
+        q, k, v = (torch.randn(2, 4, 64, d, device=cuda_device, dtype=dtype)
+                   for _ in range(3))
+        shifted = torch.randn(2 * 4 * 64 * d + 1, device=cuda_device,
+                              dtype=dtype)[1:].view(q.shape)
+        lse = torch.zeros(8, 64, device=cuda_device)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tfa.flash_fwd(shifted, k, v)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tfa.flash_bwd_dkv(q, k, v, shifted, lse, lse)
+        tfa.flash_bwd_dq(q, k, v, shifted, lse, lse)
+
+    @pytest.mark.parametrize("d,dtype", [
+        (33, torch.float32), (66, torch.float32), (33, torch.bfloat16),
+        (100, torch.bfloat16)])
+    def test_any_alignment_on_rows_no_map_takes(self, cuda_device, d,
+                                                dtype):
+        # rows of d * itemsize bytes no multiple of 16: B1 and B3 fill
+        # their tiles with their own copies, at any base (here one
+        # element past a 16-byte boundary)
+        assert not tfa._tma_rows(d, dtype)
+        rs = np.random.RandomState(d)
+
+        def shifted():
+            n = 2 * 3 * 70 * d
+            x = torch.as_tensor(rs.standard_normal(n + 1),
+                                dtype=torch.float32, device=cuda_device)
+            return x.to(dtype)[1:].view(2, 3, 70, d)
+
+        q, k, v, do = (shifted() for _ in range(4))
+        qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+        scale = 1.0 / math.sqrt(d)
+        extra = BF16_ULP if dtype == torch.bfloat16 else 0.0
+        out, lse = tfa.flash_fwd(q, k, v, True, scale)
+        ref, ref_lse = tfa._flash_forward_xla(qf, kf, vf, True, scale)
+        delta = tfa._flash_delta(ref, dof)
+        dk, dv = tfa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, True, scale)
+        r_dk, r_dv = tfa._flash_bwd_dkv_xla(qf, kf, vf, dof, ref_lse, delta,
+                                            True, scale)
+        torch.cuda.synchronize()
+        for got, want, rtol, atol in ((out, ref, 1e-4, 1e-5),
+                                      (dk, r_dk, 2e-4, 2e-5),
+                                      (dv, r_dv, 2e-4, 2e-5)):
+            tol = atol + (rtol + extra) * want.abs()
+            assert bool(((got.float() - want).abs() <= tol).all())
 
     @pytest.mark.parametrize("d", [257, 512])
     def test_head_dim_above_256_raises(self, cuda_device, d):

@@ -205,6 +205,10 @@ class TestRouting:
     def test_open_breaker_excluded(self, sides):
         def run(s):
             router = s.fleet.FleetRouter([s.mk("d0"), s.mk("d1")])
+            # both breakers on a fixed clock: a drain that outlasts the
+            # cooldown would otherwise let d0 half-open mid-test
+            for rid in ("d0", "d1"):
+                router.replica(rid).breaker.clock = lambda: 0.0
             rep = router.replica("d0")
             for _ in range(rep.session.config.breaker_failure_threshold):
                 rep.breaker.record_failure()

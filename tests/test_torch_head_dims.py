@@ -41,8 +41,12 @@ BLOCKS = {8: 2, 16: 4, 80: 5, 100: 4}
 # (chip_smoke.py phase 3, `smem_phase`; NVIDIA H100 80GB HBM3)
 CARD_SMEM = {(torch.float32, 64): 214088, (torch.float32, 128): 230568,
              (torch.bfloat16, 64): 82984, (torch.bfloat16, 128): 132136,
-             (torch.float32, 80): 33024, (torch.bfloat16, 100): 33024,
-             (torch.float32, 256): 65792, (torch.bfloat16, 8): 8448}
+             (torch.float32, 80): 230720, (torch.bfloat16, 100): 99880,
+             (torch.float32, 256): 65792, (torch.bfloat16, 8): 82984,
+             (torch.bfloat16, 80): 99880, (torch.float32, 40): 198208,
+             (torch.bfloat16, 40): 82984, (torch.float32, 96): 222256,
+             (torch.bfloat16, 112): 99880, (torch.float32, 112): 230568,
+             (torch.bfloat16, 256): 132136, (torch.bfloat16, 129): 132136}
 
 
 @pytest.fixture(scope="module")
@@ -187,15 +191,94 @@ class TestSmemEstimate:
         dtype, d = key
         assert tfa.estimate_smem_bytes(1024, 1024, d, dtype) == CARD_SMEM[key]
 
-    def test_routes(self):
-        # the tensor-core routes at 64 and 128; the SIMT kernels' two f32
-        # tiles of 32 rows at the padded width elsewhere (B3 adds its lse
-        # and delta rows)
-        assert tfa._route_smem("fwd", 80, torch.float32) == 2 * 32 * 128 * 4
-        assert tfa._route_smem("dkv", 8, torch.bfloat16) == \
-            2 * 32 * 32 * 4 + 2 * 32 * 4
-        assert tfa._route_smem("fwd", 64, torch.bfloat16) == \
-            1024 + 128 * 64 * 2 + 2 * 2 * 128 * 64 * 2 + 8 * 5
+    @pytest.mark.parametrize("kernel,d,dtype,route,smem", [
+        # B1 bf16 at 64: Q, two stages of K and V tiles, five barriers
+        ("fwd", 64, torch.bfloat16, ("sm90", 64),
+         1024 + 128 * 64 * 2 + 2 * 2 * 128 * 64 * 2 + 8 * 5),
+        # Cerebras-GPT-2.7B's 80 in bf16: two 64-column panels a row
+        ("fwd", 80, torch.bfloat16, ("sm90", 80),
+         1024 + 128 * 256 + 2 * 2 * 64 * 256 + 8 * 5),
+        ("dkv", 80, torch.bfloat16, ("sm90", 80),
+         1024 + 2 * 128 * 256 + 2 * (2 * 32 * 256 + 2 * 32 * 4) + 8 * 5),
+        # in f32, three 32-column panels a row; V^T (and Q^T, dO^T) as 80
+        # rows of 32 slots; B1 with two consumer warpgroups (Q's halves
+        # for 128 queries), B3 keeps two stages at 80
+        ("fwd", 80, torch.float32, ("tf32", 80),
+         1024 + 2 * 128 * 384 + 2 * 32 * 384
+         + 2 * (2 * 32 * 384 + 2 * 80 * 128) + 16 * 3),
+        ("dkv", 80, torch.float32, ("tf32", 80),
+         1024 + 4 * 64 * 384 + 2 * (4 * 16 * 384 + 4 * 80 * 128 + 2 * 16 * 4)
+         + 8 * 8),
+        # 40 at the width 64: half of the last k16 step is zeros
+        ("fwd", 40, torch.bfloat16, ("sm90", 64),
+         1024 + 128 * 128 + 2 * 2 * 128 * 128 + 8 * 5),
+        ("dkv", 40, torch.float32, ("tf32", 64),
+         1024 + 4 * 64 * 256 + 2 * (4 * 32 * 256 + 4 * 64 * 128 + 2 * 32 * 4)
+         + 8 * 8),
+        # 96 in f32: one stage of B3 with 32-query tiles (two stages pass
+        # the card's 227 KB at either tile)
+        ("dkv", 96, torch.float32, ("tf32", 96),
+         1024 + 4 * 64 * 384 + 4 * 32 * 384 + 4 * 96 * 128 + 2 * 32 * 4
+         + 8 * 5),
+        # B2 keeps the tensor cores at 64 and 128 only: the SIMT kernel's
+        # two f32 tiles of 32 rows at the padded width
+        ("dq", 80, torch.bfloat16, ("simt", 128), 2 * 32 * 128 * 4),
+        # rows no TMA map takes (bf16 100 is 200 bytes, bf16 6 12): the
+        # producer fills the same tiles, so the same shared memory
+        ("fwd", 100, torch.bfloat16, ("sm90", 128),
+         1024 + 128 * 256 + 2 * 2 * 64 * 256 + 8 * 5),
+        ("dkv", 100, torch.float32, ("tf32", 128), 230568),
+        ("dkv", 8, torch.bfloat16, ("sm90", 64),
+         1024 + 2 * 128 * 128 + 2 * (2 * 64 * 128 + 2 * 64 * 4) + 8 * 5),
+        ("dkv", 6, torch.bfloat16, ("sm90", 64),
+         1024 + 2 * 128 * 128 + 2 * (2 * 64 * 128 + 2 * 64 * 4) + 8 * 5),
+        # above 128 in bf16: the width 256, B1 with 32-key tiles, B3's two
+        # warpgroups on 64 keys (a half of the columns each), 16-query
+        # tiles; in f32 SIMT, B3 with its lse and delta rows
+        ("fwd", 256, torch.bfloat16, ("sm90", 256),
+         1024 + 128 * 512 + 2 * 2 * 32 * 512 + 8 * 5),
+        ("dkv", 129, torch.bfloat16, ("sm90", 256),
+         1024 + 2 * 64 * 512 + 2 * (2 * 16 * 512 + 2 * 16 * 4) + 8 * 5),
+        ("dq", 256, torch.bfloat16, ("simt", 256), 2 * 32 * 256 * 4),
+        ("fwd", 256, torch.float32, ("simt", 256), 2 * 32 * 256 * 4),
+        ("dkv", 129, torch.float32, ("simt", 256),
+         2 * 32 * 256 * 4 + 2 * 32 * 4),
+    ])
+    def test_routes(self, kernel, d, dtype, route, smem):
+        # each kernel's route and width at (d, dtype), and the dynamic
+        # shared memory its launch passes there
+        assert tfa._train_route(kernel, d, dtype) == route
+        assert tfa._route_smem(kernel, d, dtype) == smem
+
+    @pytest.mark.parametrize("d,dtype,width,tma", [
+        (64, torch.bfloat16, 64, True), (128, torch.float32, 128, True),
+        (8, torch.bfloat16, 64, True), (4, torch.float32, 64, True),
+        (40, torch.bfloat16, 64, True), (72, torch.bfloat16, 80, True),
+        (68, torch.float32, 80, True), (80, torch.bfloat16, 80, True),
+        (80, torch.float32, 80, True), (88, torch.bfloat16, 96, True),
+        (96, torch.float32, 96, True), (112, torch.bfloat16, 128, True),
+        (124, torch.float32, 128, True),
+        # rows no TMA map takes: the producer's own copies
+        (100, torch.bfloat16, 128, False), (4, torch.bfloat16, 64, False),
+        (66, torch.float32, 80, False), (1, torch.float32, 64, False),
+        (127, torch.bfloat16, 128, False),
+        # above 128: bf16 at the width 256, f32 on the SIMT kernels
+        (136, torch.bfloat16, 256, True), (129, torch.bfloat16, 256, False),
+        (256, torch.bfloat16, 256, True), (256, torch.float32, None, True),
+        (129, torch.float32, None, False)])
+    def test_tensor_core_width(self, d, dtype, width, tma):
+        # csrc/flash_attn_common.cuh `tensor_core_width`: B1's and B3's
+        # padded width, the smallest of 64, 80, 96, 128 (256 in bf16) that
+        # holds d; rows of d * itemsize bytes a multiple of 16 go through
+        # TMA maps
+        assert tfa._tc_width(d, dtype) == width
+        assert tfa._tma_rows(d, dtype) == tma
+        sym = tfa.train_kernel_symbol("fwd", d, dtype)
+        route = "simt" if width is None else (
+            "tf32" if dtype == torch.float32 else "sm90")
+        assert sym == f"flash_fwd_{route}_kernel"
+        assert tfa.train_kernel_symbol("dkv", d, dtype) == \
+            f"flash_bwd_dkv_{route}_kernel"
 
     def test_rejects_other_dtypes_and_widths(self):
         with pytest.raises(TypeError):
