@@ -31,10 +31,10 @@ Phases, each raising on failure (exit code != 0, no result line):
      equal to each of B1-B3's launches (static + dynamic shared memory)
      at every head_dim 1..256 in both dtypes (`smem_phase`); B1-B6
      against their plain versions at head_dim 8, 16, 32, 40, 80, 96,
-     100, 112, 129 and 256 (`domain_phase`: B1 and B3 on the tensor cores
+     100, 112, 129 and 256 (`domain_phase`: B1-B3 on the tensor cores
      at their padded widths, through TMA maps or the producer's own
-     copies, up to 128 and in bf16 up to 256; the SIMT kernels for B2
-     and f32 above 128; the padded decode body; B4-B6 at their split boundaries with a length-0 row, B5 / B6
+     copies, up to 128 and in bf16 up to 256; the SIMT kernels for f32
+     above 128; the padded decode body; B4-B6 at their split boundaries with a length-0 row, B5 / B6
      with 8 query heads over 2 at 80 and 100, B6 at every n_blocks of
      `SWEEP_BLOCKS`); B1-B3 at [1, 12, 32768, 64], causal, bf16 and f32:
      out and dQ on the last 512 query rows, dK and dV against the plain
@@ -43,10 +43,12 @@ Phases, each raising on failure (exit code != 0, no result line):
      shapes, bf16 and f32, held against their plain versions at the bars
      above, then timed (`cerebras_kernel_times`: B4 over
      [8, 32, 2048, 80], B5 / B6 over pages [288, 32, 64, 80], B1-B3 at
-     [2, 32, 2048, 80] causal; SDPA beside each); B1-B3 at
+     [2, 32, 2048, 80] causal; SDPA beside each; the profiler must record
+     only the tensor-core symbols of B1-B3); B1-B3 at
      [2, 32, 2048, 100] and [2, 16, 2048, 256] causal, bf16 and f32, held
      and timed alike (`wide_kernel_times`: rows no TMA map takes, the
-     bf16 width 256, the f32 SIMT kernels past 128);
+     bf16 width 256, the f32 SIMT kernels past 128; each kernel's route
+     symbol asserted);
   4. serving: GPT-2 small at full width (random weights from a seeded
      generator) through `GenerationSession.for_gpt`, bucketed layout.
      In float32 every request's greedy ids must equal the uncached
@@ -213,7 +215,7 @@ Phases, each raising on failure (exit code != 0, no result line):
      memory peak beside the measured one, the card's datasheet row;
  17. a Llama at Llama-3-8B's published widths (`llama_phase`; vocab
      128256, dim 4096, 32 query heads over 8 KV heads at head_dim 128,
-     ffn 14336, rope_theta 500000; depth cut to 4 of its 32 layers,
+     ffn 14336, rope_theta 500000; depth cut to 2 of its 32 layers,
      `LLAMA_CUT_DEPTH`, since phase 24 joined; random f32 weights from
      a seeded generator) through `GenerationSession.for_llama` on phase
      4's traffic and config: (a) bucketed f32, ids equal the
@@ -325,8 +327,8 @@ Phases, each raising on failure (exit code != 0, no result line):
      profiled decode windows; (e) `make_gpt_train_step(attention=
      "flash")` at the same widths with 4 layers, batch 2, seq 2048:
      compiled equals uncompiled at rtol 1e-4 over 3 steps, B1-B3 4
-     launches a step each (B1 and B3 on the tensor cores at the padded
-     width 80, B2 on its SIMT kernel);
+     launches a step each (all three on the tensor cores at the padded
+     width 80);
  25. a `{"kernels": [...]}` line (B1-B6, each with its launches in its
      path's run; every kernel also with `domain` (phase 3's worst error
      by head_dim and dtype), `cerebras` (phase 3's errors and times
@@ -6305,8 +6307,8 @@ def cerebras_prompts(vocab: int, seed: int = 0):
 
 def cerebras_kernel_times(dev):
     """B1-B6 at Cerebras-GPT-2.7B's shapes (head_dim 80: the padded decode
-    body, B1 and B3 on the tensor cores at the padded width 80, B2 on its
-    SIMT kernel; the profiler times the symbol of the route that ran),
+    body, B1-B3 on the tensor cores at the padded width 80; the profiler
+    times the symbol of the route that ran and fails on a SIMT one),
     bf16 and f32: each kernel held
     against its plain version in f32 on the first timed copy's inputs at
     phase 3's bars (B4-B6 atol 1e-5; B1-B3 through `check_train_case`),
@@ -6448,15 +6450,14 @@ def cerebras_kernel_times(dev):
         for name, (kernel, plain, library, _) in calls.items():
             symbol = train_symbol(name, shape[-1], dtype)
             simt = f"{name}_simt_kernel"
-            if name != "flash_bwd_dq" and symbol == simt:
+            if symbol == simt:
                 raise AssertionError(f"{name} runs {symbol} at {shape} "
                                      f"{key}: the tensor-core route takes "
                                      f"head_dim {shape[-1]}")
             record(name, key, f"q/k/v/dO {list(shape)}, causal", errs[name],
                    kernel, symbol, plain, library,
                    train_bound_ms(name, shape, True, itemsize), n_plain=3,
-                   lib_profile=name == "flash_fwd",
-                   forbid=None if symbol == simt else simt)
+                   lib_profile=name == "flash_fwd", forbid=simt)
             if not out[name][key]["profiled_launches"]:
                 raise AssertionError(f"the profiler recorded no launch of "
                                      f"{symbol} ({name} {key})")
@@ -6479,7 +6480,9 @@ def wide_kernel_times(dev, shapes=WIDE_SHAPES):
     """B1-B3 at `shapes`, bf16 and f32, causal: each held against its
     plain version on the first timed copy (`check_train_case`, phase 3's
     bars), then kernel (CUDA events; the profiler's device time of the
-    symbol of the route that ran, which must be recorded), plain
+    symbol of the route that ran, which must be recorded: the tensor-core
+    kernel up to head_dim 128 and in bf16 up to 256, where no SIMT kernel
+    may run, the SIMT kernel in f32 above 128), plain
     version, one library call (SDPA's causal forward; its whole backward
     for B2 and B3) and the bound.  Returns {kernel: {"<d> <dtype>":
     {...}}}; timing launches are not counted."""
@@ -6500,8 +6503,13 @@ def wide_kernel_times(dev, shapes=WIDE_SHAPES):
             calls = timed_calls(copies, scale)
             for name, (kernel, plain, library, _) in calls.items():
                 symbol = train_symbol(name, shape[-1], dtype)
+                simt = f"{name}_simt_kernel"
+                tensor_cores = shape[-1] <= 128 or dtype == torch.bfloat16
+                if tensor_cores == (symbol == simt):
+                    raise AssertionError(f"{name} runs {symbol} at {key}")
                 ms = time_ms(kernel, n=20)
-                prof_ms, seen = profiled_ms(kernel, symbol)
+                prof_ms, seen = profiled_ms(
+                    kernel, symbol, forbid=simt if tensor_cores else None)
                 if not seen:
                     raise AssertionError(f"the profiler recorded no launch "
                                          f"of {symbol} ({name} {key})")
@@ -6545,8 +6553,8 @@ def cerebras_phase(dev, cfg_kw=None, n_new: int = CEREBRAS_NEW,
     `make_gpt_train_step(attention="flash")` at the same widths, depth
     cut to 4 layers, batch 2, seq 2048: 3 compiled steps equal 3
     uncompiled at rtol 1e-4 (phase 7's bar), B1-B3 launched once a layer
-    a step (at head_dim 80: B1 and B3 on the tensor cores, B2 on its
-    SIMT kernel).  The arguments shrink it
+    a step (at head_dim 80 all three on the tensor cores).  The
+    arguments shrink it
     for a rehearsal on the CPU.  Returns the launches of (a)-(c) and
     (e), and the printed numbers."""
     import dataclasses
@@ -6914,11 +6922,10 @@ def reshard_phase(dev, cfg_kw=None, seed: int = 0, root=None):
     return out
 
 
-# Phases 11-13, 15a-b and 16 run GPT-2 small's widths at 6 layers in the
-# whole script (their gates follow cfg.layers; phase 14's 4-stage splits,
-# 15c's two stages, each of which must hold blocks, and 15d's use of phase
-# 4's sessions keep 12): phases 17-18 would otherwise take the script past
-# 800 s of its 1200 s limit
+# Phases 11-13, 15a-b and 16 run GPT-2 small's widths at 3 layers in the
+# whole script (`CUT_DEPTH`; their gates follow cfg.layers; phase 14's
+# 4-stage splits, 15c's two stages, each of which must hold blocks, and
+# 15d's use of phase 4's sessions keep 12)
 # ----------------------------------------------------- the fleet (phase 19)
 
 # two prefix families, each sharing 4 pages of 64 tokens
@@ -8333,11 +8340,12 @@ def vision_graph_phase(dev, cases=None, steps: int = 3, world: int = 8,
     return out
 
 
-CUT_DEPTH = dict(layers=6)
-# phase 17's Llama at 4 of its 32 layers since phase 24 (Cerebras-GPT-2.7B
-# at full depth) joined: at 32 the script would pass its time limit, at 8
-# it ended at 1046 s of 1200
-LLAMA_CUT_DEPTH = dict(layers=4)
+# phases 11-13, 15a-b, 16 and 22b at 3 of GPT-2 small's 12 layers, and
+# phase 17's Llama at 2 of its 32: at 6 and 4 the script ended at 962.5 s
+# of its 1200 on one host and at 1202.3 s on a slower one (every phase
+# 20-40% slower there)
+CUT_DEPTH = dict(layers=3)
+LLAMA_CUT_DEPTH = dict(layers=2)
 
 
 def main() -> int:

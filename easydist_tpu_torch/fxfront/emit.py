@@ -113,9 +113,14 @@ def _from_front(x, dim: int):
 
 
 def _local_chunk(x, dim: int, index: int, n: int):
-    """The rank's contiguous 1/n of `x` along `dim`."""
+    """The rank's contiguous 1/n of `x` along `dim`, in a storage of its
+    own.  A slice of the leading dims is contiguous already, and as a view
+    it would keep all of `x` alive for as long as the chunk lives (an
+    activation saved for the backward, say), where the memory plan sizes
+    the chunk alone and frees `x` at its last reader."""
     size = x.shape[dim] // n
-    return x.narrow(dim, index * size, size).contiguous()
+    return x.narrow(dim, index * size, size).clone(
+        memory_format=torch.contiguous_format)
 
 
 def _keep_on_first(x, first: bool):

@@ -15,18 +15,17 @@
 //
 // in f32, outputs in the inputs' dtype.  q/k/v/dO [bh, t, d] float32 or
 // bfloat16, lse/delta f32 [bh, t_q], causal or full, any t_q and t_k
-// (ragged tiles are masked here).  On the kernels below: B2 at head_dim
-// 64 and 128, B3 at every head_dim up to 128 and in bf16 up to 256,
-// templated on a padded width DP as B1 is (flash_attn_fwd.cu, "Head
-// dims": TMA maps or the producer's own copies fill the tiles, S^T and
-// dP^T over every k16 / k8 step of the width, dV += P^T.dO and
-// dK += dS^T.Q with N = DP, the epilogue and the f32 flush at stride d;
-// in f32 the transposed Q^T and dO^T tiles hold DP rows, and two stages
-// fit at DP 64 and 80, one at 96 and 128; in bf16 at 256 one warpgroup's
-// dK and dV would take 256 registers a thread, so the two warpgroups
-// share the block's 64 keys, both compute S^T and dP^T, and each
-// accumulates half of the columns).  Every other head_dim from 1 to 256
-// runs the SIMT kernels of flash_attn_simt.cuh.
+// (ragged tiles are masked here).  On the kernels below: B2 and B3 at
+// every head_dim up to 128 and in bf16 up to 256, templated on a padded
+// width DP as B1 is (flash_attn_fwd.cu, "Head dims": TMA maps or the
+// producer's own copies fill the tiles, S, dP (S^T, dP^T) over every k16
+// / k8 step of the width, dQ += dS.K, dV += P^T.dO and dK += dS^T.Q with
+// N = DP, the epilogue and the f32 flush at stride d; in f32 the
+// transposed K^T, Q^T and dO^T tiles hold DP rows; in bf16 at 256 B2
+// takes 32-key tiles, and one warpgroup's dK and dV would take 256
+// registers a thread, so B3's two warpgroups share the block's 64 keys,
+// both compute S^T and dP^T, and each accumulates half of the columns).
+// float32 above 128 runs the SIMT kernels of flash_attn_simt.cuh.
 //
 // What bounds them.  At the training shape (bh 96, t 1024, d 64, bf16,
 // causal): B2 moves 63.7 MB (q, k, v, dO, lse, delta, dQ) and needs
@@ -77,13 +76,15 @@
 // shared memory), P = exp2(S scale log2 e - lse log2 e) masked per
 // element where the tile crosses the diagonal or a ragged end,
 // dS = P (dP - delta), then dQ += dS_hi.K + dS_lo.K with dS as a register
-// A operand and K read MN-major through the transpose bit, as B1 reads V.
-// dS is split for B3's reason: one bf16 cast misses the f32 bar.  A
-// warpgroup whose rows all lie above a tile's keys (the block's last
-// tile under causal masking, for the first warpgroup) or past t_q only
-// releases the stage.  `scale` enters dQ once, when it is written.  Four
-// products where the function has three; S, dP, dQ and dS's halves fit
-// the 232 registers (`ptxas -v`: no spills).
+// A operand and K read MN-major through the transpose bit, as B1 reads V
+// (N = DP: at 80 across 1.25 panels).  dS is split for B3's reason: one
+// bf16 cast misses the f32 bar.  A warpgroup whose rows all lie above a
+// tile's keys (the block's last tile under causal masking, for the first
+// warpgroup) or past t_q only releases the stage.  `scale` enters dQ
+// once, when it is written.  Four products where the function has three;
+// S, dP, dQ and dS's halves fit the 232 registers (`ptxas -v`: no
+// spills).  At 256 the key tiles are 32 wide: 193 KB of shared memory,
+// dQ in 128 registers a thread beside S and dP's 16 each.
 //
 // B2 and B3, float32: `flash_bwd_dq_tf32_kernel` and
 // `flash_bwd_dkv_tf32_kernel`, on the tensor cores as the f32 forward
@@ -103,16 +104,18 @@
 // proxy fence.  Transposed tiles store each 8-row group in the order
 // 0 2 4 6 1 3 5 7, so dS, P^T and dS^T go from accumulator to A fragment
 // without a shuffle.
-//   B2: a block owns 128 queries (two consumer warpgroups) at head_dim
-//   64, 64 at 128 (one).  The K/V tiles (32 keys) stream through the
-//   converted stages as K_hi, K_lo, V_hi, V_lo and K^T_hi, K^T_lo;
-//   S = Q.K^T and dP = dO.V^T take K and V as they are, dQ += dS.K takes
-//   K^T.  Q's halves are register A fragments at head_dim 64 (m64n32k8
-//   products, which stay exact across key tiles where m64n64k8 ones of
-//   resident fragments drifted in the f32 forward), in shared memory at
-//   128; dO's halves are in shared memory, split by the consumers
-//   themselves.  Nine products where the function has three.  Stages:
-//   three (208 KB) at head_dim 64, one (224 KB) at 128.
+//   B2: a block owns 128 queries (two consumer warpgroups) at DP 64, 64
+//   above (one: a stage's tiles and 128 queries' halves pass 227 KB
+//   there).  The K/V tiles (32 keys) stream through the converted stages
+//   as K_hi, K_lo, V_hi, V_lo and K^T_hi, K^T_lo (DP rows); S = Q.K^T
+//   and dP = dO.V^T take K and V as they are, dQ += dS.K takes K^T.  Q's
+//   halves are register A fragments up to DP 96 (m64n32k8 products, which
+//   stay exact across key tiles where m64n64k8 ones of resident fragments
+//   drifted in the f32 forward; a one-warpgroup block keeps 255 registers
+//   a thread), in shared memory at 128; dO's halves are in shared memory,
+//   split by the consumers themselves.  Nine products where the function
+//   has three.  Stages: three (209 KB) at DP 64, two at 80 and 96 (185 /
+//   193 KB), one (225 KB) at 128.
 //   B3: a block owns 64 keys in the transposed orientation of the bf16
 //   B3: K's and V's halves stay in shared memory as A operands, and the
 //   Q/dO tiles (32 queries; 16 at head_dim 128) stream through the
@@ -443,30 +446,36 @@ cudaError_t launch_dkv_sm90(const void* q, const void* k, const void* v,
 
 // ------------------------------------ B2, bfloat16: tensor cores (sm90)
 
-template <int D>
+template <int DP>
 struct DqSm90 {
   static constexpr int kBQ = 128;  // two warpgroups of 64 queries
-  static constexpr int kBK = 64;   // keys a tile
+  // keys a tile: at 256, 32 keeps two stages of K and V beside Q and dO
+  // within 227 KB and S, dP and dS's halves small beside dQ's 128
+  // registers (`scripts/kernel_ab.py` timed it 23% faster than the two
+  // warpgroups sharing 64 queries and splitting dQ's columns)
+  static constexpr int kBK = DP == 256 ? 32 : 64;
   static constexpr int kStages = 2;
-  static constexpr int kPanels = D / sm90::kPanelCols;
-  static constexpr int kQBytes = kBQ * D * 2;    // the Q or the dO tile
-  static constexpr int kKVBytes = kBK * D * 2;   // one K or V tile
+  static constexpr int kPanels = (DP + sm90::kPanelCols - 1) / sm90::kPanelCols;
+  static constexpr int kQBytes = kBQ * kPanels * sm90::kRowBytes;   // Q or dO
+  static constexpr int kKVBytes = kBK * kPanels * sm90::kRowBytes;  // K or V
   static constexpr int kThreads = 384;  // + a producer warpgroup
   static constexpr size_t kSmem =
       1024 + 2 * kQBytes + 2 * kStages * kKVBytes + 8 * (1 + 2 * kStages);
+  static_assert(kSmem <= 227 * 1024, "the shared memory a block may use");
 };
 
-template <int D>
-__global__ void __launch_bounds__(DqSm90<D>::kThreads, 1)
+template <int DP, bool kFill>
+__global__ void __launch_bounds__(DqSm90<DP>::kThreads, 1)
     flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v,
                              const __grid_constant__ CUtensorMap map_do,
+                             const sm90::Fill fill,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
                              __nv_bfloat16* __restrict__ dq, int t_q,
-                             int t_k, int causal, float scale) {
-  using C = DqSm90<D>;
+                             int t_k, int d, int causal, float scale) {
+  using C = DqSm90<DP>;
   constexpr int BQ = C::kBQ, BK = C::kBK, S = C::kStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_s = sm90::align1024(smem_raw);
@@ -485,9 +494,10 @@ __global__ void __launch_bounds__(DqSm90<D>::kThreads, 1)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
-    sm90::mbar_init(q_full, 1);
+    const uint32_t loads = kFill ? 128 : 1;  // arrivals a full phase
+    sm90::mbar_init(q_full, loads);
     for (int s = 0; s < S; ++s) {
-      sm90::mbar_init(&kv_full[s], 1);
+      sm90::mbar_init(&kv_full[s], loads);
       sm90::mbar_init(&kv_empty[s], 8);  // one arrival per consumer warp
     }
     sm90::fence_barrier_init();
@@ -496,6 +506,35 @@ __global__ void __launch_bounds__(DqSm90<D>::kThreads, 1)
 
   if (warp >= 8) {  // producer warpgroup: one warp loads, three idle
     sm90::regs_release<sm90::kProducerRegs>();
+    if constexpr (kFill) {  // rows no map takes: the four warps fill
+      const int rb = d * 2, tid = threadIdx.x - 256;
+      const size_t q_slab = static_cast<size_t>(bh) * t_q * rb;
+      const size_t kv_slab = static_cast<size_t>(bh) * t_k * rb;
+      sm90::by_copy_width(fill.width, [&](auto w) {
+        constexpr int W = decltype(w)::value;
+        sm90::fill_tile<W, BQ, C::kPanels>(sm90::smem_u32(q_s),
+                                           fill.src[0] + q_slab, q0, t_q, rb,
+                                           tid, 128);
+        sm90::fill_tile<W, BQ, C::kPanels>(sm90::smem_u32(do_s),
+                                           fill.src[3] + q_slab, q0, t_q, rb,
+                                           tid, 128);
+        sm90::fill_commit();
+        sm90::mbar_arrive(q_full);
+        for (int it = 0; it < n_kt; ++it) {
+          const int s = it % S;
+          if (it >= S) sm90::mbar_wait(&kv_empty[s], (it / S - 1) & 1);
+          const uint32_t at = sm90::smem_u32(k_s) + s * C::kKVBytes;
+          sm90::fill_tile<W, BK, C::kPanels>(at, fill.src[1] + kv_slab,
+                                             it * BK, t_k, rb, tid, 128);
+          sm90::fill_tile<W, BK, C::kPanels>(at + S * C::kKVBytes,
+                                             fill.src[2] + kv_slab, it * BK,
+                                             t_k, rb, tid, 128);
+          sm90::fill_commit();
+          sm90::mbar_arrive(&kv_full[s]);
+        }
+      });
+      return;
+    }
     if (warp > 8 || lane != 0) return;
     sm90::mbar_expect_tx(q_full, 2 * C::kQBytes);
     sm90::tma_load_tile(q_s, &map_q, q_full, C::kPanels, BQ, q0, bh);
@@ -519,6 +558,9 @@ __global__ void __launch_bounds__(DqSm90<D>::kThreads, 1)
   const int row_a = wg_row0 + 16 * (warp % 4) + lane / 4;
   const int row_b = row_a + 8;
   const int c2 = 2 * (lane % 4);
+  // every k16 step of S and dP at the width, zeros past d included (a
+  // test of d between the `wgmma`s makes ptxas serialize them all)
+  constexpr int kSteps = (DP + 15) / 16;
   const float scale_log2 = scale * sm90::kLog2e;
   // this thread's two rows: lse in log2 units and delta (0 past t_q,
   // where the rows are masked and never stored)
@@ -528,9 +570,9 @@ __global__ void __launch_bounds__(DqSm90<D>::kThreads, 1)
   const float l2_b = live_b ? lse[row0 + row_b] * sm90::kLog2e : 0.f;
   const float dl_a = live_a ? delta[row0 + row_a] : 0.f;
   const float dl_b = live_b ? delta[row0 + row_b] : 0.f;
-  float dq_acc[D / 2];
+  float dq_acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) dq_acc[i] = 0.f;
 
   const uint32_t q_addr = sm90::smem_u32(q_s) + 64 * wg * sm90::kRowBytes;
   const uint32_t do_addr = sm90::smem_u32(do_s) + 64 * wg * sm90::kRowBytes;
@@ -548,14 +590,14 @@ __global__ void __launch_bounds__(DqSm90<D>::kThreads, 1)
       float sc[BK / 2], dp[BK / 2];
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < kSteps; ++kk) {
         const uint32_t col = (kk % 4) * 32;  // bytes into the panel's rows
         sm90::wgmma_ss<0>(
             sc, sm90::desc_k_major(q_addr + (kk / 4) * BQ * 128 + col),
             sm90::desc_k_major(k_addr + (kk / 4) * BK * 128 + col), kk > 0);
       }
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < kSteps; ++kk) {
         const uint32_t col = (kk % 4) * 32;
         sm90::wgmma_ss<0>(
             dp, sm90::desc_k_major(do_addr + (kk / 4) * BQ * 128 + col),
@@ -585,6 +627,8 @@ __global__ void __launch_bounds__(DqSm90<D>::kThreads, 1)
           dp[4 * j + 2 + e] = pb * (dp[4 * j + 2 + e] - dl_b);
         }
 
+      // dQ += dS_hi.K + dS_lo.K with N = DP: K read MN-major through the
+      // transpose bit across ceil(DP / 64) panels (B1 reads V so)
       uint32_t ds_hi[BK / 16][4], ds_lo[BK / 16][4];
       sm90::split_frags(dp, ds_hi, ds_lo);
       sm90::wgmma_fence();
@@ -605,47 +649,56 @@ __global__ void __launch_bounds__(DqSm90<D>::kThreads, 1)
     if (lane == 0) sm90::mbar_arrive(&kv_empty[s]);  // this warp is done
   }
 
+  // columns at or past d are K's padding: not stored
   if (live_a) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      sm90::store_bf16x2(dq + (row0 + row_a) * D + 8 * j + c2,
-                         dq_acc[4 * j] * scale, dq_acc[4 * j + 1] * scale);
+    for (int j = 0; j < DP / 8; ++j)
+      sm90::store_pair<!kFill>(dq + (row0 + row_a) * d, 8 * j + c2, d,
+                               dq_acc[4 * j] * scale,
+                               dq_acc[4 * j + 1] * scale);
   }
   if (live_b) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      sm90::store_bf16x2(dq + (row0 + row_b) * D + 8 * j + c2,
-                         dq_acc[4 * j + 2] * scale,
-                         dq_acc[4 * j + 3] * scale);
+    for (int j = 0; j < DP / 8; ++j)
+      sm90::store_pair<!kFill>(dq + (row0 + row_b) * d, 8 * j + c2, d,
+                               dq_acc[4 * j + 2] * scale,
+                               dq_acc[4 * j + 3] * scale);
   }
 }
 
-template <int D>
+template <int DP>
 cudaError_t launch_dq_sm90(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
                            const void* delta, void* dq, int bh, int t_q,
-                           int t_k, int causal, float scale,
+                           int t_k, int d, int causal, float scale,
                            cudaStream_t stream) {
-  using C = DqSm90<D>;
-  CUtensorMap map_q, map_k, map_v, map_do;
-  cudaError_t e = sm90::make_tile_map(&map_q, q, bh, t_q, D, C::kBQ);
-  if (e == cudaSuccess)
-    e = sm90::make_tile_map(&map_do, dout, bh, t_q, D, C::kBQ);
-  if (e == cudaSuccess)
-    e = sm90::make_tile_map(&map_k, k, bh, t_k, D, C::kBK);
-  if (e == cudaSuccess)
-    e = sm90::make_tile_map(&map_v, v, bh, t_k, D, C::kBK);
+  using C = DqSm90<DP>;
+  CUtensorMap map_q{}, map_k{}, map_v{}, map_do{};
+  sm90::Fill fill = sm90::fill_of(q, k, v, dout, d * 2);
+  cudaError_t e = cudaSuccess;
+  if (!fill.width) {
+    e = sm90::make_tile_map(&map_q, q, bh, t_q, d, C::kBQ);
+    if (e == cudaSuccess)
+      e = sm90::make_tile_map(&map_do, dout, bh, t_q, d, C::kBQ);
+    if (e == cudaSuccess)
+      e = sm90::make_tile_map(&map_k, k, bh, t_k, d, C::kBK);
+    if (e == cudaSuccess)
+      e = sm90::make_tile_map(&map_v, v, bh, t_k, d, C::kBK);
+  }
   if (e != cudaSuccess) return e;
-  static std::atomic<size_t> raised[kMaxDevices];
-  auto kernel = flash_bwd_dq_sm90_kernel<D>;
-  e = allow_smem(kernel, C::kSmem, raised);
-  if (e != cudaSuccess) return e;
+  static std::atomic<size_t> raised[2][kMaxDevices];
   const dim3 grid(bh, (t_q + C::kBQ - 1) / C::kBQ);
-  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
-      map_q, map_k, map_v, map_do, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), t_q,
-      t_k, causal, scale);
-  return cudaGetLastError();
+  auto go = [&](auto kernel, std::atomic<size_t>(&up)[kMaxDevices]) {
+    cudaError_t err = allow_smem(kernel, C::kSmem, up);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+        map_q, map_k, map_v, map_do, fill, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq),
+        t_q, t_k, d, causal, scale);
+    return cudaGetLastError();
+  };
+  return fill.width ? go(flash_bwd_dq_sm90_kernel<DP, true>, raised[1])
+                    : go(flash_bwd_dq_sm90_kernel<DP, false>, raised[0]);
 }
 
 // ------------------------ float32: tensor cores, three TF32 products
@@ -653,20 +706,30 @@ cudaError_t launch_dq_sm90(const void* q, const void* k, const void* v,
 constexpr int kConvBarrier = 3;  // converters' named barrier (consumers 1, 2)
 
 // B2, float32
-template <int D>
+template <int DP>
 struct DqTf32 {
-  static constexpr int kWG = D == 64 ? 2 : 1;       // consumer warpgroups
-  static constexpr int kBQ = 64 * kWG;              // queries a block
-  static constexpr int kBK = 32;                    // keys a tile
-  static constexpr bool kQRegs = D == 64;           // Q's halves in registers
-  static constexpr int kStages = D == 64 ? 3 : 1;
-  static constexpr int kPanels = D / sm90::kPanelColsF32;
-  static constexpr int kTile = kBK * D * 4;         // one f32 K, V or K^T tile
+  // consumer warpgroups: two (128 queries) at 64; one (64 queries) above,
+  // where a stage's tiles and the halves of 128 queries' dO (and Q) pass
+  // the shared memory a block may use
+  static constexpr int kWG = DP == 64 ? 2 : 1;
+  static constexpr int kBQ = 64 * kWG;                // queries a block
+  static constexpr int kBK = 32;                      // keys a tile
+  // Q's halves as A fragments up to 96 (DP registers a thread: one
+  // consumer warpgroup keeps the 255 of a 256-thread block; 1.5x faster
+  // at 80 and 96 than both halves in shared memory with one stage,
+  // `scripts/kernel_ab.py`), in shared memory at 128
+  static constexpr bool kQRegs = DP < 128;
+  static constexpr int kPanels =
+      (DP + sm90::kPanelColsF32 - 1) / sm90::kPanelColsF32;
+  static constexpr int kRowPad = kPanels * sm90::kPanelColsF32;  // f32 a row
+  static constexpr int kTile = kBK * kPanels * sm90::kRowBytes;  // K or V
+  static constexpr int kTrBytes = DP * sm90::kRowBytes;  // K^T_hi or K^T_lo
   // K_hi, K_lo, V_hi, V_lo, K^T_hi, K^T_lo; TMA lands K in K_lo, V in V_lo
-  static constexpr int kStageBytes = 6 * kTile;
-  static constexpr int kHalfBytes = kBQ * D * 4;    // one half of dO (or Q)
+  static constexpr int kStageBytes = 4 * kTile + 2 * kTrBytes;
+  static constexpr int kHalfBytes = kBQ * kPanels * sm90::kRowBytes;  // dO_hi
   static constexpr int kResBytes = (kQRegs ? 2 : 4) * kHalfBytes;
-  static constexpr int kConverters = 96;            // producer warps 1-3
+  static constexpr int kStages = DP == 64 ? 3 : DP < 128 ? 2 : 1;
+  static constexpr int kConverters = 96;              // producer warps 1-3
   static constexpr int kThreads = 128 * (1 + kWG);
   // registers a thread after `setmaxnreg` (two consumer warpgroups only)
   static constexpr int kProducerRegs = 56, kConsumerRegs = 224;
@@ -678,19 +741,20 @@ struct DqTf32 {
   static_assert(kSmem <= 227 * 1024, "the shared memory a block may use");
 };
 
-template <int D>
-__global__ void __launch_bounds__(DqTf32<D>::kThreads, 1)
+template <int DP, bool kFill>
+__global__ void __launch_bounds__(DqTf32<DP>::kThreads, 1)
     flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v,
+                             const sm90::Fill fill,
                              const float* __restrict__ q,
                              const float* __restrict__ dout,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
-                             float* __restrict__ dq, int t_q, int t_k,
+                             float* __restrict__ dq, int t_q, int t_k, int d,
                              int causal, float scale) {
-  using C = DqTf32<D>;
+  using C = DqTf32<DP>;
   constexpr int BQ = C::kBQ, BK = C::kBK, S = C::kStages, T = C::kTile;
-  constexpr int H = C::kHalfBytes;
+  constexpr int TR = C::kTrBytes, H = C::kHalfBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* res_s = sm90::align1024(smem_raw);  // dO_hi, dO_lo (, Q_hi, Q_lo)
   uint8_t* stage_s = res_s + C::kResBytes;     // [S] converted stages
@@ -708,7 +772,7 @@ __global__ void __launch_bounds__(DqTf32<D>::kThreads, 1)
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
-      sm90::mbar_init(&raw_full[s], 1);
+      sm90::mbar_init(&raw_full[s], kFill ? 32 : 1);
       sm90::mbar_init(&conv_full[s], C::kConverters);
       sm90::mbar_init(&conv_empty[s], 4 * C::kWG);  // one per consumer warp
     }
@@ -719,7 +783,25 @@ __global__ void __launch_bounds__(DqTf32<D>::kThreads, 1)
   if (warp >= 4 * C::kWG) {  // producer warpgroup: one warp loads, three split
     if constexpr (C::kWG > 1) sm90::regs_release<C::kProducerRegs>();
     if (warp == 4 * C::kWG) {
-      if (lane == 0) {
+      if constexpr (kFill) {  // rows no map takes: the warp fills them
+        const int rb = d * 4;
+        const size_t kv_slab = static_cast<size_t>(bh) * t_k * rb;
+        sm90::by_copy_width(fill.width, [&](auto w) {
+          constexpr int W = decltype(w)::value;
+          for (int it = 0; it < n_kt; ++it) {
+            const int s = it % S;
+            if (it >= S) sm90::mbar_wait(&conv_empty[s], (it / S - 1) & 1);
+            const uint32_t at = sm90::smem_u32(stage_s) + s * C::kStageBytes;
+            sm90::fill_tile<W, BK, C::kPanels>(at + T, fill.src[1] + kv_slab,
+                                               it * BK, t_k, rb, lane, 32);
+            sm90::fill_tile<W, BK, C::kPanels>(at + 3 * T,
+                                               fill.src[2] + kv_slab, it * BK,
+                                               t_k, rb, lane, 32);
+            sm90::fill_commit();
+            sm90::mbar_arrive(&raw_full[s]);
+          }
+        });
+      } else if (lane == 0) {  // TMA
         for (int it = 0; it < n_kt; ++it) {
           const int s = it % S;
           if (it >= S) sm90::mbar_wait(&conv_empty[s], (it / S - 1) & 1);
@@ -738,8 +820,8 @@ __global__ void __launch_bounds__(DqTf32<D>::kThreads, 1)
       const int s = it % S;
       uint8_t* st = stage_s + s * C::kStageBytes;
       sm90::mbar_wait(&raw_full[s], (it / S) & 1);
-      sm90::split_transposed<BK, D, C::kConverters>(st + T, st + 4 * T,
-                                                 st + 5 * T, ct);
+      sm90::split_transposed<BK, DP, C::kConverters>(st + T, st + 4 * T,
+                                                     st + 4 * T + TR, ct);
       sm90::named_sync(kConvBarrier, C::kConverters);  // raw K read by all
       sm90::split_tile<T, C::kConverters>(st + T, st, st + T, ct);
       sm90::split_tile<T, C::kConverters>(st + 3 * T, st + 2 * T, st + 3 * T,
@@ -766,41 +848,55 @@ __global__ void __launch_bounds__(DqTf32<D>::kThreads, 1)
   const float l2_b = live_b ? lse[row0 + row_b] * sm90::kLog2e : 0.f;
   const float dl_a = live_a ? delta[row0 + row_a] : 0.f;
   const float dl_b = live_b ? delta[row0 + row_b] : 0.f;
-  const float* qb = q + row0 * D;
-  const float* dob = dout + row0 * D;
+  const float* qb = q + row0 * d;
+  const float* dob = dout + row0 * d;
 
   // Q's halves as A fragments (columns 8 kk + c and + 4 of rows a and
-  // b); dO's halves, and at head_dim 128 Q's, as this warpgroup's 64 rows
-  // in shared memory, swizzled K-major
-  uint32_t q_hi[C::kQRegs ? D / 8 : 1][4], q_lo[C::kQRegs ? D / 8 : 1][4];
+  // b); dO's halves, and at 128 Q's, as this warpgroup's 64 rows in
+  // shared memory, swizzled K-major; columns past d as zeros (a k8 step
+  // may straddle d)
+  uint32_t q_hi[C::kQRegs ? DP / 8 : 1][4], q_lo[C::kQRegs ? DP / 8 : 1][4];
   if constexpr (C::kQRegs) {
 #pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk)
+    for (int kk = 0; kk < DP / 8; ++kk)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int row = i % 2 ? row_b : row_a;
         const int col = 8 * kk + c + 4 * (i / 2);
-        const float x = row < t_q ? qb[static_cast<size_t>(row) * D + col]
-                                  : 0.f;
+        const float x = row < t_q && col < d
+                            ? qb[static_cast<size_t>(row) * d + col]
+                            : 0.f;
         sm90::split_tf32(x, q_hi[kk][i], q_lo[kk][i]);
       }
   }
-  for (int i = threadIdx.x % 128; i < 64 * D / 4; i += 128) {
-    const int r = 64 * wg + i / (D / 4), col = 4 * (i % (D / 4));
-    const bool live = q0 + r < t_q;
-    const size_t at = static_cast<size_t>(q0 + r) * D + col;
+  // the float4 at `src` (16-byte rows: the launch checks the bases), or
+  // element by element where no map takes the rows (kFill), zeros past d
+  auto load4 = [&](const float* src, int col) {
+    float4 x;
+    if (!kFill) {
+      x = *reinterpret_cast<const float4*>(src);
+    } else {
+      x = make_float4(src[0], 0.f, 0.f, 0.f);
+      if (col + 1 < d) x.y = src[1];
+      if (col + 2 < d) x.z = src[2];
+      if (col + 3 < d) x.w = src[3];
+    }
+    return x;
+  };
+  constexpr int kVecs = C::kRowPad / 4;  // float4s a padded row
+  for (int i = threadIdx.x % 128; i < 64 * kVecs; i += 128) {
+    const int r = 64 * wg + i / kVecs, col = 4 * (i % kVecs);
+    const bool live = q0 + r < t_q && col < d;
+    const size_t at = static_cast<size_t>(q0 + r) * d + col;
     const int off = (col / 32) * BQ * 128 + r * 128 +
                     ((((col % 32) / 4) ^ (r % 8)) * 16);
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
     uint4 hi, lo;
-    sm90::split_tf32(live ? *reinterpret_cast<const float4*>(dob + at) : zero,
-                     hi, lo);
+    sm90::split_tf32(live ? load4(dob + at, col) : zero, hi, lo);
     *reinterpret_cast<uint4*>(res_s + off) = hi;
     *reinterpret_cast<uint4*>(res_s + H + off) = lo;
     if constexpr (!C::kQRegs) {
-      sm90::split_tf32(live ? *reinterpret_cast<const float4*>(qb + at)
-                            : zero,
-                       hi, lo);
+      sm90::split_tf32(live ? load4(qb + at, col) : zero, hi, lo);
       *reinterpret_cast<uint4*>(res_s + 2 * H + off) = hi;
       *reinterpret_cast<uint4*>(res_s + 3 * H + off) = lo;
     }
@@ -808,9 +904,9 @@ __global__ void __launch_bounds__(DqTf32<D>::kThreads, 1)
   sm90::fence_proxy_async();
   sm90::named_sync(1 + wg, 128);
 
-  float dq_acc[D / 2];
+  float dq_acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) dq_acc[i] = 0.f;
   const uint32_t do_addr = sm90::smem_u32(res_s) + 64 * wg * sm90::kRowBytes;
   const uint32_t q_addr = do_addr + 2 * H;
 
@@ -819,18 +915,18 @@ __global__ void __launch_bounds__(DqTf32<D>::kThreads, 1)
     const int k0 = it * BK;
     const uint32_t k_hi = sm90::smem_u32(stage_s + s * C::kStageBytes);
     const uint32_t k_lo = k_hi + T, v_hi = k_hi + 2 * T, v_lo = k_hi + 3 * T;
-    const uint32_t kt_hi = k_hi + 4 * T, kt_lo = k_hi + 5 * T;
+    const uint32_t kt_hi = k_hi + 4 * T, kt_lo = kt_hi + TR;
     sm90::mbar_wait(&conv_full[s], (it / S) & 1);
 
     // a tile wholly above this warpgroup's rows, or rows all past t_q,
     // contributes nothing
     if (wg_row0 < t_q && !(causal && k0 > wg_row0 + 63)) {
       // S = Q.K^T and dP = dO.V^T, each as hi.hi + hi.lo + lo.hi, 8
-      // columns of d a step
+      // columns of the width a step (zeros past d included)
       float sc[BK / 2], dp[BK / 2];
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
+      for (int kk = 0; kk < DP / 8; ++kk) {
         const uint32_t kc = (kk / 4) * BK * 128 + (kk % 4) * 32;
         const uint64_t dk_hi = sm90::desc_k_major(k_hi + kc);
         if constexpr (C::kQRegs) {
@@ -846,7 +942,7 @@ __global__ void __launch_bounds__(DqTf32<D>::kThreads, 1)
         }
       }
 #pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
+      for (int kk = 0; kk < DP / 8; ++kk) {
         const uint32_t kc = (kk / 4) * BK * 128 + (kk % 4) * 32;
         const uint32_t oc = do_addr + (kk / 4) * BQ * 128 + (kk % 4) * 32;
         const uint64_t ddo_hi = sm90::desc_k_major(oc);
@@ -883,13 +979,14 @@ __global__ void __launch_bounds__(DqTf32<D>::kThreads, 1)
           dp[4 * j + 2 + e] = pb * (dp[4 * j + 2 + e] - dl_b);
         }
 
-      // dQ += dS_hi.K^T_hi + dS_hi.K^T_lo + dS_lo.K^T_hi, 8 keys a step
+      // dQ += dS_hi.K^T_hi + dS_hi.K^T_lo + dS_lo.K^T_hi with N = DP, 8
+      // keys a step
       uint32_t ds_hi[BK / 8][4], ds_lo[BK / 8][4];
       sm90::split_frags_tf32(dp, ds_hi, ds_lo);
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 8; ++kk) {
-        const uint32_t tc = (kk / 4) * D * 128 + (kk % 4) * 32;
+        const uint32_t tc = (kk / 4) * DP * 128 + (kk % 4) * 32;
         const uint64_t dt_hi = sm90::desc_k_major(kt_hi + tc);
         sm90::wgmma_tf32_rs(dq_acc, ds_hi[kk], dt_hi, 1);
         sm90::wgmma_tf32_rs(dq_acc, ds_hi[kk], sm90::desc_k_major(kt_lo + tc),
@@ -906,46 +1003,56 @@ __global__ void __launch_bounds__(DqTf32<D>::kThreads, 1)
     if (lane == 0) sm90::mbar_arrive(&conv_empty[s]);  // this warp is done
   }
 
+  // columns at or past d are K's padding: not stored
   if (live_a) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(dq + (row0 + row_a) * D + 8 * j + c2) =
-          make_float2(dq_acc[4 * j] * scale, dq_acc[4 * j + 1] * scale);
+    for (int j = 0; j < DP / 8; ++j)
+      sm90::store_pair<!kFill>(dq + (row0 + row_a) * d, 8 * j + c2, d,
+                               dq_acc[4 * j] * scale,
+                               dq_acc[4 * j + 1] * scale);
   }
   if (live_b) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(dq + (row0 + row_b) * D + 8 * j + c2) =
-          make_float2(dq_acc[4 * j + 2] * scale, dq_acc[4 * j + 3] * scale);
+    for (int j = 0; j < DP / 8; ++j)
+      sm90::store_pair<!kFill>(dq + (row0 + row_b) * d, 8 * j + c2, d,
+                               dq_acc[4 * j + 2] * scale,
+                               dq_acc[4 * j + 3] * scale);
   }
 }
 
-template <int D>
+template <int DP>
 cudaError_t launch_dq_tf32(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
                            const void* delta, void* dq, int bh, int t_q,
-                           int t_k, int causal, float scale,
+                           int t_k, int d, int causal, float scale,
                            cudaStream_t stream) {
-  using C = DqTf32<D>;
-  if (reinterpret_cast<uintptr_t>(q) % 16 ||
-      reinterpret_cast<uintptr_t>(dout) % 16)
-    return cudaErrorInvalidValue;
-  CUtensorMap map_k, map_v;
-  cudaError_t e = sm90::make_tile_map(&map_k, k, bh, t_k, D, C::kBK, 4);
-  if (e == cudaSuccess)
-    e = sm90::make_tile_map(&map_v, v, bh, t_k, D, C::kBK, 4);
+  using C = DqTf32<DP>;
+  CUtensorMap map_k{}, map_v{};
+  sm90::Fill fill = sm90::fill_of(q, k, v, dout, d * 4);
+  cudaError_t e = cudaSuccess;
+  if (!fill.width) {
+    if (reinterpret_cast<uintptr_t>(q) % 16 ||
+        reinterpret_cast<uintptr_t>(dout) % 16)
+      return cudaErrorInvalidValue;
+    e = sm90::make_tile_map(&map_k, k, bh, t_k, d, C::kBK, 4);
+    if (e == cudaSuccess)
+      e = sm90::make_tile_map(&map_v, v, bh, t_k, d, C::kBK, 4);
+  }
   if (e != cudaSuccess) return e;
-  static std::atomic<size_t> raised[kMaxDevices];
-  auto kernel = flash_bwd_dq_tf32_kernel<D>;
-  e = allow_smem(kernel, C::kSmem, raised);
-  if (e != cudaSuccess) return e;
+  static std::atomic<size_t> raised[2][kMaxDevices];
   const dim3 grid(bh, (t_q + C::kBQ - 1) / C::kBQ);
-  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
-      map_k, map_v, static_cast<const float*>(q),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dq), t_q, t_k,
-      causal, scale);
-  return cudaGetLastError();
+  auto go = [&](auto kernel, std::atomic<size_t>(&up)[kMaxDevices]) {
+    cudaError_t err = allow_smem(kernel, C::kSmem, up);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+        map_k, map_v, fill, static_cast<const float*>(q),
+        static_cast<const float*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<float*>(dq), t_q, t_k,
+        d, causal, scale);
+    return cudaGetLastError();
+  };
+  return fill.width ? go(flash_bwd_dq_tf32_kernel<DP, true>, raised[1])
+                    : go(flash_bwd_dq_tf32_kernel<DP, false>, raised[0]);
 }
 
 // B3, float32
@@ -1392,14 +1499,13 @@ cudaError_t launch_dkv_simt(const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace flash_train
 
-// dtype: 0 float32, 1 bfloat16.  B2 (dQ) takes the tensor cores at
-// head_dim 64 and 128 (bfloat16 directly, float32 as three TF32
-// products), B3 (dK, dV) at every head_dim up to 128 (bfloat16: up to
-// 256), at its padded width (`tensor_core_width`); every other head_dim
-// from 1 to 256 the SIMT kernels (flash_attn_simt.cuh).  q/dout
-// [bh, t_q, head_dim], k/v [bh, t_k, head_dim], lse/delta f32 [bh, t_q],
-// outputs like their inputs; all contiguous on the current device,
-// 16-byte aligned where a TMA map takes the rows.  Each returns
+// dtype: 0 float32, 1 bfloat16.  B2 (dQ) and B3 (dK, dV) take the tensor
+// cores at every head_dim up to 128 (bfloat16: up to 256), at its padded
+// width (`tensor_core_width`: bfloat16 directly, float32 as three TF32
+// products); float32 above 128 the SIMT kernels (flash_attn_simt.cuh).
+// q/dout [bh, t_q, head_dim], k/v [bh, t_k, head_dim], lse/delta f32
+// [bh, t_q], outputs like their inputs; all contiguous on the current
+// device, 16-byte aligned where a TMA map takes the rows.  Each returns
 // cudaGetLastError() after its launch (or the error of the tensor maps'
 // encoding).
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
@@ -1410,20 +1516,23 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   if (bh == 0 || t_q == 0) return cudaSuccess;
   if (t_k < 1 || (t_q + 31) / 32 > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!flash_train::dq_tensor_core_dim(head_dim))
+  const int width = flash_train::tensor_core_width(head_dim, dtype);
+  if (width == 0)
     return flash_train::simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
       return flash_train::launch_dq_simt<decltype(t), decltype(d)::value>(
           q, k, v, dout, lse, delta, dq, bh, t_q, t_k, head_dim, causal,
           scale, s);
     });
-  return flash_train::dispatch(dtype, head_dim, [&](auto t, auto d) {
-    constexpr int D = decltype(d)::value;
+  return flash_train::dispatch_width(dtype, width, [&](auto t, auto w) {
+    constexpr int DP = decltype(w)::value;
     if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
-      return flash_train::launch_dq_sm90<D>(q, k, v, dout, lse, delta, dq,
-                                            bh, t_q, t_k, causal, scale, s);
+      return flash_train::launch_dq_sm90<DP>(q, k, v, dout, lse, delta, dq,
+                                             bh, t_q, t_k, head_dim, causal,
+                                             scale, s);
     else
-      return flash_train::launch_dq_tf32<D>(q, k, v, dout, lse, delta, dq,
-                                            bh, t_q, t_k, causal, scale, s);
+      return flash_train::launch_dq_tf32<DP>(q, k, v, dout, lse, delta, dq,
+                                             bh, t_q, t_k, head_dim, causal,
+                                             scale, s);
   });
 }
 
@@ -1463,26 +1572,26 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k,
 extern "C" int flash_attn_bwd_smem(int kernel, int head_dim, int dtype,
                                    int* static_bytes, int* dynamic_bytes) {
   using namespace flash_train;
+  const int width = tensor_core_width(head_dim, dtype);
   if (kernel == 0) {
-    if (!dq_tensor_core_dim(head_dim))
+    if (width == 0)
       return simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
         constexpr int DP = decltype(d)::value;
         return report_smem(simt::flash_bwd_dq_simt_kernel<decltype(t), DP>,
                            simt::Cfg<DP>::kSmemDq, static_bytes,
                            dynamic_bytes);
       });
-    return dispatch(dtype, head_dim, [&](auto t, auto d) {
-      constexpr int D = decltype(d)::value;
+    return dispatch_width(dtype, width, [&](auto t, auto w) {
+      constexpr int DP = decltype(w)::value;
       if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
-        return report_smem(flash_bwd_dq_sm90_kernel<D>, DqSm90<D>::kSmem,
-                           static_bytes, dynamic_bytes);
+        return report_smem(flash_bwd_dq_sm90_kernel<DP, false>,
+                           DqSm90<DP>::kSmem, static_bytes, dynamic_bytes);
       else
-        return report_smem(flash_bwd_dq_tf32_kernel<D>, DqTf32<D>::kSmem,
-                           static_bytes, dynamic_bytes);
+        return report_smem(flash_bwd_dq_tf32_kernel<DP, false>,
+                           DqTf32<DP>::kSmem, static_bytes, dynamic_bytes);
     });
   }
   if (kernel != 1) return cudaErrorInvalidValue;
-  const int width = tensor_core_width(head_dim, dtype);
   if (width == 0)
     return simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
       constexpr int DP = decltype(d)::value;

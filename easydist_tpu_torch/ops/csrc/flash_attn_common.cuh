@@ -53,49 +53,29 @@ cudaError_t report_smem(Kernel kernel, size_t dynamic, int* static_bytes,
   return cudaSuccess;
 }
 
-// The tensor-core routes and the head_dims they take.
-//   * B2 (dQ) runs on the tensor cores at head_dim 64 and 128 only
-//     (`dq_tensor_core_dim`); the SIMT kernel of flash_attn_simt.cuh
-//     takes every other head_dim from 1 to 256.
-//   * B1 (forward) and B3 (dK, dV) run on the tensor cores at every
-//     head_dim up to 128, and in bfloat16 up to 256, templated on a padded
-//     width DP (64, 80, 96, 128; 256 for bfloat16's 129..256) with the
-//     true d at run time; the tiles' columns past d are zeros (they add
-//     nothing to the products over d, which run every 32-byte step of
-//     the width), the products whose N is the head_dim take N = DP, and
-//     the epilogues store at stride d.  Rows a TMA map takes (d * itemsize
-//     a multiple of 16) are loaded by the maps, whose extent d zero-fills
-//     the padding; other rows (bf16 100) by the producer's own copies into
-//     the same swizzled tiles (flash_attn_sm90.cuh, `fill_tile`).
-//     `tensor_core_width` gives DP, or 0 where the SIMT kernels take the
-//     head_dim (float32 above 128: the TF32 kernels' tiles of Q's, K's
-//     and V's halves do not fit a block's shared memory there).
-inline bool dq_tensor_core_dim(int head_dim) {
-  return head_dim == 64 || head_dim == 128;
-}
-
+// The tensor-core routes and the head_dims they take.  B1 (forward), B2
+// (dQ) and B3 (dK, dV) run on the tensor cores at every head_dim up to
+// 128, and in bfloat16 up to 256, templated on a padded width DP (64, 80,
+// 96, 128; 256 for bfloat16's 129..256) with the true d at run time; the
+// tiles' columns past d are zeros (they add nothing to the products over
+// d, which run every 32-byte step of the width), the products whose N is
+// the head_dim take N = DP, and the epilogues store at stride d.  Rows a
+// TMA map takes (d * itemsize a multiple of 16) are loaded by the maps,
+// whose extent d zero-fills the padding; other rows (bf16 100) by the
+// producer's own copies into the same swizzled tiles (flash_attn_sm90.cuh,
+// `fill_tile`).  `tensor_core_width` gives DP, or 0 where the SIMT kernels
+// of flash_attn_simt.cuh take the head_dim (float32 above 128: the TF32
+// kernels' tiles of Q's, K's and V's halves do not fit a block's shared
+// memory there).
 inline int tensor_core_width(int head_dim, int dtype) {
   if (head_dim < 1 || head_dim > (dtype == 1 ? 256 : 128)) return 0;
   return head_dim <= 64 ? 64 : head_dim <= 80 ? 80 : head_dim <= 96 ? 96
                                                : head_dim <= 128 ? 128 : 256;
 }
 
-// Calls f(T{}, std::integral_constant<int, D>{}) for dtype (0 float32,
-// 1 bfloat16) and head_dim (64, 128): B2's routes; cudaErrorInvalidValue
-// otherwise.
-template <typename F>
-cudaError_t dispatch(int dtype, int head_dim, F&& f) {
-  using D64 = std::integral_constant<int, 64>;
-  using D128 = std::integral_constant<int, 128>;
-  if (dtype == 0 && head_dim == 64) return f(float{}, D64{});
-  if (dtype == 0 && head_dim == 128) return f(float{}, D128{});
-  if (dtype == 1 && head_dim == 64) return f(__nv_bfloat16{}, D64{});
-  if (dtype == 1 && head_dim == 128) return f(__nv_bfloat16{}, D128{});
-  return cudaErrorInvalidValue;
-}
-
-// The same for B1's and B3's padded widths DP (64, 80, 96, 128; 256 in
-// bfloat16 only)
+// Calls f(T{}, std::integral_constant<int, DP>{}) for dtype (0 float32,
+// 1 bfloat16) and a padded width DP (64, 80, 96, 128; 256 in bfloat16
+// only); cudaErrorInvalidValue otherwise.
 template <typename F>
 cudaError_t dispatch_width(int dtype, int width, F&& f) {
   auto by_width = [&](auto t) -> cudaError_t {

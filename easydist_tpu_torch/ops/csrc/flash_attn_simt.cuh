@@ -1,12 +1,10 @@
-// B1 (forward), B2 (dQ) and B3 (dK, dV) at every head_dim from 1 to 256
-// that the tensor-core routes do not take, for Hopper (sm_90a):
-// `flash_fwd_simt_kernel`, `flash_bwd_dq_simt_kernel`,
-// `flash_bwd_dkv_simt_kernel`.  The tensor-core routes
-// (flash_attn_common.cuh) take B2 at 64 and 128, and B1 and B3 at every
-// head_dim up to 128 (bfloat16: up to 256) at a padded width; so these
-// kernels run B2 at every other head_dim, and B1 and B3 in float32 above
-// 128, where the TF32 kernels' tiles of hi/lo halves do not fit a
-// block's shared memory.
+// B1 (forward), B2 (dQ) and B3 (dK, dV) at the head_dims the tensor-core
+// routes do not take, for Hopper (sm_90a): `flash_fwd_simt_kernel`,
+// `flash_bwd_dq_simt_kernel`, `flash_bwd_dkv_simt_kernel`.  The
+// tensor-core routes (flash_attn_common.cuh) take B1-B3 at every head_dim
+// up to 128 (bfloat16: up to 256) at a padded width; so these kernels run
+// float32 above 128, where the TF32 kernels' tiles of hi/lo halves do not
+// fit a block's shared memory.
 //
 // Replace the same TPU kernels as the tensor-core routes
 // (easydist_tpu/ops/flash_attention.py:78, :164, :197) over the rest of
@@ -26,15 +24,15 @@
 // products), 0.022 ms at the tensor cores' 989 TFLOP/s against 0.013 ms
 // of bytes at 3.35 TB/s.  These kernels run on the CUDA cores (67
 // TFLOP/s of f32 at best), which is what a first design that is right
-// gives up.  At that shape B1 and B3 run on the tensor cores (the
-// padded width 80), B2 here.
+// gives up.  At that shape B1-B3 run on the tensor cores (the padded
+// width 80); these kernels run f32 at head_dims 129-256 only.
 //
 // Design.  Rows q (B1, B2) or keys (B3) are shared by teams of
 // `DP / 8` lanes of one warp, each lane holding 8 of the row's dims
 // (lane t: dims t, t + team, ..., so a team reads consecutive words of a
 // shared tile and the teams of a warp read the same words: no bank
 // conflicts).  `DP` is the head_dim padded to the next of 32, 64, 128,
-// 256 (a template parameter, so four instantiations a kernel and dtype);
+// 256 (a template parameter; the routes instantiate f32 at 256 only);
 // every dim at or past d is zero in registers and in shared memory, and
 // zeros add nothing to a product, so the result is exact.  q, k, v and dO
 // are read at their own d with element loads (no alignment beyond the
@@ -55,11 +53,10 @@
 // threads an SM by registers).
 //
 // Known limits: the team sums take log2(team) shuffles a score, every
-// product reads shared memory once a multiply-add, the padding to a
-// power of two wastes up to half the work (B2 at d 80 runs at DP 128), and a
-// block at DP 256 holds only 8 rows a tile.  At [2, 32, 2048, 80]
-// (chip_smoke.py phase 3) they run slower than the plain version's
-// cuBLAS products.
+// product reads shared memory once a multiply-add, the padding to 256
+// wastes up to half the work (at d 129), and a block at DP 256 holds only
+// 8 rows a tile.  At [2, 16, 2048, 256] (chip_smoke.py phase 3) they run
+// slower than the plain version's cuBLAS products.
 
 #pragma once
 
@@ -354,24 +351,14 @@ inline int padded_dim(int head_dim) {
                                                                      : 256;
 }
 
-// Calls f(T{}, std::integral_constant<int, DP>{}) for dtype (0 float32,
-// 1 bfloat16) and head_dim's padded width; cudaErrorInvalidValue for a
-// head_dim outside 1..256.
+// Calls f(float{}, std::integral_constant<int, 256>{}) for a float32
+// head_dim from 129 to 256: the only head_dims the routes send here
+// (`tensor_core_width` takes every other one), so the only instantiations
+// built; cudaErrorInvalidValue otherwise.
 template <typename F>
 cudaError_t dispatch(int dtype, int head_dim, F&& f) {
-  const int dp = padded_dim(head_dim);
-  auto by_width = [&](auto t) -> cudaError_t {
-    switch (dp) {
-      case 32: return f(t, std::integral_constant<int, 32>{});
-      case 64: return f(t, std::integral_constant<int, 64>{});
-      case 128: return f(t, std::integral_constant<int, 128>{});
-      case 256: return f(t, std::integral_constant<int, 256>{});
-      default: return cudaErrorInvalidValue;
-    }
-  };
-  if (dtype == 0) return by_width(float{});
-  if (dtype == 1) return by_width(__nv_bfloat16{});
-  return cudaErrorInvalidValue;
+  if (dtype != 0 || padded_dim(head_dim) != 256) return cudaErrorInvalidValue;
+  return f(float{}, std::integral_constant<int, 256>{});
 }
 
 // the grid of a launch over `rows` rows a head, or false when it cannot

@@ -56,14 +56,12 @@ _TILE_SMEM_LIMIT = 200 * 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Every kernel takes every head_dim from 1 to _MAX_HEAD_DIM; above it
 # they raise.  The routes (`_train_route`):
-#   * B1 (forward) and B3 (dK, dV) run on the tensor cores at every
-#     head_dim up to 128, and in bf16 up to 256, at the padded width of
-#     `_TC_WIDTHS` that holds it (csrc/flash_attn_common.cuh,
+#   * B1 (forward), B2 (dQ) and B3 (dK, dV) run on the tensor cores at
+#     every head_dim up to 128, and in bf16 up to 256, at the padded width
+#     of `_TC_WIDTHS` that holds it (csrc/flash_attn_common.cuh,
 #     `tensor_core_width`; rows a TMA map takes, d * itemsize a multiple
 #     of 16, through the maps, others through the producer's own copies),
 #     and on the SIMT kernels (csrc/flash_attn_simt.cuh) in f32 above 128;
-#   * B2 (dQ) on the tensor cores at `_TENSOR_CORE_DIMS`, on its SIMT
-#     kernel elsewhere;
 #   * B4-B6 on the decode body's exact width at `_TENSOR_CORE_DIMS`, on
 #     its padded body elsewhere (csrc/decode_split.cuh, "Head dims").
 _TENSOR_CORE_DIMS = (64, 128)
@@ -77,9 +75,9 @@ def _check_head_dim(op: str, d: int) -> None:
 
 
 def _tc_width(d: int, dtype) -> Optional[int]:
-    """The padded width B1's and B3's tensor-core kernels run head_dim d
-    on in `dtype`, or None where their SIMT kernels take it (f32 above
-    128: the TF32 kernels' tiles of halves do not fit shared memory)."""
+    """The padded width B1-B3's tensor-core kernels run head_dim d on in
+    `dtype`, or None where their SIMT kernels take it (f32 above 128: the
+    TF32 kernels' tiles of halves do not fit shared memory)."""
     if d > (256 if dtype == torch.bfloat16 else 128):
         return None
     return next(w for w in _TC_WIDTHS if d <= w)
@@ -98,11 +96,9 @@ def _train_route(kernel: str, d: int, dtype) -> tuple:
     d in `dtype`, as the CUDA entry points pick it: route "sm90" (bf16 on
     the tensor cores), "tf32" (f32 as three TF32 products) or "simt",
     width the kernel's template width (the padded width of the SIMT
-    kernels' rows: 32, 64, 128 or 256)."""
-    if kernel == "dq":
-        width = d if d in _TENSOR_CORE_DIMS else None
-    else:
-        width = _tc_width(d, dtype)
+    kernels' rows: 256).  B1-B3 share their routes."""
+    del kernel
+    width = _tc_width(d, dtype)
     if width is None:
         return "simt", _pow2_at_least(d, 32)
     return ("tf32" if dtype == torch.float32 else "sm90"), width
@@ -401,9 +397,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
                  scale: Optional[float] = None):
     """B2: dQ from the saved lse and delta (`_flash_delta`).  CPU tensors
     run `_flash_bwd_dq_xla`; CUDA tensors launch the dQ kernel of
-    `csrc/flash_attn_bwd.cu` (at d 64 and 128 both dtypes on the tensor
-    cores, float32 as three TF32 products of hi/lo halves for each of S,
-    dP and dQ; every other d on the SIMT kernel)."""
+    `csrc/flash_attn_bwd.cu` (on the tensor cores at every d up to 128,
+    as B1, float32 as three TF32 products of hi/lo halves for each of S,
+    dP and dQ; above 128 on the SIMT kernel: `_train_route`)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _flash_bwd_dq_op(q, k, v, do, lse, delta, bool(causal),
@@ -501,15 +497,14 @@ def _tensor_core_smem(kernel: str, w: int, f32: bool) -> int:
         q_bytes = 0 if w == 64 else 2 * 64 * wg * row
         return (1024 + q_bytes + raw * 2 * tile + conv * (2 * tile + 2 * tr)
                 + 16 * (raw + conv))
-    if kernel == "dq" and not f32:
-        bq, bk, st = 128, 64, 2
-        return (1024 + 2 * bq * w * 2 + 2 * st * bk * w * 2
-                + 8 * (1 + 2 * st))
-    if kernel == "dq":
-        wg, bk, st = (2, 32, 3) if w == 64 else (1, 32, 1)
-        half = 64 * wg * w * 4
-        res = (2 if w == 64 else 4) * half
-        return 1024 + res + st * 6 * bk * w * 4 + 24 * st
+    if kernel == "dq" and not f32:  # 32-key tiles at 256
+        bq, bk, st = 128, (64 if w <= 128 else 32), 2
+        return 1024 + 2 * bq * row + 2 * st * bk * row + 8 * (1 + 2 * st)
+    if kernel == "dq":  # Q's halves in registers below 128
+        wg, bk = (2 if w == 64 else 1), 32
+        st = 3 if w == 64 else 2 if w < 128 else 1
+        res = (2 if w < 128 else 4) * 64 * wg * row
+        return 1024 + res + st * (4 * bk * row + 2 * w * 128) + 24 * st
     if not f32:  # dkv; above 128 the warpgroups split the columns
         bk, st = (128 if w <= 128 else 64), 2
         bq = 64 if w == 64 else 32 if w <= 128 else 16

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Compare versions of the training attention kernels (B1 forward, B3
-dK/dV) on one card, in one process.
+"""Compare versions of the training attention kernels (B1 forward, B2 dQ,
+B3 dK/dV) on one card, in one process.
 
 Each version is a copy of `easydist_tpu_torch/ops/csrc/`: the package's
 own sources ("cur"), another tree's (`--tree NAME=DIR`, e.g. a
@@ -13,7 +13,7 @@ checked against the plain PyTorch versions at each shape
 (`chip_smoke.check_train_case`: phase 3's bars), then timed in turns,
 forward and back (v1, v2, ..., v2, v1), by CUDA events and by the
 profiler's device time a launch, beside one SDPA call (its causal
-forward, and its whole backward for B3).  Numbers are printed with the
+forward, and its whole backward for B2 and B3).  Numbers are printed with the
 card's name and power limit.
 
     python3 scripts/kernel_ab.py --shape 2,32,2048,80 --dtype f32 \\
@@ -41,7 +41,8 @@ import chip_smoke as c  # noqa: E402
 from easydist_tpu_torch.ops import _build  # noqa: E402
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
-KERNELS = {"fwd": "flash_fwd", "dkv": "flash_bwd_dkv"}
+KERNELS = {"fwd": "flash_fwd", "dq": "flash_bwd_dq",
+           "dkv": "flash_bwd_dkv"}
 
 
 def versions(args, scratch: Path) -> dict:
@@ -82,7 +83,7 @@ def main() -> int:
                     help="b,h,t,d (causal); repeat for more shapes")
     ap.add_argument("--dtype", action="append", choices=sorted(DTYPES),
                     required=True)
-    ap.add_argument("--kernels", default="fwd,dkv")
+    ap.add_argument("--kernels", default="fwd,dq,dkv")
     ap.add_argument("--only", action="store_true",
                     help="time the versions only (no SDPA)")
     args = ap.parse_args()
@@ -122,11 +123,12 @@ def main() -> int:
                 calls = c.timed_calls(copies, scale)
                 for kn in kernels:
                     kernel = calls[kn][0]
-                    sym = c.train_symbol(kn, shape[-1], dtype)
+                    # any route's symbol: another tree may route elsewhere
+                    stem = f"{kn}_"
                     ms = c.time_ms(kernel, n=20)
-                    pm, seen = c.profiled_ms(kernel, sym)
+                    pm, seen = c.profiled_ms(kernel, stem)
                     print(f"ab {name} {kn} {key} {list(shape)} causal "
-                          f"({sym}): events {ms:.4f} ms, "
+                          f"({stem}*): events {ms:.4f} ms, "
                           f"{c.profiled_text(pm, seen)}")
                 del calls
             if not args.only:

@@ -251,6 +251,12 @@ def _emulated_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
     return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
 
 
+def _padded(width: int, *xs):
+    """Each [..., d] tensor with zero columns up to `width`, as the
+    tensor-core kernels' tiles hold it (zeros add nothing to a product)."""
+    return [torch.nn.functional.pad(x, (0, width - x.shape[-1])) for x in xs]
+
+
 def _worst(got, ref, rtol: float, atol: float, ulp: float = BF16_ULP
            ) -> float:
     """The largest |got - ref| / (atol + (rtol + ulp) |ref|)."""
@@ -374,6 +380,23 @@ class TestSplitRounding:
         worst = _worst(dq, ref, **BWD)
         assert (worst <= 1.0) == split, worst
 
+    @pytest.mark.parametrize("d", [80, 100, 256])
+    def test_dq_split_within_bar_at_padded_widths(self, d):
+        # B2 bf16 at Cerebras-GPT-2.7B's 80, OpenLLaMA-3B's 100 and 256:
+        # the operands zero-padded to the kernel's width (80, 128, 256) as
+        # its tiles hold them, S and dP over the whole width, dQ's padding
+        # columns dropped; at the bar against the plain version
+        q, k, v, do = (_bf16(x) for x in _t(*_rand(b=1, h=2, t=128, d=d,
+                                                     seed=d)))
+        scale = 1.0 / math.sqrt(d)
+        out, lse = tfa._flash_forward_xla(q, k, v, True, scale)
+        delta = tfa._flash_delta(out, do)
+        ref = tfa._flash_bwd_dq_xla(q, k, v, do, lse, delta, True, scale)
+        w = tfa._tc_width(d, torch.bfloat16)
+        dq = _emulated_dq(*_padded(w, q, k, v, do), lse, delta, True, scale,
+                          True)
+        assert _worst(dq[..., :d], ref, **BWD) <= 1.0
+
     @pytest.mark.parametrize("split", [True, False],
                              ids=["tf32_three_products", "tf32_one_cast"])
     def test_f32_forward_within_bar_only_with_tf32_split(self, split):
@@ -411,6 +434,21 @@ class TestSplitRounding:
         print(f"tf32 {'three products' if split else 'one cast'}: worst "
               f"err/tol dq {worst:.4f}")
         assert (worst <= 1.0) == split, worst
+
+    @pytest.mark.parametrize("d", [80, 100])
+    def test_f32_dq_split_within_bar_at_padded_widths(self, d):
+        # the f32 B2 at 80 and 100: the operands zero-padded to the
+        # kernel's width (80, 128), nine TF32 products over it, dQ's
+        # padding columns dropped; at the f32 backward bar
+        q, k, v, do = _t(*_rand(b=1, h=2, t=128, d=d, seed=d + 1))
+        scale = 1.0 / math.sqrt(d)
+        out, lse = tfa._flash_forward_xla(q, k, v, True, scale)
+        delta = tfa._flash_delta(out, do)
+        ref = tfa._flash_bwd_dq_xla(q, k, v, do, lse, delta, True, scale)
+        w = tfa._tc_width(d, torch.float32)
+        dq = _emulated_dq_tf32(*_padded(w, q, k, v, do), lse, delta, True,
+                               scale, True)
+        assert _worst(dq[..., :d], ref, **BWD, ulp=0.0) <= 1.0
 
     @pytest.mark.parametrize("split", [True, False],
                              ids=["tf32_three_products", "tf32_one_cast"])
@@ -691,7 +729,7 @@ class TestKernelsOnCard:
 
 # head_dims beyond 64 and 128: the tiny configs and the JAX tests (8, 16),
 # Cerebras-GPT-2.7B (80), OpenLLaMA-3B (100), GPT-J and Gemma (256), the
-# SIMT kernels' padded widths' edges (1, 32, 33, 129), and B1's and B3's
+# SIMT kernels' padded widths' edges (1, 32, 33, 129), and B1-B3's
 # tensor-core widths (`tfa._tc_width`) at their edges: 40 (half of the
 # last k16 step is zeros), 72 and 112 (inside the widths 80 and 128), 96
 SWEEP_DIMS = (1, 8, 16, 32, 33, 40, 72, 80, 96, 100, 112, 129, 256)
@@ -699,8 +737,8 @@ SWEEP_DIMS = (1, 8, 16, 32, 33, 40, 72, 80, 96, 100, 112, 129, 256)
 
 @pytest.mark.cuda
 class TestAllHeadDimsOnCard:
-    """B1-B3 at head_dims beyond 64 and 128 (the SIMT kernels, and B1's
-    and B3's tensor-core kernels at their padded widths) against their
+    """B1-B3 at head_dims beyond 64 and 128 (the tensor-core kernels at
+    their padded widths, and the f32 SIMT kernels past 128) against their
     plain versions, at the bars of TestKernelsOnCard: causal (with an lse
     cotangent), full, fewer queries than keys and a ragged length; any
     base alignment on the SIMT route; the limit at 256; the shared memory
@@ -749,7 +787,7 @@ class TestAllHeadDimsOnCard:
         close(dk, r_dk, **BWD)
         close(dv, r_dv, **BWD)
 
-    @pytest.mark.parametrize("d", [80, 96, 100])
+    @pytest.mark.parametrize("d", [80, 96, 100, 256])
     def test_two_launches_are_bitwise_equal(self, cuda_device, d):
         rs = np.random.RandomState(2)
         q, k, v, do = (torch.as_tensor(rs.standard_normal((2, 4, 300, d)),
@@ -785,8 +823,8 @@ class TestAllHeadDimsOnCard:
     @pytest.mark.parametrize("d", [40, 80])
     def test_unaligned_input_raises_at_the_padded_widths(self, cuda_device,
                                                           dtype, d):
-        # B1 and B3 read these widths through TMA maps (B2 through its
-        # SIMT kernel, which takes any base)
+        # B1-B3 read these widths through TMA maps (B2's f32 kernel reads
+        # Q's and dO's rows with 16-byte loads)
         q, k, v = (torch.randn(2, 4, 64, d, device=cuda_device, dtype=dtype)
                    for _ in range(3))
         shifted = torch.randn(2 * 4 * 64 * d + 1, device=cuda_device,
@@ -796,16 +834,17 @@ class TestAllHeadDimsOnCard:
             tfa.flash_fwd(shifted, k, v)
         with pytest.raises(ValueError, match="16-byte aligned"):
             tfa.flash_bwd_dkv(q, k, v, shifted, lse, lse)
-        tfa.flash_bwd_dq(q, k, v, shifted, lse, lse)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tfa.flash_bwd_dq(q, k, v, shifted, lse, lse)
 
     @pytest.mark.parametrize("d,dtype", [
         (33, torch.float32), (66, torch.float32), (33, torch.bfloat16),
         (100, torch.bfloat16)])
     def test_any_alignment_on_rows_no_map_takes(self, cuda_device, d,
                                                 dtype):
-        # rows of d * itemsize bytes no multiple of 16: B1 and B3 fill
-        # their tiles with their own copies, at any base (here one
-        # element past a 16-byte boundary)
+        # rows of d * itemsize bytes no multiple of 16: B1-B3 fill their
+        # tiles with their own copies (B2 f32 reads Q's and dO's elements),
+        # at any base (here one element past a 16-byte boundary)
         assert not tfa._tma_rows(d, dtype)
         rs = np.random.RandomState(d)
 
@@ -822,11 +861,15 @@ class TestAllHeadDimsOnCard:
         out, lse = tfa.flash_fwd(q, k, v, True, scale)
         ref, ref_lse = tfa._flash_forward_xla(qf, kf, vf, True, scale)
         delta = tfa._flash_delta(ref, dof)
+        dq = tfa.flash_bwd_dq(q, k, v, do, ref_lse, delta, True, scale)
         dk, dv = tfa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, True, scale)
+        r_dq = tfa._flash_bwd_dq_xla(qf, kf, vf, dof, ref_lse, delta, True,
+                                     scale)
         r_dk, r_dv = tfa._flash_bwd_dkv_xla(qf, kf, vf, dof, ref_lse, delta,
                                             True, scale)
         torch.cuda.synchronize()
         for got, want, rtol, atol in ((out, ref, 1e-4, 1e-5),
+                                      (dq, r_dq, 2e-4, 2e-5),
                                       (dk, r_dk, 2e-4, 2e-5),
                                       (dv, r_dv, 2e-4, 2e-5)):
             tol = atol + (rtol + extra) * want.abs()

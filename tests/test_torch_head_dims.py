@@ -2,8 +2,9 @@
 
 The six TPU kernels block over the sequence and keep the head_dim whole,
 so they take any width; the port's kernels take every head_dim from 1 to
-256 (64 and 128 on the tensor-core routes and the decode body's exact
-width, every other one on the SIMT kernels and the padded decode body).
+256 (B1-B3 on the tensor cores at padded widths up to 128, in bf16 up
+to 256, f32 above 128 on the SIMT kernels; B4-B6 on the decode body's
+exact width at 64 and 128, on its padded body elsewhere).
 Here, where the wrappers run their plain versions: B1-B3 (forward and
 both gradients), B4, B5 and B6 at head_dim 8 and 16 (the tiny configs
 and the JAX tests), 80 (Cerebras-GPT-2.7B) and 100 (OpenLLaMA-3B)
@@ -41,12 +42,12 @@ BLOCKS = {8: 2, 16: 4, 80: 5, 100: 4}
 # (chip_smoke.py phase 3, `smem_phase`; NVIDIA H100 80GB HBM3)
 CARD_SMEM = {(torch.float32, 64): 214088, (torch.float32, 128): 230568,
              (torch.bfloat16, 64): 82984, (torch.bfloat16, 128): 132136,
-             (torch.float32, 80): 230720, (torch.bfloat16, 100): 99880,
+             (torch.float32, 80): 230720, (torch.bfloat16, 100): 132136,
              (torch.float32, 256): 65792, (torch.bfloat16, 8): 82984,
-             (torch.bfloat16, 80): 99880, (torch.float32, 40): 198208,
+             (torch.bfloat16, 80): 132136, (torch.float32, 40): 214088,
              (torch.bfloat16, 40): 82984, (torch.float32, 96): 222256,
-             (torch.bfloat16, 112): 99880, (torch.float32, 112): 230568,
-             (torch.bfloat16, 256): 132136, (torch.bfloat16, 129): 132136}
+             (torch.bfloat16, 112): 132136, (torch.float32, 112): 230568,
+             (torch.bfloat16, 256): 197672, (torch.bfloat16, 129): 197672}
 
 
 @pytest.fixture(scope="module")
@@ -220,26 +221,41 @@ class TestSmemEstimate:
         ("dkv", 96, torch.float32, ("tf32", 96),
          1024 + 4 * 64 * 384 + 4 * 32 * 384 + 4 * 96 * 128 + 2 * 32 * 4
          + 8 * 5),
-        # B2 keeps the tensor cores at 64 and 128 only: the SIMT kernel's
-        # two f32 tiles of 32 rows at the padded width
-        ("dq", 80, torch.bfloat16, ("simt", 128), 2 * 32 * 128 * 4),
+        # B2 at the same widths: Q and dO of 128 queries, two stages of K
+        # and V tiles of 64 keys; in f32 one consumer warpgroup above 64
+        # (64 queries, Q's halves in registers below 128), dO's halves
+        # resident and two stages of K, V (their halves) and K^T (80 or
+        # 96 rows of 32 slots) at 80 and 96
+        ("dq", 80, torch.bfloat16, ("sm90", 80),
+         1024 + 2 * 128 * 256 + 2 * 2 * 64 * 256 + 8 * 5),
+        ("dq", 80, torch.float32, ("tf32", 80),
+         1024 + 2 * 64 * 384 + 2 * (4 * 32 * 384 + 2 * 80 * 128) + 24 * 2),
+        ("dq", 96, torch.float32, ("tf32", 96),
+         1024 + 2 * 64 * 384 + 2 * (4 * 32 * 384 + 2 * 96 * 128) + 24 * 2),
+        ("dq", 40, torch.bfloat16, ("sm90", 64),
+         1024 + 2 * 128 * 128 + 2 * 2 * 64 * 128 + 8 * 5),
         # rows no TMA map takes (bf16 100 is 200 bytes, bf16 6 12): the
         # producer fills the same tiles, so the same shared memory
         ("fwd", 100, torch.bfloat16, ("sm90", 128),
          1024 + 128 * 256 + 2 * 2 * 64 * 256 + 8 * 5),
         ("dkv", 100, torch.float32, ("tf32", 128), 230568),
+        ("dq", 100, torch.bfloat16, ("sm90", 128),
+         1024 + 2 * 128 * 256 + 2 * 2 * 64 * 256 + 8 * 5),
         ("dkv", 8, torch.bfloat16, ("sm90", 64),
          1024 + 2 * 128 * 128 + 2 * (2 * 64 * 128 + 2 * 64 * 4) + 8 * 5),
         ("dkv", 6, torch.bfloat16, ("sm90", 64),
          1024 + 2 * 128 * 128 + 2 * (2 * 64 * 128 + 2 * 64 * 4) + 8 * 5),
         # above 128 in bf16: the width 256, B1 with 32-key tiles, B3's two
         # warpgroups on 64 keys (a half of the columns each), 16-query
-        # tiles; in f32 SIMT, B3 with its lse and delta rows
+        # tiles, B2 with 32-key tiles; in f32 SIMT, B3 with its lse and
+        # delta rows
         ("fwd", 256, torch.bfloat16, ("sm90", 256),
          1024 + 128 * 512 + 2 * 2 * 32 * 512 + 8 * 5),
         ("dkv", 129, torch.bfloat16, ("sm90", 256),
          1024 + 2 * 64 * 512 + 2 * (2 * 16 * 512 + 2 * 16 * 4) + 8 * 5),
-        ("dq", 256, torch.bfloat16, ("simt", 256), 2 * 32 * 256 * 4),
+        ("dq", 256, torch.bfloat16, ("sm90", 256),
+         1024 + 2 * 128 * 512 + 2 * 2 * 32 * 512 + 8 * 5),
+        ("dq", 129, torch.float32, ("simt", 256), 2 * 32 * 256 * 4),
         ("fwd", 256, torch.float32, ("simt", 256), 2 * 32 * 256 * 4),
         ("dkv", 129, torch.float32, ("simt", 256),
          2 * 32 * 256 * 4 + 2 * 32 * 4),
@@ -267,16 +283,18 @@ class TestSmemEstimate:
         (256, torch.bfloat16, 256, True), (256, torch.float32, None, True),
         (129, torch.float32, None, False)])
     def test_tensor_core_width(self, d, dtype, width, tma):
-        # csrc/flash_attn_common.cuh `tensor_core_width`: B1's and B3's
-        # padded width, the smallest of 64, 80, 96, 128 (256 in bf16) that
-        # holds d; rows of d * itemsize bytes a multiple of 16 go through
-        # TMA maps
+        # csrc/flash_attn_common.cuh `tensor_core_width`: B1-B3's padded
+        # width, the smallest of 64, 80, 96, 128 (256 in bf16) that holds
+        # d; rows of d * itemsize bytes a multiple of 16 go through TMA
+        # maps
         assert tfa._tc_width(d, dtype) == width
         assert tfa._tma_rows(d, dtype) == tma
         sym = tfa.train_kernel_symbol("fwd", d, dtype)
         route = "simt" if width is None else (
             "tf32" if dtype == torch.float32 else "sm90")
         assert sym == f"flash_fwd_{route}_kernel"
+        assert tfa.train_kernel_symbol("dq", d, dtype) == \
+            f"flash_bwd_dq_{route}_kernel"
         assert tfa.train_kernel_symbol("dkv", d, dtype) == \
             f"flash_bwd_dkv_{route}_kernel"
 
