@@ -8,7 +8,7 @@ Phases, each raising on failure (exit code != 0, no result line):
   2. build of every CUDA kernel from `csrc/`, one nvcc per source, all
      started together, with the build's seconds; ptxas's register and
      spill report, which must show no spills for the tensor-core
-     kernels, the SIMT kernels and B4-B6 (every instantiation);
+     kernels, B2's SIMT kernel and B4-B6 (every instantiation);
   3. each kernel against its plain PyTorch version on the card: the
      decode kernel (B4) at the serving shape, with head_dim 128, lengths
      around the split boundaries, a cache length that is no multiple of
@@ -31,15 +31,17 @@ Phases, each raising on failure (exit code != 0, no result line):
      equal to each of B1-B3's launches (static + dynamic shared memory)
      at every head_dim 1..256 in both dtypes (`smem_phase`); B1-B6
      against their plain versions at head_dim 8, 16, 32, 40, 80, 96,
-     100, 112, 129 and 256 (`domain_phase`: B1-B3 on the tensor cores
-     at their padded widths, through TMA maps or the producer's own
-     copies, up to 128 and in bf16 up to 256; the SIMT kernels for f32
-     above 128; the padded decode body; B4-B6 at their split boundaries with a length-0 row, B5 / B6
+     100, 112, 129, 192 and 256 (`domain_phase`: B1-B3 on the tensor
+     cores at their padded widths, through TMA maps, 16-byte loads or
+     the producer's own copies; the SIMT kernel for f32 B2 above 128;
+     the padded decode body; B4-B6 at their split boundaries with a length-0 row, B5 / B6
      with 8 query heads over 2 at 80 and 100, B6 at every n_blocks of
      `SWEEP_BLOCKS`); B1-B3 at [1, 12, 32768, 64], causal, bf16 and f32:
      out and dQ on the last 512 query rows, dK and dV against the plain
      version accumulated over query chunks of 2048, with each kernel's
-     time (`long_context_phase`); and B1-B6 at Cerebras-GPT-2.7B's
+     time (`long_context_phase`), and again in f32 at [1, 16, 8192,
+     256] (B1 and B3 at the width 256, eight flushes of B3); and B1-B6
+     at Cerebras-GPT-2.7B's
      shapes, bf16 and f32, held against their plain versions at the bars
      above, then timed (`cerebras_kernel_times`: B4 over
      [8, 32, 2048, 80], B5 / B6 over pages [288, 32, 64, 80], B1-B3 at
@@ -47,7 +49,7 @@ Phases, each raising on failure (exit code != 0, no result line):
      only the tensor-core symbols of B1-B3); B1-B3 at
      [2, 32, 2048, 100] and [2, 16, 2048, 256] causal, bf16 and f32, held
      and timed alike (`wide_kernel_times`: rows no TMA map takes, the
-     bf16 width 256, the f32 SIMT kernels past 128; each kernel's route
+     width 256, f32 B2's SIMT kernel past 128; each kernel's route
      symbol asserted);
   4. serving: GPT-2 small at full width (random weights from a seeded
      generator) through `GenerationSession.for_gpt`, bucketed layout.
@@ -423,8 +425,7 @@ def build_kernels():
 NO_SPILL_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
                     "flash_bwd_dkv_sm90_kernel", "flash_fwd_tf32_kernel",
                     "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel",
-                    "flash_fwd_simt_kernel", "flash_bwd_dq_simt_kernel",
-                    "flash_bwd_dkv_simt_kernel", "flash_decode_kernel",
+                    "flash_bwd_dq_simt_kernel", "flash_decode_kernel",
                     "paged_decode_kernel", "paged_decode_quant_kernel")
 
 
@@ -1467,18 +1468,20 @@ def add_pair_times(entries, shape):
 # JAX tests (8, 16), 32, Cerebras-GPT-2.7B (80), 96, OpenLLaMA-3B (100:
 # rows no TMA map takes in bf16), GPT-J and Gemma (256), and the edges of
 # B1's and B3's tensor-core widths: 40 (width 64, half of the last k16
-# step is zeros), 112 (width 128) and 129 (bf16 width 256, one column
-# past 128)
-SWEEP_DIMS = (8, 16, 32, 40, 80, 96, 100, 112, 129, 256)
+# step is zeros), 112 (width 128), 129 (width 256, one column past 128;
+# f32 rows of element loads) and 192 (width 256, f32 16-byte rows)
+SWEEP_DIMS = (8, 16, 32, 40, 80, 96, 100, 112, 129, 192, 256)
 # B6's n_blocks at each: 1 and others that divide d (4 at 100 and 80
 # gives blocks that are no multiple of an int8 vector; 5 at 80 gives 16)
 SWEEP_BLOCKS = {8: (1, 2), 16: (1, 4), 32: (1, 4), 40: (1, 5),
                 80: (1, 4, 5), 96: (1, 3, 4), 100: (1, 4), 112: (1, 7),
-                129: (1, 3), 256: (1, 4)}
+                129: (1, 3), 192: (1, 4), 256: (1, 4)}
 SWEEP_GQA_DIMS = (80, 100)            # B5 / B6 with 8 query heads over 2
 SWEEP_TRAIN = (2, 4, 200)             # batch, heads, seq of B1-B3's cases
 SWEEP_PAGED = (8, 4, 64, None, 16, 144)  # PAGED_SHAPE's pages at 4 heads
 LONG_SHAPE = (1, 12, 32768, 64)       # B1-B3's long-context run
+# f32 B1 and B3 at the width 256 over 8192 keys: eight flushes of B3
+LONG_WIDE_SHAPE = (1, 16, 8192, 256)
 LONG_TAIL = 512                       # query rows checked of out and dQ
 LONG_CHUNK = 2048                     # query chunks of the dK / dV check
 
@@ -1721,9 +1724,11 @@ def signed_bias(got, ref) -> float:
 
 
 def long_context_phase(dev, shape=LONG_SHAPE, tail: int = LONG_TAIL,
-                       chunk: int = LONG_CHUNK):
-    """B1-B3 at `shape`, causal, bf16 and f32 (the tensor-core routes at
-    head_dim 64): out, lse and dQ against the plain version on the last
+                       chunk: int = LONG_CHUNK,
+                       dtypes=(torch.bfloat16, torch.float32)):
+    """B1-B3 at `shape`, causal, in `dtypes` (the tensor-core routes at
+    head_dim 64; f32 B1 and B3 at 256 with `LONG_WIDE_SHAPE`, B2 there on
+    its SIMT kernel): out, lse and dQ against the plain version on the last
     `tail` query rows; dK and dV against the plain version accumulated
     over query chunks of `chunk` (B2 and B3 from B1's lse and delta, the
     same inputs on both sides); phase 3's bars.  Each kernel's time (CUDA
@@ -1740,7 +1745,7 @@ def long_context_phase(dev, shape=LONG_SHAPE, tail: int = LONG_TAIL,
     counters = train_counters()
     before = {name: c.launches for name, c in counters.items()}
     out_entries = {name: {} for name in TRAIN_KERNELS}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         key = "bf16" if dtype == torch.bfloat16 else "f32"
         rounded = dtype == torch.bfloat16
         q, k, v, do = (x.to(dtype) for x in base)
@@ -6471,8 +6476,8 @@ def cerebras_kernel_times(dev):
 
 # B1-B3 at published head_dims past Cerebras' 80: OpenLLaMA-3B's 100
 # (bf16 rows of 200 bytes, which no TMA map takes: B1 and B3 fill their
-# tiles with their own copies) and GPT-J's / Gemma's 256 (bf16 on the
-# tensor cores at the width 256; f32 on the SIMT kernels), causal
+# tiles with their own copies) and GPT-J's / Gemma's 256 (on the tensor
+# cores at the width 256, but f32 B2 on its SIMT kernel), causal
 WIDE_SHAPES = ((2, 32, 2048, 100), (2, 16, 2048, 256))
 
 
@@ -6481,8 +6486,8 @@ def wide_kernel_times(dev, shapes=WIDE_SHAPES):
     plain version on the first timed copy (`check_train_case`, phase 3's
     bars), then kernel (CUDA events; the profiler's device time of the
     symbol of the route that ran, which must be recorded: the tensor-core
-    kernel up to head_dim 128 and in bf16 up to 256, where no SIMT kernel
-    may run, the SIMT kernel in f32 above 128), plain
+    kernel, where no SIMT kernel may run, but for f32 B2 above 128, which
+    runs its SIMT kernel), plain
     version, one library call (SDPA's causal forward; its whole backward
     for B2 and B3) and the bound.  Returns {kernel: {"<d> <dtype>":
     {...}}}; timing launches are not counted."""
@@ -6504,7 +6509,9 @@ def wide_kernel_times(dev, shapes=WIDE_SHAPES):
             for name, (kernel, plain, library, _) in calls.items():
                 symbol = train_symbol(name, shape[-1], dtype)
                 simt = f"{name}_simt_kernel"
-                tensor_cores = shape[-1] <= 128 or dtype == torch.bfloat16
+                # f32 B2 above 128 alone stays on the SIMT kernel
+                tensor_cores = (shape[-1] <= 128 or dtype == torch.bfloat16
+                                or name != "flash_bwd_dq")
                 if tensor_cores == (symbol == simt):
                     raise AssertionError(f"{name} runs {symbol} at {key}")
                 ms = time_ms(kernel, n=20)
@@ -6922,7 +6929,7 @@ def reshard_phase(dev, cfg_kw=None, seed: int = 0, root=None):
     return out
 
 
-# Phases 11-13, 15a-b and 16 run GPT-2 small's widths at 3 layers in the
+# Phases 11-13, 15a-b and 16 run GPT-2 small's widths at 2 layers in the
 # whole script (`CUT_DEPTH`; their gates follow cfg.layers; phase 14's
 # 4-stage splits, 15c's two stages, each of which must hold blocks, and
 # 15d's use of phase 4's sessions keep 12)
@@ -8340,11 +8347,12 @@ def vision_graph_phase(dev, cases=None, steps: int = 3, world: int = 8,
     return out
 
 
-# phases 11-13, 15a-b, 16 and 22b at 3 of GPT-2 small's 12 layers, and
+# phases 11-13, 15a-b, 16 and 22b at 2 of GPT-2 small's 12 layers, and
 # phase 17's Llama at 2 of its 32: at 6 and 4 the script ended at 962.5 s
 # of its 1200 on one host and at 1202.3 s on a slower one (every phase
-# 20-40% slower there)
-CUT_DEPTH = dict(layers=3)
+# 20-40% slower there); at 3 and 2, with phase 3's checks at head_dim
+# 256, at 1115.4 s on a slow host
+CUT_DEPTH = dict(layers=2)
 LLAMA_CUT_DEPTH = dict(layers=2)
 
 
@@ -8371,6 +8379,8 @@ def main() -> int:
     smem = smem_phase(dev)
     domain = domain_phase(dev)
     long = long_context_phase(dev)
+    long_wide = long_context_phase(dev, shape=LONG_WIDE_SHAPE,
+                                   dtypes=(torch.float32,))
     cerebras_kernels = cerebras_kernel_times(dev)
     wide = wide_kernel_times(dev)
     for e in (entry, *paged_entries, *train_entries):
@@ -8378,6 +8388,7 @@ def main() -> int:
         e["cerebras"] = cerebras_kernels[e["name"]]
     for e in train_entries:
         e["long"] = long[e["name"]]
+        e["long_wide"] = long_wide[e["name"]]
         e["smem_bytes"] = smem
         e["wide"] = wide[e["name"]]
     print(f"chip_smoke: phase 3's head_dim sweep, shared memory, long "

@@ -15,8 +15,9 @@
 //
 // in f32, outputs in the inputs' dtype.  q/k/v/dO [bh, t, d] float32 or
 // bfloat16, lse/delta f32 [bh, t_q], causal or full, any t_q and t_k
-// (ragged tiles are masked here).  On the kernels below: B2 and B3 at
-// every head_dim up to 128 and in bf16 up to 256, templated on a padded
+// (ragged tiles are masked here).  On the kernels below: B3 at every
+// head_dim up to 256, B2 up to 128 and in bf16 up to 256, templated on a
+// padded
 // width DP as B1 is (flash_attn_fwd.cu, "Head dims": TMA maps or the
 // producer's own copies fill the tiles, S, dP (S^T, dP^T) over every k16
 // / k8 step of the width, dQ += dS.K, dV += P^T.dO and dK += dS^T.Q with
@@ -24,8 +25,9 @@
 // transposed K^T, Q^T and dO^T tiles hold DP rows; in bf16 at 256 B2
 // takes 32-key tiles, and one warpgroup's dK and dV would take 256
 // registers a thread, so B3's two warpgroups share the block's 64 keys,
-// both compute S^T and dP^T, and each accumulates half of the columns).
-// float32 above 128 runs the SIMT kernels of flash_attn_simt.cuh.
+// both compute S^T and dP^T, and each accumulates half of the columns;
+// B3 f32 at 256 is a block of its own shape, `dkv_tf32_wide`).  B2
+// float32 above 128 runs the SIMT kernel of flash_attn_simt.cuh.
 //
 // What bounds them.  At the training shape (bh 96, t 1024, d 64, bf16,
 // causal): B2 moves 63.7 MB (q, k, v, dO, lse, delta, dQ) and needs
@@ -136,6 +138,13 @@
 //   the flush, chip_smoke.py's long-context run).  A block of at most
 //   1024 queries never flushes.  B1 and B2 f32 drift alike (-2.0e-4 on
 //   out and dQ at 32768 keys) and stay inside the bar there.
+//   B3 f32 at 256 (`dkv_tf32_wide`): no producer and no transposed
+//   copies.  K and V stay raw in A-fragment order and are split in
+//   registers a k8 step at a time; two consumer warpgroups compute S^T
+//   and dP^T one each and trade P^T through shared memory, then dV^T and
+//   dK^T accumulate with the head_dim as the M side (A fragments read
+//   from the natural Q / dO halves, B the P^T / dS^T tiles), 128 d rows a
+//   warpgroup; 16-query tiles, one stage (213 KB).
 // No atomics: two launches are bitwise equal.  `ptxas -v`: no spills.
 //
 // Known limits: the bf16 kernels serialise each warpgroup's exponentials
@@ -1058,11 +1067,14 @@ cudaError_t launch_dq_tf32(const void* q, const void* k, const void* v,
 // B3, float32
 template <int DP, bool kFill = false>
 struct DkvTf32 {
+  // DP 256: `dkv_tf32_wide` (its own layout, below)
+  static constexpr bool kWide = DP > 128;
   static constexpr int kBK = 64;                    // keys a block
   // queries a tile: 32 halves the small S^T and dP^T products a query
   // against 16; at DP 80, 16 keeps two stages (32 would leave one), and
-  // at 128 32 does not fit (`scripts/kernel_ab.py` times the choices)
-  static constexpr int kBQ = DP == 80 || DP == 128 ? 16 : 32;
+  // at 128 and 256 32 does not fit (`scripts/kernel_ab.py` times the
+  // choices)
+  static constexpr int kBQ = DP == 80 || DP >= 128 ? 16 : 32;
   static constexpr int kPanels =
       (DP + sm90::kPanelColsF32 - 1) / sm90::kPanelColsF32;
   static constexpr int kKVBytes = kBK * kPanels * sm90::kRowBytes;  // a half
@@ -1082,7 +1094,7 @@ struct DkvTf32 {
   static constexpr int kConverters = DP <= 80 && !kFill ? 224 : 96;
   static constexpr int kConvBatch = 6;  // items a converter loads at once
                                         // (sm90::convert_items)
-  static constexpr int kThreads = 160 + kConverters;
+  static constexpr int kThreads = kWide ? 256 : 160 + kConverters;
   // query tiles between two flushes of the accumulators (1024 queries)
   static constexpr int kFlushTiles = 1024 / kBQ;
   // shared memory with one stage, and what each further stage adds; two
@@ -1091,7 +1103,15 @@ struct DkvTf32 {
       1024 + 4 * kKVBytes + kStageBytes + 2 * kBQ * 4 + 8 * 5;
   static constexpr size_t kStageSmem = kStageBytes + 2 * kBQ * 4 + 8 * 3;
   static constexpr int kStages = kSmem1 + kStageSmem <= 227 * 1024 ? 2 : 1;
-  static constexpr size_t kSmem = kSmem1 + (kStages - 1) * kStageSmem;
+  // DP 256: K and V in fragment order (raw f32), Q and dO as stacked
+  // halves, the P^T and dS^T tiles (64 keys x 32 slots: hi, then lo),
+  // the P^T hand-over (8 values a thread of the first warpgroup) and the
+  // tile's lse / delta rows; no barriers in shared memory
+  static constexpr size_t kWideSmem = 1024 + 2 * kKVBytes + 4 * kTile +
+                                      2 * kBK * 128 + 128 * (kBQ / 2) * 4 +
+                                      2 * kBQ * 4;
+  static constexpr size_t kSmem =
+      kWide ? kWideSmem : kSmem1 + (kStages - 1) * kStageSmem;
   static_assert(kSmem <= 227 * 1024, "the shared memory a block may use");
 };
 
@@ -1134,17 +1154,13 @@ __device__ __forceinline__ void flush_dkv(float* dk, float* dv,
 }
 
 template <int DP, bool kFill>
-__global__ void __launch_bounds__(DkvTf32<DP, kFill>::kThreads, 1)
-    flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
-                              const __grid_constant__ CUtensorMap map_k,
-                              const __grid_constant__ CUtensorMap map_v,
-                              const __grid_constant__ CUtensorMap map_do,
-                              const sm90::Fill fill,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ delta,
-                              float* __restrict__ dk, float* __restrict__ dv,
-                              int t_q, int t_k, int d, int causal,
-                              float scale) {
+__device__ __forceinline__ void dkv_tf32_body(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, const CUtensorMap& map_do,
+    const sm90::Fill fill, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk,
+    float* __restrict__ dv, int t_q, int t_k, int d, int causal,
+    float scale) {
   using C = DkvTf32<DP, kFill>;
   constexpr int BQ = C::kBQ, BK = C::kBK, S = C::kStages, T = C::kTile;
   constexpr int TR = C::kTrBytes, KV = C::kKVBytes;
@@ -1412,6 +1428,390 @@ __global__ void __launch_bounds__(DkvTf32<DP, kFill>::kThreads, 1)
   }
 }
 
+// B3, float32 at DP 256 (head_dims 129-256).  K's and V's TF32 halves for
+// the block's 64 keys would take 256 KB and one warpgroup's dK and dV
+// 256 registers a thread, so the block changes shape.  Two consumer
+// warpgroups (256 threads, no producer) share the 64 keys:
+//   * K and V stay raw (64 KB each) in A-fragment order, so a thread
+//     reads its fragment of a k8 step with one 16-byte load and splits it
+//     into hi / lo in registers just before its products;
+//   * per 16-query tile, warpgroup 0 computes S^T = K.Q^T and warpgroup
+//     1 dP^T = V.dO^T, each as A_hi.[B_hi; B_lo] (one m64n32k8: the tile
+//     stacks each panel's lo rows under its hi rows) + A_lo.B_hi (an
+//     m64n16k8), one k8 step's fragments in flight while the next one's
+//     are split (`wgmma_wait<1>`); the small terms keep accumulators
+//     of their own (with one accumulator for all three the worst error
+//     rose from 0.2 to 0.55 of the bar: the tensor cores' f32 sums drop
+//     low bits of small addends);
+//   * warpgroup 0 makes P^T and hands it over in shared memory, warpgroup
+//     1 makes dS^T; each writes its tile's hi / lo halves as a K-major B
+//     operand (64 keys x 32 slots);
+//   * dV and dK accumulate transposed, the head_dim as the M side:
+//     dV^T += dO^T.P and dK^T += Q^T.dS, three products each
+//     (m64n64k8), A fragments read from the stacked Q / dO halves
+//     element by element (no transposed copy of Q or dO exists), B the
+//     P^T / dS^T tiles; warpgroup w owns d rows 128 w .. 128 w + 127:
+//     dK^T and dV^T take 64 + 64 registers a thread;
+//   * the next tile's Q and dO rows load (mostly from L2: every key block
+//     of a row reads them) once every warpgroup is done with the stage,
+//     and are split into it.
+// The accumulators flush every 1024 queries, as at the other widths.
+// Stores and flushes are transposed back at stride d.  Bound: at
+// [2,16,2048,256] causal the function's four products at the TF32 rate,
+// 0.278 ms; this runs 3.44 ms on an H100 (0.58x SDPA's whole backward;
+// `PERF.md` §6): the two warpgroups meet at a barrier four times a
+// 16-query tile, and the S^T / dP^T products are m64n32k8 / m64n16k8.
+template <int DP, bool kFill>
+__device__ __forceinline__ void dkv_tf32_wide(
+    const sm90::Fill fill, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk,
+    float* __restrict__ dv, int t_q, int t_k, int d, int causal,
+    float scale) {
+  using C = DkvTf32<DP, kFill>;
+  constexpr int BQ = C::kBQ, BK = C::kBK, KV = C::kKVBytes, T = C::kTile;
+  constexpr int kSteps = DP / 8;  // k8 steps of S^T and dP^T
+  constexpr int kMT = DP / 128;   // 64-row d tiles a warpgroup
+  // k8 steps a commit group: at 2 their fragments spilled
+  constexpr int G = 1;
+  constexpr int kVecs = DP / 4;   // float4s a padded row
+  constexpr int kItems = 2 * BQ * kVecs / 256;  // a thread's Q / dO float4s
+  static_assert(kItems * 256 == 2 * BQ * kVecs && BQ == 16 && BK == 64,
+                "the tile shapes below");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* kv_s = sm90::align1024(smem_raw);  // K, V in fragment order
+  uint8_t* qd_s = kv_s + 2 * KV;              // Q, dO stacked halves
+  uint8_t* pds_s = qd_s + 4 * T;              // P^T tile, dS^T tile
+  float* xch = reinterpret_cast<float*>(pds_s + 2 * BK * 128);  // P^T
+  float* rows_s = xch + 128 * (BQ / 2);  // lse * log2 e, then delta
+
+  const float* q = reinterpret_cast<const float*>(fill.src[0]);
+  const float* k = reinterpret_cast<const float*>(fill.src[1]);
+  const float* v = reinterpret_cast<const float*>(fill.src[2]);
+  const float* dout = reinterpret_cast<const float*>(fill.src[3]);
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BK;  // under causal masking block 0 is longest
+  const int q_begin = causal ? k0 : 0;
+  const int n_qt = q_begin < t_q ? (t_q - q_begin + BQ - 1) / BQ : 0;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, c = lane % 4, c2 = 2 * c;
+  const size_t row0 = static_cast<size_t>(bh) * t_q;
+  const size_t key0 = static_cast<size_t>(bh) * t_k;
+  auto elem = [&](const float* src, int row, int rows, int col) {
+    return row < rows && col < d ? src[static_cast<size_t>(row) * d + col]
+                                 : 0.f;
+  };
+
+  // K and V: item (kk, t) is thread t's A fragment of k8 step kk, keys
+  // a and a + 8 (a = 16 (t / 32) + (t % 32) / 4) at columns 8 kk + t % 4
+  // and + 4, as {a0, a1, a2, a3} (eight items' loads in flight at once)
+#pragma unroll 8
+  for (int i = threadIdx.x; i < 2 * kSteps * 128; i += 256) {
+    const int which = i / (kSteps * 128), kk = (i / 128) % kSteps;
+    const int t = i % 128;
+    const float* src = (which ? v : k) + key0 * d;
+    const int ka = k0 + 16 * (t / 32) + (t % 32) / 4, col = 8 * kk + t % 4;
+    reinterpret_cast<float4*>(kv_s + which * KV)[kk * 128 + t] =
+        make_float4(elem(src, ka, t_k, col), elem(src, ka + 8, t_k, col),
+                    elem(src, ka, t_k, col + 4),
+                    elem(src, ka + 8, t_k, col + 4));
+  }
+
+  // a Q / dO tile: loaded into registers, then split into the stage (Q's
+  // panel p holds Q_hi's 16 rows then Q_lo's, then dO's the same), with
+  // the tile's lse (times log2 e) and delta rows
+  const float* qb = q + row0 * d;
+  const float* dob = dout + row0 * d;
+  float4 pre[kItems];
+  float pre_row = 0.f;
+  auto load_tile = [&](int q0) {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int i = threadIdx.x + 256 * j, which = i / (BQ * kVecs);
+      const int w = i % (BQ * kVecs), row = q0 + w / kVecs;
+      const int col = 4 * (w % kVecs);
+      const float* src = which ? dob : qb;
+      if (!kFill && row < t_q && col < d) {
+        pre[j] = *reinterpret_cast<const float4*>(
+            src + static_cast<size_t>(row) * d + col);
+      } else {
+        pre[j] = make_float4(elem(src, row, t_q, col),
+                             elem(src, row, t_q, col + 1),
+                             elem(src, row, t_q, col + 2),
+                             elem(src, row, t_q, col + 3));
+      }
+    }
+    if (threadIdx.x < 2 * BQ) {
+      const int qq = q0 + threadIdx.x % BQ;
+      pre_row = qq >= t_q ? 0.f
+                : threadIdx.x < BQ ? lse[row0 + qq] * sm90::kLog2e
+                                   : delta[row0 + qq];
+    }
+  };
+  auto store_tile = [&]() {
+    uint8_t* qd = qd_s + sm90::pinned(0);  // addresses made here
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int i = threadIdx.x + 256 * j, which = i / (BQ * kVecs);
+      const int w = i % (BQ * kVecs), r = w / kVecs, col = 4 * (w % kVecs);
+      const int off = which * 2 * T + (col / 32) * 2 * BQ * 128 + r * 128 +
+                      ((((col % 32) / 4) ^ (r % 8)) * 16);
+      uint4 hi, lo;
+      sm90::split_tf32(pre[j], hi, lo);
+      *reinterpret_cast<uint4*>(qd + off) = hi;
+      *reinterpret_cast<uint4*>(qd + off + BQ * 128) = lo;
+    }
+    if (threadIdx.x < 2 * BQ) rows_s[threadIdx.x] = pre_row;
+    sm90::fence_proxy_async();  // the stores, before the wgmma reads
+  };
+  // x's hi / lo halves at (key, slots 8 j + c2, + 1) of a P^T / dS^T tile
+  // (row = local key, 128 bytes: slots 0-15 hi, 16-31 lo; swizzled)
+  const int key_a = 16 * warp + lane / 4;
+  auto write_tile = [&](uint8_t* base, const float (&x)[BQ / 2]) {
+    uint8_t* tile = base + sm90::pinned(0);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = key_a + 8 * h, slot = 8 * j + c2;
+        uint32_t h0, l0, h1, l1;
+        sm90::split_tf32(x[4 * j + 2 * h], h0, l0);
+        sm90::split_tf32(x[4 * j + 2 * h + 1], h1, l1);
+        const int at = key * 128 + (slot % 4) * 4;
+        *reinterpret_cast<uint2*>(tile + at +
+                                  (((slot / 4) ^ (key % 8)) * 16)) =
+            make_uint2(h0, h1);
+        *reinterpret_cast<uint2*>(tile + at +
+                                  ((((slot + 16) / 4) ^ (key % 8)) * 16)) =
+            make_uint2(l0, l1);
+      }
+  };
+
+  float dkt[kMT][32], dvt[kMT][32];  // dK^T, dV^T: d rows x 64 keys
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dkt[m][i] = dvt[m][i] = 0.f;
+  // f(index into dK / dV, dK^T element, dV^T element) for each element
+  // this thread holds inside [t_k, d)
+  auto visit = [&](auto f) {
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 128 * wg + 64 * m + key_a + 8 * h;
+            const int key = k0 + 8 * j + c2 + e;
+            if (col < d && key < t_k)
+              f((key0 + key) * d + col, dkt[m][4 * j + 2 * h + e],
+                dvt[m][4 * j + 2 * h + e]);
+          }
+  };
+  // the accumulators against their partial sums in dk / dv, unscaled
+  // (`flush_dkv`'s arithmetic)
+  auto flush = [&](bool first, bool to_memory) {
+    visit([&](size_t at, float& ka, float& va) {
+      const float k_sum = (first ? 0.f : dk[at]) + ka;
+      const float v_sum = (first ? 0.f : dv[at]) + va;
+      if (to_memory) {
+        dk[at] = k_sum;
+        dv[at] = v_sum;
+        ka = va = 0.f;
+      } else {
+        ka = k_sum;
+        va = v_sum;
+      }
+    });
+  };
+
+  const float scale_log2 = scale * sm90::kLog2e;
+  const uint8_t* a_src = kv_s + wg * KV + tid * 16;  // K (wg 0) or V (wg 1)
+  const uint32_t b_base = sm90::smem_u32(qd_s + wg * 2 * T);  // Q or dO
+  const uint32_t p_tile = sm90::smem_u32(pds_s);  // then the dS^T tile
+  // Query tiles in runs of kFlushTiles (1024 queries); between two runs
+  // the accumulators move to dK / dV in device memory (added there on the
+  // CUDA cores) and restart at 0, as `flush_dkv` does at the other
+  // widths.
+  for (int r0 = 0; r0 < n_qt; r0 += C::kFlushTiles) {
+    const int r1 = min(n_qt, r0 + C::kFlushTiles);
+    if (r0 > 0) flush(r0 == C::kFlushTiles, true);
+    load_tile(q_begin + r0 * BQ);
+    store_tile();
+    __syncthreads();
+    for (int it = r0; it < r1; ++it) {
+      const int q0 = q_begin + it * BQ;
+      // S^T (warpgroup 0) or dP^T (1): A_hi.[B_hi; B_lo] + A_lo.B_hi, the
+      // small terms in accumulators of their own (summed in f32 after)
+      float s2[BQ], s1[BQ / 2];
+      uint32_t fh[2][G][4], fl[2][G][4];
+      float4 xs[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        xs[g] = *reinterpret_cast<const float4*>(a_src + g * 128 * 16);
+#pragma unroll
+      for (int g0 = 0; g0 < kSteps; g0 += G) {
+        const int b = (g0 / G) & 1;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          sm90::split_tf32(xs[g].x, fh[b][g][0], fl[b][g][0]);
+          sm90::split_tf32(xs[g].y, fh[b][g][1], fl[b][g][1]);
+          sm90::split_tf32(xs[g].z, fh[b][g][2], fl[b][g][2]);
+          sm90::split_tf32(xs[g].w, fh[b][g][3], fl[b][g][3]);
+        }
+        if (g0 + G < kSteps) {
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            xs[g] = *reinterpret_cast<const float4*>(
+                a_src + (g0 + G + g) * 128 * 16);
+        }
+        sm90::wgmma_fence();
+        const uint32_t bb = sm90::pinned(b_base);  // descriptors made here
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const int kk = g0 + g;
+          const uint64_t db = sm90::desc_k_major(
+              bb + (kk / 4) * 2 * BQ * 128 + (kk % 4) * 32);
+          sm90::wgmma_tf32_rs(s2, fh[b][g], db, kk > 0);
+          sm90::wgmma_tf32_rs(s1, fl[b][g], db, kk > 0);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();  // the group before this one is done
+        if (g0 > 0) {           // its fragments stay live until here
+          sm90::fence_regs(fh[b ^ 1]);
+          sm90::fence_regs(fl[b ^ 1]);
+        }
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s2);
+      sm90::fence_regs(s1);
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        sm90::fence_regs(fh[b]);
+        sm90::fence_regs(fl[b]);
+      }
+      float st[BQ / 2];  // columns 8 j + c2 + e of rows key_a, key_a + 8
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i)
+        st[i] = s2[i] + s2[i + BQ / 2] + s1[i];
+
+      // P^T (warpgroup 0), handed over; dS^T = P^T (dP^T - delta) (1)
+      if (wg == 0) {
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ql = 8 * j + c2 + e, qq = q0 + ql;
+            const float l2 = rows_s[ql];
+            const int ka = k0 + key_a, kb = ka + 8;
+            const bool live_q = qq < t_q;
+            const bool live_a = live_q && ka < t_k && !(causal && ka > qq);
+            const bool live_b = live_q && kb < t_k && !(causal && kb > qq);
+            st[4 * j + e] =
+                live_a ? exp2f(fmaf(st[4 * j + e], scale_log2, -l2)) : 0.f;
+            st[4 * j + 2 + e] =
+                live_b ? exp2f(fmaf(st[4 * j + 2 + e], scale_log2, -l2)) : 0.f;
+          }
+#pragma unroll
+        for (int i = 0; i < BQ / 2; i += 4)
+          *reinterpret_cast<float4*>(xch + tid * (BQ / 2) + i) =
+              make_float4(st[i], st[i + 1], st[i + 2], st[i + 3]);
+        write_tile(pds_s, st);
+      }
+      __syncthreads();  // P^T handed over
+      if (wg == 1) {
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) {
+          const float dl = rows_s[BQ + 8 * (i / 4) + c2 + i % 2];
+          st[i] = xch[tid * (BQ / 2) + i] * (st[i] - dl);
+        }
+        write_tile(pds_s + BK * 128, st);
+      }
+      sm90::fence_proxy_async();  // the tiles, before the wgmma reads
+      __syncthreads();
+
+      // dV^T += dO^T.P and dK^T += Q^T.dS, one (d tile, 8 queries) group
+      // of six products at a time
+      uint32_t af[2][4][4];  // Q_hi, Q_lo, dO_hi, dO_lo fragments
+#pragma unroll
+      for (int gi = 0; gi < kMT * (BQ / 8); ++gi) {
+        const int m = gi / (BQ / 8), kq = gi % (BQ / 8), b = gi & 1;
+        const int col = 128 * wg + 64 * m + key_a;  // d rows col, col + 8
+        const uint8_t* qd = qd_s + sm90::pinned(0);  // addresses made here
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {  // Q_hi, Q_lo, dO_hi, dO_lo
+          const uint8_t* tile = qd + (x / 2) * 2 * T + (x % 2) * BQ * 128;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int qr = 8 * kq + c + 4 * (i / 2), dc = col + 8 * (i % 2);
+            af[b][x][i] = *reinterpret_cast<const uint32_t*>(
+                tile + (dc / 32) * 2 * BQ * 128 + qr * 128 +
+                ((((dc % 32) / 4) ^ (qr % 8)) * 16) + (dc % 4) * 4);
+          }
+        }
+        sm90::wgmma_fence();
+        const uint32_t p_at = sm90::pinned(p_tile), ds_at = p_at + BK * 128;
+        const uint64_t p_hi = sm90::desc_k_major(p_at + kq * 32);
+        const uint64_t p_lo = sm90::desc_k_major(p_at + 64 + kq * 32);
+        const uint64_t s_hi = sm90::desc_k_major(ds_at + kq * 32);
+        const uint64_t s_lo = sm90::desc_k_major(ds_at + 64 + kq * 32);
+        sm90::wgmma_tf32_rs(dvt[m], af[b][2], p_hi, 1);
+        sm90::wgmma_tf32_rs(dvt[m], af[b][2], p_lo, 1);
+        sm90::wgmma_tf32_rs(dvt[m], af[b][3], p_hi, 1);
+        sm90::wgmma_tf32_rs(dkt[m], af[b][0], s_hi, 1);
+        sm90::wgmma_tf32_rs(dkt[m], af[b][0], s_lo, 1);
+        sm90::wgmma_tf32_rs(dkt[m], af[b][1], s_hi, 1);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();
+        if (gi > 0) sm90::fence_regs(af[b ^ 1]);
+      }
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int m = 0; m < kMT; ++m) {
+        sm90::fence_regs(dkt[m]);
+        sm90::fence_regs(dvt[m]);
+      }
+      sm90::fence_regs(af[0]);
+      sm90::fence_regs(af[1]);
+      __syncthreads();  // every read of the stage and the tiles is done
+      if (it + 1 < r1) {  // the next tile (rows held in registers across
+                          // the products spilled, and timed slower)
+        load_tile(q0 + BQ);
+        store_tile();
+        __syncthreads();
+      }
+    }
+  }
+
+  if (n_qt > C::kFlushTiles) flush(false, false);
+  // columns at or past d are the padding of Q and dO: not stored
+  visit([&](size_t at, float& ka, float& va) {
+    dk[at] = ka * scale;
+    dv[at] = va;
+  });
+}
+
+template <int DP, bool kFill>
+__global__ void __launch_bounds__(DkvTf32<DP, kFill>::kThreads, 1)
+    flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              const __grid_constant__ CUtensorMap map_do,
+                              const sm90::Fill fill,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              int t_q, int t_k, int d, int causal,
+                              float scale) {
+  if constexpr (DkvTf32<DP, kFill>::kWide)
+    dkv_tf32_wide<DP, kFill>(fill, lse, delta, dk, dv, t_q, t_k, d, causal,
+                             scale);
+  else
+    dkv_tf32_body<DP, kFill>(map_q, map_k, map_v, map_do, fill, lse, delta,
+                             dk, dv, t_q, t_k, d, causal, scale);
+}
+
 template <int DP>
 cudaError_t launch_dkv_tf32(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
@@ -1422,7 +1822,11 @@ cudaError_t launch_dkv_tf32(const void* q, const void* k, const void* v,
   CUtensorMap map_q{}, map_k{}, map_v{}, map_do{};
   sm90::Fill fill = sm90::fill_of(q, k, v, dout, d * 4);
   cudaError_t e = cudaSuccess;
-  if (!fill.width) {
+  if constexpr (C::kWide) {  // no maps: 16-byte loads of Q's, dO's rows
+    if (!fill.width && (reinterpret_cast<uintptr_t>(q) % 16 ||
+                        reinterpret_cast<uintptr_t>(dout) % 16))
+      return cudaErrorInvalidValue;
+  } else if (!fill.width) {
     e = sm90::make_tile_map(&map_q, q, bh, t_q, d, C::kBQ, 4);
     if (e == cudaSuccess)
       e = sm90::make_tile_map(&map_do, dout, bh, t_q, d, C::kBQ, 4);
@@ -1451,7 +1855,7 @@ cudaError_t launch_dkv_tf32(const void* q, const void* k, const void* v,
                          C::kThreads);
 }
 
-// ---------- head_dims the tensor-core routes do not take: SIMT (B2, B3)
+// ------------- head_dims the tensor-core routes do not take: SIMT (B2)
 
 template <typename T, int DP>
 cudaError_t launch_dq_simt(const void* q, const void* k, const void* v,
@@ -1474,35 +1878,14 @@ cudaError_t launch_dq_simt(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
-cudaError_t launch_dkv_simt(const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse,
-                            const void* delta, void* dk, void* dv, int bh,
-                            int t_q, int t_k, int head_dim, int causal,
-                            float scale, cudaStream_t stream) {
-  using C = simt::Cfg<DP>;
-  dim3 grid;
-  if (!simt::row_grid<DP>(bh, t_k, &grid)) return cudaErrorInvalidValue;
-  static std::atomic<size_t> raised[kMaxDevices];
-  auto kernel = simt::flash_bwd_dkv_simt_kernel<T, DP>;
-  cudaError_t e = allow_smem(kernel, C::kSmemDkv, raised);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, simt::kThreads, C::kSmemDkv, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), t_q, t_k, head_dim, causal,
-      scale);
-  return cudaGetLastError();
-}
-
 }  // namespace
 }  // namespace flash_train
 
-// dtype: 0 float32, 1 bfloat16.  B2 (dQ) and B3 (dK, dV) take the tensor
-// cores at every head_dim up to 128 (bfloat16: up to 256), at its padded
-// width (`tensor_core_width`: bfloat16 directly, float32 as three TF32
-// products); float32 above 128 the SIMT kernels (flash_attn_simt.cuh).
+// dtype: 0 float32, 1 bfloat16.  B3 (dK, dV) takes the tensor cores at
+// every head_dim up to 256, B2 (dQ) at every head_dim up to 256 in
+// bfloat16 and up to 128 in float32, at its padded width
+// (`tensor_core_width`: bfloat16 directly, float32 as three TF32
+// products); B2 float32 above 128 the SIMT kernel (flash_attn_simt.cuh).
 // q/dout [bh, t_q, head_dim], k/v [bh, t_k, head_dim], lse/delta f32
 // [bh, t_q], outputs like their inputs; all contiguous on the current
 // device, 16-byte aligned where a TMA map takes the rows.  Each returns
@@ -1516,14 +1899,15 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   if (bh == 0 || t_q == 0) return cudaSuccess;
   if (t_k < 1 || (t_q + 31) / 32 > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int width = flash_train::tensor_core_width(head_dim, dtype);
+  const int width = flash_train::tensor_core_width(head_dim, dtype,
+                                                   flash_train::kDq);
   if (width == 0)
     return flash_train::simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
       return flash_train::launch_dq_simt<decltype(t), decltype(d)::value>(
           q, k, v, dout, lse, delta, dq, bh, t_q, t_k, head_dim, causal,
           scale, s);
     });
-  return flash_train::dispatch_width(dtype, width, [&](auto t, auto w) {
+  return flash_train::dispatch_width<false>(dtype, width, [&](auto t, auto w) {
     constexpr int DP = decltype(w)::value;
     if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
       return flash_train::launch_dq_sm90<DP>(q, k, v, dout, lse, delta, dq,
@@ -1545,14 +1929,9 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k,
   if (bh == 0 || t_k == 0) return cudaSuccess;
   if ((t_k + 31) / 32 > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int width = flash_train::tensor_core_width(head_dim, dtype);
-  if (width == 0)
-    return flash_train::simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
-      return flash_train::launch_dkv_simt<decltype(t), decltype(d)::value>(
-          q, k, v, dout, lse, delta, dk, dv, bh, t_q, t_k, head_dim, causal,
-          scale, s);
-    });
-  return flash_train::dispatch_width(dtype, width, [&](auto t, auto w) {
+  const int width = flash_train::tensor_core_width(head_dim, dtype,
+                                                   flash_train::kDkv);
+  return flash_train::dispatch_width<true>(dtype, width, [&](auto t, auto w) {
     constexpr int DP = decltype(w)::value;
     if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
       return flash_train::launch_dkv_sm90<DP>(q, k, v, dout, lse, delta, dk,
@@ -1572,8 +1951,8 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k,
 extern "C" int flash_attn_bwd_smem(int kernel, int head_dim, int dtype,
                                    int* static_bytes, int* dynamic_bytes) {
   using namespace flash_train;
-  const int width = tensor_core_width(head_dim, dtype);
   if (kernel == 0) {
+    const int width = tensor_core_width(head_dim, dtype, kDq);
     if (width == 0)
       return simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
         constexpr int DP = decltype(d)::value;
@@ -1581,7 +1960,7 @@ extern "C" int flash_attn_bwd_smem(int kernel, int head_dim, int dtype,
                            simt::Cfg<DP>::kSmemDq, static_bytes,
                            dynamic_bytes);
       });
-    return dispatch_width(dtype, width, [&](auto t, auto w) {
+    return dispatch_width<false>(dtype, width, [&](auto t, auto w) {
       constexpr int DP = decltype(w)::value;
       if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
         return report_smem(flash_bwd_dq_sm90_kernel<DP, false>,
@@ -1592,14 +1971,8 @@ extern "C" int flash_attn_bwd_smem(int kernel, int head_dim, int dtype,
     });
   }
   if (kernel != 1) return cudaErrorInvalidValue;
-  if (width == 0)
-    return simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
-      constexpr int DP = decltype(d)::value;
-      return report_smem(simt::flash_bwd_dkv_simt_kernel<decltype(t), DP>,
-                         simt::Cfg<DP>::kSmemDkv, static_bytes,
-                         dynamic_bytes);
-    });
-  return dispatch_width(dtype, width, [&](auto t, auto w) {
+  const int width = tensor_core_width(head_dim, dtype, kDkv);
+  return dispatch_width<true>(dtype, width, [&](auto t, auto w) {
     constexpr int DP = decltype(w)::value;
     if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
       return report_smem(flash_bwd_dkv_sm90_kernel<DP, false>,

@@ -12,9 +12,8 @@
 // causal (positions aligned at 0), running max m and denominator l in
 // f32, out = acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)), as
 // the TPU kernel computes them.  float32 and bfloat16; on the kernels
-// below every head_dim up to 128, and in bfloat16 up to 256 ("Head
-// dims"); float32 above 128 on the SIMT kernel of flash_attn_simt.cuh;
-// any t_q and t_k (ragged tiles are masked here, not shrunk).
+// below every head_dim up to 256 ("Head dims"); any t_q and t_k (ragged
+// tiles are masked here, not shrunk).
 //
 // What bounds it.  At the training shape (bh 96, t 1024, d 64, bf16,
 // causal) the function moves 50.7 MB (q, k, v and out once, lse) and
@@ -88,8 +87,8 @@
 // warpgroup of 64 queries, one raw and two converted stages (224 KB).
 //
 // Head dims.  Both kernels are templated on a padded width DP (64, 80,
-// 96, 128, and 256 for bf16; `tensor_core_width` in
-// flash_attn_common.cuh) and take the true d at run time.  A tile holds
+// 96, 128, 256; `tensor_core_width` in flash_attn_common.cuh) and take
+// the true d at run time.  A tile holds
 // ceil(d / panel) 128-byte panels a row (80 bf16 columns take two of 64,
 // 80 f32 ones three of 32), zeros from d to the panel's end: the tensor
 // maps' extent is d, so TMA fills them; where no map takes the rows
@@ -109,9 +108,29 @@
 // 32 at 256 (O takes 128 registers there); f32 two consumer warpgroups
 // below 128 (Q's halves in registers at 64, in shared memory at 80 and
 // 96: each converted K/V tile then serves 128 queries, not 64), one at
-// 128 (`scripts/kernel_ab.py` times one warpgroup against two).  f32 above 128 runs the
-// SIMT kernel: Q's and a K/V tile's TF32 halves do not fit a block's
-// shared memory there.
+// 128 (`scripts/kernel_ab.py` times one warpgroup against two).
+//
+// f32 at 256 (head_dims 129-256, GPT-J's and Gemma's 256).  Q's halves
+// for 64 queries take 128 KB and O 128 registers a thread, so the block
+// is one consumer warpgroup and the K/V side has 99 KB: key tiles of 16,
+// one converted stage (K_hi, K_lo: 32 KB; V^T_hi, V^T_lo as 256 rows of
+// 128 bytes, half used: 64 KB) and no raw stage.  The four producer
+// warps are all converters: they load each tile's K and V rows from
+// device memory into registers themselves (16-byte loads where a TMA map
+// would take the rows, element loads else), split them into the stage
+// and load the next tile's while the consumers compute.  K's part and
+// V's part of the stage have their own full / empty barriers, so the
+// next K is written while the consumers run the softmax and P.V, and the
+// next V while they run Q.K^T.  The stage stacks K_lo under K_hi in each
+// panel, so Q_hi.K_hi + Q_hi.K_lo is one m64n32k8 product whose column
+// halves are summed after it (with Q_lo.K_hi, an m64n16k8): three TF32
+// products, as everywhere, in two instructions.  O = P.V is m64n256k8
+// (three a step, as at the other widths).  A test of d never sits
+// between the `wgmma`s.  Bound: at [2,16,2048,256] causal the function's
+// two products at the TF32 rate, 0.139 ms; this runs 1.50 ms on an H100
+// (0.78x SDPA's forward; `PERF.md` §6): every 16-key tile reads Q's
+// 128 KB of halves from shared memory again, and one stage serialises
+// part of the conversion with the products.
 //
 // Known limits: the bf16 kernel serialises, within a warpgroup, the
 // softmax of one tile and the products of the next (no ping-pong between
@@ -122,7 +141,6 @@
 // pass over every K/V tile.
 
 #include "flash_attn_common.cuh"
-#include "flash_attn_simt.cuh"
 #include "flash_attn_sm90.cuh"
 
 namespace flash_train {
@@ -386,24 +404,34 @@ cudaError_t launch_sm90(const void* q, const void* k, const void* v,
 
 template <int DP>
 struct FwdTf32 {
+  // DP 256: 16-key tiles, no raw stage (the converters load K and V
+  // from device memory themselves), one converted stage whose K and V
+  // parts have barriers of their own, K_hi and K_lo stacked in each
+  // panel (rows 0-15 and 16-31: Q_hi.K_hi and Q_hi.K_lo are one N = 32
+  // product)
+  static constexpr bool kWide = DP > 128;
   static constexpr int kWG = DP < 128 ? 2 : 1;       // consumer warpgroups
   static constexpr int kBQ = 64 * kWG;               // queries a block
-  static constexpr int kBK = 32;                     // keys a tile
+  static constexpr int kBK = kWide ? 16 : 32;        // keys a tile
   static constexpr bool kQRegs = DP == 64;           // Q's halves in registers
-  static constexpr int kRaw = DP == 64 ? 2 : 1;      // raw K/V stages
-  static constexpr int kConv = DP == 64 ? 4 : 2;     // converted stages
+  static constexpr int kRaw = kWide ? 0 : DP == 64 ? 2 : 1;  // raw K/V stages
+  static constexpr int kConv = kWide ? 1 : DP == 64 ? 4 : 2;  // converted
   static constexpr int kPanels =
       (DP + sm90::kPanelColsF32 - 1) / sm90::kPanelColsF32;
   static constexpr int kRowPad = kPanels * sm90::kPanelColsF32;  // f32 a row
   static constexpr int kTileBytes = kBK * kPanels * sm90::kRowBytes;  // K or V
-  static constexpr int kTrBytes = DP * kBK * 4;      // V^T_hi or V^T_lo
+  // V^T_hi or V^T_lo: DP rows of 128 bytes (32 key slots; 16 used at 256)
+  static constexpr int kTrBytes = DP * 128;
   static constexpr int kRawBytes = 2 * kTileBytes;   // K, V
   // K_hi, K_lo, V^T_hi, V^T_lo
   static constexpr int kConvBytes = 2 * kTileBytes + 2 * kTrBytes;
   static constexpr int kQHalf = kBQ * kPanels * sm90::kRowBytes;
   static constexpr int kQBytes = kQRegs ? 0 : 2 * kQHalf;  // Q_hi, Q_lo
-  static constexpr int kConverters = 96;             // producer warps 1-3
+  // producer warps 1-3, or all four where no TMA loads
+  static constexpr int kConverters = kWide ? 128 : 96;
   static constexpr int kThreads = 128 * (1 + kWG);
+  // full / empty barriers of each stage (at 256: K's and V's parts)
+  static constexpr int kBars = kWide ? 4 : 2 * (kRaw + kConv);
   // registers a thread after `setmaxnreg` (two consumer warpgroups only;
   // one consumer warpgroup keeps the 255 of a 256-thread block)
   static constexpr int kProducerRegs = 56, kConsumerRegs = 224;
@@ -411,9 +439,97 @@ struct FwdTf32 {
                                 65536,
                 "the SM's register file");
   static constexpr size_t kSmem = 1024 + kQBytes + kRaw * kRawBytes +
-                                  kConv * kConvBytes + 16 * (kRaw + kConv);
+                                  kConv * kConvBytes + 8 * kBars;
   static_assert(kSmem <= 227 * 1024, "the shared memory a block may use");
 };
+
+// DP 256, the converters (the four producer warps, thread `ct`): each
+// 16-key tile of K and V from device memory into registers (rows past
+// t_k and columns past d as zeros; 16-byte loads where the rows allow,
+// kFill: element loads), split into the converted stage, K's part then
+// V's, each behind its own empty / full barrier pair; the next tile's
+// part is loaded as soon as this one's is stored, so its latency
+// overlaps the consumers' products.  K_hi / K_lo: panel p holds K_hi's
+// 16 rows then K_lo's (the 128-byte swizzle, as a TMA box lands them);
+// V^T_hi / V^T_lo as `split_transposed` writes them (each 8-key group in
+// the order 0 2 4 6 1 3 5 7).
+template <int DP, bool kFill>
+__device__ __forceinline__ void fwd_wide_convert(const float* kb,
+                                                 const float* vb,
+                                                 uint8_t* conv, uint64_t* bars,
+                                                 int t_k, int d, int n_kt,
+                                                 int ct) {
+  using C = FwdTf32<DP>;
+  constexpr int BK = C::kBK, N = C::kConverters, T = C::kTileBytes;
+  constexpr int kVecs = DP / 4;                  // float4s a K row
+  constexpr int kKItems = BK * kVecs / N;        // a converter's float4s of K
+  constexpr int kVItems = DP * BK / 4 / N;       // and of V^T (4 keys each)
+  static_assert(kKItems * N == BK * kVecs && kVItems * N == DP * BK / 4,
+                "items a converter");
+  uint64_t *k_full = bars, *k_empty = bars + 1;
+  uint64_t *v_full = bars + 2, *v_empty = bars + 3;
+  float4 kx[kKItems], vx[kVItems];
+  auto elem = [&](const float* src, int row, int col) {
+    return row < t_k && col < d ? src[static_cast<size_t>(row) * d + col]
+                                : 0.f;
+  };
+  auto load_k = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < kKItems; ++j) {
+      const int i = ct + j * N, row = k0 + i / kVecs, col = 4 * (i % kVecs);
+      if (!kFill && row < t_k && col < d) {
+        kx[j] = *reinterpret_cast<const float4*>(
+            kb + static_cast<size_t>(row) * d + col);
+      } else {
+        kx[j] = make_float4(elem(kb, row, col), elem(kb, row, col + 1),
+                            elem(kb, row, col + 2), elem(kb, row, col + 3));
+      }
+    }
+  };
+  auto load_v = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < kVItems; ++j) {
+      const int i = ct + j * N, col = i % DP, quad = i / DP;
+      const int r0 = k0 + 8 * (quad / 2) + quad % 2;  // keys r0 + 2 e
+      vx[j] = make_float4(elem(vb, r0, col), elem(vb, r0 + 2, col),
+                          elem(vb, r0 + 4, col), elem(vb, r0 + 6, col));
+    }
+  };
+  if (n_kt > 0) {
+    load_k(0);
+    load_v(0);
+  }
+  for (int it = 0; it < n_kt; ++it) {
+    if (it > 0) sm90::mbar_wait(k_empty, (it - 1) & 1);
+#pragma unroll
+    for (int j = 0; j < kKItems; ++j) {
+      const int i = ct + j * N, r = i / kVecs, col = 4 * (i % kVecs);
+      const int off = (col / 32) * 2 * BK * 128 + r * 128 +
+                      ((((col % 32) / 4) ^ (r % 8)) * 16);
+      uint4 hi, lo;
+      sm90::split_tf32(kx[j], hi, lo);
+      *reinterpret_cast<uint4*>(conv + off) = hi;
+      *reinterpret_cast<uint4*>(conv + off + BK * 128) = lo;
+    }
+    sm90::fence_proxy_async();  // the stores, before the consumers' wgmma
+    sm90::mbar_arrive(k_full);
+    if (it + 1 < n_kt) load_k((it + 1) * BK);
+    if (it > 0) sm90::mbar_wait(v_empty, (it - 1) & 1);
+#pragma unroll
+    for (int j = 0; j < kVItems; ++j) {
+      const int i = ct + j * N, col = i % DP, pos = 4 * (i / DP);
+      const int off = (pos / 32) * DP * 128 + col * 128 +
+                      ((((pos % 32) / 4) ^ (col % 8)) * 16);
+      uint4 hi, lo;
+      sm90::split_tf32(vx[j], hi, lo);
+      *reinterpret_cast<uint4*>(conv + 2 * T + off) = hi;
+      *reinterpret_cast<uint4*>(conv + 2 * T + C::kTrBytes + off) = lo;
+    }
+    sm90::fence_proxy_async();
+    sm90::mbar_arrive(v_full);
+    if (it + 1 < n_kt) load_v((it + 1) * BK);
+  }
+}
 
 // One landed raw stage (K then V, each [BK rows][DP] f32 in 128-byte
 // swizzled panels of 32 columns, zeros past d) into a converted stage:
@@ -452,6 +568,10 @@ __global__ void __launch_bounds__(FwdTf32<DP>::kThreads, 1)
   uint64_t* raw_empty = raw_full + R;
   uint64_t* conv_full = raw_empty + R;
   uint64_t* conv_empty = conv_full + S;
+  // DP 256: conv_full / conv_empty guard K's part of the one stage, these
+  // V's
+  uint64_t* v_full = conv_empty + S;
+  uint64_t* v_empty = v_full + 1;
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest first
@@ -469,11 +589,25 @@ __global__ void __launch_bounds__(FwdTf32<DP>::kThreads, 1)
       sm90::mbar_init(&conv_full[s], C::kConverters);
       sm90::mbar_init(&conv_empty[s], 4 * C::kWG);  // one per consumer warp
     }
+    if constexpr (C::kWide) {
+      sm90::mbar_init(v_full, C::kConverters);
+      sm90::mbar_init(v_empty, 4);
+    }
     sm90::fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp >= 4 * C::kWG) {  // producer warpgroup: one warp loads, three split
+  if constexpr (C::kWide) {  // producer warpgroup: four warps convert
+    if (warp >= 4) {
+      const size_t slab = static_cast<size_t>(bh) * t_k * d;
+      fwd_wide_convert<DP, kFill>(
+          reinterpret_cast<const float*>(fill.src[1]) + slab,
+          reinterpret_cast<const float*>(fill.src[2]) + slab, conv_s,
+          conv_full, t_k, d, n_kt, threadIdx.x - 128);
+      return;
+    }
+  } else if (warp >= 4 * C::kWG) {  // producer warpgroup: one warp loads,
+                                    // three split
     if constexpr (C::kWG > 1) sm90::regs_release<C::kProducerRegs>();
     if (warp == 4 * C::kWG) {
       if constexpr (kFill) {  // rows no map takes: the warp fills them
@@ -592,6 +726,29 @@ __global__ void __launch_bounds__(FwdTf32<DP>::kThreads, 1)
 
     // S = Q_hi.K_hi + Q_hi.K_lo + Q_lo.K_hi, 8 columns of d a step
     float sc[BK / 2];
+    if constexpr (C::kWide) {
+      // Q_hi.[K_hi; K_lo] as one N = 32 product (columns 16-31 are
+      // Q_hi.K_lo) and Q_lo.K_hi, summed once the K part is released
+      float s2[BK], s1[BK / 2];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        const uint32_t qc = q_addr + (kk / 4) * BQ * 128 + (kk % 4) * 32;
+        const uint64_t dk = sm90::desc_k_major(k_hi + (kk / 4) * 2 * BK * 128 +
+                                               (kk % 4) * 32);
+        sm90::wgmma_tf32_ss(s2, sm90::desc_k_major(qc), dk, kk > 0);
+        sm90::wgmma_tf32_ss(s1, sm90::desc_k_major(qc + QH), dk, kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::fence_regs(s2);
+      sm90::fence_regs(s1);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&conv_empty[s]);  // K read
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        sc[i] = s2[i] + s2[i + BK / 2] + s1[i];
+    } else {
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 8; ++kk) {
@@ -618,6 +775,7 @@ __global__ void __launch_bounds__(FwdTf32<DP>::kThreads, 1)
     if constexpr (C::kQRegs) {
       sm90::fence_regs(q_hi);
       sm90::fence_regs(q_lo);
+    }
     }
 
     // scores in log2 units, masked where the tile crosses the diagonal
@@ -674,6 +832,7 @@ __global__ void __launch_bounds__(FwdTf32<DP>::kThreads, 1)
     // are the fragment's columns c and c + 4 (V^T stored to match)
     uint32_t p_hi[BK / 8][4], p_lo[BK / 8][4];
     sm90::split_frags_tf32(sc, p_hi, p_lo);
+    if constexpr (C::kWide) sm90::mbar_wait(v_full, it & 1);
     // O += P_hi.V_hi + P_hi.V_lo + P_lo.V_hi, 8 keys a step
     sm90::wgmma_fence();
 #pragma unroll
@@ -690,7 +849,8 @@ __global__ void __launch_bounds__(FwdTf32<DP>::kThreads, 1)
     sm90::fence_regs(p_hi);
     sm90::fence_regs(p_lo);
     __syncwarp();
-    if (lane == 0) sm90::mbar_arrive(&conv_empty[s]);  // this warp is done
+    if (lane == 0)  // this warp is done
+      sm90::mbar_arrive(C::kWide ? v_empty : &conv_empty[s]);
   }
 
   const float ls_a = fmaxf(sm90::quad_sum(l_a), 1e-30f);
@@ -721,11 +881,17 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v,
   CUtensorMap map_k{}, map_v{};
   sm90::Fill fill = sm90::fill_of(q, k, v, nullptr, d * 4);
   cudaError_t e = cudaSuccess;
-  if (!fill.width) {
+  if (!fill.width) {  // 16-byte loads of q's (and at 256 k's, v's) rows
     if (reinterpret_cast<uintptr_t>(q) % 16) return cudaErrorInvalidValue;
-    e = sm90::make_tile_map(&map_k, k, bh, t_k, d, C::kBK, 4);
-    if (e == cudaSuccess)
-      e = sm90::make_tile_map(&map_v, v, bh, t_k, d, C::kBK, 4);
+    if constexpr (C::kWide) {
+      if (reinterpret_cast<uintptr_t>(k) % 16 ||
+          reinterpret_cast<uintptr_t>(v) % 16)
+        return cudaErrorInvalidValue;
+    } else {
+      e = sm90::make_tile_map(&map_k, k, bh, t_k, d, C::kBK, 4);
+      if (e == cudaSuccess)
+        e = sm90::make_tile_map(&map_v, v, bh, t_k, d, C::kBK, 4);
+    }
   }
   if (e != cudaSuccess) return e;
   static std::atomic<size_t> raised[2][kMaxDevices];
@@ -743,34 +909,12 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v,
                     : go(flash_fwd_tf32_kernel<DP, false>, raised[0]);
 }
 
-// ------------- head_dims the tensor-core routes do not take: SIMT (B1)
-
-template <typename T, int DP>
-cudaError_t launch_simt(const void* q, const void* k, const void* v,
-                        void* out, void* lse, int bh, int t_q, int t_k,
-                        int head_dim, int causal, float scale,
-                        cudaStream_t stream) {
-  using C = simt::Cfg<DP>;
-  dim3 grid;
-  if (!simt::row_grid<DP>(bh, t_q, &grid)) return cudaErrorInvalidValue;
-  static std::atomic<size_t> raised[kMaxDevices];
-  auto kernel = simt::flash_fwd_simt_kernel<T, DP>;
-  cudaError_t e = allow_smem(kernel, C::kSmemFwd, raised);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, simt::kThreads, C::kSmemFwd, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), t_q, t_k, head_dim, causal, scale);
-  return cudaGetLastError();
-}
-
 }  // namespace
 }  // namespace flash_train
 
-// dtype: 0 float32, 1 bfloat16.  Every head_dim up to 128 (bfloat16:
-// up to 256) takes the tensor cores at its padded width
-// (`tensor_core_width`: bfloat16 directly, float32 as three TF32
-// products); float32 above 128 the SIMT kernel (flash_attn_simt.cuh).
+// dtype: 0 float32, 1 bfloat16.  Every head_dim up to 256 takes the
+// tensor cores at its padded width (`tensor_core_width`: bfloat16
+// directly, float32 as three TF32 products).
 // q [bh, t_q, head_dim], k/v [bh, t_k, head_dim], out like q, lse f32
 // [bh, t_q]; all contiguous on the current device, 16-byte aligned where
 // a TMA map takes the rows.  Returns cudaGetLastError() after the launch
@@ -782,13 +926,9 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   if (bh == 0 || t_q == 0) return cudaSuccess;
   if (t_k < 1 || (t_q + 31) / 32 > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int width = flash_train::tensor_core_width(head_dim, dtype);
-  if (width == 0)
-    return flash_train::simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
-      return flash_train::launch_simt<decltype(t), decltype(d)::value>(
-          q, k, v, out, lse, bh, t_q, t_k, head_dim, causal, scale, s);
-    });
-  return flash_train::dispatch_width(dtype, width, [&](auto t, auto w) {
+  const int width = flash_train::tensor_core_width(head_dim, dtype,
+                                                   flash_train::kFwd);
+  return flash_train::dispatch_width<true>(dtype, width, [&](auto t, auto w) {
     constexpr int DP = decltype(w)::value;
     if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
       return flash_train::launch_sm90<DP>(q, k, v, out, lse, bh, t_q, t_k,
@@ -806,15 +946,8 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
 extern "C" int flash_attn_fwd_smem(int head_dim, int dtype,
                                    int* static_bytes, int* dynamic_bytes) {
   using namespace flash_train;
-  const int width = tensor_core_width(head_dim, dtype);
-  if (width == 0)
-    return simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
-      constexpr int DP = decltype(d)::value;
-      return report_smem(simt::flash_fwd_simt_kernel<decltype(t), DP>,
-                         simt::Cfg<DP>::kSmemFwd, static_bytes,
-                         dynamic_bytes);
-    });
-  return dispatch_width(dtype, width, [&](auto t, auto w) {
+  const int width = tensor_core_width(head_dim, dtype, kFwd);
+  return dispatch_width<true>(dtype, width, [&](auto t, auto w) {
     constexpr int DP = decltype(w)::value;
     if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
       return report_smem(flash_fwd_sm90_kernel<DP, false>,

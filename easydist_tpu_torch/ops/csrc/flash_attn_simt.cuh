@@ -1,61 +1,46 @@
-// B1 (forward), B2 (dQ) and B3 (dK, dV) at the head_dims the tensor-core
-// routes do not take, for Hopper (sm_90a): `flash_fwd_simt_kernel`,
-// `flash_bwd_dq_simt_kernel`, `flash_bwd_dkv_simt_kernel`.  The
-// tensor-core routes (flash_attn_common.cuh) take B1-B3 at every head_dim
-// up to 128 (bfloat16: up to 256) at a padded width; so these kernels run
-// float32 above 128, where the TF32 kernels' tiles of hi/lo halves do not
-// fit a block's shared memory.
+// B2 (dQ) at the head_dims the tensor-core routes do not take, for
+// Hopper (sm_90a): `flash_bwd_dq_simt_kernel`.  The tensor-core routes
+// (flash_attn_common.cuh) take B1 and B3 at every head_dim up to 256 and
+// B2 up to 128 (bfloat16: up to 256) at a padded width; so this kernel
+// runs float32 B2 above 128.
 //
-// Replace the same TPU kernels as the tensor-core routes
-// (easydist_tpu/ops/flash_attention.py:78, :164, :197) over the rest of
-// their domain: the TPU kernels block over the sequence and keep the
-// head_dim whole, so they take any width.
-// These kernels compute the same functions as the tensor-core routes
-// (flash_attn_fwd.cu, flash_attn_bwd.cu), in f32 FMAs on the CUDA cores:
-// the -1e30 causal fill, the 1e-30 denominator clamp, lse = m + log(l),
-// dS = P * (dP - delta).  bfloat16 inputs are widened to f32 as they are
-// loaded, P and dS are never rounded, and each output is rounded to the
-// inputs' dtype once, so the f32 route holds the f32 bars without any
-// hi/lo split.
+// Replaces the same TPU kernel as the tensor-core route
+// (easydist_tpu/ops/flash_attention.py:164) over the rest of its domain:
+// the TPU kernel blocks over the sequence and keeps the head_dim whole,
+// so it takes any width.  It computes the function of the tensor-core
+// route (flash_attn_bwd.cu) in f32 FMAs on the CUDA cores: the -1e30
+// causal fill, P from the saved lse, dS = P * (dP - delta); inputs are
+// read as f32, P and dS are never rounded, and dQ is written once, so it
+// holds the f32 bar without any hi/lo split.
 //
-// What bounds them.  The function's products: at Cerebras-GPT-2.7B's
-// training shape (bh 32 a sequence, t 2048, d 80, causal) the forward
-// moves 42 MB a sequence in bf16 and does 21.5 GFLOP (two causal
-// products), 0.022 ms at the tensor cores' 989 TFLOP/s against 0.013 ms
-// of bytes at 3.35 TB/s.  These kernels run on the CUDA cores (67
-// TFLOP/s of f32 at best), which is what a first design that is right
-// gives up.  At that shape B1-B3 run on the tensor cores (the padded
-// width 80); these kernels run f32 at head_dims 129-256 only.
+// What bounds it.  The function's products, which this kernel runs on
+// the CUDA cores (67 TFLOP/s of f32 at best): what a first design that
+// is right gives up.
 //
-// Design.  Rows q (B1, B2) or keys (B3) are shared by teams of
-// `DP / 8` lanes of one warp, each lane holding 8 of the row's dims
-// (lane t: dims t, t + team, ..., so a team reads consecutive words of a
-// shared tile and the teams of a warp read the same words: no bank
-// conflicts).  `DP` is the head_dim padded to the next of 32, 64, 128,
-// 256 (a template parameter; the routes instantiate f32 at 256 only);
-// every dim at or past d is zero in registers and in shared memory, and
-// zeros add nothing to a product, so the result is exact.  q, k, v and dO
-// are read at their own d with element loads (no alignment beyond the
-// element's).  A block of 256 threads owns 256 / team rows and walks the
-// other side in tiles of 32 rows staged in shared memory as f32 [32][DP]
-// (64 KB for K and V at DP 256): scores are team sums (xor shuffles), the
-// forward's softmax is online in f32 (a running max and sum a row),
-// B2's and B3's probabilities come from the saved lse.  Under causal
-// masking the forward and dQ stop at the block's last visible key, and
-// B3 starts at the block's first visible query (the TPU's `_kv_index_map`
-// clamp); query tiles are issued longest first.  No atomics: two launches
-// are bitwise equal.
+// Design.  Rows q are shared by teams of `DP / 8` lanes of one warp, each
+// lane holding 8 of the row's dims (lane t: dims t, t + team, ..., so a
+// team reads consecutive words of a shared tile and the teams of a warp
+// read the same words: no bank conflicts).  `DP` is the head_dim padded
+// to the next of 32, 64, 128, 256 (a template parameter; the route
+// instantiates f32 at 256 only); every dim at or past d is zero in
+// registers and in shared memory, and zeros add nothing to a product, so
+// the result is exact.  q, k, v and dO are read at their own d with
+// element loads (no alignment beyond the element's).  A block of 256
+// threads owns 256 / team rows and walks the keys in tiles of 32 staged
+// in shared memory as f32 [32][DP] (64 KB for K and V at DP 256): scores
+// and dP are team sums (xor shuffles).  Under causal masking it stops at
+// the block's last visible key (the TPU's `_kv_index_map` clamp); query
+// tiles are issued longest first.  No atomics: two launches are bitwise
+// equal.
 //
-// Registers: each lane holds 8 dims of each of its row's vectors (q and
-// O in B1; q, dO and dQ in B2; k, v, dK and dV in B3) whatever DP is,
-// and B1 its tile's 32 scores; ptxas gives B1 103-105, B2 63 and B3 80
-// registers a thread at every width, no spill (two blocks of 256
-// threads an SM by registers).
+// Registers: each lane holds 8 dims of q, dO and dQ whatever DP is;
+// ptxas gives 63 registers a thread, no spill (two blocks of 256 threads
+// an SM by registers).
 //
 // Known limits: the team sums take log2(team) shuffles a score, every
 // product reads shared memory once a multiply-add, the padding to 256
 // wastes up to half the work (at d 129), and a block at DP 256 holds only
-// 8 rows a tile.  At [2, 16, 2048, 256] (chip_smoke.py phase 3) they run
+// 8 rows a tile.  At [2, 16, 2048, 256] (chip_smoke.py phase 3) it runs
 // slower than the plain version's cuBLAS products.
 
 #pragma once
@@ -66,7 +51,7 @@ namespace flash_train {
 namespace simt {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 32;  // keys (B1, B2) or queries (B3) a staged tile
+constexpr int kTile = 32;  // keys a staged tile
 constexpr int kSlice = 8;  // dims a lane
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -131,81 +116,9 @@ struct Cfg {
                 "padded head_dim");
   static constexpr int kTeam = DP / kSlice;      // lanes a row
   static constexpr int kRows = kThreads / kTeam;  // rows a block
-  // dynamic shared memory: two f32 tiles (K and V; Q and dO) and, for
-  // B3, the query tile's lse and delta rows
-  static constexpr size_t kSmemFwd = 2 * kTile * DP * 4;
-  static constexpr size_t kSmemDq = kSmemFwd;
-  static constexpr size_t kSmemDkv = kSmemFwd + 2 * kTile * 4;
+  // dynamic shared memory: two f32 tiles (K and V)
+  static constexpr size_t kSmemDq = 2 * kTile * DP * 4;
 };
-
-// ------------------------------------------------------------------- B1
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, T* __restrict__ out,
-                          float* __restrict__ lse, int t_q, int t_k, int d,
-                          int causal, float scale) {
-  using C = Cfg<DP>;
-  constexpr int kTeam = C::kTeam;
-  extern __shared__ float smem[];
-  float* k_s = smem;
-  float* v_s = smem + kTile * DP;
-  const size_t bh = blockIdx.x;
-  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = tile * C::kRows;
-  const int t = threadIdx.x % kTeam;
-  const int qi = q0 + threadIdx.x / kTeam;
-  const bool live = qi < t_q;
-  const size_t row = bh * t_q + (live ? qi : 0);
-
-  float qr[kSlice], o[kSlice];
-  load_slice<T, kTeam>(qr, q + row * d, t, d, live, scale);
-#pragma unroll
-  for (int m = 0; m < kSlice; ++m) o[m] = 0.f;
-  float m_run = -INFINITY, l = 0.f;
-  const int n_keys = causal ? min(t_k, q0 + C::kRows) : t_k;
-  const T* kb = k + bh * t_k * d;
-  const T* vb = v + bh * t_k * d;
-  for (int j0 = 0; j0 < n_keys; j0 += kTile) {
-    __syncthreads();  // the last tile is consumed
-    stage_tile<T, DP>(k_s, kb, j0, t_k, d);
-    stage_tile<T, DP>(v_s, vb, j0, t_k, d);
-    __syncthreads();
-    const int n = min(kTile, t_k - j0);
-    float s[kTile];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      float part = 0.f;
-#pragma unroll
-      for (int m = 0; m < kSlice; ++m)
-        part = fmaf(qr[m], k_s[j * DP + t + kTeam * m], part);
-      part = team_sum<kTeam>(part);
-      if (causal && j0 + j > qi) part = kMaskFill;
-      s[j] = part;
-      if (j < n) mx = fmaxf(mx, part);
-    }
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = expf(m_run - m_new);
-    m_run = m_new;
-    l *= alpha;
-#pragma unroll
-    for (int m = 0; m < kSlice; ++m) o[m] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      const float p = j < n ? expf(s[j] - m_new) : 0.f;
-      l += p;
-#pragma unroll
-      for (int m = 0; m < kSlice; ++m)
-        o[m] = fmaf(p, v_s[j * DP + t + kTeam * m], o[m]);
-    }
-  }
-  if (!live) return;
-  const float ls = fmaxf(l, 1e-30f);
-  store_slice<T, kTeam>(out + row * d, o, t, d, 1.f / ls);
-  if (t == 0) lse[row] = m_run + logf(ls);
-}
 
 // ------------------------------------------------------------------- B2
 
@@ -267,80 +180,6 @@ __global__ void __launch_bounds__(kThreads)
   if (live) store_slice<T, kTeam>(dq + row * d, acc, t, d, scale);
 }
 
-// ------------------------------------------------------------------- B3
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_simt_kernel(const T* __restrict__ q,
-                              const T* __restrict__ k,
-                              const T* __restrict__ v,
-                              const T* __restrict__ dout,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ delta,
-                              T* __restrict__ dk, T* __restrict__ dv,
-                              int t_q, int t_k, int d, int causal,
-                              float scale) {
-  using C = Cfg<DP>;
-  constexpr int kTeam = C::kTeam;
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* do_s = smem + kTile * DP;
-  float* lse_s = smem + 2 * kTile * DP;
-  float* delta_s = lse_s + kTile;
-  const size_t bh = blockIdx.x;
-  const int k0 = blockIdx.y * C::kRows;  // the first block has most queries
-  const int t = threadIdx.x % kTeam;
-  const int kj = k0 + threadIdx.x / kTeam;
-  const bool live = kj < t_k;
-  const size_t row = bh * t_k + (live ? kj : 0);
-
-  float kr[kSlice], vr[kSlice], dk_acc[kSlice], dv_acc[kSlice];
-  load_slice<T, kTeam>(kr, k + row * d, t, d, live, scale);
-  load_slice<T, kTeam>(vr, v + row * d, t, d, live);
-#pragma unroll
-  for (int m = 0; m < kSlice; ++m) dk_acc[m] = dv_acc[m] = 0.f;
-  // queries before the block's first key see none of its keys
-  const int first = causal ? min(k0, t_q) / kTile * kTile : 0;
-  const T* qb = q + bh * t_q * d;
-  const T* dob = dout + bh * t_q * d;
-  const float* lseb = lse + bh * t_q;
-  const float* deltab = delta + bh * t_q;
-  for (int i0 = first; i0 < t_q; i0 += kTile) {
-    __syncthreads();
-    stage_tile<T, DP>(q_s, qb, i0, t_q, d);
-    stage_tile<T, DP>(do_s, dob, i0, t_q, d);
-    if (threadIdx.x < kTile) {
-      const int i = i0 + threadIdx.x;
-      lse_s[threadIdx.x] = i < t_q ? lseb[i] : 0.f;
-      delta_s[threadIdx.x] = i < t_q ? deltab[i] : 0.f;
-    }
-    __syncthreads();
-    const int n = min(kTile, t_q - i0);
-#pragma unroll 4
-    for (int i = 0; i < kTile; ++i) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int m = 0; m < kSlice; ++m) {
-        s = fmaf(kr[m], q_s[i * DP + t + kTeam * m], s);
-        dp = fmaf(vr[m], do_s[i * DP + t + kTeam * m], dp);
-      }
-      s = team_sum<kTeam>(s);
-      dp = team_sum<kTeam>(dp);
-      if (causal && kj > i0 + i) s = kMaskFill;
-      const float p = i < n ? expf(s - lse_s[i]) : 0.f;
-      const float ds = p * (dp - delta_s[i]);
-#pragma unroll
-      for (int m = 0; m < kSlice; ++m) {
-        dv_acc[m] = fmaf(p, do_s[i * DP + t + kTeam * m], dv_acc[m]);
-        dk_acc[m] = fmaf(ds, q_s[i * DP + t + kTeam * m], dk_acc[m]);
-      }
-    }
-  }
-  if (!live) return;
-  store_slice<T, kTeam>(dk + row * d, dk_acc, t, d, scale);
-  store_slice<T, kTeam>(dv + row * d, dv_acc, t, d, 1.f);
-}
-
 // ------------------------------------------------------------- launches
 
 // The padded width of a head_dim the SIMT kernels take (1..256 but 64
@@ -352,8 +191,8 @@ inline int padded_dim(int head_dim) {
 }
 
 // Calls f(float{}, std::integral_constant<int, 256>{}) for a float32
-// head_dim from 129 to 256: the only head_dims the routes send here
-// (`tensor_core_width` takes every other one), so the only instantiations
+// head_dim from 129 to 256: the only head_dims B2's route sends here
+// (`tensor_core_width` takes every other one), so the only instantiation
 // built; cudaErrorInvalidValue otherwise.
 template <typename F>
 cudaError_t dispatch(int dtype, int head_dim, F&& f) {

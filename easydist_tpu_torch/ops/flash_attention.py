@@ -13,7 +13,7 @@ Port of easydist_tpu/ops/flash_attention.py, serving and training:
     kernels run on the tensor cores (`wgmma` fed by a TMA ring,
     `csrc/flash_attn_sm90.cuh`); on float32 they run on the tensor cores
     too, each product of the function as three TF32 products of hi/lo
-    halves;
+    halves, but for B2 above head_dim 128 (a SIMT kernel);
   * serving: the decode kernel `_flash_decode_kernel` becomes
     `csrc/flash_decode.cu`, the custom op `easydist_tpu_torch::flash_decode`;
     the paged decode kernels `_flash_paged_decode_kernel` (exact pages)
@@ -56,16 +56,17 @@ _TILE_SMEM_LIMIT = 200 * 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Every kernel takes every head_dim from 1 to _MAX_HEAD_DIM; above it
 # they raise.  The routes (`_train_route`):
-#   * B1 (forward), B2 (dQ) and B3 (dK, dV) run on the tensor cores at
-#     every head_dim up to 128, and in bf16 up to 256, at the padded width
-#     of `_TC_WIDTHS` that holds it (csrc/flash_attn_common.cuh,
+#   * B1 (forward) and B3 (dK, dV) run on the tensor cores at every
+#     head_dim, B2 (dQ) up to 128 and in bf16 up to 256, at the padded
+#     width of `_TC_WIDTHS` that holds it (csrc/flash_attn_common.cuh,
 #     `tensor_core_width`; rows a TMA map takes, d * itemsize a multiple
-#     of 16, through the maps, others through the producer's own copies),
-#     and on the SIMT kernels (csrc/flash_attn_simt.cuh) in f32 above 128;
+#     of 16, through the maps or the kernel's own 16-byte loads, others
+#     through element copies), and B2 on the SIMT kernel
+#     (csrc/flash_attn_simt.cuh) in f32 above 128;
 #   * B4-B6 on the decode body's exact width at `_TENSOR_CORE_DIMS`, on
 #     its padded body elsewhere (csrc/decode_split.cuh, "Head dims").
 _TENSOR_CORE_DIMS = (64, 128)
-_TC_WIDTHS = (64, 80, 96, 128, 256)  # 256: bf16 only
+_TC_WIDTHS = (64, 80, 96, 128, 256)  # 256: all but f32 B2
 _MAX_HEAD_DIM = 256
 
 
@@ -74,11 +75,11 @@ def _check_head_dim(op: str, d: int) -> None:
         raise ValueError(f"{op} takes head_dim 1..{_MAX_HEAD_DIM}, got {d}")
 
 
-def _tc_width(d: int, dtype) -> Optional[int]:
-    """The padded width B1-B3's tensor-core kernels run head_dim d on in
-    `dtype`, or None where their SIMT kernels take it (f32 above 128: the
-    TF32 kernels' tiles of halves do not fit shared memory)."""
-    if d > (256 if dtype == torch.bfloat16 else 128):
+def _tc_width(d: int, dtype, kernel: str = "fwd") -> Optional[int]:
+    """The padded width the tensor-core kernel of B1 ("fwd"), B2 ("dq")
+    or B3 ("dkv") runs head_dim d on in `dtype`, or None where the SIMT
+    kernel takes it (f32 B2 above 128)."""
+    if kernel == "dq" and dtype != torch.bfloat16 and d > 128:
         return None
     return next(w for w in _TC_WIDTHS if d <= w)
 
@@ -96,9 +97,9 @@ def _train_route(kernel: str, d: int, dtype) -> tuple:
     d in `dtype`, as the CUDA entry points pick it: route "sm90" (bf16 on
     the tensor cores), "tf32" (f32 as three TF32 products) or "simt",
     width the kernel's template width (the padded width of the SIMT
-    kernels' rows: 256).  B1-B3 share their routes."""
-    del kernel
-    width = _tc_width(d, dtype)
+    kernel's rows: 256).  They differ only in f32 above 128, where B1
+    and B3 take the TF32 kernels at 256 and B2 the SIMT kernel."""
+    width = _tc_width(d, dtype, kernel)
     if width is None:
         return "simt", _pow2_at_least(d, 32)
     return ("tf32" if dtype == torch.float32 else "sm90"), width
@@ -279,9 +280,10 @@ def _check_train_inputs(op: str, kernel: str, q, k, v, *rows):
 
 def _check_aligned(op: str, kernel: str, *tensors) -> None:
     """The tensor-core kernels read rows a TMA map takes (`_tma_rows`)
-    through the maps or with 16-byte loads, both of which need a 16-byte
-    aligned base: raise on any other, rather than copy.  Other rows, and
-    the SIMT kernels, take any base."""
+    through the maps or with 16-byte loads (f32 B1 and B3 at 129-256
+    read all their rows so), both of which need a 16-byte aligned base:
+    raise on any other, rather than copy.  Other rows, and the SIMT
+    kernel, take any base."""
     x0 = tensors[0]
     d = x0.shape[-1]
     if _train_route(kernel, d, x0.dtype)[0] == "simt" or \
@@ -384,9 +386,8 @@ def flash_fwd(q, k, v, causal: bool = True, scale: Optional[float] = None):
     """B1: (out, lse) of causal or full attention; q [b, h, t_q, d], k/v
     [b, h, t_k, d] in float32 or bfloat16, d from 1 to 256.  CPU tensors
     run `_flash_forward_xla`; CUDA tensors launch `csrc/flash_attn_fwd.cu`
-    (on the tensor cores at every d up to 128, float32 as three TF32
-    products of hi/lo halves; above 128 on the SIMT kernel:
-    `_train_route`).
+    (on the tensor cores at every d, float32 as three TF32 products of
+    hi/lo halves: `_train_route`).
     `flash_fwd.launches` counts kernel launches (never a trace)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -410,9 +411,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
                   scale: Optional[float] = None):
     """B3: (dK, dV) from the saved lse and delta.  CPU tensors run
     `_flash_bwd_dkv_xla`; CUDA tensors launch the dK/dV kernel of
-    `csrc/flash_attn_bwd.cu` (on the tensor cores at every d up to 128,
-    as B1, float32 as three TF32 products of hi/lo halves for each of
-    S^T, dP^T, dV and dK; above 128 on the SIMT kernel: `_train_route`)."""
+    `csrc/flash_attn_bwd.cu` (on the tensor cores at every d, as B1,
+    float32 as three TF32 products of hi/lo halves for each of S^T,
+    dP^T, dV and dK: `_train_route`)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _flash_bwd_dkv_op(q, k, v, do, lse, delta, bool(causal),
@@ -473,7 +474,8 @@ def flash_attention(q, k, v, causal: bool = True,
 
 # Each route's tile constants, as the C++ structs hold them
 # (csrc/flash_attn_fwd.cu FwdSm90 / FwdTf32, csrc/flash_attn_bwd.cu
-# DqSm90 / DqTf32 / DkvSm90 / DkvTf32, csrc/flash_attn_simt.cuh Cfg): the
+# DqSm90 / DqTf32 / DkvSm90 / DkvTf32 (kWideSmem at 256),
+# csrc/flash_attn_simt.cuh Cfg): the
 # dynamic shared memory each launch passes.  None depends on t_q or t_k:
 # every kernel blocks over the sequence with tiles of fixed size.  The
 # card holds this table equal to what each launch asks for
@@ -490,13 +492,14 @@ def _tensor_core_smem(kernel: str, w: int, f32: bool) -> int:
         bq, st = 128, 2
         bk = 128 if w <= 64 else 64 if w <= 128 else 32
         return 1024 + bq * row + 2 * st * bk * row + 8 * (1 + 2 * st)
-    if kernel == "fwd":
-        wg, bk = (2 if w < 128 else 1), 32
-        raw, conv = (2, 4) if w == 64 else (1, 2)
-        tile, tr = bk * row, w * bk * 4
+    if kernel == "fwd":  # at 256: 16-key tiles, one stage, no raw stage
+        wg, bk = (2 if w < 128 else 1), (32 if w <= 128 else 16)
+        raw, conv = (2, 4) if w == 64 else (1, 2) if w <= 128 else (0, 1)
+        tile, tr = bk * row, w * 128
         q_bytes = 0 if w == 64 else 2 * 64 * wg * row
+        bars = 2 * (raw + conv) if w <= 128 else 4
         return (1024 + q_bytes + raw * 2 * tile + conv * (2 * tile + 2 * tr)
-                + 16 * (raw + conv))
+                + 8 * bars)
     if kernel == "dq" and not f32:  # 32-key tiles at 256
         bq, bk, st = 128, (64 if w <= 128 else 32), 2
         return 1024 + 2 * bq * row + 2 * st * bk * row + 8 * (1 + 2 * st)
@@ -510,7 +513,10 @@ def _tensor_core_smem(kernel: str, w: int, f32: bool) -> int:
         bq = 64 if w == 64 else 32 if w <= 128 else 16
         return (1024 + 2 * bk * row + st * (2 * bq * row + 2 * bq * 4)
                 + 8 * (1 + 2 * st))
-    bk, bq = 64, (16 if w in (80, 128) else 32)
+    bk, bq = 64, (16 if w in (80, 128, 256) else 32)
+    if w == 256:  # K, V raw; Q, dO halves; P^T, dS^T tiles; P^T; rows
+        return (1024 + 2 * bk * row + 4 * bq * row + 2 * bk * 128
+                + 128 * (bq // 2) * 4 + 2 * bq * 4)
     stage = 4 * bq * row + 4 * w * 128
 
     def smem(st):
@@ -520,10 +526,9 @@ def _tensor_core_smem(kernel: str, w: int, f32: bool) -> int:
     return smem(2) if smem(2) <= _SMEM_LIMIT else smem(1)
 
 
-def _simt_smem(kernel: str, d: int) -> int:
-    width = _pow2_at_least(d, 32)
-    tiles = 2 * _SIMT_TILE * width * 4  # K and V, or Q and dO, as f32
-    return tiles + (2 * _SIMT_TILE * 4 if kernel == "dkv" else 0)
+def _simt_smem(d: int) -> int:
+    """B2's SIMT kernel (the only one): its K and V tiles as f32."""
+    return 2 * _SIMT_TILE * _pow2_at_least(d, 32) * 4
 
 
 def _route_smem(kernel: str, d: int, dtype) -> int:
@@ -532,7 +537,7 @@ def _route_smem(kernel: str, d: int, dtype) -> int:
     keep no static shared memory)."""
     route, width = _train_route(kernel, d, dtype)
     if route == "simt":
-        return _simt_smem(kernel, d)
+        return _simt_smem(d)
     return _tensor_core_smem(kernel, width, route == "tf32")
 
 

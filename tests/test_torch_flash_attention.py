@@ -392,7 +392,7 @@ class TestSplitRounding:
         out, lse = tfa._flash_forward_xla(q, k, v, True, scale)
         delta = tfa._flash_delta(out, do)
         ref = tfa._flash_bwd_dq_xla(q, k, v, do, lse, delta, True, scale)
-        w = tfa._tc_width(d, torch.bfloat16)
+        w = tfa._tc_width(d, torch.bfloat16, "dq")
         dq = _emulated_dq(*_padded(w, q, k, v, do), lse, delta, True, scale,
                           True)
         assert _worst(dq[..., :d], ref, **BWD) <= 1.0
@@ -445,7 +445,7 @@ class TestSplitRounding:
         out, lse = tfa._flash_forward_xla(q, k, v, True, scale)
         delta = tfa._flash_delta(out, do)
         ref = tfa._flash_bwd_dq_xla(q, k, v, do, lse, delta, True, scale)
-        w = tfa._tc_width(d, torch.float32)
+        w = tfa._tc_width(d, torch.float32, "dq")
         dq = _emulated_dq_tf32(*_padded(w, q, k, v, do), lse, delta, True,
                                scale, True)
         assert _worst(dq[..., :d], ref, **BWD, ulp=0.0) <= 1.0
@@ -729,16 +729,19 @@ class TestKernelsOnCard:
 
 # head_dims beyond 64 and 128: the tiny configs and the JAX tests (8, 16),
 # Cerebras-GPT-2.7B (80), OpenLLaMA-3B (100), GPT-J and Gemma (256), the
-# SIMT kernels' padded widths' edges (1, 32, 33, 129), and B1-B3's
+# SIMT kernel's padded widths' edges (1, 32, 33, 129), B1-B3's
 # tensor-core widths (`tfa._tc_width`) at their edges: 40 (half of the
-# last k16 step is zeros), 72 and 112 (inside the widths 80 and 128), 96
-SWEEP_DIMS = (1, 8, 16, 32, 33, 40, 72, 80, 96, 100, 112, 129, 256)
+# last k16 step is zeros), 72 and 112 (inside the widths 80 and 128), 96;
+# and f32 B1 / B3 at the width 256: 136 and 192 (rows 16-byte loads
+# take), 129 and 255 (element loads)
+SWEEP_DIMS = (1, 8, 16, 32, 33, 40, 72, 80, 96, 100, 112, 129, 136, 192,
+              255, 256)
 
 
 @pytest.mark.cuda
 class TestAllHeadDimsOnCard:
     """B1-B3 at head_dims beyond 64 and 128 (the tensor-core kernels at
-    their padded widths, and the f32 SIMT kernels past 128) against their
+    their padded widths, and f32 B2's SIMT kernel past 128) against their
     plain versions, at the bars of TestKernelsOnCard: causal (with an lse
     cotangent), full, fewer queries than keys and a ragged length; any
     base alignment on the SIMT route; the limit at 256; the shared memory
@@ -806,18 +809,25 @@ class TestAllHeadDimsOnCard:
             assert torch.equal(a, b)
 
     def test_any_alignment_on_the_simt_route(self, cuda_device):
-        # the SIMT kernels read elements: a base 4 bytes past a 16-byte
-        # boundary runs (the tensor-core routes raise, test above); B1
-        # runs on SIMT in f32 above head_dim 128
+        # the SIMT kernel reads elements: a base 4 bytes past a 16-byte
+        # boundary runs (the tensor-core routes raise, test above); B2
+        # runs on SIMT in f32 above head_dim 128, where B1 and B3 read
+        # 16-byte rows and raise
         q, k, v = (torch.randn(2, 4, 64, 200, device=cuda_device)
                    for _ in range(3))
         shifted = torch.randn(2 * 4 * 64 * 200 + 1,
                               device=cuda_device)[1:].view(q.shape)
-        out, _ = tfa.flash_fwd(shifted, k, v)
-        ref, _ = tfa._flash_forward_xla(shifted.float(), k.float(),
-                                        v.float(), True, 1 / math.sqrt(200))
-        assert bool(((out.float() - ref).abs()
-                     <= 1e-5 + 1e-4 * ref.abs()).all())
+        scale = 1 / math.sqrt(200)
+        out, lse = tfa._flash_forward_xla(q, k, v, True, scale)
+        delta = tfa._flash_delta(out, shifted)
+        dq = tfa.flash_bwd_dq(q, k, v, shifted, lse, delta, True, scale)
+        ref = tfa._flash_bwd_dq_xla(q, k, v, shifted.float(), lse, delta,
+                                    True, scale)
+        assert bool(((dq - ref).abs() <= 2e-5 + 2e-4 * ref.abs()).all())
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tfa.flash_fwd(shifted, k, v)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tfa.flash_bwd_dkv(q, k, v, shifted, lse, delta)
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("d", [40, 80])

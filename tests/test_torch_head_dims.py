@@ -3,7 +3,7 @@
 The six TPU kernels block over the sequence and keep the head_dim whole,
 so they take any width; the port's kernels take every head_dim from 1 to
 256 (B1-B3 on the tensor cores at padded widths up to 128, in bf16 up
-to 256, f32 above 128 on the SIMT kernels; B4-B6 on the decode body's
+to 256, f32 B2 above 128 on its SIMT kernel; B4-B6 on the decode body's
 exact width at 64 and 128, on its padded body elsewhere).
 Here, where the wrappers run their plain versions: B1-B3 (forward and
 both gradients), B4, B5 and B6 at head_dim 8 and 16 (the tiny configs
@@ -43,7 +43,7 @@ BLOCKS = {8: 2, 16: 4, 80: 5, 100: 4}
 CARD_SMEM = {(torch.float32, 64): 214088, (torch.float32, 128): 230568,
              (torch.bfloat16, 64): 82984, (torch.bfloat16, 128): 132136,
              (torch.float32, 80): 230720, (torch.bfloat16, 100): 132136,
-             (torch.float32, 256): 65792, (torch.bfloat16, 8): 82984,
+             (torch.float32, 256): 230432, (torch.bfloat16, 8): 82984,
              (torch.bfloat16, 80): 132136, (torch.float32, 40): 214088,
              (torch.bfloat16, 40): 82984, (torch.float32, 96): 222256,
              (torch.bfloat16, 112): 132136, (torch.float32, 112): 230568,
@@ -187,6 +187,19 @@ class TestSmemEstimate:
             long = tfa.estimate_smem_bytes(32768, 32768, d, dtype)
             assert short == long < 232448, (d, dtype, short, long)
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+    def test_every_launch_within_the_card(self, kernel, dtype):
+        # each kernel's launch on its route, at every head_dim 1..256,
+        # takes at most the card's 232448 bytes a block; f32 B1 and B3
+        # take one tile shape across 129..256
+        sizes = {d: tfa._route_smem(kernel, d, dtype)
+                 for d in range(1, tfa._MAX_HEAD_DIM + 1)}
+        assert max(sizes.values()) <= 232448, (kernel, dtype, sizes)
+        assert len({sizes[d] for d in range(129, 257)}) == 1
+        for d, n in sizes.items():
+            assert tfa.estimate_smem_bytes(1, 1, d, dtype) >= n
+
     @pytest.mark.parametrize("key", sorted(CARD_SMEM, key=str))
     def test_equals_the_cards_launches(self, key):
         dtype, d = key
@@ -247,8 +260,7 @@ class TestSmemEstimate:
          1024 + 2 * 128 * 128 + 2 * (2 * 64 * 128 + 2 * 64 * 4) + 8 * 5),
         # above 128 in bf16: the width 256, B1 with 32-key tiles, B3's two
         # warpgroups on 64 keys (a half of the columns each), 16-query
-        # tiles, B2 with 32-key tiles; in f32 SIMT, B3 with its lse and
-        # delta rows
+        # tiles, B2 with 32-key tiles; in f32 B2 on SIMT
         ("fwd", 256, torch.bfloat16, ("sm90", 256),
          1024 + 128 * 512 + 2 * 2 * 32 * 512 + 8 * 5),
         ("dkv", 129, torch.bfloat16, ("sm90", 256),
@@ -256,9 +268,22 @@ class TestSmemEstimate:
         ("dq", 256, torch.bfloat16, ("sm90", 256),
          1024 + 2 * 128 * 512 + 2 * 2 * 32 * 512 + 8 * 5),
         ("dq", 129, torch.float32, ("simt", 256), 2 * 32 * 256 * 4),
-        ("fwd", 256, torch.float32, ("simt", 256), 2 * 32 * 256 * 4),
-        ("dkv", 129, torch.float32, ("simt", 256),
-         2 * 32 * 256 * 4 + 2 * 32 * 4),
+        # f32 B1 at 256: Q's halves for 64 queries, one stage of 16 keys
+        # (K_hi and K_lo stacked, V^T_hi and V^T_lo as 256 rows of 128
+        # bytes), no raw stage, four barriers
+        ("fwd", 256, torch.float32, ("tf32", 256),
+         1024 + 2 * 64 * 1024 + 2 * 16 * 1024 + 2 * 256 * 128 + 8 * 4),
+        ("fwd", 129, torch.float32, ("tf32", 256),
+         1024 + 2 * 64 * 1024 + 2 * 16 * 1024 + 2 * 256 * 128 + 8 * 4),
+        # f32 B3 at 256: K and V raw (64 keys), Q's and dO's halves (16
+        # queries), the P^T and dS^T tiles, P^T handed over, lse / delta
+        ("dkv", 129, torch.float32, ("tf32", 256),
+         1024 + 2 * 64 * 1024 + 4 * 16 * 1024 + 2 * 64 * 128 + 128 * 8 * 4
+         + 2 * 16 * 4),
+        ("dkv", 256, torch.float32, ("tf32", 256),
+         1024 + 2 * 64 * 1024 + 4 * 16 * 1024 + 2 * 64 * 128 + 128 * 8 * 4
+         + 2 * 16 * 4),
+        ("dq", 256, torch.float32, ("simt", 256), 2 * 32 * 256 * 4),
     ])
     def test_routes(self, kernel, d, dtype, route, smem):
         # each kernel's route and width at (d, dtype), and the dynamic
@@ -278,23 +303,28 @@ class TestSmemEstimate:
         (100, torch.bfloat16, 128, False), (4, torch.bfloat16, 64, False),
         (66, torch.float32, 80, False), (1, torch.float32, 64, False),
         (127, torch.bfloat16, 128, False),
-        # above 128: bf16 at the width 256, f32 on the SIMT kernels
+        # above 128: the width 256 (f32 B2 on the SIMT kernel)
         (136, torch.bfloat16, 256, True), (129, torch.bfloat16, 256, False),
-        (256, torch.bfloat16, 256, True), (256, torch.float32, None, True),
-        (129, torch.float32, None, False)])
+        (256, torch.bfloat16, 256, True), (256, torch.float32, 256, True),
+        (129, torch.float32, 256, False), (136, torch.float32, 256, True),
+        (192, torch.float32, 256, True), (255, torch.float32, 256, False)])
     def test_tensor_core_width(self, d, dtype, width, tma):
-        # csrc/flash_attn_common.cuh `tensor_core_width`: B1-B3's padded
-        # width, the smallest of 64, 80, 96, 128 (256 in bf16) that holds
-        # d; rows of d * itemsize bytes a multiple of 16 go through TMA
-        # maps
+        # csrc/flash_attn_common.cuh `tensor_core_width`: B1's and B3's
+        # padded width, the smallest of 64, 80, 96, 128, 256 that holds
+        # d, and B2's, the same but none (SIMT) in f32 above 128; rows of
+        # d * itemsize bytes a multiple of 16 go through TMA maps (or f32
+        # B1 / B3's 16-byte loads at 256)
+        dq_width = None if dtype == torch.float32 and d > 128 else width
         assert tfa._tc_width(d, dtype) == width
+        assert tfa._tc_width(d, dtype, "fwd") == width
+        assert tfa._tc_width(d, dtype, "dkv") == width
+        assert tfa._tc_width(d, dtype, "dq") == dq_width
         assert tfa._tma_rows(d, dtype) == tma
-        sym = tfa.train_kernel_symbol("fwd", d, dtype)
-        route = "simt" if width is None else (
-            "tf32" if dtype == torch.float32 else "sm90")
-        assert sym == f"flash_fwd_{route}_kernel"
+        route = "tf32" if dtype == torch.float32 else "sm90"
+        assert tfa.train_kernel_symbol("fwd", d, dtype) == \
+            f"flash_fwd_{route}_kernel"
         assert tfa.train_kernel_symbol("dq", d, dtype) == \
-            f"flash_bwd_dq_{route}_kernel"
+            f"flash_bwd_dq_{'simt' if dq_width is None else route}_kernel"
         assert tfa.train_kernel_symbol("dkv", d, dtype) == \
             f"flash_bwd_dkv_{route}_kernel"
 
