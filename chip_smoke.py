@@ -8,7 +8,7 @@ Phases, each raising on failure (exit code != 0, no result line):
   2. build of every CUDA kernel from `csrc/`, one nvcc per source, all
      started together, with the build's seconds; ptxas's register and
      spill report, which must show no spills for the tensor-core
-     kernels, B2's SIMT kernel and B4-B6 (every instantiation);
+     kernels and B4-B6 (every instantiation);
   3. each kernel against its plain PyTorch version on the card: the
      decode kernel (B4) at the serving shape, with head_dim 128, lengths
      around the split boundaries, a cache length that is no multiple of
@@ -33,14 +33,15 @@ Phases, each raising on failure (exit code != 0, no result line):
      against their plain versions at head_dim 8, 16, 32, 40, 80, 96,
      100, 112, 129, 192 and 256 (`domain_phase`: B1-B3 on the tensor
      cores at their padded widths, through TMA maps, 16-byte loads or
-     the producer's own copies; the SIMT kernel for f32 B2 above 128;
-     the padded decode body; B4-B6 at their split boundaries with a length-0 row, B5 / B6
+     the producer's own copies; the padded decode body; B4-B6 at their
+     split boundaries with a length-0 row, B5 / B6
      with 8 query heads over 2 at 80 and 100, B6 at every n_blocks of
      `SWEEP_BLOCKS`); B1-B3 at [1, 12, 32768, 64], causal, bf16 and f32:
      out and dQ on the last 512 query rows, dK and dV against the plain
      version accumulated over query chunks of 2048, with each kernel's
      time (`long_context_phase`), and again in f32 at [1, 16, 8192,
-     256] (B1 and B3 at the width 256, eight flushes of B3); and B1-B6
+     256] (B1-B3 at the width 256, B2 flushing every 1024 keys and B3
+     every 1024 queries); and B1-B6
      at Cerebras-GPT-2.7B's
      shapes, bf16 and f32, held against their plain versions at the bars
      above, then timed (`cerebras_kernel_times`: B4 over
@@ -49,8 +50,8 @@ Phases, each raising on failure (exit code != 0, no result line):
      only the tensor-core symbols of B1-B3); B1-B3 at
      [2, 32, 2048, 100] and [2, 16, 2048, 256] causal, bf16 and f32, held
      and timed alike (`wide_kernel_times`: rows no TMA map takes, the
-     width 256, f32 B2's SIMT kernel past 128; each kernel's route
-     symbol asserted);
+     width 256; the profiler must record each kernel's tensor-core
+     symbol);
   4. serving: GPT-2 small at full width (random weights from a seeded
      generator) through `GenerationSession.for_gpt`, bucketed layout.
      In float32 every request's greedy ids must equal the uncached
@@ -425,8 +426,8 @@ def build_kernels():
 NO_SPILL_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
                     "flash_bwd_dkv_sm90_kernel", "flash_fwd_tf32_kernel",
                     "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel",
-                    "flash_bwd_dq_simt_kernel", "flash_decode_kernel",
-                    "paged_decode_kernel", "paged_decode_quant_kernel")
+                    "flash_decode_kernel", "paged_decode_kernel",
+                    "paged_decode_quant_kernel")
 
 
 def ptxas_spills(log: str):
@@ -465,14 +466,13 @@ def time_ms(fn, n: int = 50) -> float:
     return start.elapsed_time(stop) / n
 
 
-def profiled_ms(fn, kernel: str, n: int = 20, forbid: str = None):
+def profiled_ms(fn, kernel: str, n: int = 20):
     """(ms, seen): device time per launch of the kernel whose name holds
     `kernel`, from torch.profiler over n calls of `fn(i)` (after a
     warm-up), and the number of its launches the profiler recorded.  The
     tracer may drop some launch records, so the time is averaged over the
     launches it saw; ms is None when it saw none.  The host's issue rate
-    does not enter it.  Raises when a kernel whose name holds `forbid`
-    ran in the window."""
+    does not enter it."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(3):
@@ -485,9 +485,6 @@ def profiled_ms(fn, kernel: str, n: int = 20, forbid: str = None):
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     hits = [e for e in device if kernel in e.key]
-    if forbid is not None and any(forbid in e.key for e in device):
-        raise AssertionError(f"{forbid!r} ran where {kernel!r} should: "
-                             f"{[e.key for e in device]}")
     seen = sum(e.count for e in hits)
     if seen > n:
         raise AssertionError(f"profiler saw {seen} launches of {kernel!r} "
@@ -1467,7 +1464,7 @@ def add_pair_times(entries, shape):
 # head_dims the kernels take beyond 64 and 128: the tiny configs and the
 # JAX tests (8, 16), 32, Cerebras-GPT-2.7B (80), 96, OpenLLaMA-3B (100:
 # rows no TMA map takes in bf16), GPT-J and Gemma (256), and the edges of
-# B1's and B3's tensor-core widths: 40 (width 64, half of the last k16
+# B1-B3's tensor-core widths: 40 (width 64, half of the last k16
 # step is zeros), 112 (width 128), 129 (width 256, one column past 128;
 # f32 rows of element loads) and 192 (width 256, f32 16-byte rows)
 SWEEP_DIMS = (8, 16, 32, 40, 80, 96, 100, 112, 129, 192, 256)
@@ -1480,7 +1477,8 @@ SWEEP_GQA_DIMS = (80, 100)            # B5 / B6 with 8 query heads over 2
 SWEEP_TRAIN = (2, 4, 200)             # batch, heads, seq of B1-B3's cases
 SWEEP_PAGED = (8, 4, 64, None, 16, 144)  # PAGED_SHAPE's pages at 4 heads
 LONG_SHAPE = (1, 12, 32768, 64)       # B1-B3's long-context run
-# f32 B1 and B3 at the width 256 over 8192 keys: eight flushes of B3
+# f32 B1-B3 at the width 256 over 8192 keys (B2's and B3's accumulators
+# flush every 1024 keys / queries)
 LONG_WIDE_SHAPE = (1, 16, 8192, 256)
 LONG_TAIL = 512                       # query rows checked of out and dQ
 LONG_CHUNK = 2048                     # query chunks of the dK / dV check
@@ -1727,8 +1725,8 @@ def long_context_phase(dev, shape=LONG_SHAPE, tail: int = LONG_TAIL,
                        chunk: int = LONG_CHUNK,
                        dtypes=(torch.bfloat16, torch.float32)):
     """B1-B3 at `shape`, causal, in `dtypes` (the tensor-core routes at
-    head_dim 64; f32 B1 and B3 at 256 with `LONG_WIDE_SHAPE`, B2 there on
-    its SIMT kernel): out, lse and dQ against the plain version on the last
+    head_dim 64; in f32 at the width 256 with `LONG_WIDE_SHAPE`): out, lse
+    and dQ against the plain version on the last
     `tail` query rows; dK and dV against the plain version accumulated
     over query chunks of `chunk` (B2 and B3 from B1's lse and delta, the
     same inputs on both sides); phase 3's bars.  Each kernel's time (CUDA
@@ -6313,7 +6311,7 @@ def cerebras_prompts(vocab: int, seed: int = 0):
 def cerebras_kernel_times(dev):
     """B1-B6 at Cerebras-GPT-2.7B's shapes (head_dim 80: the padded decode
     body, B1-B3 on the tensor cores at the padded width 80; the profiler
-    times the symbol of the route that ran and fails on a SIMT one),
+    times the route's symbol, which must be the tensor-core kernel),
     bf16 and f32: each kernel held
     against its plain version in f32 on the first timed copy's inputs at
     phase 3's bars (B4-B6 atol 1e-5; B1-B3 through `check_train_case`),
@@ -6334,9 +6332,9 @@ def cerebras_kernel_times(dev):
     rs = np.random.RandomState(17)
 
     def record(name, key, tag, err, kernel, symbol, plain, library, bound,
-               n_plain=10, lib_profile=True, forbid=None):
+               n_plain=10, lib_profile=True):
         ms = time_ms(kernel)
-        prof_ms, seen = profiled_ms(kernel, symbol, forbid=forbid)
+        prof_ms, seen = profiled_ms(kernel, symbol)
         plain_ms = time_ms(plain, n=n_plain)
         lib_ms = time_ms(library)
         lib_prof = (profiled_call_ms(library) if lib_profile
@@ -6454,15 +6452,10 @@ def cerebras_kernel_times(dev):
         calls = timed_calls(tcopies, 1.0 / np.sqrt(shape[-1]))
         for name, (kernel, plain, library, _) in calls.items():
             symbol = train_symbol(name, shape[-1], dtype)
-            simt = f"{name}_simt_kernel"
-            if symbol == simt:
-                raise AssertionError(f"{name} runs {symbol} at {shape} "
-                                     f"{key}: the tensor-core route takes "
-                                     f"head_dim {shape[-1]}")
             record(name, key, f"q/k/v/dO {list(shape)}, causal", errs[name],
                    kernel, symbol, plain, library,
                    train_bound_ms(name, shape, True, itemsize), n_plain=3,
-                   lib_profile=name == "flash_fwd", forbid=simt)
+                   lib_profile=name == "flash_fwd")
             if not out[name][key]["profiled_launches"]:
                 raise AssertionError(f"the profiler recorded no launch of "
                                      f"{symbol} ({name} {key})")
@@ -6475,9 +6468,9 @@ def cerebras_kernel_times(dev):
 
 
 # B1-B3 at published head_dims past Cerebras' 80: OpenLLaMA-3B's 100
-# (bf16 rows of 200 bytes, which no TMA map takes: B1 and B3 fill their
+# (bf16 rows of 200 bytes, which no TMA map takes: B1-B3 fill their
 # tiles with their own copies) and GPT-J's / Gemma's 256 (on the tensor
-# cores at the width 256, but f32 B2 on its SIMT kernel), causal
+# cores at the width 256), causal
 WIDE_SHAPES = ((2, 32, 2048, 100), (2, 16, 2048, 256))
 
 
@@ -6485,10 +6478,8 @@ def wide_kernel_times(dev, shapes=WIDE_SHAPES):
     """B1-B3 at `shapes`, bf16 and f32, causal: each held against its
     plain version on the first timed copy (`check_train_case`, phase 3's
     bars), then kernel (CUDA events; the profiler's device time of the
-    symbol of the route that ran, which must be recorded: the tensor-core
-    kernel, where no SIMT kernel may run, but for f32 B2 above 128, which
-    runs its SIMT kernel), plain
-    version, one library call (SDPA's causal forward; its whole backward
+    route's tensor-core symbol, which must be recorded), plain version,
+    one library call (SDPA's causal forward; its whole backward
     for B2 and B3) and the bound.  Returns {kernel: {"<d> <dtype>":
     {...}}}; timing launches are not counted."""
     counters = train_counters()
@@ -6508,15 +6499,8 @@ def wide_kernel_times(dev, shapes=WIDE_SHAPES):
             calls = timed_calls(copies, scale)
             for name, (kernel, plain, library, _) in calls.items():
                 symbol = train_symbol(name, shape[-1], dtype)
-                simt = f"{name}_simt_kernel"
-                # f32 B2 above 128 alone stays on the SIMT kernel
-                tensor_cores = (shape[-1] <= 128 or dtype == torch.bfloat16
-                                or name != "flash_bwd_dq")
-                if tensor_cores == (symbol == simt):
-                    raise AssertionError(f"{name} runs {symbol} at {key}")
                 ms = time_ms(kernel, n=20)
-                prof_ms, seen = profiled_ms(
-                    kernel, symbol, forbid=simt if tensor_cores else None)
+                prof_ms, seen = profiled_ms(kernel, symbol)
                 if not seen:
                     raise AssertionError(f"the profiler recorded no launch "
                                          f"of {symbol} ({name} {key})")

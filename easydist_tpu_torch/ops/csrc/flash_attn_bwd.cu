@@ -15,19 +15,17 @@
 //
 // in f32, outputs in the inputs' dtype.  q/k/v/dO [bh, t, d] float32 or
 // bfloat16, lse/delta f32 [bh, t_q], causal or full, any t_q and t_k
-// (ragged tiles are masked here).  On the kernels below: B3 at every
-// head_dim up to 256, B2 up to 128 and in bf16 up to 256, templated on a
-// padded
-// width DP as B1 is (flash_attn_fwd.cu, "Head dims": TMA maps or the
-// producer's own copies fill the tiles, S, dP (S^T, dP^T) over every k16
-// / k8 step of the width, dQ += dS.K, dV += P^T.dO and dK += dS^T.Q with
-// N = DP, the epilogue and the f32 flush at stride d; in f32 the
-// transposed K^T, Q^T and dO^T tiles hold DP rows; in bf16 at 256 B2
-// takes 32-key tiles, and one warpgroup's dK and dV would take 256
-// registers a thread, so B3's two warpgroups share the block's 64 keys,
-// both compute S^T and dP^T, and each accumulates half of the columns;
-// B3 f32 at 256 is a block of its own shape, `dkv_tf32_wide`).  B2
-// float32 above 128 runs the SIMT kernel of flash_attn_simt.cuh.
+// (ragged tiles are masked here).  On the kernels below: B2 and B3 at
+// every head_dim up to 256 in both dtypes, templated on a padded width DP
+// as B1 is (flash_attn_fwd.cu, "Head dims": TMA maps or the producer's
+// own copies fill the tiles, S, dP (S^T, dP^T) over every k16 / k8 step
+// of the width, dQ += dS.K, dV += P^T.dO and dK += dS^T.Q with N = DP,
+// the epilogue and the f32 flush at stride d; in f32 the transposed K^T,
+// Q^T and dO^T tiles hold DP rows; in bf16 at 256 B2 takes 32-key tiles,
+// and one warpgroup's dK and dV would take 256 registers a thread, so
+// B3's two warpgroups share the block's 64 keys, both compute S^T and
+// dP^T, and each accumulates half of the columns; B2 and B3 f32 at 256
+// are blocks of their own shape, `dq_tf32_wide` and `dkv_tf32_wide`).
 //
 // What bounds them.  At the training shape (bh 96, t 1024, d 64, bf16,
 // causal): B2 moves 63.7 MB (q, k, v, dO, lse, delta, dQ) and needs
@@ -106,9 +104,9 @@
 // proxy fence.  Transposed tiles store each 8-row group in the order
 // 0 2 4 6 1 3 5 7, so dS, P^T and dS^T go from accumulator to A fragment
 // without a shuffle.
-//   B2: a block owns 128 queries (two consumer warpgroups) at DP 64, 64
-//   above (one: a stage's tiles and 128 queries' halves pass 227 KB
-//   there).  The K/V tiles (32 keys) stream through the converted stages
+//   B2 up to DP 128: a block owns 128 queries (two consumer warpgroups)
+//   at DP 64, 64 above (one: a stage's tiles and 128 queries' halves pass
+//   227 KB there).  The K/V tiles (32 keys) stream through the converted stages
 //   as K_hi, K_lo, V_hi, V_lo and K^T_hi, K^T_lo (DP rows); S = Q.K^T
 //   and dP = dO.V^T take K and V as they are, dQ += dS.K takes K^T.  Q's
 //   halves are register A fragments up to DP 96 (m64n32k8 products, which
@@ -145,6 +143,11 @@
 //   dK^T accumulate with the head_dim as the M side (A fragments read
 //   from the natural Q / dO halves, B the P^T / dS^T tiles), 128 d rows a
 //   warpgroup; 16-query tiles, one stage (213 KB).
+//   B2 f32 at 256 (`dq_tf32_wide`): the same shape with queries and keys
+//   trading places: Q and dO raw in A-fragment order, S and dP one a
+//   warpgroup over 16-key tiles of stacked K / V halves, dQ^T with the
+//   head_dim as the M side (A fragments read from the K halves, B the dS
+//   tile), flushed every 1024 keys; one stage (205 KB).
 // No atomics: two launches are bitwise equal.  `ptxas -v`: no spills.
 //
 // Known limits: the bf16 kernels serialise each warpgroup's exponentials
@@ -152,7 +155,6 @@
 // head_dim 128 their single stage serialises conversion and products.
 
 #include "flash_attn_common.cuh"
-#include "flash_attn_simt.cuh"
 #include "flash_attn_sm90.cuh"
 
 namespace flash_train {
@@ -717,12 +719,14 @@ constexpr int kConvBarrier = 3;  // converters' named barrier (consumers 1, 2)
 // B2, float32
 template <int DP>
 struct DqTf32 {
+  // DP 256: `dq_tf32_wide` (its own layout, below)
+  static constexpr bool kWide = DP > 128;
   // consumer warpgroups: two (128 queries) at 64; one (64 queries) above,
   // where a stage's tiles and the halves of 128 queries' dO (and Q) pass
-  // the shared memory a block may use
-  static constexpr int kWG = DP == 64 ? 2 : 1;
-  static constexpr int kBQ = 64 * kWG;                // queries a block
-  static constexpr int kBK = 32;                      // keys a tile
+  // the shared memory a block may use (at 256 two, sharing 64 queries)
+  static constexpr int kWG = DP == 64 || kWide ? 2 : 1;
+  static constexpr int kBQ = kWide ? 64 : 64 * kWG;   // queries a block
+  static constexpr int kBK = kWide ? 16 : 32;         // keys a tile
   // Q's halves as A fragments up to 96 (DP registers a thread: one
   // consumer warpgroup keeps the 255 of a 256-thread block; 1.5x faster
   // at 80 and 96 than both halves in shared memory with one stage,
@@ -739,28 +743,33 @@ struct DqTf32 {
   static constexpr int kResBytes = (kQRegs ? 2 : 4) * kHalfBytes;
   static constexpr int kStages = DP == 64 ? 3 : DP < 128 ? 2 : 1;
   static constexpr int kConverters = 96;              // producer warps 1-3
-  static constexpr int kThreads = 128 * (1 + kWG);
+  static constexpr int kThreads = kWide ? 256 : 128 * (1 + kWG);
   // registers a thread after `setmaxnreg` (two consumer warpgroups only)
   static constexpr int kProducerRegs = 56, kConsumerRegs = 224;
-  static_assert(kWG == 1 || 128 * (kProducerRegs + kWG * kConsumerRegs) <=
-                                65536,
+  static_assert(kWG == 1 || kWide ||
+                    128 * (kProducerRegs + kWG * kConsumerRegs) <= 65536,
                 "the SM's register file");
+  // DP 256: key tiles between two flushes of dQ (1024 keys)
+  static constexpr int kFlushTiles = 1024 / kBK;
+  // DP 256: Q and dO raw in fragment order, K and V as stacked halves,
+  // the dS tile (64 queries x 32 slots: hi, then lo) and the P hand-over
+  // (8 values a thread of the first warpgroup); no barriers in shared
+  // memory
+  static constexpr size_t kWideSmem =
+      1024 + 2 * kHalfBytes + 4 * kTile + kBQ * 128 + 128 * (kBK / 2) * 4;
   static constexpr size_t kSmem =
-      1024 + kResBytes + kStages * kStageBytes + 24 * kStages;
+      kWide ? kWideSmem
+            : 1024 + kResBytes + kStages * kStageBytes + 24 * kStages;
   static_assert(kSmem <= 227 * 1024, "the shared memory a block may use");
 };
 
 template <int DP, bool kFill>
-__global__ void __launch_bounds__(DqTf32<DP>::kThreads, 1)
-    flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap map_k,
-                             const __grid_constant__ CUtensorMap map_v,
-                             const sm90::Fill fill,
-                             const float* __restrict__ q,
-                             const float* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             float* __restrict__ dq, int t_q, int t_k, int d,
-                             int causal, float scale) {
+__device__ __forceinline__ void dq_tf32_body(
+    const CUtensorMap& map_k, const CUtensorMap& map_v,
+    const sm90::Fill fill, const float* __restrict__ q,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, int t_q,
+    int t_k, int d, int causal, float scale) {
   using C = DqTf32<DP>;
   constexpr int BQ = C::kBQ, BK = C::kBK, S = C::kStages, T = C::kTile;
   constexpr int TR = C::kTrBytes, H = C::kHalfBytes;
@@ -1029,6 +1038,365 @@ __global__ void __launch_bounds__(DqTf32<DP>::kThreads, 1)
   }
 }
 
+// B2, float32 at DP 256 (head_dims 129-256).  Q's and dO's TF32 halves
+// for 64 queries would take 256 KB and one warpgroup's dQ 128 registers
+// a thread, so the block takes the shape of B3 at this width
+// (`dkv_tf32_wide`) with queries and keys trading places.  Two consumer
+// warpgroups (256 threads, no producer) share the block's 64 queries:
+//   * Q and dO stay raw (64 KB each) in A-fragment order, so a thread
+//     reads its fragment of a k8 step with one 16-byte load and splits it
+//     into hi / lo in registers just before its products;
+//   * per 16-key tile, warpgroup 0 computes S = Q.K^T and warpgroup 1
+//     dP = dO.V^T, each as A_hi.[B_hi; B_lo] (one m64n32k8: the tile
+//     stacks each panel's lo rows under its hi rows) + A_lo.B_hi (an
+//     m64n16k8), the small terms in accumulators of their own, two k8
+//     steps a commit group, one group's fragments in flight while the
+//     next one's are split (one step a group timed 4% slower, four
+//     spilled);
+//   * warpgroup 0 makes P and hands it over in shared memory, warpgroup 1
+//     makes dS = P (dP - delta) and writes its hi / lo halves as a K-major
+//     B operand (64 queries x 32 slots);
+//   * dQ accumulates transposed, the head_dim as the M side: dQ^T +=
+//     K^T.dS^T as three products (m64n64k8), A fragments read from the
+//     stacked K halves element by element (no transposed copy of K
+//     exists), B the dS tile; warpgroup w owns d rows 128 w .. 128 w +
+//     127: dQ^T takes 64 registers a thread;
+//   * the next tile's K and V rows load into registers while this
+//     tile's dQ^T products run (`kPrefetch`; 6% faster than loading
+//     after them; held across the S / dP products as well they spilled
+//     with two steps a group), and are split into the stage once every
+//     warpgroup is done with it.
+// dQ^T moves to dQ in device memory every 1024 keys (added there on the
+// CUDA cores) and restarts at 0, as B3 f32 flushes dK / dV; a block of
+// at most 1024 keys never flushes.  The store is transposed back at
+// stride d.  Bound: at [2,16,2048,256] causal the function's three
+// products at the TF32 rate, 0.208 ms; this runs 2.97 ms on an H100
+// (0.50x SDPA's whole backward; `PERF.md` §6): the warpgroups meet at a
+// barrier four times a 16-key tile, and the S / dP products are
+// m64n32k8 / m64n16k8.
+template <int DP, bool kFill>
+__device__ __forceinline__ void dq_tf32_wide(
+    const sm90::Fill fill, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, int t_q,
+    int t_k, int d, int causal, float scale) {
+  using C = DqTf32<DP>;
+  constexpr int BQ = C::kBQ, BK = C::kBK, QD = C::kHalfBytes, T = C::kTile;
+  constexpr int kSteps = DP / 8;  // k8 steps of S and dP
+  constexpr int kMT = DP / 128;   // 64-row d tiles a warpgroup
+  constexpr int kVecs = DP / 4;   // float4s a padded row
+  constexpr int kItems = 2 * BK * kVecs / 256;  // a thread's K / V float4s
+  constexpr int G = 2;  // k8 steps of S or dP a commit group
+  // the next tile's K / V rows load into registers while this tile's dQ
+  // products run; the copy variant's element loads spill when held so
+  constexpr bool kPrefetch = !kFill;
+  static_assert(kItems * 256 == 2 * BK * kVecs && BQ == 64 && BK == 16 &&
+                    C::kThreads == 256 && kSteps % G == 0,
+                "the tile shapes below");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qd_s = sm90::align1024(smem_raw);  // Q, dO in fragment order
+  uint8_t* kv_s = qd_s + 2 * QD;              // K, V stacked halves
+  uint8_t* ds_s = kv_s + 4 * T;               // the dS tile
+  float* xch = reinterpret_cast<float*>(ds_s + BQ * 128);  // P
+
+  const float* q = reinterpret_cast<const float*>(fill.src[0]);
+  const float* k = reinterpret_cast<const float*>(fill.src[1]);
+  const float* v = reinterpret_cast<const float*>(fill.src[2]);
+  const float* dout = reinterpret_cast<const float*>(fill.src[3]);
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest first
+  const int q_end = min(q0 + BQ, t_q);
+  const int k_end = causal ? min(t_k, q_end) : t_k;
+  const int n_kt = (k_end + BK - 1) / BK;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, c = lane % 4, c2 = 2 * c;
+  const size_t row0 = static_cast<size_t>(bh) * t_q;
+  const size_t key0 = static_cast<size_t>(bh) * t_k;
+  auto elem = [&](const float* src, int row, int rows, int col) {
+    return row < rows && col < d ? src[static_cast<size_t>(row) * d + col]
+                                 : 0.f;
+  };
+
+  // Q and dO: item (kk, t) is thread t's A fragment of k8 step kk,
+  // queries a and a + 8 (a = 16 (t / 32) + (t % 32) / 4) at columns
+  // 8 kk + t % 4 and + 4, as {a0, a1, a2, a3} (eight items' loads in
+  // flight at once)
+#pragma unroll 8
+  for (int i = threadIdx.x; i < 2 * kSteps * 128; i += 256) {
+    const int which = i / (kSteps * 128), kk = (i / 128) % kSteps;
+    const int t = i % 128;
+    const float* src = (which ? dout : q) + row0 * d;
+    const int qa = q0 + 16 * (t / 32) + (t % 32) / 4, col = 8 * kk + t % 4;
+    reinterpret_cast<float4*>(qd_s + which * QD)[kk * 128 + t] =
+        make_float4(elem(src, qa, t_q, col), elem(src, qa + 8, t_q, col),
+                    elem(src, qa, t_q, col + 4),
+                    elem(src, qa + 8, t_q, col + 4));
+  }
+  // this thread's rows of S or dP (queries ra, ra + 8): lse in log2 units
+  // (warpgroup 0) or delta (1); 0 past t_q, where P is 0
+  const int ra = 16 * warp + lane / 4;
+  const int row_a = q0 + ra, row_b = row_a + 8;
+  const float* rows = wg ? delta : lse;
+  const float mul = wg ? 1.f : sm90::kLog2e;
+  const float r_a = row_a < t_q ? rows[row0 + row_a] * mul : 0.f;
+  const float r_b = row_b < t_q ? rows[row0 + row_b] * mul : 0.f;
+
+  // a K / V tile: loaded into registers, then split into the stage (K's
+  // panel p holds K_hi's 16 rows then K_lo's, then V's the same)
+  const float* kb = k + key0 * d;
+  const float* vb = v + key0 * d;
+  float4 pre[kItems];
+  auto load_tile = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int i = threadIdx.x + 256 * j, which = i / (BK * kVecs);
+      const int w = i % (BK * kVecs), row = k0 + w / kVecs;
+      const int col = 4 * (w % kVecs);
+      const float* src = which ? vb : kb;
+      if (!kFill && row < t_k && col < d) {
+        pre[j] = *reinterpret_cast<const float4*>(
+            src + static_cast<size_t>(row) * d + col);
+      } else {
+        pre[j] = make_float4(elem(src, row, t_k, col),
+                             elem(src, row, t_k, col + 1),
+                             elem(src, row, t_k, col + 2),
+                             elem(src, row, t_k, col + 3));
+      }
+    }
+  };
+  auto store_tile = [&]() {
+    uint8_t* kv = kv_s + sm90::pinned(0);  // addresses made here
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int i = threadIdx.x + 256 * j, which = i / (BK * kVecs);
+      const int w = i % (BK * kVecs), r = w / kVecs, col = 4 * (w % kVecs);
+      const int off = which * 2 * T + (col / 32) * 2 * BK * 128 + r * 128 +
+                      ((((col % 32) / 4) ^ (r % 8)) * 16);
+      uint4 hi, lo;
+      sm90::split_tf32(pre[j], hi, lo);
+      *reinterpret_cast<uint4*>(kv + off) = hi;
+      *reinterpret_cast<uint4*>(kv + off + BK * 128) = lo;
+    }
+    sm90::fence_proxy_async();  // the stores, before the wgmma reads
+  };
+  // dS's hi / lo halves at (query, slots 8 j + c2, + 1) of the dS tile
+  // (row = local query, 128 bytes: slots 0-15 hi, 16-31 lo; swizzled)
+  auto write_ds = [&](const float (&x)[BK / 2]) {
+    uint8_t* tile = ds_s + sm90::pinned(0);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = ra + 8 * h, slot = 8 * j + c2;
+        uint32_t h0, l0, h1, l1;
+        sm90::split_tf32(x[4 * j + 2 * h], h0, l0);
+        sm90::split_tf32(x[4 * j + 2 * h + 1], h1, l1);
+        const int at = row * 128 + (slot % 4) * 4;
+        *reinterpret_cast<uint2*>(tile + at +
+                                  (((slot / 4) ^ (row % 8)) * 16)) =
+            make_uint2(h0, h1);
+        *reinterpret_cast<uint2*>(tile + at +
+                                  ((((slot + 16) / 4) ^ (row % 8)) * 16)) =
+            make_uint2(l0, l1);
+      }
+  };
+
+  float dqt[kMT][32];  // dQ^T: d rows x 64 queries
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqt[m][i] = 0.f;
+  // f(index into dQ, dQ^T element) for each element this thread holds
+  // inside [t_q, d)
+  auto visit = [&](auto f) {
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 128 * wg + 64 * m + ra + 8 * h;
+            const int qq = q0 + 8 * j + c2 + e;
+            if (col < d && qq < t_q)
+              f((row0 + qq) * d + col, dqt[m][4 * j + 2 * h + e]);
+          }
+  };
+  // the accumulator against its partial sums in dq, unscaled: `to_memory`
+  // stores partial + accumulator (the partial is 0 at the first flush,
+  // `first`) and restarts the accumulator at 0; else the accumulator
+  // takes partial + accumulator (the epilogue's last step)
+  auto flush = [&](bool first, bool to_memory) {
+    visit([&](size_t at, float& x) {
+      const float sum = (first ? 0.f : dq[at]) + x;
+      if (to_memory) {
+        dq[at] = sum;
+        x = 0.f;
+      } else {
+        x = sum;
+      }
+    });
+  };
+
+  const float scale_log2 = scale * sm90::kLog2e;
+  const uint8_t* a_src = qd_s + wg * QD + tid * 16;  // Q (wg 0) or dO (wg 1)
+  const uint32_t b_base = sm90::smem_u32(kv_s + wg * 2 * T);  // K or V
+  const uint32_t ds_tile = sm90::smem_u32(ds_s);
+  load_tile(0);
+  store_tile();
+  __syncthreads();
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = it * BK;
+    // every kFlushTiles tiles (1024 keys) dQ^T moves to dQ in device
+    // memory (each thread owns its elements: no race); products summed
+    // into one tensor-core accumulator drift from a rounded sum as their
+    // count grows
+    if (it > 0 && it % C::kFlushTiles == 0) flush(it == C::kFlushTiles, true);
+    // S (warpgroup 0) or dP (1): A_hi.[B_hi; B_lo] + A_lo.B_hi, the small
+    // terms in accumulators of their own (summed in f32 after)
+    float s2[BK], s1[BK / 2];
+    uint32_t f[2][2 * G][4];  // [buffer][step's hi, lo] fragments
+    float4 xs[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      xs[g] = *reinterpret_cast<const float4*>(a_src + g * 128 * 16);
+#pragma unroll
+    for (int g0 = 0; g0 < kSteps; g0 += G) {
+      const int b = (g0 / G) & 1;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        sm90::split_tf32(xs[g].x, f[b][2 * g][0], f[b][2 * g + 1][0]);
+        sm90::split_tf32(xs[g].y, f[b][2 * g][1], f[b][2 * g + 1][1]);
+        sm90::split_tf32(xs[g].z, f[b][2 * g][2], f[b][2 * g + 1][2]);
+        sm90::split_tf32(xs[g].w, f[b][2 * g][3], f[b][2 * g + 1][3]);
+      }
+      if (g0 + G < kSteps) {
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          xs[g] = *reinterpret_cast<const float4*>(
+              a_src + (g0 + G + g) * 128 * 16);
+      }
+      sm90::wgmma_fence();
+      const uint32_t bb = sm90::pinned(b_base);  // descriptors made here
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int kk = g0 + g;
+        const uint64_t db = sm90::desc_k_major(bb + (kk / 4) * 2 * BK * 128 +
+                                               (kk % 4) * 32);
+        sm90::wgmma_tf32_rs(s2, f[b][2 * g], db, kk > 0);
+        sm90::wgmma_tf32_rs(s1, f[b][2 * g + 1], db, kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();  // the group before this one is done
+      if (g0 > 0) sm90::fence_regs(f[b ^ 1]);  // its fragments live to here
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s2);
+    sm90::fence_regs(s1);
+    sm90::fence_regs(f[0]);
+    sm90::fence_regs(f[1]);
+    float st[BK / 2];  // columns 8 j + c2 + e of rows ra, ra + 8
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) st[i] = s2[i] + s2[i + BK / 2] + s1[i];
+
+    // P (warpgroup 0), handed over; dS = P (dP - delta) (1)
+    if (wg == 0) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + c2 + e;
+          const bool live_k = key < t_k;
+          const bool live_a = live_k && row_a < t_q && !(causal && key > row_a);
+          const bool live_b = live_k && row_b < t_q && !(causal && key > row_b);
+          st[4 * j + e] =
+              live_a ? exp2f(fmaf(st[4 * j + e], scale_log2, -r_a)) : 0.f;
+          st[4 * j + 2 + e] =
+              live_b ? exp2f(fmaf(st[4 * j + 2 + e], scale_log2, -r_b)) : 0.f;
+        }
+#pragma unroll
+      for (int i = 0; i < BK / 2; i += 4)
+        *reinterpret_cast<float4*>(xch + tid * (BK / 2) + i) =
+            make_float4(st[i], st[i + 1], st[i + 2], st[i + 3]);
+    }
+    __syncthreads();  // P handed over
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        st[i] = xch[tid * (BK / 2) + i] * (st[i] - (i % 4 < 2 ? r_a : r_b));
+      write_ds(st);
+    }
+    sm90::fence_proxy_async();  // the tile, before the wgmma reads
+    __syncthreads();
+    if (kPrefetch && it + 1 < n_kt) load_tile(k0 + BK);
+
+    // dQ^T += K^T.dS^T, one (d tile, 8 keys) group of three products at a
+    // time
+    uint32_t af[2][2][4];  // K_hi, K_lo fragments
+#pragma unroll
+    for (int gi = 0; gi < kMT * (BK / 8); ++gi) {
+      const int m = gi / (BK / 8), kk = gi % (BK / 8), b = gi & 1;
+      const int col = 128 * wg + 64 * m + ra;  // d rows col, col + 8
+      const uint8_t* kt = kv_s + sm90::pinned(0);  // addresses made here
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {  // K_hi, K_lo
+        const uint8_t* tile = kt + x * BK * 128;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kr = 8 * kk + c + 4 * (i / 2), dc = col + 8 * (i % 2);
+          af[b][x][i] = *reinterpret_cast<const uint32_t*>(
+              tile + (dc / 32) * 2 * BK * 128 + kr * 128 +
+              ((((dc % 32) / 4) ^ (kr % 8)) * 16) + (dc % 4) * 4);
+        }
+      }
+      sm90::wgmma_fence();
+      const uint32_t ds_at = sm90::pinned(ds_tile);
+      const uint64_t s_hi = sm90::desc_k_major(ds_at + kk * 32);
+      const uint64_t s_lo = sm90::desc_k_major(ds_at + 64 + kk * 32);
+      sm90::wgmma_tf32_rs(dqt[m], af[b][0], s_hi, 1);
+      sm90::wgmma_tf32_rs(dqt[m], af[b][0], s_lo, 1);
+      sm90::wgmma_tf32_rs(dqt[m], af[b][1], s_hi, 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      if (gi > 0) sm90::fence_regs(af[b ^ 1]);
+    }
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int m = 0; m < kMT; ++m) sm90::fence_regs(dqt[m]);
+    sm90::fence_regs(af[0]);
+    sm90::fence_regs(af[1]);
+    __syncthreads();  // every read of the stage and the dS tile is done
+    if (it + 1 < n_kt) {
+      if (!kPrefetch) load_tile(k0 + BK);
+      store_tile();
+      __syncthreads();
+    }
+  }
+
+  if (n_kt > C::kFlushTiles) flush(false, false);
+  // columns at or past d are K's padding: not stored
+  visit([&](size_t at, float& x) { dq[at] = x * scale; });
+}
+
+template <int DP, bool kFill>
+__global__ void __launch_bounds__(DqTf32<DP>::kThreads, 1)
+    flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap map_k,
+                             const __grid_constant__ CUtensorMap map_v,
+                             const sm90::Fill fill,
+                             const float* __restrict__ q,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             float* __restrict__ dq, int t_q, int t_k, int d,
+                             int causal, float scale) {
+  if constexpr (DqTf32<DP>::kWide)
+    dq_tf32_wide<DP, kFill>(fill, lse, delta, dq, t_q, t_k, d, causal,
+                            scale);
+  else
+    dq_tf32_body<DP, kFill>(map_k, map_v, fill, q, dout, lse, delta, dq, t_q,
+                            t_k, d, causal, scale);
+}
+
 template <int DP>
 cudaError_t launch_dq_tf32(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
@@ -1039,13 +1407,19 @@ cudaError_t launch_dq_tf32(const void* q, const void* k, const void* v,
   CUtensorMap map_k{}, map_v{};
   sm90::Fill fill = sm90::fill_of(q, k, v, dout, d * 4);
   cudaError_t e = cudaSuccess;
-  if (!fill.width) {
+  if (!fill.width) {  // 16-byte loads of q's, dout's (at 256 all) rows
     if (reinterpret_cast<uintptr_t>(q) % 16 ||
         reinterpret_cast<uintptr_t>(dout) % 16)
       return cudaErrorInvalidValue;
-    e = sm90::make_tile_map(&map_k, k, bh, t_k, d, C::kBK, 4);
-    if (e == cudaSuccess)
-      e = sm90::make_tile_map(&map_v, v, bh, t_k, d, C::kBK, 4);
+    if constexpr (C::kWide) {
+      if (reinterpret_cast<uintptr_t>(k) % 16 ||
+          reinterpret_cast<uintptr_t>(v) % 16)
+        return cudaErrorInvalidValue;
+    } else {
+      e = sm90::make_tile_map(&map_k, k, bh, t_k, d, C::kBK, 4);
+      if (e == cudaSuccess)
+        e = sm90::make_tile_map(&map_v, v, bh, t_k, d, C::kBK, 4);
+    }
   }
   if (e != cudaSuccess) return e;
   static std::atomic<size_t> raised[2][kMaxDevices];
@@ -1855,37 +2229,13 @@ cudaError_t launch_dkv_tf32(const void* q, const void* k, const void* v,
                          C::kThreads);
 }
 
-// ------------- head_dims the tensor-core routes do not take: SIMT (B2)
-
-template <typename T, int DP>
-cudaError_t launch_dq_simt(const void* q, const void* k, const void* v,
-                           const void* dout, const void* lse,
-                           const void* delta, void* dq, int bh, int t_q,
-                           int t_k, int head_dim, int causal, float scale,
-                           cudaStream_t stream) {
-  using C = simt::Cfg<DP>;
-  dim3 grid;
-  if (!simt::row_grid<DP>(bh, t_q, &grid)) return cudaErrorInvalidValue;
-  static std::atomic<size_t> raised[kMaxDevices];
-  auto kernel = simt::flash_bwd_dq_simt_kernel<T, DP>;
-  cudaError_t e = allow_smem(kernel, C::kSmemDq, raised);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, simt::kThreads, C::kSmemDq, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), t_q, t_k, head_dim, causal, scale);
-  return cudaGetLastError();
-}
-
 }  // namespace
 }  // namespace flash_train
 
-// dtype: 0 float32, 1 bfloat16.  B3 (dK, dV) takes the tensor cores at
-// every head_dim up to 256, B2 (dQ) at every head_dim up to 256 in
-// bfloat16 and up to 128 in float32, at its padded width
+// dtype: 0 float32, 1 bfloat16.  B2 (dQ) and B3 (dK, dV) take the tensor
+// cores at every head_dim up to 256, at its padded width
 // (`tensor_core_width`: bfloat16 directly, float32 as three TF32
-// products); B2 float32 above 128 the SIMT kernel (flash_attn_simt.cuh).
+// products).
 // q/dout [bh, t_q, head_dim], k/v [bh, t_k, head_dim], lse/delta f32
 // [bh, t_q], outputs like their inputs; all contiguous on the current
 // device, 16-byte aligned where a TMA map takes the rows.  Each returns
@@ -1899,15 +2249,8 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   if (bh == 0 || t_q == 0) return cudaSuccess;
   if (t_k < 1 || (t_q + 31) / 32 > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int width = flash_train::tensor_core_width(head_dim, dtype,
-                                                   flash_train::kDq);
-  if (width == 0)
-    return flash_train::simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
-      return flash_train::launch_dq_simt<decltype(t), decltype(d)::value>(
-          q, k, v, dout, lse, delta, dq, bh, t_q, t_k, head_dim, causal,
-          scale, s);
-    });
-  return flash_train::dispatch_width<false>(dtype, width, [&](auto t, auto w) {
+  const int width = flash_train::tensor_core_width(head_dim);
+  return flash_train::dispatch_width(dtype, width, [&](auto t, auto w) {
     constexpr int DP = decltype(w)::value;
     if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
       return flash_train::launch_dq_sm90<DP>(q, k, v, dout, lse, delta, dq,
@@ -1929,9 +2272,8 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k,
   if (bh == 0 || t_k == 0) return cudaSuccess;
   if ((t_k + 31) / 32 > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int width = flash_train::tensor_core_width(head_dim, dtype,
-                                                   flash_train::kDkv);
-  return flash_train::dispatch_width<true>(dtype, width, [&](auto t, auto w) {
+  const int width = flash_train::tensor_core_width(head_dim);
+  return flash_train::dispatch_width(dtype, width, [&](auto t, auto w) {
     constexpr int DP = decltype(w)::value;
     if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
       return flash_train::launch_dkv_sm90<DP>(q, k, v, dout, lse, delta, dk,
@@ -1951,16 +2293,9 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k,
 extern "C" int flash_attn_bwd_smem(int kernel, int head_dim, int dtype,
                                    int* static_bytes, int* dynamic_bytes) {
   using namespace flash_train;
+  const int width = tensor_core_width(head_dim);
   if (kernel == 0) {
-    const int width = tensor_core_width(head_dim, dtype, kDq);
-    if (width == 0)
-      return simt::dispatch(dtype, head_dim, [&](auto t, auto d) {
-        constexpr int DP = decltype(d)::value;
-        return report_smem(simt::flash_bwd_dq_simt_kernel<decltype(t), DP>,
-                           simt::Cfg<DP>::kSmemDq, static_bytes,
-                           dynamic_bytes);
-      });
-    return dispatch_width<false>(dtype, width, [&](auto t, auto w) {
+    return dispatch_width(dtype, width, [&](auto t, auto w) {
       constexpr int DP = decltype(w)::value;
       if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
         return report_smem(flash_bwd_dq_sm90_kernel<DP, false>,
@@ -1971,8 +2306,7 @@ extern "C" int flash_attn_bwd_smem(int kernel, int head_dim, int dtype,
     });
   }
   if (kernel != 1) return cudaErrorInvalidValue;
-  const int width = tensor_core_width(head_dim, dtype, kDkv);
-  return dispatch_width<true>(dtype, width, [&](auto t, auto w) {
+  return dispatch_width(dtype, width, [&](auto t, auto w) {
     constexpr int DP = decltype(w)::value;
     if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
       return report_smem(flash_bwd_dkv_sm90_kernel<DP, false>,

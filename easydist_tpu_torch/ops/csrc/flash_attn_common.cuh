@@ -1,8 +1,6 @@
 // Shared pieces of the training attention kernels (flash_attn_fwd.cu,
 // flash_attn_bwd.cu): the causal fill, the routes' head_dims and the
-// launch-side helpers (the tensor-core pieces are in flash_attn_sm90.cuh,
-// the kernel for the head_dims the tensor-core routes do not take, f32 B2
-// above 128, in flash_attn_simt.cuh).
+// launch-side helpers (the tensor-core pieces are in flash_attn_sm90.cuh).
 
 #pragma once
 
@@ -53,36 +51,31 @@ cudaError_t report_smem(Kernel kernel, size_t dynamic, int* static_bytes,
   return cudaSuccess;
 }
 
-// The tensor-core routes and the head_dims they take.  B1 (forward) and
-// B3 (dK, dV) run on the tensor cores at every head_dim up to 256 in both
-// dtypes, B2 (dQ) up to 256 in bfloat16 and up to 128 in float32,
+// The head_dims the kernels take.  B1 (forward), B2 (dQ) and B3 (dK, dV)
+// run on the tensor cores at every head_dim up to 256 in both dtypes,
 // templated on a padded width DP (64, 80, 96, 128; 256 for 129..256)
 // with the true d at run time; the tiles' columns past d are zeros (they
 // add nothing to the products over d, which run every 32-byte step of
-// the width), the products whose N is the head_dim take N = DP, and the
+// the width), the products whose N is the head_dim take N = DP (at 256 in
+// float32 B2 and B3 put the head_dim on the M side instead), and the
 // epilogues store at stride d.  Rows a TMA map takes (d * itemsize a
 // multiple of 16) are loaded by the maps, whose extent d zero-fills the
 // padding; other rows (bf16 100) by the producer's own copies into the
-// same swizzled tiles (flash_attn_sm90.cuh, `fill_tile`).  float32 B1
-// and B3 at 256 take no maps: their tiles of TF32 halves leave no room
+// same swizzled tiles (flash_attn_sm90.cuh, `fill_tile`).  The float32
+// kernels at 256 take no maps: their tiles of TF32 halves leave no room
 // for a raw landing stage, so they load the rows themselves (flash_attn_
-// fwd.cu, flash_attn_bwd.cu).  `tensor_core_width` gives DP, or 0 where
-// the SIMT kernel of flash_attn_simt.cuh takes the head_dim (float32 B2
-// above 128).
-enum TrainKernel { kFwd = 0, kDq = 1, kDkv = 2 };
-
-inline int tensor_core_width(int head_dim, int dtype, int kernel) {
-  const int top = dtype == 1 || kernel != kDq ? 256 : 128;
-  if (head_dim < 1 || head_dim > top) return 0;
+// fwd.cu, flash_attn_bwd.cu).  `tensor_core_width` gives DP, or 0 outside
+// 1..256.
+inline int tensor_core_width(int head_dim) {
+  if (head_dim < 1 || head_dim > 256) return 0;
   return head_dim <= 64 ? 64 : head_dim <= 80 ? 80 : head_dim <= 96 ? 96
                                                : head_dim <= 128 ? 128 : 256;
 }
 
 // Calls f(T{}, std::integral_constant<int, DP>{}) for dtype (0 float32,
-// 1 bfloat16) and a padded width DP (64, 80, 96, 128; 256 in bfloat16,
-// and in float32 where kF32Wide: B1 and B3); cudaErrorInvalidValue
-// otherwise.
-template <bool kF32Wide, typename F>
+// 1 bfloat16) and a padded width DP (64, 80, 96, 128, 256);
+// cudaErrorInvalidValue otherwise.
+template <typename F>
 cudaError_t dispatch_width(int dtype, int width, F&& f) {
   auto by_width = [&](auto t) -> cudaError_t {
     using T = decltype(t);
@@ -91,10 +84,7 @@ cudaError_t dispatch_width(int dtype, int width, F&& f) {
       case 80: return f(T{}, std::integral_constant<int, 80>{});
       case 96: return f(T{}, std::integral_constant<int, 96>{});
       case 128: return f(T{}, std::integral_constant<int, 128>{});
-      case 256:
-        if constexpr (kF32Wide || std::is_same_v<T, __nv_bfloat16>)
-          return f(T{}, std::integral_constant<int, 256>{});
-        return cudaErrorInvalidValue;
+      case 256: return f(T{}, std::integral_constant<int, 256>{});
       default: return cudaErrorInvalidValue;
     }
   };

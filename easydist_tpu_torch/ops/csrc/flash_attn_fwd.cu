@@ -926,9 +926,8 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   if (bh == 0 || t_q == 0) return cudaSuccess;
   if (t_k < 1 || (t_q + 31) / 32 > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int width = flash_train::tensor_core_width(head_dim, dtype,
-                                                   flash_train::kFwd);
-  return flash_train::dispatch_width<true>(dtype, width, [&](auto t, auto w) {
+  const int width = flash_train::tensor_core_width(head_dim);
+  return flash_train::dispatch_width(dtype, width, [&](auto t, auto w) {
     constexpr int DP = decltype(w)::value;
     if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
       return flash_train::launch_sm90<DP>(q, k, v, out, lse, bh, t_q, t_k,
@@ -946,8 +945,8 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
 extern "C" int flash_attn_fwd_smem(int head_dim, int dtype,
                                    int* static_bytes, int* dynamic_bytes) {
   using namespace flash_train;
-  const int width = tensor_core_width(head_dim, dtype, kFwd);
-  return dispatch_width<true>(dtype, width, [&](auto t, auto w) {
+  const int width = tensor_core_width(head_dim);
+  return dispatch_width(dtype, width, [&](auto t, auto w) {
     constexpr int DP = decltype(w)::value;
     if constexpr (std::is_same_v<decltype(t), __nv_bfloat16>)
       return report_smem(flash_fwd_sm90_kernel<DP, false>,

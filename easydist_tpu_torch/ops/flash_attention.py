@@ -13,7 +13,7 @@ Port of easydist_tpu/ops/flash_attention.py, serving and training:
     kernels run on the tensor cores (`wgmma` fed by a TMA ring,
     `csrc/flash_attn_sm90.cuh`); on float32 they run on the tensor cores
     too, each product of the function as three TF32 products of hi/lo
-    halves, but for B2 above head_dim 128 (a SIMT kernel);
+    halves;
   * serving: the decode kernel `_flash_decode_kernel` becomes
     `csrc/flash_decode.cu`, the custom op `easydist_tpu_torch::flash_decode`;
     the paged decode kernels `_flash_paged_decode_kernel` (exact pages)
@@ -56,17 +56,15 @@ _TILE_SMEM_LIMIT = 200 * 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Every kernel takes every head_dim from 1 to _MAX_HEAD_DIM; above it
 # they raise.  The routes (`_train_route`):
-#   * B1 (forward) and B3 (dK, dV) run on the tensor cores at every
-#     head_dim, B2 (dQ) up to 128 and in bf16 up to 256, at the padded
-#     width of `_TC_WIDTHS` that holds it (csrc/flash_attn_common.cuh,
-#     `tensor_core_width`; rows a TMA map takes, d * itemsize a multiple
-#     of 16, through the maps or the kernel's own 16-byte loads, others
-#     through element copies), and B2 on the SIMT kernel
-#     (csrc/flash_attn_simt.cuh) in f32 above 128;
+#   * B1 (forward), B2 (dQ) and B3 (dK, dV) run on the tensor cores at
+#     every head_dim, at the padded width of `_TC_WIDTHS` that holds it
+#     (csrc/flash_attn_common.cuh, `tensor_core_width`; rows a TMA map
+#     takes, d * itemsize a multiple of 16, through the maps or the
+#     kernel's own 16-byte loads, others through element copies);
 #   * B4-B6 on the decode body's exact width at `_TENSOR_CORE_DIMS`, on
 #     its padded body elsewhere (csrc/decode_split.cuh, "Head dims").
 _TENSOR_CORE_DIMS = (64, 128)
-_TC_WIDTHS = (64, 80, 96, 128, 256)  # 256: all but f32 B2
+_TC_WIDTHS = (64, 80, 96, 128, 256)
 _MAX_HEAD_DIM = 256
 
 
@@ -75,12 +73,9 @@ def _check_head_dim(op: str, d: int) -> None:
         raise ValueError(f"{op} takes head_dim 1..{_MAX_HEAD_DIM}, got {d}")
 
 
-def _tc_width(d: int, dtype, kernel: str = "fwd") -> Optional[int]:
-    """The padded width the tensor-core kernel of B1 ("fwd"), B2 ("dq")
-    or B3 ("dkv") runs head_dim d on in `dtype`, or None where the SIMT
-    kernel takes it (f32 B2 above 128)."""
-    if kernel == "dq" and dtype != torch.bfloat16 and d > 128:
-        return None
+def _tc_width(d: int) -> int:
+    """The padded width the tensor-core kernels of B1, B2 and B3 run
+    head_dim d on, in either dtype."""
     return next(w for w in _TC_WIDTHS if d <= w)
 
 
@@ -92,23 +87,18 @@ def _tma_rows(d: int, dtype) -> bool:
     return (d * dtype.itemsize) % 16 == 0
 
 
-def _train_route(kernel: str, d: int, dtype) -> tuple:
-    """(route, width) of B1 ("fwd"), B2 ("dq") or B3 ("dkv") at head_dim
-    d in `dtype`, as the CUDA entry points pick it: route "sm90" (bf16 on
-    the tensor cores), "tf32" (f32 as three TF32 products) or "simt",
-    width the kernel's template width (the padded width of the SIMT
-    kernel's rows: 256).  They differ only in f32 above 128, where B1
-    and B3 take the TF32 kernels at 256 and B2 the SIMT kernel."""
-    width = _tc_width(d, dtype, kernel)
-    if width is None:
-        return "simt", _pow2_at_least(d, 32)
-    return ("tf32" if dtype == torch.float32 else "sm90"), width
+def _train_route(d: int, dtype) -> tuple:
+    """(route, width) of B1, B2 and B3 at head_dim d in `dtype`, as the
+    CUDA entry points pick it: route "sm90" (bf16 on the tensor cores) or
+    "tf32" (f32 as three TF32 products), width the kernels' template
+    width."""
+    return ("tf32" if dtype == torch.float32 else "sm90"), _tc_width(d)
 
 
 def train_kernel_symbol(kernel: str, d: int, dtype) -> str:
     """The CUDA function B1 ("fwd"), B2 ("dq") or B3 ("dkv") launches at
     head_dim d in `dtype` (its name in a profiler's trace)."""
-    route, _ = _train_route(kernel, d, dtype)
+    route, _ = _train_route(d, dtype)
     stem = {"fwd": "flash_fwd", "dq": "flash_bwd_dq",
             "dkv": "flash_bwd_dkv"}[kernel]
     return f"{stem}_{route}_kernel"
@@ -252,9 +242,8 @@ def _train_lib(name: str):
     return lib
 
 
-def _check_train_inputs(op: str, kernel: str, q, k, v, *rows):
-    """Validate CUDA inputs of training kernel `kernel` ("fwd", "dq" or
-    "dkv"); returns (b, h, t_q, t_k, d) and the inputs made contiguous
+def _check_train_inputs(op: str, q, k, v, *rows):
+    """Validate CUDA inputs of training kernel `op`; returns (b, h, t_q, t_k, d) and the inputs made contiguous
     (q, k, v in one dtype; the row tensors lse/delta f32 [b*h, t_q])."""
     if not all(x.is_cuda for x in (q, k, v, *rows)):
         raise RuntimeError(f"{op} runs its kernel on CUDA tensors and its "
@@ -274,20 +263,17 @@ def _check_train_inputs(op: str, kernel: str, q, k, v, *rows):
             raise ValueError(f"lse/delta must be float32 [{b * h}, {t_q}], "
                              f"got {x.dtype} {tuple(x.shape)}")
     out = [x.contiguous() for x in (q, k, v, *rows)]
-    _check_aligned(op, kernel, *out[:3])
+    _check_aligned(op, *out[:3])
     return (b, h, t_q, t_k, d), out
 
 
-def _check_aligned(op: str, kernel: str, *tensors) -> None:
+def _check_aligned(op: str, *tensors) -> None:
     """The tensor-core kernels read rows a TMA map takes (`_tma_rows`)
-    through the maps or with 16-byte loads (f32 B1 and B3 at 129-256
-    read all their rows so), both of which need a 16-byte aligned base:
-    raise on any other, rather than copy.  Other rows, and the SIMT
-    kernel, take any base."""
+    through the maps or with 16-byte loads (f32 B1-B3 at 129-256 read
+    all their rows so), both of which need a 16-byte aligned base: raise
+    on any other, rather than copy.  Other rows take any base."""
     x0 = tensors[0]
-    d = x0.shape[-1]
-    if _train_route(kernel, d, x0.dtype)[0] == "simt" or \
-            not _tma_rows(d, x0.dtype):
+    if not _tma_rows(x0.shape[-1], x0.dtype):
         return
     for x in tensors:
         if x.data_ptr() % 16:
@@ -305,8 +291,8 @@ def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     if q.device.type == "cpu":
         return _flash_forward_xla(q, k, v, causal, scale)
-    (b, h, t_q, t_k, d), (q, k, v) = _check_train_inputs("flash_fwd", "fwd",
-                                                         q, k, v)
+    (b, h, t_q, t_k, d), (q, k, v) = _check_train_inputs("flash_fwd", q, k,
+                                                         v)
     out = torch.empty_like(q)
     lse = torch.empty((b * h, t_q), dtype=torch.float32, device=q.device)
     lib = _train_lib("flash_attn_fwd")
@@ -333,9 +319,9 @@ def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return _flash_bwd_dq_xla(q, k, v, do, lse, delta, causal, scale)
     (b, h, t_q, t_k, d), (q, k, v, lse, delta) = _check_train_inputs(
-        "flash_bwd_dq", "dq", q, k, v, lse, delta)
+        "flash_bwd_dq", q, k, v, lse, delta)
     do = do.to(q.dtype).contiguous()
-    _check_aligned("flash_bwd_dq", "dq", do)
+    _check_aligned("flash_bwd_dq", do)
     dq = torch.empty_like(q)
     lib = _train_lib("flash_attn_bwd")
     err = lib.flash_attn_bwd_dq(
@@ -361,9 +347,9 @@ def _flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return _flash_bwd_dkv_xla(q, k, v, do, lse, delta, causal, scale)
     (b, h, t_q, t_k, d), (q, k, v, lse, delta) = _check_train_inputs(
-        "flash_bwd_dkv", "dkv", q, k, v, lse, delta)
+        "flash_bwd_dkv", q, k, v, lse, delta)
     do = do.to(q.dtype).contiguous()
-    _check_aligned("flash_bwd_dkv", "dkv", do)
+    _check_aligned("flash_bwd_dkv", do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _train_lib("flash_attn_bwd")
@@ -400,7 +386,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
     run `_flash_bwd_dq_xla`; CUDA tensors launch the dQ kernel of
     `csrc/flash_attn_bwd.cu` (on the tensor cores at every d up to 128,
     as B1, float32 as three TF32 products of hi/lo halves for each of S,
-    dP and dQ; above 128 on the SIMT kernel: `_train_route`)."""
+    dP and dQ: `_train_route`)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _flash_bwd_dq_op(q, k, v, do, lse, delta, bool(causal),
@@ -474,13 +460,11 @@ def flash_attention(q, k, v, causal: bool = True,
 
 # Each route's tile constants, as the C++ structs hold them
 # (csrc/flash_attn_fwd.cu FwdSm90 / FwdTf32, csrc/flash_attn_bwd.cu
-# DqSm90 / DqTf32 / DkvSm90 / DkvTf32 (kWideSmem at 256),
-# csrc/flash_attn_simt.cuh Cfg): the
+# DqSm90 / DqTf32 / DkvSm90 / DkvTf32 (kWideSmem at 256)): the
 # dynamic shared memory each launch passes.  None depends on t_q or t_k:
 # every kernel blocks over the sequence with tiles of fixed size.  The
 # card holds this table equal to what each launch asks for
 # (`_launch_smem_bytes`).
-_SIMT_TILE = 32
 _SMEM_LIMIT = 227 * 1024
 
 
@@ -503,6 +487,10 @@ def _tensor_core_smem(kernel: str, w: int, f32: bool) -> int:
     if kernel == "dq" and not f32:  # 32-key tiles at 256
         bq, bk, st = 128, (64 if w <= 128 else 32), 2
         return 1024 + 2 * bq * row + 2 * st * bk * row + 8 * (1 + 2 * st)
+    if kernel == "dq" and w == 256:  # Q, dO raw; K, V halves; dS; P
+        bq, bk = 64, 16
+        return (1024 + 2 * bq * row + 4 * bk * row + bq * 128
+                + 128 * (bk // 2) * 4)
     if kernel == "dq":  # Q's halves in registers below 128
         wg, bk = (2 if w == 64 else 1), 32
         st = 3 if w == 64 else 2 if w < 128 else 1
@@ -526,18 +514,11 @@ def _tensor_core_smem(kernel: str, w: int, f32: bool) -> int:
     return smem(2) if smem(2) <= _SMEM_LIMIT else smem(1)
 
 
-def _simt_smem(d: int) -> int:
-    """B2's SIMT kernel (the only one): its K and V tiles as f32."""
-    return 2 * _SIMT_TILE * _pow2_at_least(d, 32) * 4
-
-
 def _route_smem(kernel: str, d: int, dtype) -> int:
     """Dynamic shared memory of one launch of B1 ("fwd"), B2 ("dq") or B3
     ("dkv") at head_dim d on the route the dispatch picks (the kernels
     keep no static shared memory)."""
-    route, width = _train_route(kernel, d, dtype)
-    if route == "simt":
-        return _simt_smem(d)
+    route, width = _train_route(d, dtype)
     return _tensor_core_smem(kernel, width, route == "tf32")
 
 

@@ -5,10 +5,9 @@ Demonstrates `easydist_tpu_torch.serve.ServeEngine` end to end: the GPT
 forward compiled once per shape bucket by `easydist_compile`, the
 buckets warmed, then concurrent synthetic clients, and the serving
 metrics printed (throughput, batch occupancy, cache hit rate, p50 / p95
-/ p99 latency).  Attention is "flash": on the card the forward runs B1,
-at the tiny config's head_dim 8 on its SIMT kernel
-(ops/csrc/flash_attn_simt.cuh) and at GPT-2 small's 64 on the tensor
-cores; on the CPU its plain version.
+/ p99 latency).  Attention is "flash": on the card the forward runs B1
+on the tensor cores (the tiny config's head_dim 8 at the padded width
+64, GPT-2 small's 64 at its own); on the CPU its plain version.
 
     python examples/torch/serve_gpt.py [--clients 8] [--requests 12]
                                        [--small] [--device cuda]

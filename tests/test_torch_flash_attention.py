@@ -326,6 +326,40 @@ def _emulated_dq_tf32(q, k, v, do, lse, delta, causal: bool, scale: float,
     return _tf32_product("bhqk,bhkd->bhqd", ds, k, split) * scale
 
 
+def _emulated_dq_tf32_wide(q, k, v, do, lse, delta, causal: bool,
+                           scale: float, split: bool, tile: int = 16):
+    """The f32 B2's order at the width 256 (`dq_tf32_wide`): S and dP as
+    (A_hi.B_hi + A_hi.B_lo) + A_lo.B_hi, the small term in an accumulator
+    of its own; P and dS in f32; dQ^T = K^T.dS^T summed over 16-key tiles,
+    each tile's three products K_hi.dS_hi, K_hi.dS_lo, K_lo.dS_hi added in
+    that order; times scale at the end.  Without the split every operand
+    enters through one TF32 cast."""
+    def halves(x):
+        hi = _tf32(x)
+        return hi, (_tf32(x - hi) if split else torch.zeros_like(x))
+
+    def three(eq, a, b):
+        (a_hi, a_lo), (b_hi, b_lo) = halves(a), halves(b)
+        return ((torch.einsum(eq, a_hi, b_hi) + torch.einsum(eq, a_hi, b_lo))
+                + torch.einsum(eq, a_lo, b_hi))
+
+    b, h, t_q, d = q.shape
+    s = three("bhqd,bhkd->bhqk", q, k) * scale
+    if causal:
+        s = tfa._causal_fill(s)
+    p = torch.exp(s - lse.reshape(b, h, t_q, 1))
+    dp = three("bhqd,bhkd->bhqk", do, v)
+    ds = p * (dp - delta.reshape(b, h, t_q, 1))
+    (k_hi, k_lo), (ds_hi, ds_lo) = halves(k), halves(ds)
+    dqt = torch.zeros(b, h, d, t_q)
+    for k0 in range(0, k.shape[2], tile):
+        kt = slice(k0, k0 + tile)
+        for a, c in ((k_hi, ds_hi), (k_hi, ds_lo), (k_lo, ds_hi)):
+            dqt = dqt + torch.einsum("bhkd,bhqk->bhdq", a[:, :, kt],
+                                     c[..., kt])
+    return dqt.transpose(-1, -2) * scale
+
+
 def _emulated_dkv_tf32(q, k, v, do, lse, delta, causal: bool, scale: float,
                        split: bool):
     """The f32 B3's rounding points: P^T and dS^T as above (the kernel
@@ -392,7 +426,7 @@ class TestSplitRounding:
         out, lse = tfa._flash_forward_xla(q, k, v, True, scale)
         delta = tfa._flash_delta(out, do)
         ref = tfa._flash_bwd_dq_xla(q, k, v, do, lse, delta, True, scale)
-        w = tfa._tc_width(d, torch.bfloat16, "dq")
+        w = tfa._tc_width(d)
         dq = _emulated_dq(*_padded(w, q, k, v, do), lse, delta, True, scale,
                           True)
         assert _worst(dq[..., :d], ref, **BWD) <= 1.0
@@ -445,10 +479,29 @@ class TestSplitRounding:
         out, lse = tfa._flash_forward_xla(q, k, v, True, scale)
         delta = tfa._flash_delta(out, do)
         ref = tfa._flash_bwd_dq_xla(q, k, v, do, lse, delta, True, scale)
-        w = tfa._tc_width(d, torch.float32, "dq")
+        w = tfa._tc_width(d)
         dq = _emulated_dq_tf32(*_padded(w, q, k, v, do), lse, delta, True,
                                scale, True)
         assert _worst(dq[..., :d], ref, **BWD, ulp=0.0) <= 1.0
+
+    @pytest.mark.parametrize("split", [True, False],
+                             ids=["tf32_three_products", "tf32_one_cast"])
+    def test_f32_dq_transposed_at_256_within_bar_only_with_tf32_split(
+            self, split):
+        # the f32 B2 at 256 in its own order (dQ^T with the head_dim as
+        # the M side, 16-key tiles, S and dP's small terms apart): at the
+        # f32 backward bar with the split, over it with one cast
+        q, k, v, do = _t(*_rand(b=1, h=2, t=64, d=256, seed=13))
+        scale = 1.0 / math.sqrt(256)
+        out, lse = tfa._flash_forward_xla(q, k, v, True, scale)
+        delta = tfa._flash_delta(out, do)
+        ref = tfa._flash_bwd_dq_xla(q, k, v, do, lse, delta, True, scale)
+        dq = _emulated_dq_tf32_wide(q, k, v, do, lse, delta, True, scale,
+                                    split)
+        worst = _worst(dq, ref, **BWD, ulp=0.0)
+        print(f"tf32 {'three products' if split else 'one cast'}: worst "
+              f"err/tol dq at 256 {worst:.4f}")
+        assert (worst <= 1.0) == split, worst
 
     @pytest.mark.parametrize("split", [True, False],
                              ids=["tf32_three_products", "tf32_one_cast"])
@@ -728,12 +781,11 @@ class TestKernelsOnCard:
 
 
 # head_dims beyond 64 and 128: the tiny configs and the JAX tests (8, 16),
-# Cerebras-GPT-2.7B (80), OpenLLaMA-3B (100), GPT-J and Gemma (256), the
-# SIMT kernel's padded widths' edges (1, 32, 33, 129), B1-B3's
-# tensor-core widths (`tfa._tc_width`) at their edges: 40 (half of the
-# last k16 step is zeros), 72 and 112 (inside the widths 80 and 128), 96;
-# and f32 B1 / B3 at the width 256: 136 and 192 (rows 16-byte loads
-# take), 129 and 255 (element loads)
+# Cerebras-GPT-2.7B (80), OpenLLaMA-3B (100), GPT-J and Gemma (256), small
+# and odd widths (1, 32, 33), B1-B3's tensor-core widths (`tfa._tc_width`)
+# at their edges: 40 (half of the last k16 step is zeros), 72 and 112
+# (inside the widths 80 and 128), 96; and f32 B1-B3 at the width 256: 136
+# and 192 (rows 16-byte loads take), 129 and 255 (element loads)
 SWEEP_DIMS = (1, 8, 16, 32, 33, 40, 72, 80, 96, 100, 112, 129, 136, 192,
               255, 256)
 
@@ -741,11 +793,11 @@ SWEEP_DIMS = (1, 8, 16, 32, 33, 40, 72, 80, 96, 100, 112, 129, 136, 192,
 @pytest.mark.cuda
 class TestAllHeadDimsOnCard:
     """B1-B3 at head_dims beyond 64 and 128 (the tensor-core kernels at
-    their padded widths, and f32 B2's SIMT kernel past 128) against their
-    plain versions, at the bars of TestKernelsOnCard: causal (with an lse
-    cotangent), full, fewer queries than keys and a ragged length; any
-    base alignment on the SIMT route; the limit at 256; the shared memory
-    each launch takes against `estimate_smem_bytes`' table."""
+    their padded widths) against their plain versions, at the bars of
+    TestKernelsOnCard: causal (with an lse cotangent), full, fewer queries
+    than keys and a ragged length; the bases each route takes; the limit
+    at 256; the shared memory each launch takes against
+    `estimate_smem_bytes`' table."""
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("causal,t_q,t_k", [
@@ -790,12 +842,12 @@ class TestAllHeadDimsOnCard:
         close(dk, r_dk, **BWD)
         close(dv, r_dv, **BWD)
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("d", [80, 96, 100, 256])
-    def test_two_launches_are_bitwise_equal(self, cuda_device, d):
+    def test_two_launches_are_bitwise_equal(self, cuda_device, dtype, d):
         rs = np.random.RandomState(2)
         q, k, v, do = (torch.as_tensor(rs.standard_normal((2, 4, 300, d)),
-                                       dtype=torch.bfloat16,
-                                       device=cuda_device)
+                                       dtype=dtype, device=cuda_device)
                        for _ in range(4))
         runs = []
         for _ in range(2):
@@ -808,11 +860,9 @@ class TestAllHeadDimsOnCard:
         for a, b in zip(*runs):
             assert torch.equal(a, b)
 
-    def test_any_alignment_on_the_simt_route(self, cuda_device):
-        # the SIMT kernel reads elements: a base 4 bytes past a 16-byte
-        # boundary runs (the tensor-core routes raise, test above); B2
-        # runs on SIMT in f32 above head_dim 128, where B1 and B3 read
-        # 16-byte rows and raise
+    def test_unaligned_input_raises_at_the_width_256(self, cuda_device):
+        # f32 B1-B3 at 129-256 read rows of d % 4 == 0 with 16-byte loads:
+        # a base 4 bytes past a 16-byte boundary raises in each of them
         q, k, v = (torch.randn(2, 4, 64, 200, device=cuda_device)
                    for _ in range(3))
         shifted = torch.randn(2 * 4 * 64 * 200 + 1,
@@ -820,10 +870,10 @@ class TestAllHeadDimsOnCard:
         scale = 1 / math.sqrt(200)
         out, lse = tfa._flash_forward_xla(q, k, v, True, scale)
         delta = tfa._flash_delta(out, shifted)
-        dq = tfa.flash_bwd_dq(q, k, v, shifted, lse, delta, True, scale)
-        ref = tfa._flash_bwd_dq_xla(q, k, v, shifted.float(), lse, delta,
-                                    True, scale)
-        assert bool(((dq - ref).abs() <= 2e-5 + 2e-4 * ref.abs()).all())
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tfa.flash_bwd_dq(q, k, v, shifted, lse, delta, True, scale)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tfa.flash_bwd_dq(shifted, k, v, q, lse, delta, True, scale)
         with pytest.raises(ValueError, match="16-byte aligned"):
             tfa.flash_fwd(shifted, k, v)
         with pytest.raises(ValueError, match="16-byte aligned"):

@@ -2,9 +2,8 @@
 
 The six TPU kernels block over the sequence and keep the head_dim whole,
 so they take any width; the port's kernels take every head_dim from 1 to
-256 (B1-B3 on the tensor cores at padded widths up to 128, in bf16 up
-to 256, f32 B2 above 128 on its SIMT kernel; B4-B6 on the decode body's
-exact width at 64 and 128, on its padded body elsewhere).
+256 (B1-B3 on the tensor cores at padded widths up to 256; B4-B6 on the
+decode body's exact width at 64 and 128, on its padded body elsewhere).
 Here, where the wrappers run their plain versions: B1-B3 (forward and
 both gradients), B4, B5 and B6 at head_dim 8 and 16 (the tiny configs
 and the JAX tests), 80 (Cerebras-GPT-2.7B) and 100 (OpenLLaMA-3B)
@@ -84,6 +83,29 @@ class TestTrainingVsJax:
                                   _t(do, g_lse))
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), **BWD)
+
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_dq_at_256_matches_pallas(self, jax_ops, causal):
+        # GPT-J's and Gemma's head_dim: the plain dQ, which the card holds
+        # f32 B2 at the width 256 to, against the JAX package's Pallas
+        # backward in interpret mode (cotangents on out and lse)
+        jax, jnp, jfa = jax_ops
+        q, k, v, do = _rand(b=1, h=2, t=64, d=256, seed=256)
+        g_lse = np.random.RandomState(257).standard_normal(
+            (2, 64)).astype(np.float32)
+        _, vjp = jax.vjp(
+            lambda a, b, c: jfa.flash_attention_lse(a, b, c, causal, None,
+                                                    32, 32, True),
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = vjp((jnp.asarray(do), jnp.asarray(g_lse)))[0]
+        qt, kt, vt, dot, gt = _t(q, k, v, do, g_lse)
+        scale = 1.0 / math.sqrt(256)
+        out, lse = tfa._flash_forward_xla(qt, kt, vt, causal, scale)
+        delta = tfa._flash_delta(out, dot, gt)
+        dq = tfa._flash_bwd_dq_xla(qt, kt, vt, dot, lse, delta, causal,
+                                   scale)
+        np.testing.assert_allclose(dq.numpy(), np.asarray(want), **BWD)
 
 
 class TestDecodeVsJax:
@@ -260,14 +282,17 @@ class TestSmemEstimate:
          1024 + 2 * 128 * 128 + 2 * (2 * 64 * 128 + 2 * 64 * 4) + 8 * 5),
         # above 128 in bf16: the width 256, B1 with 32-key tiles, B3's two
         # warpgroups on 64 keys (a half of the columns each), 16-query
-        # tiles, B2 with 32-key tiles; in f32 B2 on SIMT
+        # tiles, B2 with 32-key tiles
         ("fwd", 256, torch.bfloat16, ("sm90", 256),
          1024 + 128 * 512 + 2 * 2 * 32 * 512 + 8 * 5),
         ("dkv", 129, torch.bfloat16, ("sm90", 256),
          1024 + 2 * 64 * 512 + 2 * (2 * 16 * 512 + 2 * 16 * 4) + 8 * 5),
         ("dq", 256, torch.bfloat16, ("sm90", 256),
          1024 + 2 * 128 * 512 + 2 * 2 * 32 * 512 + 8 * 5),
-        ("dq", 129, torch.float32, ("simt", 256), 2 * 32 * 256 * 4),
+        # f32 B2 at 256: Q and dO raw (64 queries), K's and V's halves
+        # (16 keys), the dS tile, P handed over
+        ("dq", 129, torch.float32, ("tf32", 256),
+         1024 + 2 * 64 * 1024 + 4 * 16 * 1024 + 64 * 128 + 128 * 8 * 4),
         # f32 B1 at 256: Q's halves for 64 queries, one stage of 16 keys
         # (K_hi and K_lo stacked, V^T_hi and V^T_lo as 256 rows of 128
         # bytes), no raw stage, four barriers
@@ -283,12 +308,13 @@ class TestSmemEstimate:
         ("dkv", 256, torch.float32, ("tf32", 256),
          1024 + 2 * 64 * 1024 + 4 * 16 * 1024 + 2 * 64 * 128 + 128 * 8 * 4
          + 2 * 16 * 4),
-        ("dq", 256, torch.float32, ("simt", 256), 2 * 32 * 256 * 4),
+        ("dq", 256, torch.float32, ("tf32", 256),
+         1024 + 2 * 64 * 1024 + 4 * 16 * 1024 + 64 * 128 + 128 * 8 * 4),
     ])
     def test_routes(self, kernel, d, dtype, route, smem):
         # each kernel's route and width at (d, dtype), and the dynamic
         # shared memory its launch passes there
-        assert tfa._train_route(kernel, d, dtype) == route
+        assert tfa._train_route(d, dtype) == route
         assert tfa._route_smem(kernel, d, dtype) == smem
 
     @pytest.mark.parametrize("d,dtype,width,tma", [
@@ -303,28 +329,24 @@ class TestSmemEstimate:
         (100, torch.bfloat16, 128, False), (4, torch.bfloat16, 64, False),
         (66, torch.float32, 80, False), (1, torch.float32, 64, False),
         (127, torch.bfloat16, 128, False),
-        # above 128: the width 256 (f32 B2 on the SIMT kernel)
+        # above 128: the width 256
         (136, torch.bfloat16, 256, True), (129, torch.bfloat16, 256, False),
         (256, torch.bfloat16, 256, True), (256, torch.float32, 256, True),
         (129, torch.float32, 256, False), (136, torch.float32, 256, True),
         (192, torch.float32, 256, True), (255, torch.float32, 256, False)])
     def test_tensor_core_width(self, d, dtype, width, tma):
-        # csrc/flash_attn_common.cuh `tensor_core_width`: B1's and B3's
-        # padded width, the smallest of 64, 80, 96, 128, 256 that holds
-        # d, and B2's, the same but none (SIMT) in f32 above 128; rows of
-        # d * itemsize bytes a multiple of 16 go through TMA maps (or f32
-        # B1 / B3's 16-byte loads at 256)
-        dq_width = None if dtype == torch.float32 and d > 128 else width
-        assert tfa._tc_width(d, dtype) == width
-        assert tfa._tc_width(d, dtype, "fwd") == width
-        assert tfa._tc_width(d, dtype, "dkv") == width
-        assert tfa._tc_width(d, dtype, "dq") == dq_width
+        # csrc/flash_attn_common.cuh `tensor_core_width`: B1-B3's padded
+        # width in either dtype, the smallest of 64, 80, 96, 128, 256 that
+        # holds d; rows of d * itemsize bytes a multiple of 16 go through
+        # TMA maps (or f32 B1-B3's 16-byte loads at 256)
+        assert tfa._tc_width(d) == width
         assert tfa._tma_rows(d, dtype) == tma
         route = "tf32" if dtype == torch.float32 else "sm90"
+        assert tfa._train_route(d, dtype) == (route, width)
         assert tfa.train_kernel_symbol("fwd", d, dtype) == \
             f"flash_fwd_{route}_kernel"
         assert tfa.train_kernel_symbol("dq", d, dtype) == \
-            f"flash_bwd_dq_{'simt' if dq_width is None else route}_kernel"
+            f"flash_bwd_dq_{route}_kernel"
         assert tfa.train_kernel_symbol("dkv", d, dtype) == \
             f"flash_bwd_dkv_{route}_kernel"
 

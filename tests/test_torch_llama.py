@@ -48,6 +48,12 @@ def _close(a, b):
                                atol=ATOL)
 
 
+def _jit(fn, cfg):
+    """The JAX package's `fn(params, cfg, ...)` compiled as one program
+    (op by op its primitives compile one at a time: seconds a call)."""
+    return jax.jit(lambda p, *args: fn(p, cfg, *args))
+
+
 def _i32(*rows):
     a = np.asarray(rows, np.int32)
     return jnp.asarray(a), torch.from_numpy(a.copy())
@@ -95,11 +101,11 @@ def test_apply_and_loss_match_jax(model):
     tokens = rs.randint(0, cfg_j.vocab, (2, cfg_j.seq)).astype(np.int32)
     targets = rs.randint(0, cfg_j.vocab, (2, cfg_j.seq)).astype(np.int32)
     _close(tl.llama_apply(params_t, cfg_t, torch.from_numpy(tokens)),
-           jl.llama_apply(params_j, cfg_j, jnp.asarray(tokens)))
+           _jit(jl.llama_apply, cfg_j)(params_j, jnp.asarray(tokens)))
     _close(tl.llama_loss(params_t, cfg_t, torch.from_numpy(tokens),
                          torch.from_numpy(targets)),
-           jl.llama_loss(params_j, cfg_j, jnp.asarray(tokens),
-                         jnp.asarray(targets)))
+           _jit(jl.llama_loss, cfg_j)(params_j, jnp.asarray(tokens),
+                                      jnp.asarray(targets)))
 
 
 def test_rope_forms_match_jax():
@@ -128,8 +134,8 @@ def test_prefill_matches_jax(model):
     rs = np.random.RandomState(2)
     tokens = rs.randint(0, cfg_j.vocab, (2, 11)).astype(np.int32)
     lj, lt = _i32(11, 6)
-    cj, logits_j = jl.llama_prefill(params_j, cfg_j, cj, jnp.asarray(tokens),
-                                    lj)
+    cj, logits_j = _jit(jl.llama_prefill, cfg_j)(params_j, cj,
+                                                 jnp.asarray(tokens), lj)
     ct, logits_t = tl.llama_prefill(params_t, cfg_t, ct,
                                     torch.from_numpy(tokens), lt)
     _close(logits_t, logits_j)
@@ -144,8 +150,8 @@ def test_prefill_chunk_decode_and_verify_match_jax(model):
     tokens = rs.randint(0, cfg_j.vocab, (3, 8)).astype(np.int32)
     sj, st = _i32(0, 8, 24)
     lj, lt = _i32(5, 14, 40)     # row 2's start clamps to T - chunk
-    cj, logits_j = jl.llama_prefill_chunk(params_j, cfg_j, cj,
-                                          jnp.asarray(tokens), sj, lj)
+    cj, logits_j = _jit(jl.llama_prefill_chunk, cfg_j)(
+        params_j, cj, jnp.asarray(tokens), sj, lj)
     ct, logits_t = tl.llama_prefill_chunk(params_t, cfg_t, ct,
                                           torch.from_numpy(tokens), st, lt)
     _close(logits_t, logits_j)
@@ -153,14 +159,14 @@ def test_prefill_chunk_decode_and_verify_match_jax(model):
         _close(ct[k], cj[k])
     tj, tt = _i32(4, 9, 1)
     pj, pt = _i32(5, 14, 31)
-    cj, logits_j = jl.llama_decode_step(params_j, cfg_j, cj, tj, pj)
+    cj, logits_j = _jit(jl.llama_decode_step, cfg_j)(params_j, cj, tj, pj)
     ct, logits_t = tl.llama_decode_step(params_t, cfg_t, ct, tt, pt)
     _close(logits_t, logits_j)
     for k in cj:
         _close(ct[k], cj[k])
     vj, vt = _i32([3, 5, 7], [1, 2, 3], [9, 9, 9])
     pj, pt = _i32(6, 15, 20)
-    cj, logits_j = jl.llama_verify_step(params_j, cfg_j, cj, vj, pj)
+    cj, logits_j = _jit(jl.llama_verify_step, cfg_j)(params_j, cj, vj, pj)
     ct, logits_t = tl.llama_verify_step(params_t, cfg_t, ct, vt, pt)
     assert tuple(logits_t.shape) == (3, 3, cfg_t.vocab)
     _close(logits_t, logits_j)
@@ -297,8 +303,9 @@ def test_train_step_matches_jax(model):
     targets = rs.randint(0, cfg_j.vocab, (2, 16)).astype(np.int32)
     step_j, _ = jl.make_llama_train_step(cfg_j)
     step_t, init_t = tl.make_llama_train_step(cfg_t)
-    (pj, _), loss_j = step_j((params_j, jax_adam_init(params_j)),
-                             jnp.asarray(tokens), jnp.asarray(targets))
+    (pj, _), loss_j = jax.jit(step_j)((params_j, jax_adam_init(params_j)),
+                                      jnp.asarray(tokens),
+                                      jnp.asarray(targets))
     (pt, opt), loss_t = step_t((params_t, adam_init(params_t)),
                                torch.from_numpy(tokens),
                                torch.from_numpy(targets))

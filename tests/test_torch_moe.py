@@ -39,17 +39,23 @@ def moe_runs(tmp_path_factory, cpu_devices):
         cfg = MoEConfig(**kw)
         p = moe_init(cfg, jax.random.PRNGKey(i))
         params[name] = jax.tree.map(np.asarray, p)
-        y, aux = moe_layer(p, jnp.asarray(x), mesh, cfg)
-        y_ref, aux_ref = moe_reference(p, jnp.asarray(x), cfg,
-                                       n_devices=WORLD)
+
+        def layer(p_, cfg=cfg):
+            return moe_layer(p_, jnp.asarray(x), mesh, cfg)
 
         def loss(p_):
-            y_, aux_ = moe_layer(p_, jnp.asarray(x), mesh, cfg)
+            y_, aux_ = layer(p_)
             return jnp.mean(y_ ** 2) + 0.01 * aux_
 
+        # jitted: one compile of each program (op by op, the shard_map's
+        # primitives compiled one at a time took ~60 s of the file)
+        y, aux = jax.jit(layer)(p)
+        y_ref, aux_ref = moe_reference(p, jnp.asarray(x), cfg,
+                                       n_devices=WORLD)
         want[name] = dict(y=np.asarray(y), aux=float(aux),
                           y_ref=np.asarray(y_ref), aux_ref=float(aux_ref),
-                          grads=jax.tree.map(np.asarray, jax.grad(loss)(p)))
+                          grads=jax.tree.map(np.asarray,
+                                             jax.jit(jax.grad(loss))(p)))
     port = ranks.spawn(SCENARIO, WORLD, tmp_path_factory.mktemp("moe"),
                        params=params, x=x, cfgs=CFGS)
     return port, want
