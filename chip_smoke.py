@@ -386,7 +386,8 @@ F32_FLOPS_PER_S = 67e12                  # H100 SXM, float32 off the tensor core
 TF32_FLOPS_PER_S = 495e12                # H100 SXM, TF32 tensor cores, dense
 BF16_FLOPS_PER_S = 989e12                # H100 SXM, bf16 tensor cores, dense
 TIMED_COPIES = 4                         # input copies rotated past the 50 MB L2
-KERNEL_SOURCES = ("flash_decode", "paged_decode", "flash_attn_fwd",
+KERNEL_SOURCES = ("flash_decode", "paged_decode", "paged_decode_group",
+                  "paged_decode_quant_group", "flash_attn_fwd",
                   "flash_attn_bwd")
 
 
@@ -427,7 +428,8 @@ NO_SPILL_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
                     "flash_bwd_dkv_sm90_kernel", "flash_fwd_tf32_kernel",
                     "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel",
                     "flash_decode_kernel", "paged_decode_kernel",
-                    "paged_decode_quant_kernel")
+                    "paged_decode_quant_kernel", "paged_decode_group_kernel",
+                    "paged_decode_quant_group_kernel")
 
 
 def ptxas_spills(log: str):
@@ -466,10 +468,11 @@ def time_ms(fn, n: int = 50) -> float:
     return start.elapsed_time(stop) / n
 
 
-def profiled_ms(fn, kernel: str, n: int = 20):
+def profiled_ms(fn, kernel: str, n: int = 20, exclude=None):
     """(ms, seen): device time per launch of the kernel whose name holds
-    `kernel`, from torch.profiler over n calls of `fn(i)` (after a
-    warm-up), and the number of its launches the profiler recorded.  The
+    `kernel` (and not `exclude`), from torch.profiler over n calls of
+    `fn(i)` (after a warm-up), and the number of its launches the
+    profiler recorded.  The
     tracer may drop some launch records, so the time is averaged over the
     launches it saw; ms is None when it saw none.  The host's issue rate
     does not enter it."""
@@ -484,7 +487,8 @@ def profiled_ms(fn, kernel: str, n: int = 20):
         torch.cuda.synchronize()
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    hits = [e for e in device if kernel in e.key]
+    hits = [e for e in device if kernel in e.key
+            and not (exclude and exclude in e.key)]
     seen = sum(e.count for e in hits)
     if seen > n:
         raise AssertionError(f"profiler saw {seen} launches of {kernel!r} "
@@ -918,22 +922,40 @@ LLAMA_KV_HEADS = 8
 # paged session's default arena, pages [144, 8, 64, 128]
 LLAMA_PAGED_SHAPE = (8, 32, 64, 128, 16, 144)
 LLAMA_LENGTHS = (1, 5, 77, 128, 300, 513, 999, 1024)
+# other GQA ratios B5 / B6 are checked at on the same pages: Qwen2-7B's
+# 28 query heads over 4 KV heads, Llama-3-70B's 64 over 8
+LLAMA_GQA_CASES = ((28, 4), (64, 8))
+
+
+def paged_read_heads(heads: int, kv_heads: int) -> int:
+    """How many times B5 / B6 read each KV head's rows, as KV heads'
+    worth of rows: once per chunk of up to 8 query heads on the grouped
+    route, once per query head on the split body."""
+    from easydist_tpu_torch.ops import flash_attention as fa
+
+    if fa._paged_route(heads, kv_heads) == "split":
+        return heads
+    group = heads // kv_heads
+    return kv_heads * -(-group // fa._group_heads_tile(group))
 
 
 def llama_kernel_phase(dev):
     """B4, B5 and B6 at Llama-3-8B's decode shape against their plain
     versions, in f32 and bf16: B4 over caches already repeated to the 32
-    query heads (the bucketed path's operands), B5 / B6 with 32 query
-    heads over 8 KV heads (the kernels' GQA head map), at the lengths of
-    a mixed batch and around the 128-token splits; the bars of the
-    serving shape.  Then each one's times per dtype at every row's full
-    length (CUDA events over rotated copies, the profiler's device time,
-    the plain version, SDPA: on the repeated cache for B4, with
-    enable_gqa on the gathered (and dequantized) kv_heads cache for
-    B5 / B6, the gather excluded) and bounds: B4's bytes of its operands;
-    B5 / B6 both the unique bytes (each KV row once) and the bytes the
-    kernels read (each KV head's rows once per query head, 4x).  Returns
-    {kernel name: the fields the kernels line adds as "llama"}."""
+    query heads (the bucketed path's operands; around its 128-token
+    splits in f32), B5 / B6 with 32 query heads over 8 KV heads (the
+    grouped route) at the lengths of a mixed batch and around the
+    256-token splits, and at 28 / 4 and 64 / 8 (`LLAMA_GQA_CASES`); the
+    bars of the serving shape.  Then each one's times per dtype at every
+    row's full length (CUDA events over rotated copies, the profiler's
+    device time of the route's own symbol, the plain version, SDPA: on
+    the repeated cache for B4, with enable_gqa on the gathered (and
+    dequantized) kv_heads cache for B5 / B6, the gather excluded) and
+    bounds: B4's bytes of its operands; B5 / B6 the unique bytes (each KV
+    row once), the bytes the grouped route reads (each KV head's rows
+    once per chunk of up to 8 query heads: once at 32 / 8) and those the
+    split body read (once per query head, 4x).  Returns {kernel name: the
+    fields the kernels line adds as "llama"}."""
     import torch.nn.functional as F
 
     from easydist_tpu_torch.ops import flash_attention as fa
@@ -964,9 +986,13 @@ def llama_kernel_phase(dev):
                 f"flash_decode llama {key} lengths {lens[:3]}...", out, ref,
                 0.0, 1e-5, dtype == torch.bfloat16))
     del q32, k32, v32
-    for lens in (PAGED_LENGTHS, SPLIT_LENGTHS_128):
-        q32, kp, vp, table, L = paged_inputs(dev, rs, h, kvh, d, lengths=lens,
-                                             shape=LLAMA_PAGED_SHAPE)
+    # the grouped route's splits are 256 tokens in both dtypes
+    cases = [(h, kvh, lens) for lens in (PAGED_LENGTHS, SPLIT_LENGTHS)]
+    cases += [(hh, kk, SPLIT_LENGTHS) for hh, kk in LLAMA_GQA_CASES]
+    for heads, kv_heads, lens in cases:
+        q32, kp, vp, table, L = paged_inputs(
+            dev, rs, heads, kv_heads, d, lengths=lens,
+            shape=(b, heads) + LLAMA_PAGED_SHAPE[2:])
         empty = L == 0
         kq, ks = fa.kv_quantize(kp, 1)
         vq, vs = fa.kv_quantize(vp, 1)
@@ -979,8 +1005,9 @@ def llama_kernel_phase(dev):
                                                  v.float(), table, L, scale)
             ref[empty] = 0.0
             keep("paged_decode", key, check_close(
-                f"paged_decode llama 32/8 {key} lengths {lens[:3]}...", out,
-                ref, 0.0, 1e-5, dtype == torch.bfloat16))
+                f"paged_decode llama {heads}/{kv_heads} {key} lengths "
+                f"{lens[:3]}...", out, ref, 0.0, 1e-5,
+                dtype == torch.bfloat16))
             out = fa.flash_paged_decode_quant_attention(q, kq, vq, ks, vs,
                                                         table, L)
             torch.cuda.synchronize()
@@ -988,8 +1015,8 @@ def llama_kernel_phase(dev):
                                                        vs, table, L, scale)
             ref[empty] = 0.0
             keep("paged_decode_quant", key, check_close(
-                f"paged_decode_quant llama 32/8 q {key} lengths "
-                f"{lens[:3]}...", out, ref, 0.0, 1e-5,
+                f"paged_decode_quant llama {heads}/{kv_heads} q {key} "
+                f"lengths {lens[:3]}...", out, ref, 0.0, 1e-5,
                 dtype == torch.bfloat16))
     return llama_kernel_times(dev, worst)
 
@@ -1088,7 +1115,7 @@ def llama_kernel_times(dev, worst):
                 lambda c: fa._paged_decode_attention_xla(*c[:5], scale),
                 lambda c: F.scaled_dot_product_attention(
                     c[0][:, :, None], *c[9], enable_gqa=True),
-                "paged_decode_kernel", itemsize),
+                fa.paged_kernel_symbol(h, kvh, False), itemsize),
             "paged_decode_quant": (
                 lambda c: fa.flash_paged_decode_quant_attention(
                     c[0], c[5], c[7], c[6], c[8], c[3], c[4]),
@@ -1096,7 +1123,7 @@ def llama_kernel_times(dev, worst):
                     c[0], c[5], c[7], c[6], c[8], c[3], c[4], scale),
                 lambda c: F.scaled_dot_product_attention(
                     c[0][:, :, None], *c[10], enable_gqa=True),
-                "paged_decode_quant_kernel", 1 + 4 / d),
+                fa.paged_kernel_symbol(h, kvh, True), 1 + 4 / d),
         }
         for name, (kernel, plain, library, symbol, kv_size) in \
                 calls.items():
@@ -1108,28 +1135,45 @@ def llama_kernel_times(dev, worst):
             library_ms = time_ms(at(library))
             library_prof_ms, lib_seen, lib_issued = profiled_call_ms(
                 at(library))
+            # the tracer has dropped every record of a window of B5 f32
+            # at this shape before: a second window, then a gate
             prof_ms, seen = profiled_ms(at(kernel), symbol)
+            windows = 1
+            if not seen:
+                prof_ms, seen = profiled_ms(at(kernel), symbol)
+                windows = 2
+            if not seen:
+                raise AssertionError(f"the profiler recorded no launch of "
+                                     f"{symbol} in two windows of 20")
             bound_ms, bound_by = paged_bound_ms(lens, LLAMA_PAGED_SHAPE, h,
                                                 kvh, d, kv_size, itemsize)
-            read_ms, read_by = paged_bound_ms(lens, LLAMA_PAGED_SHAPE, h, h,
-                                              d, kv_size, itemsize)
-            print(f"time {name} llama 32/8 q {key}: kernel {kernel_ms:.4f} "
-                  f"ms ({profiled_text(prof_ms, seen)}), plain "
-                  f"{plain_ms:.4f} ms, library (SDPA enable_gqa on the "
-                  f"gathered cache) {library_ms:.4f} ms "
+            reads = paged_read_heads(h, kvh)
+            read_ms, read_by = paged_bound_ms(lens, LLAMA_PAGED_SHAPE, h,
+                                              reads, d, kv_size, itemsize)
+            split_ms, _ = paged_bound_ms(lens, LLAMA_PAGED_SHAPE, h, h, d,
+                                         kv_size, itemsize)
+            again = "; the first window recorded none" if windows > 1 \
+                else ""
+            print(f"time {name} llama 32/8 q {key} ({symbol}): kernel "
+                  f"{kernel_ms:.4f} ms ({profiled_text(prof_ms, seen)}"
+                  f"{again}), plain {plain_ms:.4f} ms, library (SDPA enable_gqa on "
+                  f"the gathered cache) {library_ms:.4f} ms "
                   f"({call_text(library_prof_ms, lib_seen, lib_issued)}; "
                   f"kernel / library by the profiler "
                   f"{factor(prof_ms, library_prof_ms):.2f}), "
                   f"bound {bound_ms:.4f} ms ({bound_by}, unique KV bytes), "
                   f"{read_ms:.4f} ms ({read_by}, the bytes the kernel reads: "
-                  f"each KV head once per query head)")
+                  f"each KV head's rows {reads // kvh}x), {split_ms:.4f} ms "
+                  f"(the split body's reads: once per query head)")
             out[name][key] = {
                 "ms": kernel_ms, "profiled_ms": prof_ms, "plain_ms": plain_ms,
+                "symbol": symbol, "profiler_windows": windows,
                 "library_ms": library_ms,
                 "library_profiled_ms": library_prof_ms,
                 "library_records": [lib_seen, lib_issued],
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "bound_read_ms": read_ms, "bound_read_by": read_by}
+                "bound_read_ms": read_ms, "bound_read_by": read_by,
+                "bound_split_read_ms": split_ms}
         del copies
     for name, c in counters.items():
         c.launches = before[name]  # timing runs don't count
@@ -1595,8 +1639,9 @@ def domain_phase(dev, dims=SWEEP_DIMS, train=SWEEP_TRAIN,
             for quant in (False, True):
                 nbs = SWEEP_BLOCKS[d] if quant else (0,)
                 for nb in nbs:
-                    chunk = fa._split_tokens(pt, d, nb,
-                                             1 if quant else dtype.itemsize)
+                    chunk = fa._paged_chunk(
+                        pt, d, nb, 1 if quant else dtype.itemsize, heads,
+                        kvh)
                     lens = split_lengths(chunk, mp * pt)
                     q32, kp, vp, table, L = paged_inputs(
                         dev, rs, heads, kvh, d, lengths=lens, shape=shape)

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -43,20 +44,22 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` unless a library for this exact source,
-    the headers beside it and the flag set exists; return the library's
-    path."""
-    src = CSRC / f"{name}.cu"
+def build(name: str, csrc: Path = None) -> Path:
+    """Compile `<csrc>/<name>.cu` (`csrc` defaults to `CSRC`) unless a
+    library for this exact source, the headers beside it and the flag set
+    exists; return the library's path."""
+    csrc = CSRC if csrc is None else csrc
+    src = csrc / f"{name}.cu"
     text = src.read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        h.read_bytes() for h in sorted(csrc.glob("*.cuh")))
     digest = hashlib.sha256(
         text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}."
+                        f"{threading.get_ident()}.tmp")
     proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                            str(src)], capture_output=True, text=True)
     if proc.returncode != 0:

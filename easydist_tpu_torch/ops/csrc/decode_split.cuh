@@ -182,15 +182,15 @@ __device__ __forceinline__ void zero_bytes(void* dst) {
 
 // Rows j < n of a split of the padded body: key j's d elements from
 // element row `row_of(j)` of `src` (rows of d elements), W bytes a copy,
-// then zeros up to the shared row's D elements
-template <int W, typename TKV, int D, typename RowOf>
+// then zeros up to the shared row's D elements; kT threads share them
+template <int W, typename TKV, int D, int kT = kThreads, typename RowOf>
 __device__ __forceinline__ void copy_padded_rows(TKV* dst, const TKV* src,
                                                  int n, int d,
                                                  RowOf row_of) {
   constexpr int kUnits = D * static_cast<int>(sizeof(TKV)) / W;
   const int data = d * static_cast<int>(sizeof(TKV)) / W;
   const size_t row_bytes = static_cast<size_t>(d) * sizeof(TKV);
-  for (int i = threadIdx.x; i < n * kUnits; i += kThreads) {
+  for (int i = threadIdx.x; i < n * kUnits; i += kT) {
     const int j = i / kUnits, u = i % kUnits;
     unsigned char* to = reinterpret_cast<unsigned char*>(dst) +
                         static_cast<size_t>(j) * D * sizeof(TKV) + u * W;
@@ -205,22 +205,22 @@ __device__ __forceinline__ void copy_padded_rows(TKV* dst, const TKV* src,
 
 // copy_padded_rows at the widest copy that a row's bytes and both bases
 // align to
-template <typename TKV, int D, typename RowOf>
+template <typename TKV, int D, int kT = kThreads, typename RowOf>
 __device__ __forceinline__ void copy_padded(TKV* dst, const TKV* src,
                                             int n, int d, RowOf row_of) {
   const uintptr_t align = static_cast<uintptr_t>(d) * sizeof(TKV) |
                           reinterpret_cast<uintptr_t>(src);
   if (align % 16 == 0)
-    copy_padded_rows<16, TKV, D>(dst, src, n, d, row_of);
+    copy_padded_rows<16, TKV, D, kT>(dst, src, n, d, row_of);
   else if (align % 8 == 0)
-    copy_padded_rows<8, TKV, D>(dst, src, n, d, row_of);
+    copy_padded_rows<8, TKV, D, kT>(dst, src, n, d, row_of);
   else if (align % 4 == 0)
-    copy_padded_rows<4, TKV, D>(dst, src, n, d, row_of);
+    copy_padded_rows<4, TKV, D, kT>(dst, src, n, d, row_of);
   else if constexpr (sizeof(TKV) <= 2) {
     if (align % 2 == 0)
-      copy_padded_rows<2, TKV, D>(dst, src, n, d, row_of);
+      copy_padded_rows<2, TKV, D, kT>(dst, src, n, d, row_of);
     else if constexpr (sizeof(TKV) == 1)
-      copy_padded_rows<1, TKV, D>(dst, src, n, d, row_of);
+      copy_padded_rows<1, TKV, D, kT>(dst, src, n, d, row_of);
   }
 }
 
@@ -566,15 +566,15 @@ inline bool split_count(long long tokens, int chunk, int* n_splits) {
   return n <= 65535;
 }
 
-// Launches `Kernel` (a decode_split_body instance) over (rows, n_splits)
-// blocks with `smem` bytes of dynamic shared memory, raising the
-// kernel's limit on the current device once (and again only if a launch
-// asks for more).
-template <void (*Kernel)(SplitArgs)>
-cudaError_t launch_split(const SplitArgs& a, int rows, int n_splits,
-                         size_t smem, cudaStream_t stream) {
+// Launches `Kernel` (a decode_split_body instance, or decode_group.cuh's
+// grouped body) over (rows, n_splits) blocks of kT threads with `smem`
+// bytes of dynamic shared memory, raising the kernel's limit on the
+// current device once (and again only if a launch asks for more).
+template <auto Kernel, int kT = kThreads, typename Args>
+cudaError_t launch_split(const Args& a, int rows, int n_splits, size_t smem,
+                         cudaStream_t stream) {
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  void (*kernel)(SplitArgs) = Kernel;
+  void (*kernel)(Args) = Kernel;
   if (smem > 48 * 1024) {
     static std::atomic<size_t> raised[kMaxDevices];
     int dev = 0;
@@ -589,7 +589,7 @@ cudaError_t launch_split(const SplitArgs& a, int rows, int n_splits,
       raised[dev].store(smem, std::memory_order_relaxed);
     }
   }
-  kernel<<<dim3(rows, n_splits), kThreads, smem, stream>>>(a);
+  kernel<<<dim3(rows, n_splits), kT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -5,6 +5,10 @@
 //     `flash_paged_decode_attention` :687) -> `paged_decode_kernel`;
 //   * B6 `_flash_paged_decode_quant_kernel` (:754, host
 //     `flash_paged_decode_quant_attention` :809) -> `paged_decode_quant_kernel`.
+// Under grouped-query attention (heads / kv_heads >= 2) the wrappers run
+// their grouped route instead: `paged_decode_group_kernel`
+// (paged_decode_group.cu) and `paged_decode_quant_group_kernel`
+// (paged_decode_quant_group.cu), on decode_group.cuh's body.
 //
 // One query per (batch, head) row attends the row's live tokens, which
 // sit in the arena's pages as the row's table names them:
@@ -38,7 +42,9 @@
 // copies go out.  Splits are whole pages (the host's `_split_tokens`:
 // 256 tokens at 64-token pages, 128 for f32 pages at head_dim 128) and
 // the grid is (rows, ceil(mp * pt / chunk)), known from the table's
-// width.
+// width.  One block a (row, split) reads its KV head's rows for one
+// query head: under G query heads a KV head they would leave device
+// memory G times, hence the grouped route.
 
 #include "decode_split.cuh"
 

@@ -21,7 +21,9 @@ Port of easydist_tpu/ops/flash_attention.py, serving and training:
     become `csrc/paged_decode.cu`, the custom ops
     `easydist_tpu_torch::paged_decode` and `::paged_decode_quant`.  The
     three are one split-K design (`csrc/decode_split.cuh`): each row's
-    keys in splits, one block a split, merged inside the same launch.
+    keys in splits, one block a split, merged inside the same launch;
+    under GQA the paged two take a KV head's query heads in one block
+    (`csrc/decode_group.cuh`).
 
 Every kernel is bound through `ctypes` (see each source's header for its
 design and bound), and `make_fx` keeps each custom op as one node.  The
@@ -831,21 +833,35 @@ def _paged_decode_attention_quant_xla(q, k_pages, v_pages, k_scale,
     return _decode_attention_xla(q, kf, vf, lengths, scale)
 
 
-def _paged_lib():
+# (library, C entry point) of B5 (quant False) and B6 (True) on each route;
+# the entries of one kernel take the same arguments
+_PAGED_ENTRIES = {
+    ("split", False): ("paged_decode", "paged_decode"),
+    ("split", True): ("paged_decode", "paged_decode_quant"),
+    ("group", False): ("paged_decode_group", "paged_decode_group"),
+    ("group", True): ("paged_decode_quant_group", "paged_decode_quant_group"),
+}
+
+
+def _paged_entry(route: str, quant: bool):
+    """(library, C function, library name) of B5 or B6 (`quant`) on
+    `route`, with the function's C signature declared."""
     from ._build import load
 
-    lib = load("paged_decode")
-    if lib.paged_decode.argtypes is None:  # first load: the C signatures
+    lib_name, fn_name = _PAGED_ENTRIES[route, quant]
+    lib = load(lib_name)
+    fn = getattr(lib, fn_name)
+    if fn.argtypes is None:  # first load: the C signatures
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.paged_decode.argtypes = [ptr] * 8 + [i32] * 8 + [
-            ctypes.c_float, i32, i32, ptr]
-        lib.paged_decode_quant.argtypes = [ptr] * 10 + [i32] * 9 + [
-            ctypes.c_float, i32, ptr]
-        lib.paged_decode.restype = ctypes.c_int
-        lib.paged_decode_quant.restype = ctypes.c_int
-        lib.paged_decode_error_string.argtypes = [ctypes.c_int]
-        lib.paged_decode_error_string.restype = ctypes.c_char_p
-    return lib
+        fn.argtypes = ([ptr] * 10 + [i32] * 9 + [ctypes.c_float, i32, ptr]
+                       if quant else
+                       [ptr] * 8 + [i32] * 8 + [ctypes.c_float, i32, i32,
+                                                ptr])
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{lib_name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return lib, fn, lib_name
 
 
 # (q dtype, page dtype) pairs B5 takes: pages in q's dtype, or bfloat16
@@ -920,6 +936,88 @@ def _split_tokens(page_tokens: int, d: int, n_blocks: int,
         else tokens
 
 
+# The grouped route of B5 and B6 (csrc/decode_group.cuh), where
+# heads / kv_heads >= 2 query heads share a KV head: one block takes up to
+# 8 of them over one split and streams the KV head's rows through a ring
+# of `_GROUP_STAGES` slots of up to `_GROUP_SLOT_BYTES` each.  These
+# mirror the C plan (`group_launch` in csrc/decode_group.cuh; the tests
+# hold the constants to the header's).  Its kernels build from sources of
+# their own (csrc/paged_decode_group.cu, csrc/paged_decode_quant_group.cu),
+# entered with the split body's arguments.
+_GROUP_STAGES = 2
+_GROUP_SLOT_BYTES = 32 * 1024
+_GROUP_MAX_TILE = 256
+_GROUP_MIN_TILE = 8
+_GROUP_THREADS = 256
+
+
+def _round16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def _paged_route(heads: int, kv_heads: int) -> str:
+    """"group" (the grouped body) where heads / kv_heads >= 2 query heads
+    share a KV head, else "split" (the split body B4 shares)."""
+    _check_gqa(heads, kv_heads)
+    return "group" if heads // kv_heads >= 2 else "split"
+
+
+def _group_heads_tile(group: int) -> int:
+    """Query heads a grouped block takes for a group of `group`: the
+    least of 2, 4, 8 that holds it, 8 past it (several head chunks)."""
+    return 2 if group <= 2 else 4 if group <= 4 else 8
+
+
+def _group_tile_keys(d: int, elem_bytes: int, n_blocks: int) -> int:
+    """Keys a ring slot of the grouped body holds: the most, a power of
+    two up to 256, whose rows at the body's width `_decode_width(d)`
+    (`elem_bytes` an element) and scales (`n_blocks` a row; 0 for B5) fit
+    `_GROUP_SLOT_BYTES`; 8 at the least."""
+    per_key = _decode_width(d) * elem_bytes + 4 * n_blocks
+    tile = _GROUP_MAX_TILE
+    while tile > _GROUP_MIN_TILE and tile * per_key > _GROUP_SLOT_BYTES:
+        tile //= 2
+    return tile
+
+
+def _group_split_tokens(page_tokens: int) -> int:
+    """Tokens per split of the grouped route: whole pages up to
+    `_SPLIT_TOKENS` (`_SPLIT_TOKENS` itself when a page is longer).  The
+    ring decouples a block's shared memory from its split, so no width
+    halves it."""
+    return _SPLIT_TOKENS // page_tokens * page_tokens \
+        if page_tokens <= _SPLIT_TOKENS else _SPLIT_TOKENS
+
+
+def _group_smem_bytes(d: int, elem_bytes: int, n_blocks: int, group: int,
+                      chunk: int) -> int:
+    """Dynamic shared memory of a grouped block (the kernel's
+    `group_smem`): the split's arena rows, the ring (or the P.V groups'
+    sums, if larger) and the split's scores."""
+    width = _decode_width(d)
+    gt = _group_heads_tile(group)
+    tile = _group_tile_keys(d, elem_bytes, n_blocks)
+    slot = _round16(tile * width * elem_bytes) + _round16(4 * tile * n_blocks)
+    ring = max(_GROUP_STAGES * slot, _GROUP_THREADS * 4 * gt * 4)
+    return _round16(8 * chunk) + ring + _round16(4 * chunk * gt)
+
+
+def _paged_chunk(page_tokens: int, d: int, n_blocks: int, elem_bytes: int,
+                 heads: int, kv_heads: int) -> int:
+    """Tokens per split of a B5/B6 launch on its route."""
+    if _paged_route(heads, kv_heads) == "group":
+        return _group_split_tokens(page_tokens)
+    return _split_tokens(page_tokens, d, n_blocks, elem_bytes)
+
+
+def paged_kernel_symbol(heads: int, kv_heads: int, quant: bool) -> str:
+    """The CUDA function B5 (or B6, `quant`) launches for `heads` query
+    heads over `kv_heads` (its name in a profiler's trace)."""
+    stem = "paged_decode_quant" if quant else "paged_decode"
+    route = _paged_route(heads, kv_heads)
+    return f"{stem}_group_kernel" if route == "group" else f"{stem}_kernel"
+
+
 @torch.library.custom_op("easydist_tpu_torch::paged_decode", mutates_args=())
 def _paged_decode_op(q: torch.Tensor, k_pages: torch.Tensor,
                      v_pages: torch.Tensor, table: torch.Tensor,
@@ -936,17 +1034,16 @@ def _paged_decode_op(q: torch.Tensor, k_pages: torch.Tensor,
     (b, h, kvh, n_pages, pt, mp, d), (q, kp, vp, tbl, lens) = \
         _check_paged_inputs("paged_decode", q, k_pages, v_pages, table,
                             lengths)
-    chunk = _split_tokens(pt, d, 0, kp.element_size())
+    chunk = _paged_chunk(pt, d, 0, kp.element_size(), h, kvh)
     out = torch.empty_like(q)
     work = _split_work(q, b * h, -(-(mp * pt) // chunk), d)
-    lib = _paged_lib()
-    err = lib.paged_decode(
-        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tbl.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), work.data_ptr(),
-        _split_counters(q.device, b * h).data_ptr(), b, h, kvh, n_pages, pt,
-        mp, d, chunk, float(scale), _DTYPE_CODES[q.dtype],
-        _DTYPE_CODES[kp.dtype], _stream(q))
-    _check_launch(lib, "paged_decode", err)
+    lib, fn, name = _paged_entry(_paged_route(h, kvh), False)
+    err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tbl.data_ptr(),
+             lens.data_ptr(), out.data_ptr(), work.data_ptr(),
+             _split_counters(q.device, b * h).data_ptr(), b, h, kvh, n_pages,
+             pt, mp, d, chunk, float(scale), _DTYPE_CODES[q.dtype],
+             _DTYPE_CODES[kp.dtype], _stream(q))
+    _check_launch(lib, name, err)
     flash_paged_decode_attention.launches += 1
     return out
 
@@ -975,17 +1072,16 @@ def _paged_decode_quant_op(q: torch.Tensor, k_pages: torch.Tensor,
         _check_paged_inputs("paged_decode_quant", q, k_pages, v_pages,
                             table, lengths, k_scale, v_scale)
     nb = ks.shape[3]
-    chunk = _split_tokens(pt, d, nb)
+    chunk = _paged_chunk(pt, d, nb, 1, h, kvh)
     out = torch.empty_like(q)
     work = _split_work(q, b * h, -(-(mp * pt) // chunk), d)
-    lib = _paged_lib()
-    err = lib.paged_decode_quant(
-        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
-        vs.data_ptr(), tbl.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        work.data_ptr(), _split_counters(q.device, b * h).data_ptr(), b, h,
-        kvh, n_pages, pt, mp, d, nb, chunk, float(scale),
-        _DTYPE_CODES[q.dtype], _stream(q))
-    _check_launch(lib, "paged_decode", err)
+    lib, fn, name = _paged_entry(_paged_route(h, kvh), True)
+    err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
+             vs.data_ptr(), tbl.data_ptr(), lens.data_ptr(), out.data_ptr(),
+             work.data_ptr(), _split_counters(q.device, b * h).data_ptr(), b,
+             h, kvh, n_pages, pt, mp, d, nb, chunk, float(scale),
+             _DTYPE_CODES[q.dtype], _stream(q))
+    _check_launch(lib, name, err)
     flash_paged_decode_quant_attention.launches += 1
     return out
 
@@ -1004,13 +1100,15 @@ def flash_paged_decode_attention(q, k_pages, v_pages, table, lengths,
     page_tokens, head_dim] arena layers; table: int32 [batch, max_pages];
     lengths: int32 [batch].  Query head hi reads kv head
     hi // (heads // kv_heads).  The kernel splits each row's keys across
-    blocks (`_split_tokens`) and merges the splits' partials in a fixed
-    order inside the same launch, as B6 does.  Returns [batch, heads,
-    head_dim] in q's dtype.  CUDA tensors only (the plain version is
-    `_paged_decode_attention_xla`, which gives mean(v) where the kernel
-    gives 0 for a row of length 0).  `flash_paged_decode_attention.launches`
-    counts kernel launches; it grows where the kernel runs, never while a
-    graph is traced."""
+    blocks (`_paged_chunk`) and merges the splits' partials in a fixed
+    order inside the same launch, as B6 does; where heads / kv_heads >= 2
+    a block takes up to 8 query heads of one KV head and reads its rows
+    once for all of them (the grouped route, `_paged_route`).  Returns
+    [batch, heads, head_dim] in q's dtype.  CUDA tensors only (the plain
+    version is `_paged_decode_attention_xla`, which gives mean(v) where
+    the kernel gives 0 for a row of length 0).
+    `flash_paged_decode_attention.launches` counts kernel launches; it
+    grows where the kernel runs, never while a graph is traced."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     _check_gqa(q.shape[1], k_pages.shape[1])
@@ -1027,11 +1125,12 @@ def flash_paged_decode_quant_attention(q, k_pages, v_pages, k_scale,
     k_pages/v_pages: int8 [n_pages, kv_heads, page_tokens, head_dim];
     k_scale/v_scale: f32 [n_pages, kv_heads, page_tokens, n_blocks],
     riding the same table.  The kernel dequantizes on chip and splits
-    each row's keys across blocks (`_split_tokens`), merging the splits'
+    each row's keys across blocks (`_paged_chunk`), merging the splits'
     partials in a fixed order inside the same launch: one kernel a call,
-    deterministic.  Returns [batch, heads, head_dim] in q's dtype.  CUDA
-    tensors only (the plain version is `_paged_decode_attention_quant_xla`,
-    which gives mean(v) where the kernel gives 0 for a row of length 0);
+    deterministic; under GQA on the grouped route, as B5.  Returns
+    [batch, heads, head_dim] in q's dtype.  CUDA tensors only (the plain
+    version is `_paged_decode_attention_quant_xla`, which gives mean(v)
+    where the kernel gives 0 for a row of length 0);
     `flash_paged_decode_quant_attention.launches` counts launches."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
